@@ -1,0 +1,13 @@
+"""alink_tpu_torch — the PyTorch / CUDA port of ``alink_tpu`` for one
+NVIDIA H100.
+
+The package mirrors ``alink_tpu``'s layout module for module; each
+module's docstring names its counterpart there. It imports ``torch``
+and numpy and never ``jax`` or any module of ``alink_tpu``. Slice 1 is
+the serving path of a binary linear model: the model table
+(``operator/common/linear``), ``LinearModelMapper.serving_kernel``,
+``serving.CompiledPredictor`` and ``serving.PredictServer``, scored by
+the hand-written CUDA kernels of ``kernels/serve.py``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""Stream layer of the port (counterpart: ``alink_tpu/operator/stream``)."""
