@@ -7,7 +7,10 @@ and numpy and never ``jax`` or any module of ``alink_tpu``. Slice 1 is
 the serving path of a binary linear model: the model table
 (``operator/common/linear``), ``LinearModelMapper.serving_kernel``,
 ``serving.CompiledPredictor`` and ``serving.PredictServer``, scored by
-the hand-written CUDA kernels of ``kernels/serve.py``.
+the hand-written CUDA kernels of ``kernels/serve.py``. Slice 2 is sparse
+online FTRL: ``operator.stream.onlinelearning.FtrlTrainStreamOp`` and
+``FtrlPredictStreamOp`` over the stream runtime of ``operator/``, with
+the state kernels of ``kernels/ftrl.py``.
 """
 
 __version__ = "0.1.0"

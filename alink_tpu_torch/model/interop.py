@@ -1,10 +1,12 @@
-"""Carry a linear model across from the JAX package or from numpy arrays.
+"""Carry a linear model, or an FTRL state, across from the JAX package or
+from numpy arrays.
 
 No counterpart module in ``alink_tpu``: both packages store a linear
 model as the same table of ``(model_id, model_info, label_value)`` rows
 (``model/converters.py::LabeledModelDataConverter``), so carrying one
 across is a matter of rebuilding the table from plain rows. The port
-then serves exactly the coefficients the JAX package serves.
+then serves exactly the coefficients the JAX package serves. The FTRL
+state is a pair of vectors, carried as numpy arrays.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..common.mtable import MTable
 from ..common.types import AlinkTypes
@@ -68,3 +71,17 @@ def linear_model_from_numpy(coef: np.ndarray, *, has_intercept: bool,
         vector_size=int(vector_size or n_feat), coef=coef,
         label_values=[_plain(v) for v in label_values],
         label_type=label_type)
+
+
+def ftrl_state_from_numpy(z: np.ndarray, n: np.ndarray, device,
+                          dtype: torch.dtype = torch.float64):
+    """The FTRL ``(z, n)`` state as tensors on ``device`` in ``dtype``,
+    from numpy arrays (e.g. ``np.asarray`` of the JAX package's state),
+    so that both packages can start a step from the same state."""
+    return tuple(torch.from_numpy(np.array(a, np.float64)).to(device, dtype)
+                 for a in (z, n))
+
+
+def ftrl_state_to_numpy(z: torch.Tensor, n: torch.Tensor):
+    """The FTRL ``(z, n)`` state as numpy arrays on the host."""
+    return z.detach().cpu().numpy(), n.detach().cpu().numpy()

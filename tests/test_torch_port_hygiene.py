@@ -68,3 +68,30 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         CompiledPredictor(mapper)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_hygiene_covers_every_slice_module():
+    """The import scans above walk every module of the package; the
+    modules of each ported slice are among them."""
+    mods = set(_modules())
+    for m in ("alink_tpu_torch.kernels.serve",
+              "alink_tpu_torch.serving.predictor",
+              "alink_tpu_torch.kernels.ftrl",
+              "alink_tpu_torch.operator.base",
+              "alink_tpu_torch.operator.batch.source.sources",
+              "alink_tpu_torch.operator.stream.core",
+              "alink_tpu_torch.operator.stream.prefetch",
+              "alink_tpu_torch.operator.stream.source.sources",
+              "alink_tpu_torch.operator.stream.sink.sinks",
+              "alink_tpu_torch.operator.stream.onlinelearning.ftrl",
+              "alink_tpu_torch.model.interop"):
+        assert m in mods, m
+    assert (PKG / "kernels" / "csrc" / "ftrl_state.cu").exists()
+
+
+def test_chip_smoke_names_no_jax():
+    """``chip_smoke.py`` imports neither ``jax`` nor ``alink_tpu``."""
+    src = (PKG.parent / "chip_smoke.py").read_text()
+    pat = re.compile(r"^\s*(import|from)\s+(jax|alink_tpu)(\.|\s|$)",
+                     re.MULTILINE)
+    assert not pat.findall(src)
