@@ -10,7 +10,11 @@ the serving path of a binary linear model: the model table
 the hand-written CUDA kernels of ``kernels/serve.py``. Slice 2 is sparse
 online FTRL: ``operator.stream.onlinelearning.FtrlTrainStreamOp`` and
 ``FtrlPredictStreamOp`` over the stream runtime of ``operator/``, with
-the state kernels of ``kernels/ftrl.py``.
+the state kernels of ``kernels/ftrl.py``. Slice 3 is tree learning:
+the GBDT, random-forest and decision-tree ops of
+``operator.batch.classification`` on the one-worker BSP engine
+(``engine``), whose level histograms are the kernel of
+``kernels/tree_hist.py``, and ``TreeModelMapper`` serving.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,237 @@
+"""IterativeComQueue — the BSP superstep engine, eager, at one worker.
+
+Counterpart: ``alink_tpu/engine/comqueue.py``. The JAX package traces
+the stages into one ``lax.while_loop`` program under ``shard_map``. The
+port runs the same loop eagerly on the session's device:
+
+* superstep 1 is the init pass: it runs every stage (``is_init_step``
+  is True) and builds the carry;
+* then, while ``step < max_iter`` and no stop was signalled, the step
+  count goes up by one and every stage runs again;
+* a compare criterion, when set, runs after the stages of every
+  superstep (the init pass included); its result is the one value the
+  host reads per superstep. Without a criterion nothing is read until
+  the queue ends.
+
+Partitioned and broadcast data become tensors on the session's device
+once, before superstep 1; at one worker a partition is the whole table
+and ``__total_<name>`` holds its row count. ``set_program_key`` is
+accepted and ignored: eager PyTorch has no program cache. Checkpoints,
+boundary hooks and health monitors are not ported:
+:meth:`IterativeComQueue.set_checkpoint`, ``set_boundary`` and
+``set_health`` raise ``NotImplementedError``. Not ported either: the
+chunked and lowered programs, donation, metrics and tracing spans.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..common.mlenv import MLEnvironment, MLEnvironmentFactory
+from .communication import CommunicateFunction
+from .context import ComContext
+
+
+def freeze_config(v):
+    """Hashable token of a config object (the JAX package's
+    ``set_program_key`` helper). Arrays hash by content; objects by
+    public attrs, recursively."""
+    import dataclasses
+    if v is None or isinstance(v, (bool, int, float, str, bytes)):
+        return v
+    if isinstance(v, (tuple, list)):
+        return tuple(freeze_config(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted(((k, freeze_config(x)) for k, x in v.items()),
+                            key=lambda kv: (type(kv[0]).__name__, repr(kv[0]))))
+    if isinstance(v, np.ndarray) or (hasattr(v, "shape") and hasattr(v, "dtype")):
+        a = np.asarray(v)
+        raw = a.tobytes()
+        if len(raw) > 512:
+            import hashlib
+            raw = hashlib.blake2b(raw, digest_size=16).digest()
+        return ("nd", a.shape, str(a.dtype), raw)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__, freeze_config(dataclasses.asdict(v)))
+    if hasattr(v, "__dict__"):
+        return (type(v).__name__,
+                tuple(sorted((k, freeze_config(x)) for k, x in vars(v).items()
+                             if not k.startswith("_"))))
+    raise TypeError(f"freeze_config: cannot build a stable key from "
+                    f"{type(v).__name__!r}; pass scalars, arrays, "
+                    f"dataclasses, or objects with public __dict__ attrs")
+
+
+class ComputeFunction:
+    """One per-worker compute stage (reference comqueue/ComputeFunction.java)."""
+
+    def calc(self, context: ComContext):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class _FnStage(ComputeFunction):
+    def __init__(self, fn: Callable[[ComContext], None], name: str = ""):
+        self.fn = fn
+        self.__name__ = name or getattr(fn, "__name__", "stage")
+
+    def calc(self, context: ComContext):
+        self.fn(context)
+
+
+def _to_device(v, device: torch.device):
+    """Input data as tensors on ``device``: numpy arrays and tensors are
+    moved, containers recursed, other values kept."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    if isinstance(v, dict):
+        return {k: _to_device(x, device) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_to_device(x, device) for x in v)
+    return v
+
+
+def _to_host(v):
+    """A carry value on the host: tensors as read-only numpy arrays,
+    containers recursed, other values kept."""
+    if isinstance(v, torch.Tensor):
+        a = v.detach().cpu().numpy()
+        a.flags.writeable = False
+        return a
+    if isinstance(v, dict):
+        return {k: _to_host(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_to_host(x) for x in v)
+    return v
+
+
+def _stack1(v):
+    """A host value with a leading worker axis of length 1."""
+    if isinstance(v, np.ndarray):
+        return v[None]
+    if isinstance(v, dict):
+        return {k: _stack1(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_stack1(x) for x in v)
+    return np.asarray(v)[None]
+
+
+class ComQueueResult:
+    """The final carry of the one worker. :meth:`get` and :meth:`shards`
+    fetch a carry object to the host on first use (read-only numpy
+    arrays, memoized); the rest stays on the device."""
+
+    def __init__(self, carry: Dict[str, Any], step_count: int):
+        self._carry = carry
+        self.step_count = step_count
+        self._fetched: Dict[str, Any] = {}
+
+    def get(self, name: str):
+        """The value of carry object ``name`` on the host."""
+        if name not in self._fetched:
+            if name not in self._carry:
+                raise KeyError(f"no carry object '{name}'; "
+                               f"have {sorted(self._carry)}")
+            self._fetched[name] = _to_host(self._carry[name])
+        return self._fetched[name]
+
+    def shards(self, name: str):
+        """The per-worker values stacked on a leading axis: ``(1, ...)``."""
+        return _stack1(self.get(name))
+
+    def keys(self):
+        return [k for k in self._carry if not k.startswith("__")]
+
+
+class IterativeComQueue:
+    def __init__(self, env: Optional[MLEnvironment] = None, max_iter: int = 100,
+                 seed: int = 0, checkpoint_dir: Optional[str] = None,
+                 resume_from: Optional[str] = None):
+        if checkpoint_dir is not None or resume_from is not None:
+            self.set_checkpoint(checkpoint_dir)
+        self.env = env
+        self.max_iter = max_iter
+        self.seed = seed
+        self._stages: List[Any] = []
+        self._partitioned: Dict[str, Any] = {}
+        self._broadcast: Dict[str, Any] = {}
+        self._criterion: Optional[Callable[[ComContext], Any]] = None
+        self._close: Optional[Callable[[ComQueueResult], Any]] = None
+
+    # -- construction API (mirrors BaseComQueue.java:75-148) --------------
+    def init_with_partitioned_data(self, name: str, data) -> "IterativeComQueue":
+        self._partitioned[name] = data
+        return self
+
+    def init_with_broadcast_data(self, name: str, data) -> "IterativeComQueue":
+        self._broadcast[name] = data
+        return self
+
+    def add(self, stage) -> "IterativeComQueue":
+        if callable(stage) and not isinstance(
+                stage, (ComputeFunction, CommunicateFunction)):
+            stage = _FnStage(stage)
+        self._stages.append(stage)
+        return self
+
+    def set_compare_criterion(self, fn) -> "IterativeComQueue":
+        """Stop when ``fn(context)`` is truthy (a bool or a 0-d tensor)."""
+        self._criterion = fn
+        return self
+
+    def set_max_iter(self, n: int) -> "IterativeComQueue":
+        self.max_iter = n
+        return self
+
+    def close_with(self, fn: Callable[[ComQueueResult], Any]) -> "IterativeComQueue":
+        self._close = fn
+        return self
+
+    def set_program_key(self, key) -> "IterativeComQueue":
+        """Accepted and ignored: eager PyTorch compiles no program."""
+        return self
+
+    def set_checkpoint(self, directory: str, every: int = 1,
+                       keep_last: int = 3,
+                       resume_from: Optional[str] = None):
+        raise NotImplementedError(
+            "IterativeComQueue checkpoints are not ported yet")
+
+    def set_boundary(self, every: int, hook):
+        raise NotImplementedError(
+            "IterativeComQueue.set_boundary is not ported yet")
+
+    def set_health(self, monitor):
+        raise NotImplementedError(
+            "IterativeComQueue.set_health (health probes) is not ported yet")
+
+    # -- execution --------------------------------------------------------
+    def exec(self):
+        env = self.env or MLEnvironmentFactory.get_default()
+        device = env.device
+        static: Dict[str, Any] = {}
+        for k, arr in self._partitioned.items():
+            static[k] = _to_device(arr, device)
+            static[f"__total_{k}"] = int(static[k].shape[0])
+        for k, v in self._broadcast.items():
+            static[k] = _to_device(v, device)
+        carry: Dict[str, Any] = {}
+        max_iter = int(self.max_iter)
+        step = 1
+        while True:
+            ctx = ComContext(carry, static, device, step, self.seed)
+            for s in self._stages:
+                s.calc(ctx)
+            stop = (self._criterion is not None
+                    and bool(self._criterion(ctx)))
+            if stop or step >= max_iter:
+                break
+            step += 1
+        result = ComQueueResult(carry, step)
+        if self._close is not None:
+            return self._close(result)
+        return result

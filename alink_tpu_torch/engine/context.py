@@ -1,0 +1,100 @@
+"""ComContext — the per-worker state handle inside a superstep.
+
+Counterpart: ``alink_tpu/engine/context.py``. There the carry is a
+pytree traced through ``lax.while_loop`` and ``task_id`` is the mesh
+axis index. Here the engine runs eagerly at one worker: the carry is a
+plain dict of tensors (and whatever else a stage stores), ``task_id`` is
+0, ``num_task`` is 1 and ``step_no`` is a Python int starting at 1.
+Partitioned and broadcast data are read-only entries beside the carry.
+Health probes are not ported: :meth:`ComContext.probe` raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+class ComContext:
+    AXIS = "d"
+
+    def __init__(self, carry: Dict[str, Any], static: Dict[str, Any],
+                 device: torch.device, step_no: int, seed: int):
+        self._carry = carry
+        self._static = static
+        self._device = device
+        self._step_no = int(step_no)
+        self._seed = int(seed)
+
+    # -- identity --------------------------------------------------------
+    @property
+    def task_id(self) -> int:
+        """Worker index (Flink getTaskId analogue): 0 at one worker."""
+        return 0
+
+    @property
+    def num_task(self) -> int:
+        return 1
+
+    @property
+    def step_no(self) -> int:
+        """1-based superstep number (reference ComContext.getStepNo)."""
+        return self._step_no
+
+    @property
+    def is_init_step(self) -> bool:
+        """True during superstep 1, where stages allocate their state
+        (the reference's ``if (context.getStepNo() == 1)`` idiom)."""
+        return self._step_no == 1
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # -- state -----------------------------------------------------------
+    def get_obj(self, name: str):
+        if name in self._carry:
+            return self._carry[name]
+        if name in self._static:
+            return self._static[name]
+        raise KeyError(f"ComContext: no object '{name}' "
+                       f"(carry keys: {sorted(self._carry)}, "
+                       f"static keys: {sorted(self._static)})")
+
+    def put_obj(self, name: str, value):
+        if name in self._static:
+            raise ValueError(f"'{name}' is immutable partitioned/broadcast data")
+        self._carry[name] = value
+
+    def contains_obj(self, name: str) -> bool:
+        return name in self._carry or name in self._static
+
+    def remove_obj(self, name: str):
+        self._carry.pop(name, None)
+
+    def probe(self, name: str, value) -> None:
+        raise NotImplementedError(
+            "ComContext.probe: health probes are not ported yet")
+
+    # -- communication ---------------------------------------------------
+    def all_reduce_sum(self, value):
+        """In-stage all-reduce (communication/AllReduce.java:85-120): the
+        identity at one worker."""
+        return value
+
+    # -- randomness ------------------------------------------------------
+    def rng(self) -> torch.Generator:
+        """A fresh per-worker, per-step generator on the session's
+        device, seeded from (queue seed, step, task). It replaces the
+        JAX package's ``rng_key()``: its draws differ from JAX's PRNG by
+        design (and a CUDA generator's from a CPU one's), so tests
+        compare random paths by their properties, not their bits."""
+        state = np.random.SeedSequence(
+            [self._seed, self._step_no, self.task_id]).generate_state(
+                1, np.uint64)[0]
+        gen = torch.Generator(device=self._device)
+        gen.manual_seed(int(state))
+        return gen

@@ -7,6 +7,8 @@
 * ``ftrl`` — the FTRL state gather, in-order scatter-add and chained
   correction kernels (``csrc/ftrl_state.cu``), their plain versions and
   launch counts;
+* ``tree_hist`` — the level histogram of tree growing
+  (``csrc/tree_hist.cu``), its plain version and launch count;
 * ``_build`` — builds ``csrc/*.cu`` with ``nvcc`` at first use and
   loads the library with ``ctypes``.
 

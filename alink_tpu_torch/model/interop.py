@@ -1,12 +1,14 @@
-"""Carry a linear model, or an FTRL state, across from the JAX package or
-from numpy arrays.
+"""Carry a linear model, an FTRL state or a tree model across from the JAX
+package or from numpy arrays.
 
 No counterpart module in ``alink_tpu``: both packages store a linear
 model as the same table of ``(model_id, model_info, label_value)`` rows
 (``model/converters.py::LabeledModelDataConverter``), so carrying one
 across is a matter of rebuilding the table from plain rows. The port
 then serves exactly the coefficients the JAX package serves. The FTRL
-state is a pair of vectors, carried as numpy arrays.
+state is a pair of vectors, carried as numpy arrays. A tree model is
+built from a trainer's arrays (``gbdt_train`` / ``forest_train`` of
+either package), the way the tree train ops build theirs.
 """
 
 from __future__ import annotations
@@ -85,3 +87,37 @@ def ftrl_state_from_numpy(z: np.ndarray, n: np.ndarray, device,
 def ftrl_state_to_numpy(z: torch.Tensor, n: torch.Tensor):
     """The FTRL ``(z, n)`` state as numpy arrays on the host."""
     return z.detach().cpu().numpy(), n.detach().cpu().numpy()
+
+
+def tree_model_from_numpy(algo: str, features: np.ndarray,
+                          split_bins: np.ndarray, leaf_values: np.ndarray,
+                          edges: np.ndarray, *, is_regression: bool,
+                          max_depth: int, labels: Sequence[Any] = (),
+                          base_score: float = 0.0, learning_rate: float = 1.0,
+                          split_masks: Optional[np.ndarray] = None,
+                          importances: Optional[np.ndarray] = None,
+                          feature_cols: Optional[Sequence[str]] = None,
+                          vector_col: Optional[str] = None,
+                          label_type: str = AlinkTypes.STRING,
+                          cat_cols: Optional[Sequence[str]] = None,
+                          cat_vocabs: Optional[dict] = None):
+    """The port's ``TreeModelData`` from a tree trainer's outputs:
+    ``features`` and ``split_bins`` (T, 2^d - 1), ``leaf_values``
+    (T, 2^d[, k]), the bin ``edges`` (F, n_bins - 1) that turn split bins
+    into thresholds, and the optional ``split_masks`` (T, 2^d - 1,
+    n_bins) and ``importances`` (F,). ``algo`` is ``"gbdt"`` (with its
+    ``base_score`` and ``learning_rate``) or ``"rf"``."""
+    from ..operator.batch.classification.tree_ops import TreeModelData
+    from ..operator.common.tree.hist import bins_to_thresholds
+    features = np.asarray(features)
+    split_bins = np.asarray(split_bins)
+    thr = np.stack([bins_to_thresholds(features[i], split_bins[i], edges)
+                    for i in range(features.shape[0])])
+    return TreeModelData(
+        algo, bool(is_regression), int(max_depth), features, thr,
+        np.asarray(leaf_values), float(base_score), float(learning_rate),
+        [_plain(v) for v in labels],
+        list(feature_cols) if feature_cols else None, vector_col, label_type,
+        split_masks=None if split_masks is None else np.asarray(split_masks),
+        cat_cols=list(cat_cols) if cat_cols else None, cat_vocabs=cat_vocabs,
+        importances=None if importances is None else np.asarray(importances))

@@ -1,12 +1,13 @@
 """Operator layer base classes.
 
 Counterpart: ``alink_tpu/operator/base.py``. Ported: ``AlgoOperator``,
-``BatchOperator`` (``link_from``, ``get_output_table``),
+``BatchOperator`` (``link_from``, ``get_output_table``, ``get_schema``,
+``get_side_output``),
 ``TableSourceBatchOp`` and ``StreamOperator`` (``link_from``,
 ``timed_batches``, ``micro_batches``, ``get_schema``, the sink registry
 and ``execute``). Left out: ``link``, ``collect`` and the other
 conveniences, link metering, lazy printing and collecting, statistics,
-train and model info, the SQL helpers, side outputs and ``get_ml_env``:
+train info, the SQL helpers and ``get_ml_env``:
 the port has no session mesh, and each entry point takes its device
 explicitly.
 
@@ -40,6 +41,18 @@ class AlgoOperator(WithParams):
 
 class BatchOperator(AlgoOperator):
     """Batch operator with link semantics (reference batch/BatchOperator.java)."""
+
+    def __init__(self, params: Optional[Params] = None, **kwargs):
+        super().__init__(params, **kwargs)
+        self._side_outputs: List[MTable] = []
+
+    def get_schema(self) -> TableSchema:
+        return self.get_output_table().schema
+
+    def get_side_output(self, index: int) -> "BatchOperator":
+        if index >= len(self._side_outputs):
+            raise IndexError(f"side output {index} of {len(self._side_outputs)}")
+        return TableSourceBatchOp(self._side_outputs[index])
 
     def link_from(self, *inputs: "BatchOperator") -> "BatchOperator":
         raise NotImplementedError(f"{type(self).__name__}.link_from")

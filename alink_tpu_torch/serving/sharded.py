@@ -1,8 +1,8 @@
 """The serving reduction constants and the canonical strict-order sum.
 
 Counterpart: ``alink_tpu/serving/sharded.py``. Only ``SERVE_CHUNK``,
-``LANE_PAD`` and :func:`seq_chunk_sum` are ported; the mesh-sharded
-programs wait for the multi-GPU slice.
+``LANE_PAD``, :func:`seq_chunk_sum` and :func:`scan_sum` are ported;
+the mesh-sharded programs wait for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -31,3 +31,9 @@ def seq_chunk_sum(terms: torch.Tensor, axis: int) -> torch.Tensor:
     for j in range(t.shape[0]):
         acc = acc + t[j]
     return acc
+
+
+# The strict left-to-right sum that the tree serving kernel reduces its
+# trees with (the JAX package's ``lax.scan`` form); in the port it is
+# the same loop.
+scan_sum = seq_chunk_sum

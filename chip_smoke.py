@@ -43,9 +43,31 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    the split of one micro-batch (encode, copy in, step, snapshot), the
    card's busy share from a profiler trace, and the progressive log
    loss;
-8. an out-of-range slot handed to the gather and to the scatter-add
-   kernel fails its device-side assert, and the stream raises at its
-   next synchronize (each in a process of its own).
+8. the level-histogram kernel (``tree_hist``) against its plain version
+   on the card, bitwise, at the GBDT main path's shapes (48,842 adult
+   rows x 14 features, 64 bins, 3 stats, 1 to 32 nodes, and the leaf
+   call), a gini shape (4 stats), a shape of several bucket tiles (256
+   nodes) and 488,420 rows. Kernel, plain-version and ``index_add_``
+   times, the bytes bound and the compiler's registers and shared memory;
+9. the GBDT main path at full width: adult-shape rows (``bench.py``'s
+   ``bench_gbdt``: 6 ``randn`` and 8 integer-code columns, its planted
+   margin) through ``MemSourceBatchOp`` -> ``GbdtTrainBatchOp`` (50 trees,
+   depth 6, 64 bins, learning rate 0.3) -> ``GbdtPredictBatchOp`` on the
+   card. The first 5 trees equal the port's CPU run (split features,
+   thresholds and masks; leaf values and loss within rtol 1e-4), two card
+   trainings give bitwise equal model tables. Training AUC, samples/s,
+   launch counts, the split of one tree into histogram, split search,
+   descent and the rest of the superstep, the card's busy share from a
+   profiler trace; then 10 trees at 488,420 rows, device binning
+   included;
+10. tree serving: 4096 adult rows through ``CompiledPredictor`` with the
+   ``TreeModelMapper`` serving kernel, shipped in float64: scores bitwise
+   equal to the host loop, labels and details equal to ``map_table``;
+   rows/s and the p50 per bucket;
+11. an out-of-range slot handed to the gather and to the scatter-add
+   kernel, and an out-of-range bin handed to the histogram kernel, fails
+   its device-side assert, and the stream raises at its next synchronize
+   (each in a process of its own).
 
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
@@ -79,6 +101,13 @@ FTRL_HP = dict(alpha=0.05, beta=1.0, l1=1e-5, l2=1e-5)
 FTRL_BATCH, FTRL_TRAIN_BATCHES, FTRL_HELD_BATCHES = 4096, 6, 8
 FTRL_WIDTH = -(-(NNZ + 1) // 8) * 8          # 39 slots + intercept -> 40
 STALE_K, CHAIN_K = 32, 16
+# GBDT main path: bench.py's bench_gbdt (adult shape) and its large twin
+TREE_SRC = "alink_tpu_torch/kernels/csrc/tree_hist.cu"
+ADULT_N, ADULT_LARGE_N, ADULT_F = 48_842, 488_420, 14
+GBDT_TREES, GBDT_DEPTH, GBDT_BINS, GBDT_LR = 50, 6, 64, 0.3
+GBDT_CPU_TREES, GBDT_LARGE_TREES = 5, 10
+TREE_LAUNCHES_PER_TREE = GBDT_DEPTH + 1          # the levels and the leaf call
+N_SERVE = 4096
 FTRL_M = {"sample": 4 * FTRL_WIDTH, "staleness": STALE_K * FTRL_WIDTH,
           "chained": CHAIN_K * FTRL_WIDTH}
 
@@ -735,6 +764,462 @@ def phase_ftrl_main(kf, ks, rng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# trees: the level-histogram kernel, GBDT training and tree serving
+# ---------------------------------------------------------------------------
+
+ADULT_COLS = [f"f{j}" for j in range(ADULT_F)]
+
+
+def adult_data(n, seed=0):
+    """bench.py's ``bench_gbdt`` rows: 6 continuous ``randn`` columns and
+    8 integer codes 0-11, binary labels from its planted margin. Returns
+    (X float32 (n, 14), y, the table with a ``label`` column)."""
+    from alink_tpu_torch.common.mtable import MTable
+    rng = np.random.RandomState(seed)
+    Xc = rng.randn(n, 6).astype(np.float32)
+    Xd = rng.randint(0, 12, size=(n, 8)).astype(np.float32)
+    X = np.concatenate([Xc, Xd], 1)
+    margin = (Xc[:, 0] + 0.8 * Xc[:, 1] * (Xd[:, 0] > 5)
+              - 0.6 * (Xd[:, 1] % 3) + 0.4 * Xc[:, 2])
+    y = (margin + 0.3 * rng.randn(n) > 0).astype(np.int64)
+    cols = {c: X[:, j].astype(np.float64) for j, c in enumerate(ADULT_COLS)}
+    cols["label"] = y
+    schema = ", ".join(f"{c} DOUBLE" for c in ADULT_COLS) + ", label LONG"
+    return X, y, MTable(cols, schema)
+
+
+def ptxas_report(log):
+    """{kernel instantiation: "N registers, M bytes smem"} from -Xptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line and name:
+            out[name] = line.split("Used", 1)[1].strip()
+    return out
+
+
+def hist_inputs(X, rng, n_nodes, m, dev):
+    """The binned adult table as the trainer keeps it (a column-major
+    copy's transpose), GBDT-like stats and node ids of a level."""
+    import torch
+    from alink_tpu_torch.operator.common.tree.hist import (bin_data,
+                                                           make_bin_edges)
+    n = X.shape[0]
+    binned = bin_data(X, make_bin_edges(X, GBDT_BINS, device=False))
+    g = rng.uniform(-1, 1, n)
+    h = rng.uniform(0, 0.25, n)
+    stats = np.stack([g, h, np.ones(n)] + [rng.uniform(0, 1, n)] * (m - 3),
+                     1).astype(np.float32)
+    node_id = rng.randint(0, n_nodes, n).astype(np.int32)
+    bt = torch.from_numpy(np.ascontiguousarray(binned.T)).to(dev).t()
+    return (bt, torch.from_numpy(stats).to(dev),
+            torch.from_numpy(node_id).to(dev))
+
+
+def phase_tree_hist(kh, build_log, dev):
+    """B6 against its plain version on the card, bitwise, at the main
+    path's shapes and beyond; times, bounds and the library yardstick."""
+    import torch
+    rng = np.random.RandomState(7)
+    X, _, _ = adult_data(ADULT_N)
+    XL, _, _ = adult_data(ADULT_LARGE_N)
+    shapes = [("level", X, n, 64, 3) for n in (1, 2, 4, 8, 16, 32)]
+    shapes += [("leaf", X, 64, 1, 3), ("gini", X, 8, 64, 4),
+               ("tiles", X, 256, 64, 3), ("level", XL, 32, 64, 3)]
+    rec = {}
+    for kind, Xs, n_nodes, n_bins, m in shapes:
+        n = Xs.shape[0]
+        binned, stats, node_id = hist_inputs(Xs, rng, n_nodes, m, dev)
+        if kind == "leaf":
+            binned = torch.zeros((1, 1), dtype=torch.int32,
+                                 device=dev).expand(n, 1)
+        F = binned.shape[1]
+        args = (binned, stats, node_id, n_nodes, n_bins)
+        got = kh.level_hist(*args)
+        want = kh.level_hist_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        require(bool(torch.isfinite(got).all()), f"tree_hist {kind} finite")
+        require(torch.equal(bits(got), bits(want)),
+                f"tree_hist {kind} n={n} nodes={n_nodes} m={m} bitwise vs its "
+                f"plain version (max abs err {err})")
+        # the library yardstick: one index_add_ over the (row, feature)
+        # pairs, as the JAX package's CPU default scatters them (its
+        # order is not fixed on the card)
+        slot = ((node_id.long()[:, None] * F
+                 + torch.arange(F, device=dev)[None, :]) * n_bins
+                + binned.long()).reshape(-1)
+        rep = stats.repeat_interleave(F, dim=0)
+        flat = torch.zeros((n_nodes * F * n_bins, m), device=dev)
+        nbytes = (0 if kind == "leaf" else n * F * 4) + n * 4 + n * m * 4 \
+            + n_nodes * F * n_bins * m * 4
+        b_ms, b_by = _bound(nbytes, n * F * m, "f32")
+        key = f"{kind} n={n} F={F} nodes={n_nodes} bins={n_bins} m={m}"
+        rec[key] = {
+            "bitwise": True, "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: kh.level_hist(*args)),
+            "plain_ms": cuda_ms(lambda: kh.level_hist_plain(*args),
+                                trials=3, reps=1),
+            "library_ms": cuda_ms(lambda: flat.index_add_(0, slot, rep)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        print(f"tree_hist {key}: bitwise=True kernel_ms="
+              f"{rec[key]['kernel_ms']} plain_ms={rec[key]['plain_ms']} "
+              f"index_add_ms={rec[key]['library_ms']} bound_ms={b_ms} "
+              f"({b_by})", flush=True)
+    regs = ptxas_report(build_log)
+    print(f"tree_hist ptxas: {regs}")
+    return rec, regs
+
+
+def host_tree_scores(m, X):
+    """map_table's GBDT score loop (base + sum of lr * leaf, tree by
+    tree, in float64), kept apart to compare raw scores."""
+    from alink_tpu_torch.operator.common.tree.hist import tree_apply_values
+    s = np.full(X.shape[0], m.base_score)
+    for t in range(m.features.shape[0]):
+        leaf = tree_apply_values(X, m.features[t], m.thresholds[t],
+                                 m.max_depth)
+        s += m.learning_rate * m.leaf_values[t][leaf]
+    return s
+
+
+def binned_scores(m, X):
+    """GBDT scores as training sees the rows, on the card: each tree
+    descended on the rows' bins (``tree_apply_binned`` with the split
+    masks), base + sum of lr * leaf in float64. Also the number of rows
+    that reach another leaf in some tree under the host mapper's
+    thresholds (``x > edge`` goes right there, while a value equal to an
+    edge has the bin above it in training)."""
+    import torch
+    from alink_tpu_torch.operator.common.tree.hist import (
+        bin_data, make_bin_edges, tree_apply_binned, tree_apply_values)
+    X64 = X.astype(np.float64)
+    binned = torch.from_numpy(bin_data(X64, make_bin_edges(
+        X64, GBDT_BINS))).cuda()
+    masks = torch.from_numpy(m.split_masks).cuda()
+    feats = torch.from_numpy(m.features).cuda()
+    s = np.full(X.shape[0], m.base_score)
+    moved = np.zeros(X.shape[0], bool)
+    for t in range(m.features.shape[0]):
+        leaf = tree_apply_binned(binned, feats[t], None, m.max_depth,
+                                 masks[t]).cpu().numpy()
+        s += m.learning_rate * m.leaf_values[t][leaf]
+        moved |= leaf != tree_apply_values(X64, m.features[t],
+                                           m.thresholds[t], m.max_depth)
+    return s, int(moved.sum())
+
+
+def rank_auc(y, s):
+    """Rank-based AUC (ties share their average rank)."""
+    order = np.argsort(s, kind="mergesort")
+    ss = s[order]
+    ranks = np.empty(len(s))
+    i = 0
+    while i < len(s):
+        j = i
+        while j + 1 < len(s) and ss[j + 1] == ss[i]:
+            j += 1
+        ranks[order[i:j + 1]] = (i + j) / 2.0 + 1
+        i = j + 1
+    pos = y == 1
+    n1, n0 = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def gbdt_op(**kw):
+    from alink_tpu_torch.operator.batch.classification import GbdtTrainBatchOp
+    return GbdtTrainBatchOp(feature_cols=ADULT_COLS, label_col="label",
+                            max_depth=GBDT_DEPTH, max_bins=GBDT_BINS,
+                            learning_rate=GBDT_LR, **kw)
+
+
+def gain_margins(trainers):
+    """Record, while a training runs, each split node's margin between its
+    best gain and the next best one (exact ties, which an empty bin
+    makes between two cuts of one partition, are counted apart)."""
+    import torch
+    made = trainers.make_xgb_gain
+    seen = {"margins": [], "ties": 0}
+
+    def recording(lam):
+        fn = made(lam)
+
+        def gain(left, right, total, min_leaf):
+            g = fn(left, right, total, min_leaf)
+            flat = g.reshape(g.shape[0], -1).double()
+            top = torch.topk(flat, 2, dim=1).values
+            split = top[:, 0] > 1e-9
+            gap = (top[:, 0] - top[:, 1])[split]
+            seen["ties"] += int((gap == 0).sum())
+            seen["margins"] += [(float(d), float(d / t)) for d, t in
+                                zip(gap[gap > 0], top[split, 0][gap > 0])]
+            return g
+        return gain
+    return made, recording, seen
+
+
+class StageTimer:
+    """Host-clock time of the stages of a training, each call ending in a
+    synchronize: wraps a module's function in place (``undo`` restores)."""
+
+    def __init__(self):
+        self.times, self._undo = {}, []
+
+    def wrap(self, mod, name, label):
+        import torch
+        real = getattr(mod, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.times.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+        setattr(mod, name, timed)
+        self._undo.append((mod, name, real))
+
+    def undo(self):
+        for mod, name, real in reversed(self._undo):
+            setattr(mod, name, real)
+        self._undo = []
+
+
+def tree_split(X, y, reps=4):
+    """One tree of the main path split into histogram (the 7 kernel
+    launches), split search (prefix sums, gains, argmax), descent and the
+    rest of the superstep (gradients, leaf values, score update), host
+    clock, each ending in a synchronize; median over supersteps 2..reps.
+    Then one more superstep under ``torch.profiler``: the card's busy
+    time (its kernels and copies) and the device operations it ran."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.engine import comqueue
+    from alink_tpu_torch.operator.common.tree import hist, trainers
+    p = trainers.TreeTrainParams(num_trees=reps, max_depth=GBDT_DEPTH,
+                                 n_bins=GBDT_BINS, learning_rate=GBDT_LR,
+                                 min_samples_leaf=2)
+    env = MLEnvironment()
+    st = StageTimer()
+    st.wrap(hist, "level_hist", "histogram")
+    st.wrap(hist, "_split_search", "split_search")
+    st.wrap(hist, "_descend", "descent")
+    st.wrap(comqueue._FnStage, "calc", "superstep")
+    try:
+        trainers.gbdt_train(X, y, p, False, env=env)
+    finally:
+        st.undo()
+    per = {k: v for k, v in st.times.items()}
+    L = TREE_LAUNCHES_PER_TREE
+    steps = len(per["superstep"])
+    rows = []
+    for s_ in range(1, steps):                     # skip the init pass
+        row = {"histogram": sum(per["histogram"][s_ * L:(s_ + 1) * L]),
+               "split_search": sum(per["split_search"][
+                   s_ * GBDT_DEPTH:(s_ + 1) * GBDT_DEPTH]),
+               "descent": sum(per["descent"][
+                   s_ * GBDT_DEPTH:(s_ + 1) * GBDT_DEPTH]),
+               "superstep": per["superstep"][s_]}
+        row["gradients_leaves_score_update"] = row["superstep"] - (
+            row["histogram"] + row["split_search"] + row["descent"])
+        rows.append(row)
+    med = {k: float(np.median([r[k] for r in rows])) * 1e3 for k in rows[0]}
+    # the profiled superstep: the last one of a 3-tree training
+    from torch.profiler import ProfilerActivity, profile
+    real_calc = comqueue._FnStage.calc
+    prof_box = {}
+
+    def calc(self, ctx):
+        if ctx.step_no != 3:
+            return real_calc(self, ctx)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_calc(self, ctx)
+            torch.cuda.synchronize()
+            prof_box["wall"] = time.perf_counter() - t0
+        prof_box["prof"] = prof
+    comqueue._FnStage.calc = calc
+    try:
+        p.num_trees = 3
+        trainers.gbdt_train(X, y, p, False, env=env)
+    finally:
+        comqueue._FnStage.calc = real_calc
+    dev_us, dev_ops = 0.0, 0
+    for e in prof_box["prof"].key_averages():
+        if getattr(e, "device_type", None) is not None \
+                and str(e.device_type).endswith("CUDA"):
+            dev_us += float(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0)))
+            dev_ops += int(e.count)
+    med["profiled_superstep_ms"] = prof_box["wall"] * 1e3
+    med["device_busy_ms"] = dev_us / 1e3
+    med["device_ops_per_tree"] = dev_ops
+    med["device_busy_share"] = (dev_us / 1e3 / med["superstep"]) \
+        if dev_us > 0 else None
+    return med
+
+
+def phase_gbdt_main(kh):
+    """The GBDT main path on the card (see the module docstring)."""
+    import torch
+    from alink_tpu_torch.operator.batch.classification import (
+        GbdtPredictBatchOp, TreeModelDataConverter)
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.tree import trainers
+    X, y, table = adult_data(ADULT_N)
+    src = MemSourceBatchOp(table)
+    out = {}
+    # -- the main path, its launches counted from 0 ----------------------
+    torch.cuda.synchronize()
+    kh.reset_launch_counts()
+    t0 = time.perf_counter()
+    train = gbdt_op(num_trees=GBDT_TREES).link_from(src)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pred = GbdtPredictBatchOp(prediction_col="pred",
+                              prediction_detail_col="detail").link_from(
+        train, src)
+    launches = kh.launch_counts()["tree_hist"]
+    require(launches == GBDT_TREES * TREE_LAUNCHES_PER_TREE,
+            f"the main path launched the histogram kernel 7 times a tree: "
+            f"{launches}")
+    probs = np.asarray([json.loads(d)["1"] for d in pred.get_output_table()
+                        .col("detail")])
+    labels = np.asarray(pred.get_output_table().col("pred"))
+    require(bool(np.isfinite(probs).all()) and probs.shape == (ADULT_N,),
+            "finite probabilities for every row")
+    loss = np.asarray(train.get_side_output(0).get_output_table().col("loss"))
+    model = TreeModelDataConverter().load_model(train.get_output_table())
+    s_bin, skew = binned_scores(model, X)
+    auc_bin = rank_auc(y, s_bin)
+    require(auc_bin > 0.9 and loss[-1] < loss[0],
+            f"the model learned: AUC {auc_bin} on the trees' own bins, loss "
+            f"{loss[0]} -> {loss[-1]}")
+    auc = rank_auc(y, probs)
+    acc = float((labels == y).mean())
+    out.update({"train_s": secs, "samples_per_s": ADULT_N * GBDT_TREES / secs,
+                "launches": launches, "train_auc": auc_bin,
+                "predict_op_auc": auc, "predict_op_accuracy": acc,
+                "edge_skew_rows": skew,
+                "loss_first": float(loss[0]), "loss_last": float(loss[-1])})
+    print(f"gbdt main path: {GBDT_TREES} trees on {ADULT_N} rows in "
+          f"{secs:.4f} s ({out['samples_per_s']:.1f} samples/s), {launches} "
+          f"histogram launches, training AUC {auc_bin} (the trees' bins), "
+          f"GbdtPredictBatchOp AUC {auc} and accuracy {acc} (thresholds; "
+          f"{skew} rows reach another leaf in some tree), loss "
+          f"{loss[0]} -> {loss[-1]}", flush=True)
+
+    # -- reproducible: a second card training, bitwise the same table ----
+    t0 = time.perf_counter()
+    again = gbdt_op(num_trees=GBDT_TREES).link_from(src)
+    torch.cuda.synchronize()
+    out["second_train_s"] = time.perf_counter() - t0
+    require(again.get_output_table().to_rows()
+            == train.get_output_table().to_rows(),
+            "two card trainings give bitwise equal model tables")
+
+    # -- the card against the port on the CPU, first 5 trees --------------
+    made, recording, seen = gain_margins(trainers)
+    trainers.make_xgb_gain = recording
+    try:
+        t0 = time.perf_counter()
+        cpu = gbdt_op(num_trees=GBDT_CPU_TREES, device="cpu").link_from(src)
+        out["cpu_train_s"] = time.perf_counter() - t0
+    finally:
+        trainers.make_xgb_gain = made
+    conv = TreeModelDataConverter()
+    mc, mg = conv.load_model(cpu.get_output_table()), \
+        conv.load_model(train.get_output_table())
+    k = GBDT_CPU_TREES
+    for name in ("features", "thresholds", "split_masks"):
+        require(np.array_equal(getattr(mc, name), getattr(mg, name)[:k]),
+                f"card {name} of the first {k} trees equal the CPU run's")
+    lv_c, lv_g = mc.leaf_values, mg.leaf_values[:k]
+    require(bool(np.allclose(lv_g, lv_c, rtol=1e-4, atol=0)),
+            "leaf values within rtol 1e-4 of the CPU run")
+    loss_c = np.asarray(cpu.get_side_output(0).get_output_table().col("loss"))
+    require(bool(np.allclose(loss[:k], loss_c, rtol=1e-4, atol=0)),
+            "loss curve within rtol 1e-4 of the CPU run")
+    margins = seen["margins"]
+    out["card_vs_cpu"] = {
+        "trees": k, "leaf_values_bitwise": bool(np.array_equal(lv_g, lv_c)),
+        "leaf_max_abs_err": float(np.abs(lv_g - lv_c).max()),
+        "loss_max_abs_err": float(np.abs(loss[:k] - loss_c).max()),
+        "split_nodes": len(margins) + seen["ties"],
+        "exact_ties": seen["ties"],
+        "min_gain_margin": min(m_[0] for m_ in margins),
+        "min_relative_gain_margin": min(m_[1] for m_ in margins)}
+    print(f"gbdt card vs CPU, first {k} trees: {out['card_vs_cpu']}",
+          flush=True)
+
+    # -- one tree split by stage, and the card's busy share --------------
+    out["tree_split_ms"] = tree_split(X, y.astype(np.float32))
+    print(f"gbdt one tree, ms per stage: {out['tree_split_ms']}", flush=True)
+
+    # -- 10 trees at 488,420 rows, device binning included ---------------
+    XL, yl, tl = adult_data(ADULT_LARGE_N)
+    st = StageTimer()
+    st.wrap(trainers, "make_bin_edges", "binning")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = gbdt_op(num_trees=GBDT_LARGE_TREES).link_from(
+            MemSourceBatchOp(tl))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        st.undo()
+    lossl = np.asarray(big.get_side_output(0).get_output_table().col("loss"))
+    require(bool(np.isfinite(lossl).all()) and lossl[-1] < lossl[0],
+            "the 488,420-row training learned")
+    out["large"] = {"rows": ADULT_LARGE_N, "trees": GBDT_LARGE_TREES,
+                    "train_s": secs,
+                    "samples_per_s": ADULT_LARGE_N * GBDT_LARGE_TREES / secs,
+                    "binning_s": st.times["binning"][0],
+                    "loss_last": float(lossl[-1])}
+    print(f"gbdt large: {out['large']}", flush=True)
+    return out, train, table
+
+
+def phase_tree_serving(train):
+    """Tree serving through CompiledPredictor (float64 ship)."""
+    import torch
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.operator.batch.classification import TreeModelMapper
+    from alink_tpu_torch.serving import CompiledPredictor
+    _, _, t = adult_data(N_SERVE, seed=1)
+    req = t.select(ADULT_COLS)
+    mt = train.get_output_table()
+    mapper = TreeModelMapper(mt.schema, req.schema,
+                             Params({"prediction_col": "pred",
+                                     "prediction_detail_col": "detail"}))
+    mapper.load_model(mt)
+    gpu = CompiledPredictor(mapper, ship_dtype=torch.float64)
+    t0 = time.perf_counter()
+    out = gpu.predict_table(req)
+    secs = time.perf_counter() - t0
+    host = mapper.map_table(req)
+    s_gpu = gpu.predict_scores(req)
+    s_host = host_tree_scores(mapper.model, mapper._encode_matrix(req))
+    require(s_gpu.dtype == np.float64 and s_gpu.shape == (N_SERVE,),
+            "tree score dtype/shape")
+    require(np.array_equal(s_gpu.view(np.int64), s_host.view(np.int64)),
+            "card tree scores (float64) bitwise equal to the host loop")
+    for c in ("pred", "detail"):
+        require(list(out.col(c)) == list(host.col(c)),
+                f"card {c} equal to map_table's")
+    rec = {"rows": N_SERVE, "rows_per_s": N_SERVE / secs,
+           "buckets": bucket_latency(gpu, req)}
+    print(f"tree serving: {N_SERVE} rows in {secs:.4f} s "
+          f"({rec['rows_per_s']:.1f} rows/s); buckets {rec['buckets']}",
+          flush=True)
+    return rec
+
+
 BAD_SLOT_PROBE = """
 import sys, torch
 from alink_tpu_torch.kernels import ftrl as kf
@@ -743,8 +1228,14 @@ ix = torch.tensor([3, 1 << 20, 5], dtype=torch.int32, device="cuda")
 try:
     if sys.argv[1] == "gather":
         kf.gather_rows(st, ix)
-    else:
+    elif sys.argv[1] == "scatter":
         kf.scatter_add_rows(st, ix, torch.ones(3, device="cuda"))
+    else:
+        from alink_tpu_torch.kernels import tree_hist as kh
+        kh.level_hist(torch.tensor([[1], [64], [2]], dtype=torch.int32,
+                                   device="cuda"),
+                      torch.ones((3, 3), device="cuda"),
+                      torch.zeros(3, dtype=torch.int32, device="cuda"), 1, 64)
     torch.cuda.synchronize()
 except RuntimeError as e:
     print("raised:", str(e).splitlines()[0])
@@ -755,15 +1246,15 @@ sys.exit(1)
 
 
 def phase_bad_slots():
-    """An out-of-range slot fails the kernel's device-side assert and
-    the caller's stream raises at its synchronize. Each probe runs in a
-    process of its own, since the assert ends that process's CUDA
-    context; both start together."""
+    """An out-of-range slot (or bin) fails the kernel's device-side
+    assert and the caller's stream raises at its synchronize. Each probe
+    runs in a process of its own, since the assert ends that process's
+    CUDA context; all start together."""
     root = str(Path(__file__).resolve().parent)
     procs = {k: subprocess.Popen([sys.executable, "-c", BAD_SLOT_PROBE, k],
                                  cwd=root, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
-             for k in ("gather", "scatter")}
+             for k in ("gather", "scatter", "tree_hist")}
     out = {}
     for k, p in procs.items():
         try:
@@ -772,7 +1263,7 @@ def phase_bad_slots():
             p.kill()
         said = [ln for ln in log.splitlines() if ln.startswith("raised:")]
         require(p.returncode == 0 and len(said) == 1,
-                f"an out-of-range slot in ftrl {k} raised on the card "
+                f"an out-of-range index in {k} raised on the card "
                 f"(exit {p.returncode}): {log.strip()[-2000:]}")
         out[k] = said[0]
     return out
@@ -800,6 +1291,7 @@ def main(argv=None) -> int:
     from alink_tpu_torch.kernels import _build
     from alink_tpu_torch.kernels import ftrl as kf
     from alink_tpu_torch.kernels import serve as ks
+    from alink_tpu_torch.kernels import tree_hist as kh
     from alink_tpu_torch.serving import PredictServer
 
     # -- 2. build ---------------------------------------------------------
@@ -904,9 +1396,19 @@ def main(argv=None) -> int:
     # -- 7. the FTRL main path: online training on Criteo-shape rows -----
     ftrl = phase_ftrl_main(kf, ks, rng)
 
-    # -- 8. an out-of-range slot fails loudly on the card ----------------
+    # -- 8. the level-histogram kernel against its plain version ---------
+    tree_parity, tree_regs = phase_tree_hist(kh, _build.build_log("tree_hist"),
+                                             dev)
+
+    # -- 9. the GBDT main path: adult-shape training on the card ---------
+    gbdt, gbdt_train_op, _ = phase_gbdt_main(kh)
+
+    # -- 10. tree serving --------------------------------------------------
+    tree_serving = phase_tree_serving(gbdt_train_op)
+
+    # -- 11. an out-of-range slot or bin fails loudly on the card ---------
     bad_slots = phase_bad_slots()
-    print(f"out-of-range slots: {bad_slots}")
+    print(f"out-of-range indices: {bad_slots}")
 
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
@@ -954,8 +1456,24 @@ def main(argv=None) -> int:
             "shapes": {k: {f: v[f] for f in ("kernel_ms", "plain_ms",
                                                "library_ms", "bound_ms")}
                        for k, v in ftrl_parity[name].items()}})
+    # the histogram kernel's record: at the main path's deepest level
+    tkey = f"level n={ADULT_N} F={ADULT_F} nodes=32 bins={GBDT_BINS} m=3"
+    r = tree_parity[tkey]
+    kernels.append({
+        "name": "tree_hist", "route": "cuda", "source": TREE_SRC,
+        "replaces": "alink_tpu/operator/common/tree/hist.py:262",
+        "launches": gbdt["launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in tree_parity.values()),
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "bitwise": True,
+        "kernel_ms": r["kernel_ms"], "shape": tkey, "ptxas": tree_regs,
+        "shapes": {k: {f: v[f] for f in ("kernel_ms", "plain_ms",
+                                           "library_ms", "bound_ms")}
+                   for k, v in tree_parity.items()}})
     print(json.dumps({"main_path": {
-        "ftrl": ftrl, "out_of_range_slots": bad_slots,
+        "gbdt": gbdt, "tree_serving": tree_serving,
+        "ftrl": ftrl, "out_of_range_indices": bad_slots,
         "card": card, "sparse_rows_per_s": N_REQUESTS / secs,
         "dense_rows_per_s": N_REQUESTS / dsecs,
         "server_requests": N_SINGLE, "server_launches": server_launches,
