@@ -29,21 +29,34 @@
 // kernel moves a few kilobytes to a few hundred kilobytes, microseconds or
 // less at the card's memory rate, so a launch's fixed cost dominates. The
 // state itself is touched only at the M named slots; the rest of the 2^20
-// slots are never read.
+// slots are never read. Past the launch, the scatter-add's time goes to
+// its sort (a few passes over M positions on one SM) and to its longest
+// run of one slot, a chain of dependent adds.
 //
 // Design, simple first:
-//   gather   — one thread per (m, c).
-//   scatter  — ONE block. It stages idx and upd in shared memory (dynamic,
-//              opted in above 48 KB). Position i owns its slot when no
-//              earlier position j < i names the same slot; the owner reads
-//              state[slot] once, adds upd[j] for every j >= i with that slot
-//              in order, and writes once. O(M^2) compares on shared memory,
-//              spread over the block's threads: fine at M <= 1280, where a
-//              slot named by every row of a chunk (the intercept) is one
-//              chain of up to 32 adds. Padded positions (slot 0, update 0.0)
-//              are added like any other, as the JAX package adds them
-//              (-0.0 + 0.0 turns into +0.0 there).
-//   chained  — ONE block, one thread per output (a, c), each walking its
+//   gather   - one thread per (m, c).
+//   scatter  - ONE block, a sorted run walk. Position m's key is
+//              (slot << 32) | m, unique, so any sort of the keys is stable
+//              and leaves each slot's positions contiguous and ascending.
+//              The block sorts them in shared memory (dynamic, opted in
+//              above 48 KB) by an LSD radix sort on the slot's bytes, one
+//              pass a byte up to the state's size (3 passes for 2^20 + 1
+//              slots): the positions start in order and each pass is
+//              stable (per-warp digit counts turned into cursors, lanes
+//              ranked by __match_any_sync), so the position bits need no
+//              pass and no atomic decides a position. Each thread then
+//              takes its sorted keys into registers, and the same shared
+//              memory is refilled with the updates in sorted order (read
+//              from global memory once, by the whole block) and a bitmap
+//              of the positions that start a run. A run's head thread
+//              reads state[slot] once, adds the run's updates in position
+//              order from shared memory and writes once. O(M) work a pass,
+//              where a search of the earlier positions for each slot's
+//              owner would cost O(M^2).
+//              Padded positions (slot 0, update 0.0) are added like any
+//              other, as the JAX package adds them (-0.0 + 0.0 turns into
+//              +0.0 there).
+//   chained  - ONE block, one thread per output (a, c), each walking its
 //              chain of k * w products.
 // An index outside [0, S) fails a device-side assert, as PyTorch's own
 // CUDA indexing does: the launch's stream then reports cudaErrorAssert at
@@ -64,9 +77,13 @@ namespace {
 constexpr int kGatherThreads = 256;
 constexpr int kScatterThreads = 1024;
 constexpr int kCorrThreads = 256;
-// idx and upd staged in the scatter block's shared memory, at most
-// 4 + 2 * 8 bytes a position, inside the 227 KB a block can opt in to
+// the scatter block sorts with 12 bytes a position plus 8 KB of digit
+// tables, then reuses that memory for the sorted updates and a bitmap of run
+// heads (at most 11264 * 16 + 1540 bytes), inside the 227 KB a block can opt
+// in to
 constexpr int kScatterMaxM = 11264;
+constexpr int kScatterPerThread = 11;  // sorted positions a thread holds: 11264 / 1024
+constexpr int kSortWarps = 8;          // the warps that sort, one digit table each
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -93,32 +110,130 @@ ftrl_gather_kernel(const T* __restrict__ state, const int32_t* __restrict__ idx,
 template <typename T, int C>
 __global__ void __launch_bounds__(kScatterThreads)
 ftrl_scatter_add_kernel(T* __restrict__ state, const int32_t* __restrict__ idx,
-                        const T* __restrict__ upd, int M, int S) {
+                        const T* __restrict__ upd, int M, int S, int passes) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* u = reinterpret_cast<T*>(smem);
-  int32_t* slots = reinterpret_cast<int32_t*>(u + static_cast<size_t>(M) * C);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) slots[i] = checked_slot(idx[i], S);
-  for (int i = threadIdx.x; i < M * C; i += blockDim.x) u[i] = upd[i];
+  // the keys (slot << 32) | m are sorted by an LSD radix sort on the slot's
+  // bytes: the positions start in order and every pass is stable, so the
+  // position bits never need a pass. Sorting warp w (of kSortWarps) takes
+  // the w-th run of `chunk` positions of the current order, counts their
+  // digits into its own table, and the tables turn into cursors (the
+  // digit's offset plus the earlier warps' counts); then the warp walks its
+  // positions in 32-wide steps in order, __match_any_sync ranking the lanes
+  // of each digit, so no atomic decides a position
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* slot = reinterpret_cast<int*>(smem);
+  int* ord0 = slot + M;                          // the two orders, in turns
+  int* ord1 = slot + 2 * M;
+  int* hist = slot + 3 * M;                       // kSortWarps tables of 256 digits
+  __shared__ int wsum[256 / 32];
+  for (int i = threadIdx.x; i < M; i += blockDim.x) slot[i] = checked_slot(idx[i], S);
+  const int chunk = (M + kSortWarps * 32 - 1) / (kSortWarps * 32) * 32;
+  const int lo = warp < kSortWarps ? min(M, warp * chunk) : M;
+  const int hi = min(M, lo + chunk);
+  const unsigned lt = (1u << lane) - 1u;
+  for (int p = 0; p < passes; ++p) {
+    const int* in = p & 1 ? ord0 : ord1;
+    int* out = p & 1 ? ord1 : ord0;
+    const int shift = 8 * p;
+    for (int k = threadIdx.x; k < kSortWarps * 256; k += blockDim.x) hist[k] = 0;
+    __syncthreads();
+    int* cur = hist + min(warp, kSortWarps - 1) * 256;
+    for (int i = lo + lane; i < hi; i += 32)
+      atomicAdd(&cur[(slot[p ? in[i] : i] >> shift) & 255], 1);
+    __syncthreads();
+    // digit t's cursor for warp w: the counts of smaller digits, then of
+    // digit t in the earlier warps (threads 0..255, one digit each)
+    int total = 0, incl = 0;
+    if (threadIdx.x < 256) {
+      for (int w = 0; w < kSortWarps; ++w) total += hist[w * 256 + threadIdx.x];
+      incl = total;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += y;
+      }
+      if (lane == 31) wsum[warp] = incl;
+    }
+    __syncthreads();
+    if (threadIdx.x < 256) {
+      int c = incl - total;
+      for (int w = 0; w < warp; ++w) c += wsum[w];
+      for (int w = 0; w < kSortWarps; ++w) {
+        const int n = hist[w * 256 + threadIdx.x];
+        hist[w * 256 + threadIdx.x] = c;
+        c += n;
+      }
+    }
+    __syncthreads();
+    for (int i0 = lo; i0 < hi; i0 += 32) {
+      const int i = i0 + lane;
+      const int m = i < hi ? (p ? in[i] : i) : 0;
+      const int d = i < hi ? (slot[m] >> shift) & 255 : 256;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      const int rank = __popc(peers & lt);
+      const int pos = i < hi ? cur[d] + rank : 0;
+      __syncwarp();
+      if (i < hi && rank == 0) cur[d] = pos + __popc(peers);
+      __syncwarp();
+      if (i < hi) out[pos] = m;
+    }
+    __syncthreads();
+  }
+  const int* sorted = passes & 1 ? ord0 : ord1;
+  // this thread's sorted positions i = threadIdx.x + r * blockDim.x, into
+  // registers as (slot << 32) | m; a position starts a run when its slot
+  // differs from the one before it
+  const int per = (M + blockDim.x - 1) / blockDim.x;
+  unsigned long long key[kScatterPerThread];
+  bool head[kScatterPerThread];
+#pragma unroll
+  for (int r = 0; r < kScatterPerThread; ++r) {
+    const int i = threadIdx.x + r * blockDim.x;
+    const bool live = r < per && i < M;
+    const int m = live ? sorted[i] : 0;
+    key[r] = live ? (static_cast<unsigned long long>(slot[m]) << 32) | m : ~0ull;
+    head[r] = live && (i == 0 || slot[sorted[i - 1]] != slot[m]);
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const int32_t slot = slots[i];
-    bool owner = true;
-    for (int j = 0; j < i; ++j) {
-      if (slots[j] == slot) {
-        owner = false;
+  // the keys' memory now holds the updates in sorted order and a bitmap
+  // of the run heads
+  T* su = reinterpret_cast<T*>(smem);
+  unsigned* heads = reinterpret_cast<unsigned*>(su + static_cast<size_t>(M) * C);
+#pragma unroll
+  for (int r = 0; r < kScatterPerThread; ++r) {
+    if (r >= per) break;
+    const int i = threadIdx.x + r * blockDim.x;
+    if (i < M) {
+      const T* src = upd + static_cast<size_t>(key[r] & 0xffffffffu) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) su[i * C + c] = src[c];
+    }
+    const unsigned word = __ballot_sync(0xffffffffu, head[r]);
+    if (threadIdx.x % 32 == 0) heads[i / 32] = word;
+  }
+  __syncthreads();
+  // one thread per run: read state[slot] once, add the run's updates in
+  // position order, write once
+#pragma unroll
+  for (int r = 0; r < kScatterPerThread; ++r) {
+    if (!head[r]) continue;
+    const int i = threadIdx.x + r * blockDim.x;
+    int end = M;
+    for (int j = i + 1; j < M; j = (j | 31) + 1) {
+      const unsigned w = heads[j / 32] & (~0u << (j % 32));
+      if (w) {
+        end = (j & ~31) + __ffs(w) - 1;
         break;
       }
     }
-    if (!owner) continue;
+    T* dst = state + static_cast<size_t>(key[r] >> 32) * C;
     T acc[C];
-    T* dst = state + static_cast<size_t>(slot) * C;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = dst[c];
-    for (int j = i; j < M; ++j) {
-      if (slots[j] != slot) continue;
+#pragma unroll 8
+    for (int j = i; j < end; ++j)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = add_rn(acc[c], u[j * C + c]);
-    }
+      for (int c = 0; c < C; ++c) acc[c] = add_rn(acc[c], su[j * C + c]);
 #pragma unroll
     for (int c = 0; c < C; ++c) dst[c] = acc[c];
   }
@@ -160,15 +275,22 @@ int gather(const void* state, const void* idx, void* out, int M, int S, int C,
 
 template <typename T, int C>
 int launch_scatter(T* st, const int32_t* ix, const T* u, int M, int S, cudaStream_t s) {
-  const int threads = M < kScatterThreads ? ((M + 31) / 32) * 32 : kScatterThreads;
-  const size_t smem = static_cast<size_t>(M) * (C * sizeof(T) + sizeof(int32_t));
+  const int threads = M > 4 * 256 ? kScatterThreads : 256;
+  int bits = 0;
+  while (bits < 31 && ((S - 1) >> bits) != 0) ++bits;
+  const int passes = bits > 8 ? (bits + 7) / 8 : 1;
+  // the sort's slots, two orders and the warps' digit tables; then the
+  // sorted updates and the run-head bitmap
+  const size_t sort = (3 * static_cast<size_t>(M) + kSortWarps * 256) * sizeof(int);
+  const size_t walk = static_cast<size_t>(M) * C * sizeof(T) + (M + threads + 31) / 32 * 4;
+  const size_t smem = sort > walk ? sort : walk;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(ftrl_scatter_add_kernel<T, C>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  ftrl_scatter_add_kernel<T, C><<<1, threads, smem, s>>>(st, ix, u, M, S);
+  ftrl_scatter_add_kernel<T, C><<<1, threads, smem, s>>>(st, ix, u, M, S, passes);
   return static_cast<int>(cudaGetLastError());
 }
 

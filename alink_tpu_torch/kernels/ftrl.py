@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -119,7 +119,9 @@ _counts_lock = threading.Lock()
 _counts: Dict[str, int] = {"ftrl_gather": 0, "ftrl_scatter_add": 0,
                            "ftrl_chained_corr": 0}
 _lib_lock = threading.Lock()
-_lib_handle: Optional[ctypes.CDLL] = None
+_fns: Optional[Dict[str, Callable[..., int]]] = None
+_FN_NAMES = ("alink_ftrl_gather", "alink_ftrl_scatter_add",
+             "alink_ftrl_chained_corr")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -134,29 +136,29 @@ def reset_launch_counts() -> None:
             _counts[k] = 0
 
 
-def _count(name: str) -> None:
-    with _counts_lock:
-        _counts[name] += 1
-
-
-def _lib() -> ctypes.CDLL:
-    """The built ``ftrl_state`` library, its C signatures declared."""
-    global _lib_handle
+def _functions() -> Dict[str, Callable[..., int]]:
+    """The built ``ftrl_state`` library's C functions, their signatures
+    declared, resolved once (the error string under ``"error_string"``)."""
+    global _fns
+    if _fns is not None:
+        return _fns
     with _lib_lock:
-        if _lib_handle is None:
+        if _fns is None:
             from ._build import load_library
             lib = load_library("ftrl_state")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.alink_ftrl_gather.argtypes = [i, p, p, p, i, i, i, p]
-            lib.alink_ftrl_scatter_add.argtypes = [i, p, p, p, i, i, i, p]
-            lib.alink_ftrl_chained_corr.argtypes = [i, p, p, p, i, i, i, p]
-            for fn in (lib.alink_ftrl_gather, lib.alink_ftrl_scatter_add,
-                       lib.alink_ftrl_chained_corr):
+            fns = {}
+            for name in _FN_NAMES:
+                fn = getattr(lib, name)
+                fn.argtypes = [i, p, p, p, i, i, i, p]
                 fn.restype = i
-            lib.alink_ftrl_error_string.argtypes = [i]
-            lib.alink_ftrl_error_string.restype = ctypes.c_char_p
-            _lib_handle = lib
-        return _lib_handle
+                fns[name] = fn
+            err = lib.alink_ftrl_error_string
+            err.argtypes = [i]
+            err.restype = ctypes.c_char_p
+            fns["error_string"] = err
+            _fns = fns
+        return _fns
 
 
 def _check(name: str, *tensors: torch.Tensor) -> int:
@@ -197,18 +199,21 @@ def _launch(name: str, fn_name: str, *args, device: torch.device,
     tensors passed as their device pointers; count it or raise, naming
     the C function's ``limits`` in the error. The tensors are the
     caller's: PyTorch's allocator reuses their memory only for later
-    work on the same stream, after the kernel."""
-    lib = _lib()
+    work on the same stream, after the kernel. The device is entered
+    only when it is not the current one already."""
+    fns = _functions()
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(name, fn_name, *args, device=device, limits=limits)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*ptrs, stream)
+    rc = fns[fn_name](*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        msg = _lib().alink_ftrl_error_string(rc).decode()
+        msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
                            f"{rc} ({msg}){limits}")
-    _count(name)
+    with _counts_lock:
+        _counts[name] += 1
 
 
 def gather_rows(state: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,13 @@
 Counterpart: ``alink_tpu/operator/common/tree/hist.py::_pallas_level_hist``
 (the Pallas kernel) and ``level_hist(..., use_onehot=False)`` (the JAX
 package's CPU default, an XLA scatter-add). Here the function is a CUDA
-kernel written by hand for Hopper (``csrc/tree_hist.cu``).
-:func:`level_hist` is the wrapper and :func:`level_hist_plain` its plain
-PyTorch version. Given CPU tensors the wrapper runs the plain version;
-given CUDA tensors it launches the kernel or raises.
+kernel written by hand for Hopper (``csrc/tree_hist.cu``): a stable
+counting sort of each feature's rows by (node, bin), then one ordered
+walk per slot, four passes that one call launches into scratch the
+wrapper allocates (sized by :func:`_hist_plan`). :func:`level_hist` is
+the wrapper and :func:`level_hist_plain` its plain PyTorch version.
+Given CPU tensors the wrapper runs the plain version; given CUDA
+tensors it launches the kernel or raises.
 
 **Contract.** ``out[node, f, bin, :]`` is the sum of ``stats[i, :]`` over
 the rows ``i`` with ``node_id[i] == node`` and ``binned[i, f] == bin``,
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -88,6 +91,44 @@ def level_hist_plain(binned: torch.Tensor, stats: torch.Tensor,
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
+_MIN_TILE_ROWS = 1024      # csrc/tree_hist.cu: kMinTileRows
+_MAX_TILES = 32            # csrc/tree_hist.cu: kMaxTiles
+_MAX_KEYS = 1 << 23        # n_nodes * n_bins the plan takes
+_MAX_F = 65535             # the passes' grid.y
+
+
+class HistPlan(NamedTuple):
+    """The sizes of one ``level_hist`` launch (``csrc/tree_hist.cu``)."""
+    tile_rows: int          # rows a count/place warp takes, a power of two
+    tiles: int              # row tiles per feature
+    count_elems: int        # int32 counts table, F * Q * tiles
+    perm_elems: int         # int32 sorted row ids, F * n
+    scratch_bytes: int
+
+
+def _hist_plan(n: int, F: int, n_nodes: int, n_bins: int) -> HistPlan:
+    """Tile rows and scratch of the kernel for an (n, F) level of
+    ``n_nodes * n_bins`` keys. The tile takes at least 1024 rows, at
+    least twice the keys and at least a 32nd of the rows, so the counts
+    table is at most half the keys' bytes plus one int per (feature,
+    key). Raises ``ValueError`` past the kernel's limits."""
+    Q = n_nodes * n_bins
+    if n < 0 or F <= 0 or n_nodes <= 0 or n_bins <= 0:
+        raise ValueError(f"level_hist: bad shape n={n} F={F} "
+                         f"{n_nodes} x {n_bins} buckets")
+    if n >= 2 ** 31 or F > _MAX_F or Q > _MAX_KEYS:
+        raise ValueError(f"level_hist: n={n}, F={F}, {n_nodes} x {n_bins} "
+                         f"buckets: the kernel takes n < 2^31, F <= "
+                         f"{_MAX_F} and at most {_MAX_KEYS} buckets")
+    least = max(_MIN_TILE_ROWS, 2 * Q, -(-n // _MAX_TILES))
+    tile_rows = 1 << (least - 1).bit_length()
+    tiles = max(1, -(-n // tile_rows))
+    count_elems = F * Q * tiles
+    perm_elems = F * n
+    return HistPlan(tile_rows, tiles, count_elems, perm_elems,
+                    4 * (count_elems + perm_elems))
+
+
 _counts_lock = threading.Lock()
 _counts: Dict[str, int] = {"tree_hist": 0}
 _lib_lock = threading.Lock()
@@ -109,13 +150,15 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     """The built ``tree_hist`` library, its C signatures declared."""
     global _lib_handle
+    if _lib_handle is not None:
+        return _lib_handle
     with _lib_lock:
         if _lib_handle is None:
             from ._build import load_library
             lib = load_library("tree_hist")
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.alink_tree_hist.argtypes = [p, ll, ll, p, i, p, p, i, i, i,
-                                            i, p]
+                                            i, i, i, p, p, p]
             lib.alink_tree_hist.restype = i
             lib.alink_tree_hist_error_string.argtypes = [i]
             lib.alink_tree_hist_error_string.restype = ctypes.c_char_p
@@ -157,24 +200,29 @@ def level_hist(binned: torch.Tensor, stats: torch.Tensor,
         raise ValueError("level_hist: stats (n, m) and node_id (n,) must be "
                          "contiguous")
     sr, sf = binned.stride()
-    if sr < 0 or sf < 0 or n >= 2 ** 31 or F >= 2 ** 31 \
-            or n_nodes * n_bins >= 2 ** 31:
-        raise ValueError(f"level_hist: shapes or strides outside the "
-                         f"kernel's int sizes: binned {tuple(binned.shape)} "
-                         f"strides {(sr, sf)}, {n_nodes} x {n_bins} buckets")
+    if sr < 0 or sf < 0 or m > 4 * 65535:
+        raise ValueError(f"level_hist: binned strides {(sr, sf)} or {m} "
+                         f"stats outside what the kernel takes")
+    plan = _hist_plan(n, F, n_nodes, n_bins)
+    lib = _lib()
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return level_hist(binned, stats, node_id, n_nodes, n_bins)
     out = torch.empty((n_nodes, F, n_bins, m), dtype=torch.float32,
                       device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.alink_tree_hist(binned.data_ptr(), sr, sf, stats.data_ptr(),
-                                 m, node_id.data_ptr(), out.data_ptr(), n, F,
-                                 n_nodes, n_bins, stream)
+    # one int32 scratch: the counts table, then the sorted row ids
+    scratch = torch.empty(plan.count_elems + plan.perm_elems,
+                          dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
+    rc = lib.alink_tree_hist(binned.data_ptr(), sr, sf, stats.data_ptr(), m,
+                             node_id.data_ptr(), out.data_ptr(), n, F,
+                             n_nodes, n_bins, plan.tile_rows, plan.tiles,
+                             base, base + 4 * plan.count_elems,
+                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.alink_tree_hist_error_string(rc).decode()
         raise RuntimeError(f"tree_hist: kernel launch failed: CUDA error "
-                           f"{rc} ({msg}); {n_nodes} x {n_bins} buckets, "
-                           f"the grid takes at most 65535 tiles of 128")
+                           f"{rc} ({msg}); plan {plan}")
     with _counts_lock:
         _counts["tree_hist"] += 1
     return out

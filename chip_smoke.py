@@ -27,7 +27,9 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 6. the FTRL state kernels (gather, scatter-add, chained correction)
    against their plain versions on the card, f32 and f64, at the shapes
    the three update modes launch, with duplicate-heavy slots, a
-   ``-0.0`` slot and padded zeros at slot 0: bitwise. Kernel,
+   ``-0.0`` slot and padded zeros at slot 0, and the scatter-add also
+   with all M positions on one slot (M = 1280 and 4096), M = 1 and
+   M = 4096: bitwise. Kernel (CUDA events), device (``torch.profiler``),
    plain-version and library-call times and each kernel's bound;
 7. the FTRL main path at full width: Criteo-shape one-hot rows (39
    distinct slots of 2^20 plus the intercept, ``bench.py``'s
@@ -46,9 +48,14 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 8. the level-histogram kernel (``tree_hist``) against its plain version
    on the card, bitwise, at the GBDT main path's shapes (48,842 adult
    rows x 14 features, 64 bins, 3 stats, 1 to 32 nodes, and the leaf
-   call), a gini shape (4 stats), a shape of several bucket tiles (256
-   nodes) and 488,420 rows. Kernel, plain-version and ``index_add_``
-   times, the bytes bound and the compiler's registers and shared memory;
+   call), a gini shape (4 stats), 256 nodes, 488,420 rows, and shapes
+   the sorted design could get wrong: every row in one slot (48,842 and
+   488,420 rows), the leaf call at 488,420 rows, a last tile of one row
+   (4,097 rows), a single row, columns of mostly empty bins, signed
+   zero stats inside runs and 300 nodes (two key chunks). Kernel (CUDA
+   events), device (the profiler's time summed over the kernel's
+   passes), plain-version and ``index_add_`` times, the bytes bound, the
+   scratch and the compiler's registers and shared memory;
 9. the GBDT main path at full width: adult-shape rows (``bench.py``'s
    ``bench_gbdt``: 6 ``randn`` and 8 integer-code columns, its planted
    margin) through ``MemSourceBatchOp`` -> ``GbdtTrainBatchOp`` (50 trees,
@@ -122,11 +129,11 @@ def bits(t):
     return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
-def cuda_ms(fn, trials: int = 15, reps: int = 20) -> float:
+def cuda_ms(fn, trials: int = 15, reps: int = 20, warm: int = 3) -> float:
     """Median over ``trials`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events, after a warm-up."""
+    calls, by CUDA events, after ``warm`` calls."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -140,6 +147,41 @@ def cuda_ms(fn, trials: int = 15, reps: int = 20) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / reps)
     return float(np.median(times))
+
+
+def device_ms(fn, part: str, reps: int = 20, sessions: int = 3):
+    """Device time per call of the kernels whose names hold ``part``:
+    ``torch.profiler``'s kernel times over ``reps`` back-to-back calls
+    after a warm-up, summed and divided by ``reps``. Returns (ms, {kernel:
+    ms}). Now and then a profiler session comes back with no kernel
+    record at all; such a session is made again, up to ``sessions`` in
+    all, and this fails if none of them saw such a kernel."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            us = float(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) or 0)
+            if us > 0 and part in e.key:
+                name = re.search(r"(\w+_kernel)", e.key)
+                key = name.group(1) if name else e.key
+                per[key] = per.get(key, 0.0) + us / reps / 1e3
+        if per:
+            break
+        print(f"chip_smoke: profiler session {session} of {sessions} saw "
+              f"no {part} kernel", file=sys.stderr)
+    require(bool(per), f"the profiler saw a {part} kernel in one of "
+                       f"{sessions} sessions")
+    return sum(per.values()), per
 
 
 def host_p50_ms(fn, reps: int) -> float:
@@ -337,10 +379,11 @@ def dispatch_breakdown(pred, req, reps=30):
 # FTRL: the state kernels and the online training path
 # ---------------------------------------------------------------------------
 
-def ftrl_kernel_inputs(rng, dtype, C, M, dev):
+def ftrl_kernel_inputs(rng, dtype, C, M, dev, one_slot=False):
     """A (2^20 + 1, C) state with a -0.0 at slot 7 that no index names,
     and M duplicate-heavy slot indices (a pool of 48 slots, a quarter of
-    the positions padded to slot 0 with zero updates)."""
+    the positions padded to slot 0 with zero updates); with ``one_slot``,
+    all M positions name one slot (one chain of M adds)."""
     import torch
     S = FEATURES + 1
     st = torch.from_numpy(rng.standard_normal((S, C))).to(dev, dtype)
@@ -351,6 +394,9 @@ def ftrl_kernel_inputs(rng, dtype, C, M, dev):
     ix[pad] = 0
     upd = rng.standard_normal((M, C))
     upd[pad] = 0.0
+    if one_slot:
+        ix[:] = pool[0]
+        upd = rng.standard_normal((M, C))
     if C == 1:
         st = st[:, 0].contiguous()
         upd = upd[:, 0]
@@ -383,6 +429,40 @@ def _bound(nbytes, ops, kind):
                                  else "operations")
 
 
+def scatter_shape(kf, key, st, ix, upd, kind, size):
+    """The scatter-add kernel against its plain version at one shape,
+    bitwise, the untouched -0.0 slot kept; its times and bound."""
+    import torch
+    M = ix.shape[0]
+    C = 1 if st.dim() == 1 else st.shape[1]
+    a, b = st.clone(), st.clone()
+    kf.scatter_add_rows(a, ix, upd)
+    kf.scatter_add_rows_plain(b, ix, upd)
+    torch.cuda.synchronize()
+    err = float((a.double() - b.double()).abs().max())
+    require(torch.equal(bits(a), bits(b)),
+            f"ftrl_scatter_add {key} bitwise vs its plain version (max abs "
+            f"err {err})")
+    neg = a[7] if C == 1 else a[7, 0]
+    require(bool(torch.signbit(neg)) and float(neg) == 0.0,
+            f"ftrl_scatter_add {key}: the untouched -0.0 slot kept its bits")
+    touched = int(torch.unique(ix).numel())
+    scratch = st.clone()
+    b_ms, b_by = _bound(M * 4 + M * C * size + 2 * touched * C * size,
+                        M * C, kind)
+    return {
+        "bitwise": True, "max_abs_err": err,
+        "kernel_ms": cuda_ms(lambda: kf.scatter_add_rows(scratch, ix, upd)),
+        "device_ms": device_ms(
+            lambda: kf.scatter_add_rows(scratch, ix, upd), "ftrl_scatter")[0],
+        "plain_ms": cuda_ms(
+            lambda: kf.scatter_add_rows_plain(scratch, ix, upd),
+            trials=3 if M > 1024 else 5, reps=1 if M > 1024 else 2),
+        # not deterministic: timed as the yardstick only
+        "library_ms": cuda_ms(lambda: scratch.index_add_(0, ix, upd)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_ftrl_kernels(kf, rng, dev):
     """Each FTRL kernel against its plain version on the card, bitwise,
     at every shape the three modes launch; times at each shape."""
@@ -407,47 +487,25 @@ def phase_ftrl_kernels(kf, rng, dev):
                 rec["ftrl_gather"][key] = {
                     "bitwise": True, "max_abs_err": 0.0,
                     "kernel_ms": cuda_ms(lambda: kf.gather_rows(st, ix)),
+                    "device_ms": device_ms(lambda: kf.gather_rows(st, ix),
+                                           "ftrl_gather")[0],
                     "plain_ms": cuda_ms(lambda: kf.gather_rows_plain(st, ix)),
                     "library_ms": cuda_ms(
                         lambda: torch.index_select(st, 0, ix)),
                     "bound_ms": b_ms, "bound_by": b_by}
-                # scatter-add, in place: each side on its own copy
-                a, b = st.clone(), st.clone()
-                kf.scatter_add_rows(a, ix, upd)
-                kf.scatter_add_rows_plain(b, ix, upd)
-                torch.cuda.synchronize()
-                err = float((a.double() - b.double()).abs().max())
-                require(torch.equal(bits(a), bits(b)),
-                        f"ftrl_scatter_add {key} bitwise vs its plain "
-                        f"version (max abs err {err})")
-                neg = a[7] if C == 1 else a[7, 0]
-                require(bool(torch.signbit(neg)) and float(neg) == 0.0,
-                        f"ftrl_scatter_add {key}: the untouched -0.0 slot "
-                        f"kept its bits")
-                scratch = st.clone()
-                b_ms, b_by = _bound(M * 4 + M * C * size
-                                    + 2 * touched * C * size, M * C, kind)
-                rec["ftrl_scatter_add"][key] = {
-                    "bitwise": True, "max_abs_err": err,
-                    "kernel_ms": cuda_ms(
-                        lambda: kf.scatter_add_rows(scratch, ix, upd)),
-                    "plain_ms": cuda_ms(
-                        lambda: kf.scatter_add_rows_plain(scratch, ix, upd),
-                        trials=5, reps=2),
-                    # not deterministic: timed as the yardstick only
-                    "library_ms": cuda_ms(
-                        lambda: scratch.index_add_(0, ix, upd)),
-                    "bound_ms": b_ms, "bound_by": b_by}
-        # beyond the main path: a scatter whose staged updates need the
-        # shared-memory opt-in above 48 KB (4096 positions x 20 bytes)
-        st, ix, upd = ftrl_kernel_inputs(rng, dtype, 2, 4096, dev)
-        a, b = st.clone(), st.clone()
-        kf.scatter_add_rows(a, ix, upd)
-        kf.scatter_add_rows_plain(b, ix, upd)
-        torch.cuda.synchronize()
-        require(torch.equal(bits(a), bits(b)),
-                f"ftrl_scatter_add {kind} M=4096 C=2 bitwise vs its plain "
-                f"version")
+                rec["ftrl_scatter_add"][key] = scatter_shape(
+                    kf, key, st, ix, upd, kind, size)
+        # beyond the main path: all positions on one slot (one chain of
+        # M), a single update, and a scatter whose sort needs the
+        # shared-memory opt-in above 48 KB (4096 positions)
+        for M, one in ((1280, True), (4096, True), (1, False),
+                       (4096, False)):
+            for C in (1, 2):
+                st, ix, upd = ftrl_kernel_inputs(rng, dtype, C, M, dev,
+                                                 one_slot=one)
+                key = f"{kind} {'one slot' if one else 'mixed'} M={M} C={C}"
+                rec["ftrl_scatter_add"][key] = scatter_shape(
+                    kf, key, st, ix, upd, kind, size)
         Mc, Md, D = chained_inputs(rng, dtype, dev)
         for k in (0, 1, CHAIN_K - 1):
             for label, M4 in (("collisions", Mc), ("dense", Md)):
@@ -468,6 +526,8 @@ def phase_ftrl_kernels(kf, rng, dev):
                                          f"k={k}"] = {
                     "bitwise": True, "max_abs_err": 0.0,
                     "kernel_ms": cuda_ms(lambda: kf.chained_corr(Mk, D, k)),
+                    "device_ms": device_ms(lambda: kf.chained_corr(Mk, D, k),
+                                           "ftrl_chained")[0],
                     "plain_ms": cuda_ms(
                         lambda: kf.chained_corr_plain(Mk, D, k),
                         trials=5, reps=2),
@@ -800,18 +860,31 @@ def ptxas_report(log):
     return out
 
 
-def hist_inputs(X, rng, n_nodes, m, dev):
+def hist_inputs(X, rng, n_nodes, m, dev, kind="level"):
     """The binned adult table as the trainer keeps it (a column-major
-    copy's transpose), GBDT-like stats and node ids of a level."""
+    copy's transpose), GBDT-like stats and node ids of a level. Kinds
+    that the sorted design could get wrong change one of them:
+    ``one_slot`` puts every row in bin 0 (with one node, one run of n
+    per feature), ``sparse_bins`` leaves 61 of 64 bins of every column
+    empty, and ``signed_zeros`` zeroes a fifth of the rows' stats, half
+    of them to -0.0, inside the runs."""
     import torch
     from alink_tpu_torch.operator.common.tree.hist import (bin_data,
                                                            make_bin_edges)
     n = X.shape[0]
     binned = bin_data(X, make_bin_edges(X, GBDT_BINS, device=False))
+    if kind == "one_slot":
+        binned = np.zeros_like(binned)
+    elif kind == "sparse_bins":
+        binned = binned % 3 * 31
     g = rng.uniform(-1, 1, n)
     h = rng.uniform(0, 0.25, n)
     stats = np.stack([g, h, np.ones(n)] + [rng.uniform(0, 1, n)] * (m - 3),
                      1).astype(np.float32)
+    if kind == "signed_zeros":
+        zero = rng.rand(n)
+        stats[zero < 0.1] = 0.0
+        stats[(zero >= 0.1) & (zero < 0.2)] = -0.0
     node_id = rng.randint(0, n_nodes, n).astype(np.int32)
     bt = torch.from_numpy(np.ascontiguousarray(binned.T)).to(dev).t()
     return (bt, torch.from_numpy(stats).to(dev),
@@ -820,7 +893,9 @@ def hist_inputs(X, rng, n_nodes, m, dev):
 
 def phase_tree_hist(kh, build_log, dev):
     """B6 against its plain version on the card, bitwise, at the main
-    path's shapes and beyond; times, bounds and the library yardstick."""
+    path's shapes and beyond; times (CUDA events and the profiler's
+    device time over the kernel's passes), bounds, scratch and the
+    library yardstick."""
     import torch
     rng = np.random.RandomState(7)
     X, _, _ = adult_data(ADULT_N)
@@ -828,10 +903,18 @@ def phase_tree_hist(kh, build_log, dev):
     shapes = [("level", X, n, 64, 3) for n in (1, 2, 4, 8, 16, 32)]
     shapes += [("leaf", X, 64, 1, 3), ("gini", X, 8, 64, 4),
                ("tiles", X, 256, 64, 3), ("level", XL, 32, 64, 3)]
+    # shapes the sorted design could get wrong: one run of every row, the
+    # leaf call and one run at 488,420 rows, a last tile of one row, a
+    # single row, columns of mostly empty bins, signed zeros inside runs,
+    # and 19,200 keys: two key chunks, the second one partial
+    shapes += [("one_slot", X, 1, 1, 3), ("one_slot", XL, 1, 1, 3),
+               ("leaf", XL, 64, 1, 3), ("level", X[:4097], 32, 64, 3),
+               ("level", X[:1], 32, 64, 3), ("sparse_bins", X, 8, 64, 3),
+               ("signed_zeros", X, 4, 64, 3), ("key_chunks", X, 300, 64, 3)]
     rec = {}
     for kind, Xs, n_nodes, n_bins, m in shapes:
         n = Xs.shape[0]
-        binned, stats, node_id = hist_inputs(Xs, rng, n_nodes, m, dev)
+        binned, stats, node_id = hist_inputs(Xs, rng, n_nodes, m, dev, kind)
         if kind == "leaf":
             binned = torch.zeros((1, 1), dtype=torch.int32,
                                  device=dev).expand(n, 1)
@@ -857,17 +940,27 @@ def phase_tree_hist(kh, build_log, dev):
             + n_nodes * F * n_bins * m * 4
         b_ms, b_by = _bound(nbytes, n * F * m, "f32")
         key = f"{kind} n={n} F={F} nodes={n_nodes} bins={n_bins} m={m}"
+        dev_ms, passes = device_ms(lambda: kh.level_hist(*args), "hist_")
+        # the plain version walks the longest run one round at a time: a
+        # run of every row is timed once, after the check's call
+        long_run = kind == "one_slot"
         rec[key] = {
             "bitwise": True, "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: kh.level_hist(*args)),
+            "device_ms": dev_ms, "passes_ms": passes,
             "plain_ms": cuda_ms(lambda: kh.level_hist_plain(*args),
-                                trials=3, reps=1),
+                                trials=1 if long_run else 3, reps=1,
+                                warm=0 if long_run else 3),
             "library_ms": cuda_ms(lambda: flat.index_add_(0, slot, rep)),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
-        print(f"tree_hist {key}: bitwise=True kernel_ms="
-              f"{rec[key]['kernel_ms']} plain_ms={rec[key]['plain_ms']} "
-              f"index_add_ms={rec[key]['library_ms']} bound_ms={b_ms} "
-              f"({b_by})", flush=True)
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "scratch_bytes": kh._hist_plan(n, F, n_nodes,
+                                           n_bins).scratch_bytes}
+        r = rec[key]
+        print(f"tree_hist {key}: bitwise=True kernel_ms={r['kernel_ms']} "
+              f"device_ms={dev_ms} passes_ms={passes} plain_ms="
+              f"{r['plain_ms']} index_add_ms={r['library_ms']} bound_ms="
+              f"{b_ms} ({b_by}) scratch_bytes={r['scratch_bytes']}",
+              flush=True)
     regs = ptxas_report(build_log)
     print(f"tree_hist ptxas: {regs}")
     return rec, regs
@@ -1389,7 +1482,8 @@ def main(argv=None) -> int:
     for name, shapes in ftrl_parity.items():
         for key, rec in shapes.items():
             print(f"{name} {key}: bitwise={rec['bitwise']} kernel_ms="
-                  f"{rec['kernel_ms']} plain_ms={rec['plain_ms']} "
+                  f"{rec['kernel_ms']} device_ms={rec['device_ms']} "
+                  f"plain_ms={rec['plain_ms']} "
                   f"library_ms={rec['library_ms']} bound_ms="
                   f"{rec['bound_ms']} ({rec['bound_by']})")
 
@@ -1452,9 +1546,11 @@ def main(argv=None) -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bitwise": True,
-            "kernel_ms": r["kernel_ms"], "shape": key,
-            "shapes": {k: {f: v[f] for f in ("kernel_ms", "plain_ms",
-                                               "library_ms", "bound_ms")}
+            "kernel_ms": r["kernel_ms"], "device_ms": r["device_ms"],
+            "shape": key,
+            "shapes": {k: {f: v[f] for f in ("kernel_ms", "device_ms",
+                                               "plain_ms", "library_ms",
+                                               "bound_ms")}
                        for k, v in ftrl_parity[name].items()}})
     # the histogram kernel's record: at the main path's deepest level
     tkey = f"level n={ADULT_N} F={ADULT_F} nodes=32 bins={GBDT_BINS} m=3"
@@ -1467,9 +1563,11 @@ def main(argv=None) -> int:
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "bitwise": True,
-        "kernel_ms": r["kernel_ms"], "shape": tkey, "ptxas": tree_regs,
-        "shapes": {k: {f: v[f] for f in ("kernel_ms", "plain_ms",
-                                           "library_ms", "bound_ms")}
+        "kernel_ms": r["kernel_ms"], "device_ms": r["device_ms"],
+        "shape": tkey, "ptxas": tree_regs,
+        "shapes": {k: {f: v[f] for f in ("kernel_ms", "device_ms",
+                                           "plain_ms", "library_ms",
+                                           "bound_ms", "scratch_bytes")}
                    for k, v in tree_parity.items()}})
     print(json.dumps({"main_path": {
         "gbdt": gbdt, "tree_serving": tree_serving,

@@ -144,7 +144,7 @@ def _raises_without_nvcc(monkeypatch, call):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
-    monkeypatch.setattr(kf, "_lib_handle", None)
+    monkeypatch.setattr(kf, "_fns", None)
     monkeypatch.setattr(_build, "_loaded", {})
     with FakeTensorMode():
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -218,3 +218,90 @@ def test_out_of_range_slots_raise(name, bad):
         else:
             kf.scatter_add_rows(st, ix, torch.ones(3, dtype=torch.float64))
     assert st.tolist() == list(range(16))
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("np_dtype,t_dtype", DTYPES)
+@pytest.mark.parametrize("case", ["one_slot_chain", "single_update"])
+def test_scatter_plain_runs_bitwise_vs_jax(case, C, np_dtype, t_dtype):
+    """The runs the sorted kernel must get right: every position on one
+    slot (one chain of 1280 adds in update order) and a single update,
+    against the XLA scatter-add the JAX package's kernel is pinned to."""
+    rng = np.random.RandomState(9)
+    st = rng.randn(300, 2)
+    st[7] = [-0.0, -0.0]
+    if case == "one_slot_chain":
+        idx = np.full(1280, 123, np.int32)
+        upd = rng.randn(1280, 2) * 10.0 ** rng.randint(-6, 6, (1280, 1))
+    else:
+        idx = np.array([45], np.int32)
+        upd = rng.randn(1, 2)
+    if C == 1:
+        st, upd = st[:, 0], upd[:, 0]
+    st = np.ascontiguousarray(st, np_dtype)
+    upd = np.ascontiguousarray(upd, np_dtype)
+    ref = np.asarray(jnp.asarray(st).at[jnp.asarray(idx)].add(
+        jnp.asarray(upd)))
+    out = kf.scatter_add_rows(torch.from_numpy(st.copy()),
+                              torch.from_numpy(idx), torch.from_numpy(upd))
+    assert out.dtype == t_dtype
+    assert np.array_equal(_bits(ref), _bits(out.numpy()))
+    neg = out[7] if C == 1 else out[7, 0]
+    assert torch.signbit(neg) and float(neg) == 0.0
+
+
+class _FakeFn:
+    """A C function of a fake library: records its arguments and checks
+    them against the argtypes the wrapper declared."""
+
+    def __init__(self):
+        self.argtypes, self.restype, self.calls = None, None, []
+
+    def __call__(self, *args):
+        assert self.argtypes is not None and len(args) == len(self.argtypes)
+        assert all(isinstance(a, int) for a in args)
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("name", ["gather", "scatter", "chained"])
+def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
+                                                            name):
+    """With a library in place, a CUDA tensor goes to its C function once,
+    on the current stream, and counts one launch; the plain versions are
+    never called."""
+    import types
+    fake = types.SimpleNamespace(**{n: _FakeFn() for n in (
+        "alink_ftrl_gather", "alink_ftrl_scatter_add",
+        "alink_ftrl_chained_corr", "alink_ftrl_error_string")})
+    monkeypatch.setattr(kf, "_fns", None)
+    monkeypatch.setattr(_build, "load_library", lambda n: fake)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
+                        types.SimpleNamespace(cuda_stream=55))
+
+    def no_plain(*a):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    for plain in ("gather_rows_plain", "scatter_add_rows_plain",
+                  "chained_corr_plain"):
+        monkeypatch.setattr(kf, plain, no_plain)
+    kf.reset_launch_counts()
+    with FakeTensorMode():
+        st = torch.zeros((64, 2), device="cuda")
+        ix = torch.zeros(8, dtype=torch.int32, device="cuda")
+        if name == "gather":
+            kf.gather_rows(st, ix)
+        elif name == "scatter":
+            kf.scatter_add_rows(st, ix, torch.zeros((8, 2), device="cuda"))
+        else:
+            kf.chained_corr(torch.zeros((4, 8, 8), device="cuda"),
+                            torch.zeros((4, 8, 2), device="cuda"), 2)
+    fn = {"gather": fake.alink_ftrl_gather,
+          "scatter": fake.alink_ftrl_scatter_add,
+          "chained": fake.alink_ftrl_chained_corr}[name]
+    (args,) = fn.calls
+    assert args[0] == 0 and args[-1] == 55            # float32, the stream
+    counted = {"gather": "ftrl_gather", "scatter": "ftrl_scatter_add",
+               "chained": "ftrl_chained_corr"}[name]
+    assert kf.launch_counts() == {k: int(k == counted) for k in (
+        "ftrl_gather", "ftrl_scatter_add", "ftrl_chained_corr")}

@@ -180,3 +180,140 @@ def test_plain_version_counts_no_launch():
     binned, stats, node_id = _inputs(2, 4, 3, n=16)
     _plain(binned, stats, node_id, 2, 4)
     assert kh.launch_counts() == {"tree_hist": 0}
+
+
+# ---------------------------------------------------------------------------
+# the sorted kernel's plan, and the runs it must get right
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 8's shapes: (n, F, n_nodes, n_bins)
+PHASE8 = [(48842, 14, nodes, 64) for nodes in (1, 2, 4, 8, 16, 32)] + [
+    (48842, 1, 64, 1), (48842, 14, 8, 64), (48842, 14, 256, 64),
+    (488420, 14, 32, 64), (48842, 14, 1, 1), (488420, 14, 1, 1),
+    (488420, 1, 64, 1), (4097, 14, 32, 64), (1, 14, 32, 64),
+    (48842, 14, 300, 64)]
+
+
+@pytest.mark.parametrize("n,F,n_nodes,n_bins", PHASE8)
+def test_hist_plan_scratch_within_budget(n, F, n_nodes, n_bins):
+    """The counts table is at most half the keys' bytes plus one int per
+    (feature, key); the tiles cover the rows, none of them empty."""
+    Q = n_nodes * n_bins
+    plan = kh._hist_plan(n, F, n_nodes, n_bins)
+    R = plan.tile_rows
+    assert R & (R - 1) == 0 and R >= max(1024, 2 * Q)
+    assert 1 <= plan.tiles <= 32
+    assert plan.tiles * R >= n and (plan.tiles - 1) * R < max(n, 1)
+    assert plan.count_elems == F * Q * plan.tiles
+    assert 4 * plan.count_elems <= 2 * n * F + 4 * F * Q
+    assert plan.perm_elems == F * n
+    assert plan.scratch_bytes == 4 * (plan.count_elems + plan.perm_elems)
+
+
+def test_hist_plan_sizes_are_exact_past_32_bits():
+    """Sizes that pass 2^31 stay exact: 256 nodes x 64 bins at 488,420
+    rows, and a table of 2^31 - 1 rows by 65535 features."""
+    plan = kh._hist_plan(488420, 14, 256, 64)
+    assert plan.tile_rows == 32768 and plan.tiles == 15
+    assert plan.count_elems == 14 * 16384 * 15
+    big = kh._hist_plan(2 ** 31 - 1, 65535, 1, 64)
+    assert big.perm_elems == (2 ** 31 - 1) * 65535 > 2 ** 32
+    assert big.scratch_bytes == 4 * (big.count_elems + big.perm_elems)
+
+
+@pytest.mark.parametrize("n,F,n_nodes,n_bins", [
+    (2 ** 31, 14, 32, 64), (100, 65536, 1, 64), (100, 14, 1 << 17, 65),
+    (100, 0, 1, 64), (100, 14, 0, 64), (100, 14, 1, 0), (-1, 14, 1, 64)])
+def test_hist_plan_raises_past_the_kernel_limits(n, F, n_nodes, n_bins):
+    with pytest.raises(ValueError):
+        kh._hist_plan(n, F, n_nodes, n_bins)
+
+
+def _runs_case(case, seed=11):
+    """Inputs whose runs the sorted kernel must get right."""
+    rng = np.random.RandomState(seed)
+    n, n_nodes, n_bins, m = 3000, 4, 64, 3
+    binned = rng.randint(0, n_bins, (n, F)).astype(np.int32)
+    node_id = rng.randint(0, n_nodes, n).astype(np.int32)
+    stats = (rng.randn(n, m) * 10.0 ** rng.randint(-3, 3, (n, 1))).astype(
+        np.float32)
+    if case == "one_slot":              # every row in one slot per feature
+        binned[:] = 0
+        node_id[:] = 0
+        n_nodes, n_bins = 1, 1
+    elif case == "run_past_a_tile":     # runs of about 1500 rows > 1024
+        binned[:] = rng.randint(0, 2, (n, 1))
+        node_id[:] = 0
+        n_nodes, n_bins = 1, 2
+    elif case == "mostly_empty":        # 3 of 64 bins of 32 nodes used
+        binned = binned % 3 * 31
+        n_nodes = 32
+        node_id = rng.randint(0, n_nodes, n).astype(np.int32)
+    elif case == "signed_zeros":        # +-0.0 rows inside long runs
+        binned[:] = rng.randint(0, 2, (n, F))
+        node_id[:] = 0
+        n_nodes, n_bins = 1, 2
+        zero = rng.rand(n)
+        stats[zero < 0.1] = 0.0
+        stats[(zero >= 0.1) & (zero < 0.2)] = -0.0
+    return binned, stats, node_id, n_nodes, n_bins
+
+
+@pytest.mark.parametrize("case", ["one_slot", "run_past_a_tile",
+                                  "mostly_empty", "signed_zeros"])
+def test_plain_runs_bitwise_vs_jax_default(case):
+    binned, stats, node_id, n_nodes, n_bins = _runs_case(case)
+    ref = jax_level_hist(jnp.asarray(binned), jnp.asarray(stats),
+                         jnp.asarray(node_id), n_nodes, n_bins,
+                         use_onehot=False)
+    got = _plain(binned, stats, node_id, n_nodes, n_bins)
+    assert np.array_equal(_bits(got), _bits(ref))
+    if case == "mostly_empty":
+        empty = np.ones(n_bins, bool)
+        empty[[0, 31, 62]] = False
+        assert not _bits(got)[:, :, empty].any()     # +0.0, every bit clear
+
+
+class _FakeFn:
+    """A C function of a fake library: records its arguments and checks
+    them against the argtypes the wrapper declared."""
+
+    def __init__(self, rc=0):
+        self.argtypes, self.restype, self.calls, self.rc = None, None, [], rc
+
+    def __call__(self, *args):
+        assert self.argtypes is not None and len(args) == len(self.argtypes)
+        assert all(isinstance(a, int) for a in args)
+        self.calls.append(args)
+        return self.rc
+
+
+def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
+    """With a library in place, a CUDA tensor goes to the C function, in
+    one call with the plan's tile rows, tiles and scratch, and counts one
+    launch; the plain version is never called."""
+    import types
+    fake = types.SimpleNamespace(alink_tree_hist=_FakeFn(),
+                                 alink_tree_hist_error_string=_FakeFn())
+    monkeypatch.setattr(kh, "_lib_handle", None)
+    monkeypatch.setattr(_build, "load_library", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
+                        types.SimpleNamespace(cuda_stream=77))
+
+    def no_plain(*a):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(kh, "level_hist_plain", no_plain)
+    kh.reset_launch_counts()
+    with FakeTensorMode():
+        out = kh.level_hist(torch.zeros((5000, 3), dtype=torch.int32,
+                                        device="cuda"),
+                            torch.zeros((5000, 3), device="cuda"),
+                            torch.zeros(5000, dtype=torch.int32,
+                                        device="cuda"), 4, 16)
+    assert tuple(out.shape) == (4, 3, 16, 3)
+    (args,) = fake.alink_tree_hist.calls
+    plan = kh._hist_plan(5000, 3, 4, 16)
+    assert args[7:13] == (5000, 3, 4, 16, plan.tile_rows, plan.tiles)
+    assert args[-1] == 77
+    assert kh.launch_counts() == {"tree_hist": 1}
