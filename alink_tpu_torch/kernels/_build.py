@@ -10,6 +10,11 @@ build raises with the compiler's output; nothing falls back.
 Run ``python -m alink_tpu_torch.kernels._build`` to build every source
 (in parallel, one ``nvcc`` each) and print the compiler's resource
 report.
+
+The launch side is shared too: :func:`call` runs a library function on
+a device's current stream, with the two lookups every launch makes kept
+cheap (:func:`current_device`, and :func:`stream_handle`, the raw
+handle of the current stream without a ``torch.cuda.Stream`` object).
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -109,6 +116,35 @@ def build_log(name: str) -> str:
     """The compiler's output of the current build of ``name``."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_raw_stream: Optional[Callable[[int], int]] = None
+
+
+def current_device() -> int:
+    """The index of the current CUDA device."""
+    return torch._C._cuda_getDevice()
+
+
+def stream_handle(index: int) -> int:
+    """The ``cudaStream_t`` of device ``index``'s current stream, as an
+    int for ctypes: PyTorch's raw-stream lookup where the build has it,
+    else ``torch.cuda.current_stream(index).cuda_stream``."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
+
+
+def call(fn: Callable[..., int], index: int, *args: int) -> int:
+    """``fn(*args, stream)`` on device ``index``'s current stream, the
+    device entered only when it is not the current one; returns ``fn``'s
+    CUDA error code."""
+    if index != current_device():
+        with torch.cuda.device(index):
+            return fn(*args, stream_handle(index))
+    return fn(*args, stream_handle(index))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@
 //
 // What they replace:
 //   ftrl_gather_kernel       <- alink_tpu/kernels/ftrl.py::_gather_call
-//                               (gather_rows)
+//                               (gather_rows; and gather_pair, the same
+//                               gather of z and n in one launch)
 //   ftrl_scatter_add_kernel  <- alink_tpu/kernels/ftrl.py::_scatter_call
 //                               (scatter_add_rows)
 //   ftrl_chained_corr_kernel <- alink_tpu/kernels/ftrl.py::chained_corr
@@ -12,7 +13,9 @@
 // C = 1 (z or n alone) and C = 2 (z and n stacked as (S, 2)).
 //
 // Contracts (the JAX package's, pinned bitwise against its XLA ops):
-//   gather      out[m, c] = state[idx[m], c].
+//   gather      out[m, c] = state[idx[m], c]; the pair form
+//               out[m] = (z[idx[m]], n[idx[m]]), what stacking two
+//               gathers gives.
 //   scatter-add state[idx[m], c] += upd[m, c] for m = 0..M-1 IN ORDER:
 //               duplicate slots accumulate in update order, each add
 //               rounded on its own (__fadd_rn / __dadd_rn); a slot that no
@@ -27,14 +30,22 @@
 // What bounds them: the launch. At the shapes of the FTRL steps (M = 160 to
 // 1280 touched slots of a 2^20 state, K = 16 chained rows of width 40) each
 // kernel moves a few kilobytes to a few hundred kilobytes, microseconds or
-// less at the card's memory rate, so a launch's fixed cost dominates. The
+// less at the card's memory rate, so a launch's fixed cost dominates. For
+// the gather it is all there is: its body runs at the launch floor, and
+// what a call costs is the host's issue of it (the wrapper's checks, the
+// allocation of the output, the ctypes call), which the design below and
+// kernels/ftrl.py keep short; the pair form issues one launch where
+// stacking two gathers issued three. The
 // state itself is touched only at the M named slots; the rest of the 2^20
 // slots are never read. Past the launch, the scatter-add's time goes to
 // its sort (a few passes over M positions on one SM) and to its longest
 // run of one slot, a chain of dependent adds.
 //
-// Design, simple first:
-//   gather   - one thread per (m, c).
+// Design:
+//   gather   - one thread per slot m: it reads idx[m] once and moves the
+//              slot's C values (or z's and n's) as one 8- or 16-byte
+//              word where the addresses allow, element by element where
+//              a view leaves them unaligned.
 //   scatter  - ONE block, a sorted run walk. Position m's key is
 //              (slot << 32) | m, unique, so any sort of the keys is stable
 //              and leaves each slot's positions contiguous and ascending.
@@ -96,15 +107,46 @@ __device__ __forceinline__ int checked_slot(int32_t s, int S) {
   return min(max(static_cast<int>(s), 0), S - 1);
 }
 
-template <typename T, int C>
+template <typename T>
+struct Vec2;
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+
+// One thread per slot m. C = 1: out[m] = a[slot]. C = 2, pair = false:
+// out[m, :] = a[slot, :] (a is (S, 2)). C = 2, pair = true: out[m, :] =
+// (a[slot], b[slot]) (a and b are (S,)). `vec`: a (S, 2) row and out's
+// rows are read and written as one 2-element word.
+template <typename T, int C, bool kPair>
 __global__ void __launch_bounds__(kGatherThreads)
-ftrl_gather_kernel(const T* __restrict__ state, const int32_t* __restrict__ idx,
-                   T* __restrict__ out, int M, int S) {
-  const int t = blockIdx.x * kGatherThreads + threadIdx.x;
-  if (t >= M * C) return;
-  const int m = t / C;
-  const int c = t - m * C;
-  out[t] = state[static_cast<size_t>(checked_slot(idx[m], S)) * C + c];
+ftrl_gather_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   const int32_t* __restrict__ idx, T* __restrict__ out, int M, int S,
+                   bool vec) {
+  using V = typename Vec2<T>::type;
+  const int m = blockIdx.x * kGatherThreads + threadIdx.x;
+  if (m >= M) return;
+  const size_t slot = static_cast<size_t>(checked_slot(idx[m], S));
+  if (C == 1) {
+    out[m] = a[slot];
+  } else if (kPair) {
+    const T lo = a[slot], hi = b[slot];
+    if (vec) {
+      reinterpret_cast<V*>(out)[m] = V{lo, hi};
+    } else {
+      out[2 * m] = lo;
+      out[2 * m + 1] = hi;
+    }
+  } else if (vec) {
+    reinterpret_cast<V*>(out)[m] = reinterpret_cast<const V*>(a)[slot];
+  } else {
+    out[2 * m] = a[2 * slot];
+    out[2 * m + 1] = a[2 * slot + 1];
+  }
 }
 
 template <typename T, int C>
@@ -256,17 +298,23 @@ ftrl_chained_corr_kernel(const T* __restrict__ Mk, const T* __restrict__ D,
   }
 }
 
+// C = 1 or 2 gathers rows of a; pair gathers a and b (C = 2)
 template <typename T>
-int gather(const void* state, const void* idx, void* out, int M, int S, int C,
-           cudaStream_t s) {
-  const int blocks = (M * C + kGatherThreads - 1) / kGatherThreads;
-  const T* st = static_cast<const T*>(state);
+int gather(const void* a, const void* b, const void* idx, void* out, int M, int S, int C,
+           bool pair, cudaStream_t s) {
+  const int blocks = (M + kGatherThreads - 1) / kGatherThreads;
+  const T* pa = static_cast<const T*>(a);
+  const T* pb = static_cast<const T*>(b);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   T* o = static_cast<T*>(out);
-  if (C == 1) {
-    ftrl_gather_kernel<T, 1><<<blocks, kGatherThreads, 0, s>>>(st, ix, o, M, S);
+  const uintptr_t words = reinterpret_cast<uintptr_t>(out) | (pair ? 0 : reinterpret_cast<uintptr_t>(a));
+  const bool vec = (words & (2 * sizeof(T) - 1)) == 0;
+  if (pair) {
+    ftrl_gather_kernel<T, 2, true><<<blocks, kGatherThreads, 0, s>>>(pa, pb, ix, o, M, S, vec);
+  } else if (C == 1) {
+    ftrl_gather_kernel<T, 1, false><<<blocks, kGatherThreads, 0, s>>>(pa, pb, ix, o, M, S, vec);
   } else if (C == 2) {
-    ftrl_gather_kernel<T, 2><<<blocks, kGatherThreads, 0, s>>>(st, ix, o, M, S);
+    ftrl_gather_kernel<T, 2, false><<<blocks, kGatherThreads, 0, s>>>(pa, pb, ix, o, M, S, vec);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -322,8 +370,19 @@ extern "C" int alink_ftrl_gather(int dtype, const void* state, const void* idx, 
                                  int M, int S, int C, void* stream) {
   if (M <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return gather<float>(state, idx, out, M, S, C, s);
-  if (dtype == 1) return gather<double>(state, idx, out, M, S, C, s);
+  if (dtype == 0) return gather<float>(state, nullptr, idx, out, M, S, C, false, s);
+  if (dtype == 1) return gather<double>(state, nullptr, idx, out, M, S, C, false, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out (M, 2) = (z[idx], n[idx]); z and n (S,) of one dtype.
+extern "C" int alink_ftrl_gather_pair(int dtype, const void* z, const void* n,
+                                      const void* idx, void* out, int M, int S,
+                                      void* stream) {
+  if (M <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return gather<float>(z, n, idx, out, M, S, 2, true, s);
+  if (dtype == 1) return gather<double>(z, n, idx, out, M, S, 2, true, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

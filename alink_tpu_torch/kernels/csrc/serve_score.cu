@@ -16,22 +16,35 @@
 // their parallelism across rows only. Built with --fmad=false as well, so
 // nothing else contracts either.
 //
-// What bounds them: memory bytes. The dense kernel reads X once
-// (rows x dim values) and w once per block of rows; the sparse kernel
-// reads idx, val and the gathered w entries once. One multiply and one
-// add per value read: far below the card's operations-per-byte line. At
-// serving shapes (a 512-row bucket) the bytes are a few MB or less, so
-// both sit below the launch latency of a kernel, and the host path
-// around them (encode, copies, decode) dominates a request.
+// What bounds them. The sparse kernel: memory bytes and the launch. It
+// reads idx, val and the gathered w entries once, one multiply and one add
+// per value read, far below the card's operations-per-byte line; at a
+// 512-row bucket that is well under a launch's fixed cost.
+// The dense kernel: the chain. Its bytes (X once, w once) take well under
+// a microsecond at a 512 x 1024 bucket, but each row is one chain of dim
+// dependent adds, so no row finishes before dim x the add's latency; at
+// dim 1024 that is a few microseconds, however many rows run beside it.
+// The host path around both (encode, copies, decode) dominates a request.
 //
-// Design, simple first:
-//   dense  — a block of ROWS rows (one thread per row) stages an
-//            ROWS x TK tile of X and the matching TK-chunk of w through
-//            shared memory. The loads are coalesced along the feature axis
-//            (consecutive threads read consecutive columns); the tile rows
-//            are padded by one element so the per-row walk hits distinct
-//            banks. Each thread then walks its own row through the tile in
-//            order.
+// Design:
+//   dense  — one warp per row, `rows` warps a block (the wrapper's
+//            _dense_plan in kernels/serve.py picks `rows` so that a
+//            512-row bucket gives every SM a block, and the chunk width).
+//            The block streams its rows and w through a ring of kStages
+//            chunks of up to 2 KB in shared memory: each warp copies its
+//            row's next chunks with 16-byte cp.async copies and the block
+//            copies w's once, so chunks c+1 and c+2 are in flight while
+//            chunk c is used. For chunk c the warp's 32 lanes first turn
+//            it into terms (16-byte shared loads, the multiplies in
+//            parallel: __fmul_rn gives the same bits in any lane) in a
+//            buffer of the warp's; then lane 0 adds them in column order,
+//            loading the next 32 terms (as 16-byte shared loads) before it
+//            adds the current 32, so only the adds are serial. A row or w
+//            whose address is not 16-byte aligned (an odd dim, a view that
+//            starts inside a word) is staged element by element instead,
+//            the last chunk's tail too; the terms and the walk are the
+//            same either way. Past the adds, a chunk costs its term pass
+//            and a block barrier (the lanes wait while lane 0 walks).
 //   sparse — one thread per row reads its idx/val row and gathers w[idx]
 //            from global memory. At 2^20 features w is 4 MB in f32 and
 //            stays in the 50 MB L2. Indices are clamped into [0, dim):
@@ -117,48 +130,148 @@ struct Arith<kINT8> {
   }
 };
 
-constexpr int kRows = 32;   // rows (= threads) per dense block
-constexpr int kTile = 64;   // features per staged tile
+constexpr int kMaxRows = 4;          // warps (= rows) a dense block at most
+constexpr int kStages = 3;           // chunks in the dense ring
+constexpr int kStep = 32;            // terms the walker adds between two loads
+constexpr int kMaxChunkBytes = 2048; // bytes of one row's chunk of X at most
 constexpr int kSparseThreads = 128;
 
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy count elements from src to dst (shared, 16-byte aligned), thread t
+// of nt: whole 16-byte pieces by cp.async where src is 16-byte aligned,
+// the rest element by element.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int count, int t, int nt) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int pieces = count * static_cast<int>(sizeof(T)) / 16;
+    for (int p = t; p < pieces; p += nt)
+      cp_async16(reinterpret_cast<char*>(dst) + 16 * p,
+                 reinterpret_cast<const char*>(src) + 16 * p);
+    done = pieces * 16 / static_cast<int>(sizeof(T));
+  }
+  for (int e = done + t; e < count; e += nt) dst[e] = src[e];
+}
+
+// N consecutive elements in registers, moved to and from shared memory as
+// 16-byte words (N * sizeof(T) a multiple of 16, the address 16-byte aligned)
+template <typename T, int N>
+struct alignas(16) Regs {
+  T v[N];
+  __device__ __forceinline__ void load(const T* src) {
+#pragma unroll
+    for (int q = 0; q < N * static_cast<int>(sizeof(T)) / 16; ++q)
+      reinterpret_cast<uint4*>(v)[q] = reinterpret_cast<const uint4*>(src)[q];
+  }
+  __device__ __forceinline__ void store(T* dst) const {
+#pragma unroll
+    for (int q = 0; q < N * static_cast<int>(sizeof(T)) / 16; ++q)
+      reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(v)[q];
+  }
+};
+
+// Add the terms t[0 .. count) to acc in order, count a multiple of kStep.
+// The next kStep terms are loaded before the current ones are added, so
+// the loads run ahead of the chain (the last load reads kStep terms past
+// count, which the caller's buffer holds).
+template <typename Acc>
+__device__ __forceinline__ Acc walk(const Acc* t, int count, Acc acc) {
+  Regs<Acc, kStep> cur;
+  cur.load(t);
+#pragma unroll 2
+  for (int j = 0; j < count; j += kStep) {
+    Regs<Acc, kStep> next;
+    next.load(t + j + kStep);
+#pragma unroll
+    for (int k = 0; k < kStep; ++k) acc = add_rn(acc, cur.v[k]);
+    cur = next;
+  }
+  return acc;
+}
+
+// One warp per row, `rows` rows a block; `chunk` columns a stage (a
+// multiple of kStep, at most kMaxChunkBytes of X). Shared memory: kStages
+// slots of `rows` row chunks, kStages chunks of w, then each warp's terms
+// (chunk + kStep of them).
 template <int M>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kMaxRows * 32)
 serve_dense_kernel(const typename Arith<M>::X* __restrict__ x,
                    const typename Arith<M>::W* __restrict__ w,
                    const float* __restrict__ scale,
                    const typename Arith<M>::B* __restrict__ b,
-                   typename Arith<M>::Acc* __restrict__ out, int n, int dim) {
+                   typename Arith<M>::Acc* __restrict__ out, int n, int dim, int rows,
+                   int chunk) {
   using A = Arith<M>;
   using X = typename A::X;
   using W = typename A::W;
-  // raw storage: bf16 has a constructor, which __shared__ arrays refuse
-  __shared__ __align__(16) unsigned char xs_raw[kRows * (kTile + 1) * sizeof(X)];
-  __shared__ __align__(16) unsigned char ws_raw[kTile * sizeof(W)];
-  X* xs = reinterpret_cast<X*>(xs_raw);
-  W* ws = reinterpret_cast<W*>(ws_raw);
-
-  const int r = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - row0);
-  typename A::Acc acc = 0;
-  for (int k0 = 0; k0 < dim; k0 += kTile) {
-    const int kw = min(kTile, dim - k0);
-    for (int e = r; e < rows * kTile; e += kRows) {
-      const int rr = e / kTile;
-      const int c = e - rr * kTile;
-      if (c < kw) {
-        xs[rr * (kTile + 1) + c] = x[static_cast<size_t>(row0 + rr) * dim + k0 + c];
-      }
-    }
-    for (int c = r; c < kw; c += kRows) ws[c] = w[k0 + c];
-    __syncthreads();
-    if (r < rows) {
-      const X* xr = xs + r * (kTile + 1);
-      for (int c = 0; c < kw; ++c) acc = A::add(acc, A::term(xr[c], ws[c]));
-    }
-    __syncthreads();
+  using Acc = typename A::Acc;
+  constexpr int V = 16 / sizeof(X);  // values of one 16-byte word of x
+  extern __shared__ __align__(16) unsigned char smem[];
+  X* xs = reinterpret_cast<X*>(smem);
+  W* ws = reinterpret_cast<W*>(smem + static_cast<size_t>(kStages) * rows * chunk * sizeof(X));
+  Acc* ts = reinterpret_cast<Acc*>(smem + static_cast<size_t>(kStages) * chunk *
+                                              (rows * sizeof(X) + sizeof(W)));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * rows + warp;
+  const bool live = row < n;
+  const X* xrow = x + static_cast<size_t>(live ? row : 0) * dim;
+  Acc* terms = ts + warp * (chunk + kStep);
+  const int chunks = (dim + chunk - 1) / chunk;
+  auto issue = [&](int c) {
+    const int k0 = c * chunk, kw = min(chunk, dim - k0), s = c % kStages;
+    if (live) stage(xs + (s * rows + warp) * chunk, xrow + k0, kw, lane, 32);
+    stage(ws + s * chunk, w + k0, kw, static_cast<int>(threadIdx.x), rows * 32);
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) issue(c);
+    cp_async_commit();
   }
-  if (r < rows) out[row0 + r] = A::link(acc, scale, b);
+  Acc acc = 0;
+  for (int c = 0; c < chunks; ++c) {
+    // chunk c has landed (one group a chunk, committed even when empty),
+    // and every walker has left chunk c - 1, whose slot the next copy takes
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    __syncwarp();
+    if (c + kStages - 1 < chunks) issue(c + kStages - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const int s = c % kStages, kw = min(chunk, dim - c * chunk);
+    const int steps = (kw + kStep - 1) / kStep * kStep;
+    const X* xc = xs + (s * rows + warp) * chunk;
+    const W* wc = ws + s * chunk;
+    // the warp's lanes turn the chunk into terms, V a lane at a time; a
+    // term past kw is +0.0, which leaves any sum from +0.0 as it was (such
+    // a sum is never -0.0 under round to nearest)
+#pragma unroll 4
+    for (int e = lane * V; e < steps; e += 32 * V) {
+      Regs<X, V> xv;
+      xv.load(xc + e);
+      Regs<Acc, V> tv;
+#pragma unroll
+      for (int v = 0; v < V; ++v) tv.v[v] = e + v < kw ? A::term(xv.v[v], wc[e + v]) : Acc(0);
+      tv.store(terms + e);
+    }
+    __syncwarp();
+    if (lane == 0) acc = walk<Acc>(terms, steps, acc);
+    __syncwarp();
+  }
+  if (live && lane == 0) out[row] = A::link(acc, scale, b);
 }
 
 template <int M>
@@ -184,14 +297,23 @@ serve_sparse_kernel(const int32_t* __restrict__ idx,
 }
 
 template <int M>
-void launch_dense(const void* x, const void* w, const void* scale, const void* b,
-                  void* out, int n, int dim, cudaStream_t s) {
+int launch_dense(const void* x, const void* w, const void* scale, const void* b, void* out,
+                 int n, int dim, int rows, int chunk, cudaStream_t s) {
   using A = Arith<M>;
-  const int blocks = (n + kRows - 1) / kRows;
-  serve_dense_kernel<M><<<blocks, kRows, 0, s>>>(
+  if (rows < 1 || rows > kMaxRows || chunk < kStep || chunk % kStep != 0 ||
+      chunk * sizeof(typename A::X) > kMaxChunkBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // at most 47,616 bytes (bf16: 4 rows of 1024 columns), under the 48 KB a
+  // launch takes without opting in
+  const size_t smem =
+      kStages * static_cast<size_t>(chunk) * (rows * sizeof(typename A::X) + sizeof(typename A::W)) +
+      static_cast<size_t>(rows) * (chunk + kStep) * sizeof(typename A::Acc);
+  const int blocks = (n + rows - 1) / rows;
+  serve_dense_kernel<M><<<blocks, rows * 32, smem, s>>>(
       static_cast<const typename A::X*>(x), static_cast<const typename A::W*>(w),
       static_cast<const float*>(scale), static_cast<const typename A::B*>(b),
-      static_cast<typename A::Acc*>(out), n, dim);
+      static_cast<typename A::Acc*>(out), n, dim, rows, chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int M>
@@ -209,19 +331,20 @@ void launch_sparse(const void* idx, const void* val, const void* w, const void* 
 
 }  // namespace
 
+// rows: warps (= rows) a block, 1..kMaxRows; chunk: columns a stage, a
+// multiple of 32 of at most 2048 bytes of X (kernels/serve.py::_dense_plan)
 extern "C" int alink_serve_dense(int mode, const void* x, const void* w,
                                  const void* scale, const void* b, void* out, int n,
-                                 int dim, void* stream) {
+                                 int dim, int rows, int chunk, void* stream) {
   if (n <= 0 || dim <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kF32: launch_dense<kF32>(x, w, scale, b, out, n, dim, s); break;
-    case kF64: launch_dense<kF64>(x, w, scale, b, out, n, dim, s); break;
-    case kBF16: launch_dense<kBF16>(x, w, scale, b, out, n, dim, s); break;
-    case kINT8: launch_dense<kINT8>(x, w, scale, b, out, n, dim, s); break;
+    case kF32: return launch_dense<kF32>(x, w, scale, b, out, n, dim, rows, chunk, s);
+    case kF64: return launch_dense<kF64>(x, w, scale, b, out, n, dim, rows, chunk, s);
+    case kBF16: return launch_dense<kBF16>(x, w, scale, b, out, n, dim, rows, chunk, s);
+    case kINT8: return launch_dense<kINT8>(x, w, scale, b, out, n, dim, rows, chunk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int alink_serve_sparse(int mode, const void* idx, const void* val,

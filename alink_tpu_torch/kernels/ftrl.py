@@ -4,16 +4,19 @@ Counterpart: ``alink_tpu/kernels/ftrl.py``. There three Pallas kernels
 serve the sparse FTRL steps: ``gather_rows`` (``_gather_call``),
 ``scatter_add_rows`` (``_scatter_call``) and ``chained_corr``. Here the
 same three functions are CUDA kernels written by hand for Hopper
-(``csrc/ftrl_state.cu``). :func:`gather_rows`, :func:`scatter_add_rows`
-and :func:`chained_corr` are the wrappers; the ``*_plain`` functions
-beside them are their plain PyTorch versions. A wrapper given CPU
+(``csrc/ftrl_state.cu``), and :func:`gather_pair` is the gather of ``z``
+and ``n`` at once, where the JAX package gathers each and stacks them.
+:func:`gather_rows`, :func:`gather_pair`, :func:`scatter_add_rows` and
+:func:`chained_corr` are the wrappers; the ``*_plain`` functions beside
+them are their plain PyTorch versions. A wrapper given CPU
 tensors runs the plain version. Given CUDA tensors it launches its
 kernel or raises. The JAX package's mode flag, probes and demotion are
 not ported: there is nothing to switch between.
 
 **Contracts** (the JAX package's):
 
-* gather — ``state[idx]``, bitwise.
+* gather — ``state[idx]``, bitwise; the pair form
+  ``torch.stack([z[idx], n[idx]], -1)``, bitwise.
 * scatter-add — ``state.at[idx].add(upd)``: duplicate slots accumulate
   in update order, one rounded add each; a slot that no update names
   keeps its bits (a stored ``-0.0`` survives). The port updates the
@@ -46,8 +49,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-__all__ = ["gather_rows", "scatter_add_rows", "chained_corr",
-           "gather_rows_plain", "scatter_add_rows_plain",
+from . import _build
+
+__all__ = ["gather_rows", "gather_pair", "scatter_add_rows", "chained_corr",
+           "gather_rows_plain", "gather_pair_plain", "scatter_add_rows_plain",
            "chained_corr_plain", "launch_counts", "reset_launch_counts"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -60,6 +65,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 def gather_rows_plain(state: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``state[idx]`` for ``state`` (S,) or (S, C) and ``idx`` (M,)."""
     return state.index_select(0, idx)
+
+
+def gather_pair_plain(z: torch.Tensor, n: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """``torch.stack([z[idx], n[idx]], -1)`` for ``z``, ``n`` (S,) and
+    ``idx`` (M,): (M, 2). A slot outside ``[0, S)`` raises
+    ``IndexError``."""
+    return torch.stack([z.index_select(0, idx), n.index_select(0, idx)], -1)
 
 
 def scatter_add_rows_plain(state: torch.Tensor, idx: torch.Tensor,
@@ -115,25 +128,27 @@ def chained_corr_plain(Mk: torch.Tensor, D: torch.Tensor,
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
-_counts_lock = threading.Lock()
-_counts: Dict[str, int] = {"ftrl_gather": 0, "ftrl_scatter_add": 0,
-                           "ftrl_chained_corr": 0}
+# launch counts: kept without a lock, since an increment of a dict entry
+# does not give up the interpreter lock halfway
+_counts: Dict[str, int] = {"ftrl_gather": 0, "ftrl_gather_pair": 0,
+                           "ftrl_scatter_add": 0, "ftrl_chained_corr": 0}
 _lib_lock = threading.Lock()
 _fns: Optional[Dict[str, Callable[..., int]]] = None
-_FN_NAMES = ("alink_ftrl_gather", "alink_ftrl_scatter_add",
-             "alink_ftrl_chained_corr")
+# the C functions' arguments: i an int, p a pointer (the stream last)
+_SIGNATURES = {"alink_ftrl_gather": "ipppiiip",
+               "alink_ftrl_gather_pair": "ippppiip",
+               "alink_ftrl_scatter_add": "ipppiiip",
+               "alink_ftrl_chained_corr": "ipppiiip"}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    with _counts_lock:
-        return dict(_counts)
+    return dict(_counts)
 
 
 def reset_launch_counts() -> None:
-    with _counts_lock:
-        for k in _counts:
-            _counts[k] = 0
+    for k in _counts:
+        _counts[k] = 0
 
 
 def _functions() -> Dict[str, Callable[..., int]]:
@@ -148,9 +163,9 @@ def _functions() -> Dict[str, Callable[..., int]]:
             lib = load_library("ftrl_state")
             p, i = ctypes.c_void_p, ctypes.c_int
             fns = {}
-            for name in _FN_NAMES:
+            for name, kinds in _SIGNATURES.items():
                 fn = getattr(lib, name)
-                fn.argtypes = [i, p, p, p, i, i, i, p]
+                fn.argtypes = [p if k == "p" else i for k in kinds]
                 fn.restype = i
                 fns[name] = fn
             err = lib.alink_ftrl_error_string
@@ -163,21 +178,21 @@ def _functions() -> Dict[str, Callable[..., int]]:
 
 def _check(name: str, *tensors: torch.Tensor) -> int:
     """Validate what a kernel reads and writes; returns its dtype code."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors on {dev}; the kernel takes "
-                         f"CUDA tensors and the plain version CPU ones")
+    first = tensors[0]
+    if not first.is_cuda:
+        raise ValueError(f"{name}: tensors on {first.device}; the kernel "
+                         f"takes CUDA tensors and the plain version CPU ones")
+    index = first.get_device()
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous")
+        if t.get_device() != index or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             f"on {first.device}, got {t.device}")
         if t.numel() >= 2 ** 31:
             raise ValueError(f"{name}: {tuple(t.shape)} exceeds the "
                              f"kernel's int sizes")
-    code = _DTYPE_CODES.get(tensors[0].dtype)
+    code = _DTYPE_CODES.get(first.dtype)
     if code is None:
-        raise ValueError(f"{name}: state dtype {tensors[0].dtype}; the "
+        raise ValueError(f"{name}: state dtype {first.dtype}; the "
                          f"kernel takes float32 or float64")
     return code
 
@@ -193,43 +208,87 @@ def _check_state(name: str, state: torch.Tensor, idx: torch.Tensor) -> int:
     return 1 if state.dim() == 1 else state.shape[1]
 
 
-def _launch(name: str, fn_name: str, *args, device: torch.device,
+def _launch(name: str, fn_name: str, index: int, *args: int,
             limits: str = "") -> None:
-    """Launch the library's ``fn_name`` on ``device``'s current stream,
-    tensors passed as their device pointers; count it or raise, naming
-    the C function's ``limits`` in the error. The tensors are the
-    caller's: PyTorch's allocator reuses their memory only for later
-    work on the same stream, after the kernel. The device is entered
-    only when it is not the current one already."""
-    fns = _functions()
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return _launch(name, fn_name, *args, device=device, limits=limits)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    rc = fns[fn_name](*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    """Launch the library's ``fn_name`` on device ``index``'s current
+    stream with ``args`` (the tensors as their device pointers); count it
+    or raise, naming the C function's ``limits`` in the error. The
+    tensors are the caller's: PyTorch's allocator reuses their memory
+    only for later work on the same stream, after the kernel."""
+    fns = _fns or _functions()
+    rc = _build.call(fns[fn_name], index, *args)
     if rc != 0:
         msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
                            f"{rc} ({msg}){limits}")
-    with _counts_lock:
-        _counts[name] += 1
+    _counts[name] += 1
+
+
+def _gather_code(name: str, idx: torch.Tensor, st: torch.Tensor,
+                 other: Optional[torch.Tensor] = None) -> int:
+    """The checks of a gather launch, a few attribute reads: ``st`` (and
+    ``other``, of its dtype and shape) and ``idx`` contiguous on one CUDA
+    device, ``st`` float32 or float64, ``idx`` (M,) int32. Returns the
+    dtype code."""
+    index = st.get_device()
+    code = _DTYPE_CODES.get(st.dtype)
+    if (code is None or not st.is_cuda or not st.is_contiguous()
+            or idx.dtype is not torch.int32 or idx.dim() != 1
+            or idx.get_device() != index or not idx.is_contiguous()
+            or st.numel() >= 2 ** 31
+            or (other is not None and (
+                other.get_device() != index or other.dtype is not st.dtype
+                or other.shape != st.shape or not other.is_contiguous()))):
+        states = [st] + ([other] if other is not None else [])
+        raise ValueError(
+            f"{name}: want contiguous CUDA states of one dtype (float32 or "
+            f"float64) and shape, and (M,) int32 slots on their device; got "
+            f"states {[(t.device, t.dtype, tuple(t.shape)) for t in states]}"
+            f", slots {idx.device} {idx.dtype} {tuple(idx.shape)}")
+    return code
 
 
 def gather_rows(state: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``state[idx]``: the touched slots of the FTRL state. ``state``
     (S,) or (S, C), C in (1, 2); ``idx`` (M,) int32 in ``[0, S)``.
     Replaces ``alink_tpu/kernels/ftrl.py::_gather_call``."""
-    if state.device.type == "cpu":
+    if not state.is_cuda and state.device.type == "cpu":
         return gather_rows_plain(state, idx)
-    C = _check_state("gather_rows", state, idx)
-    code = _check("gather_rows", state, idx)
+    code = _gather_code("gather_rows", idx, state)
     M = idx.shape[0]
-    out = torch.empty((M,) + tuple(state.shape[1:]), dtype=state.dtype,
-                      device=state.device)
+    if state.dim() == 1:
+        C, out = 1, state.new_empty(M)
+    elif state.dim() == 2 and state.shape[1] in (1, 2):
+        C = state.shape[1]
+        out = state.new_empty((M, C))
+    else:
+        raise ValueError(f"gather_rows: state {tuple(state.shape)}; want "
+                         f"(S,) or (S, C) with C in (1, 2)")
     if M:
-        _launch("ftrl_gather", "alink_ftrl_gather", code, state, idx, out,
-                M, state.shape[0], C, device=state.device)
+        _launch("ftrl_gather", "alink_ftrl_gather", state.get_device(), code,
+                state.data_ptr(), idx.data_ptr(), out.data_ptr(), M,
+                state.shape[0], C)
+    return out
+
+
+def gather_pair(z: torch.Tensor, n: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """``torch.stack([z[idx], n[idx]], -1)``: the touched slots of both
+    FTRL states in one launch. ``z`` and ``n`` (S,) of one dtype, ``idx``
+    (M,) int32 in ``[0, S)``; returns (M, 2). The same gather as
+    :func:`gather_rows` on ``z`` and ``n`` stacked, without the stack."""
+    if not z.is_cuda and z.device.type == "cpu":
+        return gather_pair_plain(z, n, idx)
+    code = _gather_code("gather_pair", idx, z, n)
+    if z.dim() != 1:
+        raise ValueError(f"gather_pair: want z and n (S,), got "
+                         f"{tuple(z.shape)}")
+    M = idx.shape[0]
+    out = z.new_empty((M, 2))
+    if M:
+        _launch("ftrl_gather_pair", "alink_ftrl_gather_pair", z.get_device(),
+                code, z.data_ptr(), n.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), M, z.shape[0])
     return out
 
 
@@ -249,9 +308,9 @@ def scatter_add_rows(state: torch.Tensor, idx: torch.Tensor,
                          f"{tuple(upd.shape)} vs state {state.dtype} "
                          f"{tuple(state.shape)} and {M} indices")
     if M:
-        _launch("ftrl_scatter_add", "alink_ftrl_scatter_add", code, state,
-                idx, upd, M, state.shape[0], C, device=state.device,
-                limits=f"; {M} updates: the one-block kernel takes at most "
+        _launch("ftrl_scatter_add", "alink_ftrl_scatter_add",
+                state.get_device(), code, state.data_ptr(), idx.data_ptr(),
+                upd.data_ptr(), M, state.shape[0], C, limits=f"; {M} updates: the one-block kernel takes at most "
                        f"kScatterMaxM of csrc/ftrl_state.cu")
     return state
 
@@ -272,6 +331,6 @@ def chained_corr(Mk: torch.Tensor, D: torch.Tensor, k: int) -> torch.Tensor:
     if not k:
         return torch.zeros((w, C), dtype=D.dtype, device=D.device)
     out = torch.empty((w, C), dtype=D.dtype, device=D.device)
-    _launch("ftrl_chained_corr", "alink_ftrl_chained_corr", code, Mk, D, out,
-            k, w, C, device=D.device)
+    _launch("ftrl_chained_corr", "alink_ftrl_chained_corr", D.get_device(),
+            code, Mk.data_ptr(), D.data_ptr(), out.data_ptr(), k, w, C)
     return out

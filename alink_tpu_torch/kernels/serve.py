@@ -34,14 +34,16 @@ docstring says (``ROADMAP.md`` Queue C):
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..serving.sharded import seq_chunk_sum
+from . import _build
 
 __all__ = ["SERVE_DTYPE_ENV", "serve_dtype", "quantize_int8",
            "lowp_model_arrays", "dense_scores", "sparse_scores",
@@ -171,62 +173,96 @@ def sparse_scores_plain(model, idx: torch.Tensor, val: torch.Tensor,
 # the kernel wrappers
 # ---------------------------------------------------------------------------
 
-_counts_lock = threading.Lock()
+# launch counts: kept without a lock, as the FTRL wrappers keep theirs
 _counts: Dict[str, int] = {"serve_dense": 0, "serve_sparse": 0}
 _lib_lock = threading.Lock()
-_lib_handle: Optional[ctypes.CDLL] = None
+_fns: Optional[Dict[str, Callable[..., int]]] = None
+_sms: Dict[int, int] = {}
+
+_MAX_ROWS = 4               # csrc/serve_score.cu: kMaxRows
+_STEP = 32                  # kStep: the terms the walker adds between loads
+_MAX_CHUNK_BYTES = 2048     # kMaxChunkBytes
+H100_SMS = 132
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    with _counts_lock:
-        return dict(_counts)
+    return dict(_counts)
 
 
 def reset_launch_counts() -> None:
-    with _counts_lock:
-        for k in _counts:
-            _counts[k] = 0
+    for k in _counts:
+        _counts[k] = 0
 
 
-def _count(name: str) -> None:
-    with _counts_lock:
-        _counts[name] += 1
-
-
-def _lib() -> ctypes.CDLL:
-    """The built ``serve_score`` library, its C signatures declared."""
-    global _lib_handle
+def _functions() -> Dict[str, Callable[..., int]]:
+    """The built ``serve_score`` library's C functions, their signatures
+    declared, resolved once."""
+    global _fns
+    if _fns is not None:
+        return _fns
     with _lib_lock:
-        if _lib_handle is None:
+        if _fns is None:
             from ._build import load_library
             lib = load_library("serve_score")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.alink_serve_dense.argtypes = [i, p, p, p, p, p, i, i, p]
+            lib.alink_serve_dense.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
             lib.alink_serve_dense.restype = i
             lib.alink_serve_sparse.argtypes = [i, p, p, p, p, p, p, i, i, i,
                                                p]
             lib.alink_serve_sparse.restype = i
             lib.alink_cuda_error_string.argtypes = [i]
             lib.alink_cuda_error_string.restype = ctypes.c_char_p
-            _lib_handle = lib
-        return _lib_handle
+            _fns = {"dense": lib.alink_serve_dense,
+                    "sparse": lib.alink_serve_sparse,
+                    "error_string": lib.alink_cuda_error_string}
+        return _fns
+
+
+class DensePlan(NamedTuple):
+    """The launch shape of one dense-kernel call (``csrc/serve_score.cu``)."""
+    rows: int       # rows a block, one warp each
+    chunk: int      # columns a stage of the shared-memory ring
+
+
+@functools.lru_cache(maxsize=256)
+def _dense_plan(n: int, dim: int, itemsize: int,
+                sms: int = H100_SMS) -> DensePlan:
+    """Rows a block and chunk width of the dense kernel for ``n`` rows of
+    ``dim`` values of ``itemsize`` bytes on a card of ``sms`` SMs. A row
+    is one warp's chain, so the rows are spread to give every SM a block
+    where ``n`` allows (``n // sms`` rows a block, 1 to 4); a chunk is a
+    whole number of the walker's 32-term steps, at most 2 KB of a row and
+    no wider than the row needs. Cached: a server asks for the same few
+    bucket shapes again and again."""
+    if n <= 0 or dim <= 0 or itemsize not in (2, 4, 8) or sms <= 0:
+        raise ValueError(f"dense_scores: no plan for {n} x {dim} values of "
+                         f"{itemsize} bytes on {sms} SMs")
+    rows = max(1, min(_MAX_ROWS, n // sms))
+    chunk = min(_MAX_CHUNK_BYTES // itemsize, -(-dim // _STEP) * _STEP)
+    return DensePlan(rows, chunk)
+
+
+def _sm_count(index: int) -> int:
+    sms = _sms.get(index)
+    if sms is None:
+        sms = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
 
 
 def _check(name: str, dtype: str, x: torch.Tensor, w: torch.Tensor,
            scale, b: torch.Tensor, extra=()) -> int:
     """Validate what the kernel reads; returns its mode code."""
-    tensors = [x, w, b] + ([scale] if scale is not None else []) \
-        + list(extra)
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors on {dev}; the kernel takes "
+    if not x.is_cuda:
+        raise ValueError(f"{name}: tensors on {x.device}; the kernel takes "
                          f"CUDA tensors and the plain version CPU ones")
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous")
+    index = x.get_device()
+    for t in (x, w, b, scale, *extra):
+        if t is not None and (t.get_device() != index
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             f"on {x.device}, got {t.device}")
     mode = _MODE_CODES.get((dtype, x.dtype))
     if mode is None:
         raise ValueError(f"{name}: mode {dtype!r} takes no {x.dtype} "
@@ -246,19 +282,26 @@ def _check(name: str, dtype: str, x: torch.Tensor, w: torch.Tensor,
     return mode
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _launch(name: str, kind: str, index: int, *args) -> None:
+    """Call the library's ``kind`` entry on device ``index``'s current
+    stream; count the launch or raise."""
+    fns = _functions()
+    rc = _build.call(fns[kind], index, *args)
     if rc != 0:
-        msg = _lib().alink_cuda_error_string(rc).decode()
+        msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
+    _counts[name] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _out_dtype(dtype: str, x: torch.Tensor) -> torch.dtype:
-    return x.dtype if dtype == "f32" else torch.float32
+def _empty_out(dtype: str, x: torch.Tensor, n: int) -> torch.Tensor:
+    """The (n,) scores: the ship dtype in f32 mode, else float32."""
+    return x.new_empty(n) if dtype == "f32" else \
+        x.new_empty(n, dtype=torch.float32)
 
 
 def dense_scores(model, X: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -275,15 +318,13 @@ def dense_scores(model, X: torch.Tensor, dtype: str) -> torch.Tensor:
         raise ValueError(f"dense_scores: values {tuple(x.shape)} vs "
                          f"weights {tuple(w.shape)}")
     n, dim = x.shape
-    out = torch.empty(n, dtype=_out_dtype(dtype, x), device=x.device)
+    out = _empty_out(dtype, x, n)
     if n:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = _lib().alink_serve_dense(
-                mode, _ptr(x), _ptr(w), _ptr(scale), _ptr(b), _ptr(out),
-                n, dim, stream)
-        _raise_on(rc, "dense_scores")
-        _count("serve_dense")
+        index = x.get_device()
+        plan = _dense_plan(n, dim, x.element_size(), _sm_count(index))
+        _launch("serve_dense", "dense", index, mode, _ptr(x), _ptr(w),
+                _ptr(scale), _ptr(b), _ptr(out), n, dim, plan.rows,
+                plan.chunk)
     return out
 
 
@@ -304,15 +345,11 @@ def sparse_scores(model, idx: torch.Tensor, val: torch.Tensor,
                          f"the values, got {idx.dtype} {tuple(idx.shape)} "
                          f"and {tuple(v.shape)}")
     n, width = v.shape
-    out = torch.empty(n, dtype=_out_dtype(dtype, v), device=v.device)
+    out = _empty_out(dtype, v, n)
     if n:
-        with torch.cuda.device(v.device):
-            stream = torch.cuda.current_stream(v.device).cuda_stream
-            rc = _lib().alink_serve_sparse(
-                mode, _ptr(idx), _ptr(v), _ptr(w), _ptr(scale), _ptr(b),
-                _ptr(out), n, width, w.shape[0], stream)
-        _raise_on(rc, "sparse_scores")
-        _count("serve_sparse")
+        _launch("serve_sparse", "sparse", v.get_device(), mode, _ptr(idx),
+                _ptr(v), _ptr(w), _ptr(scale), _ptr(b), _ptr(out), n, width,
+                w.shape[0])
     return out
 
 

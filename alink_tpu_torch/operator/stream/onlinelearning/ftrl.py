@@ -38,7 +38,8 @@ from ....common.device import resolve_device
 from ....common.mtable import MTable
 from ....common.params import InValidator, ParamInfo, Params, RangeValidator
 from ....common.types import TableSchema
-from ....kernels.ftrl import chained_corr, gather_rows, scatter_add_rows
+from ....kernels.ftrl import (chained_corr, gather_pair, gather_rows,
+                              scatter_add_rows)
 from ....params.shared import (HasFeatureCols, HasLabelCol, HasPredictionCol,
                                HasPredictionDetailCol, HasReservedCols,
                                HasVectorCol)
@@ -92,7 +93,8 @@ def ftrl_sample_step(idx, val, y, z, n, alpha, beta, l1, l2):
     use the returned ones.
 
     Chunks of K = 4 rows, exact strict semantics: one gather of the
-    chunk's slots from the pre-chunk state; sample k's slots corrected by
+    chunk's slots of ``z`` and ``n`` from the pre-chunk state
+    (:func:`gather_pair`, one launch); sample k's slots corrected by
     the deltas of the earlier samples j < k at shared slots (one
     same-slot selection per pair: where a row's real slots are distinct,
     as a sparse vector's are, its sum picks at most one non-zero delta,
@@ -108,8 +110,7 @@ def ftrl_sample_step(idx, val, y, z, n, alpha, beta, l1, l2):
     for c in range(0, idx.shape[0], K):
         xi, xv, yy = idx[c:c + K], val[c:c + K], y[c:c + K]
         flat = xi.reshape(-1)
-        zn = torch.stack([gather_rows(z, flat), gather_rows(n, flat)],
-                         -1).view(K, w, 2)
+        zn = gather_pair(z, n, flat).view(K, w, 2)
         same = xi[:, None, :, None] == xi[None, :, None, :]  # (K, K, w, w)
         xvs, yys, zns = xv.unbind(0), yy.unbind(0), zn.unbind(0)
         deltas: List[torch.Tensor] = []
@@ -172,7 +173,8 @@ def ftrl_chained_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int = 16):
     """One micro-batch of chained-correction strict FTRL (``update_mode=
     "chained"``); the JAX package's ``_ftrl_sparse_chained_step_factory``.
 
-    Per chunk of K rows: one gather of the slots; the (K, K, w, w)
+    Per chunk of K rows: one gather of the slots of ``z`` and ``n``
+    (:func:`gather_pair`); the (K, K, w, w)
     collision tensor ``M[k, j, a, b] = [sample k's slot a is sample j's
     slot b]``; per sample, ``chained_corr(M[k], D, k)`` corrects z and n
     from the (K, w, 2) delta buffer ``D`` of the earlier samples; one
@@ -189,8 +191,8 @@ def ftrl_chained_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int = 16):
     for c in range(0, idx.shape[0], K):
         xi, xv, yy = idx[c:c + K], val[c:c + K], y[c:c + K]
         flat = xi.reshape(-1)
-        zs = gather_rows(z, flat).view(K, w)
-        ns = gather_rows(n, flat).view(K, w)
+        zn = gather_pair(z, n, flat).view(K, w, 2)
+        zs, ns = zn[..., 0], zn[..., 1]
         M = (xi[:, None, :, None] == xi[None, :, None, :]).to(dtype)
         D = torch.zeros((K, w, 2), dtype=dtype, device=z.device)
         xvs, yys, zss, nss = xv.unbind(0), yy.unbind(0), zs.unbind(0), \

@@ -7,11 +7,20 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit (fails without CUDA);
 2. the build of every CUDA source under ``alink_tpu_torch/kernels/csrc``
-   (``nvcc``, at first use, into ``build/``);
+   (``nvcc``, at first use, into ``build/``), and beside it a one-thread
+   probe that reads the latency of a dependent float32 and float64 add
+   off the SM's cycle counter (with the SM clock from ``nvidia-smi``);
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, in every mode (f32, f64, bf16, int8): bitwise.
-   Kernel, plain-version and library-call times (CUDA events, median
-   after warm-up) and each kernel's bound;
+   Kernel (CUDA events, median after warm-up), device (``torch.profiler``)
+   and host (enqueue, host clock) times of each kernel and of its library
+   call, the plain version's time and each kernel's bound; for the dense
+   kernel also the chain bound (dim dependent adds at the probe's
+   latency and the top SM clock). Then the dense kernel at the shapes its
+   one-warp-per-row design could get wrong, bitwise in all four modes:
+   n = 1, 7, 33, 512, 513 and 4096 at dim 1024, dims 8, 1031 and 65,536 at
+   n = 512, a request and weights off the 16-byte boundary, and signed
+   zeros, infinities and NaN inside chains;
 4. the main path at full width: a Criteo-shape hashed LR model (39
    non-zeros per row over 2^20 features plus an intercept, random
    coefficients from ``--seed``) saved through the port's model table,
@@ -24,13 +33,15 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 5. per-bucket latency (p50 of ``predict_table``) and rows/s, and the
    split of one 512-row dispatch into encode, copy in, kernel, fetch
    and decode;
-6. the FTRL state kernels (gather, scatter-add, chained correction)
-   against their plain versions on the card, f32 and f64, at the shapes
-   the three update modes launch, with duplicate-heavy slots, a
-   ``-0.0`` slot and padded zeros at slot 0, and the scatter-add also
-   with all M positions on one slot (M = 1280 and 4096), M = 1 and
-   M = 4096: bitwise. Kernel (CUDA events), device (``torch.profiler``),
-   plain-version and library-call times and each kernel's bound;
+6. the FTRL state kernels (gather, the gather of z and n in one launch,
+   scatter-add, chained correction) against their plain versions on the
+   card, f32 and f64, at the shapes the three update modes launch, with
+   duplicate-heavy slots, a ``-0.0`` slot and padded zeros at slot 0, and
+   the scatter-add also with all M positions on one slot (M = 1280 and
+   4096), M = 1 and M = 4096: bitwise. Kernel (CUDA events), device
+   (``torch.profiler``), host (enqueue), plain-version and library-call
+   times and each kernel's bound; the host cost of the pieces of one
+   gather's issue;
 7. the FTRL main path at full width: Criteo-shape one-hot rows (39
    distinct slots of 2^20 plus the intercept, ``bench.py``'s
    ``make_batch_criteo`` generator, labels from a seeded sparse true
@@ -39,6 +50,8 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    6 micro-batches with a snapshot every 2; ``FtrlPredictStreamOp``
    scores a held-out stream with the hot-swapped snapshots; the last
    snapshot swapped into ``CompiledPredictor`` gives the same labels.
+   The sample step gathers z and n once per 4-row chunk (1024
+   ``gather_pair`` launches a micro-batch, no ``gather_rows``).
    Then 2 micro-batches each of ``staleness`` (K = 32) and ``chained``
    (K = 16). Every mode on the card in float64 agrees with the same
    trainer on the CPU at rtol 1e-10. Launch counts, samples/s per mode,
@@ -71,10 +84,10 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    ``TreeModelMapper`` serving kernel, shipped in float64: scores bitwise
    equal to the host loop, labels and details equal to ``map_table``;
    rows/s and the p50 per bucket;
-11. an out-of-range slot handed to the gather and to the scatter-add
-   kernel, and an out-of-range bin handed to the histogram kernel, fails
-   its device-side assert, and the stream raises at its next synchronize
-   (each in a process of its own).
+11. an out-of-range slot handed to the gather, the pair gather and the
+   scatter-add kernel, and an out-of-range bin handed to the histogram
+   kernel, fails its device-side assert, and the stream raises at its
+   next synchronize (each in a process of its own).
 
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
@@ -129,15 +142,27 @@ def bits(t):
     return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
-def cuda_ms(fn, trials: int = 15, reps: int = 20, warm: int = 3) -> float:
-    """Median over ``trials`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events, after ``warm`` calls."""
+def _in_turns(trial, fns, trials, warm):
+    """Median of ``trials`` results of ``trial(fn)`` for each of ``fns``,
+    the trials of the calls taken in turns (a, b, a, b, ...), so that
+    calls compared with each other see the same host, after ``warm``
+    calls of each."""
     import torch
-    for _ in range(warm):
-        fn()
+    for fn in fns:
+        for _ in range(warm):
+            fn()
     torch.cuda.synchronize()
-    times = []
+    times = [[] for _ in fns]
     for _ in range(trials):
+        for t, fn in zip(times, fns):
+            t.append(trial(fn))
+    return [float(np.median(t)) for t in times]
+
+
+def _event_trial(reps):
+    import torch
+
+    def trial(fn):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -145,17 +170,43 @@ def cuda_ms(fn, trials: int = 15, reps: int = 20, warm: int = 3) -> float:
             fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1) / reps)
-    return float(np.median(times))
+        return t0.elapsed_time(t1) / reps
+    return trial
 
 
-def device_ms(fn, part: str, reps: int = 20, sessions: int = 3):
-    """Device time per call of the kernels whose names hold ``part``:
-    ``torch.profiler``'s kernel times over ``reps`` back-to-back calls
-    after a warm-up, summed and divided by ``reps``. Returns (ms, {kernel:
-    ms}). Now and then a profiler session comes back with no kernel
-    record at all; such a session is made again, up to ``sessions`` in
-    all, and this fails if none of them saw such a kernel."""
+def _host_trial(reps):
+    import torch
+
+    def trial(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+    return trial
+
+
+def cuda_ms(fn, trials: int = 15, reps: int = 20, warm: int = 3) -> float:
+    """Median over ``trials`` of the mean time of ``reps`` back-to-back
+    calls, by CUDA events, after ``warm`` calls."""
+    return _in_turns(_event_trial(reps), [fn], trials, warm)[0]
+
+
+def cuda_ms_turns(*fns, trials: int = 15, reps: int = 20):
+    """:func:`cuda_ms` of each of ``fns``, their trials in turns."""
+    return _in_turns(_event_trial(reps), fns, trials, 3)
+
+
+def device_ms(fn, part: str = "", reps: int = 20, sessions: int = 6):
+    """Device time per call of the kernels whose names hold ``part``
+    (every kernel and copy of the call with ``part=""``, as for a library
+    call): ``torch.profiler``'s kernel times over ``reps`` back-to-back
+    calls after a warm-up, summed and divided by ``reps``. Returns (ms,
+    {kernel: ms}). Now and then a profiler session comes back with no
+    record of a kernel launched through ctypes (about 3 % of sessions in
+    one run, a few in a row at times); such a session is made again, up
+    to ``sessions`` in all, and this fails if none of them saw such a
+    kernel."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -179,9 +230,26 @@ def device_ms(fn, part: str, reps: int = 20, sessions: int = 3):
             break
         print(f"chip_smoke: profiler session {session} of {sessions} saw "
               f"no {part} kernel", file=sys.stderr)
+        time.sleep(0.1)
     require(bool(per), f"the profiler saw a {part} kernel in one of "
                        f"{sessions} sessions")
     return sum(per.values()), per
+
+
+def host_ms_turns(*fns, trials: int = 15, reps: int = 20):
+    """For each of ``fns``, the median over ``trials`` of the host clock's
+    mean time of ``reps`` back-to-back calls, with no synchronize inside
+    a trial (each starts on an empty queue): the cost of enqueueing one
+    call. The trials of the calls are taken in turns."""
+    import torch
+    out = _in_turns(_host_trial(reps), fns, trials, 3)
+    torch.cuda.synchronize()
+    return out
+
+
+def host_ms(fn, trials: int = 15, reps: int = 20) -> float:
+    """:func:`host_ms_turns` of one call."""
+    return host_ms_turns(fn, trials=trials, reps=reps)[0]
 
 
 def host_p50_ms(fn, reps: int) -> float:
@@ -215,8 +283,164 @@ def model_arrays(ks, w, b, mode, dev):
                                                           b.numpy(), mode))
 
 
-def phase_kernels(ks, rng, dev):
-    """Each kernel against its plain version at the main path's shapes."""
+CHAIN_PROBE_SRC = r"""
+// The latency of one dependent add on the card: one thread adds `a` to
+// its sum n times (each add waits on the one before) between two reads
+// of the SM's cycle counter.
+#include <cuda_runtime.h>
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+template <typename T>
+__global__ void chain_probe(T a, int n, T* out, long long* cycles) {
+  T acc = 0;
+  const long long t0 = clock64();
+#pragma unroll 32
+  for (int i = 0; i < n; ++i) acc = add_rn(acc, a);
+  const long long t1 = clock64();
+  out[0] = acc;
+  cycles[0] = t1 - t0;
+}
+extern "C" int add_chain_cycles(int dbl, int n, long long* host_cycles) {
+  void* out;
+  long long* cyc;
+  if (cudaMalloc(&out, 8) != cudaSuccess || cudaMalloc(&cyc, 8) != cudaSuccess) return -1;
+  if (dbl) chain_probe<double><<<1, 1>>>(1e-300, n, static_cast<double*>(out), cyc);
+  else chain_probe<float><<<1, 1>>>(1e-30f, n, static_cast<float*>(out), cyc);
+  const int e = static_cast<int>(cudaDeviceSynchronize());
+  cudaMemcpy(host_cycles, cyc, 8, cudaMemcpyDeviceToHost);
+  cudaFree(out);
+  cudaFree(cyc);
+  return e;
+}
+"""
+
+
+def start_chain_probe(build):
+    """Start ``nvcc`` on the add-latency probe (beside the kernels'
+    build, with their flags) into ``build/``; returns (process, library
+    path)."""
+    out = build.BUILD_DIR / "chain_probe.so"
+    src = build.BUILD_DIR / "chain_probe.cu"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(CHAIN_PROBE_SRC)
+    return subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def add_latency(proc, lib_path, n=1 << 16):
+    """Cycles per dependent ``__fadd_rn`` and ``__dadd_rn`` (the second of
+    two runs of n adds each), and the SM clock (MHz, now and at most)."""
+    import ctypes
+    log, _ = proc.communicate(timeout=300)
+    require(proc.returncode == 0, f"the add-latency probe built: {log}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.add_chain_cycles.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+    lib.add_chain_cycles.restype = ctypes.c_int
+    out = {}
+    for name, dbl in (("f32", 0), ("f64", 1)):
+        cyc = ctypes.c_longlong(0)
+        for _ in range(2):
+            rc = lib.add_chain_cycles(dbl, n, ctypes.addressof(cyc))
+            require(rc == 0, f"the add-latency probe ran (CUDA error {rc})")
+        out[name] = cyc.value / n
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().split(",")
+    out["sm_mhz"], out["max_sm_mhz"] = (float(c) for c in clocks[:2])
+    return out
+
+
+def chain_bound_ms(dim, mode, lat):
+    """The least time of one dense row: ``dim`` dependent adds at the
+    measured latency, at the SM's top clock."""
+    cycles = lat["f64" if mode == "f64" else "f32"]
+    return dim * cycles / (lat["max_sm_mhz"] * 1e6) * 1e3
+
+
+def dense_inputs(rng, n, dim, kind="plain"):
+    """(X float32 (n, dim), w float32 (dim,)). ``specials`` puts a row of
+    -0.0, a +inf term, +inf and -inf terms (a NaN sum), a NaN value and
+    -0.0 values among ordinary ones into the first rows."""
+    import torch
+    X = rng.standard_normal((n, dim)).astype(np.float32)
+    w = (rng.standard_normal(dim) * 0.05).astype(np.float32)
+    if kind == "specials":
+        X[0] = -0.0
+        X[1, 5] = np.inf
+        X[2, 5], X[2, 9] = np.inf, -np.inf
+        X[3, 100] = np.nan
+        X[4, ::3] = -0.0
+        X[5, -1] = -np.inf
+    return torch.from_numpy(X), torch.from_numpy(w)
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data pointer sits one element past
+    a 16-byte boundary."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    require(view.is_contiguous() and view.data_ptr() % 16 != 0,
+            "a contiguous view off the 16-byte boundary")
+    return view
+
+
+def dense_edges(ks, rng, dev):
+    """The dense kernel against its plain version, bitwise, in all four
+    modes, at the shapes the one-warp-per-row design could get wrong:
+    n = 1, 7, 33, 512, 513 and 4096 at dim 1024; dims 8, 1031 and 65536 at
+    n = 512; a request and weights that start off the 16-byte boundary
+    (bf16 values passed as bf16, so the kernel sees the view); signed
+    zeros, infinities and NaN inside chains. Kernel and device times in
+    f32 at each shape."""
+    import torch
+    b = torch.tensor(0.125, dtype=torch.float32)
+    cases = [(f"n={n} dim=1024", n, 1024, "plain") for n in
+             (1, 7, 33, 512, 513, 4096)]
+    cases += [(f"n=512 dim={d}", 512, d, "plain") for d in (8, 1031, 65536)]
+    cases += [("misaligned n=512 dim=1024", 512, 1024, "misaligned"),
+              ("specials n=33 dim=1024", 33, 1024, "specials")]
+    out = {}
+    for key, n, dim, kind in cases:
+        Xh, wh = dense_inputs(rng, n, dim, kind)
+        rec = {}
+        for mode, sdtype in MODES:
+            ship = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
+                mode, torch.float32) if kind == "misaligned" else (
+                torch.float64 if mode == "f64" else torch.float32)
+            X = Xh.to(dev, ship)
+            md = model_arrays(ks, wh, b, mode, dev)
+            if kind == "misaligned":
+                X, md = misaligned(X), (misaligned(md[0]),) + md[1:]
+            got = ks.dense_scores(md, X, sdtype)
+            want = ks.dense_scores_plain(md, X, sdtype)
+            torch.cuda.synchronize()
+            require(torch.equal(bits(got), bits(want)),
+                    f"serve_dense {key} {mode} bitwise vs its plain version "
+                    f"(max abs err "
+                    f"{float((got.double() - want.double()).abs().max())})")
+            if kind != "specials":
+                require(bool(torch.isfinite(got).all()),
+                        f"serve_dense {key} {mode} finite")
+            if mode == "f32":
+                rec = {"kernel_ms": cuda_ms(lambda: ks.dense_scores(
+                           md, X, sdtype), trials=5),
+                       "device_ms": device_ms(lambda: ks.dense_scores(
+                           md, X, sdtype), "serve_dense", reps=5)[0],
+                       "plan": list(ks._dense_plan(n, dim, X.element_size()))}
+        out[key] = dict(rec, bitwise_modes=[m for m, _ in MODES])
+        print(f"serve_dense edge {key}: bitwise in {[m for m, _ in MODES]}, "
+              f"f32 {rec}", flush=True)
+    return out
+
+
+def phase_kernels(ks, rng, dev, lat):
+    """Each kernel against its plain version at the main path's shapes,
+    then the dense kernel's edge shapes."""
     import torch
     import torch.nn.functional as F
     n, dim = DENSE_SHAPE
@@ -250,30 +474,41 @@ def phase_kernels(ks, rng, dev):
             require(bool(torch.isfinite(got).all()), f"{name} {mode} finite")
             require(same, f"{name} {mode} bitwise vs its plain version "
                           f"(max abs err {err})")
+            call = lambda: kern(*args)                        # noqa: E731
             rec = {"bitwise": same, "max_abs_err": err,
-                   "kernel_ms": cuda_ms(lambda: kern(*args))}
-            if mode == "f32":
+                   "device_ms": device_ms(call, name)[0]}
+            size = X.element_size()
+            if name == "serve_dense":
+                wsize = md[0].element_size()
+                nbytes = X.numel() * size + dim * wsize + 4 + n * 4
+                ops = 2 * X.numel()
+                rec["chain_bound_ms"] = chain_bound_ms(dim, mode, lat)
+            else:
+                wsize = msp[0].element_size()
+                touched = int(torch.unique(i).numel())
+                nbytes = i.numel() * 4 + v.numel() * size + touched * wsize \
+                    + 4 + SPARSE_ROWS * 4
+                ops = 2 * v.numel()
+            rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, mode)
+            rec["bytes"] = nbytes
+            if mode != "f32":
+                rec["kernel_ms"], rec["host_ms"] = cuda_ms(call), host_ms(call)
+            else:
                 rec["plain_ms"] = cuda_ms(lambda: plain(*args), trials=5,
                                           reps=2)
                 if name == "serve_dense":
                     lib = lambda: torch.mv(X, md[0])             # noqa: E731
-                    nbytes = X.numel() * 4 + md[0].numel() * 4 + 4 + n * 4
-                    ops = 2 * X.numel()
                 else:
                     wcol = msp[0][:, None]
                     lib = lambda: F.embedding_bag(                # noqa: E731
                         i, wcol, per_sample_weights=v, mode="sum")
-                    touched = int(torch.unique(i).numel())
-                    nbytes = i.numel() * 4 + v.numel() * 4 + touched * 4 \
-                        + 4 + SPARSE_ROWS * 4
-                    ops = 2 * v.numel()
-                rec["library_ms"] = cuda_ms(lib)
-                t_bytes = nbytes / PEAK_BYTES_S * 1e3
-                t_ops = ops / PEAK_OPS_S[mode] * 1e3
-                rec["bound_ms"] = max(t_bytes, t_ops)
-                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                rec["bytes"] = nbytes
+                rec["kernel_ms"], rec["library_ms"] = cuda_ms_turns(call, lib)
+                rec["library_device_ms"], rec["library_kernels"] = \
+                    device_ms(lib)
+                rec["host_ms"], rec["library_host_ms"] = host_ms_turns(call,
+                                                                       lib)
             out[name][mode] = rec
+    out["serve_dense_edges"] = dense_edges(ks, rng, dev)
     return out
 
 
@@ -429,6 +664,34 @@ def _bound(nbytes, ops, kind):
                                  else "operations")
 
 
+def pair_shape(kf, st, ix, kind, size, touched):
+    """``gather_pair`` of the two columns of ``st`` (as the sample and
+    chained steps hold z and n) against its plain version, bitwise; its
+    times beside the library's two ``index_select`` calls and a stack."""
+    import torch
+    z, n = st[:, 0].contiguous(), st[:, 1].contiguous()
+    got = kf.gather_pair(z, n, ix)
+    want = kf.gather_pair_plain(z, n, ix)
+    torch.cuda.synchronize()
+    require(torch.equal(bits(got), bits(want)),
+            f"ftrl_gather_pair {kind} M={ix.shape[0]} bitwise vs its plain "
+            f"version")
+    require(torch.equal(bits(got), bits(kf.gather_rows(st, ix))),
+            "gather_pair equals gather_rows of the stacked state")
+    M = ix.shape[0]
+    b_ms, b_by = _bound(M * 4 + 2 * touched * size + 2 * M * size, 0, kind)
+    lib = lambda: torch.stack([torch.index_select(z, 0, ix),   # noqa: E731
+                               torch.index_select(n, 0, ix)], -1)
+    call = lambda: kf.gather_pair(z, n, ix)                   # noqa: E731
+    k_ms, l_ms = cuda_ms_turns(call, lib)
+    k_host, l_host = host_ms_turns(call, lib)
+    return {"bitwise": True, "max_abs_err": 0.0, "kernel_ms": k_ms,
+            "device_ms": device_ms(call, "ftrl_gather")[0], "host_ms": k_host,
+            "plain_ms": cuda_ms(lambda: kf.gather_pair_plain(z, n, ix)),
+            "library_ms": l_ms, "library_device_ms": device_ms(lib)[0],
+            "library_host_ms": l_host, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def scatter_shape(kf, key, st, ix, upd, kind, size):
     """The scatter-add kernel against its plain version at one shape,
     bitwise, the untouched -0.0 slot kept; its times and bound."""
@@ -463,11 +726,48 @@ def scatter_shape(kf, key, st, ix, upd, kind, size):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def gather_host_parts(kf, st, ix):
+    """Host clock of the pieces of one gather's issue (f32 state, C = 1),
+    back to back: the whole wrapper and ``index_select``; each lookup the
+    earlier wrapper made (the stream object, the current device through
+    ``torch.cuda``, the launch count's lock, ``torch.empty``) beside the
+    one that replaces it; and the bare ctypes call."""
+    import threading
+    import torch
+    from alink_tpu_torch.kernels import _build
+    fn = kf._functions()["alink_ftrl_gather"]
+    M, S = ix.shape[0], st.shape[0]
+    out = torch.empty(M, dtype=st.dtype, device=st.device)
+    args = (0, st.data_ptr(), ix.data_ptr(), out.data_ptr(), M, S, 1,
+            _build.stream_handle(0))
+    lock, counts = threading.Lock(), {"n": 0}
+
+    def locked():
+        with lock:
+            counts["n"] += 1
+    parts = {
+        "gather_rows": lambda: kf.gather_rows(st, ix),
+        "index_select": lambda: torch.index_select(st, 0, ix),
+        "current_stream_object": lambda: torch.cuda.current_stream(
+            st.device).cuda_stream,
+        "raw_stream_handle": lambda: _build.stream_handle(0),
+        "torch_cuda_current_device": torch.cuda.current_device,
+        "raw_current_device": _build.current_device,
+        "count_with_lock": locked,
+        "count_without_lock": lambda: counts.__setitem__("n", counts["n"] + 1),
+        "torch_empty_output": lambda: torch.empty(M, dtype=st.dtype,
+                                                  device=st.device),
+        "new_empty_output": lambda: st.new_empty(M),
+        "ctypes_call": lambda: fn(*args)}
+    names = list(parts)
+    return dict(zip(names, host_ms_turns(*parts.values(), reps=200)))
+
+
 def phase_ftrl_kernels(kf, rng, dev):
     """Each FTRL kernel against its plain version on the card, bitwise,
     at every shape the three modes launch; times at each shape."""
     import torch
-    rec = {"ftrl_gather": {}, "ftrl_scatter_add": {},
+    rec = {"ftrl_gather": {}, "ftrl_gather_pair": {}, "ftrl_scatter_add": {},
            "ftrl_chained_corr": {}}
     for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
         size = 4 if kind == "f32" else 8
@@ -484,15 +784,23 @@ def phase_ftrl_kernels(kf, rng, dev):
                         f"ftrl_gather {key} bitwise vs its plain version")
                 b_ms, b_by = _bound(M * 4 + touched * C * size
                                     + M * C * size, 0, kind)
+                lib = lambda: torch.index_select(st, 0, ix)   # noqa: E731
+                call = lambda: kf.gather_rows(st, ix)         # noqa: E731
+                k_ms, l_ms = cuda_ms_turns(call, lib)
+                k_host, l_host = host_ms_turns(call, lib)
                 rec["ftrl_gather"][key] = {
                     "bitwise": True, "max_abs_err": 0.0,
-                    "kernel_ms": cuda_ms(lambda: kf.gather_rows(st, ix)),
-                    "device_ms": device_ms(lambda: kf.gather_rows(st, ix),
-                                           "ftrl_gather")[0],
+                    "kernel_ms": k_ms,
+                    "device_ms": device_ms(call, "ftrl_gather")[0],
+                    "host_ms": k_host,
                     "plain_ms": cuda_ms(lambda: kf.gather_rows_plain(st, ix)),
-                    "library_ms": cuda_ms(
-                        lambda: torch.index_select(st, 0, ix)),
+                    "library_ms": l_ms,
+                    "library_device_ms": device_ms(lib)[0],
+                    "library_host_ms": l_host,
                     "bound_ms": b_ms, "bound_by": b_by}
+                if C == 2 and mode in ("sample", "chained"):
+                    rec["ftrl_gather_pair"][f"{kind} {mode} M={M}"] = \
+                        pair_shape(kf, st, ix, kind, size, touched)
                 rec["ftrl_scatter_add"][key] = scatter_shape(
                     kf, key, st, ix, upd, kind, size)
         # beyond the main path: all positions on one slot (one chain of
@@ -534,6 +842,9 @@ def phase_ftrl_kernels(kf, rng, dev):
                     "library_ms": cuda_ms(lambda: torch.einsum(
                         "jab,jbc->ac", Mk[:k], D[:k])),
                     "bound_ms": b_ms, "bound_by": b_by}
+    st, ix, _ = ftrl_kernel_inputs(rng, torch.float32, 1, FTRL_M["sample"],
+                                   dev)
+    rec["gather_host_parts_ms"] = gather_host_parts(kf, st, ix)
     return rec
 
 
@@ -732,9 +1043,15 @@ def phase_ftrl_main(kf, ks, rng):
     kf.reset_launch_counts()
     StreamOperator.execute()
     launches = kf.launch_counts()
-    require(launches["ftrl_gather"] > 0 and launches["ftrl_scatter_add"] > 0,
+    require(launches["ftrl_gather_pair"] > 0
+            and launches["ftrl_scatter_add"] > 0,
             f"the train + hot-swap predict run launched every state "
             f"kernel: {launches}")
+    # one gather of z and n per 4-row chunk: 1024 a 4096-row micro-batch
+    require(drain_launches["ftrl_gather_pair"]
+            == FTRL_BATCH // 4 * FTRL_TRAIN_BATCHES
+            and drain_launches["ftrl_gather"] == 0,
+            f"the sample step gathers once per chunk: {drain_launches}")
     require(launches == drain_launches,
             f"the replayed training launched what the drain did: "
             f"{launches} vs {drain_launches}")
@@ -792,7 +1109,7 @@ def phase_ftrl_main(kf, ks, rng):
     # -- the other two modes, 2 micro-batches each -----------------------
     two = train.first_n(2 * FTRL_BATCH)
     for mode, kernels in (("staleness", ("ftrl_gather", "ftrl_scatter_add")),
-                          ("chained", ("ftrl_gather", "ftrl_scatter_add",
+                          ("chained", ("ftrl_gather_pair", "ftrl_scatter_add",
                                        "ftrl_chained_corr"))):
         op = ftrl_op(warm, mode, time_interval=1e9).link_from(
             MemSourceStreamOp(two, batch_size=FTRL_BATCH))
@@ -1321,6 +1638,8 @@ ix = torch.tensor([3, 1 << 20, 5], dtype=torch.int32, device="cuda")
 try:
     if sys.argv[1] == "gather":
         kf.gather_rows(st, ix)
+    elif sys.argv[1] == "gather_pair":
+        kf.gather_pair(st, st, ix)
     elif sys.argv[1] == "scatter":
         kf.scatter_add_rows(st, ix, torch.ones(3, device="cuda"))
     else:
@@ -1347,7 +1666,7 @@ def phase_bad_slots():
     procs = {k: subprocess.Popen([sys.executable, "-c", BAD_SLOT_PROBE, k],
                                  cwd=root, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
-             for k in ("gather", "scatter", "tree_hist")}
+             for k in ("gather", "gather_pair", "scatter", "tree_hist")}
     out = {}
     for k, p in procs.items():
         try:
@@ -1389,22 +1708,23 @@ def main(argv=None) -> int:
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    probe = start_chain_probe(_build)
     _build.build()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a)")
     for name in _build.sources():
         print(f"build log {name}:\n{_build.build_log(name).strip()}")
+    lat = add_latency(*probe)
+    print(f"dependent add latency (cycles) and SM clock (MHz): {lat}")
 
     # -- 3. kernels against their plain versions -------------------------
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    parity = phase_kernels(ks, rng, dev)
+    parity = phase_kernels(ks, rng, dev, lat)
+    dense_edge_rec = parity.pop("serve_dense_edges")
     for name, modes in parity.items():
         for mode, rec in modes.items():
-            print(f"{name} {mode}: bitwise={rec['bitwise']} "
-                  f"kernel_ms={rec['kernel_ms']}"
-                  + (f" plain_ms={rec['plain_ms']} library_ms="
-                     f"{rec['library_ms']} bound_ms={rec['bound_ms']}"
-                     if mode == "f32" else ""))
+            print(f"{name} {mode}: " + " ".join(
+                f"{k}={v}" for k, v in rec.items()), flush=True)
 
     # -- 4. the main path: Criteo-shape sparse LR -------------------------
     coef = rng.standard_normal(FEATURES + 1) * 0.05
@@ -1479,13 +1799,12 @@ def main(argv=None) -> int:
 
     # -- 6. the FTRL state kernels against their plain versions ----------
     ftrl_parity = phase_ftrl_kernels(kf, rng, dev)
+    host_parts = ftrl_parity.pop("gather_host_parts_ms")
     for name, shapes in ftrl_parity.items():
         for key, rec in shapes.items():
-            print(f"{name} {key}: bitwise={rec['bitwise']} kernel_ms="
-                  f"{rec['kernel_ms']} device_ms={rec['device_ms']} "
-                  f"plain_ms={rec['plain_ms']} "
-                  f"library_ms={rec['library_ms']} bound_ms="
-                  f"{rec['bound_ms']} ({rec['bound_by']})")
+            print(f"{name} {key}: " + " ".join(
+                f"{k}={v}" for k, v in rec.items()), flush=True)
+    print(f"gather host parts (ms per call): {host_parts}", flush=True)
 
     # -- 7. the FTRL main path: online training on Criteo-shape rows -----
     ftrl = phase_ftrl_main(kf, ks, rng)
@@ -1520,16 +1839,29 @@ def main(argv=None) -> int:
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
             "library_ms": f32["library_ms"],
             "bitwise": all(r["bitwise"] for r in parity[name].values()),
-            "kernel_ms": f32["kernel_ms"],
-            "mode_ms": {m: r["kernel_ms"] for m, r in parity[name].items()},
-        })
+            "kernel_ms": f32["kernel_ms"], "device_ms": f32["device_ms"],
+            "host_ms": f32["host_ms"],
+            "library_device_ms": f32["library_device_ms"],
+            "library_host_ms": f32["library_host_ms"],
+            "modes": {m: {k: r[k] for k in ("kernel_ms", "device_ms",
+                                            "host_ms", "bound_ms")
+                          + (("chain_bound_ms",)
+                             if name == "serve_dense" else ())}
+                      for m, r in parity[name].items()}})
+    kernels[0]["chain_bound_ms"] = parity["serve_dense"]["f32"][
+        "chain_bound_ms"]
+    kernels[0]["add_latency"] = lat
+    kernels[0]["edges"] = dense_edge_rec
     # the FTRL kernels' record: each at the shape of the path that
     # counts it (sample mode for gather and scatter-add, chained for the
     # correction), in f32; every shape's times are in "shapes"
     ftrl_rec = (
         ("ftrl_gather", "alink_tpu/kernels/ftrl.py:90",
-         f"f32 sample M={FTRL_M['sample']} C=1",
-         ftrl["sample"]["main_path_launches"]["ftrl_gather"]),
+         f"f32 staleness M={FTRL_M['staleness']} C=2",
+         ftrl["staleness"]["launches"]["ftrl_gather"]),
+        ("ftrl_gather_pair", "alink_tpu/kernels/ftrl.py:90",
+         f"f32 sample M={FTRL_M['sample']}",
+         ftrl["sample"]["main_path_launches"]["ftrl_gather_pair"]),
         ("ftrl_scatter_add", "alink_tpu/kernels/ftrl.py:129",
          f"f32 sample M={FTRL_M['sample']} C=1",
          ftrl["sample"]["main_path_launches"]["ftrl_scatter_add"]),
@@ -1548,10 +1880,15 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"], "bitwise": True,
             "kernel_ms": r["kernel_ms"], "device_ms": r["device_ms"],
             "shape": key,
-            "shapes": {k: {f: v[f] for f in ("kernel_ms", "device_ms",
-                                               "plain_ms", "library_ms",
-                                               "bound_ms")}
-                       for k, v in ftrl_parity[name].items()}})
+            "shapes": {k: {f: v[f] for f in (
+                "kernel_ms", "device_ms", "host_ms", "plain_ms",
+                "library_ms", "library_device_ms", "library_host_ms",
+                "bound_ms") if f in v}
+                for k, v in ftrl_parity[name].items()}})
+        if name.startswith("ftrl_gather"):
+            kernels[-1].update(host_ms=r["host_ms"],
+                               library_host_ms=r["library_host_ms"])
+    kernels[2]["host_parts_ms"] = host_parts
     # the histogram kernel's record: at the main path's deepest level
     tkey = f"level n={ADULT_N} F={ADULT_F} nodes=32 bins={GBDT_BINS} m=3"
     r = tree_parity[tkey]

@@ -112,9 +112,9 @@ def test_step_matches_jax_xla_path(mode, dup_rows):
 
 
 @pytest.mark.parametrize("mode,launches", [
-    ("sample", {"gather_rows": 32, "scatter_add_rows": 32}),
+    ("sample", {"gather_pair": 16, "scatter_add_rows": 32}),
     ("staleness16", {"gather_rows": 4, "scatter_add_rows": 4}),
-    ("chained8", {"gather_rows": 16, "scatter_add_rows": 16,
+    ("chained8", {"gather_pair": 8, "scatter_add_rows": 16,
                   "chained_corr": 8 * 8})])
 def test_step_hands_the_kernels_what_they_take(monkeypatch, mode, launches):
     """Every gather, scatter-add and chained correction of a step goes
@@ -122,7 +122,8 @@ def test_step_hands_the_kernels_what_they_take(monkeypatch, mode, launches):
     nothing), with the operands the CUDA kernels take: contiguous, int32
     slots, one dtype. (The CUDA path itself needs the card; on CPU
     tensors the wrappers run their plain versions.) 62 rows: 16 chunks
-    of 4, 4 of 16, 8 of 8."""
+    of 4, 4 of 16, 8 of 8; the sample and chained steps gather a chunk's
+    z and n in one ``gather_pair`` call."""
     _, _, step, step_kw = STEPS[mode]
     calls = {}
 
@@ -132,11 +133,13 @@ def test_step_hands_the_kernels_what_they_take(monkeypatch, mode, launches):
             assert all(t.is_contiguous() for t in tensors), name
             assert len({t.dtype for t in tensors} - {torch.int32}) == 1
             if name != "chained_corr":
-                assert args[1].dtype == torch.int32 and args[1].dim() == 1
+                ix = args[2] if name == "gather_pair" else args[1]
+                assert ix.dtype == torch.int32 and ix.dim() == 1
             calls[name] = calls.get(name, 0) + 1
             return wrapper(*args)
         return call
-    for name in ("gather_rows", "scatter_add_rows", "chained_corr"):
+    for name in ("gather_rows", "gather_pair", "scatter_add_rows",
+                 "chained_corr"):
         monkeypatch.setattr(tf, name, checked(name, getattr(kf, name)))
     idx, val, y = _coo(62, 512, 12, 16, seed=1, dup_rows=16)
     z, n = ftrl_state_from_numpy(*_state(512), "cpu", torch.float32)

@@ -1,9 +1,11 @@
 """The port's FTRL state kernels on the CPU: their plain versions against
 the JAX package's ops, and no fallback off the CPU.
 
-``gather_rows`` and ``scatter_add_rows`` (``alink_tpu_torch/kernels/
-ftrl.py``) run their plain versions for CPU tensors. Those are held bit
-for bit against ``st[flat]`` and ``st.at[flat].add(upd)``, the XLA ops
+``gather_rows``, ``gather_pair`` and ``scatter_add_rows``
+(``alink_tpu_torch/kernels/ftrl.py``) run their plain versions for CPU
+tensors. Those are held bit for bit against ``st[flat]`` (of the stacked
+state, or of ``z`` and ``n`` for the pair) and ``st.at[flat].add(upd)``,
+the XLA ops
 the JAX package's Pallas kernels are pinned to, on the duplicate fixture
 of ``tests/test_kernels.py::test_gather_scatter_units`` with a ``-0.0``
 slot that no index names and padded zero updates at slot 0.
@@ -59,6 +61,26 @@ def test_gather_plain_bitwise_vs_jax(C, np_dtype, t_dtype):
     out = kf.gather_rows(torch.from_numpy(st), torch.from_numpy(idx))
     assert out.dtype == t_dtype
     assert np.array_equal(_bits(ref), _bits(out.numpy()))
+
+
+@pytest.mark.parametrize("np_dtype,t_dtype", DTYPES)
+def test_gather_pair_plain_bitwise_vs_jax(np_dtype, t_dtype):
+    """(z[idx], n[idx]) stacked, as the JAX package gathers each of the
+    two states: duplicate-heavy slots, the padded positions at slot 0
+    (whose -0.0 values keep their sign) and a -0.0 slot that no index
+    names; the same bits as ``gather_rows`` of the (S, 2) stack."""
+    st, idx, _ = _dup_fixture(2, np_dtype)
+    z, n = np.ascontiguousarray(st[:, 0]), np.ascontiguousarray(st[:, 1])
+    flat = jnp.asarray(idx)
+    ref = np.stack([np.asarray(jnp.asarray(z)[flat]),
+                    np.asarray(jnp.asarray(n)[flat])], -1)
+    out = kf.gather_pair(torch.from_numpy(z), torch.from_numpy(n),
+                         torch.from_numpy(idx))
+    assert out.dtype == t_dtype and out.shape == (idx.size, 2)
+    assert np.array_equal(_bits(ref), _bits(out.numpy()))
+    assert torch.signbit(out[-1]).all() and not out[-1].any()
+    stacked = kf.gather_rows(torch.from_numpy(st), torch.from_numpy(idx))
+    assert np.array_equal(_bits(stacked.numpy()), _bits(out.numpy()))
 
 
 @pytest.mark.parametrize("C", [1, 2])
@@ -151,7 +173,7 @@ def _raises_without_nvcc(monkeypatch, call):
             call()
 
 
-@pytest.mark.parametrize("name", ["gather", "scatter", "chained"])
+@pytest.mark.parametrize("name", ["gather", "pair", "scatter", "chained"])
 def test_cuda_tensors_launch_or_raise(monkeypatch, name):
     """A CUDA tensor never falls back to the plain version: without a
     card (and a compiler) the wrapper raises."""
@@ -163,6 +185,8 @@ def test_cuda_tensors_launch_or_raise(monkeypatch, name):
         ix = torch.zeros(8, dtype=torch.int32, device="cuda")
         if name == "gather":
             kf.gather_rows(st, ix)
+        elif name == "pair":
+            kf.gather_pair(st, torch.zeros(64, device="cuda"), ix)
         elif name == "scatter":
             kf.scatter_add_rows(st, ix, torch.zeros(8, device="cuda"))
         else:
@@ -180,11 +204,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         kf.gather_rows(meta, torch.zeros(4, dtype=torch.int32,
                                          device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.gather_pair(meta, meta, torch.zeros(4, dtype=torch.int32,
+                                               device="meta"))
     with FakeTensorMode():
         st = torch.zeros(16, device="cuda")
         with pytest.raises(ValueError, match="int32"):
             kf.gather_rows(st, torch.zeros(4, dtype=torch.int64,
                                            device="cuda"))
+        with pytest.raises(ValueError, match="int32"):
+            kf.gather_pair(st, st, torch.zeros(4, dtype=torch.int64,
+                                               device="cuda"))
+        with pytest.raises(ValueError, match="one dtype"):
+            kf.gather_pair(st, torch.zeros(16, dtype=torch.float64,
+                                           device="cuda"),
+                           torch.zeros(4, dtype=torch.int32, device="cuda"))
         with pytest.raises(ValueError, match="C in"):
             kf.scatter_add_rows(torch.zeros((16, 3), device="cuda"),
                                 torch.zeros(4, dtype=torch.int32,
@@ -197,16 +231,18 @@ def test_plain_versions_do_not_count_launches():
     st = torch.zeros(8, dtype=torch.float64)
     ix = torch.tensor([1, 1, 0], dtype=torch.int32)
     kf.gather_rows(st, ix)
+    kf.gather_pair(st, st, ix)
     kf.scatter_add_rows(st, ix, torch.ones(3, dtype=torch.float64))
     kf.chained_corr(torch.ones((2, 3, 3), dtype=torch.float64),
                     torch.ones((2, 3, 2), dtype=torch.float64), 1)
-    assert kf.launch_counts() == {"ftrl_gather": 0, "ftrl_scatter_add": 0,
+    assert kf.launch_counts() == {"ftrl_gather": 0, "ftrl_gather_pair": 0,
+                                  "ftrl_scatter_add": 0,
                                   "ftrl_chained_corr": 0}
     assert st.tolist() == [1.0, 2.0] + [0.0] * 6
 
 
 @pytest.mark.parametrize("bad", [16, -1])
-@pytest.mark.parametrize("name", ["gather", "scatter"])
+@pytest.mark.parametrize("name", ["gather", "pair", "scatter"])
 def test_out_of_range_slots_raise(name, bad):
     """A slot outside the state raises on the CPU (the kernels fail a
     device-side assert on the card) and leaves the state untouched."""
@@ -215,6 +251,8 @@ def test_out_of_range_slots_raise(name, bad):
     with pytest.raises(IndexError):
         if name == "gather":
             kf.gather_rows(st, ix)
+        elif name == "pair":
+            kf.gather_pair(st, st, ix)
         else:
             kf.scatter_add_rows(st, ix, torch.ones(3, dtype=torch.float64))
     assert st.tolist() == list(range(16))
@@ -264,7 +302,7 @@ class _FakeFn:
         return 0
 
 
-@pytest.mark.parametrize("name", ["gather", "scatter", "chained"])
+@pytest.mark.parametrize("name", ["gather", "pair", "scatter", "chained"])
 def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
                                                             name):
     """With a library in place, a CUDA tensor goes to its C function once,
@@ -272,18 +310,18 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
     never called."""
     import types
     fake = types.SimpleNamespace(**{n: _FakeFn() for n in (
-        "alink_ftrl_gather", "alink_ftrl_scatter_add",
-        "alink_ftrl_chained_corr", "alink_ftrl_error_string")})
+        "alink_ftrl_gather", "alink_ftrl_gather_pair",
+        "alink_ftrl_scatter_add", "alink_ftrl_chained_corr",
+        "alink_ftrl_error_string")})
     monkeypatch.setattr(kf, "_fns", None)
     monkeypatch.setattr(_build, "load_library", lambda n: fake)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
-                        types.SimpleNamespace(cuda_stream=55))
+    monkeypatch.setattr(_build, "current_device", lambda: 0)
+    monkeypatch.setattr(_build, "stream_handle", lambda i: 55)
 
     def no_plain(*a):
         raise AssertionError("a CUDA tensor reached a plain version")
-    for plain in ("gather_rows_plain", "scatter_add_rows_plain",
-                  "chained_corr_plain"):
+    for plain in ("gather_rows_plain", "gather_pair_plain",
+                  "scatter_add_rows_plain", "chained_corr_plain"):
         monkeypatch.setattr(kf, plain, no_plain)
     kf.reset_launch_counts()
     with FakeTensorMode():
@@ -291,17 +329,52 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
         ix = torch.zeros(8, dtype=torch.int32, device="cuda")
         if name == "gather":
             kf.gather_rows(st, ix)
+        elif name == "pair":
+            kf.gather_pair(torch.zeros(64, device="cuda"),
+                           torch.zeros(64, device="cuda"), ix)
         elif name == "scatter":
             kf.scatter_add_rows(st, ix, torch.zeros((8, 2), device="cuda"))
         else:
             kf.chained_corr(torch.zeros((4, 8, 8), device="cuda"),
                             torch.zeros((4, 8, 2), device="cuda"), 2)
     fn = {"gather": fake.alink_ftrl_gather,
+          "pair": fake.alink_ftrl_gather_pair,
           "scatter": fake.alink_ftrl_scatter_add,
           "chained": fake.alink_ftrl_chained_corr}[name]
     (args,) = fn.calls
     assert args[0] == 0 and args[-1] == 55            # float32, the stream
-    counted = {"gather": "ftrl_gather", "scatter": "ftrl_scatter_add",
+    counted = {"gather": "ftrl_gather", "pair": "ftrl_gather_pair",
+               "scatter": "ftrl_scatter_add",
                "chained": "ftrl_chained_corr"}[name]
     assert kf.launch_counts() == {k: int(k == counted) for k in (
-        "ftrl_gather", "ftrl_scatter_add", "ftrl_chained_corr")}
+        "ftrl_gather", "ftrl_gather_pair", "ftrl_scatter_add",
+        "ftrl_chained_corr")}
+
+
+@pytest.mark.parametrize("mode", ["sample", "chained"])
+def test_steps_gather_z_and_n_in_one_call_per_chunk(monkeypatch, mode):
+    """The per-sample and chained steps take each chunk's slots of z and
+    n in ONE gather_pair call (one launch on the card), and gather_rows
+    not at all: 2 chunks of 4 rows, 1 chunk of 16."""
+    from alink_tpu_torch.operator.stream.onlinelearning import ftrl as op
+    calls = {"pair": 0, "rows": 0}
+
+    def counting(name, fn):
+        def call(*a):
+            calls[name] += 1
+            return fn(*a)
+        return call
+    monkeypatch.setattr(op, "gather_pair", counting("pair", kf.gather_pair))
+    monkeypatch.setattr(op, "gather_rows", counting("rows", kf.gather_rows))
+    rng = np.random.RandomState(3)
+    idx = torch.from_numpy(rng.randint(0, 50, (8, 8)).astype(np.int32))
+    val = torch.from_numpy(rng.randn(8, 8))
+    y = torch.from_numpy((rng.rand(8) < 0.5).astype(np.float64))
+    z, n = torch.zeros(50, dtype=torch.float64), torch.ones(50,
+                                                           dtype=torch.float64)
+    hp = dict(alpha=0.05, beta=1.0, l1=1e-5, l2=1e-5)
+    if mode == "sample":
+        op.ftrl_sample_step(idx, val, y, z, n, **hp)
+    else:
+        op.ftrl_chained_step(idx, val, y, z, n, **hp, K=16)
+    assert calls == {"pair": 2 if mode == "sample" else 1, "rows": 0}

@@ -84,9 +84,15 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.stream.source.sources",
               "alink_tpu_torch.operator.stream.sink.sinks",
               "alink_tpu_torch.operator.stream.onlinelearning.ftrl",
-              "alink_tpu_torch.model.interop"):
+              "alink_tpu_torch.model.interop",
+              "alink_tpu_torch.kernels.tree_hist",
+              "alink_tpu_torch.operator.common.tree.hist",
+              "alink_tpu_torch.operator.common.tree.trainers",
+              "alink_tpu_torch.operator.batch.classification.tree_ops",
+              "alink_tpu_torch.engine.comqueue"):
         assert m in mods, m
-    assert (PKG / "kernels" / "csrc" / "ftrl_state.cu").exists()
+    for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu"):
+        assert (PKG / "kernels" / "csrc" / src).exists(), src
 
 
 def test_chip_smoke_names_no_jax():

@@ -195,3 +195,123 @@ def test_quantize_and_lowp_arrays_match_jax():
             r = np.asarray(r)
             r = r.view(np.int16) if a.dtype == np.int16 else r
             assert a.shape == r.shape and np.array_equal(a, r)
+
+
+# (rows, dim8): a single row, a few rows, a bucket and one row past it,
+# dim8 on both sides of the JAX package's unrolled chain (<= 128) and its
+# chunked scan, up to the dense path's 1024
+DENSE_SHAPES = [(1, 16), (1, 136), (7, 64), (33, 264), (513, 72),
+                (2, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("ship", [np.float32, np.float64])
+@pytest.mark.parametrize("n,dim8", DENSE_SHAPES)
+def test_dense_plain_bitwise_vs_jax_shapes(monkeypatch, n, dim8, ship,
+                                           dtype):
+    """The dense plain version (what the kernel is held to on the card)
+    bitwise against the JAX package's fused dense kernel (interpret
+    mode) at the row counts and widths the one-warp-per-row design
+    splits differently."""
+    import jax
+    import jax.numpy as jnp
+    from alink_tpu.kernels.serve import make_fused_score_fns
+    monkeypatch.setenv("ALINK_TPU_PALLAS_INTERPRET", "1")
+    w, b, X, _, _ = _inputs(n * 7 + dim8, ship, dim8, n, 8)
+    jmdl = tuple(jnp.asarray(a) for a in _jax_model(w, b, dtype))
+    got = tserve.dense_scores(_port_model(w, b, dtype), torch.from_numpy(X),
+                              dtype).numpy()
+    want = np.asarray(jax.jit(make_fused_score_fns(dtype, ship)["dense"])(
+        jmdl, jnp.asarray(X)))
+    assert got.dtype == want.dtype and got.shape == (n,)
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("n", [1, 7, 33, 131, 132, 263, 512, 513, 4096])
+@pytest.mark.parametrize("dim", [8, 1024, 1031, 65536])
+def test_dense_plan_covers_every_row_once(n, dim, itemsize):
+    """The dense kernel's launch shape: a block per SM at least where
+    there are rows for it, each row in exactly one (block, warp), a last
+    block of 1 to ``rows`` rows, and chunks of whole 32-term steps (whole
+    16-byte words) within the kernel's 2 KB a row."""
+    sms = tserve.H100_SMS
+    plan = tserve._dense_plan(n, dim, itemsize, sms)
+    assert 1 <= plan.rows <= 4
+    blocks = -(-n // plan.rows)                  # the kernel's grid
+    assert blocks >= min(n, sms)
+    covered = [blk * plan.rows + warp for blk in range(blocks)
+               for warp in range(plan.rows) if blk * plan.rows + warp < n]
+    assert covered == list(range(n))
+    assert 1 <= n - (blocks - 1) * plan.rows <= plan.rows
+    assert plan.chunk % 32 == 0 and (plan.chunk * itemsize) % 16 == 0
+    assert 32 <= plan.chunk and plan.chunk * itemsize <= 2048
+    assert plan.chunk <= -(-dim // 32) * 32
+    if n == 1:
+        assert plan.rows == 1 and blocks == 1
+    if n == 512:                       # the top bucket: every SM busy
+        assert plan.rows == 3 and blocks == 171
+
+
+@pytest.mark.parametrize("bad", [(0, 64, 4), (4, 0, 4), (4, 64, 3),
+                                 (4, 64, 16)])
+def test_dense_plan_refuses_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        tserve._dense_plan(*bad)
+
+
+class _FakeFn:
+    """A C function of a fake library: records its arguments."""
+
+    def __init__(self):
+        self.argtypes, self.restype, self.calls = None, None, []
+
+    def __call__(self, *args):
+        assert self.argtypes is not None and len(args) == len(self.argtypes)
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_cuda_tensors_reach_the_kernel_with_its_plan(monkeypatch, kind):
+    """With a library in place, a CUDA request block goes to its C
+    function once, on the current stream (the device entered only when
+    it is not the current one), the dense one with ``_dense_plan``'s
+    rows and chunk; one launch counted, no plain version called."""
+    import types
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from alink_tpu_torch.kernels import _build
+    fake = types.SimpleNamespace(
+        alink_serve_dense=_FakeFn(), alink_serve_sparse=_FakeFn(),
+        alink_cuda_error_string=_FakeFn())
+    monkeypatch.setattr(tserve, "_fns", None)
+    monkeypatch.setattr(_build, "load_library", lambda n: fake)
+    monkeypatch.setattr(_build, "current_device", lambda: 0)
+    monkeypatch.setattr(_build, "stream_handle", lambda i: 55)
+    monkeypatch.setattr(tserve, "_sm_count", lambda i: 132)
+
+    def no_plain(*a):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(tserve, "dense_scores_plain", no_plain)
+    monkeypatch.setattr(tserve, "sparse_scores_plain", no_plain)
+    tserve.reset_launch_counts()
+    with FakeTensorMode():
+        mdl = (torch.zeros(1024, device="cuda"),
+               torch.zeros((), device="cuda"))
+        if kind == "dense":
+            out = tserve.dense_scores(mdl, torch.zeros((512, 1024),
+                                                       device="cuda"), "f32")
+        else:
+            out = tserve.sparse_scores(
+                mdl, torch.zeros((512, 40), dtype=torch.int32,
+                                 device="cuda"),
+                torch.zeros((512, 40), device="cuda"), "f32")
+        assert out.shape == (512,) and out.dtype == torch.float32
+    (args,) = getattr(fake, f"alink_serve_{kind}").calls
+    assert args[0] == 0 and args[-1] == 55            # f32 mode, the stream
+    if kind == "dense":
+        assert args[6:10] == (512, 1024, 3, 512)      # n, dim, rows, chunk
+    assert tserve.launch_counts() == {"serve_dense": int(kind == "dense"),
+                                      "serve_sparse": int(kind == "sparse")}
