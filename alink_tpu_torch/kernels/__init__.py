@@ -4,9 +4,9 @@
 * ``serve`` — the fused dense and sparse serving score kernels
   (``csrc/serve_score.cu``), their plain PyTorch versions and launch
   counts;
-* ``ftrl`` — the FTRL state gather, in-order scatter-add and chained
-  correction kernels (``csrc/ftrl_state.cu``), their plain versions and
-  launch counts;
+* ``ftrl`` — the FTRL state gather, in-order scatter-add and chunk
+  walk of the strict steps (``csrc/ftrl_state.cu``), their plain
+  versions and launch counts;
 * ``tree_hist`` — the level histogram of tree growing
   (``csrc/tree_hist.cu``), its plain version and launch count;
 * ``_build`` — builds ``csrc/*.cu`` with ``nvcc`` at first use and

@@ -1,5 +1,5 @@
 // FTRL state kernels for Hopper (sm_90a): the state gather, the
-// deterministic scatter-add and the chained-correction matvec of the sparse
+// deterministic scatter-add and the walk of one chunk of the strict sparse
 // online FTRL steps.
 //
 // What they replace:
@@ -8,7 +8,11 @@
 //                               gather of z and n in one launch)
 //   ftrl_scatter_add_kernel  <- alink_tpu/kernels/ftrl.py::_scatter_call
 //                               (scatter_add_rows)
-//   ftrl_chained_corr_kernel <- alink_tpu/kernels/ftrl.py::chained_corr
+//   ftrl_walk_kernel         <- alink_tpu/kernels/ftrl.py::chained_corr and
+//                               the per-sample loop of the strict steps
+//                               around it (alink_tpu/operator/stream/
+//                               onlinelearning/ftrl.py, the sparse and the
+//                               chained step factories)
 // Each is instantiated for float and double; gather and scatter-add for
 // C = 1 (z or n alone) and C = 2 (z and n stacked as (S, 2)).
 //
@@ -21,25 +25,49 @@
 //               rounded on its own (__fadd_rn / __dadd_rn); a slot that no
 //               update names is never written, so a stored -0.0 survives.
 //               No atomics: atomicAdd's order changes from run to run.
-//   chained     out[a, c] = sum_{j<k} sum_b Mk[j, a, b] * D[j, b, c], one
-//               chain per output in the order j, then b, from a zero
-//               accumulator; every product rounded on its own (no FMA,
-//               no TF32, no tensor cores).
+//   walk        kernels/ftrl.py::walk_chunk_plain, bitwise on the card: for
+//               k = 0..K-1 in order, sample k's z and n at its slots
+//               corrected by the deltas of samples j < k at the same slot,
+//               w from the FTRL-proximal closed form, the margin as the
+//               pairwise tree of x * w (tree_sum), the clipped sigmoid, g,
+//               g^2, sigma and the deltas (g - sigma w, g^2). The
+//               correction in one of two associations:
+//                 chained  sum_{j<k} sum_b M[k, j, a, b] * D[j, b, c], one
+//                          chain per output in the order j, then b, from
+//                          +0.0, every product rounded on its own, then
+//                          base + chain. Products that are exact zeros (a
+//                          slot that does not match, a finite delta) leave
+//                          a chain from +0.0 as it is and are skipped; 0 *
+//                          inf and 0 * NaN are NaN and reach it.
+//                 sample   for j = 0..k-1 in order, the in-order sum from
+//                          +0.0 of sample j's deltas at the slot (a
+//                          selection: a NaN delta elsewhere does not leak)
+//                          added to the running value.
+//               Every op rounds as PyTorch rounds it on the card: the
+//               division by the Python float alpha is a multiply by its
+//               reciprocal (rounded in T on the host), 1 / t is
+//               reciprocal(t), exp and sqrt are CUDA's (expf, exp,
+//               correctly rounded sqrt), the hyperparameters become T
+//               before any arithmetic.
 // Built with --fmad=false as well, so nothing else contracts either.
 //
-// What bounds them: the launch. At the shapes of the FTRL steps (M = 160 to
-// 1280 touched slots of a 2^20 state, K = 16 chained rows of width 40) each
-// kernel moves a few kilobytes to a few hundred kilobytes, microseconds or
-// less at the card's memory rate, so a launch's fixed cost dominates. For
-// the gather it is all there is: its body runs at the launch floor, and
-// what a call costs is the host's issue of it (the wrapper's checks, the
-// allocation of the output, the ctypes call), which the design below and
-// kernels/ftrl.py keep short; the pair form issues one launch where
-// stacking two gathers issued three. The
-// state itself is touched only at the M named slots; the rest of the 2^20
-// slots are never read. Past the launch, the scatter-add's time goes to
-// its sort (a few passes over M positions on one SM) and to its longest
-// run of one slot, a chain of dependent adds.
+// What bounds them: the launch, and for the walk its dependent chain. At
+// the shapes of the FTRL steps (M = 160 to 1280 touched slots of a 2^20
+// state, K = 4 or 16 rows of width 40 a chunk) each kernel moves a few
+// kilobytes to a few hundred kilobytes, microseconds or less at the card's
+// memory rate, so a launch's fixed cost dominates. For the gather it is
+// all there is: its body runs at the launch floor, and what a call costs
+// is the host's issue of it (the wrapper's checks, the allocation of the
+// output, the ctypes call), which the design below and kernels/ftrl.py
+// keep short; the pair form issues one launch where stacking two gathers
+// issued three. The state itself is touched only at the M named slots; the
+// rest of the 2^20 slots are never read. Past the launch, the scatter-add's
+// time goes to its sort (a few passes over M positions on one SM) and to
+// its longest run of one slot, a chain of dependent adds. The walk is a
+// chain through every sample of the chunk (each Criteo row holds the
+// intercept, so each sample reads the one before it): per sample the
+// correction, the weights (sqrt, divide), the margin's tree, exp and the
+// reciprocal, the deltas, one after the other.
 //
 // Design:
 //   gather   - one thread per slot m: it reads idx[m] once and moves the
@@ -67,13 +95,48 @@
 //              Padded positions (slot 0, update 0.0) are added like any
 //              other, as the JAX package adds them (-0.0 + 0.0 turns into
 //              +0.0 there).
-//   chained  - ONE block, one thread per output (a, c), each walking its
-//              chain of k * w products.
+//   walk     - ONE block a chunk (chunks depend on each other through the
+//              state, so one launch walks one), of any K * w the scatter-add
+//              takes. Eight warps set it up: the chunk's slots, values,
+//              labels and gathered state into shared memory (past the 227
+//              KB a block can opt in to, into a global-memory scratch the
+//              caller sizes with alink_ftrl_walk_spill), the positions
+//              sorted by a hash bucket of their slot
+//              (a counting sort: atomic counts, a block scan, placement),
+//              then, by a scan of its bucket's contiguous run (none for a
+//              slot alone in its bucket; eight entries a step, no branch),
+//              each position's previous
+//              occurrence of its slot, the last one in an earlier row and
+//              how many come before it in its own row. No (K, K, w, w)
+//              collision tensor exists and no product with a zero is
+//              formed. Then warp 0 walks the samples, lane l holding the
+//              row's positions l, l + 32, ... (R a lane, R = 1, 2, 4 or 8
+//              for w up to 256), with no branch between a lane's R chains
+//              (a position past the row computes on the row's last one and
+//              is masked). Wider rows, and a chunk in the scratch, take the
+//              wide form: the row in pieces of 256 positions, what a
+//              position needs after the margin kept in memory. (A direct
+//              scan of the earlier slots in place of the sort was slower
+//              at every shape measured.) A position's correction is ONE
+//              read: every occurrence of a slot keeps the running value its
+//              successors need (chained: the chain over the slot's
+//              occurrences so far; sample: the row's partial and the
+//              corrected value after the row), so only the adds the
+//              contract orders are made, each by the lane that owns the
+//              occurrence, right after its delta, from the value its
+//              correction read. Repeats of a slot inside a row are recorded
+//              in their order, one level a repeat. The margin's tree adds
+//              the lane's registers, then the lanes' butterfly
+//              (__shfl_xor_sync), which leaves the sum in every lane;
+//              chained, a per-row count of non-finite deltas (a ballot)
+//              beside each occurrence's own count says whether a 0 * inf
+//              or 0 * NaN reached the chain.
 // An index outside [0, S) fails a device-side assert, as PyTorch's own
 // CUDA indexing does: the launch's stream then reports cudaErrorAssert at
 // its next synchronize, where the plain version raises IndexError at once.
 // The clamp behind the assert only keeps a build without asserts (NDEBUG)
-// inside the state.
+// inside the state. The walk never indexes the state by slot: it compares
+// slots only.
 //
 // Interface: plain C, loaded with ctypes. A launch goes on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
@@ -87,7 +150,7 @@ namespace {
 
 constexpr int kGatherThreads = 256;
 constexpr int kScatterThreads = 1024;
-constexpr int kCorrThreads = 256;
+constexpr int kWalkThreads = 256;  // eight warps set a chunk up, warp 0 walks it
 // the scatter block sorts with 12 bytes a position plus 8 KB of digit
 // tables, then reuses that memory for the sorted updates and a bitmap of run
 // heads (at most 11264 * 16 + 1540 bytes), inside the 227 KB a block can opt
@@ -96,11 +159,36 @@ constexpr int kScatterMaxM = 11264;
 constexpr int kScatterPerThread = 11;  // sorted positions a thread holds: 11264 / 1024
 constexpr int kSortWarps = 8;          // the warps that sort, one digit table each
 constexpr size_t kDefaultSmem = 48 * 1024;
+// a walk's chunk: as many positions (K * w) as the scatter-add takes, in
+// shared memory up to the 227 KB a block can opt in to (less the static
+// 32 bytes of the block scan), else in global memory
+constexpr int kWalkMaxP = kScatterMaxM;
+constexpr size_t kWalkMaxSmem = 227 * 1024 - 64;
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float exp_(float a) { return expf(a); }
+__device__ __forceinline__ double exp_(double a) { return exp(a); }
+__device__ __forceinline__ float clip35(float a) { return fminf(fmaxf(a, -35.0f), 35.0f); }
+__device__ __forceinline__ double clip35(double a) { return fmin(fmax(a, -35.0), 35.0); }
+template <typename T>
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() { return __int_as_float(0x7fffffff); }
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7fffffffffffffffll);
+}
 
 __device__ __forceinline__ int checked_slot(int32_t s, int S) {
   assert(s >= 0 && s < S);
@@ -281,20 +369,360 @@ ftrl_scatter_add_kernel(T* __restrict__ state, const int32_t* __restrict__ idx,
   }
 }
 
+// The hyperparameters in T, 1 / alpha rounded as PyTorch rounds it
 template <typename T>
-__global__ void __launch_bounds__(kCorrThreads)
-ftrl_chained_corr_kernel(const T* __restrict__ Mk, const T* __restrict__ D,
-                         T* __restrict__ out, int k, int w, int C) {
-  for (int t = threadIdx.x; t < w * C; t += blockDim.x) {
-    const int a = t / C;
-    const int c = t - a * C;
-    T acc = 0;
-    for (int j = 0; j < k; ++j) {
-      const T* mrow = Mk + (static_cast<size_t>(j) * w + a) * w;
-      const T* dj = D + static_cast<size_t>(j) * w * C + c;
-      for (int b = 0; b < w; ++b) acc = add_rn(acc, mul_rn(mrow[b], dj[b * C]));
+struct WalkHp {
+  T beta, l1, l2, inv_alpha;
+};
+
+// w from (z, n): kernels/ftrl.py::ftrl_weights, op by op
+template <typename T>
+__device__ __forceinline__ T ftrl_w(T z, T n, const WalkHp<T>& h) {
+  const T decay = add_rn(mul_rn(add_rn(sqrt_rn(n), h.beta), h.inv_alpha), h.l2);
+  const T sign = static_cast<T>((T(0) < z) - (z < T(0)));
+  const T w = div_rn(-sub_rn(z, mul_rn(sign, h.l1)), decay);
+  return fabs(z) <= h.l1 ? T(0) : w;
+}
+
+// the clipped logistic: 1 / (1 + exp(-clamp(m, -35, 35))), NaN kept
+template <typename T>
+__device__ __forceinline__ T sigmoid_rn(T m) {
+  const T c = m != m ? m : clip35(m);
+  return rcp_rn(add_rn(exp_(-c), T(1)));
+}
+
+__device__ __forceinline__ int slot_bucket(int s, int bits) {
+  return static_cast<int>((static_cast<unsigned>(s) * 2654435761u) >> (32 - bits));
+}
+
+// a[0..n) := its exclusive prefix sums; every thread of the block calls it
+__device__ void block_exclusive_scan(int* a, int n) {
+  __shared__ int warp_total[kWalkThreads / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int per = (n + kWalkThreads - 1) / kWalkThreads;
+  const int lo = min(n, static_cast<int>(threadIdx.x) * per), hi = min(n, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int base = incl - sum;
+  for (int v = 0; v < warp; ++v) base += warp_total[v];
+  for (int i = lo; i < hi; ++i) {
+    const int c = a[i];
+    a[i] = base;
+    base += c;
+  }
+}
+
+// The walk's arrays, laid out from `base`: seven arrays of P = K * w T
+// (values, z, n and four running values), K labels, then six arrays of P
+// ints, 2^hbits + 1 bucket starts and K per-row repeat depths.
+template <typename T>
+struct WalkMem {
+  T *xs, *z0, *n0, *ra, *rb, *rc, *rd, *ys;
+  int *slot, *place, *prev, *lastb, *dep, *nfc, *start, *rowdep;
+};
+
+inline int walk_hbits(int P) {
+  int hbits = 1;  // buckets: a power of two, at least twice the positions
+  while ((1 << hbits) < 2 * P) ++hbits;
+  return hbits;
+}
+
+template <typename T>
+size_t walk_bytes(int K, int w) {
+  const size_t P = static_cast<size_t>(K) * w;
+  return (7 * P + K) * sizeof(T) + (6 * P + (size_t(1) << walk_hbits(K * w)) + 1 + K) * sizeof(int);
+}
+
+template <typename T>
+__device__ __forceinline__ WalkMem<T> walk_mem(unsigned char* base, int K, int w, int hbits) {
+  const int P = K * w;
+  WalkMem<T> m;
+  m.xs = reinterpret_cast<T*>(base);
+  m.z0 = m.xs + P;
+  m.n0 = m.z0 + P;
+  // running values of each occurrence. chained: ra/rb the chain of z's and
+  // n's deltas over the slot's occurrences up to this one; sample: ra/rb
+  // the partial of this row's occurrences up to this one, rc/rd the
+  // corrected z and n after this row
+  m.ra = m.n0 + P;
+  m.rb = m.ra + P;
+  m.rc = m.rb + P;
+  m.rd = m.rc + P;
+  m.ys = m.rd + P;
+  m.slot = reinterpret_cast<int*>(m.ys + K);
+  m.place = m.slot + P;  // the position's place among its bucket's
+  m.prev = m.place + P;  // the slot's previous occurrence, or -1
+  m.lastb = m.prev + P;  // its last occurrence in an earlier row, or -1
+  m.dep = m.lastb + P;   // its occurrences before this one in this row
+  m.nfc = m.dep + P;     // chained: non-finite deltas of z and n (<< 16) so
+                         // far; first the positions sorted by bucket
+  m.start = m.nfc + P;   // 2^hbits + 1 bucket starts
+  m.rowdep = m.start + (1 << hbits) + 1;
+  return m;
+}
+
+// The walk's setup, by the whole block: the chunk into the walk's arrays;
+// each position counted in its slot's bucket; the positions sorted by
+// bucket (a counting sort), so a position finds its slot's other
+// occurrences in one contiguous run; then each position's links.
+template <typename T>
+__device__ void walk_links(const WalkMem<T>& m, const int32_t* __restrict__ xi,
+                           const T* __restrict__ xv, const T* __restrict__ yy,
+                           const T* __restrict__ zn, int K, int w, int hbits) {
+  const int P = K * w, H = 1 << hbits, tid = threadIdx.x;
+#pragma unroll 4
+  for (int p = tid; p < P; p += kWalkThreads) {
+    m.slot[p] = xi[p];
+    m.xs[p] = xv[p];
+    m.z0[p] = zn[2 * p];
+    m.n0[p] = zn[2 * p + 1];
+  }
+  for (int h = tid; h <= H; h += kWalkThreads) m.start[h] = 0;
+  for (int k = tid; k < K; k += kWalkThreads) {
+    m.ys[k] = yy[k];
+    m.rowdep[k] = 0;
+  }
+  __syncthreads();
+  for (int p = tid; p < P; p += kWalkThreads)
+    m.place[p] = atomicAdd(&m.start[slot_bucket(m.slot[p], hbits)], 1);
+  __syncthreads();
+  block_exclusive_scan(m.start, H + 1);
+  __syncthreads();
+  for (int p = tid; p < P; p += kWalkThreads)
+    m.nfc[m.start[slot_bucket(m.slot[p], hbits)] + m.place[p]] = p;
+  __syncthreads();
+  for (int p = tid; p < P; p += kWalkThreads) {
+    const int s = m.slot[p], row0 = p - p % w, b = slot_bucket(s, hbits);
+    const int lo = m.start[b], hi = m.start[b + 1];
+    int pv = -1, lb = -1, dp = 0;
+    // the bucket's run, eight entries a step with no branch, so that their
+    // loads overlap (a slot in every row, as the intercept, fills a run of K)
+    for (int i0 = lo; hi - lo > 1 && i0 < hi; i0 += 8) {
+      int q[8], sq[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) q[u] = i0 + u < hi ? m.nfc[i0 + u] : p;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sq[u] = m.slot[q[u]];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const bool before = q[u] < p && sq[u] == s;
+        pv = before ? max(pv, q[u]) : pv;
+        lb = before && q[u] < row0 ? max(lb, q[u]) : lb;
+        dp += before && q[u] >= row0;
+      }
     }
-    out[t] = acc;
+    m.prev[p] = pv;
+    m.lastb[p] = lb;
+    m.dep[p] = dp;
+    if (dp) atomicMax(&m.rowdep[p / w], dp);
+  }
+  __syncthreads();
+}
+
+// One chunk of K rows of width w, R positions a lane: lane l takes the
+// row's positions l, l + 32, ... In the narrow form (kWide false; w <= 32 R,
+// and 32 R is the tree's width for w > 32) the chunk is in shared memory
+// and a lane keeps its positions' values in registers through a sample. The
+// wide form (R = 8) takes any w, and its arrays from `spill` (global memory)
+// when the chunk does not fit in shared memory: the lanes walk the row in
+// pieces of 256 positions, and what a position needs after the margin (its
+// corrected z and n, its correction's base) and the terms of the margin's
+// tree (in the row's part of d, before its deltas replace them) go to
+// memory between the passes.
+template <typename T, bool kChained, int R, bool kWide>
+__global__ void __launch_bounds__(kWalkThreads)
+ftrl_walk_kernel(const int32_t* __restrict__ xi, const T* __restrict__ xv,
+                 const T* __restrict__ yy, const T* __restrict__ zn, T* __restrict__ margin,
+                 T* __restrict__ d, int K, int w, int hbits, WalkHp<T> hp,
+                 unsigned char* __restrict__ spill) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WalkMem<T> sm = walk_mem<T>(kWide && spill ? spill : smem, K, w, hbits);
+  walk_links(sm, xi, xv, yy, zn, K, w, hbits);
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, P = K * w;
+  int width = 1;  // the tree's width: w padded with +0.0 to a power of two
+  while (width < w) width <<= 1;
+  const int pieces = kWide ? (w + 32 * R - 1) / (32 * R) : 1;
+  int nf_z = 0, nf_n = 0;  // chained: non-finite deltas in the rows walked
+  // narrow: a lane's positions past the row compute on the row's last
+  // position and are masked, so that no branch keeps its R chains apart;
+  // the next sample's links are read a sample ahead
+  int lbn[R], dpn[R];
+  if (!kWide) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      lbn[r] = sm.lastb[min(lane + 32 * r, w - 1)];
+      dpn[r] = sm.dep[min(lane + 32 * r, w - 1)];
+    }
+  }
+  for (int k = 0; k < K; ++k) {
+    T x[R], z[R], n[R], wt[R], t[R], bz[R], bn[R], dz[R], dn[R];
+    int nb[R], dp[R];
+    const int depth = sm.rowdep[k];
+    T* const tt = d + k * w;  // wide: the row's terms, then its deltas of z
+    for (int pc = 0; pc < pieces; ++pc) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int a = pc * 32 * R + lane + 32 * r, p = k * w + min(a, w - 1);
+        int lb;
+        if (kWide) {
+          lb = sm.lastb[p];
+        } else {
+          lb = lbn[r];
+          dp[r] = dpn[r];
+          if (k + 1 < K) {
+            lbn[r] = sm.lastb[p + w];
+            dpn[r] = sm.dep[p + w];
+          }
+        }
+        const int q = max(lb, 0);
+        T zc = sm.z0[p], nc = sm.n0[p];
+        if (kChained) {
+          bz[r] = lb >= 0 ? sm.ra[q] : T(0);
+          bn[r] = lb >= 0 ? sm.rb[q] : T(0);
+          nb[r] = lb >= 0 ? sm.nfc[q] : 0;
+          // a non-finite delta at another slot: 0 * inf or 0 * NaN
+          zc = add_rn(zc, nf_z > (nb[r] & 0xffff) ? quiet_nan<T>() : bz[r]);
+          nc = add_rn(nc, nf_n > (nb[r] >> 16) ? quiet_nan<T>() : bn[r]);
+        } else {
+          // no earlier row holds the slot: the +0.0 partials of the rows
+          // before (none for sample 0)
+          const T zp = k > 0 ? add_rn(zc, T(0)) : zc, np = k > 0 ? add_rn(nc, T(0)) : nc;
+          zc = lb >= 0 ? sm.rc[q] : zp;
+          nc = lb >= 0 ? sm.rd[q] : np;
+        }
+        x[r] = sm.xs[p];
+        z[r] = zc;
+        n[r] = nc;
+        wt[r] = ftrl_w(zc, nc, hp);
+        t[r] = a < w ? mul_rn(x[r], wt[r]) : T(0);
+        if (kWide && a < w) {
+          // p's own row: no other position reads these before p's deltas
+          sm.z0[p] = zc;
+          sm.n0[p] = nc;
+          tt[a] = t[r];
+          if (kChained) {
+            sm.ra[p] = bz[r];
+            sm.rb[p] = bn[r];
+            sm.nfc[p] = nb[r];
+          }
+        }
+      }
+    }
+    // the margin: tree_sum's halves. Wide: the levels above a piece first,
+    // in memory, each lane on its own positions (a level's halves are a
+    // multiple of 32 apart); then across a lane's registers, then across
+    // the lanes
+    if (kWide) {
+      for (int h = width / 2; h >= 32 * R; h /= 2)
+        for (int i = lane; i < h; i += 32) tt[i] = add_rn(tt[i], i + h < w ? tt[i + h] : T(0));
+#pragma unroll
+      for (int r = 0; r < R; ++r) t[r] = lane + 32 * r < w ? tt[lane + 32 * r] : T(0);
+    }
+#pragma unroll
+    for (int h = R / 2; h >= 1; h /= 2) {
+      if (kWide && 32 * h >= width) continue;
+#pragma unroll
+      for (int r = 0; r < h; ++r) t[r] = add_rn(t[r], t[r + h]);
+    }
+    for (int h = min(width, 32) / 2; h >= 1; h /= 2)
+      t[0] = add_rn(t[0], __shfl_xor_sync(0xffffffffu, t[0], h));
+    const T mg = t[0];
+    const T gy = sub_rn(sigmoid_rn(mg), sm.ys[k]);
+    if (lane == 0) margin[k] = mg;
+    for (int pc = 0; pc < pieces; ++pc) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int p = k * w + min(pc * 32 * R + lane + 32 * r, w - 1);
+        if (kWide) {
+          x[r] = sm.xs[p];
+          z[r] = sm.z0[p];
+          n[r] = sm.n0[p];
+          wt[r] = ftrl_w(z[r], n[r], hp);
+          dp[r] = sm.dep[p];
+          if (kChained) {
+            bz[r] = sm.ra[p];
+            bn[r] = sm.rb[p];
+            nb[r] = sm.nfc[p];
+          }
+        }
+        const T g = mul_rn(gy, x[r]), gg = mul_rn(g, g);
+        const T sigma = mul_rn(sub_rn(sqrt_rn(add_rn(n[r], gg)), sqrt_rn(n[r])), hp.inv_alpha);
+        dz[r] = sub_rn(g, mul_rn(sigma, wt[r]));
+        dn[r] = gg;
+      }
+      // each occurrence's running values. Level 0, no earlier occurrence
+      // in the row: its previous occurrence is the one the correction read.
+      // Repeats inside the row follow below, one level after the other.
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int a = pc * 32 * R + lane + 32 * r, p = k * w + a;
+        if (a >= w) continue;
+        d[p] = dz[r];
+        d[P + p] = dn[r];
+        if (dp[r]) continue;
+        if (kChained) {
+          sm.ra[p] = add_rn(bz[r], dz[r]);
+          sm.rb[p] = add_rn(bn[r], dn[r]);
+          sm.nfc[p] = nb[r] + !isfinite(dz[r]) + (static_cast<int>(!isfinite(dn[r])) << 16);
+        } else {
+          // the value before this row's partial (k = 0: after the +0.0
+          // partial a later sample adds for this row's predecessors)
+          const T pz = add_rn(T(0), dz[r]), pn = add_rn(T(0), dn[r]);
+          sm.ra[p] = pz;
+          sm.rb[p] = pn;
+          sm.rc[p] = add_rn(k ? z[r] : add_rn(z[r], T(0)), pz);
+          sm.rd[p] = add_rn(k ? n[r] : add_rn(n[r], T(0)), pn);
+        }
+      }
+      if (kChained) {
+        bool bad = false;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          bad |= pc * 32 * R + lane + 32 * r < w && !(isfinite(dz[r]) && isfinite(dn[r]));
+        if (__any_sync(0xffffffffu, bad)) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const bool live = pc * 32 * R + lane + 32 * r < w;
+            nf_z += __popc(__ballot_sync(0xffffffffu, live && !isfinite(dz[r])));
+            nf_n += __popc(__ballot_sync(0xffffffffu, live && !isfinite(dn[r])));
+          }
+        }
+      }
+    }
+    for (int level = 1; level <= depth; ++level) {
+      __syncwarp();
+      for (int pc = 0; pc < pieces; ++pc) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int a = pc * 32 * R + lane + 32 * r, p = k * w + a;
+          if (a >= w || (kWide ? sm.dep[p] : dp[r]) != level) continue;
+          const int pv = sm.prev[p];  // in this row, one level down
+          const T ez = kWide ? d[p] : dz[r], en = kWide ? d[P + p] : dn[r];
+          if (kChained) {
+            sm.ra[p] = add_rn(sm.ra[pv], ez);
+            sm.rb[p] = add_rn(sm.rb[pv], en);
+            sm.nfc[p] = sm.nfc[pv] + !isfinite(ez) + (static_cast<int>(!isfinite(en)) << 16);
+          } else {
+            const T zr = kWide ? sm.z0[p] : z[r], nr = kWide ? sm.n0[p] : n[r];
+            const T pz = add_rn(sm.ra[pv], ez), pn = add_rn(sm.rb[pv], en);
+            sm.ra[p] = pz;
+            sm.rb[p] = pn;
+            sm.rc[p] = add_rn(k ? zr : add_rn(zr, T(0)), pz);
+            sm.rd[p] = add_rn(k ? nr : add_rn(nr, T(0)), pn);
+          }
+        }
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -354,12 +782,49 @@ int scatter_add(void* state, const void* idx, const void* upd, int M, int S, int
 }
 
 template <typename T>
-int chained_corr(const void* Mk, const void* D, void* out, int k, int w, int C,
-                 cudaStream_t s) {
-  const int threads = w * C < kCorrThreads ? ((w * C + 31) / 32) * 32 : kCorrThreads;
-  ftrl_chained_corr_kernel<T><<<1, threads, 0, s>>>(
-      static_cast<const T*>(Mk), static_cast<const T*>(D), static_cast<T*>(out), k, w,
-      C);
+using WalkFn = void (*)(const int32_t*, const T*, const T*, const T*, T*, T*, int, int, int,
+                        WalkHp<T>, unsigned char*);
+
+template <typename T, bool kChained>
+WalkFn<T> walk_kernel(int R, bool wide) {
+  if (wide) return ftrl_walk_kernel<T, kChained, 8, true>;
+  switch (R) {
+    case 1: return ftrl_walk_kernel<T, kChained, 1, false>;
+    case 2: return ftrl_walk_kernel<T, kChained, 2, false>;
+    case 4: return ftrl_walk_kernel<T, kChained, 4, false>;
+    default: return ftrl_walk_kernel<T, kChained, 8, false>;
+  }
+}
+
+// the global memory a walk needs: 0 when its chunk fits in shared memory
+template <typename T>
+size_t walk_spill(int K, int w) {
+  const size_t bytes = walk_bytes<T>(K, w);
+  return bytes <= kWalkMaxSmem ? 0 : bytes;
+}
+
+template <typename T>
+int walk(int chained, const void* xi, const void* xv, const void* yy, const void* zn,
+         void* margin, void* d, int K, int w, double beta, double l1, double l2,
+         double inv_alpha, void* spill, cudaStream_t s) {
+  const bool shared = walk_spill<T>(K, w) == 0;
+  if (!shared && spill == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = w <= 32 ? 1 : w <= 64 ? 2 : w <= 128 ? 4 : 8;
+  const bool wide = w > 32 * 8 || !shared;
+  const WalkFn<T> fn = chained ? walk_kernel<T, true>(R, wide) : walk_kernel<T, false>(R, wide);
+  const size_t smem = shared ? walk_bytes<T>(K, w) : 0;
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const WalkHp<T> hp{static_cast<T>(beta), static_cast<T>(l1), static_cast<T>(l2),
+                     static_cast<T>(inv_alpha)};
+  fn<<<1, kWalkThreads, smem, s>>>(static_cast<const int32_t*>(xi), static_cast<const T*>(xv),
+                                   static_cast<const T*>(yy), static_cast<const T*>(zn),
+                                   static_cast<T*>(margin), static_cast<T*>(d), K, w,
+                                   walk_hbits(K * w), hp,
+                                   shared ? nullptr : static_cast<unsigned char*>(spill));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,12 +860,37 @@ extern "C" int alink_ftrl_scatter_add(int dtype, void* state, const void* idx,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int alink_ftrl_chained_corr(int dtype, const void* Mk, const void* D, void* out,
-                                       int k, int w, int C, void* stream) {
-  if (k <= 0 || w <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+static bool walk_shape_ok(int K, int w) {
+  return K > 0 && w > 0 && static_cast<long long>(K) * w <= kWalkMaxP;
+}
+
+// The global memory (bytes) a walk of K rows of width w needs as `spill`:
+// 0 when the chunk fits in shared memory; -1 for a shape or dtype the
+// walk does not take.
+extern "C" long long alink_ftrl_walk_spill(int dtype, int K, int w) {
+  if (!walk_shape_ok(K, w)) return -1;
+  if (dtype == 0) return static_cast<long long>(walk_spill<float>(K, w));
+  if (dtype == 1) return static_cast<long long>(walk_spill<double>(K, w));
+  return -1;
+}
+
+// One chunk of the strict steps: xi (K, w) int32, xv (K, w), yy (K,), zn
+// (K * w, 2) of one dtype; writes margin[0..K) and the deltas d (2, K * w).
+// chained: 1 for the chained association, 0 for the per-sample one.
+// inv_alpha: 1 / alpha rounded in the dtype. K * w <= kWalkMaxP. spill:
+// alink_ftrl_walk_spill's bytes of global memory (unused when that is 0).
+extern "C" int alink_ftrl_walk(int dtype, int chained, const void* xi, const void* xv,
+                               const void* yy, const void* zn, void* margin, void* d, int K,
+                               int w, double beta, double l1, double l2, double inv_alpha,
+                               void* spill, void* stream) {
+  if (!walk_shape_ok(K, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return chained_corr<float>(Mk, D, out, k, w, C, s);
-  if (dtype == 1) return chained_corr<double>(Mk, D, out, k, w, C, s);
+  if (dtype == 0)
+    return walk<float>(chained, xi, xv, yy, zn, margin, d, K, w, beta, l1, l2, inv_alpha,
+                       spill, s);
+  if (dtype == 1)
+    return walk<double>(chained, xi, xv, yy, zn, margin, d, K, w, beta, l1, l2, inv_alpha,
+                        spill, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

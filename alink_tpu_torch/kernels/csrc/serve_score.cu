@@ -45,11 +45,20 @@
 //            the last chunk's tail too; the terms and the walk are the
 //            same either way. Past the adds, a chunk costs its term pass
 //            and a block barrier (the lanes wait while lane 0 walks).
-//   sparse — one thread per row reads its idx/val row and gathers w[idx]
-//            from global memory. At 2^20 features w is 4 MB in f32 and
-//            stays in the 50 MB L2. Indices are clamped into [0, dim):
-//            the host encoder rejects out-of-range indices before a launch,
-//            the clamp only keeps a bad launch inside w.
+//   sparse — one warp per `rows` consecutive rows (1 to 32), `warps` warps
+//            a block (the wrapper's _sparse_plan in kernels/serve.py picks
+//            them so that a 512-row bucket gives every SM a block). The
+//            warp's rows are one contiguous span of idx and val: its lanes
+//            read it in order (neighbouring lanes, neighbouring words),
+//            gather w[idx] and form the terms in parallel (__fmul_rn gives
+//            the same bits in any lane) into a buffer of the warp's, `chunk`
+//            terms at a time; then lane r adds row r's terms of the chunk
+//            in column order, so one lane walks each row's chain and the
+//            chains of the warp's rows run side by side. At 2^20 features
+//            w is 4 MB in f32 and stays in the 50 MB L2. Indices are
+//            clamped into [0, dim): the host encoder rejects out-of-range
+//            indices before a launch, the clamp only keeps a bad launch
+//            inside w.
 //
 // Modes (the per-mode arithmetic is the Arith<> specialisation below):
 //   0 f32  — float terms and sum, epilogue acc + b
@@ -134,7 +143,9 @@ constexpr int kMaxRows = 4;          // warps (= rows) a dense block at most
 constexpr int kStages = 3;           // chunks in the dense ring
 constexpr int kStep = 32;            // terms the walker adds between two loads
 constexpr int kMaxChunkBytes = 2048; // bytes of one row's chunk of X at most
-constexpr int kSparseThreads = 128;
+constexpr int kSparseMaxWarps = 4;     // warps a sparse block at most
+constexpr int kSparseMaxRows = 32;     // rows a warp at most: one lane walks each
+constexpr int kSparseMaxChunk = 256;   // terms a warp forms between two walks
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -274,26 +285,46 @@ serve_dense_kernel(const typename Arith<M>::X* __restrict__ x,
   if (live && lane == 0) out[row] = A::link(acc, scale, b);
 }
 
+// One warp per `rows` rows, `warps` warps a block; `chunk` terms (a multiple
+// of 32, at most kSparseMaxChunk) a pass. Shared memory: each warp's chunk
+// of terms.
 template <int M>
-__global__ void __launch_bounds__(kSparseThreads)
+__global__ void __launch_bounds__(kSparseMaxWarps * 32)
 serve_sparse_kernel(const int32_t* __restrict__ idx,
                     const typename Arith<M>::X* __restrict__ val,
                     const typename Arith<M>::W* __restrict__ w,
                     const float* __restrict__ scale,
                     const typename Arith<M>::B* __restrict__ b,
                     typename Arith<M>::Acc* __restrict__ out, int n, int width,
-                    int dim) {
+                    int dim, int rows, int chunk) {
   using A = Arith<M>;
-  const int row = blockIdx.x * kSparseThreads + threadIdx.x;
-  if (row >= n) return;
-  const int32_t* ir = idx + static_cast<size_t>(row) * width;
-  const typename A::X* vr = val + static_cast<size_t>(row) * width;
-  typename A::Acc acc = 0;
-  for (int k = 0; k < width; ++k) {
-    const int j = min(max(ir[k], 0), dim - 1);
-    acc = A::add(acc, A::term(vr[k], w[j]));
+  using Acc = typename A::Acc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = (blockIdx.x * (blockDim.x / 32) + warp) * rows;
+  if (row0 >= n) return;
+  Acc* terms = reinterpret_cast<Acc*>(smem) + warp * chunk;
+  const int live = min(rows, n - row0), span = live * width;
+  const size_t base = static_cast<size_t>(row0) * width;
+  // lane r < live walks row r: span positions [lo, lo + width)
+  const int lo = lane * width;
+  Acc acc = 0;
+  for (int c0 = 0; c0 < span; c0 += chunk) {
+    const int cw = min(chunk, span - c0);
+    for (int e = lane; e < cw; e += 32) {
+      const size_t g = base + c0 + e;
+      const int j = min(max(idx[g], 0), dim - 1);
+      terms[e] = A::term(val[g], w[j]);
+    }
+    __syncwarp();
+    if (lane < live) {
+      const int end = min(lo + width, c0 + cw) - c0;
+#pragma unroll 4
+      for (int e = max(lo, c0) - c0; e < end; ++e) acc = A::add(acc, terms[e]);
+    }
+    __syncwarp();
   }
-  out[row] = A::link(acc, scale, b);
+  if (lane < live) out[row0 + lane] = A::link(acc, scale, b);
 }
 
 template <int M>
@@ -317,16 +348,23 @@ int launch_dense(const void* x, const void* w, const void* scale, const void* b,
 }
 
 template <int M>
-void launch_sparse(const void* idx, const void* val, const void* w, const void* scale,
-                   const void* b, void* out, int n, int width, int dim,
-                   cudaStream_t s) {
+int launch_sparse(const void* idx, const void* val, const void* w, const void* scale,
+                  const void* b, void* out, int n, int width, int dim, int rows, int warps,
+                  int chunk, cudaStream_t s) {
   using A = Arith<M>;
-  const int blocks = (n + kSparseThreads - 1) / kSparseThreads;
-  serve_sparse_kernel<M><<<blocks, kSparseThreads, 0, s>>>(
+  if (rows < 1 || rows > kSparseMaxRows || warps < 1 || warps > kSparseMaxWarps ||
+      chunk < 32 || chunk > kSparseMaxChunk || chunk % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = rows * warps;
+  const int blocks = (n + per_block - 1) / per_block;
+  // at most 8 KB: 4 warps of 256 double terms
+  const size_t smem = static_cast<size_t>(warps) * chunk * sizeof(typename A::Acc);
+  serve_sparse_kernel<M><<<blocks, warps * 32, smem, s>>>(
       static_cast<const int32_t*>(idx), static_cast<const typename A::X*>(val),
       static_cast<const typename A::W*>(w), static_cast<const float*>(scale),
       static_cast<const typename A::B*>(b), static_cast<typename A::Acc*>(out), n,
-      width, dim);
+      width, dim, rows, chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -347,19 +385,28 @@ extern "C" int alink_serve_dense(int mode, const void* x, const void* w,
   }
 }
 
+// rows: rows a warp, 1..kSparseMaxRows; warps: warps a block,
+// 1..kSparseMaxWarps; chunk: terms a warp forms a pass, a multiple of 32 up
+// to kSparseMaxChunk (kernels/serve.py::_sparse_plan)
 extern "C" int alink_serve_sparse(int mode, const void* idx, const void* val,
                                   const void* w, const void* scale, const void* b,
-                                  void* out, int n, int width, int dim, void* stream) {
+                                  void* out, int n, int width, int dim, int rows, int warps,
+                                  int chunk, void* stream) {
   if (n <= 0 || dim <= 0 || width < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kF32: launch_sparse<kF32>(idx, val, w, scale, b, out, n, width, dim, s); break;
-    case kF64: launch_sparse<kF64>(idx, val, w, scale, b, out, n, width, dim, s); break;
-    case kBF16: launch_sparse<kBF16>(idx, val, w, scale, b, out, n, width, dim, s); break;
-    case kINT8: launch_sparse<kINT8>(idx, val, w, scale, b, out, n, width, dim, s); break;
+    case kF32:
+      return launch_sparse<kF32>(idx, val, w, scale, b, out, n, width, dim, rows, warps, chunk, s);
+    case kF64:
+      return launch_sparse<kF64>(idx, val, w, scale, b, out, n, width, dim, rows, warps, chunk, s);
+    case kBF16:
+      return launch_sparse<kBF16>(idx, val, w, scale, b, out, n, width, dim, rows, warps, chunk,
+                                  s);
+    case kINT8:
+      return launch_sparse<kINT8>(idx, val, w, scale, b, out, n, width, dim, rows, warps, chunk,
+                                  s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* alink_cuda_error_string(int code) {

@@ -3,11 +3,15 @@
 Counterpart: ``alink_tpu/kernels/ftrl.py``. There three Pallas kernels
 serve the sparse FTRL steps: ``gather_rows`` (``_gather_call``),
 ``scatter_add_rows`` (``_scatter_call``) and ``chained_corr``. Here the
-same three functions are CUDA kernels written by hand for Hopper
-(``csrc/ftrl_state.cu``), and :func:`gather_pair` is the gather of ``z``
-and ``n`` at once, where the JAX package gathers each and stacks them.
+gather and the scatter-add are CUDA kernels written by hand for Hopper
+(``csrc/ftrl_state.cu``), :func:`gather_pair` is the gather of ``z``
+and ``n`` at once, where the JAX package gathers each and stacks them,
+and ``chained_corr`` is part of :func:`walk_chunk`: ONE kernel walks a
+whole chunk of the strict steps (sample k's corrections from the
+earlier samples, its weights, margin, gradient and deltas, for k in
+order), in the chained step's association or the per-sample step's.
 :func:`gather_rows`, :func:`gather_pair`, :func:`scatter_add_rows` and
-:func:`chained_corr` are the wrappers; the ``*_plain`` functions beside
+:func:`walk_chunk` are the wrappers; the ``*_plain`` functions beside
 them are their plain PyTorch versions. A wrapper given CPU
 tensors runs the plain version. Given CUDA tensors it launches its
 kernel or raises. The JAX package's mode flag, probes and demotion are
@@ -27,6 +31,11 @@ not ported: there is nothing to switch between.
   state dtype (no TF32). Against the JAX package's einsum this is an
   association-only difference (rtol 1e-12 in float64); against the
   plain version below it is bitwise.
+* walk — the per-sample loop of the strict steps over one chunk, with
+  the corrections in the chained association (above) or the per-sample
+  one (for each earlier sample j in order, the in-order sum from
+  ``+0.0`` of its deltas at sample k's slot, added to the running
+  value), and the margin as a pairwise tree (:func:`tree_sum`).
 * slots — an index outside ``[0, S)`` raises: ``IndexError`` at once
   on the CPU; on the card a device-side assert, which the stream
   reports as a ``RuntimeError`` at its next synchronize (as PyTorch's
@@ -44,18 +53,24 @@ chain has such terms.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["gather_rows", "gather_pair", "scatter_add_rows", "chained_corr",
+__all__ = ["gather_rows", "gather_pair", "scatter_add_rows", "walk_chunk",
            "gather_rows_plain", "gather_pair_plain", "scatter_add_rows_plain",
-           "chained_corr_plain", "launch_counts", "reset_launch_counts"]
+           "chained_corr_plain", "walk_chunk_plain", "ftrl_weights",
+           "tree_sum", "launch_counts", "reset_launch_counts"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+# csrc/ftrl_state.cu's kWalkMaxP: K * w of one chunk, as many positions as
+# the scatter-add of the chunk's deltas takes (kScatterMaxM)
+WALK_MAX_POSITIONS = 11264
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +139,101 @@ def chained_corr_plain(Mk: torch.Tensor, D: torch.Tensor,
     return acc
 
 
+def ftrl_weights(z, n, alpha, beta, l1, l2):
+    """w from the accumulated (z, n) state — the FTRL-proximal closed form
+    (one copy shared by every step and the snapshot path). On the card
+    PyTorch divides by the Python float ``alpha`` as a multiply by its
+    reciprocal, which the walk kernel does too."""
+    decay = (beta + torch.sqrt(n)) / alpha + l2
+    w = -(z - torch.sign(z) * l1) / decay
+    return torch.where(torch.abs(z) <= l1, 0.0, w)
+
+
+def sigmoid(margin):
+    """The clipped logistic of the steps: ``1.0 / t`` is PyTorch's
+    ``t.reciprocal() * 1.0``, which the walk kernel rounds alike."""
+    return 1.0 / (1.0 + torch.exp(-torch.clamp(margin, -35.0, 35.0)))
+
+
+def tree_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dimension as a pairwise tree: padded with
+    ``+0.0`` to the next power of two P, then ``t[..., :h] + t[..., h:]``
+    for h = P/2, ..., 1. The walk kernel adds in this order (its lanes'
+    butterfly), and the same expression gives the same bits on any
+    device, where the order of ``torch.sum`` is the device's."""
+    n = t.shape[-1]
+    size = 1 << max(0, n - 1).bit_length()
+    if size != n:
+        t = torch.cat([t, t.new_zeros(t.shape[:-1] + (size - n,))], -1)
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
+
+
+def _ordered_partials(sel: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """``partial[j, a, c]``: the deltas ``D[j, b, c]`` of the ``b`` with
+    ``sel[j, a, b]``, added in the order of ``b`` from ``+0.0`` (a
+    selection, not a product: a NaN delta elsewhere does not leak).
+    ``sel`` (k, w, w) bool, ``D`` (k, w, C); returns (k, w, C)."""
+    k, w, C = D.shape
+    acc = D.new_zeros((k, w, C))
+    if not k:
+        return acc
+    rank = torch.cumsum(sel, -1) - 1
+    for r in range(int(sel.sum(-1).max())):
+        pick = (sel & (rank == r))[..., None]
+        # exactly one delta per output is picked: the sum is that delta
+        acc = acc + torch.where(pick, D[:, None], 0.0).sum(2)
+    return acc
+
+
+def walk_chunk_plain(xi: torch.Tensor, xv: torch.Tensor, yy: torch.Tensor,
+                     zn: torch.Tensor, margins: torch.Tensor, row: int,
+                     alpha: float, beta: float, l1: float, l2: float,
+                     chained: bool) -> torch.Tensor:
+    """One chunk of the strict FTRL steps, sample by sample. ``xi`` (K, w)
+    slots, ``xv`` (K, w) values, ``yy`` (K,) 0/1 labels, ``zn`` (K * w, 2)
+    the chunk's slots of z and n before the chunk (:func:`gather_pair`).
+    For k in order: sample k's z and n corrected by the deltas of samples
+    j < k at its slots; w (:func:`ftrl_weights`); the margin
+    (:func:`tree_sum` of ``x * w``), written to ``margins[row + k]``; the
+    gradient and the deltas (g - sigma * w, g^2). Returns the deltas as
+    (2, K * w): row 0 for z, row 1 for n, ready for
+    :func:`scatter_add_rows`.
+
+    ``chained``: the correction is ``chained_corr_plain`` of the collision
+    tensor (the chained step's association, NaN deltas at other slots
+    reaching it as 0 * NaN). Else the per-sample step's: for j = 0 ... k-1
+    in order, the in-order partial of sample j's deltas at the slot
+    (:func:`_ordered_partials`), added to the running value."""
+    K, w = xi.shape
+    zn = zn.view(K, w, 2)
+    same = xi[:, None, :, None] == xi[None, :, None, :]      # (K, K, w, w)
+    D = zn.new_zeros((K, w, 2))
+    if chained:
+        M = same.to(zn.dtype)
+    for k in range(K):
+        if chained:
+            corr = chained_corr_plain(M[k], D, k)
+            zk, nk = zn[k, :, 0] + corr[:, 0], zn[k, :, 1] + corr[:, 1]
+        else:
+            znk = zn[k]
+            part = _ordered_partials(same[k, :k], D[:k])
+            for j in range(k):
+                znk = znk + part[j]
+            zk, nk = znk[:, 0], znk[:, 1]
+        wk = ftrl_weights(zk, nk, alpha, beta, l1, l2)
+        margin = tree_sum(xv[k] * wk)
+        g = (sigmoid(margin) - yy[k]) * xv[k]
+        gg = g * g
+        sigma = (torch.sqrt(nk + gg) - torch.sqrt(nk)) / alpha
+        D[k, :, 0] = g - sigma * wk
+        D[k, :, 1] = gg
+        margins[row + k] = margin
+    return D.permute(2, 0, 1).contiguous().view(2, K * w)
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -131,14 +241,16 @@ def chained_corr_plain(Mk: torch.Tensor, D: torch.Tensor,
 # launch counts: kept without a lock, since an increment of a dict entry
 # does not give up the interpreter lock halfway
 _counts: Dict[str, int] = {"ftrl_gather": 0, "ftrl_gather_pair": 0,
-                           "ftrl_scatter_add": 0, "ftrl_chained_corr": 0}
+                           "ftrl_scatter_add": 0, "ftrl_walk": 0}
 _lib_lock = threading.Lock()
 _fns: Optional[Dict[str, Callable[..., int]]] = None
-# the C functions' arguments: i an int, p a pointer (the stream last)
+# the C functions' arguments: i an int, d a double, p a pointer (the
+# stream last)
 _SIGNATURES = {"alink_ftrl_gather": "ipppiiip",
                "alink_ftrl_gather_pair": "ippppiip",
                "alink_ftrl_scatter_add": "ipppiiip",
-               "alink_ftrl_chained_corr": "ipppiiip"}
+               "alink_ftrl_walk": "iippppppiiddddpp"}
+_CTYPES = {"i": ctypes.c_int, "d": ctypes.c_double, "p": ctypes.c_void_p}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -153,7 +265,8 @@ def reset_launch_counts() -> None:
 
 def _functions() -> Dict[str, Callable[..., int]]:
     """The built ``ftrl_state`` library's C functions, their signatures
-    declared, resolved once (the error string under ``"error_string"``)."""
+    declared, resolved once (the error string under ``"error_string"``,
+    the walk's spill size under ``"walk_spill"``)."""
     global _fns
     if _fns is not None:
         return _fns
@@ -161,15 +274,18 @@ def _functions() -> Dict[str, Callable[..., int]]:
         if _fns is None:
             from ._build import load_library
             lib = load_library("ftrl_state")
-            p, i = ctypes.c_void_p, ctypes.c_int
             fns = {}
             for name, kinds in _SIGNATURES.items():
                 fn = getattr(lib, name)
-                fn.argtypes = [p if k == "p" else i for k in kinds]
-                fn.restype = i
+                fn.argtypes = [_CTYPES[k] for k in kinds]
+                fn.restype = ctypes.c_int
                 fns[name] = fn
+            spill = lib.alink_ftrl_walk_spill
+            spill.argtypes = [ctypes.c_int] * 3
+            spill.restype = ctypes.c_longlong
+            fns["walk_spill"] = spill
             err = lib.alink_ftrl_error_string
-            err.argtypes = [i]
+            err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             fns["error_string"] = err
             _fns = fns
@@ -315,22 +431,70 @@ def scatter_add_rows(state: torch.Tensor, idx: torch.Tensor,
     return state
 
 
-def chained_corr(Mk: torch.Tensor, D: torch.Tensor, k: int) -> torch.Tensor:
-    """``sum_{j<k} Mk[j] @ D[j]``, the chained step's correction of
-    sample ``k`` from the deltas of the earlier samples of its chunk.
-    ``Mk`` (K, w, w) 0/1 in the state dtype, ``D`` (K, w, C); returns
-    (w, C). ``k = 0`` gives zeros and launches nothing. Replaces
+@functools.lru_cache(maxsize=64)
+def _walk_spill(code: int, K: int, w: int) -> int:
+    """The bytes of global memory a walk of K rows of width w needs for
+    its chunk: 0 when the chunk fits in shared memory."""
+    return int((_fns or _functions())["walk_spill"](code, K, w))
+
+
+@functools.lru_cache(maxsize=64)
+def _reciprocal(alpha: float, dtype: torch.dtype) -> float:
+    """``1 / alpha`` rounded in ``dtype``, as PyTorch's CUDA division of a
+    tensor by a Python float computes it (then multiplies)."""
+    if dtype == torch.float32:
+        return float(np.float32(1.0) / np.float32(alpha))
+    return 1.0 / float(alpha)
+
+
+def walk_chunk(xi: torch.Tensor, xv: torch.Tensor, yy: torch.Tensor,
+               zn: torch.Tensor, margins: torch.Tensor, row: int,
+               alpha: float, beta: float, l1: float, l2: float,
+               chained: bool) -> torch.Tensor:
+    """One chunk of the strict FTRL steps in ONE launch: the samples'
+    corrections, weights, margins (into ``margins[row:row + K]``) and
+    deltas, sample by sample; returns the deltas (2, K * w). Arguments
+    and arithmetic as :func:`walk_chunk_plain`. ``xi`` (K, w) int32;
+    ``xv``, ``yy``, ``zn`` and ``margins`` of one dtype, float32 or
+    float64; K * w at most ``WALK_MAX_POSITIONS``, the scatter-add's
+    limit (a chunk too large for shared memory walks from a scratch
+    buffer the wrapper allocates). Replaces the per-sample loop around
     ``alink_tpu/kernels/ftrl.py::chained_corr``."""
-    if D.device.type == "cpu":
-        return chained_corr_plain(Mk, D, k)
-    code = _check("chained_corr", D, Mk)
-    K, w, C = D.shape
-    if Mk.dtype != D.dtype or Mk.shape != (K, w, w) or not 0 <= k <= K:
-        raise ValueError(f"chained_corr: Mk {Mk.dtype} {tuple(Mk.shape)}, "
-                         f"D {D.dtype} {tuple(D.shape)}, k {k}")
-    if not k:
-        return torch.zeros((w, C), dtype=D.dtype, device=D.device)
-    out = torch.empty((w, C), dtype=D.dtype, device=D.device)
-    _launch("ftrl_chained_corr", "alink_ftrl_chained_corr", D.get_device(),
-            code, Mk.data_ptr(), D.data_ptr(), out.data_ptr(), k, w, C)
-    return out
+    if xv.device.type == "cpu":
+        return walk_chunk_plain(xi, xv, yy, zn, margins, row, alpha, beta,
+                                l1, l2, chained)
+    # the checks in one pass, a few attribute reads (the walk is issued
+    # once per chunk); the message is built only for a refusal
+    index = xv.get_device()
+    code = _DTYPE_CODES.get(xv.dtype)
+    K, w = xi.shape if xi.dim() == 2 else (0, 0)
+    tensors = (xi, xv, yy, zn, margins)
+    if (code is None or not xv.is_cuda or xi.dtype is not torch.int32
+            or w < 1 or K * w > WALK_MAX_POSITIONS
+            or xv.shape != (K, w) or yy.shape != (K,)
+            or zn.shape != (K * w, 2) or margins.dim() != 1
+            or not 0 <= row <= margins.shape[0] - K
+            or margins.numel() >= 2 ** 31
+            or any(t.get_device() != index or not t.is_contiguous()
+                   for t in tensors)
+            or any(t.dtype is not xv.dtype for t in (yy, zn, margins))):
+        raise ValueError(
+            f"walk_chunk: want contiguous CUDA tensors on one device: (K, w) "
+            f"int32 slots with K * w at most {WALK_MAX_POSITIONS}, and "
+            f"values (K, w), labels (K,), state "
+            f"(K * w, 2) and margins (with rows row .. row + K) of one dtype, "
+            f"float32 or float64; got "
+            f"{[(t.device, t.dtype, tuple(t.shape)) for t in tensors]} at "
+            f"row {row}")
+    d = xv.new_empty((2, K * w))
+    nbytes = _walk_spill(code, K, w)
+    # held until the launch is on the stream; the allocator hands its
+    # memory only to later work on that stream
+    spill = xv.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
+    _launch("ftrl_walk", "alink_ftrl_walk", index, code,
+            int(chained), xi.data_ptr(), xv.data_ptr(), yy.data_ptr(),
+            zn.data_ptr(), margins.data_ptr() + row * margins.element_size(),
+            d.data_ptr(), K, w, float(beta), float(l1), float(l2),
+            _reciprocal(alpha, xv.dtype),
+            spill.data_ptr() if spill is not None else 0)
+    return d

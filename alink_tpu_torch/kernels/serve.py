@@ -182,6 +182,9 @@ _sms: Dict[int, int] = {}
 _MAX_ROWS = 4               # csrc/serve_score.cu: kMaxRows
 _STEP = 32                  # kStep: the terms the walker adds between loads
 _MAX_CHUNK_BYTES = 2048     # kMaxChunkBytes
+_SPARSE_MAX_WARPS = 4       # kSparseMaxWarps
+_SPARSE_MAX_ROWS = 32       # kSparseMaxRows
+_SPARSE_MAX_CHUNK = 256     # kSparseMaxChunk
 H100_SMS = 132
 
 
@@ -209,7 +212,7 @@ def _functions() -> Dict[str, Callable[..., int]]:
             lib.alink_serve_dense.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
             lib.alink_serve_dense.restype = i
             lib.alink_serve_sparse.argtypes = [i, p, p, p, p, p, p, i, i, i,
-                                               p]
+                                               i, i, i, p]
             lib.alink_serve_sparse.restype = i
             lib.alink_cuda_error_string.argtypes = [i]
             lib.alink_cuda_error_string.restype = ctypes.c_char_p
@@ -241,6 +244,35 @@ def _dense_plan(n: int, dim: int, itemsize: int,
     rows = max(1, min(_MAX_ROWS, n // sms))
     chunk = min(_MAX_CHUNK_BYTES // itemsize, -(-dim // _STEP) * _STEP)
     return DensePlan(rows, chunk)
+
+
+class SparsePlan(NamedTuple):
+    """The launch shape of one sparse-kernel call (``csrc/serve_score.cu``)."""
+    rows: int       # rows a warp, one walking lane each
+    warps: int      # warps a block
+    chunk: int      # terms a warp forms between two walks
+
+
+@functools.lru_cache(maxsize=256)
+def _sparse_plan(n: int, width: int, sms: int = H100_SMS) -> SparsePlan:
+    """Rows a warp, warps a block and terms a pass of the sparse kernel for
+    ``n`` rows of ``width`` slots on a card of ``sms`` SMs. A block takes
+    ``n // sms`` rows (at least one), so that every SM gets a block where
+    ``n`` allows: up to 4 rows as one warp each, more as 4 warps of up to
+    32 rows. A pass forms a warp's rows' terms, up to 256 (a multiple of
+    32, no more than the rows need). Cached, as :func:`_dense_plan`."""
+    if n <= 0 or width < 0 or sms <= 0:
+        raise ValueError(f"sparse_scores: no plan for {n} rows of width "
+                         f"{width} on {sms} SMs")
+    per_block = max(1, n // sms)
+    if per_block <= _SPARSE_MAX_WARPS:
+        warps, rows = per_block, 1
+    else:
+        warps = _SPARSE_MAX_WARPS
+        rows = min(_SPARSE_MAX_ROWS, per_block // warps)
+    chunk = min(_SPARSE_MAX_CHUNK, max(_STEP, -(-rows * width // _STEP)
+                                       * _STEP))
+    return SparsePlan(rows, warps, chunk)
 
 
 def _sm_count(index: int) -> int:
@@ -347,9 +379,11 @@ def sparse_scores(model, idx: torch.Tensor, val: torch.Tensor,
     n, width = v.shape
     out = _empty_out(dtype, v, n)
     if n:
-        _launch("serve_sparse", "sparse", v.get_device(), mode, _ptr(idx),
-                _ptr(v), _ptr(w), _ptr(scale), _ptr(b), _ptr(out), n, width,
-                w.shape[0])
+        index = v.get_device()
+        plan = _sparse_plan(n, width, _sm_count(index))
+        _launch("serve_sparse", "sparse", index, mode, _ptr(idx), _ptr(v),
+                _ptr(w), _ptr(scale), _ptr(b), _ptr(out), n, width,
+                w.shape[0], plan.rows, plan.warps, plan.chunk)
     return out
 
 

@@ -15,9 +15,10 @@ On one device the JAX package's feature sharding degenerates: every
 slot is local (``lo = 0``), the margin ``psum`` is the identity and the
 ``where(local, ., 0)`` masks select everything, so the steps below drop
 them. A step is a Python loop over chunks of K rows on the
-device-resident ``(z, n)`` state, its gathers, scatter-adds and chained
-corrections going through the CUDA kernels of ``kernels/ftrl.py`` (on
-the CPU, their plain versions). Every other op is eager PyTorch.
+device-resident ``(z, n)`` state, its gathers, scatter-adds and (in the
+strict steps) the walk of each chunk's samples going through the CUDA
+kernels of ``kernels/ftrl.py`` (on the CPU, their plain versions): four
+launches a chunk. The staleness step's other ops are eager PyTorch.
 
 Left out, raising ``NotImplementedError``: ``update_mode="batch"``, dense
 input (``feature_cols``, or a vector column of dense vectors), which
@@ -38,8 +39,8 @@ from ....common.device import resolve_device
 from ....common.mtable import MTable
 from ....common.params import InValidator, ParamInfo, Params, RangeValidator
 from ....common.types import TableSchema
-from ....kernels.ftrl import (chained_corr, gather_pair, gather_rows,
-                              scatter_add_rows)
+from ....kernels.ftrl import (ftrl_weights, gather_pair, gather_rows,
+                              scatter_add_rows, sigmoid, walk_chunk)
 from ....params.shared import (HasFeatureCols, HasLabelCol, HasPredictionCol,
                                HasPredictionDetailCol, HasReservedCols,
                                HasVectorCol)
@@ -56,18 +57,6 @@ SAMPLE_CHUNK = 4
 _SHIP_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def ftrl_weights(z, n, alpha, beta, l1, l2):
-    """w from the accumulated (z, n) state — the FTRL-proximal closed form
-    (one copy shared by every step and the snapshot path)."""
-    decay = (beta + torch.sqrt(n)) / alpha + l2
-    w = -(z - torch.sign(z) * l1) / decay
-    return torch.where(torch.abs(z) <= l1, 0.0, w)
-
-
-def _sigmoid(margin):
-    return 1.0 / (1.0 + torch.exp(-torch.clamp(margin, -35.0, 35.0)))
-
-
 def _pad_rows(idx, val, y, K: int):
     """Pad the micro-batch to a multiple of K rows with zero rows: slot 0
     and value 0.0, algebraic no-ops whose zero adds still land on slot 0,
@@ -81,6 +70,32 @@ def _pad_rows(idx, val, y, K: int):
     return idx, val, y
 
 
+def _walk_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int,
+               chained: bool):
+    """The strict steps' chunk loop: per chunk of K rows one gather of
+    the chunk's slots of ``z`` and ``n`` from the pre-chunk state
+    (:func:`gather_pair`), one walk of its samples in order
+    (:func:`walk_chunk`: corrections, weights, margins, deltas) and one
+    in-order scatter-add each for ``z`` and ``n``; four launches a chunk
+    on the card, none of them per sample."""
+    B, w = idx.shape
+    idx, val, y = (t.contiguous() for t in _pad_rows(idx, val, y, K))
+    margins = val.new_empty(idx.shape[0])
+    chunks = idx.shape[0] // K
+    # each chunk's views, made in one call per tensor
+    rows = zip(idx.view(chunks, K, w).unbind(0),
+               idx.view(chunks, K * w).unbind(0),
+               val.view(chunks, K, w).unbind(0),
+               y.view(chunks, K).unbind(0))
+    for c, (xi, flat, xv, yy) in enumerate(rows):
+        zn = gather_pair(z, n, flat)
+        dz, dn = walk_chunk(xi, xv, yy, zn, margins, c * K, alpha, beta,
+                            l1, l2, chained).unbind(0)
+        z = scatter_add_rows(z, flat, dz)
+        n = scatter_add_rows(n, flat, dn)
+    return z, n, margins[:B]
+
+
 def ftrl_sample_step(idx, val, y, z, n, alpha, beta, l1, l2):
     """One micro-batch of strict per-sample FTRL (``update_mode=
     "sample"``); the JAX package's ``_ftrl_sparse_step_factory``.
@@ -92,45 +107,13 @@ def ftrl_sample_step(idx, val, y, z, n, alpha, beta, l1, l2):
     passed in are dead after the call (here they are updated in place):
     use the returned ones.
 
-    Chunks of K = 4 rows, exact strict semantics: one gather of the
-    chunk's slots of ``z`` and ``n`` from the pre-chunk state
-    (:func:`gather_pair`, one launch); sample k's slots corrected by
-    the deltas of the earlier samples j < k at shared slots (one
-    same-slot selection per pair: where a row's real slots are distinct,
-    as a sparse vector's are, its sum picks at most one non-zero delta,
-    the padded positions' deltas being exact zeros, and is exact in any
-    order; no matmul, so no TF32); one in-order scatter-add each for
-    ``z`` and ``n``.
+    Chunks of K = 4 rows, exact strict semantics: sample k's slots are
+    corrected by the deltas of the earlier samples j < k at shared slots,
+    one in-order partial per earlier sample added in turn (a selection,
+    no matmul, so no TF32); see :func:`_walk_step`.
     """
-    K = SAMPLE_CHUNK
-    B = idx.shape[0]
-    idx, val, y = _pad_rows(idx, val, y, K)
-    w = idx.shape[1]
-    margins: List[torch.Tensor] = []
-    for c in range(0, idx.shape[0], K):
-        xi, xv, yy = idx[c:c + K], val[c:c + K], y[c:c + K]
-        flat = xi.reshape(-1)
-        zn = gather_pair(z, n, flat).view(K, w, 2)
-        same = xi[:, None, :, None] == xi[None, :, None, :]  # (K, K, w, w)
-        xvs, yys, zns = xv.unbind(0), yy.unbind(0), zn.unbind(0)
-        deltas: List[torch.Tensor] = []
-        for k in range(K):
-            znk = zns[k]
-            for j in range(k):
-                znk = znk + torch.where(same[k, j][:, :, None],
-                                        deltas[j][None], 0.0).sum(1)
-            zk, nk = znk[:, 0], znk[:, 1]
-            wk = ftrl_weights(zk, nk, alpha, beta, l1, l2)
-            margin = torch.sum(xvs[k] * wk)
-            g = (_sigmoid(margin) - yys[k]) * xvs[k]
-            gg = g * g
-            sigma = (torch.sqrt(nk + gg) - torch.sqrt(nk)) / alpha
-            deltas.append(torch.stack([g - sigma * wk, gg], -1))
-            margins.append(margin)
-        d = torch.stack(deltas)                          # (K, w, 2)
-        z = scatter_add_rows(z, flat, d[..., 0].contiguous().view(-1))
-        n = scatter_add_rows(n, flat, d[..., 1].contiguous().view(-1))
-    return z, n, torch.stack(margins)[:B]
+    return _walk_step(idx, val, y, z, n, alpha, beta, l1, l2,
+                      SAMPLE_CHUNK, chained=False)
 
 
 def ftrl_staleness_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int):
@@ -158,7 +141,7 @@ def ftrl_staleness_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int):
         zj, nj = s[..., 0], s[..., 1]
         wj = ftrl_weights(zj, nj, alpha, beta, l1, l2)
         m = (xv * wj).sum(-1)
-        g = (_sigmoid(m) - yy)[:, None] * xv
+        g = (sigmoid(m) - yy)[:, None] * xv
         gg = g * g
         sigma = (torch.sqrt(nj + gg) - torch.sqrt(nj)) / alpha
         zn = scatter_add_rows(
@@ -173,44 +156,17 @@ def ftrl_chained_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int = 16):
     """One micro-batch of chained-correction strict FTRL (``update_mode=
     "chained"``); the JAX package's ``_ftrl_sparse_chained_step_factory``.
 
-    Per chunk of K rows: one gather of the slots of ``z`` and ``n``
-    (:func:`gather_pair`); the (K, K, w, w)
-    collision tensor ``M[k, j, a, b] = [sample k's slot a is sample j's
-    slot b]``; per sample, ``chained_corr(M[k], D, k)`` corrects z and n
-    from the (K, w, 2) delta buffer ``D`` of the earlier samples; one
-    in-order scatter-add per column. Strict semantics: the only
-    difference from the per-sample step is the association of the
-    corrections. Arguments and result as :func:`ftrl_sample_step` (the
-    state passed in is updated in place).
+    Chunks of K rows: sample k's slots are corrected by ``sum_{j<k}
+    M[k, j] @ D[j]``, the collision tensor of the chunk against the
+    (K, w, 2) deltas of the earlier samples, one ordered chain per slot
+    (the contract of ``kernels/ftrl.py::chained_corr_plain``); see
+    :func:`_walk_step`. Strict semantics: the only difference from the
+    per-sample step is the association of the corrections. Arguments and
+    result as :func:`ftrl_sample_step` (the state passed in is updated in
+    place).
     """
-    B = idx.shape[0]
-    idx, val, y = _pad_rows(idx, val, y, K)
-    w = idx.shape[1]
-    dtype = z.dtype
-    margins: List[torch.Tensor] = []
-    for c in range(0, idx.shape[0], K):
-        xi, xv, yy = idx[c:c + K], val[c:c + K], y[c:c + K]
-        flat = xi.reshape(-1)
-        zn = gather_pair(z, n, flat).view(K, w, 2)
-        zs, ns = zn[..., 0], zn[..., 1]
-        M = (xi[:, None, :, None] == xi[None, :, None, :]).to(dtype)
-        D = torch.zeros((K, w, 2), dtype=dtype, device=z.device)
-        xvs, yys, zss, nss = xv.unbind(0), yy.unbind(0), zs.unbind(0), \
-            ns.unbind(0)
-        for k in range(K):
-            corr = chained_corr(M[k], D, k)
-            zk = zss[k] + corr[:, 0]
-            nk = nss[k] + corr[:, 1]
-            wk = ftrl_weights(zk, nk, alpha, beta, l1, l2)
-            margin = torch.sum(xvs[k] * wk)
-            g = (_sigmoid(margin) - yys[k]) * xvs[k]
-            gg = g * g
-            sigma = (torch.sqrt(nk + gg) - torch.sqrt(nk)) / alpha
-            D[k] = torch.stack([g - sigma * wk, gg], -1)
-            margins.append(margin)
-        z = scatter_add_rows(z, flat, D[..., 0].contiguous().view(-1))
-        n = scatter_add_rows(n, flat, D[..., 1].contiguous().view(-1))
-    return z, n, torch.stack(margins)[:B]
+    return _walk_step(idx, val, y, z, n, alpha, beta, l1, l2, K,
+                      chained=True)
 
 
 def progressive_logloss_sum(margins, y):

@@ -8,8 +8,9 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 1. the card: ``nvidia-smi`` name and power limit (fails without CUDA);
 2. the build of every CUDA source under ``alink_tpu_torch/kernels/csrc``
    (``nvcc``, at first use, into ``build/``), and beside it a one-thread
-   probe that reads the latency of a dependent float32 and float64 add
-   off the SM's cycle counter (with the SM clock from ``nvidia-smi``);
+   probe that reads the latency of a dependent float32 and float64 add,
+   sqrt, divide, exp and reciprocal off the SM's cycle counter (with the
+   SM clock from ``nvidia-smi``);
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, in every mode (f32, f64, bf16, int8): bitwise.
    Kernel (CUDA events, median after warm-up), device (``torch.profiler``)
@@ -20,7 +21,10 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    one-warp-per-row design could get wrong, bitwise in all four modes:
    n = 1, 7, 33, 512, 513 and 4096 at dim 1024, dims 8, 1031 and 65,536 at
    n = 512, a request and weights off the 16-byte boundary, and signed
-   zeros, infinities and NaN inside chains;
+   zeros, infinities and NaN inside chains; and the sparse kernel at the
+   shapes its warp-per-rows design could get wrong: 1, 7, 513, 4096 and
+   100,000 rows, width 1031, and signed zeros, infinities and NaN inside
+   chains;
 4. the main path at full width: a Criteo-shape hashed LR model (39
    non-zeros per row over 2^20 features plus an intercept, random
    coefficients from ``--seed``) saved through the port's model table,
@@ -34,13 +38,19 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    split of one 512-row dispatch into encode, copy in, kernel, fetch
    and decode;
 6. the FTRL state kernels (gather, the gather of z and n in one launch,
-   scatter-add, chained correction) against their plain versions on the
+   scatter-add, the chunk walk) against their plain versions on the
    card, f32 and f64, at the shapes the three update modes launch, with
    duplicate-heavy slots, a ``-0.0`` slot and padded zeros at slot 0, and
    the scatter-add also with all M positions on one slot (M = 1280 and
-   4096), M = 1 and M = 4096: bitwise. Kernel (CUDA events), device
-   (``torch.profiler``), host (enqueue), plain-version and library-call
-   times and each kernel's bound; the host cost of the pieces of one
+   4096), M = 1 and M = 4096: bitwise. The walk in both associations
+   (K = 4 per-sample, K = 16 chained) on Criteo rows, rows that collide,
+   rows that repeat a slot, padded rows, a ``-0.0`` z and a NaN delta;
+   and the sample and chained steps on 61 rows (a micro-batch K does not
+   divide) through the kernels against the same steps through the plain
+   versions: bitwise (a NaN equal to any NaN). Kernel (CUDA events),
+   device (``torch.profiler``), host (enqueue), plain-version and
+   library-call times and each kernel's bound (the walk's also in cycles
+   of the probe's latencies); the host cost of the pieces of one
    gather's issue;
 7. the FTRL main path at full width: Criteo-shape one-hot rows (39
    distinct slots of 2^20 plus the intercept, ``bench.py``'s
@@ -50,14 +60,15 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    6 micro-batches with a snapshot every 2; ``FtrlPredictStreamOp``
    scores a held-out stream with the hot-swapped snapshots; the last
    snapshot swapped into ``CompiledPredictor`` gives the same labels.
-   The sample step gathers z and n once per 4-row chunk (1024
-   ``gather_pair`` launches a micro-batch, no ``gather_rows``).
+   The sample step launches 4 kernels a 4-row chunk and none a sample
+   (1024 ``gather_pair``, 1024 ``ftrl_walk`` and 2048
+   ``ftrl_scatter_add`` a micro-batch, no ``gather_rows``).
    Then 2 micro-batches each of ``staleness`` (K = 32) and ``chained``
-   (K = 16). Every mode on the card in float64 agrees with the same
-   trainer on the CPU at rtol 1e-10. Launch counts, samples/s per mode,
-   the split of one micro-batch (encode, copy in, step, snapshot), the
-   card's busy share from a profiler trace, and the progressive log
-   loss;
+   (K = 16, 256 / 256 / 512 launches a micro-batch). Every mode on the
+   card in float64 agrees with the same trainer on the CPU at rtol 1e-10.
+   Launch counts, samples/s per mode, the split of one micro-batch of
+   each mode (encode, copy in, step, snapshot) with the card's busy share
+   under the step from a profiler trace, and the progressive log loss;
 8. the level-histogram kernel (``tree_hist``) against its plain version
    on the card, bitwise, at the GBDT main path's shapes (48,842 adult
    rows x 14 features, 64 bins, 3 stats, 1 to 32 nodes, and the leaf
@@ -284,28 +295,52 @@ def model_arrays(ks, w, b, mode, dev):
 
 
 CHAIN_PROBE_SRC = r"""
-// The latency of one dependent add on the card: one thread adds `a` to
-// its sum n times (each add waits on the one before) between two reads
-// of the SM's cycle counter.
+// The latency of one dependent op on the card: one thread applies the op
+// to its value n times (each op waits on the one before) between two
+// reads of the SM's cycle counter. op 0: add a; 1: sqrt; 2: divide a by
+// the value; 3: exp of minus the value (a negation and an exp); 4:
+// reciprocal.
 #include <cuda_runtime.h>
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-template <typename T>
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float exp_(float a) { return expf(a); }
+__device__ __forceinline__ double exp_(double a) { return exp(a); }
+__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
+template <typename T, int OP>
 __global__ void chain_probe(T a, int n, T* out, long long* cycles) {
-  T acc = 0;
+  T acc = a;
   const long long t0 = clock64();
 #pragma unroll 32
-  for (int i = 0; i < n; ++i) acc = add_rn(acc, a);
+  for (int i = 0; i < n; ++i) {
+    if (OP == 0) acc = add_rn(acc, a);
+    if (OP == 1) acc = sqrt_rn(acc);
+    if (OP == 2) acc = div_rn(a, acc);
+    if (OP == 3) acc = exp_(-acc);
+    if (OP == 4) acc = rcp_rn(acc);
+  }
   const long long t1 = clock64();
   out[0] = acc;
   cycles[0] = t1 - t0;
 }
-extern "C" int add_chain_cycles(int dbl, int n, long long* host_cycles) {
+template <typename T>
+void launch(int op, T a, int n, T* out, long long* cyc) {
+  if (op == 0) chain_probe<T, 0><<<1, 1>>>(a, n, out, cyc);
+  if (op == 1) chain_probe<T, 1><<<1, 1>>>(a, n, out, cyc);
+  if (op == 2) chain_probe<T, 2><<<1, 1>>>(a, n, out, cyc);
+  if (op == 3) chain_probe<T, 3><<<1, 1>>>(a, n, out, cyc);
+  if (op == 4) chain_probe<T, 4><<<1, 1>>>(a, n, out, cyc);
+}
+extern "C" int op_chain_cycles(int dbl, int op, int n, long long* host_cycles) {
   void* out;
   long long* cyc;
   if (cudaMalloc(&out, 8) != cudaSuccess || cudaMalloc(&cyc, 8) != cudaSuccess) return -1;
-  if (dbl) chain_probe<double><<<1, 1>>>(1e-300, n, static_cast<double*>(out), cyc);
-  else chain_probe<float><<<1, 1>>>(1e-30f, n, static_cast<float*>(out), cyc);
+  if (dbl) launch<double>(op, op ? 1.5 : 1e-300, n, static_cast<double*>(out), cyc);
+  else launch<float>(op, op ? 1.5f : 1e-30f, n, static_cast<float*>(out), cyc);
   const int e = static_cast<int>(cudaDeviceSynchronize());
   cudaMemcpy(host_cycles, cyc, 8, cudaMemcpyDeviceToHost);
   cudaFree(out);
@@ -313,6 +348,7 @@ extern "C" int add_chain_cycles(int dbl, int n, long long* host_cycles) {
   return e;
 }
 """
+PROBE_OPS = ("add", "sqrt", "div", "exp", "rcp")
 
 
 def start_chain_probe(build):
@@ -330,21 +366,26 @@ def start_chain_probe(build):
 
 def add_latency(proc, lib_path, n=1 << 16):
     """Cycles per dependent ``__fadd_rn`` and ``__dadd_rn`` (the second of
-    two runs of n adds each), and the SM clock (MHz, now and at most)."""
+    two runs of n ops each; keys ``f32`` and ``f64``), and of the walk's
+    other ops (``f32_sqrt``, ``f64_exp``, ...: sqrt, divide, a negation
+    and an exp, reciprocal), and the SM clock (MHz, now and at most)."""
     import ctypes
     log, _ = proc.communicate(timeout=300)
     require(proc.returncode == 0, f"the add-latency probe built: {log}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.add_chain_cycles.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
-    lib.add_chain_cycles.restype = ctypes.c_int
+    lib.op_chain_cycles.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.op_chain_cycles.restype = ctypes.c_int
     out = {}
     for name, dbl in (("f32", 0), ("f64", 1)):
-        cyc = ctypes.c_longlong(0)
-        for _ in range(2):
-            rc = lib.add_chain_cycles(dbl, n, ctypes.addressof(cyc))
-            require(rc == 0, f"the add-latency probe ran (CUDA error {rc})")
-        out[name] = cyc.value / n
+        for op, opname in enumerate(PROBE_OPS):
+            cyc = ctypes.c_longlong(0)
+            for _ in range(2):
+                rc = lib.op_chain_cycles(dbl, op, n if op == 0 else n // 8,
+                                         ctypes.addressof(cyc))
+                require(rc == 0, f"the latency probe ran (CUDA error {rc})")
+            key = name if op == 0 else f"{name}_{opname}"
+            out[key] = cyc.value / (n if op == 0 else n // 8)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -358,6 +399,26 @@ def chain_bound_ms(dim, mode, lat):
     measured latency, at the SM's top clock."""
     cycles = lat["f64" if mode == "f64" else "f32"]
     return dim * cycles / (lat["max_sm_mhz"] * 1e6) * 1e3
+
+
+# the dependent ops of one sample of the walk, the slot that every row
+# holds (the intercept): the correction's add, the decay's add, multiply and
+# add, the term, the tree's log2(width) levels, the sigmoid's add and the
+# label's subtract, g, g^2, n + g^2, the sqrt difference, the multiply by
+# 1 / alpha, sigma * w, the delta's subtract and the running value's add
+# (add-class, 15 + the tree), then 2 sqrt, 1 divide, 1 exp, 1 reciprocal
+WALK_ADDS = 15
+WALK_OPS = {"sqrt": 2, "div": 1, "exp": 1, "rcp": 1}
+
+
+def walk_bound_ms(K, width, kind, lat):
+    """The least time of one chunk walk: K samples one after the other,
+    each the chain of dependent ops above at the probe's latencies, at
+    the SM's top clock."""
+    levels = max(0, width - 1).bit_length()
+    cycles = (WALK_ADDS + levels) * lat[kind] + sum(
+        c * lat[f"{kind}_{op}"] for op, c in WALK_OPS.items())
+    return K * cycles / (lat["max_sm_mhz"] * 1e6) * 1e3
 
 
 def dense_inputs(rng, n, dim, kind="plain"):
@@ -438,6 +499,55 @@ def dense_edges(ks, rng, dev):
     return out
 
 
+def sparse_edges(ks, rng, dev):
+    """The sparse kernel against its plain version, bitwise, in all four
+    modes, at the shapes its warp-per-rows design could get wrong: one
+    row, a last warp of fewer rows (7 rows of width 8), 513 and 4096 rows
+    (7 rows a warp), 100,000 rows (32 rows a warp, passes that cut rows),
+    width 1031 (a row over several passes), and -0.0, inf and NaN values
+    inside chains. Kernel and device times in f32 at each shape."""
+    import torch
+    ws = torch.from_numpy((rng.standard_normal(FEATURES) * 0.05)
+                          .astype(np.float32))
+    b = torch.tensor(0.125, dtype=torch.float32)
+    out = {}
+    for n, width, kind in ((1, 40, "plain"), (7, 8, "plain"),
+                           (513, 40, "plain"), (4096, 40, "plain"),
+                           (100_000, 40, "plain"), (512, 1031, "plain"),
+                           (33, 40, "specials")):
+        key = f"n={n} width={width}" + (" specials" if kind != "plain"
+                                          else "")
+        idx = torch.from_numpy(rng.integers(0, FEATURES, (n, width))
+                               .astype(np.int32))
+        val = torch.from_numpy(rng.standard_normal((n, width))
+                               .astype(np.float32))
+        if kind == "specials":
+            val[0] = -0.0
+            val[1, 5] = np.inf
+            val[2, 5], val[2, 9] = np.inf, -np.inf
+            val[3, 10] = np.nan
+        rec = {}
+        for mode, sdtype in MODES:
+            v = val.to(dev, torch.float64 if mode == "f64" else torch.float32)
+            i = idx.to(dev)
+            md = model_arrays(ks, ws, b, mode, dev)
+            got = ks.sparse_scores(md, i, v, sdtype)
+            want = ks.sparse_scores_plain(md, i, v, sdtype)
+            torch.cuda.synchronize()
+            require(same_bits(got, want)[1],
+                    f"serve_sparse {key} {mode} bitwise vs its plain version")
+            if mode == "f32":
+                call = lambda: ks.sparse_scores(md, i, v, sdtype)  # noqa: E731
+                rec = {"kernel_ms": cuda_ms(call, trials=5),
+                       "device_ms": device_ms(call, "serve_sparse",
+                                              reps=5)[0],
+                       "plan": list(ks._sparse_plan(n, width))}
+        out[key] = dict(rec, bitwise_modes=[m for m, _ in MODES])
+        print(f"serve_sparse edge {key}: bitwise in {[m for m, _ in MODES]}, "
+              f"f32 {rec}", flush=True)
+    return out
+
+
 def phase_kernels(ks, rng, dev, lat):
     """Each kernel against its plain version at the main path's shapes,
     then the dense kernel's edge shapes."""
@@ -509,6 +619,7 @@ def phase_kernels(ks, rng, dev, lat):
                                                                        lib)
             out[name][mode] = rec
     out["serve_dense_edges"] = dense_edges(ks, rng, dev)
+    out["serve_sparse_edges"] = sparse_edges(ks, rng, dev)
     return out
 
 
@@ -639,22 +750,184 @@ def ftrl_kernel_inputs(rng, dtype, C, M, dev, one_slot=False):
             torch.from_numpy(upd).to(dev, dtype))
 
 
-def chained_inputs(rng, dtype, dev):
-    """The chained step's operands at K = 16, w = 40: the collision
-    tensor of Criteo rows (every row shares the intercept slot 0, plus
-    slots drawn from a small pool so rows collide) and random deltas."""
+WALK_CASES = ("criteo", "collisions", "repeats", "padded", "negzero", "nan")
+# chunks (K, w) beyond the steps' own, each walked in both associations on
+# Criteo-like rows and on rows that repeat slots: every register form of
+# the narrow walk (R = 1, 4, 8 positions a lane), its largest chunk in
+# shared memory (K * w = 2048, 180 KB in f64), a chunk of chunk_size 64 at
+# the Criteo width (spilled to global memory in f64), and the wide walk
+# in shared memory (w = 300) and spilled, at the scatter-add's limit of
+# 11264 positions for either association's K
+WALK_EDGES = ((4, 8), (4, 100), (4, 256), (8, 256), (64, 40), (4, 300),
+              (4, 2816), (16, 704))
+
+
+def walk_inputs(rng, case, K, dtype, dev, w=FTRL_WIDTH):
+    """One chunk of K Criteo-shape rows of width w (40) for the walk: slot
+    0 (the intercept, value 1) and w - 1 distinct slots of 2^20 (13
+    log-scaled counts, the rest ones), labels from the seed, and the
+    chunk's gathered state (z and n of each distinct slot, the same for
+    every occurrence). The edges: ``collisions``, rows drawing from 60
+    slots (as ``dup_rows``); ``repeats``, rows drawing from max(30, w / 2)
+    slots with replacement (slots repeated within a row); ``padded``, the
+    last 10 positions of each row at slot 0 with value 0 (as the step
+    pads); ``negzero``, a z of -0.0 at the intercept and at one other
+    slot; ``nan``, a NaN value in sample 1, whose deltas are then NaN (in
+    the chained association they reach every later sample's correction
+    as 0 * NaN)."""
     import torch
-    K, w = CHAIN_K, FTRL_WIDTH
-    xi = rng.choice(np.arange(1, 200), (K, w))
+    xi = np.empty((K, w), np.int64)
+    for k in range(K):
+        xi[k, 1:] = rng.choice(np.arange(1, FEATURES + 1), w - 1,
+                               replace=False)
+    if case == "collisions":
+        xi[:, 1:] = np.stack([rng.choice(np.arange(1, 61), w - 1,
+                                         replace=False) for _ in range(K)])
+    elif case == "repeats":
+        xi[:, 1:] = rng.integers(1, max(31, w // 2 + 1), (K, w - 1))
     xi[:, 0] = 0
-    xi[:, -1] = 0                                   # a padded position
-    M = (xi[:, None, :, None] == xi[None, :, None, :])
-    D = rng.standard_normal((K, w, 2))
-    D[:, -1] = 0.0
-    dense = rng.random((K, w, w)) < 0.1             # order-sensitive sums
-    return (torch.from_numpy(M).to(dev, dtype),
-            torch.from_numpy(dense).to(dev, dtype),
-            torch.from_numpy(D).to(dev, dtype))
+    xv = np.ones((K, w))
+    counts = min(13, w - 1)
+    xv[:, 1:1 + counts] = np.log1p(rng.poisson(3.0, (K, counts)))
+    if case == "padded":
+        xi[:, -10:] = 0
+        xv[:, -10:] = 0.0
+    if case == "nan":
+        xv[1, 5] = np.nan
+    uniq, inv = np.unique(xi.reshape(-1), return_inverse=True)
+    st = np.stack([rng.standard_normal(len(uniq)) * 0.1,
+                   np.abs(rng.standard_normal(len(uniq))) * 0.1], -1)
+    if case == "negzero":
+        st[0, 0] = -0.0
+        st[len(uniq) // 2, 0] = -0.0
+    y = (rng.random(K) < 0.5).astype(np.float64)
+    return (torch.from_numpy(xi.astype(np.int32)).to(dev),
+            torch.from_numpy(xv).to(dev, dtype),
+            torch.from_numpy(y).to(dev, dtype),
+            torch.from_numpy(st[inv]).to(dev, dtype).contiguous())
+
+
+def same_bits(a, b):
+    """Bitwise equal, a NaN equal to any NaN (a NaN's payload is the
+    hardware's); returns (equal, raw bits equal too)."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    same = bool(torch.equal(na, nb)) and bool(
+        torch.equal(bits(a[~na]), bits(b[~nb])))
+    return same, same and bool(torch.equal(bits(a), bits(b)))
+
+
+def walk_case(kf, args, chained, key, kind, lat, timed, any_nan=False):
+    """The walk kernel against its plain version on one chunk: deltas and
+    margins (written at row 1 of a buffer of K + 2) bitwise, raw bits
+    (NaN payloads too) unless ``any_nan`` lets a NaN equal any NaN; with
+    ``timed``, its times beside its bounds (``"device"``: the device time
+    alone)."""
+    import torch
+    xi, xv, yy, zn = args
+    K, w = xi.shape
+    m1 = xv.new_full((K + 2,), 9.0)
+    m2 = m1.clone()
+    got = kf.walk_chunk(xi, xv, yy, zn, m1, 1, **FTRL_HP, chained=chained)
+    want = kf.walk_chunk_plain(xi, xv, yy, zn, m2, 1, **FTRL_HP,
+                               chained=chained)
+    torch.cuda.synchronize()
+    same_d, raw_d = same_bits(got, want)
+    same_m, raw_m = same_bits(m1, m2)
+    fin = torch.isfinite(want)
+    err = float((got[fin].double() - want[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+    require(same_d and same_m and (any_nan or (raw_d and raw_m)),
+            f"ftrl_walk {key} bitwise vs its plain version (max abs err "
+            f"{err}; NaN equal to any NaN {same_d and same_m}; margins "
+            f"{m1.tolist()[:8]} vs {m2.tolist()[:8]})")
+    require(float(m1[0]) == 9.0 and float(m1[-1]) == 9.0,
+            f"ftrl_walk {key} wrote only its chunk's margins")
+    rec = {"bitwise": True, "raw_bits_equal": raw_d and raw_m,
+           "nan": bool(torch.isnan(got).any()), "max_abs_err": err}
+    call = lambda: kf.walk_chunk(xi, xv, yy, zn, m1, 1,     # noqa: E731
+                                 **FTRL_HP, chained=chained)
+    if timed == "device":
+        rec["device_ms"] = device_ms(call, "ftrl_walk")[0]
+        rec["chain_bound_ms"] = walk_bound_ms(K, w, kind, lat)
+    if timed is not True:
+        return rec
+    size = xv.element_size()
+    P = K * w
+    nbytes = 4 * P + size * (P + K + 2 * P + K + 2 * P)
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 30 * P, kind)
+    rec["chain_bound_ms"] = walk_bound_ms(K, w, kind, lat)
+    rec.update(kernel_ms=cuda_ms(call), device_ms=device_ms(call,
+                                                            "ftrl_walk")[0],
+               host_ms=host_ms(call),
+               plain_ms=cuda_ms(lambda: kf.walk_chunk_plain(
+                   xi, xv, yy, zn, m2, 1, **FTRL_HP, chained=chained),
+                   trials=3, reps=1),
+               library_ms=None)
+    return rec
+
+
+def walk_steps(kf, rng, dev):
+    """The sample and chained steps on micro-batches that K does not
+    divide (a -0.0 z at the intercept) through the kernels, against the
+    same steps through the plain versions on the card: z, n and the
+    margins bitwise, raw bits. 61 Criteo-shape rows drawing from 2000
+    slots (so chunks collide), chained also at chunk_size 64 (2560
+    positions a chunk, spilled to global memory in f64); and 13 rows of
+    width 300 (the wide walk: in shared memory at K = 4, spilled at
+    K = 16)."""
+    import torch
+    from alink_tpu_torch.operator.stream.onlinelearning import ftrl as op
+    S = FEATURES + 1
+    z0 = rng.standard_normal(S) * 0.1
+    z0[0] = -0.0
+    n0 = np.abs(rng.standard_normal(S)) * 0.1
+    kernels = (op.gather_pair, op.walk_chunk, op.scatter_add_rows)
+    plains = (kf.gather_pair_plain, kf.walk_chunk_plain,
+              kf.scatter_add_rows_plain)
+    out = {}
+    for B, w, chains in ((61, FTRL_WIDTH, (CHAIN_K, 64)), (13, 300,
+                                                          (CHAIN_K,))):
+        xi = np.zeros((B, w), np.int32)
+        for i in range(B):
+            xi[i, 1:] = rng.choice(np.arange(1, 2001), w - 1, replace=False)
+        xv = np.ones((B, w))
+        xv[:, 1:14] = np.log1p(rng.poisson(3.0, (B, 13)))
+        y = (rng.random(B) < 0.5).astype(np.float64)
+        out.update(_steps_bitwise(op, kernels, plains, dev, xi, xv, y, z0,
+                                  n0, chains))
+    return out
+
+
+def _steps_bitwise(op, kernels, plains, dev, xi, xv, y, z0, n0, chains):
+    import torch
+    B, w = xi.shape
+    out = {}
+    steps = [("sample", op.ftrl_sample_step, {})] + [
+        (f"chained K={K}", op.ftrl_chained_step, {"K": K}) for K in chains]
+    for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
+        for name, step, kw in steps:
+            args = [torch.from_numpy(xi).to(dev),
+                    torch.from_numpy(xv).to(dev, dtype),
+                    torch.from_numpy(y).to(dev, dtype)]
+            runs = []
+            for fns in (kernels, plains):
+                op.gather_pair, op.walk_chunk, op.scatter_add_rows = fns
+                try:
+                    z = torch.tensor(z0, dtype=dtype, device=dev)
+                    n = torch.tensor(n0, dtype=dtype, device=dev)
+                    runs.append(step(*args, z, n, **FTRL_HP, **kw))
+                    torch.cuda.synchronize()
+                finally:
+                    op.gather_pair, op.walk_chunk, op.scatter_add_rows = \
+                        kernels
+            for label, a, b in zip(("z", "n", "margins"), *runs):
+                require(a.shape == b.shape and torch.equal(bits(a), bits(b)),
+                        f"the {name} step on {B} rows of width {w}, {kind}: "
+                        f"{label} through the kernels bitwise vs the plain "
+                        f"versions")
+            out[f"{kind} {name} B={B} w={w}"] = "bitwise"
+    return out
 
 
 def _bound(nbytes, ops, kind):
@@ -763,12 +1036,12 @@ def gather_host_parts(kf, st, ix):
     return dict(zip(names, host_ms_turns(*parts.values(), reps=200)))
 
 
-def phase_ftrl_kernels(kf, rng, dev):
+def phase_ftrl_kernels(kf, rng, dev, lat):
     """Each FTRL kernel against its plain version on the card, bitwise,
     at every shape the three modes launch; times at each shape."""
     import torch
     rec = {"ftrl_gather": {}, "ftrl_gather_pair": {}, "ftrl_scatter_add": {},
-           "ftrl_chained_corr": {}}
+           "ftrl_walk": {}}
     for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
         size = 4 if kind == "f32" else 8
         for mode, M in FTRL_M.items():
@@ -814,37 +1087,29 @@ def phase_ftrl_kernels(kf, rng, dev):
                 key = f"{kind} {'one slot' if one else 'mixed'} M={M} C={C}"
                 rec["ftrl_scatter_add"][key] = scatter_shape(
                     kf, key, st, ix, upd, kind, size)
-        Mc, Md, D = chained_inputs(rng, dtype, dev)
-        for k in (0, 1, CHAIN_K - 1):
-            for label, M4 in (("collisions", Mc), ("dense", Md)):
-                Mk = M4[k] if label == "collisions" else M4
-                Mk = Mk.contiguous()
-                got = kf.chained_corr(Mk, D, k)
-                want = kf.chained_corr_plain(Mk, D, k)
-                torch.cuda.synchronize()
-                require(torch.equal(bits(got), bits(want)),
-                        f"ftrl_chained_corr {kind} k={k} {label} bitwise "
-                        f"vs its plain version")
-                if label != "collisions" or k == 0:
-                    continue
-                w = FTRL_WIDTH
-                b_ms, b_by = _bound((k * w * w + k * w * 2 + w * 2) * size,
-                                    2 * k * w * w * 2, kind)
-                rec["ftrl_chained_corr"][f"{kind} K={CHAIN_K} w={w} "
-                                         f"k={k}"] = {
-                    "bitwise": True, "max_abs_err": 0.0,
-                    "kernel_ms": cuda_ms(lambda: kf.chained_corr(Mk, D, k)),
-                    "device_ms": device_ms(lambda: kf.chained_corr(Mk, D, k),
-                                           "ftrl_chained")[0],
-                    "plain_ms": cuda_ms(
-                        lambda: kf.chained_corr_plain(Mk, D, k),
-                        trials=5, reps=2),
-                    "library_ms": cuda_ms(lambda: torch.einsum(
-                        "jab,jbc->ac", Mk[:k], D[:k])),
-                    "bound_ms": b_ms, "bound_by": b_by}
+        # the walk in both associations, at the steps' K, on every edge;
+        # raw bits everywhere but the chained NaN chunk in f64, where the
+        # kernel's 0 * NaN is its own NaN and the plain version's carries
+        # the delta's payload
+        for chained, K in ((False, 4), (True, CHAIN_K)):
+            assoc = "chained" if chained else "sample"
+            for case in WALK_CASES:
+                key = f"{kind} {assoc} K={K} w={FTRL_WIDTH} {case}"
+                rec["ftrl_walk"][key] = walk_case(
+                    kf, walk_inputs(rng, case, K, dtype, dev), chained, key,
+                    kind, lat, timed=case == "criteo",
+                    any_nan=chained and kind == "f64" and case == "nan")
+            for K, w in WALK_EDGES:
+                for case in ("criteo", "repeats"):
+                    key = f"{kind} {assoc} K={K} w={w} {case}"
+                    rec["ftrl_walk"][key] = walk_case(
+                        kf, walk_inputs(rng, case, K, dtype, dev, w),
+                        chained, key, kind, lat,
+                        timed="device" if case == "criteo" else False)
     st, ix, _ = ftrl_kernel_inputs(rng, torch.float32, 1, FTRL_M["sample"],
                                    dev)
     rec["gather_host_parts_ms"] = gather_host_parts(kf, st, ix)
+    rec["walk_steps"] = walk_steps(kf, rng, dev)
     return rec
 
 
@@ -1004,6 +1269,28 @@ def ftrl_split(warm, train, mode, reps=3, trace=False):
     return med
 
 
+def ftrl_splits(warm, train, kf):
+    """:func:`ftrl_split` of one micro-batch of each mode, then the card's
+    busy time under one more profiled step of each (its share of the
+    unprofiled step): a step measured after a profiled one runs slower,
+    so every unprofiled split comes first. Returns ({mode: split},
+    {mode: the launches of its split})."""
+    modes = ("sample", "staleness", "chained")
+    splits, launches = {}, {}
+    for mode in modes:
+        kf.reset_launch_counts()
+        splits[mode] = ftrl_split(warm, train, mode)
+        launches[mode] = kf.launch_counts()
+    for mode in modes:
+        traced = ftrl_split(warm, train, mode, reps=1, trace=True)
+        busy = traced["device_busy_ms"]
+        splits[mode].update(profiled_step_ms=traced["profiled_step_ms"],
+                            device_busy_ms=busy,
+                            device_busy_share=busy / splits[mode]["step"]
+                            if busy else None)
+    return splits, launches
+
+
 def phase_ftrl_main(kf, ks, rng):
     """The FTRL main path and the other two modes on the card (f32)."""
     import torch
@@ -1047,11 +1334,13 @@ def phase_ftrl_main(kf, ks, rng):
             and launches["ftrl_scatter_add"] > 0,
             f"the train + hot-swap predict run launched every state "
             f"kernel: {launches}")
-    # one gather of z and n per 4-row chunk: 1024 a 4096-row micro-batch
-    require(drain_launches["ftrl_gather_pair"]
-            == FTRL_BATCH // 4 * FTRL_TRAIN_BATCHES
-            and drain_launches["ftrl_gather"] == 0,
-            f"the sample step gathers once per chunk: {drain_launches}")
+    # four launches per 4-row chunk and none per sample: 1024 gathers of z
+    # and n, 1024 walks and 2048 scatter-adds a 4096-row micro-batch
+    chunks = FTRL_BATCH // 4 * FTRL_TRAIN_BATCHES
+    require(drain_launches == {"ftrl_gather": 0, "ftrl_gather_pair": chunks,
+                               "ftrl_walk": chunks,
+                               "ftrl_scatter_add": 2 * chunks},
+            f"the sample step launches 4 kernels a chunk: {drain_launches}")
     require(launches == drain_launches,
             f"the replayed training launched what the drain did: "
             f"{launches} vs {drain_launches}")
@@ -1109,8 +1398,8 @@ def phase_ftrl_main(kf, ks, rng):
     # -- the other two modes, 2 micro-batches each -----------------------
     two = train.first_n(2 * FTRL_BATCH)
     for mode, kernels in (("staleness", ("ftrl_gather", "ftrl_scatter_add")),
-                          ("chained", ("ftrl_gather_pair", "ftrl_scatter_add",
-                                       "ftrl_chained_corr"))):
+                          ("chained", ("ftrl_gather_pair", "ftrl_walk",
+                                       "ftrl_scatter_add"))):
         op = ftrl_op(warm, mode, time_interval=1e9).link_from(
             MemSourceStreamOp(two, batch_size=FTRL_BATCH))
         kf.reset_launch_counts()
@@ -1118,6 +1407,14 @@ def phase_ftrl_main(kf, ks, rng):
         counts = kf.launch_counts()
         require(all(counts[k] > 0 for k in kernels),
                 f"the {mode} path launched {kernels}: {counts}")
+        if mode == "chained":
+            # 256 chunks of 16 rows a micro-batch: 4 launches each
+            chunks = 2 * FTRL_BATCH // CHAIN_K
+            require(counts == {"ftrl_gather": 0, "ftrl_gather_pair": chunks,
+                               "ftrl_walk": chunks,
+                               "ftrl_scatter_add": 2 * chunks},
+                    f"the chained step launches 4 kernels a chunk: "
+                    f"{counts}")
         c = LinearModelDataConverter.load_table(snaps_m[-1][1]).coef
         require(bool(np.isfinite(c).all()), f"{mode} finite coefficients")
         pl = op.progressive_logloss()
@@ -1129,9 +1426,7 @@ def phase_ftrl_main(kf, ks, rng):
         print(f"ftrl {mode}: {two.num_rows} rows in {secs:.3f} s "
               f"({two.num_rows / secs:.1f} samples/s), launches {counts}")
 
-    out["split_ms"] = {mode: ftrl_split(warm, train, mode,
-                                        trace=mode == "sample")
-                       for mode in ("sample", "staleness", "chained")}
+    out["split_ms"], _ = ftrl_splits(warm, train, kf)
     for mode, split in out["split_ms"].items():
         print(f"ftrl {mode} micro-batch split (ms): {split}")
     t0 = time.perf_counter()
@@ -1721,6 +2016,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     parity = phase_kernels(ks, rng, dev, lat)
     dense_edge_rec = parity.pop("serve_dense_edges")
+    sparse_edge_rec = parity.pop("serve_sparse_edges")
     for name, modes in parity.items():
         for mode, rec in modes.items():
             print(f"{name} {mode}: " + " ".join(
@@ -1798,8 +2094,11 @@ def main(argv=None) -> int:
         print(f"{kind} 512-row dispatch, median ms per stage: {split}")
 
     # -- 6. the FTRL state kernels against their plain versions ----------
-    ftrl_parity = phase_ftrl_kernels(kf, rng, dev)
+    ftrl_parity = phase_ftrl_kernels(kf, rng, dev, lat)
     host_parts = ftrl_parity.pop("gather_host_parts_ms")
+    walk_steps_rec = ftrl_parity.pop("walk_steps")
+    print(f"the strict steps on a micro-batch K does not divide: "
+          f"{walk_steps_rec}", flush=True)
     for name, shapes in ftrl_parity.items():
         for key, rec in shapes.items():
             print(f"{name} {key}: " + " ".join(
@@ -1852,6 +2151,7 @@ def main(argv=None) -> int:
         "chain_bound_ms"]
     kernels[0]["add_latency"] = lat
     kernels[0]["edges"] = dense_edge_rec
+    kernels[1]["edges"] = sparse_edge_rec
     # the FTRL kernels' record: each at the shape of the path that
     # counts it (sample mode for gather and scatter-add, chained for the
     # correction), in f32; every shape's times are in "shapes"
@@ -1865,9 +2165,9 @@ def main(argv=None) -> int:
         ("ftrl_scatter_add", "alink_tpu/kernels/ftrl.py:129",
          f"f32 sample M={FTRL_M['sample']} C=1",
          ftrl["sample"]["main_path_launches"]["ftrl_scatter_add"]),
-        ("ftrl_chained_corr", "alink_tpu/kernels/ftrl.py:190",
-         f"f32 K={CHAIN_K} w={FTRL_WIDTH} k={CHAIN_K - 1}",
-         ftrl["chained"]["launches"]["ftrl_chained_corr"]))
+        ("ftrl_walk", "alink_tpu/kernels/ftrl.py:190",
+         f"f32 sample K=4 w={FTRL_WIDTH} criteo",
+         ftrl["sample"]["main_path_launches"]["ftrl_walk"]))
     for name, where, key, count in ftrl_rec:
         r = ftrl_parity[name][key]
         kernels.append({
@@ -1883,12 +2183,18 @@ def main(argv=None) -> int:
             "shapes": {k: {f: v[f] for f in (
                 "kernel_ms", "device_ms", "host_ms", "plain_ms",
                 "library_ms", "library_device_ms", "library_host_ms",
-                "bound_ms") if f in v}
+                "bound_ms", "chain_bound_ms", "raw_bits_equal") if f in v}
                 for k, v in ftrl_parity[name].items()}})
         if name.startswith("ftrl_gather"):
             kernels[-1].update(host_ms=r["host_ms"],
                                library_host_ms=r["library_host_ms"])
     kernels[2]["host_parts_ms"] = host_parts
+    walk = ftrl_parity["ftrl_walk"][ftrl_rec[-1][2]]
+    kernels[-1].update(host_ms=walk["host_ms"],
+                       chain_bound_ms=walk["chain_bound_ms"],
+                       steps=walk_steps_rec,
+                       chained_launches=ftrl["chained"]["launches"][
+                           "ftrl_walk"])
     # the histogram kernel's record: at the main path's deepest level
     tkey = f"level n={ADULT_N} F={ADULT_F} nodes=32 bins={GBDT_BINS} m=3"
     r = tree_parity[tkey]

@@ -56,14 +56,19 @@ def _mesh1():
     return Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("d", "m"))
 
 
-def _coo(B, dim, nnz, width, seed, dup_rows=0):
+def _coo(B, dim, nnz, width, seed, dup_rows=0, repeat_rows=0):
     """tests/test_kernels.py's padded COO batch; ``dup_rows`` rows at the
-    top share one feature block so chunks collide."""
+    top share one feature block so chunks collide; ``repeat_rows`` rows at
+    the top draw their slots from 20 with replacement, so a row repeats
+    slots (as a ``SparseVector`` with duplicate indices does) and rows
+    collide several times over."""
     rng = np.random.RandomState(seed)
     idx = np.zeros((B, width), np.int32)
     val = np.zeros((B, width))
     for i in range(B):
-        if i < dup_rows:
+        if i < repeat_rows:
+            idx[i, :nnz] = rng.choice(20, nnz, replace=True)
+        elif i < dup_rows:
             idx[i, :nnz] = np.arange(nnz)
         else:
             idx[i, :nnz] = rng.choice(dim, nnz, replace=False)
@@ -90,15 +95,21 @@ STEPS = {
 }
 
 
-@pytest.mark.parametrize("dup_rows", [0, 16, 24])
+@pytest.mark.parametrize("dup_rows", [0, 16, 24, "repeat"])
 @pytest.mark.parametrize("mode", sorted(STEPS))
 def test_step_matches_jax_xla_path(mode, dup_rows):
     """62 rows (padded to the chunk inside the step), 16 slots of width
-    with 12 live, a 512-slot state with a -0.0."""
+    with 12 live, a 512-slot state with a -0.0. ``"repeat"``: the top 24
+    rows repeat slots within the row."""
     import alink_tpu.operator.stream.onlinelearning.ftrl as jf
     fac_name, fac_kw, step, step_kw = STEPS[mode]
     dim = 512
-    idx, val, y = _coo(62, dim, 12, 16, seed=0, dup_rows=dup_rows)
+    repeat = 24 if dup_rows == "repeat" else 0
+    idx, val, y = _coo(62, dim, 12, 16, seed=0,
+                       dup_rows=0 if repeat else dup_rows,
+                       repeat_rows=repeat)
+    if repeat:
+        assert any(len(set(r[:12])) < 12 for r in idx[:repeat])
     z0, n0 = _state(dim)
     jstep = getattr(jf, fac_name)(_mesh1(), *HP, **fac_kw, kernel="off")
     zj, nj, mj = (np.asarray(a) for a in jstep(idx, val, y, z0, n0))
@@ -112,18 +123,17 @@ def test_step_matches_jax_xla_path(mode, dup_rows):
 
 
 @pytest.mark.parametrize("mode,launches", [
-    ("sample", {"gather_pair": 16, "scatter_add_rows": 32}),
+    ("sample", {"gather_pair": 16, "walk_chunk": 16, "scatter_add_rows": 32}),
     ("staleness16", {"gather_rows": 4, "scatter_add_rows": 4}),
-    ("chained8", {"gather_pair": 8, "scatter_add_rows": 16,
-                  "chained_corr": 8 * 8})])
+    ("chained8", {"gather_pair": 8, "walk_chunk": 8, "scatter_add_rows": 16})])
 def test_step_hands_the_kernels_what_they_take(monkeypatch, mode, launches):
-    """Every gather, scatter-add and chained correction of a step goes
-    through the kernel wrappers (``k = 0`` included, which launches
-    nothing), with the operands the CUDA kernels take: contiguous, int32
-    slots, one dtype. (The CUDA path itself needs the card; on CPU
+    """Every gather, scatter-add and chunk walk of a step goes through the
+    kernel wrappers, with the operands the CUDA kernels take: contiguous,
+    int32 slots, one dtype. (The CUDA path itself needs the card; on CPU
     tensors the wrappers run their plain versions.) 62 rows: 16 chunks
-    of 4, 4 of 16, 8 of 8; the sample and chained steps gather a chunk's
-    z and n in one ``gather_pair`` call."""
+    of 4, 4 of 16, 8 of 8; the sample and chained steps make four calls a
+    chunk (one ``gather_pair``, one ``walk_chunk``, two scatter-adds) and
+    none per sample."""
     _, _, step, step_kw = STEPS[mode]
     calls = {}
 
@@ -132,14 +142,14 @@ def test_step_hands_the_kernels_what_they_take(monkeypatch, mode, launches):
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
             assert all(t.is_contiguous() for t in tensors), name
             assert len({t.dtype for t in tensors} - {torch.int32}) == 1
-            if name != "chained_corr":
-                ix = args[2] if name == "gather_pair" else args[1]
-                assert ix.dtype == torch.int32 and ix.dim() == 1
+            ix = args[{"gather_pair": 2, "walk_chunk": 0}.get(name, 1)]
+            assert ix.dtype == torch.int32
+            assert ix.dim() == (2 if name == "walk_chunk" else 1)
             calls[name] = calls.get(name, 0) + 1
             return wrapper(*args)
         return call
     for name in ("gather_rows", "gather_pair", "scatter_add_rows",
-                 "chained_corr"):
+                 "walk_chunk"):
         monkeypatch.setattr(tf, name, checked(name, getattr(kf, name)))
     idx, val, y = _coo(62, 512, 12, 16, seed=1, dup_rows=16)
     z, n = ftrl_state_from_numpy(*_state(512), "cpu", torch.float32)

@@ -11,10 +11,16 @@ of ``tests/test_kernels.py::test_gather_scatter_units`` with a ``-0.0``
 slot that no index names and padded zero updates at slot 0.
 ``chained_corr``'s plain version is held to the JAX package's einsum at
 rtol 1e-12 (float64): the same bound ``test_corr_unit_matches_einsum``
-pins for the Pallas kernel, an association-only difference. The CUDA
+pins for the Pallas kernel, an association-only difference.
+``walk_chunk``'s plain version, which walks a chunk of the strict steps
+with that correction (or the per-sample step's), is held bitwise to the
+per-sample loops it replaces with their margin summed in its pinned
+order, and to those loops as they were at the JAX tolerance. The CUDA
 kernels themselves are held to these plain versions on the card by
 ``chip_smoke.py``.
 """
+
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -132,7 +138,7 @@ def test_chained_plain_matches_jax_einsum(k):
     Dk[k:] = 0.0
     ref = jnp.einsum("jab,jbc->ac", jnp.asarray(M), jnp.asarray(Dk),
                      precision=jax.lax.Precision.HIGHEST)
-    out = kf.chained_corr(torch.from_numpy(M), torch.from_numpy(Dk), k)
+    out = kf.chained_corr_plain(torch.from_numpy(M), torch.from_numpy(Dk), k)
     assert out.shape == (w, 2) and out.dtype == torch.float64
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-14)
@@ -158,8 +164,139 @@ def test_chained_plain_is_the_ordered_chain(k, np_dtype, t_dtype):
                 for b in range(w):
                     acc = np_dtype(acc + np_dtype(M[j, a, b] * D[j, b, c]))
             want[a, c] = acc
-    out = kf.chained_corr(torch.from_numpy(M), torch.from_numpy(D), k)
+    out = kf.chained_corr_plain(torch.from_numpy(M), torch.from_numpy(D), k)
     assert np.array_equal(_bits(want), _bits(out.numpy()))
+
+
+HP = (0.05, 1.0, 1e-5, 1e-5)                  # alpha, beta, l1, l2
+
+
+def _walk_fixture(kind, K, np_dtype, seed=0):
+    """A chunk of K rows of width 16 with 12 live slots (the rest padded
+    to slot 0 with value 0) over a 300-slot state with a -0.0 slot: the
+    rows' slots distinct (``"distinct"``), every row on slot 0 as
+    Criteo rows share the intercept (``"intercept"``), or rows drawing
+    from 30 slots without repeats inside a row (``"collide"``)."""
+    rng = np.random.RandomState(seed)
+    w, nnz = 16, 12
+    xi = np.zeros((K, w), np.int32)
+    for k in range(K):
+        pool = 30 if kind == "collide" else 300
+        xi[k, :nnz] = rng.choice(np.arange(1, pool), nnz, replace=False)
+        if kind == "intercept":
+            xi[k, 0] = 0
+    if kind == "distinct":
+        xi[:, :nnz] = rng.choice(np.arange(1, 300), (K * nnz),
+                                 replace=False).reshape(K, nnz)
+    xv = np.zeros((K, w))
+    xv[:, :nnz] = rng.randn(K, nnz)
+    yy = (rng.rand(K) < 0.5).astype(np.float64)
+    st = rng.randn(300, 2) * 0.1
+    st[:, 1] = np.abs(st[:, 1])
+    st[xi[0, 3], 0] = -0.0
+    zn = st[xi.reshape(-1)]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, t))
+                 for a, t in ((xi, np.int32), (xv, np_dtype),
+                              (yy, np_dtype), (zn, np_dtype)))
+
+
+def _per_sample_loop(xi, xv, yy, zn, chained, margin_sum):
+    """The strict steps' per-sample loops as the port ran them before the
+    walk (one chained correction, or one same-slot selection per earlier
+    sample, then the weights, margin and deltas of each sample), with the
+    margin summed by ``margin_sum``. Returns ((K, w, 2) deltas, margins)."""
+    alpha, beta, l1, l2 = HP
+    K, w = xi.shape
+    zn = zn.view(K, w, 2)
+    same = xi[:, None, :, None] == xi[None, :, None, :]
+    D = torch.zeros((K, w, 2), dtype=zn.dtype)
+    margins = []
+    for k in range(K):
+        if chained:
+            corr = kf.chained_corr_plain(same.to(zn.dtype)[k], D, k)
+            zk, nk = zn[k, :, 0] + corr[:, 0], zn[k, :, 1] + corr[:, 1]
+        else:
+            znk = zn[k]
+            for j in range(k):
+                znk = znk + torch.where(same[k, j][:, :, None], D[j][None],
+                                        0.0).sum(1)
+            zk, nk = znk[:, 0], znk[:, 1]
+        wk = kf.ftrl_weights(zk, nk, alpha, beta, l1, l2)
+        margin = margin_sum(xv[k] * wk)
+        g = (kf.sigmoid(margin) - yy[k]) * xv[k]
+        gg = g * g
+        sigma = (torch.sqrt(nk + gg) - torch.sqrt(nk)) / alpha
+        D[k] = torch.stack([g - sigma * wk, gg], -1)
+        margins.append(margin)
+    return D, torch.stack(margins)
+
+
+@pytest.mark.parametrize("kind", ["distinct", "intercept", "collide"])
+@pytest.mark.parametrize("np_dtype,t_dtype", DTYPES)
+@pytest.mark.parametrize("chained", [False, True])
+def test_walk_plain_is_the_per_sample_loop(chained, np_dtype, t_dtype, kind):
+    """``walk_chunk_plain`` (K = 4 in the sample form, 8 chained) against
+    the per-sample loop it replaces: bitwise, deltas and margins, once the
+    loop sums its margin in the walk's pinned order (``tree_sum``); with
+    the loop's own ``torch.sum`` the margins' last bits move, and the loop
+    as it was is held at the JAX tolerance (rtol 1e-12, atol 1e-14 in
+    float64; rtol 1e-5, atol 1e-6 in float32)."""
+    K = 8 if chained else 4
+    xi, xv, yy, zn = _walk_fixture(kind, K, np_dtype)
+    margins = torch.full((K + 3,), 7.0, dtype=t_dtype)
+    d = kf.walk_chunk(xi, xv, yy, zn, margins, 2, *HP, chained=chained)
+    assert d.shape == (2, K * 16) and d.dtype == t_dtype
+    assert d.is_contiguous() and (margins[:2] == 7).all()
+    assert (margins[-1] == 7).all()
+    got = (d.view(2, K, 16).permute(1, 2, 0).numpy(), margins[2:2 + K].numpy())
+    D, m = _per_sample_loop(xi, xv, yy, zn, chained, kf.tree_sum)
+    for a, b in zip(got, (D.numpy(), m.numpy())):
+        assert np.array_equal(_bits(a), _bits(b))
+    D, m = _per_sample_loop(xi, xv, yy, zn, chained, torch.sum)
+    tol = dict(rtol=1e-12, atol=1e-14) if np_dtype == np.float64 else \
+        dict(rtol=1e-5, atol=1e-6)
+    for a, b in zip(got, (D.numpy(), m.numpy())):
+        np.testing.assert_allclose(a, b, **tol)
+
+
+@pytest.mark.parametrize("np_dtype,t_dtype", DTYPES)
+def test_ordered_partials_add_in_slot_order(np_dtype, t_dtype):
+    """The per-sample form's partial with several matches (a row that
+    repeats a slot): the selected deltas of each earlier sample added in
+    the order of their position from +0.0, bitwise; a NaN delta at a slot
+    that does not match never leaks."""
+    rng = np.random.RandomState(5)
+    k, w = 3, 10
+    sel = rng.rand(k, w, w) < 0.4
+    D = (rng.randn(k, w, 2) * 10.0 ** rng.randint(-4, 4, (k, w, 2))
+         ).astype(np_dtype)
+    D[0, 0] = np.nan
+    sel[0, :, 0] = False
+    want = np.zeros((k, w, 2), np_dtype)
+    for j in range(k):
+        for a in range(w):
+            for b in range(w):
+                if sel[j, a, b]:
+                    want[j, a] = (want[j, a] + D[j, b]).astype(np_dtype)
+    got = kf._ordered_partials(torch.from_numpy(sel), torch.from_numpy(D))
+    assert got.dtype == t_dtype
+    assert np.array_equal(_bits(want), _bits(got.numpy()))
+
+
+def test_tree_sum_is_the_pairwise_tree():
+    """``tree_sum`` pads to a power of two with +0.0 and adds halves:
+    for 5 terms ((t0 + t4) + t2) + (t1 + t3) in float32 (2.0 here, where
+    a left-to-right sum gives 4.0), one term alone unchanged (a -0.0
+    kept)."""
+    t = torch.tensor([1e8, 1.0, -1e8, 1.0, 3.0], dtype=torch.float32)
+    f = np.float32
+    want = f(f(f(1e8) + f(3.0)) + f(-1e8)) + f(f(1.0) + f(1.0))
+    assert kf.tree_sum(t).item() == want == 2.0
+    one = kf.tree_sum(torch.tensor([-0.0]))
+    assert one.item() == 0.0 and torch.signbit(one)
+    rows = torch.randn(3, 40, dtype=torch.float64)
+    assert torch.equal(kf.tree_sum(rows), torch.stack(
+        [kf.tree_sum(r) for r in rows]))
 
 
 def _raises_without_nvcc(monkeypatch, call):
@@ -173,7 +310,17 @@ def _raises_without_nvcc(monkeypatch, call):
             call()
 
 
-@pytest.mark.parametrize("name", ["gather", "pair", "scatter", "chained"])
+def _walk_args(device, dtype=torch.float32, K=4, w=8):
+    """``walk_chunk``'s operands for a chunk of K rows of width w."""
+    return (torch.zeros((K, w), dtype=torch.int32, device=device),
+            torch.zeros((K, w), dtype=dtype, device=device),
+            torch.zeros(K, dtype=dtype, device=device),
+            torch.ones((K * w, 2), dtype=dtype, device=device),
+            torch.zeros(2 * K, dtype=dtype, device=device), K,
+            0.05, 1.0, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["gather", "pair", "scatter", "walk"])
 def test_cuda_tensors_launch_or_raise(monkeypatch, name):
     """A CUDA tensor never falls back to the plain version: without a
     card (and a compiler) the wrapper raises."""
@@ -190,8 +337,7 @@ def test_cuda_tensors_launch_or_raise(monkeypatch, name):
         elif name == "scatter":
             kf.scatter_add_rows(st, ix, torch.zeros(8, device="cuda"))
         else:
-            kf.chained_corr(torch.zeros((4, 8, 8), device="cuda"),
-                            torch.zeros((4, 8, 2), device="cuda"), 2)
+            kf.walk_chunk(*_walk_args("cuda"), chained=True)
     before = kf.launch_counts()
     _raises_without_nvcc(monkeypatch, call)
     assert kf.launch_counts() == before
@@ -224,6 +370,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                 torch.zeros(4, dtype=torch.int32,
                                             device="cuda"),
                                 torch.zeros((4, 3), device="cuda"))
+        xi, xv, yy, zn, mg, row, *hp = _walk_args("cuda")
+        strided = torch.empty_strided((4, 8), (1, 4), dtype=torch.int32,
+                                      device="cuda")
+        for bad in ({"xi": xi.long()}, {"zn": zn.double()}, {"row": 5},
+                    {"xv": torch.zeros((4, 4), device="cuda")},
+                    {"xi": strided}):
+            args = dict(xi=xi, xv=xv, yy=yy, zn=zn, margins=mg, row=row)
+            args.update(bad)
+            with pytest.raises(ValueError, match="walk_chunk: want"):
+                kf.walk_chunk(**args, alpha=hp[0], beta=hp[1], l1=hp[2],
+                              l2=hp[3], chained=False)
+        # as many positions as the chunk's scatter-add takes, no more
+        with pytest.raises(ValueError, match="at most 11264"):
+            kf.walk_chunk(*_walk_args("cuda", K=1, w=11265), chained=False)
+        with pytest.raises(ValueError, match="at most 11264"):
+            kf.walk_chunk(*_walk_args("cuda", K=16, w=705), chained=True)
 
 
 def test_plain_versions_do_not_count_launches():
@@ -233,11 +395,10 @@ def test_plain_versions_do_not_count_launches():
     kf.gather_rows(st, ix)
     kf.gather_pair(st, st, ix)
     kf.scatter_add_rows(st, ix, torch.ones(3, dtype=torch.float64))
-    kf.chained_corr(torch.ones((2, 3, 3), dtype=torch.float64),
-                    torch.ones((2, 3, 2), dtype=torch.float64), 1)
+    d = kf.walk_chunk(*_walk_args("cpu", torch.float64), chained=True)
+    assert d.shape == (2, 32)
     assert kf.launch_counts() == {"ftrl_gather": 0, "ftrl_gather_pair": 0,
-                                  "ftrl_scatter_add": 0,
-                                  "ftrl_chained_corr": 0}
+                                  "ftrl_scatter_add": 0, "ftrl_walk": 0}
     assert st.tolist() == [1.0, 2.0] + [0.0] * 6
 
 
@@ -297,12 +458,13 @@ class _FakeFn:
 
     def __call__(self, *args):
         assert self.argtypes is not None and len(args) == len(self.argtypes)
-        assert all(isinstance(a, int) for a in args)
+        for a, kind in zip(args, self.argtypes):
+            assert isinstance(a, float if kind is ctypes.c_double else int)
         self.calls.append(args)
         return 0
 
 
-@pytest.mark.parametrize("name", ["gather", "pair", "scatter", "chained"])
+@pytest.mark.parametrize("name", ["gather", "pair", "scatter", "walk"])
 def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
                                                             name):
     """With a library in place, a CUDA tensor goes to its C function once,
@@ -311,9 +473,10 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
     import types
     fake = types.SimpleNamespace(**{n: _FakeFn() for n in (
         "alink_ftrl_gather", "alink_ftrl_gather_pair",
-        "alink_ftrl_scatter_add", "alink_ftrl_chained_corr",
-        "alink_ftrl_error_string")})
+        "alink_ftrl_scatter_add", "alink_ftrl_walk",
+        "alink_ftrl_walk_spill", "alink_ftrl_error_string")})
     monkeypatch.setattr(kf, "_fns", None)
+    kf._walk_spill.cache_clear()
     monkeypatch.setattr(_build, "load_library", lambda n: fake)
     monkeypatch.setattr(_build, "current_device", lambda: 0)
     monkeypatch.setattr(_build, "stream_handle", lambda i: 55)
@@ -321,7 +484,7 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
     def no_plain(*a):
         raise AssertionError("a CUDA tensor reached a plain version")
     for plain in ("gather_rows_plain", "gather_pair_plain",
-                  "scatter_add_rows_plain", "chained_corr_plain"):
+                  "scatter_add_rows_plain", "walk_chunk_plain"):
         monkeypatch.setattr(kf, plain, no_plain)
     kf.reset_launch_counts()
     with FakeTensorMode():
@@ -335,20 +498,28 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch,
         elif name == "scatter":
             kf.scatter_add_rows(st, ix, torch.zeros((8, 2), device="cuda"))
         else:
-            kf.chained_corr(torch.zeros((4, 8, 8), device="cuda"),
-                            torch.zeros((4, 8, 2), device="cuda"), 2)
+            walk = _walk_args("cuda")
+            kf.walk_chunk(*walk, chained=True)
     fn = {"gather": fake.alink_ftrl_gather,
           "pair": fake.alink_ftrl_gather_pair,
           "scatter": fake.alink_ftrl_scatter_add,
-          "chained": fake.alink_ftrl_chained_corr}[name]
+          "walk": fake.alink_ftrl_walk}[name]
     (args,) = fn.calls
     assert args[0] == 0 and args[-1] == 55            # float32, the stream
+    if name == "walk":
+        # chained; K = 4 rows of 8; margins from row 4; beta, l1, l2 and
+        # 1 / alpha rounded to float32; no spill (the library asked for
+        # none at this shape)
+        mg = walk[4]
+        assert args[1] == 1 and args[8:10] == (4, 8)
+        assert args[6] == mg.data_ptr() + 4 * mg.element_size()
+        assert args[10:] == (1.0, 1e-5, 1e-5, 20.0, 0, 55)
+        assert (0, 4, 8) in fake.alink_ftrl_walk_spill.calls
     counted = {"gather": "ftrl_gather", "pair": "ftrl_gather_pair",
-               "scatter": "ftrl_scatter_add",
-               "chained": "ftrl_chained_corr"}[name]
+               "scatter": "ftrl_scatter_add", "walk": "ftrl_walk"}[name]
     assert kf.launch_counts() == {k: int(k == counted) for k in (
         "ftrl_gather", "ftrl_gather_pair", "ftrl_scatter_add",
-        "ftrl_chained_corr")}
+        "ftrl_walk")}
 
 
 @pytest.mark.parametrize("mode", ["sample", "chained"])

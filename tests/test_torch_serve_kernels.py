@@ -260,6 +260,41 @@ def test_dense_plan_refuses_what_the_kernel_does_not_take(bad):
         tserve._dense_plan(*bad)
 
 
+@pytest.mark.parametrize("n", [1, 3, 7, 131, 132, 263, 512, 513, 4096,
+                               100_000])
+@pytest.mark.parametrize("width", [0, 8, 40, 256, 1031])
+def test_sparse_plan_covers_every_row_once(n, width):
+    """The sparse kernel's launch shape: a block per SM at least where
+    there are rows for it (171 blocks of 3 one-row warps at the 512-row
+    bucket, one block at 1 row), each row in exactly one (block, warp,
+    lane), whole 32-term passes of at most 256 terms, and shared memory
+    (a pass of float64 terms a warp) under the 48 KB a launch takes
+    without opting in."""
+    sms = tserve.H100_SMS
+    plan = tserve._sparse_plan(n, width, sms)
+    assert 1 <= plan.rows <= 32 and 1 <= plan.warps <= 4
+    per_block = plan.rows * plan.warps
+    blocks = -(-n // per_block)                  # the kernel's grid
+    assert blocks >= min(n, sms)
+    covered = [(blk * plan.warps + warp) * plan.rows + lane
+               for blk in range(blocks) for warp in range(plan.warps)
+               for lane in range(plan.rows)]
+    assert sorted(r for r in covered if r < n) == list(range(n))
+    assert plan.chunk % 32 == 0 and 32 <= plan.chunk <= 256
+    assert plan.chunk <= max(32, -(-plan.rows * width // 32) * 32)
+    assert plan.warps * plan.chunk * 8 < 48 * 1024
+    if n == 1:
+        assert (plan.rows, plan.warps) == (1, 1) and blocks == 1
+    if n == 512:                       # the top bucket: every SM busy
+        assert (plan.rows, plan.warps) == (1, 3) and blocks == 171
+
+
+@pytest.mark.parametrize("bad", [(0, 40, 132), (4, -1, 132), (4, 40, 0)])
+def test_sparse_plan_refuses_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        tserve._sparse_plan(*bad)
+
+
 class _FakeFn:
     """A C function of a fake library: records its arguments."""
 
@@ -277,7 +312,8 @@ def test_cuda_tensors_reach_the_kernel_with_its_plan(monkeypatch, kind):
     """With a library in place, a CUDA request block goes to its C
     function once, on the current stream (the device entered only when
     it is not the current one), the dense one with ``_dense_plan``'s
-    rows and chunk; one launch counted, no plain version called."""
+    rows and chunk, the sparse one with ``_sparse_plan``'s rows, warps and
+    chunk; one launch counted, no plain version called."""
     import types
 
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -313,5 +349,7 @@ def test_cuda_tensors_reach_the_kernel_with_its_plan(monkeypatch, kind):
     assert args[0] == 0 and args[-1] == 55            # f32 mode, the stream
     if kind == "dense":
         assert args[6:10] == (512, 1024, 3, 512)      # n, dim, rows, chunk
+    else:   # n, width, dim, rows, warps, chunk
+        assert args[7:13] == (512, 40, 1024, 1, 3, 64)
     assert tserve.launch_counts() == {"serve_dense": int(kind == "dense"),
                                       "serve_sparse": int(kind == "sparse")}
