@@ -14,7 +14,11 @@ the state kernels of ``kernels/ftrl.py``. Slice 3 is tree learning:
 the GBDT, random-forest and decision-tree ops of
 ``operator.batch.classification`` on the one-worker BSP engine
 (``engine``), whose level histograms are the kernel of
-``kernels/tree_hist.py``, and ``TreeModelMapper`` serving.
+``kernels/tree_hist.py``, and ``TreeModelMapper`` serving. Slice 7 is
+batch logistic regression: ``LogisticRegressionTrainBatchOp`` over the
+L-BFGS / OWLQN / GD optimizers of ``operator/common/optim`` on the same
+engine, on dense, padded-COO and field-blocked (``ops/fieldblock.py``)
+designs, with the ordered gradient kernel of ``kernels/linear.py``.
 """
 
 __version__ = "0.1.0"

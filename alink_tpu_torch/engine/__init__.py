@@ -3,9 +3,9 @@
 
 from .context import ComContext
 from .comqueue import IterativeComQueue, ComputeFunction, ComQueueResult
-from .communication import CommunicateFunction
+from .communication import AllReduce, CommunicateFunction
 
 __all__ = [
     "ComContext", "IterativeComQueue", "ComputeFunction", "ComQueueResult",
-    "CommunicateFunction",
+    "CommunicateFunction", "AllReduce",
 ]

@@ -5,10 +5,9 @@ the JAX package's, so trainer code reads the same; at one worker every
 reduction is the identity and a gather adds the worker axis of length
 1. The collective manifest, the fusion of adjacent reductions and the
 ReduceScatter helper are not ported: there is nothing to count or fuse
-until the engine runs on several cards (ROADMAP A12). The stage-level
-``AllReduce``, ``AllGather`` and ``BroadcastFromWorker0`` wait for a
-caller: the port's trainers reduce inside their stages with
-:func:`manifest_psum` / ``ComContext.all_reduce_sum``.
+until the engine runs on several cards. The stage-level ``AllReduce``
+is ported for the optimizers; ``AllGather`` and ``BroadcastFromWorker0``
+wait for a caller.
 """
 
 from __future__ import annotations
@@ -48,3 +47,34 @@ class CommunicateFunction:
 
     def calc(self, context: ComContext):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+class AllReduce(CommunicateFunction):
+    """All-reduce named carry buffers across workers (reference
+    communication/AllReduce.java:85-120, SUM/MAX/MIN :125-159): the
+    identity at one worker, routed through the manifest wrappers as in
+    the JAX package."""
+
+    OPS = ("sum", "max", "min")
+
+    def __init__(self, *buffer_names: str, op: str = "sum",
+                 mean: bool = False):
+        if not buffer_names:
+            raise ValueError("AllReduce needs at least one buffer name")
+        self.buffer_names = buffer_names
+        if op.lower() not in self.OPS:
+            raise ValueError(f"unsupported allreduce op {op}; use sum/max/min")
+        self.op = op.lower()
+        if mean and self.op != "sum":
+            raise ValueError("mean=True only makes sense with op='sum'")
+        self.mean = mean
+
+    def calc(self, context: ComContext):
+        wrap = {"sum": manifest_psum, "max": manifest_pmax,
+                "min": manifest_pmin}[self.op]
+        for name in self.buffer_names:
+            out = wrap(context.get_obj(name), ComContext.AXIS, name=name,
+                       num_workers=context.num_task)
+            if self.mean:
+                out = out / context.num_task
+            context.put_obj(name, out)

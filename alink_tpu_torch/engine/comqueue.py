@@ -16,8 +16,10 @@ port runs the same loop eagerly on the session's device:
 Partitioned and broadcast data become tensors on the session's device
 once, before superstep 1; at one worker a partition is the whole table
 and ``__total_<name>`` holds its row count. ``set_program_key`` is
-accepted and ignored: eager PyTorch has no program cache. Checkpoints,
-boundary hooks and health monitors are not ported:
+accepted and ignored: eager PyTorch has no program cache. Health probe
+series (``ComContext.probe``) are kept in the carry and read through
+:meth:`ComQueueResult.probe_series`. Checkpoints, boundary hooks and
+health monitors are not ported:
 :meth:`IterativeComQueue.set_checkpoint`, ``set_boundary`` and
 ``set_health`` raise ``NotImplementedError``. Not ported either: the
 chunked and lowered programs, donation, metrics and tracing spans.
@@ -146,6 +148,23 @@ class ComQueueResult:
     def keys(self):
         return [k for k in self._carry if not k.startswith("__")]
 
+    # -- health probe channel ----------------------------------------------
+    def probe_names(self):
+        """Names published via ``ctx.probe`` during the run (sorted)."""
+        pre = ComContext.PROBE_PREFIX
+        return sorted(k[len(pre):] for k in self._carry if k.startswith(pre))
+
+    def probe_series(self, name: str, trim: bool = True):
+        """One probe's per-superstep series; with ``trim`` the NaN prefill
+        past the executed step count is cut, so ``series[i]`` is superstep
+        ``i + 1``'s value."""
+        s = self.get(ComContext.PROBE_PREFIX + name)
+        return s[:self.step_count] if trim else s
+
+    def probes(self, trim: bool = True):
+        """Every probe series as ``{name: (steps,) array}`` (read-only)."""
+        return {n: self.probe_series(n, trim=trim) for n in self.probe_names()}
+
 
 class IterativeComQueue:
     def __init__(self, env: Optional[MLEnvironment] = None, max_iter: int = 100,
@@ -207,7 +226,8 @@ class IterativeComQueue:
 
     def set_health(self, monitor):
         raise NotImplementedError(
-            "IterativeComQueue.set_health (health probes) is not ported yet")
+            "IterativeComQueue.set_health (the health monitor) is not "
+            "ported yet; probes are recorded (ComContext.probe)")
 
     # -- execution --------------------------------------------------------
     def exec(self):
@@ -223,7 +243,8 @@ class IterativeComQueue:
         max_iter = int(self.max_iter)
         step = 1
         while True:
-            ctx = ComContext(carry, static, device, step, self.seed)
+            ctx = ComContext(carry, static, device, step, self.seed,
+                             max_iter)
             for s in self._stages:
                 s.calc(ctx)
             stop = (self._criterion is not None

@@ -6,8 +6,11 @@ axis index. Here the engine runs eagerly at one worker: the carry is a
 plain dict of tensors (and whatever else a stage stores), ``task_id`` is
 0, ``num_task`` is 1 and ``step_no`` is a Python int starting at 1.
 Partitioned and broadcast data are read-only entries beside the carry.
-Health probes are not ported: :meth:`ComContext.probe` raises
-``NotImplementedError``.
+Health probes ride the carry as in the JAX package (which records them
+by default): one float32 ``(max_iter,)`` series per probe, prefilled
+with NaN and written at ``step_no - 1`` on the device, with no host
+read. The port has no switch to turn them off and no monitor to feed
+them to (``IterativeComQueue.set_health`` raises).
 """
 
 from __future__ import annotations
@@ -21,13 +24,20 @@ import torch
 class ComContext:
     AXIS = "d"
 
+    # carry-key prefix of the probe channel (engine + result accessors)
+    PROBE_PREFIX = "__probe_"
+    # probe series dtype: monitoring scalars, not model state
+    PROBE_DTYPE = torch.float32
+
     def __init__(self, carry: Dict[str, Any], static: Dict[str, Any],
-                 device: torch.device, step_no: int, seed: int):
+                 device: torch.device, step_no: int, seed: int,
+                 max_iter: int = 0):
         self._carry = carry
         self._static = static
         self._device = device
         self._step_no = int(step_no)
         self._seed = int(seed)
+        self._max_iter = int(max_iter)
 
     # -- identity --------------------------------------------------------
     @property
@@ -75,9 +85,33 @@ class ComContext:
     def remove_obj(self, name: str):
         self._carry.pop(name, None)
 
+    # -- health probes ---------------------------------------------------
     def probe(self, name: str, value) -> None:
-        raise NotImplementedError(
-            "ComContext.probe: health probes are not ported yet")
+        """Record one named per-superstep scalar: series ``name`` (float32,
+        ``(max_iter,)``, NaN where no superstep wrote) gets ``value`` at
+        ``step_no - 1``. The write stays on the device. As in the JAX
+        package, a probe must first be recorded in the init pass."""
+        if self._max_iter <= 0:
+            return
+        key = self.PROBE_PREFIX + name
+        v = torch.as_tensor(value, device=self._device).to(
+            self.PROBE_DTYPE).reshape(())
+        series = self._carry.get(key)
+        if series is None:
+            if not self.is_init_step:
+                raise KeyError(
+                    f"probe '{name}' first recorded after the init pass; "
+                    f"record every probe while ctx.is_init_step is True")
+            series = torch.full((self._max_iter,), float("nan"),
+                                dtype=self.PROBE_DTYPE, device=self._device)
+            self._carry[key] = series
+        series[self._step_no - 1] = v
+
+    def probe_nonfinite(self, name: str, value: torch.Tensor) -> None:
+        """Probe the count of non-finite elements of a tensor as series
+        ``nonfinite.<name>``."""
+        self.probe("nonfinite." + name,
+                   value.numel() - torch.isfinite(value).sum())
 
     # -- communication ---------------------------------------------------
     def all_reduce_sum(self, value):

@@ -9,6 +9,10 @@
   versions and launch counts;
 * ``tree_hist`` — the level histogram of tree growing
   (``csrc/tree_hist.cu``), its plain version and launch count;
+* ``linear`` — the ordered sparse gradient of linear training
+  (``csrc/linear_grad.cu``, a kernel of the port's own: no TPU kernel
+  computes it), its plan, plain version and launch count, and the
+  training margins through ``serve``'s sparse kernel;
 * ``_build`` — builds ``csrc/*.cu`` with ``nvcc`` at first use and
   loads the library with ``ctypes``.
 

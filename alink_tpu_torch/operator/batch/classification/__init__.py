@@ -1,7 +1,11 @@
 """Batch classification (and regression) operators of the port
-(counterpart: ``alink_tpu/operator/batch/classification``). Only the
-tree family is ported; the linear, FM, MLPC and naive Bayes trainers
-wait for later slices."""
+(counterpart: ``alink_tpu/operator/batch/classification``). The tree
+family and logistic regression are ported; the other linear trainers,
+FM, MLPC and naive Bayes wait for later slices."""
+
+from .linear import (BaseLinearTrainBatchOp, LinearModelPredictBatchOp,
+                     LogisticRegressionPredictBatchOp,
+                     LogisticRegressionTrainBatchOp)
 
 from .tree_ops import (DecisionTreePredictBatchOp, DecisionTreeRegPredictBatchOp,
                        DecisionTreeRegTrainBatchOp, DecisionTreeTrainBatchOp,
@@ -18,4 +22,6 @@ __all__ = ["GbdtTrainBatchOp", "GbdtRegTrainBatchOp",
            "GbdtPredictBatchOp", "GbdtRegPredictBatchOp",
            "RandomForestPredictBatchOp", "RandomForestRegPredictBatchOp",
            "DecisionTreePredictBatchOp", "DecisionTreeRegPredictBatchOp",
-           "TreeModelData", "TreeModelDataConverter", "TreeModelMapper"]
+           "TreeModelData", "TreeModelDataConverter", "TreeModelMapper",
+           "BaseLinearTrainBatchOp", "LogisticRegressionTrainBatchOp",
+           "LinearModelPredictBatchOp", "LogisticRegressionPredictBatchOp"]

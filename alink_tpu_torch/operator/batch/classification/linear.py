@@ -1,0 +1,75 @@
+"""Linear classifier batch operators.
+
+Counterpart: ``alink_tpu/operator/batch/classification/linear.py``
+(the reference's LogisticRegressionTrainBatchOp and its predict op),
+thin shells over the linear training core (``common/linear/base.py``).
+A train op takes ``device=`` (``cuda`` unless the caller asks for the
+CPU; raises without it) and ``dtype=`` (``torch.float32`` by default;
+``torch.float64`` for parity with the JAX package under x64). SVM,
+Softmax and Perceptron are not ported yet (ROADMAP Queue A item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ....common.device import resolve_device
+from ....common.params import Params
+from ....params.shared import (HasEpsilonDefaultAs000001, HasFeatureCols,
+                               HasL1, HasL2, HasLabelCol, HasLearningRate,
+                               HasMaxIterDefaultAs100, HasMiniBatchFraction,
+                               HasOptimMethod, HasPositiveLabelValueString,
+                               HasPredictionCol, HasPredictionDetailCol,
+                               HasReservedCols, HasStandardization,
+                               HasVectorCol, HasWeightCol, HasWithIntercept)
+from ...base import BatchOperator
+from ...common.linear.base import LinearModelType, train_linear_model
+from ...common.linear.mapper import LinearModelMapper
+from ..utils.model_map import ModelMapBatchOp
+
+
+class _LinearTrainParams(HasLabelCol, HasFeatureCols, HasVectorCol, HasWeightCol,
+                         HasOptimMethod, HasMaxIterDefaultAs100,
+                         HasEpsilonDefaultAs000001, HasL1, HasL2,
+                         HasWithIntercept, HasStandardization, HasLearningRate,
+                         HasMiniBatchFraction):
+    pass
+
+
+class BaseLinearTrainBatchOp(BatchOperator, _LinearTrainParams):
+    MODEL_TYPE = LinearModelType.LR
+
+    def __init__(self, params: Optional[Params] = None, device=None,
+                 dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(params, **kwargs)
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype}: want torch.float32 or "
+                             f"torch.float64")
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def link_from(self, in_op: BatchOperator) -> "BaseLinearTrainBatchOp":
+        model, info = train_linear_model(in_op.get_output_table(), self, self.MODEL_TYPE)
+        self._output = model
+        self._side_outputs = [info]
+        return self
+
+
+class _LinearPredictParams(HasPredictionCol, HasPredictionDetailCol, HasReservedCols,
+                           HasVectorCol):
+    pass
+
+
+class LinearModelPredictBatchOp(ModelMapBatchOp, _LinearPredictParams):
+    MAPPER_CLS = LinearModelMapper
+
+
+class LogisticRegressionTrainBatchOp(BaseLinearTrainBatchOp, HasPositiveLabelValueString):
+    """reference: batch/classification/LogisticRegressionTrainBatchOp.java"""
+    MODEL_TYPE = LinearModelType.LR
+
+
+class LogisticRegressionPredictBatchOp(LinearModelPredictBatchOp):
+    pass

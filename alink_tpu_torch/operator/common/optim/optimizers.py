@@ -1,0 +1,309 @@
+"""Optimizers on the one-worker BSP engine.
+
+Counterpart: ``alink_tpu/operator/common/optim/optimizers.py`` (the
+reference's Lbfgs.java, Owlqn.java, Gd.java). Each optimizer is an
+``IterativeComQueue`` program with the JAX package's stages:
+
+  CalcGradient      -> the shard's gradient, loss and weight sums
+  AllReduce(glw)    -> the identity at one worker
+  CalDirection      -> L-BFGS two-loop over a ring of m = 10 pairs
+  CalcLosses        -> the losses at a ladder of 11 step sizes at once
+  AllReduce(losses) -> the identity at one worker
+  UpdateModel       -> the first argmin step, the coefficient update, the
+                       loss curve and the ladder's scale
+
+The JAX package traces the loop into one program. The port runs it
+eagerly: ``step_no`` is a Python int, so the ring's position and fill
+count are Python ints, and everything that depends on the data
+(validity of a pair, gamma, the best step, the ladder's scale, the
+convergence bit) stays on the device, masked with ``torch.where``. The
+compare criterion's read of the convergence bit is the one host read of
+a superstep. The health probes (loss, grad_norm, nonfinite.grad,
+update_ratio) are recorded every superstep, as the JAX package records
+them by default.
+
+A sparse shard's plan (``objfunc.design_plan``: flat keys, values and the
+ordered gradient's run plan) is built once, in the init superstep. The
+JAX package's one-hot precompute (``fb_onehot_parts``) is a TPU layout
+and is not ported.
+
+Ported: ``OptimParams``, :func:`optimize` with LBFGS, OWLQN and GD.
+SGD (its draws cannot match JAX's PRNG) and NEWTON (the Hessian path)
+raise ``NotImplementedError``, as do checkpoints and health monitors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ....common.mlenv import MLEnvironment
+from ....engine import AllReduce, IterativeComQueue
+from .objfunc import DESIGN, OptimObjFunc, design_plan
+
+_TINY = 1e-12
+_NUM_SEARCH_STEP = 10  # line-search ladder size (reference numSearchStep=4, widened)
+_HISTORY = 10          # L-BFGS memory (reference m=10, Lbfgs.java)
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float64}
+
+
+@dataclass
+class OptimParams:
+    method: str = "LBFGS"
+    max_iter: int = 100
+    epsilon: float = 1e-6
+    learning_rate: float = 1.0
+    mini_batch_fraction: float = 0.1
+    seed: int = 0
+    # superstep durability and the health watchdog: not ported yet
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
+    checkpoint_keep: int = 3
+    resume_from: Optional[str] = None
+    health: Optional[object] = None
+
+    def __post_init__(self):
+        if self.checkpoint_dir or self.resume_from or self.health is not None:
+            raise NotImplementedError(
+                "OptimParams: checkpoint_dir, resume_from and health are not "
+                "ported yet (ROADMAP Queue A item 4)")
+
+
+def optimize(obj: OptimObjFunc, data: Dict, params: OptimParams,
+             env: Optional[MLEnvironment] = None,
+             warm_start: Optional[np.ndarray] = None
+             ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Run the selected optimizer; returns (coef, loss_curve, num_steps).
+
+    ``data``: host arrays or tensors — dense {"X", "y", "w"}, padded-COO
+    {"idx", "val", "y", "w"} or field-blocked {"fb_idx"[, "fb_val"], "y",
+    "w"}; they move to the session's device once. The ship dtype is
+    ``y``'s (float32 or float64; anything else trains in float32)."""
+    method = (params.method or "LBFGS").upper()
+    if method == "LBFGS":
+        return _quasi_newton(obj, data, params, env, warm_start, owlqn=False)
+    if method == "OWLQN":
+        return _quasi_newton(obj, data, params, env, warm_start, owlqn=True)
+    if method == "GD":
+        return _quasi_newton(obj, data, params, env, warm_start, owlqn=False,
+                             history=0)
+    if method in ("SGD", "NEWTON"):
+        raise NotImplementedError(
+            f"optim method {method} is not ported yet (ROADMAP Queue A "
+            f"item 5)")
+    raise ValueError(f"unknown optim method {params.method}")
+
+
+# ---------------------------------------------------------------------------
+# L-BFGS / OWLQN / GD (shared skeleton; GD is history=0)
+# ---------------------------------------------------------------------------
+
+def _two_loop(g, sk, yk, pos: int, nvalid: int, m: int):
+    """L-BFGS two-loop recursion over the ring (reference Lbfgs.java:109-176
+    ``CalDirection``). Pair t (newest first) takes part when ``t <
+    nvalid`` (a host int) and its ``s.y > 1e-12`` (on the device). An
+    unfilled pair is all zeros and would add exact zeros: the loop skips
+    it, keeping the reference's ``r + 0`` of the second loop."""
+    if m == 0:
+        return g
+    q = g
+    pairs = []
+    for t in range(nvalid):
+        j = (pos - 1 - t) % m
+        s, yv = sk[j], yk[j]
+        sy = torch.dot(s, yv)
+        ok = sy > _TINY
+        rho = 1.0 / torch.where(ok, sy, 1.0)
+        a = torch.where(ok, rho * torch.dot(s, q), 0.0)
+        q = q - a * yv
+        pairs.append((a, ok, rho, sy, s, yv))
+    r = q
+    if nvalid > 0:
+        sy_l = pairs[0][3]
+        yk_l = pairs[0][5]
+        yy_l = torch.dot(yk_l, yk_l)
+        ok = (sy_l > _TINY) & (yy_l > _TINY)
+        gamma = torch.where(ok, sy_l / torch.where(yy_l > _TINY, yy_l, 1.0),
+                            1.0)
+        r = gamma * q
+    for _ in range(m - nvalid):
+        r = r + 0.0
+    for a, ok, rho, _, s, yv in reversed(pairs):
+        b = rho * torch.dot(yv, r)
+        r = r + torch.where(ok, (a - b) * s, 0.0)
+    return r
+
+
+def _pseudo_grad(g_plain, coef, l1, reg_mask):
+    """OWLQN pseudo-gradient (reference Owlqn.java)."""
+    l1m = l1 * reg_mask
+    at_zero = torch.where(g_plain + l1m < 0, g_plain + l1m,
+                          torch.where(g_plain - l1m > 0, g_plain - l1m, 0.0))
+    return torch.where(coef != 0, g_plain + l1m * torch.sign(coef), at_zero)
+
+
+def _argmin_first(x):
+    """``jnp.argmin``: the first index of the minimum, the first NaN when
+    there is one."""
+    lo = x.min()
+    hit = (x == lo) | (torch.isnan(x) & torch.isnan(lo))
+    return hit.to(torch.uint8).argmax()
+
+
+def _ship_dtype(y) -> torch.dtype:
+    if isinstance(y, torch.Tensor):
+        return y.dtype if y.dtype in (torch.float32, torch.float64) \
+            else torch.float32
+    return _DTYPES.get(np.asarray(y).dtype, torch.float32)
+
+
+def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
+                  history: int = _HISTORY):
+    dim = obj.dim
+    data_keys = tuple(data)
+    dtype = _ship_dtype(data["y"])
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    m = history
+    max_iter = params.max_iter
+    eps = params.epsilon
+    w0 = np.zeros(dim, np_dtype) if warm_start is None \
+        else np.asarray(warm_start, np_dtype)
+    ladder = params.learning_rate * np.power(
+        2.0, 1 - np.arange(_NUM_SEARCH_STEP, dtype=np.float64))
+    ladder = np.concatenate([[0.0], ladder]).astype(np_dtype)
+
+    def calc_grad(ctx):
+        if ctx.is_init_step:
+            coef0 = ctx.get_obj("coef0")
+            dev = coef0.device
+            ctx.put_obj("coef", coef0)
+            ctx.put_obj("coef_prev", coef0)
+            ctx.put_obj("grad_prev", torch.zeros(dim, dtype=dtype, device=dev))
+            if m > 0:
+                ctx.put_obj("sk", torch.zeros((m, dim), dtype=dtype, device=dev))
+                ctx.put_obj("yk", torch.zeros((m, dim), dtype=dtype, device=dev))
+            ctx.put_obj("pos", 0)
+            ctx.put_obj("nvalid", 0)
+            ctx.put_obj("step_scale", torch.ones((), dtype=dtype, device=dev))
+            ctx.put_obj("ladder", torch.from_numpy(ladder).to(dev))
+            ctx.put_obj("loss_curve", torch.full((max_iter,), float("nan"),
+                                                 dtype=dtype, device=dev))
+            ctx.put_obj("conv", torch.zeros((), dtype=torch.bool, device=dev))
+            plan = design_plan(_shard_views(ctx, data_keys), dim,
+                               getattr(obj, "fb_meta", None))
+            if plan is not None:
+                ctx.put_obj(DESIGN, plan)
+        shard = _shard_views(ctx, data_keys)
+        g, loss, wsum, eta = obj.calc_grad_eta_shard(shard, ctx.get_obj("coef"))
+        if eta is not None:
+            ctx.put_obj("eta0", eta)  # reused by the line search (same coef)
+        ctx.put_obj("glw", torch.cat([g.to(dtype),
+                                      torch.stack([loss, wsum]).to(dtype)]))
+
+    def direction_and_losses(ctx):
+        glw = ctx.get_obj("glw")
+        coef = ctx.get_obj("coef")
+        W = torch.clamp(glw[dim + 1], min=_TINY)
+        g_plain = glw[:dim] / W + obj.l2_grad(coef)
+        loss_total = glw[dim] / W + obj.regular_loss(coef)
+        step = ctx.step_no
+        ctx.get_obj("loss_curve")[step - 1] = loss_total
+
+        if owlqn:
+            g_dir = _pseudo_grad(g_plain, coef, obj.l1, obj._reg_mask(coef))
+        else:
+            g_dir = g_plain
+        gnorm = torch.linalg.vector_norm(g_dir) / torch.clamp(
+            torch.linalg.vector_norm(coef), min=1.0)
+        ctx.put_obj("conv", gnorm < eps)
+        ctx.probe("loss", loss_total)
+        ctx.probe("grad_norm", gnorm)
+        ctx.probe_nonfinite("grad", g_plain)
+
+        if m > 0:
+            # push pair (coef - coef_prev, g - g_prev); none on step 1
+            pos, nvalid = ctx.get_obj("pos"), ctx.get_obj("nvalid")
+            sk, yk = ctx.get_obj("sk"), ctx.get_obj("yk")
+            if step > 1:
+                torch.sub(coef, ctx.get_obj("coef_prev"), out=sk[pos])
+                torch.sub(g_plain, ctx.get_obj("grad_prev"), out=yk[pos])
+                pos, nvalid = (pos + 1) % m, min(nvalid + 1, m)
+                ctx.put_obj("pos", pos)
+                ctx.put_obj("nvalid", nvalid)
+            d = _two_loop(g_dir, sk, yk, pos, nvalid, m)
+        else:
+            d = g_dir
+        if owlqn:
+            d = torch.where(d * g_dir > 0, d, 0.0)
+        ctx.put_obj("dir", d)
+        ctx.put_obj("grad_prev", g_plain)
+        ctx.put_obj("pg", g_dir)
+
+        steps = ctx.get_obj("ladder") * ctx.get_obj("step_scale")
+        shard = _shard_views(ctx, data_keys)
+        eta0 = ctx.get_obj("eta0") if ctx.contains_obj("eta0") else None
+        ctx.put_obj("line_losses",
+                    obj.line_losses_shard(shard, coef, d, steps, eta0=eta0))
+        ctx.put_obj("steps", steps)
+
+    def update_model(ctx):
+        coef = ctx.get_obj("coef")
+        d = ctx.get_obj("dir")
+        steps = ctx.get_obj("steps")
+        glw = ctx.get_obj("glw")
+        W = torch.clamp(glw[dim + 1], min=_TINY)
+        reg = obj.regular_loss(coef[None, :] - steps[:, None] * d[None, :])
+        total = ctx.get_obj("line_losses") / W + reg
+        best = _argmin_first(total)
+        s_best = steps.index_select(0, best.reshape(1)).squeeze(0)
+        new_coef = coef - s_best * d
+        if owlqn:
+            pg = ctx.get_obj("pg")
+            orthant = torch.where(coef != 0, torch.sign(coef), -torch.sign(pg))
+            new_coef = torch.where(new_coef * orthant < 0, 0.0, new_coef)
+        ctx.put_obj("coef_prev", coef)
+        ctx.put_obj("coef", new_coef)
+        ctx.probe("update_ratio", torch.linalg.vector_norm(new_coef - coef)
+                  / torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
+        # adapt the ladder like the reference's step grow/shrink heuristic
+        scale = ctx.get_obj("step_scale")
+        scale = torch.where(best == 0, scale * 0.25,
+                            torch.where(best == 1, scale * 2.0,
+                                        torch.where(best == _NUM_SEARCH_STEP,
+                                                    scale * 0.5, scale)))
+        ctx.put_obj("step_scale", torch.clamp(scale, 1e-10, 1e6))
+
+    queue = (IterativeComQueue(env=env, max_iter=max_iter, seed=params.seed)
+             .init_with_broadcast_data("coef0", w0)
+             .add(calc_grad)
+             .add(AllReduce("glw"))
+             .add(direction_and_losses)
+             .add(AllReduce("line_losses"))
+             .add(update_model)
+             .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
+    for k, v in data.items():
+        queue.init_with_partitioned_data(k, v)
+    res = queue.exec()
+    steps = res.step_count
+    return res.get("coef"), _trim_curve(res.get("loss_curve"), steps), steps
+
+
+def _shard_views(ctx, keys):
+    """This worker's shards of the partitioned training arrays, and the
+    design's plan once the init superstep has built it."""
+    out = {k: ctx.get_obj(k) for k in keys}
+    if ctx.contains_obj(DESIGN):
+        out[DESIGN] = ctx.get_obj(DESIGN)
+    return out
+
+
+def _trim_curve(curve: np.ndarray, steps: int) -> np.ndarray:
+    """The executed prefix of the preallocated loss history, trimmed by the
+    engine's superstep count (never by counting non-NaN entries: a NaN
+    loss mid-run would mis-index the curve against the probe series)."""
+    curve = np.asarray(curve)
+    return curve[:int(steps)]

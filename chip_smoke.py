@@ -100,6 +100,33 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    kernel, fails its device-side assert, and the stream raises at its
    next synchronize (each in a process of its own).
 
+12. linear training (the main path's first stage): the ordered gradient
+   kernel (``linear_grad``) against its plain version (``index_add_`` on
+   the CPU, the only place it keeps the order; the card's plan equal to
+   the CPU's), f32 and f64, bitwise (a NaN equal to any NaN), at the
+   field-blocked ``bench_logreg`` shape (200,000 rows x 33 fields x
+   2048, the intercept field every row's), the padded-COO shape of
+   phase 7's rows (100,000 x 40 over 2^20 + 1 slots) and at edges: every
+   position on one slot, one row, slots never hit, ``-0.0``, NaN and inf
+   terms inside runs; kernel (events), device (profiler), host, plain
+   (CPU) and ``index_add_`` times, the bytes bound and the chain bound
+   of the longest run. Then L-BFGS at ``bench_logreg``'s configuration
+   (l2 1e-4, warm start ``randn * 1e-6``) through ``optimize``: ms a
+   superstep (median of the untraced supersteps of a 30-superstep run at
+   epsilon 0), launches a superstep by kernel and every device op of
+   supersteps 5-9 under the profiler, the card's busy share under them,
+   the superstep's stages (each ending in a synchronize), its host reads
+   (1: the convergence bit), rows x supersteps / s, the supersteps to
+   converge at epsilon 1e-6; two card runs bitwise equal; float64 on
+   the card within rtol 1e-10 of the CPU on the loss curve over 10
+   supersteps. Then the main path chained: 100,000 phase-7 rows through
+   ``LogisticRegressionTrainBatchOp`` (padded-COO, 2^20 features) on the
+   card, its model table warm-starting ``FtrlTrainStreamOp`` (2 sample
+   micro-batches), the snapshot served by ``CompiledPredictor`` with
+   labels equal to ``map_table``'s outside the rounding band; held-out
+   AUC of both models; the gradient, margin (B5) and FTRL state (B1-B3)
+   kernels' launch counts must have moved.
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -245,6 +272,31 @@ def device_ms(fn, part: str = "", reps: int = 20, sessions: int = 6):
     require(bool(per), f"the profiler saw a {part} kernel in one of "
                        f"{sessions} sessions")
     return sum(per.values()), per
+
+
+def device_ms_per_launch(fn, part: str, reps: int = 20):
+    """Device time per launch of the one kernel whose name holds
+    ``part``, from ``torch.profiler``: its total over ``reps`` calls
+    divided by the launches the session recorded (a session can drop
+    some of a ctypes kernel's records, which would make a per-call
+    average too small). Returns (ms, launches recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = 0.0, 0
+    for e in prof.key_averages():
+        if part in e.key:
+            us += float(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0)) or 0)
+            seen += int(e.count)
+    require(seen > 0, f"the profiler saw a {part} kernel")
+    return us / seen / 1e3, seen
 
 
 def host_ms_turns(*fns, trials: int = 15, reps: int = 20):
@@ -1925,6 +1977,483 @@ def phase_tree_serving(train):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# linear training: the ordered gradient kernel, L-BFGS, the chained main path
+# ---------------------------------------------------------------------------
+
+LR_SRC = "alink_tpu_torch/kernels/csrc/linear_grad.cu"
+# bench.py's bench_logreg: 200,000 rows of 32 fields of 2048 (plus the
+# intercept field that LogisticRegressionTrainBatchOp prepends), l2 1e-4
+LR_ROWS, LR_FIELDS, LR_FIELD_SIZE, LR_L2 = 200_000, 32, 2048, 1e-4
+LR_TIMED_STEPS, LR_CHECK_STEPS = 30, 10
+LR_PROFILED = (5, 9)                     # supersteps under the profiler
+LR_MAIN_ROWS, LR_HELD_ROWS = 100_000, 8192
+COO_WIDTH = NNZ + 1                      # 39 slots and the intercept
+
+
+def fb_criteo(seed, n=LR_ROWS):
+    """``bench.py::make_ctr_fieldblock`` (32 fields of 2048, labels from
+    the logistic of a seeded sparse true model) with the intercept field
+    in front, as the trainer lays it out: (n, 33) field-local indices and
+    {-1, +1} float32 labels."""
+    rng = np.random.RandomState(seed)
+    fb = rng.randint(0, LR_FIELD_SIZE, size=(n, LR_FIELDS)).astype(np.int32)
+    dim = LR_FIELDS * LR_FIELD_SIZE
+    w_true = (rng.randn(dim) * (rng.rand(dim) < 0.05)).astype(np.float32)
+    flat = fb + (np.arange(LR_FIELDS, dtype=np.int32) * LR_FIELD_SIZE)[None]
+    margin = w_true[flat].sum(-1)
+    y = np.where(rng.rand(n) < 1.0 / (1.0 + np.exp(-margin)), 1.0,
+                 -1.0).astype(np.float32)
+    return np.concatenate([np.zeros((n, 1), np.int32), fb], 1), y
+
+
+def grad_inputs(rng, case, dtype):
+    """(keys (n, w) int32, values, c, dim) of one gradient-kernel case."""
+    if case == "fieldblock":
+        fb, _ = fb_criteo(7)
+        keys = fb + (np.arange(LR_FIELDS + 1, dtype=np.int32)
+                     * LR_FIELD_SIZE)[None]
+        n = keys.shape[0]
+        return (keys, np.ones(keys.shape, dtype),
+                rng.standard_normal(n).astype(dtype),
+                (LR_FIELDS + 1) * LR_FIELD_SIZE)
+    if case == "coo":
+        n = LR_MAIN_ROWS
+        keys = np.zeros((n, COO_WIDTH), np.int32)
+        keys[:, 1:] = 1 + np.sort(rng.integers(0, FEATURES, (n, NNZ)), 1)
+        val = np.ones((n, COO_WIDTH), dtype)
+        val[:, 1:14] = np.log1p(rng.poisson(3.0, (n, 13)))
+        return keys, val, rng.standard_normal(n).astype(dtype), FEATURES + 1
+    if case == "one_slot":
+        n, w, dim = 50_000, 8, 3
+        keys = np.zeros((n, w), np.int32)
+    elif case == "one_row":
+        n, w, dim = 1, COO_WIDTH, FEATURES + 1
+        keys = rng.choice(dim, (1, w), replace=False).astype(np.int32)
+    elif case == "unhit":
+        n, w, dim = 4096, 16, 1 << 14
+        keys = (2 * rng.integers(0, dim // 2, (n, w))).astype(np.int32)
+    else:                                           # specials
+        n, w, dim = 5000, 16, 64
+        keys = rng.integers(0, dim, (n, w)).astype(np.int32)
+    val = rng.standard_normal((n, w)).astype(dtype)
+    c = rng.standard_normal(n).astype(dtype)
+    if case in ("specials", "one_slot"):
+        val[rng.random((n, w)) < 0.01] = -0.0
+        c[rng.random(n) < 0.01] = -0.0
+        val[11, 3], val[n // 2, 5], val[n - 7, 1] = np.nan, np.inf, -np.inf
+    return keys, val, c, dim
+
+
+GRAD_CASES = ("fieldblock", "coo", "one_slot", "one_row", "unhit",
+              "specials")
+
+
+def grad_case(kl, rng, case, kind, lat):
+    """The gradient kernel against its plain version on the same inputs,
+    bitwise (a NaN equal to any NaN). The plain version is ``index_add_``,
+    ordered on the CPU only, so it runs there; the plans built on the
+    card and on the CPU are equal. The main path's two shapes are timed."""
+    import torch
+    dtype = np.float32 if kind == "f32" else np.float64
+    keys, val, c, dim = grad_inputs(rng, case, dtype)
+    dev = torch.device("cuda")
+    plan = kl.grad_plan(torch.from_numpy(keys).to(dev), dim,
+                        torch.from_numpy(val).to(dev))
+    cc = torch.from_numpy(c).to(dev)
+    got = kl.linear_grad(plan, cc)
+    host = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
+    require(torch.equal(plan.perm.cpu(), host.perm)
+            and torch.equal(plan.starts.cpu(), host.starts),
+            f"linear_grad {case} {kind}: the card's plan is the CPU's")
+    want = kl.linear_grad_plain(host, torch.from_numpy(c))
+    same, raw = same_bits(got.cpu(), want)
+    fin = torch.isfinite(want)
+    err = float((got.cpu()[fin].double() - want[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+    require(same, f"linear_grad {case} {kind} bitwise vs its plain version "
+                  f"(max abs err {err})")
+    rec = {"bitwise": True, "raw_bits_equal": raw, "max_abs_err": err,
+           "positions": int(keys.size), "slots": dim}
+    if case not in ("fieldblock", "coo"):
+        return rec
+    P, n = keys.size, keys.shape[0]
+    isz = np.dtype(dtype).itemsize
+    longest = int((host.starts[1:] - host.starts[:-1]).max())
+    b_ms, b_by = _bound(4 * P + 4 * (dim + 1) + P * isz + n * isz
+                        + dim * isz, 2 * P, kind)
+    keys_l = plan.keys.reshape(-1).long()
+    call = lambda: kl.linear_grad(plan, cc)                     # noqa: E731
+    lib = lambda: torch.zeros(dim, dtype=cc.dtype, device=dev).index_add_(
+        0, keys_l, (plan.val * cc[:, None]).reshape(-1))        # noqa: E731
+    k_ms, l_ms = cuda_ms_turns(call, lib, trials=9, reps=5)
+    k_host, l_host = host_ms_turns(call, lib, trials=9, reps=5)
+    cpu_c = torch.from_numpy(c)
+    plain = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        kl.linear_grad_plain(host, cpu_c)
+        plain.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, dev_seen = device_ms_per_launch(call, "linear_grad_kernel")
+    rec.update(
+        kernel_ms=k_ms, device_ms=dev_ms, device_launches_recorded=dev_seen,
+        host_ms=k_host, plain_ms=float(np.median(plain)),
+        plain_where="CPU (index_add_ keeps the order there only)",
+        library_ms=l_ms, library_device_ms=device_ms(lib)[0],
+        library_host_ms=l_host, library_deterministic=False,
+        bound_ms=b_ms, bound_by=b_by, longest_run=longest,
+        chain_bound_ms=chain_bound_ms(longest, kind, lat))
+    return rec
+
+
+def phase_linear_grad(kl, rng, lat):
+    """12(a): every case in f32 and f64."""
+    out = {}
+    for case in GRAD_CASES:
+        for kind in ("f32", "f64"):
+            out[f"{case} {kind}"] = grad_case(kl, rng, case, kind, lat)
+    return out
+
+
+class SuperstepClock:
+    """Host-clock stamps at the end of each superstep of the optimizers'
+    queues (their compare criterion reads the convergence bit, the
+    superstep's one host read, and the stamp follows it); optionally
+    ``torch.profiler`` over exactly supersteps ``profile[0]`` to
+    ``profile[1]``."""
+
+    def __init__(self, profile=None):
+        self.stamps, self.profile, self.prof = [], profile, None
+
+    def __enter__(self):
+        from alink_tpu_torch.engine import comqueue
+        from torch.profiler import ProfilerActivity, profile
+        self._cls = comqueue.IterativeComQueue
+        self._orig = orig = self._cls.set_compare_criterion
+        clock = self
+        if self.profile is not None:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+
+        def patched(queue, fn):
+            def timed(ctx):
+                stop = bool(fn(ctx))
+                clock.stamps.append(time.perf_counter())
+                k = len(clock.stamps)
+                if clock.prof is not None:
+                    if k == clock.profile[0] - 1:
+                        clock.prof.start()
+                    elif k == clock.profile[1]:
+                        clock.prof.stop()
+                return stop
+            return orig(queue, timed)
+        self._cls.set_compare_criterion = patched
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.set_compare_criterion = self._orig
+
+    def superstep_ms(self):
+        return np.diff(self.stamps) * 1e3
+
+    def profiled(self):
+        """(device events by name, their count, device busy ms) of the
+        profiled supersteps, summed."""
+        counts, busy = {}, 0.0
+        for e in self.prof.key_averages():
+            if getattr(e, "device_type", None) is not None \
+                    and str(e.device_type).endswith("CUDA"):
+                us = float(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0)))
+                counts[e.key] = counts.get(e.key, 0) + int(e.count)
+                busy += us / 1e3
+        return counts, sum(counts.values()), busy
+
+
+class StageSplit:
+    """Host-clock ms of each stage of the optimizers' supersteps, each
+    stage and piece ending in a synchronize: the queue's stages
+    (``calc_grad``, ``direction_and_losses``, ``update_model``; the
+    identity ``AllReduce`` stages are not timed) and, inside them, the
+    objective's ``calc_grad_eta_shard`` (margins, loss, gradient) and
+    ``line_losses_shard`` (the direction's margins, the 11 losses)."""
+
+    def __init__(self):
+        self.times = {}
+
+    def _timed(self, name, fn):
+        import torch
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.times.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def __enter__(self):
+        from alink_tpu_torch.engine import comqueue
+        from alink_tpu_torch.operator.common.optim import objfunc as ob
+        self._saved = [(comqueue._FnStage, "calc",
+                        comqueue._FnStage.calc)] + [
+            (ob.UnaryLossObjFunc, k, getattr(ob.UnaryLossObjFunc, k))
+            for k in ("calc_grad_eta_shard", "line_losses_shard")]
+        split = self
+        calc = comqueue._FnStage.calc
+
+        def stage_calc(stage, ctx):
+            return split._timed(stage.__name__, calc)(stage, ctx)
+        comqueue._FnStage.calc = stage_calc
+        for cls, k, fn in self._saved[1:]:
+            setattr(cls, k, self._timed(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, k, fn in self._saved:
+            setattr(cls, k, fn)
+
+    def medians(self):
+        """Median ms per superstep of each stage, supersteps 2..N, with
+        the pieces split out: gradient (calc_grad), direction (the
+        two-loop and the rest of direction_and_losses), line search,
+        update."""
+        med = {k: float(np.median(v[1:])) for k, v in self.times.items()}
+        return {"gradient": med["calc_grad"],
+                "gradient_objective": med["calc_grad_eta_shard"],
+                "direction": med["direction_and_losses"]
+                - med["line_losses_shard"],
+                "line_search": med["line_losses_shard"],
+                "update": med["update_model"],
+                "superstep_sum": med["calc_grad"]
+                + med["direction_and_losses"] + med["update_model"]}
+
+
+def host_reads(run, lo=6, hi=11):
+    """Synchronizing calls a superstep makes, from PyTorch's sync debug
+    mode: those of a ``hi``-superstep run less those of a ``lo``-superstep
+    one (the set-up's cancel), over ``hi - lo``."""
+    import warnings
+    import torch
+    counts = []
+    for k in (lo, hi):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                run(k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchroniz" in str(w.message) for w in seen))
+    return (counts[1] - counts[0]) / (hi - lo)
+
+
+def lbfgs_run(data, steps, eps=0.0, device="cuda", warm=True, seed=0):
+    """``optimize`` (LBFGS) on the bench_logreg objective; returns (coef,
+    loss curve, supersteps, seconds)."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.optim import objfunc as ob
+    from alink_tpu_torch.operator.common.optim import optimizers as opt
+    from alink_tpu_torch.ops.fieldblock import FieldBlockMeta
+    meta = FieldBlockMeta(LR_FIELDS + 1, LR_FIELD_SIZE)
+    obj = ob.UnaryLossObjFunc(ob.LogLossFunc(), meta.dim, l2=LR_L2,
+                              reg_free_head=LR_FIELD_SIZE, fb_meta=meta)
+    w0 = (np.random.RandomState(123 + seed).randn(meta.dim) * 1e-6).astype(
+        data["y"].dtype) if warm else None
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coef, curve, n = opt.optimize(obj, data, opt.OptimParams(
+        method="LBFGS", max_iter=steps, epsilon=eps),
+        MLEnvironment(device=device), warm_start=w0)
+    return coef, curve, n, time.perf_counter() - t0
+
+
+def phase_lbfgs(kl, ks, seed):
+    """12(b): L-BFGS at bench_logreg's configuration through ``optimize``
+    on the card."""
+    fb, y = fb_criteo(0)
+    data = {"fb_idx": fb, "y": y, "w": np.ones(LR_ROWS, np.float32)}
+    out = {"rows": LR_ROWS, "fields": LR_FIELDS + 1,
+           "field_size": LR_FIELD_SIZE, "l2": LR_L2}
+    lbfgs_run(data, 3, seed=seed)                      # warm-up: build, plan
+    ks.reset_launch_counts()
+    kl.reset_launch_counts()
+    with SuperstepClock(profile=LR_PROFILED) as clock:
+        _, curve, n, secs = lbfgs_run(data, LR_TIMED_STEPS, seed=seed)
+    require(n == LR_TIMED_STEPS and np.isfinite(curve).all(),
+            "L-BFGS ran its fixed-length supersteps with finite losses")
+    per = clock.superstep_ms()          # supersteps 2..N
+    traced = np.arange(LR_PROFILED[0] - 2, LR_PROFILED[1] - 1)
+    ms = float(np.median(np.delete(per, traced)))   # the untraced ones
+    k = LR_PROFILED[1] - LR_PROFILED[0] + 1
+    events, total, busy = clock.profiled()
+    total, busy = total / k, busy / k
+    recorded = sum(v for name, v in events.items()
+                   if "serve_sparse_kernel" in name
+                   or "linear_grad_kernel" in name) / k
+    wrappers = {"serve_sparse": ks.launch_counts()["serve_sparse"] / n,
+                "linear_grad": kl.launch_counts()["linear_grad"] / n}
+    require(wrappers == {"serve_sparse": 2.0, "linear_grad": 1.0},
+            f"a superstep launches 2 margin and 1 gradient kernels: "
+            f"{wrappers}")
+    out.update(ms_per_superstep=ms, superstep_ms_min=float(per.min()),
+               superstep_ms_max=float(per.max()), run_s=secs,
+               rows_supersteps_per_s=LR_ROWS / ms * 1e3,
+               launches_per_superstep={
+                   "by_kernel": wrappers, "device_ops_total": total,
+                   "device_ops_by_name": events},
+               profiled_superstep_ms=float(np.mean(per[traced])),
+               profiler_recorded_port_kernels=recorded,
+               device_busy_ms=busy, device_busy_share=busy / ms,
+               loss_first=float(curve[0]), loss_last=float(curve[-1]))
+    print(f"lbfgs: {ms:.4f} ms a superstep (median of {len(per) - k}), "
+          f"{out['rows_supersteps_per_s']:.1f} rows x supersteps/s, "
+          f"{total} device ops a superstep ({wrappers}; the profiler "
+          f"recorded {recorded} of the 3 port kernels), busy {busy:.4f} ms "
+          f"({busy / ms:.3f})", flush=True)
+    with StageSplit() as split:
+        lbfgs_run(data, LR_CHECK_STEPS, seed=seed)
+    out["stage_ms"] = split.medians()
+    print(f"lbfgs superstep by stage (ms, each ending in a synchronize): "
+          f"{out['stage_ms']}", flush=True)
+    reads = host_reads(lambda k: lbfgs_run(data, k, seed=seed))
+    require(reads == 1.0, f"a superstep reads the card once (the "
+                          f"convergence bit): {reads}")
+    out["host_reads_per_superstep"] = reads
+    _, conv_curve, n_conv, conv_s = lbfgs_run(data, 100, eps=1e-6,
+                                             warm=False)
+    out.update(supersteps_to_converge=n_conv, converge_s=conv_s,
+               converged_loss=float(conv_curve[-1]))
+    # reproducible: two card runs, the same bits
+    a = lbfgs_run(data, LR_CHECK_STEPS, seed=seed)
+    b = lbfgs_run(data, LR_CHECK_STEPS, seed=seed)
+    require(np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+            and np.array_equal(a[1].view(np.int32), b[1].view(np.int32)),
+            "two card trainings give bitwise-equal coefficients and loss "
+            "curves")
+    # float64 on the card against the same run on the CPU
+    d64 = {"fb_idx": fb, "y": y.astype(np.float64),
+           "w": np.ones(LR_ROWS, np.float64)}
+    gc, gl, _, _ = lbfgs_run(d64, LR_CHECK_STEPS, seed=seed)
+    cc, cl, _, cpu_s = lbfgs_run(d64, LR_CHECK_STEPS, device="cpu",
+                                 seed=seed)
+    gap = np.abs(gl - cl) / np.abs(cl)
+    cgap = np.abs(gc - cc)
+    require(bool((gap <= 1e-10).all()),
+            f"the float64 card run's loss curve within rtol 1e-10 of the "
+            f"CPU's over {LR_CHECK_STEPS} supersteps (max rel {gap.max()})")
+    out.update(two_runs_bitwise=True, card_vs_cpu_f64={
+        "supersteps": LR_CHECK_STEPS, "loss_max_rel_gap": float(gap.max()),
+        "coef_max_abs_gap": float(cgap.max()),
+        "coef_max_abs": float(np.abs(cc).max()), "cpu_s": cpu_s})
+    print(f"lbfgs: {n_conv} supersteps to converge at epsilon 1e-6; two "
+          f"card runs bitwise; float64 card vs CPU over {LR_CHECK_STEPS} "
+          f"supersteps: loss max rel gap {gap.max()}, coef max abs gap "
+          f"{cgap.max()}", flush=True)
+    return out
+
+
+def host_auc(mapper, table, labels):
+    s = mapper.predict_scores(table)
+    return rank_auc(labels, s), s
+
+
+def phase_lr_main(kl, ks, kf):
+    """12(c): the main path chained on the card: batch LR on padded-COO
+    Criteo rows -> its model table warm-starts FTRL -> the snapshot served
+    by ``CompiledPredictor``."""
+    import torch
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.common.types import TableSchema
+    from alink_tpu_torch.operator.base import StreamOperator  # noqa: F401
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    from alink_tpu_torch.operator.common.linear.mapper import \
+        LinearModelMapper
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    from alink_tpu_torch.serving import CompiledPredictor
+    t0 = time.perf_counter()
+    train = criteo_ftrl_rows(3, LR_MAIN_ROWS)
+    stream = criteo_ftrl_rows(4, 2 * FTRL_BATCH)
+    held = criteo_ftrl_rows(5, LR_HELD_ROWS)
+    y_held = np.asarray(held.col("label"))
+    req = held.select(["vec"])
+    out = {"rows": LR_MAIN_ROWS, "features": FEATURES,
+           "data_s": time.perf_counter() - t0}
+    ks.reset_launch_counts()
+    kl.reset_launch_counts()
+    kf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr = LogisticRegressionTrainBatchOp(
+        vector_col="vec", label_col="label", l2=LR_L2).link_from(
+        MemSourceBatchOp(train))
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    train_launches = {**ks.launch_counts(), **kl.launch_counts()}
+    model = lr.get_output_table()
+    info = lr.get_side_output(0).get_output_table()
+    curve = np.asarray(info.col("loss"))
+    require(np.isfinite(curve).all() and curve[-1] < curve[0],
+            "the L-BFGS loss fell")
+    m = LinearModelDataConverter.load_table(model)
+    require(m.coef.shape == (FEATURES + 1,) and np.isfinite(m.coef).all(),
+            "finite L-BFGS coefficients over 2^20 features + intercept")
+    warm = MemSourceBatchOp(model)
+    ftrl = ftrl_op(warm, "sample", time_interval=2.0).link_from(
+        MemSourceStreamOp(stream, batch_size=FTRL_BATCH))
+    snaps = list(ftrl.timed_batches())
+    require([t for t, _ in snaps] == [2.0], f"one snapshot after 2 "
+            f"micro-batches: {[t for t, _ in snaps]}")
+    snap = snaps[-1][1]
+    mapper = LinearModelMapper(model.schema, TableSchema(["vec"], ["VECTOR"]),
+                               Params({"prediction_col": "pred",
+                                       "vector_col": "vec"}))
+    mapper.load_model(model)
+    gpu = CompiledPredictor(mapper)
+    served = {}
+    for name, table in (("lbfgs", model), ("ftrl", snap)):
+        if name == "ftrl":
+            gpu.swap_model(table)
+        card = [str(v) for v in gpu.predict_table(req).col("pred")]
+        host_map = gpu._active.mapper
+        s_host = host_map.predict_scores(req)
+        host = [str(v) for v in host_map.map_table(req).col("pred")]
+        c = LinearModelDataConverter.load_table(table).coef
+        terms = np.asarray([abs(c[0]) + np.abs(c[1 + v.indices]).sum()
+                            for v in req.col("vec")])
+        clear = np.abs(s_host) > 64 * 2.0 ** -24 * terms
+        require(all(a == b for a, b, ok in zip(card, host, clear) if ok),
+                f"CompiledPredictor labels ({name}) equal map_table's "
+                f"outside the rounding band")
+        served[name] = {"held_out_auc": rank_auc(y_held, s_host),
+                        "rows_in_rounding_band": int((~clear).sum())}
+    torch.cuda.synchronize()
+    launches = {**ks.launch_counts(), **kl.launch_counts(),
+                **kf.launch_counts()}
+    for k in ("linear_grad", "serve_sparse", "ftrl_gather_pair",
+              "ftrl_walk", "ftrl_scatter_add"):
+        require(launches[k] > 0, f"the chained main path launched {k}: "
+                                 f"{launches}")
+    out.update(supersteps=len(curve), loss_first=float(curve[0]),
+               loss_last=float(curve[-1]), training_launches=train_launches,
+               main_path_launches=launches, served=served,
+               ftrl_progressive_logloss=ftrl.progressive_logloss())
+    print(f"lr main path: {LR_MAIN_ROWS} rows, {len(curve)} supersteps in "
+          f"{out['train_s']:.3f} s, held-out AUC L-BFGS "
+          f"{served['lbfgs']['held_out_auc']} FTRL snapshot "
+          f"{served['ftrl']['held_out_auc']}, launches {launches}",
+          flush=True)
+    return out
+
+
 BAD_SLOT_PROBE = """
 import sys, torch
 from alink_tpu_torch.kernels import ftrl as kf
@@ -2122,6 +2651,17 @@ def main(argv=None) -> int:
     bad_slots = phase_bad_slots()
     print(f"out-of-range indices: {bad_slots}")
 
+    # -- 12. linear training: gradient kernel, L-BFGS, the chained path ---
+    from alink_tpu_torch.kernels import linear as kl
+    t0 = time.perf_counter()
+    grad_parity = phase_linear_grad(kl, rng, lat)
+    for key, rec in grad_parity.items():
+        print(f"linear_grad {key}: " + " ".join(
+            f"{k}={v}" for k, v in rec.items()), flush=True)
+    lbfgs = phase_lbfgs(kl, ks, args.seed)
+    lr_main = phase_lr_main(kl, ks, kf)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -2212,7 +2752,34 @@ def main(argv=None) -> int:
                                            "plain_ms", "library_ms",
                                            "bound_ms", "scratch_bytes")}
                    for k, v in tree_parity.items()}})
+    # the port-only gradient kernel: no TPU kernel; it replaces the JAX
+    # package's padded-COO scatter-add (and the field-blocked one-hot
+    # product), at the field-blocked bench_logreg shape
+    r = grad_parity["fieldblock f32"]
+    kernels.append({
+        "name": "linear_grad", "route": "cuda", "source": LR_SRC,
+        "replaces": "alink_tpu/operator/common/optim/objfunc.py:220",
+        "port_only": True,
+        "launches": lr_main["main_path_launches"]["linear_grad"],
+        "max_abs_err": max(v["max_abs_err"] for v in grad_parity.values()),
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "bitwise": True,
+        "kernel_ms": r["kernel_ms"], "device_ms": r["device_ms"],
+        "host_ms": r["host_ms"], "chain_bound_ms": r["chain_bound_ms"],
+        "shape": f"fieldblock f32 {LR_ROWS} x {LR_FIELDS + 1} over "
+                 f"{(LR_FIELDS + 1) * LR_FIELD_SIZE}",
+        "shapes": {k: {f: v[f] for f in (
+            "kernel_ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "chain_bound_ms",
+            "longest_run", "raw_bits_equal") if f in v}
+            for k, v in grad_parity.items()}})
+    kernels[1]["training_launches"] = lr_main["training_launches"][
+        "serve_sparse"]
+    kernels[1]["lr_main_path_launches"] = lr_main["main_path_launches"][
+        "serve_sparse"]
     print(json.dumps({"main_path": {
+        "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,
         "ftrl": ftrl, "out_of_range_indices": bad_slots,
         "card": card, "sparse_rows_per_s": N_REQUESTS / secs,

@@ -17,11 +17,12 @@ import pytest
 import torch
 
 from alink_tpu.common.mlenv import MLEnvironment as JEnv
+from alink_tpu.engine import AllReduce as JAllReduce
 from alink_tpu.engine import IterativeComQueue as JQueue
 from alink_tpu.engine.comqueue import freeze_config as jfreeze
 from alink_tpu_torch.common.mlenv import (MLEnvironment, MLEnvironmentFactory,
                                           use_local_env)
-from alink_tpu_torch.engine import IterativeComQueue
+from alink_tpu_torch.engine import AllReduce, IterativeComQueue
 from alink_tpu_torch.engine.comqueue import freeze_config
 from alink_tpu_torch.engine.communication import (manifest_pmax,
                                                   manifest_pmin,
@@ -203,9 +204,7 @@ def test_left_out_features_raise(tenv, monkeypatch):
                  lambda: q.set_boundary(1, None),
                  lambda: q.set_health(None),
                  lambda: IterativeComQueue(env=tenv, checkpoint_dir="x"),
-                 lambda: MLEnvironment(parallelism=2, device="cpu"),
-                 lambda: IterativeComQueue(env=tenv, max_iter=1).add(
-                     lambda c: c.probe("x", 1.0)).exec()):
+                 lambda: MLEnvironment(parallelism=2, device="cpu")):
         with pytest.raises(NotImplementedError):
             call()
     assert q.set_program_key(("any", 1)) is q       # accepted, ignored
@@ -227,3 +226,57 @@ def test_default_env_is_the_card(monkeypatch):
         assert int(res.get("s")) == 2
     finally:
         MLEnvironmentFactory.reset()
+
+
+def test_all_reduce_and_probe_series_of_the_engine(jenv, tenv):
+    """``AllReduce`` (sum, max, min, mean) is the identity at one worker,
+    as the JAX package's at one device; a probe series is float32, NaN
+    before its first write, trimmed to the run."""
+    def stages(lib):
+        def stage(ctx):
+            v = (jnp if lib == "jax" else torch).arange(4.0) * ctx.step_no
+            for k in ("s", "mx", "mn", "avg"):
+                ctx.put_obj(k, v)
+            ctx.probe("step", v[1])
+            ctx.probe_nonfinite("v", v / (v - 2.0 * ctx.step_no))
+        return stage
+    out = {}
+    for lib, Q, A, env in (("jax", JQueue, JAllReduce, jenv),
+                           ("torch", IterativeComQueue, AllReduce, tenv)):
+        q = (Q(env=env, max_iter=3).add(stages(lib)).add(A("s"))
+             .add(A("mx", op="max")).add(A("mn", op="min"))
+             .add(A("avg", mean=True)))
+        r = q.exec()
+        out[lib] = r
+    for k in ("s", "mx", "mn", "avg"):
+        np.testing.assert_array_equal(np.asarray(out["torch"].get(k)),
+                                      np.asarray(out["jax"].get(k))[:4])
+    for name in ("step", "nonfinite.v"):
+        j = out["jax"].probe_series(name)
+        t = out["torch"].probe_series(name)
+        np.testing.assert_array_equal(t, j)
+        assert t.dtype == np.float32
+    full = out["torch"].probe_series("step", trim=False)
+    assert full.shape == (3,)
+    with pytest.raises(ValueError):
+        AllReduce()
+    with pytest.raises(ValueError):
+        AllReduce("x", op="prod")
+    with pytest.raises(ValueError):
+        AllReduce("x", op="max", mean=True)
+
+
+def test_probe_nan_prefill_and_init_pass_rule(tenv):
+    """A series is NaN past the supersteps that wrote it; a probe first
+    recorded after the init pass raises, as in the JAX package."""
+    def stage(ctx):
+        if ctx.step_no == 2:
+            ctx.probe("late", 1.0)
+    with pytest.raises(KeyError):
+        IterativeComQueue(env=tenv, max_iter=3).add(stage).exec()
+    r = IterativeComQueue(env=tenv, max_iter=5).add(
+        lambda c: c.probe("x", float(c.step_no))).set_compare_criterion(
+        lambda c: c.step_no == 3).exec()
+    full = r.probe_series("x", trim=False)
+    np.testing.assert_array_equal(full[:3], [1.0, 2.0, 3.0])
+    assert np.isnan(full[3:]).all() and r.probe_series("x").shape == (3,)

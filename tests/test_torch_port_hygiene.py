@@ -89,9 +89,17 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.common.tree.hist",
               "alink_tpu_torch.operator.common.tree.trainers",
               "alink_tpu_torch.operator.batch.classification.tree_ops",
-              "alink_tpu_torch.engine.comqueue"):
+              "alink_tpu_torch.engine.comqueue",
+              "alink_tpu_torch.engine.communication",
+              "alink_tpu_torch.kernels.linear",
+              "alink_tpu_torch.ops.fieldblock",
+              "alink_tpu_torch.operator.common.optim.objfunc",
+              "alink_tpu_torch.operator.common.optim.optimizers",
+              "alink_tpu_torch.operator.common.linear.base",
+              "alink_tpu_torch.operator.batch.classification.linear"):
         assert m in mods, m
-    for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu"):
+    for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
+                "linear_grad.cu"):
         assert (PKG / "kernels" / "csrc" / src).exists(), src
 
 
