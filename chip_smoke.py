@@ -103,14 +103,19 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 12. linear training (the main path's first stage): the ordered gradient
    kernel (``linear_grad``) against its plain version (``index_add_`` on
    the CPU, the only place it keeps the order; the card's plan equal to
-   the CPU's), f32 and f64, bitwise (a NaN equal to any NaN), at the
-   field-blocked ``bench_logreg`` shape (200,000 rows x 33 fields x
-   2048, the intercept field every row's), the padded-COO shape of
-   phase 7's rows (100,000 x 40 over 2^20 + 1 slots) and at edges: every
-   position on one slot, one row, slots never hit, ``-0.0``, NaN and inf
-   terms inside runs; kernel (events), device (profiler), host, plain
-   (CPU) and ``index_add_`` times, the bytes bound and the chain bound
-   of the longest run. Then L-BFGS at ``bench_logreg``'s configuration
+   the CPU's, field for field), f32 and f64, bitwise (a NaN equal to any
+   NaN), at the field-blocked ``bench_logreg`` shape (200,000 rows x 33
+   fields x 2048, the intercept field every row's), the same without its
+   intercept column (the bulk alone), the padded-COO shape of phase 7's
+   rows (100,000 x 40 over 2^20 + 1 slots) and at edges: every position
+   on one slot, one row, slots never hit, ``-0.0``, NaN and inf terms
+   inside runs, heavy runs of many lengths (one 18 times the ring, a
+   tie, one at the heavy threshold and one a term short), more heavy runs
+   than clusters, and heavy runs carrying NaN, +-inf and ``-0.0`` in
+   the values and in c; at the three main shapes kernel (events), device
+   (profiler), host, plain (CPU) and ``index_add_`` times, the bytes
+   bound, the chain bound of the longest run and the kernel's fraction
+   of it. Then L-BFGS at ``bench_logreg``'s configuration
    (l2 1e-4, warm start ``randn * 1e-6``) through ``optimize``: ms a
    superstep (median of the untraced supersteps of a 30-superstep run at
    epsilon 0), launches a superstep by kernel and every device op of
@@ -2017,6 +2022,21 @@ def grad_inputs(rng, case, dtype):
         return (keys, np.ones(keys.shape, dtype),
                 rng.standard_normal(n).astype(dtype),
                 (LR_FIELDS + 1) * LR_FIELD_SIZE)
+    if case == "fieldblock_bulk":           # the bulk alone: no intercept
+        keys, val, c, dim = grad_inputs(rng, "fieldblock", dtype)
+        return np.ascontiguousarray(keys[:, 1:]), \
+            np.ascontiguousarray(val[:, 1:]), c, dim
+    if case == "coo_bulk":                  # the bulk alone: no intercept
+        keys, val, c, dim = grad_inputs(rng, "coo", dtype)
+        return np.ascontiguousarray(keys[:, 1:]), \
+            np.ascontiguousarray(val[:, 1:]), c, dim
+    if case == "intercept":                 # the intercept's run alone
+        n = LR_ROWS
+        return (np.zeros((n, 1), np.int32), np.ones((n, 1), dtype),
+                rng.standard_normal(n).astype(dtype),
+                (LR_FIELDS + 1) * LR_FIELD_SIZE)
+    if case in ("heavy_runs", "heavy_many", "heavy_specials"):
+        return heavy_inputs(rng, case, dtype)
     if case == "coo":
         n = LR_MAIN_ROWS
         keys = np.zeros((n, COO_WIDTH), np.int32)
@@ -2045,8 +2065,60 @@ def grad_inputs(rng, case, dtype):
     return keys, val, c, dim
 
 
-GRAD_CASES = ("fieldblock", "coo", "one_slot", "one_row", "unhit",
-              "specials")
+def heavy_inputs(rng, case, dtype):
+    """Designs of heavy runs (at least the kernel's ``HEAVY_MIN`` terms).
+    ``heavy_runs``: 300,000 rows x 6 over 2^16 slots, heavy runs of
+    300,000 (every row: the ring's 16,384 terms 18 times over), 150,000,
+    42,858, two of 3000 (a tie), one of exactly ``HEAVY_MIN`` and one a
+    term short of it, medium runs of about 400 and 1600 and a short bulk.
+    ``heavy_many``: 90 heavy runs of about 2700 and an intercept, more
+    runs than the launch has clusters. ``heavy_specials``: four heavy runs
+    that carry NaN, +-inf and -0.0 in the values and in c."""
+    from alink_tpu_torch.kernels.linear import HEAVY_MIN
+    if case == "heavy_many":
+        n, w, dim = 30_000, 8, 91
+        keys = rng.integers(1, dim, (n, w)).astype(np.int32)
+        keys[:, 0] = 0
+        return (keys, rng.standard_normal((n, w)).astype(dtype),
+                rng.standard_normal(n).astype(dtype), dim)
+    if case == "heavy_runs":
+        n, w, dim = 300_000, 6, 1 << 16
+        rows = np.arange(n)
+        keys = rng.integers(16, dim, (n, w)).astype(np.int32)
+        keys[:, 0] = 0
+        keys[:, 1] = np.where(rows % 2 == 0, 1, rng.integers(16, 1040, n))
+        keys[:, 2] = np.where(rows % 7 == 0, 2, rng.integers(16, 1040, n))
+        keys[rows % 100 == 0, 3] = 3
+        keys[rows % 100 == 1, 3] = 4
+        keys[np.flatnonzero(rows % 100 == 2)[:HEAVY_MIN], 3] = 5
+        keys[np.flatnonzero(rows % 100 == 3)[:HEAVY_MIN - 1], 3] = 6
+        keys[:, 4] = rng.integers(16, 272, n)
+        return (keys, rng.standard_normal((n, w)).astype(dtype),
+                rng.standard_normal(n).astype(dtype), dim)
+    n, w, dim = 40_000, 4, 512                           # heavy_specials
+    rows = np.arange(n)
+    keys = rng.integers(8, dim, (n, w)).astype(np.int32)
+    keys[:, 0] = 0
+    keys[rows % 2 == 0, 1] = 1
+    keys[rows % 4 == 1, 2] = 2
+    keys[rows % 4 == 3, 2] = 3
+    val = rng.standard_normal((n, w)).astype(dtype)
+    c = rng.standard_normal(n).astype(dtype)
+    val[rng.random((n, w)) < 0.01] = -0.0
+    c[rng.random(n) < 0.01] = -0.0
+    val[123, 0] = np.nan                          # slot 0: NaN
+    val[1000, 1], val[1800, 1] = np.inf, -np.inf  # slot 1: inf - inf
+    val[41, 2] = np.inf                           # slot 2: +-inf
+    val[rows % 4 == 3, 2] = -0.0                  # slot 3: every term +-0
+    c[779] = np.inf                               # slots 0 and 2 (and more)
+    c[778] = np.nan
+    return keys, val, c, dim
+
+
+GRAD_CASES = ("fieldblock", "coo", "fieldblock_bulk", "one_slot", "one_row",
+              "unhit", "specials", "heavy_runs", "heavy_many",
+              "heavy_specials")
+GRAD_TIMED = ("fieldblock", "coo", "fieldblock_bulk")
 
 
 def grad_case(kl, rng, case, kind, lat):
@@ -2063,8 +2135,9 @@ def grad_case(kl, rng, case, kind, lat):
     cc = torch.from_numpy(c).to(dev)
     got = kl.linear_grad(plan, cc)
     host = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
-    require(torch.equal(plan.perm.cpu(), host.perm)
-            and torch.equal(plan.starts.cpu(), host.starts),
+    require(all(torch.equal(a.cpu(), b) if torch.is_tensor(a) else a == b
+                for a, b in zip(plan, host)
+                if not torch.is_tensor(a) or a.dtype == torch.int32),
             f"linear_grad {case} {kind}: the card's plan is the CPU's")
     want = kl.linear_grad_plain(host, torch.from_numpy(c))
     same, raw = same_bits(got.cpu(), want)
@@ -2074,8 +2147,9 @@ def grad_case(kl, rng, case, kind, lat):
     require(same, f"linear_grad {case} {kind} bitwise vs its plain version "
                   f"(max abs err {err})")
     rec = {"bitwise": True, "raw_bits_equal": raw, "max_abs_err": err,
-           "positions": int(keys.size), "slots": dim}
-    if case not in ("fieldblock", "coo"):
+           "positions": int(keys.size), "slots": dim,
+           "heavy_runs": plan.n_heavy, "medium_runs": plan.n_medium}
+    if case not in GRAD_TIMED:
         return rec
     P, n = keys.size, keys.shape[0]
     isz = np.dtype(dtype).itemsize
@@ -2095,6 +2169,7 @@ def grad_case(kl, rng, case, kind, lat):
         kl.linear_grad_plain(host, cpu_c)
         plain.append((time.perf_counter() - t0) * 1e3)
     dev_ms, dev_seen = device_ms_per_launch(call, "linear_grad_kernel")
+    chain_ms = chain_bound_ms(longest, kind, lat)
     rec.update(
         kernel_ms=k_ms, device_ms=dev_ms, device_launches_recorded=dev_seen,
         host_ms=k_host, plain_ms=float(np.median(plain)),
@@ -2102,7 +2177,7 @@ def grad_case(kl, rng, case, kind, lat):
         library_ms=l_ms, library_device_ms=device_ms(lib)[0],
         library_host_ms=l_host, library_deterministic=False,
         bound_ms=b_ms, bound_by=b_by, longest_run=longest,
-        chain_bound_ms=chain_bound_ms(longest, kind, lat))
+        chain_bound_ms=chain_ms, chain_fraction=chain_ms / k_ms)
     return rec
 
 
@@ -2272,13 +2347,12 @@ def lbfgs_run(data, steps, eps=0.0, device="cuda", warm=True, seed=0):
     return coef, curve, n, time.perf_counter() - t0
 
 
-def phase_lbfgs(kl, ks, seed):
-    """12(b): L-BFGS at bench_logreg's configuration through ``optimize``
-    on the card."""
-    fb, y = fb_criteo(0)
-    data = {"fb_idx": fb, "y": y, "w": np.ones(LR_ROWS, np.float32)}
-    out = {"rows": LR_ROWS, "fields": LR_FIELDS + 1,
-           "field_size": LR_FIELD_SIZE, "l2": LR_L2}
+def lbfgs_timing(kl, ks, data, seed):
+    """The L-BFGS superstep on the card: ms (median of the untraced
+    supersteps of a fixed-length run), launches by kernel, device ops and
+    busy share of the profiled supersteps, and the stage split (each
+    stage ending in a synchronize)."""
+    out = {}
     lbfgs_run(data, 3, seed=seed)                      # warm-up: build, plan
     ks.reset_launch_counts()
     kl.reset_launch_counts()
@@ -2320,6 +2394,17 @@ def phase_lbfgs(kl, ks, seed):
     out["stage_ms"] = split.medians()
     print(f"lbfgs superstep by stage (ms, each ending in a synchronize): "
           f"{out['stage_ms']}", flush=True)
+    return out
+
+
+def phase_lbfgs(kl, ks, seed):
+    """12(b): L-BFGS at bench_logreg's configuration through ``optimize``
+    on the card."""
+    fb, y = fb_criteo(0)
+    data = {"fb_idx": fb, "y": y, "w": np.ones(LR_ROWS, np.float32)}
+    out = {"rows": LR_ROWS, "fields": LR_FIELDS + 1,
+           "field_size": LR_FIELD_SIZE, "l2": LR_L2}
+    out.update(lbfgs_timing(kl, ks, data, seed))
     reads = host_reads(lambda k: lbfgs_run(data, k, seed=seed))
     require(reads == 1.0, f"a superstep reads the card once (the "
                           f"convergence bit): {reads}")
@@ -2772,7 +2857,8 @@ def main(argv=None) -> int:
         "shapes": {k: {f: v[f] for f in (
             "kernel_ms", "device_ms", "host_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms", "chain_bound_ms",
-            "longest_run", "raw_bits_equal") if f in v}
+            "chain_fraction", "longest_run", "heavy_runs", "medium_runs",
+            "raw_bits_equal") if f in v}
             for k, v in grad_parity.items()}})
     kernels[1]["training_launches"] = lr_main["training_launches"][
         "serve_sparse"]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Old against new: the FTRL steps and the sparse serving kernel of two
-trees of this repository, timed in turns on one NVIDIA GPU.
+"""Old against new: the FTRL steps, the sparse serving kernel, the ordered
+gradient kernel and the L-BFGS superstep of two trees of this
+repository, timed in turns on one NVIDIA GPU.
 
     mkdir -p ab/parent && git archive <commit> | tar -x -C ab/parent
     python3 kernel_ab.py ab/parent . . ab/parent     # ab/: listed in .gitignore
@@ -30,7 +31,25 @@ call it is held against are timed in turns):
   ending in a synchronize, median of 3), and the step's kernel launches;
   then, after every mode's split (a step measured after a profiled one
   runs slower), the card's busy time under one more step of each mode
-  (``torch.profiler``).
+  (``torch.profiler``);
+* the ordered gradient kernel (``linear_grad``) at both main-path
+  shapes in f32 and f64 (``chip_smoke.py`` phase 12(a)'s field-blocked
+  ``bench_logreg`` design, 200,000 x 33 over 67,584 slots, and its
+  padded-COO design, 100,000 x 40 over 2^20 + 1), each without its
+  intercept column (the bulk alone) and the intercept's run alone
+  (200,000 terms in one slot), f32: ``kernel_ms`` by CUDA events
+  in turns with ``index_add_`` (not deterministic on the card: a
+  yardstick), device time by the profiler (over the launches it
+  recorded), the chain bound of the longest run (its dependent adds at
+  the latency a one-thread probe reads, at the top SM clock) and the
+  kernel's fraction of it, and whether the kernel is bitwise to its
+  plain version (run on the CPU);
+* the L-BFGS superstep at ``bench_logreg``'s configuration (phase
+  12(b)): ms a superstep (median of the untraced ones of a 30-superstep
+  run), the card's busy share over 5 profiled supersteps, and the
+  ``StageSplit`` of the superstep into gradient, direction, line search
+  and update (each stage ending in a synchronize, median of supersteps
+  2-10).
 """
 
 from __future__ import annotations
@@ -117,10 +136,59 @@ def measure(tree: Path) -> dict:
     warm = h.ftrl_warm_model(rng)
     train = h.criteo_ftrl_rows(1, h.FTRL_BATCH)
     out["split_ms"], out["launches"] = h.ftrl_splits(warm, train, kf)
+    from alink_tpu_torch.kernels import linear as kl
+    out["linear_grad"] = linear_grad_times(h, kl, h.add_latency(
+        *h.start_chain_probe(_build)))
+    fb, y = h.fb_criteo(0)
+    out["lbfgs"] = h.lbfgs_timing(kl, ks, {
+        "fb_idx": fb, "y": y, "w": np.ones(len(y), np.float32)}, 0)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    return out
+
+
+LINEAR_CASES = (("fieldblock", "f32"), ("fieldblock", "f64"), ("coo", "f32"),
+                ("coo", "f64"), ("fieldblock_bulk", "f32"),
+                ("coo_bulk", "f32"), ("intercept", "f32"))
+
+
+def linear_grad_times(h, kl, lat):
+    """The gradient kernel at :data:`LINEAR_CASES` (inputs from
+    ``chip_smoke.py::grad_inputs``, seeded)."""
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    out = {}
+    for case, kind in LINEAR_CASES:
+        keys, val, c, dim = h.grad_inputs(
+            rng, case, np.float32 if kind == "f32" else np.float64)
+        plan = kl.grad_plan(torch.from_numpy(keys).to(dev), dim,
+                            torch.from_numpy(val).to(dev))
+        cc = torch.from_numpy(c).to(dev)
+        keys_l = plan.keys.reshape(-1).long()
+
+        def call():
+            return kl.linear_grad(plan, cc)
+
+        def lib():
+            return torch.zeros(dim, dtype=cc.dtype, device=dev).index_add_(
+                0, keys_l, (plan.val * cc[:, None]).reshape(-1))
+        host = kl.grad_plan(torch.from_numpy(keys), dim,
+                            torch.from_numpy(val))
+        same, _ = h.same_bits(call().cpu(), kl.linear_grad_plain(
+            host, torch.from_numpy(c)))
+        k_ms, l_ms = h.cuda_ms_turns(call, lib, trials=9, reps=5)
+        longest = int((host.starts[1:] - host.starts[:-1]).max())
+        chain = h.chain_bound_ms(longest, kind, lat)
+        out[f"{case} {kind}"] = {
+            "bitwise": same, "kernel_ms": k_ms,
+            "device_ms": h.device_ms_per_launch(call,
+                                                "linear_grad_kernel")[0],
+            "index_add_ms": l_ms, "chain_bound_ms": chain,
+            "chain_fraction": chain / k_ms, "longest_run": longest}
+    out["add_latency"] = lat
     return out
 
 
@@ -151,6 +219,21 @@ def _summary(runs):
         for mode, rec in rs[0]["split_ms"].items():
             for f in rec:
                 s[f"{mode} {f}"] = med(rs, "split_ms", mode, f)
+        for key, rec in rs[0].get("linear_grad", {}).items():
+            if key != "add_latency":
+                for f in rec:
+                    if f != "bitwise":
+                        s[f"linear_grad {key} {f}"] = med(
+                            rs, "linear_grad", key, f)
+                s[f"linear_grad {key} bitwise"] = all(
+                    r["linear_grad"][key]["bitwise"] for r in rs)
+        lb = rs[0].get("lbfgs")
+        if lb:
+            for f in ("ms_per_superstep", "device_busy_ms",
+                      "device_busy_share"):
+                s[f"lbfgs {f}"] = med(rs, "lbfgs", f)
+            for f in lb["stage_ms"]:
+                s[f"lbfgs stage {f}"] = med(rs, "lbfgs", "stage_ms", f)
         out[tree] = s
     return out
 
@@ -169,7 +252,7 @@ def main(argv) -> int:
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--measure", str(Path(tree).resolve())],
                              cwd=tree, capture_output=True, text=True,
-                             timeout=900)
+                             timeout=1200)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
             return 1

@@ -6,7 +6,9 @@ over the positions in flattened (row, column) order, from ``+0.0``. The
 plain version (``index_add_`` on the CPU) is held to that loop bit for
 bit, and to the JAX package's padded-COO gradient (an XLA scatter-add)
 bit for bit. The kernel itself is held to the plain version on the card
-by ``chip_smoke.py`` phase 12.
+by ``chip_smoke.py`` phase 12. Here also: the plan's classes of runs
+(heavy, medium, short) against a numpy reference, the launch's grid, the
+kernel's division by the row width, and what reaches the C function.
 """
 
 import types
@@ -55,6 +57,28 @@ def _design(layout, dt, seed=0):
     return keys, val, c, dim
 
 
+def _heavy_design(dt, seed=0):
+    """Runs of every class in one design: slot 0 in every row (the
+    intercept, heavy), slots 1 and 2 of equal heavy length, slot 3 exactly
+    ``HEAVY_MIN`` long, slot 4 one short of it, slot 5 ``SHORT_MAX + 1``
+    long, slot 6 ``SHORT_MAX`` long; the rest short and random."""
+    H, S = kl.HEAVY_MIN, kl.SHORT_MAX
+    rng = np.random.RandomState(seed)
+    n, dim = 2 * H + 600, 4096
+    keys = rng.randint(7, dim, (n, 4)).astype(np.int32)
+    keys[:, 0] = 0
+    rows = np.arange(n)
+    keys[rows % 2 == 0, 1] = 1
+    keys[rows % 2 == 1, 1] = 2
+    keys[:H, 2] = 3
+    keys[H:2 * H - 1, 2] = 4
+    keys[2 * H:2 * H + S + 1, 3] = 5
+    keys[2 * H + S + 1:2 * H + 2 * S + 1, 3] = 6
+    val = rng.randn(n, 4).astype(dt)
+    c = rng.randn(n).astype(dt)
+    return keys, val, c, dim
+
+
 def _loop(keys, val, c, dim):
     out = np.zeros(dim, val.dtype)
     for i in range(keys.shape[0]):
@@ -63,11 +87,12 @@ def _loop(keys, val, c, dim):
     return out
 
 
-@pytest.mark.parametrize("layout", ["coo", "fieldblock"])
+@pytest.mark.parametrize("layout", ["coo", "fieldblock", "heavy"])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_plain_is_the_sequential_loop(layout, dt):
     npd, tdt = DTYPES[dt]
-    keys, val, c, dim = _design(layout, npd)
+    keys, val, c, dim = (_heavy_design(npd) if layout == "heavy"
+                         else _design(layout, npd))
     plan = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
     got = kl.linear_grad(plan, torch.from_numpy(c)).numpy()
     assert got.dtype == npd
@@ -94,6 +119,111 @@ def test_plan_runs_intercept_and_unhit_slots():
     assert (starts[unhit + 1] == starts[unhit]).all()
     got = kl.linear_grad(plan, torch.from_numpy(c)).numpy()
     assert (_bits(got[unhit]) == 0).all()              # +0.0
+
+
+def _classes(keys, dim):
+    """The numpy reference of the plan's run classes: the runs of more than
+    ``SHORT_MAX`` terms by length, longest first, ties by slot, then the
+    short runs by slot; the heavy and medium counts."""
+    counts = np.bincount(keys.reshape(-1), minlength=dim)
+    order = np.lexsort((np.arange(dim),
+                        np.where(counts > kl.SHORT_MAX, -counts, 0)))
+    n_heavy = int((counts >= kl.HEAVY_MIN).sum())
+    n_medium = int(((counts > kl.SHORT_MAX) & (counts < kl.HEAVY_MIN)).sum())
+    return order, n_heavy, n_medium
+
+
+def _class_case(case):
+    H, S = kl.HEAVY_MIN, kl.SHORT_MAX
+    rng = np.random.RandomState(3)
+    if case == "every_class":
+        return _heavy_design(np.float64)[0], 4096
+    if case == "equal_heavy":       # four heavy runs of one length: by slot
+        keys = np.tile(np.array([[9, 2, 30, 5]], np.int32), (H + 3, 1))
+        return keys, 40
+    if case == "threshold":         # exactly HEAVY_MIN, one short of it
+        keys = np.concatenate([np.full(H, 6), np.full(H - 1, 2),
+                               np.full(S + 1, 0), np.full(S, 7)])
+        return keys.astype(np.int32)[:, None], 8
+    if case == "no_heavy":          # the field-blocked bulk: no intercept
+        keys = (rng.randint(0, 16, (3000, 5)) + np.arange(5) * 16)
+        return keys.astype(np.int32), 80
+    keys = np.zeros((H, 2), np.int32)   # dim_below_grid: 3 slots, one run
+    return keys, 3
+
+
+@pytest.mark.parametrize("case", ["every_class", "equal_heavy", "threshold",
+                                  "no_heavy", "dim_below_grid"])
+def test_plan_classes_runs_by_length(case):
+    """``order`` lists the runs of more than ``SHORT_MAX`` terms by length,
+    longest first and ties by slot, then the short ones by slot; the first
+    ``n_heavy`` have at least ``HEAVY_MIN`` terms, the next ``n_medium``
+    more than ``SHORT_MAX``; a run exactly at a threshold takes the longer
+    class, one short of it the shorter."""
+    keys, dim = _class_case(case)
+    plan = kl.grad_plan(torch.from_numpy(keys), dim,
+                        torch.ones(keys.shape, dtype=torch.float64))
+    order, n_heavy, n_medium = _classes(keys, dim)
+    assert plan.order.dtype == torch.int32
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    assert (plan.n_heavy, plan.n_medium) == (n_heavy, n_medium)
+    runs = np.diff(plan.starts.numpy())[plan.order.numpy()]
+    assert (runs[:n_heavy] >= kl.HEAVY_MIN).all()
+    assert (runs[n_heavy:n_heavy + n_medium] > kl.SHORT_MAX).all()
+    assert (runs[n_heavy + n_medium:] <= kl.SHORT_MAX).all()
+    want = {"every_class": (4, 2), "equal_heavy": (4, 0),
+            "threshold": (1, 2), "no_heavy": (0, 80),
+            "dim_below_grid": (1, 0)}[case]
+    assert (n_heavy, n_medium) == want
+    if case == "equal_heavy":
+        np.testing.assert_array_equal(plan.order.numpy()[:4], [2, 5, 9, 30])
+    if case == "threshold":
+        np.testing.assert_array_equal(plan.order.numpy(), [6, 2, 0, 1, 3, 4, 5, 7])
+    short = plan.order.numpy()[n_heavy + n_medium:]
+    assert (np.diff(short) > 0).all()
+
+
+def _plan_of(dim, n_heavy, n_medium):
+    return kl.GradPlan(None, None, None, None, dim, None, n_heavy, n_medium)
+
+
+@pytest.mark.parametrize("sms,dim,n_heavy,n_medium,want", [
+    (132, 67_584, 1, 65_536, (2, 130)),        # field-blocked: the intercept
+    (132, (1 << 20) + 1, 1, 0, (2, 130)),      # padded-COO: short bulk
+    (132, 67_584, 0, 65_536, (0, 1056)),       # no intercept: light fills
+    (132, 3, 1, 0, (2, 2)),                    # dim below the grid
+    (132, 3, 0, 0, (0, 1)),
+    (132, 2, 2, 0, (4, 0)),                    # every slot heavy
+    (132, 5000, 200, 100, (66, 32)),           # clusters: a quarter of SMs
+    (132, 90_000, 200, 8000, (66, 66)),
+    (1, 10, 4, 0, (2, 2)),
+])
+def test_launch_grid(sms, dim, n_heavy, n_medium, want):
+    """Heavy blocks: a cluster of two per heavy run, up to a quarter of the
+    SMs' clusters; light blocks (8 warps): a warp a medium run or 32
+    short runs, up to the SMs the heavy blocks leave (one each, an even
+    number) or, with no heavy run, 8 an SM."""
+    assert kl.launch_grid(sms, _plan_of(dim, n_heavy, n_medium)) == want
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 7, 8, 33, 40, 41, 1000, 2048,
+                                   65_537, (1 << 20) + 1, (1 << 30) + 3,
+                                   (1 << 31) - 1])
+def test_div_magic_is_exact(width):
+    """The kernel's row of a position, ``(p * magic) >> shift``, is
+    ``p // width`` for every ``p < 2**31`` (edges and a random sample)."""
+    magic, shift = kl.div_magic(width)
+    assert 0 < magic < 2 ** 32 and 31 <= shift <= 62
+    top = 2 ** 31 - 1
+    ps = {0, 1, width - 1, width, width + 1, top, top - 1}
+    q = top // width
+    for k in (1, 2, 3, q - 1, q):
+        ps.update({k * width - 1, k * width, k * width + 1})
+    rng = np.random.RandomState(width % 1000)
+    ps.update(int(x) for x in rng.randint(0, top, 2000))
+    for p in ps:
+        if 0 <= p <= top:
+            assert (p * magic) >> shift == p // width, p
 
 
 def test_plan_rejects_keys_outside_the_model():
@@ -147,14 +277,19 @@ class _FakeFn:
 def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
     """With a library in place, a CUDA tensor goes to the C function once,
     on the current stream, and counts one launch; the plain version is
-    never called."""
+    never called. The plan's tensors reach it by their own pointers (the
+    slots' order too), with the division's magic number, the run classes'
+    counts and the grid."""
     fake = types.SimpleNamespace(alink_linear_grad=_FakeFn(),
                                  alink_linear_error_string=_FakeFn())
     monkeypatch.setattr(kl, "_fns", None)
-    monkeypatch.setattr(kl, "_grids", {0: 1056})
+    monkeypatch.setattr(kl, "_sms", {0: 132})
     monkeypatch.setattr(_build, "load_library", lambda n: fake)
     monkeypatch.setattr(_build, "current_device", lambda: 0)
     monkeypatch.setattr(_build, "stream_handle", lambda i: 55)
+    ptrs = {}
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda t: ptrs.setdefault(
+        id(t), 4096 * (len(ptrs) + 1)))
 
     def no_plain(*a):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -165,13 +300,23 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
             torch.zeros((10, 4), dtype=torch.int32, device="cuda"),
             torch.zeros((10, 4), dtype=torch.float64, device="cuda"),
             torch.zeros(40, dtype=torch.int32, device="cuda"),
-            torch.zeros(101, dtype=torch.int32, device="cuda"), 100)
-        kl.linear_grad(plan, torch.zeros(10, dtype=torch.float64,
-                                         device="cuda"))
+            torch.zeros(101, dtype=torch.int32, device="cuda"), 100,
+            torch.zeros(100, dtype=torch.int32, device="cuda"), 1, 3)
+        c = torch.zeros(10, dtype=torch.float64, device="cuda")
+        out = kl.linear_grad(plan, c)
         with pytest.raises(ValueError):
             kl.linear_grad(plan, torch.zeros(10, device="cuda"))
+        with pytest.raises(ValueError):
+            kl.linear_grad(plan._replace(order=torch.zeros(100, dtype=torch.int32,
+                                                           device="meta")), c)
     (args,) = fake.alink_linear_grad.calls
-    assert args[0] == 1 and args[6:] == (100, 4, 13, 55)
+    assert args[0] == 1
+    assert args[1:7] == tuple(t.data_ptr() for t in (
+        plan.perm, plan.starts, plan.order, plan.val, c, out))
+    assert len(set(args[1:7])) == 6
+    assert args[7:] == (100, *kl.div_magic(4), 1, 3,
+                        *kl.launch_grid(132, plan), 55)
+    assert kl.launch_grid(132, plan) == (2, 2)
     assert kl.launch_counts() == {"linear_grad": 1}
 
 

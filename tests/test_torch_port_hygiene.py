@@ -109,3 +109,12 @@ def test_chip_smoke_names_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|alink_tpu)(\.|\s|$)",
                      re.MULTILINE)
     assert not pat.findall(src)
+
+
+def test_kernel_ab_names_no_jax():
+    """``kernel_ab.py`` (old against new on the card) imports neither
+    ``jax`` nor ``alink_tpu``."""
+    src = (PKG.parent / "kernel_ab.py").read_text()
+    pat = re.compile(r"^\s*(import|from)\s+(jax|alink_tpu)(\.|\s|$)",
+                     re.MULTILINE)
+    assert not pat.findall(src)
