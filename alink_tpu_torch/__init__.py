@@ -19,6 +19,10 @@ batch logistic regression: ``LogisticRegressionTrainBatchOp`` over the
 L-BFGS / OWLQN / GD optimizers of ``operator/common/optim`` on the same
 engine, on dense, padded-COO and field-blocked (``ops/fieldblock.py``)
 designs, with the ordered gradient kernel of ``kernels/linear.py``.
+Slice 9 is the FTRLExample loop: the ``pipeline`` API (feature scalers,
+``FeatureHasher``, ``LogisticRegression``), the stream transform runtime
+(``operator/stream/core.py``, ``stream/utils``), ``SplitStreamOp``,
+``JsonValueStreamOp`` and the windowed binary evaluation.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""Carry a linear model, an FTRL state or a tree model across from the JAX
-package or from numpy arrays.
+"""Carry a linear model, an FTRL state, a tree model or a fitted pipeline
+across from the JAX package or from numpy arrays.
 
 No counterpart module in ``alink_tpu``: both packages store a linear
 model as the same table of ``(model_id, model_info, label_value)`` rows
@@ -8,12 +8,17 @@ across is a matter of rebuilding the table from plain rows. The port
 then serves exactly the coefficients the JAX package serves. The FTRL
 state is a pair of vectors, carried as numpy arrays. A tree model is
 built from a trainer's arrays (``gbdt_train`` / ``forest_train`` of
-either package), the way the tree train ops build theirs.
+either package), the way the tree train ops build theirs. A fitted
+pipeline saved by the JAX package (``PipelineModel.save``, the
+``"alink_tpu.pipeline.v1"`` JSON) loads as the port's ``PipelineModel``:
+every stage class maps to the port's class of the same module path and
+name, and its model table comes through ``MTable.from_json_rows``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, List, Optional, Sequence, Tuple
+import json
+from typing import Any, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -121,3 +126,27 @@ def tree_model_from_numpy(algo: str, features: np.ndarray,
         split_masks=None if split_masks is None else np.asarray(split_masks),
         cat_cols=list(cat_cols) if cat_cols else None, cat_vocabs=cat_vocabs,
         importances=None if importances is None else np.asarray(importances))
+
+
+_REFERENCE = "alink_tpu."
+
+
+def pipeline_model_from_reference(obj_or_path: Union[str, dict]):
+    """The port's ``PipelineModel`` from a pipeline the JAX package saved:
+    the path of its file, or the file's parsed JSON. Each stage class
+    ``alink_tpu.<module>.<Class>`` becomes ``alink_tpu_torch.<module>.
+    <Class>`` (nothing of ``alink_tpu`` is imported); a class the port
+    lacks raises ``ValueError``."""
+    from ..pipeline.base import stages_from_json
+    obj = obj_or_path
+    if not isinstance(obj, dict):
+        with open(obj_or_path, "r", encoding="utf-8") as f:
+            obj = json.load(f)
+
+    def rename(name: str) -> str:
+        if not name.startswith(_REFERENCE):
+            raise ValueError(f"stage class {name!r} is not a class of "
+                             f"alink_tpu")
+        return "alink_tpu_torch." + name[len(_REFERENCE):]
+
+    return stages_from_json(obj, rename)

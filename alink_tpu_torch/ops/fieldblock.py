@@ -22,7 +22,9 @@ what the reference's one-hot product gives on the CPU; the gradient
 adds each slot's terms in row order, where the reference's order is
 XLA's, so the two agree within the float32 summation bound.
 
-``hash_to_fields`` and ``fb_gather`` are not ported yet.
+:func:`hash_to_fields` (field-aware hashing, host numpy through the
+port's vectorized murmur) is ported; ``fb_gather`` is not yet (the
+field-blocked FTRL batch step, ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -59,6 +61,24 @@ class FieldBlockMeta:
     def __post_init__(self):
         if self.field_size % LO:
             raise ValueError(f"field_size must be a multiple of {LO}")
+
+
+def hash_to_fields(columns, field_size: int, seed: int = 0) -> np.ndarray:
+    """Field-aware feature hashing: one column -> one field (host-side).
+
+    The reference hashes all columns into one flat space
+    (FeatureHasherMapper over murmur32); here each column owns a
+    ``field_size`` sub-range so the result is field-blocked by
+    construction. Returns ``fb_idx`` of shape (n, num_columns) int32.
+    """
+    from ..operator.batch.feature.feature_ops import murmur32_cells
+    cols = list(columns)
+    n = len(cols[0])
+    out = np.empty((n, len(cols)), np.int32)
+    for k, col in enumerate(cols):
+        tokens = [f"{k}={v}".encode() for v in col]
+        out[:, k] = murmur32_cells(tokens, seed=seed, mod=field_size)
+    return out
 
 
 def fb_to_flat_indices(fb_idx: np.ndarray, meta: FieldBlockMeta) -> np.ndarray:

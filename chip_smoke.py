@@ -132,6 +132,36 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    AUC of both models; the gradient, margin (B5) and FTRL state (B1-B3)
    kernels' launch counts must have moved.
 
+13. the FTRLExample loop (the reference's FTRLExample.java) end to end
+   at its full width: avazu-shaped rows from ``--seed`` (its 24 columns,
+   Zipf-skewed categorical values over vocabularies of avazu's order,
+   clicks from a seeded logistic model; the Bayes AUC printed), 100,000
+   batch rows and a 262,144-row stream in 8,192-row micro-batches, one
+   event second each. The feature ``Pipeline`` (``StandardScaler`` on
+   the 8 numeric columns, ``FeatureHasher`` on the 19 selected columns
+   into 30,000 features) is fit, saved under ``build/`` and loaded;
+   ``LogisticRegressionTrainBatchOp`` (10 supersteps, the intercept)
+   warm-starts ``FtrlTrainStreamOp`` (alpha 0.1, beta 0.1, l1 0.01, l2
+   0.01, a snapshot every 10 s) on one half of ``SplitStreamOp(0.5)``;
+   ``FtrlPredictStreamOp`` hot-reloads its snapshots on the other half;
+   ``EvalBinaryClassStreamOp`` (10 s windows) -> ``JsonValueStreamOp``
+   -> ``CollectSinkStreamOp`` -> ``StreamOperator.execute()``. Two
+   float32 card runs are bitwise equal (snapshots, eval JSON); the
+   float64 card run is within rtol 1e-10 of the CPU's on the warm start
+   and every snapshot, with equal confusion matrices and AUC within
+   1e-6, on the stream's first 131,072 rows; the float32 run launches one ``linear_grad`` and two
+   ``serve_sparse`` a superstep and, per micro-batch padded to the
+   trainer's batch, one ``gather_pair`` and ``ftrl_walk`` and two
+   ``ftrl_scatter_add`` a 4-row chunk; the last window's AUC is above
+   0.6. Prints the pipeline's fit and save + load, the LR's seconds and
+   supersteps, the drain's seconds and rows/s, the host-only drain
+   (source -> split -> ``transform_stream`` of both halves), the
+   evaluation leg alone (the other half scored by the warm start,
+   evaluated, JSON values), FTRL samples/s, the trainer's stages on one
+   micro-batch, the card's busy
+   share under a profiled drain and every window's AUC beside the warm
+   start's on the last window's rows.
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -1270,6 +1300,37 @@ def ftrl_card_vs_cpu(warm, train):
     return out
 
 
+def trainer_stages(tr, mt, reps):
+    """One micro-batch ``mt`` through the FTRL trainer ``tr``'s stages,
+    encode, copy in, step and snapshot (host clock, each ending in a
+    synchronize), ``reps`` times from the warm start on: the median ms of
+    each, with the step's samples/s; and the last step's device inputs
+    and state."""
+    import torch
+    b = mt.num_rows
+    stages = {k: [] for k in ("encode", "to_device", "step", "snapshot")}
+    z, n = tr.initial_state()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, val, y, _ = tr.encode(mt, b)
+        t1 = time.perf_counter()
+        dev = tr.to_device(idx, val, y)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        z, n, _ = tr.step(*dev, z, n)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.snapshot(z, n)
+        t4 = time.perf_counter()
+        for k, a, e in (("encode", t0, t1), ("to_device", t1, t2),
+                        ("step", t2, t3), ("snapshot", t3, t4)):
+            stages[k].append((e - a) * 1e3)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    med["step_samples_per_s"] = b / med["step"] * 1e3
+    return med, dev, z, n
+
+
 def ftrl_split(warm, train, mode, reps=3, trace=False):
     """One 4096-row micro-batch of ``mode`` split into encode, copy in,
     step and snapshot (host clock, each ending in a synchronize), median
@@ -1282,27 +1343,7 @@ def ftrl_split(warm, train, mode, reps=3, trace=False):
     op = ftrl_op(warm, mode).link_from(
         MemSourceStreamOp(train, batch_size=FTRL_BATCH))
     tr = op.trainer
-    mt = train.first_n(FTRL_BATCH)
-    stages = {k: [] for k in ("encode", "to_device", "step", "snapshot")}
-    z, n = tr.initial_state()
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        idx, val, y, _ = tr.encode(mt, FTRL_BATCH)
-        t1 = time.perf_counter()
-        dev = tr.to_device(idx, val, y)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        z, n, _ = tr.step(*dev, z, n)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        tr.snapshot(z, n)
-        t4 = time.perf_counter()
-        for k, a, b in (("encode", t0, t1), ("to_device", t1, t2),
-                        ("step", t2, t3), ("snapshot", t3, t4)):
-            stages[k].append((b - a) * 1e3)
-    med = {k: float(np.median(v)) for k, v in stages.items()}
-    med["step_samples_per_s"] = FTRL_BATCH / med["step"] * 1e3
+    med, dev, z, n = trainer_stages(tr, train.first_n(FTRL_BATCH), reps)
     if not trace:
         return med
     from torch.profiler import ProfilerActivity, profile
@@ -2590,6 +2631,452 @@ def phase_bad_slots():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the FTRLExample loop: feature pipeline -> LR warm start -> split stream ->
+# FTRL -> hot-reloading predict -> windowed eval -> JSON values
+# ---------------------------------------------------------------------------
+
+# the reference's FTRLExample.java (Alink examples module): avazu's schema,
+# its selected, categorical and numeric columns, its settings
+EX_SCHEMA = ("id STRING, click STRING, dt STRING, C1 STRING, "
+             "banner_pos INT, site_id STRING, site_domain STRING, "
+             "site_category STRING, app_id STRING, app_domain STRING, "
+             "app_category STRING, device_id STRING, device_ip STRING, "
+             "device_model STRING, device_type STRING, "
+             "device_conn_type STRING, "
+             + ", ".join(f"C{k} INT" for k in range(14, 22)))
+EX_CAT = ["C1", "banner_pos", "site_category", "app_domain", "app_category",
+          "device_type", "device_conn_type", "site_id", "site_domain",
+          "device_id", "device_model"]
+EX_NUM = [f"C{k}" for k in range(14, 22)]
+EX_SEL = (["C1", "banner_pos", "site_category", "app_domain",
+           "app_category", "device_type", "device_conn_type"] + EX_NUM
+          + ["site_id", "site_domain", "device_id", "device_model"])
+EX_FEATURES, EX_LR_ITER, EX_INTERVAL = 30_000, 10, 10.0
+EX_FTRL = dict(alpha=0.1, beta=0.1, l1=0.01, l2=0.01,
+               time_interval=EX_INTERVAL, vector_size=EX_FEATURES)
+EX_BATCH_ROWS, EX_STREAM_ROWS, EX_MICRO = 100_000, 262_144, 8192
+# the float64 card-against-CPU pair runs the first 16 micro-batches (one
+# interval snapshot and the final one, two windows): the CPU's plain
+# FTRL step takes about a minute a 65,536 training rows
+EX_CHECK_ROWS = 16 * EX_MICRO
+# vocabulary sizes of avazu's order (its train file: 7 C1 values, 26 site
+# categories, 4,737 site ids, 2.7 M device ids, 6.7 M device ips, ...),
+# the device id and ip cut to hundreds of thousands
+EX_VOCAB = {"C1": 7, "site_id": 4737, "site_domain": 7745,
+            "site_category": 26, "app_id": 8552, "app_domain": 559,
+            "app_category": 36, "device_id": 200_000, "device_ip": 400_000,
+            "device_model": 8251, "device_type": 5, "device_conn_type": 4}
+EX_INT_VALUES = {"banner_pos": [0, 1, 2, 3, 4, 5, 7],
+                 "C15": [320, 300, 216, 728, 120, 1024, 480, 768],
+                 "C16": [50, 250, 36, 480, 90, 20, 320, 768, 1024],
+                 "C18": [0, 3, 2, 1]}
+EX_INT_RANGES = {"C14": (375, 24053, 2626), "C17": (112, 2759, 435),
+                 "C19": (33, 1960, 68), "C20": (100_000, 100_249, 172),
+                 "C21": (1, 256, 60)}
+# the true model's columns and the scale of their per-value effects
+EX_TRUTH = {"site_id": 0.8, "app_id": 0.8, "device_model": 0.5,
+            "banner_pos": 0.4, "C1": 0.3, "device_type": 0.3,
+            "device_conn_type": 0.3, "site_category": 0.4, "C18": 0.3}
+EX_BIAS = -2.2
+
+
+def _zipf(rng, n, size, s=1.1):
+    """Zipf-skewed draws of ``n`` indices into ``size`` values."""
+    cdf = np.cumsum(1.0 / np.arange(1, size + 1) ** s)
+    return np.minimum(np.searchsorted(cdf / cdf[-1], rng.random(n)),
+                      size - 1)
+
+
+def avazu_world(seed):
+    """The vocabularies and the true logistic model, from the seed."""
+    rng = np.random.default_rng(seed)
+    vocab = {}
+    for col, size in EX_VOCAB.items():
+        if col == "C1":
+            vocab[col] = np.array([str(v) for v in (
+                1005, 1002, 1010, 1012, 1007, 1001, 1008)], object)
+        else:
+            vocab[col] = np.array([f"{v:08x}" for v in rng.integers(
+                0, 1 << 32, size)], object)
+    for col, values in EX_INT_VALUES.items():
+        vocab[col] = np.asarray(values, np.int64)
+    for col, (lo, hi, size) in EX_INT_RANGES.items():
+        vocab[col] = np.sort(rng.choice(np.arange(lo, hi), size, False))
+    truth = {col: rng.standard_normal(len(vocab[col])) * scale
+             for col, scale in EX_TRUTH.items()}
+    # a site's domain and an app's domain follow the id, as in avazu
+    domain_of = {"site_domain": rng.integers(0, EX_VOCAB["site_domain"],
+                                             EX_VOCAB["site_id"]),
+                 "app_domain": _zipf(rng, EX_VOCAB["app_id"],
+                                     EX_VOCAB["app_domain"])}
+    return vocab, truth, domain_of
+
+
+def avazu_rows(world, seed, n, id_base=0):
+    """``n`` avazu-shaped rows (``EX_SCHEMA``), Zipf-skewed over the
+    world's vocabularies; clicks drawn from the logistic of the true
+    model. Returns the table and the true logits."""
+    from alink_tpu_torch.common.mtable import MTable
+    vocab, truth, domain_of = world
+    rng = np.random.default_rng(seed)
+    ix = {col: _zipf(rng, n, len(v)) for col, v in vocab.items()
+          if col not in domain_of}
+    ix["site_domain"] = domain_of["site_domain"][ix["site_id"]]
+    ix["app_domain"] = domain_of["app_domain"][ix["app_id"]]
+    logit = EX_BIAS + sum(w[ix[col]] for col, w in truth.items())
+    y = rng.random(n) < 1.0 / (1.0 + np.exp(-logit))
+    cols = {"id": np.array([str(10_000_000_000 + id_base + i)
+                            for i in range(n)], object),
+            "click": np.where(y, "1", "0").astype(object),
+            "dt": np.array([f"141021{h:02d}" for h in
+                            rng.integers(0, 24, n)], object)}
+    for name in EX_SCHEMA.split(", "):
+        col = name.split()[0]
+        if col not in cols:
+            cols[col] = vocab[col][ix[col]]
+    return MTable(cols, EX_SCHEMA), logit
+
+
+def example_data(seed):
+    world = avazu_world(seed)
+    batch, _ = avazu_rows(world, seed + 1, EX_BATCH_ROWS)
+    stream, logit = avazu_rows(world, seed + 2, EX_STREAM_ROWS,
+                               id_base=EX_BATCH_ROWS)
+    return batch, stream, logit
+
+
+def example_pipeline(batch_data, path):
+    """The feature pipeline, fit and saved, then loaded back; its
+    seconds."""
+    from alink_tpu_torch.pipeline import Pipeline, PipelineModel
+    from alink_tpu_torch.pipeline.feature import FeatureHasher, StandardScaler
+    t0 = time.perf_counter()
+    fitted = Pipeline(
+        StandardScaler(selected_cols=EX_NUM),
+        FeatureHasher(selected_cols=EX_SEL, categorical_cols=EX_CAT,
+                      output_col="vec", num_features=EX_FEATURES,
+                      reserved_cols=["click"])).fit(batch_data)
+    t1 = time.perf_counter()
+    fitted.save(path)
+    loaded = PipelineModel.load(path)
+    t2 = time.perf_counter()
+    return loaded, {"fit_s": t1 - t0, "save_load_s": t2 - t1}
+
+
+def example_loop(data, loaded, device, dtype, profile=False):
+    """The FTRLExample loop through the port's entry points: the loaded
+    pipeline's features -> ``LogisticRegressionTrainBatchOp`` (the warm
+    start) -> ``SplitStreamOp`` -> ``transform_stream`` of both halves ->
+    ``FtrlTrainStreamOp`` -> ``FtrlPredictStreamOp`` (hot reload) ->
+    ``EvalBinaryClassStreamOp`` -> ``JsonValueStreamOp`` ->
+    ``CollectSinkStreamOp`` -> ``StreamOperator.execute()``. Returns the
+    warm start's table, the snapshots (taps on the model stream), the
+    sink's rows and the stage seconds."""
+    import torch
+    from alink_tpu_torch.operator.base import StreamOperator
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream.core import FnStreamOp
+    from alink_tpu_torch.operator.stream.dataproc import SplitStreamOp
+    from alink_tpu_torch.operator.stream.dataproc.format import \
+        JsonValueStreamOp
+    from alink_tpu_torch.operator.stream.evaluation import \
+        EvalBinaryClassStreamOp
+    from alink_tpu_torch.operator.stream.onlinelearning import (
+        FtrlPredictStreamOp, FtrlTrainStreamOp)
+    from alink_tpu_torch.operator.stream.sink import CollectSinkStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    batch, stream = data
+    out = {}
+    t0 = time.perf_counter()
+    feats = loaded.transform(MemSourceBatchOp(batch))
+    out["transform_s"] = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    lr = LogisticRegressionTrainBatchOp(
+        vector_col="vec", label_col="click", with_intercept=True,
+        max_iter=EX_LR_ITER, device=device, dtype=dtype).link_from(feats)
+    sync()
+    out["lr_s"] = time.perf_counter() - t0
+    out["supersteps"] = lr.get_side_output(0).get_output_table().num_rows
+    split = SplitStreamOp(fraction=0.5).link_from(
+        MemSourceStreamOp(stream, batch_size=EX_MICRO))
+    ftrl = FtrlTrainStreamOp(
+        lr, vector_col="vec", label_col="click", with_intercept=True,
+        device=device, ship_dtype=dtype, **EX_FTRL).link_from(
+        loaded.transform_stream(split))
+    snaps = []
+    tap = FnStreamOp(lambda mt: snaps.append(mt) or mt).link_from(ftrl)
+    pred = FtrlPredictStreamOp(
+        lr, vector_col="vec", prediction_col="pred",
+        prediction_detail_col="details", reserved_cols=["click"]).link_from(
+        tap, loaded.transform_stream(split.get_side_stream()))
+    ev = EvalBinaryClassStreamOp(label_col="click",
+                                 prediction_detail_col="details",
+                                 time_interval=EX_INTERVAL).link_from(pred)
+    vals = JsonValueStreamOp(
+        selected_col="Data", output_cols=["Accuracy", "AUC",
+                                          "ConfusionMatrix"],
+        json_path=["$.Accuracy", "$.AUC", "$.ConfusionMatrix"]).link_from(ev)
+    sink = CollectSinkStreamOp().link_from(vals)
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    sync()
+    t0 = time.perf_counter()
+    StreamOperator.execute()
+    sync()
+    out["drain_s"] = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+        busy_us = sum(float(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0)))
+                      for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        out["device_busy_s"] = busy_us / 1e6
+        out["device_busy_share"] = busy_us / 1e6 / out["drain_s"]
+    out["trainer"] = ftrl.trainer
+    return lr.get_output_table(), snaps, sink.get_and_remove_values(), out
+
+
+def example_host_only(data, loaded):
+    """Source -> split -> the pipeline's ``transform_stream`` on both
+    halves, consumed, without the FTRL or predict legs: the host's
+    ceiling. Returns the seconds, the training half's micro-batch sizes,
+    its first micro-batch and the evaluation half's last window."""
+    from alink_tpu_torch.operator.stream.dataproc import SplitStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    split = SplitStreamOp(fraction=0.5).link_from(
+        MemSourceStreamOp(data[1], batch_size=EX_MICRO))
+    last_start = (EX_STREAM_ROWS // EX_MICRO - 1) // int(EX_INTERVAL) \
+        * EX_INTERVAL
+    t0 = time.perf_counter()
+    sizes, first, last = [], None, None
+    for _, mt in loaded.transform_stream(split).timed_batches():
+        sizes.append(mt.num_rows)
+        first = mt if first is None else first
+    for t, mt in loaded.transform_stream(
+            split.get_side_stream()).timed_batches():
+        if t >= last_start:
+            last = mt if last is None else last.concat_rows(mt)
+    return time.perf_counter() - t0, sizes, first, last
+
+
+def example_eval_leg(data, loaded, warm):
+    """The loop's evaluation leg alone: source -> split -> the other
+    half's ``transform_stream`` -> ``FtrlPredictStreamOp`` scoring with
+    the warm start (an empty model stream) -> the windowed eval -> JSON
+    values, drained by ``StreamOperator.execute()``; its seconds."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.base import StreamOperator
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream.dataproc import SplitStreamOp
+    from alink_tpu_torch.operator.stream.dataproc.format import \
+        JsonValueStreamOp
+    from alink_tpu_torch.operator.stream.evaluation import \
+        EvalBinaryClassStreamOp
+    from alink_tpu_torch.operator.stream.onlinelearning import \
+        FtrlPredictStreamOp
+    from alink_tpu_torch.operator.stream.sink import CollectSinkStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    split = SplitStreamOp(fraction=0.5).link_from(
+        MemSourceStreamOp(data[1], batch_size=EX_MICRO))
+    lr = MemSourceBatchOp(warm)
+    pred = FtrlPredictStreamOp(
+        lr, vector_col="vec", prediction_col="pred",
+        prediction_detail_col="details", reserved_cols=["click"]).link_from(
+        MemSourceStreamOp(MTable([], warm.schema)),
+        loaded.transform_stream(split.get_side_stream()))
+    ev = EvalBinaryClassStreamOp(label_col="click",
+                                 prediction_detail_col="details",
+                                 time_interval=EX_INTERVAL).link_from(pred)
+    sink = CollectSinkStreamOp().link_from(JsonValueStreamOp(
+        selected_col="Data", output_cols=["AUC"],
+        json_path=["$.AUC"]).link_from(ev))
+    t0 = time.perf_counter()
+    StreamOperator.execute()
+    secs = time.perf_counter() - t0
+    require(sink.get_and_remove_values().num_rows > 0,
+            "the evaluation leg emitted eval rows")
+    return secs
+
+
+def _coefs(table):
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    return LinearModelDataConverter.load_table(table).coef
+
+
+def _eval_rows(sink):
+    return [(s, json.loads(d)) for s, d in zip(sink.col("Statistics"),
+                                                sink.col("Data"))]
+
+
+def phase_example(kernels, seed, card):
+    """13: the FTRLExample loop on the card at 30,000 hashed features;
+    ``kernels`` are the kernel modules, whose launch counts the float32
+    run reads."""
+    import torch
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionPredictBatchOp
+    from alink_tpu_torch.operator.batch.evaluation.eval_ops import \
+        parse_detail_probs
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.evaluation.metrics import \
+        binary_metrics
+    tag = f"[{card}]"
+    t0 = time.perf_counter()
+    batch, stream, logit = example_data(seed)
+    data = (batch, stream)
+    y_stream = np.asarray(stream.col("click")) == "1"
+    out = {"card": card, "batch_rows": EX_BATCH_ROWS,
+           "stream_rows": EX_STREAM_ROWS, "micro_batch": EX_MICRO,
+           "features": EX_FEATURES, "data_s": time.perf_counter() - t0,
+           "click_rate": float(y_stream.mean()),
+           "bayes_auc": rank_auc(y_stream.astype(np.int64), logit)}
+    path = str(Path(__file__).resolve().parent / "build" / "ftrl_example"
+               / "feature_pipeline.json")
+    loaded, times = example_pipeline(MemSourceBatchOp(batch), path)
+    out.update(times)
+    print(f"ftrl example {tag}: {EX_BATCH_ROWS} batch rows, "
+          f"{EX_STREAM_ROWS} stream rows, click rate "
+          f"{out['click_rate']:.4f}, Bayes AUC {out['bayes_auc']}; "
+          f"pipeline fit {times['fit_s']:.3f} s, save + load "
+          f"{times['save_load_s']:.3f} s", flush=True)
+    host_s, sizes, first, last = example_host_only(data, loaded)
+    out.update(host_only_s=host_s,
+               host_only_rows_per_s=EX_STREAM_ROWS / host_s,
+               train_rows=int(sum(sizes)), train_micro_batches=len(sizes))
+    print(f"ftrl example {tag}: host-only drain (source -> split -> "
+          f"transform_stream on both halves) {host_s:.3f} s, "
+          f"{EX_STREAM_ROWS / host_s:.1f} stream rows/s", flush=True)
+    # the float32 card run: launch counts, times, the busy share
+    for k in kernels:
+        k.reset_launch_counts()
+    torch.cuda.synchronize()
+    lr32, snaps32, rows32, run32 = example_loop(data, loaded, "cuda",
+                                                torch.float32)
+    counts = {name: c for k in kernels
+              for name, c in k.launch_counts().items()}
+    n = run32["supersteps"]
+    chunks = sum(-(-max(sizes[0], r) // 4) for r in sizes)
+    want = {"linear_grad": n, "serve_sparse": 2 * n,
+            "ftrl_gather_pair": chunks, "ftrl_walk": chunks,
+            "ftrl_scatter_add": 2 * chunks, "ftrl_gather": 0,
+            "serve_dense": 0, "tree_hist": 0}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"the loop's launches {got} are the design's "
+                         f"{want}")
+    out["launches"] = counts
+    rows_s = EX_STREAM_ROWS / run32["drain_s"]
+    out.update(lr_s=run32["lr_s"], supersteps=n,
+               transform_s=run32["transform_s"], drain_s=run32["drain_s"],
+               stream_rows_per_s=rows_s,
+               ftrl_samples_per_s=out["train_rows"] / run32["drain_s"])
+    print(f"ftrl example {tag}: LR {run32['lr_s']:.3f} s ({n} supersteps), "
+          f"drain {run32['drain_s']:.3f} s, {rows_s:.1f} stream rows/s, "
+          f"FTRL {out['ftrl_samples_per_s']:.1f} samples/s; launches "
+          f"{got}", flush=True)
+    # reproducible: a second float32 card run, under the profiler
+    lr32b, snaps32b, rows32b, run32b = example_loop(
+        data, loaded, "cuda", torch.float32, profile=True)
+    require(np.array_equal(_coefs(lr32).view(np.int64),
+                           _coefs(lr32b).view(np.int64))
+            and len(snaps32) == len(snaps32b)
+            and all(np.array_equal(_coefs(a).view(np.int64),
+                                   _coefs(b).view(np.int64))
+                    for a, b in zip(snaps32, snaps32b))
+            and list(rows32.col("Data")) == list(rows32b.col("Data")),
+            "two float32 card runs give bitwise-equal warm starts and "
+            "snapshots and equal eval JSON")
+    out.update(profiled_drain_s=run32b["drain_s"],
+               device_busy_s=run32b.get("device_busy_s"),
+               device_busy_share=run32b.get("device_busy_share"))
+    out["stage_ms"] = dict(trainer_stages(run32["trainer"], first, 3)[0],
+                           rows=first.num_rows)
+    out["eval_leg_s"] = example_eval_leg(data, loaded, lr32)
+    print(f"ftrl example {tag}: two float32 runs bitwise; card busy "
+          f"{out['device_busy_s']} s of a {run32b['drain_s']:.3f} s "
+          f"profiled drain (share {out['device_busy_share']}, a floor); "
+          f"trainer stages of a {first.num_rows}-row micro-batch (ms): "
+          f"{out['stage_ms']}; the evaluation leg alone (split, features, "
+          f"warm-start scoring, eval, JSON) {out['eval_leg_s']:.3f} s",
+          flush=True)
+    # float64: the card against the CPU, on the stream's first
+    # EX_CHECK_ROWS rows
+    runs = {}
+    check = (batch, stream.first_n(EX_CHECK_ROWS))
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = example_loop(check, loaded, dev, torch.float64)
+        runs[dev][3]["wall_s"] = time.perf_counter() - t0
+    (glr, gsn, grow, _), (clr, csn, crow, crun) = runs["cuda"], runs["cpu"]
+    gaps = [np.abs(_coefs(glr) - _coefs(clr)) / np.abs(_coefs(clr)).clip(
+        1e-300)]
+    require(bool((gaps[0] <= 1e-10).all()),
+            f"the float64 card warm start within rtol 1e-10 of the CPU's "
+            f"(max {gaps[0].max()})")
+    require(len(gsn) == len(csn) > 1,
+            f"as many snapshots on the card as on the CPU: {len(gsn)}, "
+            f"{len(csn)}")
+    for a, b in zip(gsn, csn):
+        gap = np.abs(_coefs(a) - _coefs(b)) / np.abs(_coefs(b)).clip(1e-300)
+        require(bool((gap <= 1e-10).all()),
+                f"a float64 card snapshot within rtol 1e-10 of the CPU's "
+                f"(max {gap.max()})")
+        gaps.append(gap)
+    ge, ce = _eval_rows(grow), _eval_rows(crow)
+    auc_gap = 0.0
+    require(len(ge) == len(ce) and [s for s, _ in ge] == [s for s, _ in ce],
+            "the same eval rows on the card and the CPU")
+    for (s, a), (_, b) in zip(ge, ce):
+        require(a["ConfusionMatrix"] == b["ConfusionMatrix"],
+                f"eval {s} row: equal confusion matrices")
+        if b["AUC"] is not None:
+            auc_gap = max(auc_gap, abs(a["AUC"] - b["AUC"]))
+    require(auc_gap <= 1e-6, f"eval AUC within 1e-6: {auc_gap}")
+    out["card_vs_cpu_f64"] = {
+        "coef_max_rel_gap": float(max(g.max() for g in gaps)),
+        "auc_max_gap": auc_gap, "snapshots": len(gsn),
+        "stream_rows": EX_CHECK_ROWS, "eval_rows": len(ge),
+        "cpu_drain_s": crun["drain_s"], "cpu_lr_s": crun["lr_s"],
+        "cpu_wall_s": crun["wall_s"]}
+    # learns: the last window's AUC against the warm start's on its rows
+    evals = _eval_rows(rows32)
+    windows = [m.get("AUC") for s, m in evals if s == "window"]
+    cumulative = [m.get("AUC") for s, m in evals if s == "all"]
+    warm = LogisticRegressionPredictBatchOp(
+        prediction_col="pred", prediction_detail_col="details",
+        vector_col="vec").link_from(MemSourceBatchOp(lr32),
+                                    MemSourceBatchOp(last))
+    pos, p_pos = parse_detail_probs(warm.get_output_table().col("details"))
+    warm_auc = binary_metrics(last.col("click"), p_pos, pos).get("AUC")
+    require(windows[-1] is not None and windows[-1] > 0.6,
+            f"the last window's AUC is above 0.6: {windows[-1]}")
+    out.update(window_auc=windows, cumulative_auc=cumulative,
+               warm_start_auc_last_window=warm_auc,
+               last_window_rows=last.num_rows)
+    print(f"ftrl example {tag}: float64 card vs CPU: coefficients max rel "
+          f"gap {out['card_vs_cpu_f64']['coef_max_rel_gap']} over the warm "
+          f"start and {len(gsn)} snapshots, AUC max gap {auc_gap} over "
+          f"{len(ge)} eval rows ({EX_CHECK_ROWS} stream rows); CPU drain "
+          f"{crun['drain_s']:.3f} s", flush=True)
+    print(f"ftrl example {tag}: window AUC {windows}, cumulative "
+          f"{cumulative}; the last window ({last.num_rows} rows): FTRL "
+          f"{windows[-1]}, the warm start {warm_auc}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2747,6 +3234,11 @@ def main(argv=None) -> int:
     lr_main = phase_lr_main(kl, ks, kf)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 13. the FTRLExample loop end to end ------------------------------
+    t0 = time.perf_counter()
+    example = phase_example((ks, kl, kf, kh), args.seed, card)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -2864,8 +3356,10 @@ def main(argv=None) -> int:
         "serve_sparse"]
     kernels[1]["lr_main_path_launches"] = lr_main["main_path_launches"][
         "serve_sparse"]
+    for rec in kernels:
+        rec["example_loop_launches"] = example["launches"][rec["name"]]
     print(json.dumps({"main_path": {
-        "lbfgs": lbfgs, "lr_main": lr_main,
+        "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,
         "ftrl": ftrl, "out_of_range_indices": bad_slots,
         "card": card, "sparse_rows_per_s": N_REQUESTS / secs,

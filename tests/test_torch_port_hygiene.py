@@ -96,7 +96,21 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.common.optim.objfunc",
               "alink_tpu_torch.operator.common.optim.optimizers",
               "alink_tpu_torch.operator.common.linear.base",
-              "alink_tpu_torch.operator.batch.classification.linear"):
+              "alink_tpu_torch.operator.batch.classification.linear",
+              "alink_tpu_torch.operator.batch.feature.feature_ops",
+              "alink_tpu_torch.operator.common.statistics.summarizer",
+              "alink_tpu_torch.operator.batch.dataproc",
+              "alink_tpu_torch.operator.batch.dataproc.scalers",
+              "alink_tpu_torch.operator.stream.utils",
+              "alink_tpu_torch.operator.stream.batch_twins",
+              "alink_tpu_torch.operator.stream.dataproc",
+              "alink_tpu_torch.operator.stream.dataproc.format",
+              "alink_tpu_torch.operator.common.evaluation.metrics",
+              "alink_tpu_torch.operator.batch.evaluation.eval_ops",
+              "alink_tpu_torch.operator.stream.evaluation",
+              "alink_tpu_torch.pipeline.base",
+              "alink_tpu_torch.pipeline.feature",
+              "alink_tpu_torch.pipeline.classification"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu"):
@@ -118,3 +132,79 @@ def test_kernel_ab_names_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|alink_tpu)(\.|\s|$)",
                      re.MULTILINE)
     assert not pat.findall(src)
+
+
+def test_feature_hasher_loads_no_jax_library():
+    """Hashing a batch (flat and field-aware) and hashing to fields load
+    no shared library of the JAX package (its native parser) and import
+    neither ``jax`` nor ``alink_tpu``."""
+    code = (
+        "import sys, numpy as np\n"
+        "from alink_tpu_torch.common.mtable import MTable\n"
+        "from alink_tpu_torch.operator.base import TableSourceBatchOp\n"
+        "from alink_tpu_torch.operator.batch.feature.feature_ops import "
+        "FeatureHasherBatchOp, murmur32_cells\n"
+        "from alink_tpu_torch.ops.fieldblock import hash_to_fields\n"
+        "t = MTable({'s': np.array(['a', 'b', None], object), "
+        "'x': np.array([1.0, 2.0, 3.0])}, 's STRING, x DOUBLE')\n"
+        "for fa in (False, True):\n"
+        "    FeatureHasherBatchOp(selected_cols=['s', 'x'], "
+        "num_features=64, field_aware=fa).link_from(TableSourceBatchOp(t))\n"
+        "murmur32_cells([b'a', b'bc'], mod=7)\n"
+        "hash_to_fields([[1, 2], ['a', 'b']], 16)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'alink_tpu' or "
+        "k.startswith('alink_tpu.'))\n"
+        "assert '_parser.native' not in maps and 'alink_tpu/native' "
+        "not in maps, 'a JAX-package library is mapped'\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _lr_table():
+    import numpy as np
+
+    from alink_tpu_torch.common.mtable import MTable
+    rng = np.random.RandomState(0)
+    x = rng.randn(40)
+    return MTable({"x": x, "y": (x + 0.3 * rng.randn(40) > 0).astype(int)},
+                  "x DOUBLE, y LONG")
+
+
+def test_estimators_default_to_the_card(monkeypatch):
+    """A ``LogisticRegression`` estimator, alone or in a ``Pipeline``,
+    given no device raises without CUDA (the train op resolves
+    ``cuda``); given ``device="cpu"`` (its own, or the pipeline's) it
+    trains on the CPU. The device is not a param and is not saved."""
+    import torch
+
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.pipeline import Pipeline
+    from alink_tpu_torch.pipeline.classification import LogisticRegression
+    from alink_tpu_torch.pipeline.feature import StandardScaler
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = MemSourceBatchOp(_lr_table())
+    kw = dict(feature_cols=["x"], label_col="y", prediction_col="p",
+              max_iter=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Pipeline(StandardScaler(selected_cols=["x"]),
+                 LogisticRegression(**kw)).fit(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LogisticRegression(**kw).fit(data)
+    stage = LogisticRegression(**kw)
+    for model in (
+            Pipeline(StandardScaler(selected_cols=["x"]), stage,
+                     device="cpu").fit(data),
+            Pipeline(StandardScaler(selected_cols=["x"]),
+                     LogisticRegression(device="cpu", **kw)).fit(data),
+            LogisticRegression(device="cpu", **kw).fit(data)):
+        out = model.transform(data).get_output_table()
+        assert out.num_rows == 40 and "p" in out.col_names
+    assert stage.device is None                   # the caller's stage
+    assert stage.clone().device is None
+    assert LogisticRegression(device="cpu", **kw).clone().device == "cpu"
+    assert "device" not in LogisticRegression(device="cpu", **kw) \
+        .params.to_json()
