@@ -1,34 +1,48 @@
-// The ordered sparse gradient of linear training for Hopper (sm_90a).
+// The ordered keyed sums of linear training and of FTRL's batch step, for
+// Hopper (sm_90a): one run walk, two sources of terms.
 //
-// What it replaces: no TPU kernel. It is the port's form of the gradient
-// X^T c of a padded-COO or field-blocked design
-// (alink_tpu/operator/common/optim/objfunc.py::rmatvec, an XLA scatter-add,
-// and alink_tpu/ops/fieldblock.py::fb_rmatvec, a one-hot product), written
-// because PyTorch's index_add_ adds with atomics on the card: two trainings
-// would not give the same bits.
+// What they replace: no TPU kernel.
+//  * P1, the sparse gradient X^T c of a padded-COO or field-blocked design
+//    (alink_tpu/operator/common/optim/objfunc.py::rmatvec, an XLA
+//    scatter-add, and alink_tpu/ops/fieldblock.py::fb_rmatvec, a one-hot
+//    product);
+//  * P2, FTRL's batch update z.at[li].add(dz), n.at[li].add(dn)
+//    (alink_tpu/operator/stream/onlinelearning/ftrl.py::
+//    _ftrl_sparse_batch_step_factory, an XLA scatter-add).
+// Both written because PyTorch's index_add_ adds with atomics on the card:
+// two runs would not give the same bits.
 //
-// Contract (kernels/linear.py::linear_grad_plain, bitwise):
-//   grad[s] = sum of val[p] * c[p / width] over the flat positions p with
-//             key[p] == s, each product rounded on its own (__fmul_rn /
-//             __dmul_rn), added in ascending p (row, then column) from +0.0,
-//             one rounded add each (__fadd_rn / __dadd_rn). A slot no
-//             position names gets +0.0.
-// That is what the JAX package's scatter-add and index_add_ compute on the
-// CPU. Built with --fmad=false as well, so nothing contracts.
+// Contracts, bitwise (each add one rounded __fadd_rn / __dadd_rn, built with
+// --fmad=false as well, so nothing contracts):
+//  * P1 (kernels/linear.py::linear_grad_plain): grad[s] = the sum of
+//    val[p] * c[p / width] over the flat positions p with key[p] == s, each
+//    product rounded on its own (__fmul_rn / __dmul_rn), added in ascending
+//    p (row, then column) from +0.0. The kernel writes only the slots that
+//    positions name, into a vector the caller zeroed, so a slot no position
+//    names is +0.0. That is what the JAX package's scatter-add and
+//    index_add_ compute on the CPU.
+//  * P2 (kernels/ftrl.py::scatter_add_rows_plain, the JAX package's
+//    .at[].add): z[key[p]] += term[p, 0] and n[key[p]] += term[p, 1] for
+//    every position p in ascending order, in place, both in one launch. A
+//    slot no position names is never written, so it keeps its bits (a
+//    stored -0.0 too).
 //
-// The plan (kernels/linear.py::grad_plan, built once a training: the key
-// layout does not change between supersteps): perm, the positions stably
-// sorted by key, so each slot's positions form a run in ascending order;
-// starts[s] .. starts[s + 1], slot s's run in perm; and order, the slots
-// in three classes: the n_heavy runs of at least HEAVY_MIN terms and the
-// n_medium runs of more than SHORT_MAX, each by length, longest first (ties
-// by slot), then the short rest (empty runs included) by slot.
+// The plan, one for both (kernels/linear.py::run_plan, over the distinct
+// keys of the positions: built once a training for P1's design, once a
+// micro-batch for FTRL's): perm, the positions stably sorted by key, so
+// each run's positions are in ascending order; starts[r] .. starts[r + 1],
+// run r in perm; slots[r], run r's key; and order, the runs in three
+// classes: the n_heavy runs of at least HEAVY_MIN terms and the n_medium
+// runs of more than SHORT_MAX, each by length, longest first (ties by run),
+// then the short rest by run. Runs are in key order.
 //
 // What bounds it: its longest run. With an intercept every row names slot
 // 0, so its run is n dependent adds, one after the other, in one thread: n
 // times the add's latency is the kernel's floor (about 0.43 ms in float32
-// and 0.82 ms in float64 at n = 200,000 and 1980 MHz). Everything else is
-// short work in parallel, and its bytes bound is a few hundredths of that.
+// and 0.82 ms in float64 at n = 200,000 and 1980 MHz). P2 walks z's and
+// n's chains of a run side by side in one thread, so the two cost about one
+// chain. Everything else is short work in parallel, and its bytes bound is a
+// few hundredths of that.
 //
 // Design: one launch, two kinds of block.
 //
@@ -36,16 +50,16 @@
 //   cluster, so the scheduler places them before the bulk) each walk heavy
 //   runs order[k], order[k + clusters], ... The launch then asks for the
 //   opt-in maximum of shared memory, so every block holds an SM alone.
-//   Block 0's thread 0 is the walker: it only adds, reading staged
-//   products out of a shared-memory ring as 16-byte vectors a group of 32
-//   floats (16 doubles) ahead. Block 1's eight warps are the producers:
-//   they fetch positions, then their values and their rows' c (the row is
-//   p / width by a multiply with a precomputed magic number), form the
+//   Block 0's thread 0 is the walker: it only adds, reading staged terms
+//   out of a shared-memory ring as 16-byte vectors a group of 32 floats
+//   (16 doubles) ahead. Block 1's eight warps are the producers: they fetch
+//   positions, then their terms (P1: the values and their rows' c, the row
+//   by a multiply with a precomputed magic number; P2: the terms), form the
 //   rounded products and store them into the walker's ring across the
 //   cluster. Full and empty slots are signalled with mbarriers, so neither
 //   side waits on the other unless the ring is empty or full (see
 //   heavy_cluster).
-// * Light blocks walk every other slot: a medium run by a warp (its lanes
+// * Light blocks walk every other run: a medium run by a warp (its lanes
 //   fetch and stage 256 terms at a time, lane 0 adds them in order while
 //   the next stage's loads are in flight), a short run by one lane, which
 //   issues its run's loads 8 at a time before it adds them, the next run's
@@ -63,13 +77,9 @@ namespace {
 constexpr int kWarps = 8;                  // warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 8;                 // terms a lane fetches at a time
-constexpr int kStage = 32 * kUnroll;       // a light warp's stage
-constexpr int kRounds = 4;                 // a producer's rounds a slot
-constexpr int kHeavyStage = kRounds * kStage;  // a ring slot's terms
-// a producer's rounds of terms in flight at once: all of a slot's in
-// float32; two in float64, whose registers would not hold more
-template <typename T>
-constexpr int kTermsAhead = sizeof(T) == 4 ? kRounds : 2;
+constexpr int kStage = 32 * kUnroll;       // a light warp's stage, in terms
+constexpr int kRounds = 4;                 // a producer's rounds a slot (one chain)
+constexpr int kSlot = kRounds * kStage;    // a ring slot's values
 constexpr int kProducers = kWarps;         // the producers' block
 constexpr int kRing = 2 * kProducers;      // slots; each producer owns two
 
@@ -86,6 +96,81 @@ __device__ __forceinline__ int row_of(int p, unsigned magic, int shift) {
                           shift);
 }
 
+// -- the sources of terms ---------------------------------------------------
+//
+// A source says what a run's chains start from and where they go (init,
+// store, by run), and what its term at a position is: load() issues the
+// position's loads (a position of -1, past a run's end, loads nothing and
+// gives 0), term() forms chain q's term from them. P chains a run, added
+// side by side; a staged buffer holds a term's P values together.
+
+// P1: one chain, from +0.0 into out[slots[r]]; the term
+// val[p] * c[p / width]
+template <typename T_>
+struct GradTerms {
+  using T = T_;
+  static constexpr int P = 1;
+  struct Raw {
+    T v, c;
+  };
+  const T* __restrict__ val;
+  const T* __restrict__ c;
+  T* __restrict__ out;
+  const int* __restrict__ slots;
+  unsigned magic;
+  int shift;
+  __device__ __forceinline__ Raw load(int p) const {
+    Raw r;
+    r.v = p >= 0 ? __ldg(val + p) : T(0);
+    r.c = p >= 0 ? __ldg(c + row_of(p, magic, shift)) : T(0);
+    return r;
+  }
+  __device__ __forceinline__ T term(const Raw& r, int) const { return mul_rn(r.v, r.c); }
+  __device__ __forceinline__ void init(T (&acc)[P], int) const { acc[0] = T(0); }
+  __device__ __forceinline__ void store(const T (&acc)[P], int r) const {
+    out[__ldg(slots + r)] = acc[0];
+  }
+};
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// P2: two chains, z's and n's, from z[slots[r]] and n[slots[r]] and back
+// there; the terms at p are terms[2p] and terms[2p + 1], one 8- or 16-byte
+// load
+template <typename T_>
+struct AddTerms {
+  using T = T_;
+  static constexpr int P = 2;
+  using Raw = typename Pair<T>::type;
+  const T* __restrict__ terms;
+  T* z;
+  T* n;
+  const int* __restrict__ slots;
+  __device__ __forceinline__ Raw load(int p) const {
+    return p >= 0 ? __ldg(reinterpret_cast<const Raw*>(terms) + p) : Raw{T(0), T(0)};
+  }
+  __device__ __forceinline__ T term(const Raw& r, int q) const { return q == 0 ? r.x : r.y; }
+  __device__ __forceinline__ void init(T (&acc)[P], int r) const {
+    const int s = __ldg(slots + r);
+    acc[0] = z[s];
+    acc[1] = n[s];
+  }
+  __device__ __forceinline__ void store(const T (&acc)[P], int r) const {
+    const int s = __ldg(slots + r);
+    z[s] = acc[0];
+    n[s] = acc[1];
+  }
+};
+
 // The walk's adds as volatile asm statements. The compiler keeps volatile
 // statements in the order written, so the adds and the shared-memory reads
 // of the walk (below) stay interleaved as add_staged lays them out: each
@@ -101,27 +186,33 @@ __device__ __forceinline__ double chain_add(double a, double b) {
   return a;
 }
 
-// 16-byte vectors of shared memory, added to a chain element by element
+// 16-byte vectors of shared memory, added element by element, element e to
+// chain e % P (a vector holds whole terms: 4 and 2 are multiples of P)
 template <typename T>
 struct Vec;
 template <>
 struct Vec<float> {
   using type = float4;
-  __device__ __forceinline__ static float add(float a, float4 v) {
-    return chain_add(chain_add(chain_add(chain_add(a, v.x), v.y), v.z), v.w);
+  template <int P>
+  __device__ __forceinline__ static void add(float (&a)[P], float4 v) {
+    a[0] = chain_add(a[0], v.x);
+    a[1 % P] = chain_add(a[1 % P], v.y);
+    a[2 % P] = chain_add(a[2 % P], v.z);
+    a[3 % P] = chain_add(a[3 % P], v.w);
   }
 };
 template <>
 struct Vec<double> {
   using type = double2;
-  __device__ __forceinline__ static double add(double a, double2 v) {
-    return chain_add(chain_add(a, v.x), v.y);
+  template <int P>
+  __device__ __forceinline__ static void add(double (&a)[P], double2 v) {
+    a[0] = chain_add(a[0], v.x);
+    a[1 % P] = chain_add(a[1 % P], v.y);
   }
 };
 
-// kUnroll consecutive-by-32 positions of a run from j0: the positions
-// (perm), then each position's value and its row's c. Past the run's end a
-// position is -1 and its term 0.
+// kUnroll consecutive-by-32 positions of a run from j0 (perm). Past the
+// run's end a position is -1.
 __device__ __forceinline__ void fetch_pos(int (&pos)[kUnroll], const int* __restrict__ perm,
                                           int j0, int end) {
 #pragma unroll
@@ -131,33 +222,26 @@ __device__ __forceinline__ void fetch_pos(int (&pos)[kUnroll], const int* __rest
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void fetch_terms(T (&v)[kUnroll], T (&cv)[kUnroll],
-                                            const int (&pos)[kUnroll],
-                                            const T* __restrict__ val,
-                                            const T* __restrict__ c, unsigned magic,
-                                            int shift) {
+// each position's loads
+template <typename Src>
+__device__ __forceinline__ void fetch_terms(typename Src::Raw (&raw)[kUnroll],
+                                            const int (&pos)[kUnroll], const Src& src) {
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int p = pos[u];
-    v[u] = p >= 0 ? __ldg(val + p) : T(0);
-    cv[u] = p >= 0 ? __ldg(c + row_of(p, magic, shift)) : T(0);
-  }
+  for (int u = 0; u < kUnroll; ++u) raw[u] = src.load(pos[u]);
 }
 
-// The chain over cnt staged terms, in order, of a buffer of cap terms. The
-// terms come out of shared memory as 16-byte vectors, eight vectors (32
-// floats or 16 doubles: a group) at a time into two sets of registers in
-// turn: one set is read while the other is added, so a read's latency stays
-// off the chain, and nothing is moved between the two. The read of the
-// group after next is unconditional, clamped to the buffer's last group
-// (whose values then go unused), so that no branch splits it from the adds
-// it overlaps.
-template <typename T>
-__device__ __forceinline__ T add_vecs(T acc, const typename Vec<T>::type (&x)[8]) {
+// The chains over cnt staged values (cnt / P terms), in order, of a buffer
+// of cap values. The values come out of shared memory as 16-byte vectors,
+// eight vectors (32 floats or 16 doubles: a group) at a time into two sets
+// of registers in turn: one set is read while the other is added, so a
+// read's latency stays off the chains, and nothing is moved between the two.
+// The read of the group after next is unconditional, clamped to the
+// buffer's last group (whose values then go unused), so that no branch
+// splits it from the adds it overlaps.
+template <typename T, int P>
+__device__ __forceinline__ void add_vecs(T (&acc)[P], const typename Vec<T>::type (&x)[8]) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q) acc = Vec<T>::add(acc, x[q]);
-  return acc;
+  for (int q = 0; q < 8; ++q) Vec<T>::template add<P>(acc, x[q]);
 }
 
 // A 16-byte read of shared memory as a volatile asm statement (see
@@ -182,11 +266,11 @@ __device__ __forceinline__ void read_vecs(typename Vec<T>::type (&x)[8], const T
   for (int q = 0; q < 8; ++q) read_vec(x[q], reinterpret_cast<const V*>(buf) + group * 8 + q);
 }
 
-template <typename T, int kCap>
-__device__ __forceinline__ T add_staged(T acc, const T* buf, int cnt) {
+template <typename T, int P, int kCap>
+__device__ __forceinline__ void add_staged(T (&acc)[P], const T* buf, int cnt) {
   using V = typename Vec<T>::type;
   constexpr int kGroup = 8 * static_cast<int>(sizeof(V) / sizeof(T));
-  static_assert(kCap % kGroup == 0, "a buffer holds whole groups");
+  static_assert(kCap % kGroup == 0 && kGroup % P == 0, "a buffer holds whole groups");
   constexpr int kLast = kCap / kGroup - 1;
   const int groups = cnt / kGroup;
   V a[8], b[8];
@@ -194,16 +278,18 @@ __device__ __forceinline__ T add_staged(T acc, const T* buf, int cnt) {
   if (groups > 0) read_vecs<T>(a, buf, 0);
   for (; g + 2 <= groups; g += 2) {
     read_vecs<T>(b, buf, g + 1);
-    acc = add_vecs<T>(acc, a);
+    add_vecs<T, P>(acc, a);
     read_vecs<T>(a, buf, min(g + 2, kLast));
-    acc = add_vecs<T>(acc, b);
+    add_vecs<T, P>(acc, b);
   }
   if (g < groups) {
-    acc = add_vecs<T>(acc, a);
+    add_vecs<T, P>(acc, a);
     ++g;
   }
-  for (int k = g * kGroup; k < cnt; ++k) acc = add_rn(acc, buf[k]);
-  return acc;
+  for (int k = g * kGroup; k < cnt; k += P) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) acc[q] = add_rn(acc[q], buf[k + q]);
+  }
 }
 
 // -- mbarriers, the cluster of a heavy run and its remote stores (PTX) ----
@@ -294,8 +380,6 @@ struct Args {
   const int* perm;
   const int* starts;
   const int* order;
-  unsigned magic;
-  int shift;
   int n_heavy, n_medium, n_short;
   int heavy_blocks;
 };
@@ -303,14 +387,14 @@ struct Args {
 // -- heavy clusters --------------------------------------------------------
 //
 // A heavy run is walked by a cluster of two blocks, each on an SM of its
-// own. Block 0 (the walker's) holds the ring, kRing slots of kHeavyStage
-// terms, full[i] (32 arrivals: the filling producer warp's lanes) and
-// read[i] (1 arrival: the walker); block 1 (the producers') holds empty[i]
-// (1 arrival). Both blocks lay their shared memory out alike: full, read,
-// empty, ring. Stage g of the cluster (its runs' stages counted in order)
-// goes into slot g % kRing and is filled by producer warp g % kProducers;
-// kRing is a multiple of kProducers, so a slot always has the same producer
-// and each side sees its barriers' phases in order.
+// own. Block 0 (the walker's) holds the ring, kRing slots of kSlot values
+// (kSlot / P terms), full[i] (32 arrivals: the filling producer warp's
+// lanes) and read[i] (1 arrival: the walker); block 1 (the producers')
+// holds empty[i] (1 arrival). Both blocks lay their shared memory out
+// alike: full, read, empty, ring. Stage g of the cluster (its runs' stages
+// counted in order) goes into slot g % kRing and is filled by producer warp
+// g % kProducers; kRing is a multiple of kProducers, so a slot always has
+// the same producer and each side sees its barriers' phases in order.
 //
 // The producers' loads run on the other SM: a column's run (the
 // intercept's) loads a cache line a term, and on the walker's SM those
@@ -322,10 +406,12 @@ struct Args {
 // end: the walker has read every stage block 1 writes, and the relay
 // passes on only the slots a producer will wait for, so no thread reaches
 // the other block after that block's last wait on it.
-template <typename T>
-__device__ __forceinline__ void heavy_cluster(const Args& a, const T* __restrict__ val,
-                                              const T* __restrict__ c, T* __restrict__ out,
-                                              unsigned char* smem) {
+template <typename Src>
+__device__ __forceinline__ void heavy_cluster(const Args& a, const Src& src, unsigned char* smem) {
+  using T = typename Src::T;
+  constexpr int P = Src::P;
+  constexpr int kRoundsP = kRounds / P;        // a producer's rounds a slot
+  constexpr int kHeavyStage = kRoundsP * kStage;  // a ring slot's terms
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* read = full + kRing;
   uint64_t* empty = read + kRing;
@@ -352,15 +438,15 @@ __device__ __forceinline__ void heavy_cluster(const Args& a, const T* __restrict
       const int s = __ldg(a.order + r);
       const int b = __ldg(a.starts + s);
       const int e = __ldg(a.starts + s + 1);
-      T acc = T(0);
+      T acc[P];
+      src.init(acc, s);
       for (int base = b; base < e; base += kHeavyStage, ++g) {
         const unsigned slot = g % kRing;
         bar_wait(full + slot, (g / kRing) & 1u);
-        acc = add_staged<T, kHeavyStage>(acc, ring + slot * kHeavyStage,
-                                          min(kHeavyStage, e - base));
+        add_staged<T, P, kSlot>(acc, ring + slot * kSlot, min(kHeavyStage, e - base) * P);
         bar_arrive(read + slot);
       }
-      out[s] = acc;
+      src.store(acc, s);
     }
   } else if (rank == 0 && threadIdx.x == 32) {
     // the relay: the cluster's stages, then each slot read on to block 1
@@ -381,7 +467,7 @@ __device__ __forceinline__ void heavy_cluster(const Args& a, const T* __restrict
     const int lane = threadIdx.x & 31;
     const unsigned j = threadIdx.x >> 5;
     const unsigned full_at = map_to(smem_addr(full), 0);
-    const unsigned ring_at = map_to(smem_addr(ring), 0) + lane * sizeof(T);
+    const unsigned ring_at = map_to(smem_addr(ring), 0) + lane * P * sizeof(T);
     unsigned g = 0;
     for (int r = cluster; r < a.n_heavy; r += clusters) {
       const int s = __ldg(a.order + r);
@@ -390,29 +476,29 @@ __device__ __forceinline__ void heavy_cluster(const Args& a, const T* __restrict
       for (int base = b; base < e; base += kHeavyStage, ++g) {
         if (g % kProducers != j) continue;
         const unsigned slot = g % kRing;
-        const unsigned dst = ring_at + slot * kHeavyStage * sizeof(T);
-        // every round's positions, then the first kAhead rounds' terms, are
-        // fetched before the slot is free; each later round's terms kAhead
-        // rounds ahead of their stores. Past the run's end a term is 0 and
-        // goes unread.
-        constexpr int kAhead = kTermsAhead<T>;
-        int pos[kRounds][kUnroll];
-        T v[kAhead][kUnroll], cv[kAhead][kUnroll];
+        const unsigned dst = ring_at + slot * kSlot * sizeof(T);
+        // every round's positions, then the first kAhead rounds' loads, are
+        // fetched before the slot is free; each later round's loads kAhead
+        // rounds ahead of their stores (all of a slot's rounds where a
+        // term's loads are 8 bytes or less; two where registers would not
+        // hold more). Past the run's end a term is 0 and goes unread.
+        constexpr int kAhead = sizeof(typename Src::Raw) <= 8 ? kRoundsP : 2;
+        int pos[kRoundsP][kUnroll];
+        typename Src::Raw raw[kAhead][kUnroll];
 #pragma unroll
-        for (int h = 0; h < kRounds; ++h) fetch_pos(pos[h], a.perm, base + h * kStage + lane, e);
+        for (int h = 0; h < kRoundsP; ++h) fetch_pos(pos[h], a.perm, base + h * kStage + lane, e);
 #pragma unroll
-        for (int h = 0; h < kAhead; ++h)
-          fetch_terms(v[h], cv[h], pos[h], val, c, a.magic, a.shift);
+        for (int h = 0; h < kAhead; ++h) fetch_terms(raw[h], pos[h], src);
         bar_wait(empty + slot, ((g / kRing) & 1u) ^ 1u);
 #pragma unroll
-        for (int h = 0; h < kRounds; ++h) {
+        for (int h = 0; h < kRoundsP; ++h) {
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u)
-            store_at(dst + (h * kStage + u * 32) * sizeof(T),
-                     mul_rn(v[h % kAhead][u], cv[h % kAhead][u]));
-          if (h + kAhead < kRounds)
-            fetch_terms(v[h % kAhead], cv[h % kAhead], pos[h + kAhead], val, c, a.magic,
-                        a.shift);
+#pragma unroll
+            for (int q = 0; q < P; ++q)
+              store_at(dst + ((h * kStage + u * 32) * P + q) * sizeof(T),
+                       src.term(raw[h % kAhead][u], q));
+          if (h + kAhead < kRoundsP) fetch_terms(raw[h % kAhead], pos[h + kAhead], src);
         }
         bar_arrive_at(full_at + slot * 8);
       }
@@ -422,69 +508,75 @@ __device__ __forceinline__ void heavy_cluster(const Args& a, const T* __restrict
 
 // -- light blocks ----------------------------------------------------------
 
-// one warp walks a run of any length: the lanes fetch kStage terms at a
-// time and stage their products; lane 0 adds them in order while the lanes'
+// one warp walks a run of any length onto acc: the lanes fetch kStage terms
+// at a time and stage them; lane 0 adds them in order while the lanes'
 // loads of the next stage's terms, and the positions of the one after it,
 // are in flight
-template <typename T>
-__device__ __forceinline__ T walk_warp(const Args& a, const T* __restrict__ val,
-                                       const T* __restrict__ c, T* buf, int b, int e,
-                                       int lane) {
-  T acc = T(0);
+template <typename Src>
+__device__ __forceinline__ void walk_warp(const Args& a, const Src& src, typename Src::T* buf,
+                                          int b, int e, int lane,
+                                          typename Src::T (&acc)[Src::P]) {
+  using T = typename Src::T;
+  constexpr int P = Src::P;
   int pos[kUnroll];
-  T v[kUnroll], cv[kUnroll];
+  typename Src::Raw raw[kUnroll];
   fetch_pos(pos, a.perm, b + lane, e);
-  fetch_terms(v, cv, pos, val, c, a.magic, a.shift);
+  fetch_terms(raw, pos, src);
   fetch_pos(pos, a.perm, b + kStage + lane, e);
   for (int base = b; base < e; base += kStage) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) buf[u * 32 + lane] = mul_rn(v[u], cv[u]);
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int q = 0; q < P; ++q) buf[(u * 32 + lane) * P + q] = src.term(raw[u], q);
     __syncwarp();
-    fetch_terms(v, cv, pos, val, c, a.magic, a.shift);
+    fetch_terms(raw, pos, src);
     fetch_pos(pos, a.perm, base + 2 * kStage + lane, e);
-    if (lane == 0) acc = add_staged<T, kStage>(acc, buf, min(kStage, e - base));
+    if (lane == 0) add_staged<T, P, kStage * P>(acc, buf, min(kStage, e - base) * P);
     __syncwarp();
   }
-  return acc;
 }
 
-// one lane walks a run: kUnroll positions at a time, then their terms,
-// then their adds in order
-template <typename T>
-__device__ __forceinline__ T walk_lane(const Args& a, const T* __restrict__ val,
-                                       const T* __restrict__ c, int b, int e) {
-  T acc = T(0);
+// one lane walks a run onto acc: kUnroll positions at a time, then their
+// terms, then their adds in order
+template <typename Src>
+__device__ __forceinline__ void walk_lane(const Args& a, const Src& src, int b, int e,
+                                          typename Src::T (&acc)[Src::P]) {
+  constexpr int P = Src::P;
   for (int base = b; base < e; base += kUnroll) {
     int pos[kUnroll];
-    T v[kUnroll], cv[kUnroll];
+    typename Src::Raw raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) pos[u] = base + u < e ? __ldg(a.perm + base + u) : -1;
-    fetch_terms(v, cv, pos, val, c, a.magic, a.shift);
+    fetch_terms(raw, pos, src);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (base + u < e) acc = add_rn(acc, mul_rn(v[u], cv[u]));
+      if (base + u < e) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) acc[q] = add_rn(acc[q], src.term(raw[u], q));
+      }
   }
-  return acc;
 }
 
-template <typename T>
-__device__ __forceinline__ void light_block(const Args& a, const T* __restrict__ val,
-                                            const T* __restrict__ c, T* __restrict__ out,
-                                            unsigned char* smem) {
+template <typename Src>
+__device__ __forceinline__ void light_block(const Args& a, const Src& src, unsigned char* smem) {
+  using T = typename Src::T;
+  constexpr int P = Src::P;
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   const int warps = (gridDim.x - a.heavy_blocks) * kWarps;
   const int gw = (blockIdx.x - a.heavy_blocks) * kWarps + wid;
-  T* buf = reinterpret_cast<T*>(smem) + wid * kStage;
+  T* buf = reinterpret_cast<T*>(smem) + wid * kStage * P;
   const int* medium = a.order + a.n_heavy;
   for (int i = gw; i < a.n_medium; i += warps) {
     const int s = __ldg(medium + i);
-    const T acc = walk_warp(a, val, c, buf, __ldg(a.starts + s), __ldg(a.starts + s + 1), lane);
-    if (lane == 0) out[s] = acc;
+    T acc[P];
+    src.init(acc, s);
+    walk_warp(a, src, buf, __ldg(a.starts + s), __ldg(a.starts + s + 1), lane, acc);
+    if (lane == 0) src.store(acc, s);
   }
   // a lane's short runs i, i + stride, ...: while it walks one, the bounds
-  // of the next and the slot of the one after are in flight, so a run
-  // costs its two dependent loads (positions, then terms), not four
+  // of the next and the run of the one after are in flight, so a run costs
+  // its two dependent loads (positions, then terms), not four
   const int* shortr = medium + a.n_medium;
   const int stride = warps * 32;
   const int i0 = gw * 32 + lane;
@@ -497,7 +589,10 @@ __device__ __forceinline__ void light_block(const Args& a, const T* __restrict__
     const int b1 = more ? __ldg(a.starts + s1) : 0;
     const int e1 = more ? __ldg(a.starts + s1 + 1) : 0;
     const int s2 = i + 2 * stride < a.n_short ? __ldg(shortr + i + 2 * stride) : 0;
-    out[s] = walk_lane(a, val, c, b, e);
+    T acc[P];
+    src.init(acc, s);
+    walk_lane(a, src, b, e, acc);
+    src.store(acc, s);
     s = s1;
     b = b1;
     e = e1;
@@ -505,15 +600,24 @@ __device__ __forceinline__ void light_block(const Args& a, const T* __restrict__
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    linear_grad_kernel(Args a, const T* __restrict__ val, const T* __restrict__ c,
-                       T* __restrict__ out) {
+template <typename Src>
+__device__ __forceinline__ void run_walk(const Args& a, const Src& src) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (static_cast<int>(blockIdx.x) < a.heavy_blocks)
-    heavy_cluster(a, val, c, out, smem);
+    heavy_cluster(a, src, smem);
   else
-    light_block(a, val, c, out, smem);
+    light_block(a, src, smem);
+}
+
+// P1's kernel and P2's: one walk, named apart for the profiler
+template <typename T>
+__global__ void __launch_bounds__(kThreads) linear_grad_kernel(Args a, GradTerms<T> src) {
+  run_walk(a, src);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) scatter_walk_kernel(Args a, AddTerms<T> src) {
+  run_walk(a, src);
 }
 
 // the opt-in maximum of a block's shared memory on the current device
@@ -525,16 +629,17 @@ int heavy_smem(int* bytes) {
   return static_cast<int>(e);
 }
 
-template <typename T>
-int launch(const Args& a, const void* val, const void* c, void* out, int blocks,
+template <typename Src>
+int launch(void (*kernel)(Args, Src), const Args& a, const Src& src, int blocks,
            cudaStream_t s) {
-  int smem = kWarps * kStage * static_cast<int>(sizeof(T));
+  using T = typename Src::T;
+  int smem = kWarps * kStage * Src::P * static_cast<int>(sizeof(T));
   if (a.heavy_blocks > 0) {
-    const int need = 3 * kRing * 8 + kRing * kHeavyStage * static_cast<int>(sizeof(T));
+    const int need = 3 * kRing * 8 + kRing * kSlot * static_cast<int>(sizeof(T));
     if (int rc = heavy_smem(&smem)) return rc;
     if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t e = cudaFuncSetAttribute(
-        linear_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // with heavy runs, clusters of two blocks (the grid is even)
@@ -550,39 +655,80 @@ int launch(const Args& a, const void* val, const void* c, void* out, int blocks,
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = a.heavy_blocks > 0 ? 1 : 0;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, linear_grad_kernel<T>, a, static_cast<const T*>(val),
-                         static_cast<const T*>(c), static_cast<T*>(out));
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, src);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// the checks both entry points make of a plan of `runs` runs and its grid
+bool grid_ok(int runs, int n_heavy, int n_medium, int heavy_blocks, int light_blocks) {
+  const bool heavy_ok = n_heavy == 0 ? heavy_blocks == 0
+                                     : heavy_blocks > 0 && heavy_blocks % 2 == 0 &&
+                                           heavy_blocks <= 2 * n_heavy && light_blocks % 2 == 0;
+  const bool light_ok = light_blocks > 0 || n_heavy == runs;
+  return runs > 0 && n_heavy >= 0 && n_medium >= 0 && n_heavy + n_medium <= runs && heavy_ok &&
+         light_ok && light_blocks >= 0 && light_blocks <= (1 << 24);
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: float64. perm (n * width) int32, starts (dim + 1)
-// int32, order (dim) int32, val (n * width) and c (n) of the dtype, out
-// (dim) of the dtype. magic, shift: p / width as row_of computes it.
-// n_heavy + n_medium <= dim; the grid is heavy_blocks (two a cluster; 0
-// when n_heavy is 0) then light_blocks (0 only when every slot is heavy;
-// even when there are heavy blocks).
+// P1. dtype 0: float32, 1: float64. perm (n * width) int32 the positions by
+// run, starts (runs + 1) int32, order (runs) int32, slots (runs) int32 each
+// run's slot, val (n * width) and c (n) of the dtype, out of the dtype,
+// zeroed by the caller: each run is stored at its slot. magic, shift:
+// p / width as row_of computes it. n_heavy + n_medium <= runs; the grid is
+// heavy_blocks (two a cluster; 0 when n_heavy is 0) then light_blocks (0
+// only when every run is heavy; even when there are heavy blocks).
 extern "C" int alink_linear_grad(int dtype, const void* perm, const void* starts,
-                                 const void* order, const void* val, const void* c, void* out,
-                                 int dim, unsigned magic, int shift, int n_heavy, int n_medium,
-                                 int heavy_blocks, int light_blocks, void* stream) {
-  const bool heavy_ok = n_heavy == 0 ? heavy_blocks == 0
-                                     : heavy_blocks > 0 && heavy_blocks % 2 == 0 &&
-                                           heavy_blocks <= 2 * n_heavy && light_blocks % 2 == 0;
-  const bool light_ok = light_blocks > 0 || n_heavy == dim;
-  if (dim <= 0 || n_heavy < 0 || n_medium < 0 || n_heavy + n_medium > dim || !heavy_ok ||
-      !light_ok || light_blocks < 0 || light_blocks > (1 << 24) || shift < 31 || shift > 62 ||
+                                 const void* order, const void* slots, const void* val,
+                                 const void* c, void* out, int runs, unsigned magic, int shift,
+                                 int n_heavy, int n_medium, int heavy_blocks, int light_blocks,
+                                 void* stream) {
+  if (!grid_ok(runs, n_heavy, n_medium, heavy_blocks, light_blocks) || shift < 31 ||
+      shift > 62 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const int*>(perm), static_cast<const int*>(starts),
+               static_cast<const int*>(order), n_heavy, n_medium, runs - n_heavy - n_medium,
+               heavy_blocks};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = heavy_blocks + light_blocks;
+  const int* sl = static_cast<const int*>(slots);
+  if (dtype == 0)
+    return launch(linear_grad_kernel<float>, a,
+                  GradTerms<float>{static_cast<const float*>(val), static_cast<const float*>(c),
+                                   static_cast<float*>(out), sl, magic, shift},
+                  blocks, s);
+  return launch(linear_grad_kernel<double>, a,
+                GradTerms<double>{static_cast<const double*>(val), static_cast<const double*>(c),
+                                  static_cast<double*>(out), sl, magic, shift},
+                blocks, s);
+}
+
+// P2. dtype 0: float32, 1: float64. perm (M) int32 the positions by run,
+// starts (runs + 1) int32, order (runs) int32, slots (runs) int32 each
+// run's state slot, terms (M, 2) of the dtype, aligned to a pair, z and n
+// the states, updated in place. The grid as for P1, over the runs.
+extern "C" int alink_scatter_walk(int dtype, const void* perm, const void* starts,
+                                  const void* order, const void* slots, const void* terms,
+                                  void* z, void* n, int runs, int n_heavy, int n_medium,
+                                  int heavy_blocks, int light_blocks, void* stream) {
+  if (!grid_ok(runs, n_heavy, n_medium, heavy_blocks, light_blocks) ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int*>(perm), static_cast<const int*>(starts),
-               static_cast<const int*>(order), magic, shift, n_heavy, n_medium,
-               dim - n_heavy - n_medium, heavy_blocks};
+               static_cast<const int*>(order), n_heavy, n_medium, runs - n_heavy - n_medium,
+               heavy_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = heavy_blocks + light_blocks;
-  return dtype == 0 ? launch<float>(a, val, c, out, blocks, s)
-                    : launch<double>(a, val, c, out, blocks, s);
+  const int* sl = static_cast<const int*>(slots);
+  if (dtype == 0)
+    return launch(scatter_walk_kernel<float>, a,
+                  AddTerms<float>{static_cast<const float*>(terms), static_cast<float*>(z),
+                                  static_cast<float*>(n), sl},
+                  blocks, s);
+  return launch(scatter_walk_kernel<double>, a,
+                AddTerms<double>{static_cast<const double*>(terms), static_cast<double*>(z),
+                                 static_cast<double*>(n), sl},
+                blocks, s);
 }
 
 extern "C" int alink_linear_grad_warps() { return kWarps; }

@@ -94,11 +94,14 @@ def scatter_add_rows_plain(state: torch.Tensor, idx: torch.Tensor,
                            upd: torch.Tensor) -> torch.Tensor:
     """``state[idx[m]] += upd[m]`` for m in order, in place; returns
     ``state``. Round r adds every slot's r-th update: the slots of one
-    round are distinct, so each round is one plain indexed add. A slot
-    outside ``[0, S)`` raises ``IndexError`` (negative ones too: they
-    would wrap)."""
+    round are distinct, so each round is one plain indexed add (the
+    updates grouped by round once, so a round costs its own size). A
+    slot outside ``[0, S)`` raises ``IndexError`` (negative ones too:
+    they would wrap)."""
     ix = idx.long()
-    if ix.numel() and (int(ix.min()) < 0 or int(ix.max()) >= state.shape[0]):
+    if not ix.numel():
+        return state
+    if int(ix.min()) < 0 or int(ix.max()) >= state.shape[0]:
         raise IndexError(f"scatter_add_rows: slots outside [0, "
                          f"{state.shape[0]})")
     order = torch.sort(ix, stable=True).indices
@@ -109,8 +112,10 @@ def scatter_add_rows_plain(state: torch.Tensor, idx: torch.Tensor,
     first = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
                          0).values
     rank = pos - first                        # occurrence number, in order
-    for r in range(int(rank.max()) + 1 if ix.numel() else 0):
-        sel = order[rank == r]
+    by_round = order[torch.sort(rank, stable=True).indices]
+    ends = torch.cumsum(torch.bincount(rank), 0).tolist()
+    for a, b in zip([0] + ends[:-1], ends):
+        sel = by_round[a:b]
         slots = ix[sel]
         state[slots] = state[slots] + upd[sel]
     return state

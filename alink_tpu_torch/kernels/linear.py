@@ -1,5 +1,6 @@
 """The sparse design products of linear training: the ordered gradient
-kernel, its plan and plain version, and the margins.
+kernel, its plan and plain version, and the margins; and the ordered
+scatter-add of FTRL's batch step, which walks its runs the same way.
 
 No TPU kernel is replaced here. The JAX package computes the gradient
 ``X^T c`` of a padded-COO design with an XLA scatter-add
@@ -22,22 +23,43 @@ loop by ``tests/test_torch_linear_grad.py``). The plain version is
 ordered on the CPU only; on the card ``index_add_`` is the library call
 the kernel is timed against.
 
-**The plan** (:func:`grad_plan`) is built once a training, as the key
-layout does not change between supersteps: the positions stably sorted
-by key (``perm``), each slot's run in it (``starts``), and the slots in
-the kernel's order (``order``: runs of more than :data:`SHORT_MAX` terms
-by length, longest first, then the rest by slot), with the count of
-heavy runs (at least :data:`HEAVY_MIN` terms: each walked by a cluster
-of two blocks, one walker thread fed by a block of producer warps) and
-of medium runs (more than :data:`SHORT_MAX`: a warp each); the short rest
-goes one lane a run. It also keeps the design's keys and values for
-:func:`sparse_margins`.
+**The plan** (:func:`run_plan`, shared by both kernels) is over the
+distinct keys of the positions it is given, so its work and memory
+follow the keys, not the state: the positions stably sorted by key
+(``perm``), each distinct key's run in it (``starts``) and its key
+(``slots``), and the runs in the kernel's order (``order``: runs of
+more than :data:`SHORT_MAX` terms by length, longest first, then the
+rest by key), with the count of heavy runs (at least :data:`HEAVY_MIN`
+terms: each walked by a cluster of two blocks, one walker thread fed by
+a block of producer warps) and of medium runs (more than
+:data:`SHORT_MAX`: a warp each); the short rest goes one lane a run. It
+reads the host once (the runs, the two counts and the keys' range).
+:func:`grad_plan` keeps a design's keys and values beside the plan of
+its keys, built once a training (the key layout does not change between
+supersteps) or once an FTRL micro-batch; the gradient kernel writes
+each run at its slot of a zeroed vector, so a slot no key names is
+``+0.0``.
 
 :func:`sparse_margins` is the forward product ``eta[i] = sum_k
 val[i, k] * w[keys[i, k]]``: the sparse serving score kernel
 (``kernels/serve.py::sparse_scores`` in ``f32`` mode, zero bias), each
 row's terms added left to right from zero, so training margins equal
 served scores.
+
+**The ordered scatter-add** (:func:`scatter_walk`, "P2", the same CUDA
+source's second kernel) replaces no TPU kernel either: it is FTRL's
+batch update ``z.at[li].add(dz)``, ``n.at[li].add(dn)`` (the JAX
+package's ``_ftrl_sparse_batch_step_factory``, an XLA scatter-add) at
+micro-batch scale, where the one-block ``kernels/ftrl.py::
+scatter_add_rows`` stops at 11,264 updates. Contract: ``z[key] +=
+dz`` and ``n[key] += dn`` for every position in flattened order, one
+rounded add each, in place, both in one launch; a slot no key names
+keeps its bits. Its plain version is ``kernels/ftrl.py::
+scatter_add_rows_plain``, which holds the JAX package's ``.at[].add``
+bitwise. Its plan is built every micro-batch (:func:`run_plan`; each
+run starts from the stored value and is written back at its slot). The
+wrapper sits here, beside P1's, because it shares P1's library, plan,
+run walk, grid and classes of runs.
 """
 
 from __future__ import annotations
@@ -50,10 +72,12 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from .ftrl import scatter_add_rows_plain
 from .serve import sparse_scores
 
-__all__ = ["GradPlan", "grad_plan", "linear_grad", "linear_grad_plain",
-           "sparse_margins", "launch_counts", "reset_launch_counts",
+__all__ = ["RunPlan", "run_plan", "GradPlan", "grad_plan", "linear_grad",
+           "linear_grad_plain", "sparse_margins", "scatter_walk",
+           "scatter_walk_plain", "launch_counts", "reset_launch_counts",
            "HEAVY_MIN", "SHORT_MAX"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -64,55 +88,85 @@ _BLOCKS_PER_SM = 8          # light blocks an SM with no heavy run (2048
 #                             threads; registers may allow fewer)
 
 
-class GradPlan(NamedTuple):
-    """The data-constant tensors of one sparse design (one device)."""
-    keys: torch.Tensor      # (n, width) int32 slots, contiguous
-    val: torch.Tensor       # (n, width) values, contiguous
-    perm: torch.Tensor      # (n * width,) int32 positions in slot order
-    starts: torch.Tensor    # (dim + 1,) int32: slot s's run is
-    #                         perm[starts[s]:starts[s + 1]]
-    dim: int
-    order: torch.Tensor     # (dim,) int32 slots: the heavy and medium
-    #                         runs by length, longest first (ties by slot),
-    #                         then the short runs by slot
+class RunPlan(NamedTuple):
+    """The runs of a set of keys (one device): the distinct keys in key
+    order, each run's positions in flattened order, the runs in the
+    kernel's order. The arrays have the keys' length ``M``; the first
+    ``runs`` entries (``runs + 1`` of ``starts``) are the plan."""
+    perm: torch.Tensor      # (M,) int32 positions stably sorted by key
+    starts: torch.Tensor    # (M + 1,) int32: run r is
+    #                         perm[starts[r]:starts[r + 1]]
+    order: torch.Tensor     # (M,) int32 runs: heavy and medium by length,
+    #                         longest first (ties by run), then the short
+    #                         ones by run
+    slots: torch.Tensor     # (M,) int32: run r's key
+    runs: int               # the distinct keys
     n_heavy: int            # runs of at least HEAVY_MIN terms
     n_medium: int           # the other runs of more than SHORT_MAX
 
 
+def run_plan(keys: torch.Tensor, size: int) -> RunPlan:
+    """The plan of the keyed sums at ``keys`` (any shape, int32, in ``[0,
+    size)``) on the keys' device: a stable sort of the flat keys, their
+    runs (a run id by a running count of the key changes, each run's
+    length by an integer scatter-add, the starts by a running sum) and
+    the runs in the kernel's order. Every array has the keys' length, not
+    the state's. One host read: the runs, the heavy and medium counts and
+    the keys' range; a key outside ``[0, size)`` raises ``IndexError``.
+    No keys: a plan of no runs."""
+    flat = keys.reshape(-1)
+    M = flat.numel()
+    if M >= 2 ** 31 or size >= 2 ** 31:
+        raise ValueError(f"run_plan: {M} keys over {size} slots exceed "
+                         f"the kernel's int sizes")
+    dev = flat.device
+    if M == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return RunPlan(empty, torch.zeros(1, dtype=torch.int32, device=dev),
+                       empty, empty, 0, 0, 0)
+    sk, perm = torch.sort(flat, stable=True)
+    head = torch.ones(M, dtype=torch.bool, device=dev)
+    torch.ne(sk[1:], sk[:-1], out=head[1:])
+    rid = torch.cumsum(head, 0) - 1                    # int64 run ids
+    counts = torch.zeros(M, dtype=torch.int32, device=dev).scatter_add_(
+        0, rid, torch.ones(M, dtype=torch.int32, device=dev))
+    starts = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(counts, 0, out=starts[1:])
+    slots = sk[starts[:-1].clamp(max=M - 1).long()]
+    # heavy and medium runs by length, longest first; short runs after them
+    # in run order (the runs past the last have no terms and sort last), so
+    # a warp's lanes read neighbouring bounds and runs
+    order = torch.sort(torch.where(counts > SHORT_MAX, -counts, 0),
+                       stable=True).indices
+    runs, n_heavy, n_long, lo, hi = torch.stack([
+        rid[-1] + 1, (counts >= HEAVY_MIN).sum(), (counts > SHORT_MAX).sum(),
+        sk[0].long(), sk[-1].long()]).tolist()
+    if lo < 0 or hi >= size:
+        raise IndexError(f"run_plan: keys outside [0, {size})")
+    return RunPlan(perm.to(torch.int32), starts, order.to(torch.int32),
+                   slots.to(torch.int32), runs, n_heavy, n_long - n_heavy)
+
+
+class GradPlan(NamedTuple):
+    """A sparse design (one device) and the run plan of its keys."""
+    keys: torch.Tensor      # (n, width) int32 slots, contiguous
+    val: torch.Tensor       # (n, width) values, contiguous
+    dim: int                # the gradient's slots
+    walk: RunPlan           # the runs of ``keys``
+
+
 def grad_plan(keys: torch.Tensor, dim: int, val: torch.Tensor) -> GradPlan:
     """The plan of a design with ``keys`` (n, width) in ``[0, dim)`` and
-    values ``val`` (n, width), on the keys' device: a stable sort of the
-    flat keys, the start of each slot's run, and the slots in the
-    kernel's order with the heavy and medium counts. A key outside
-    ``[0, dim)`` raises ``IndexError``. Two host reads, once a training:
-    the keys' range and the two counts."""
+    values ``val`` (n, width), on the keys' device: the keys, the values
+    and :func:`run_plan` of the keys. A key outside ``[0, dim)`` raises
+    ``IndexError``."""
     if keys.dim() != 2:
         raise ValueError(f"grad_plan: keys {tuple(keys.shape)}; want (n, w)")
-    n, width = keys.shape
-    if n * width >= 2 ** 31 or dim >= 2 ** 31:
-        raise ValueError(f"grad_plan: {n} x {width} positions over {dim} "
-                         f"slots exceed the kernel's int sizes")
     if val.shape != keys.shape:
         raise ValueError(f"grad_plan: values {tuple(val.shape)} vs keys "
                          f"{tuple(keys.shape)}")
-    flat = keys.reshape(-1).long()
-    if flat.numel():
-        lo, hi = torch.stack([flat.min(), flat.max()]).tolist()
-        if lo < 0 or hi >= dim:
-            raise IndexError(f"grad_plan: keys outside [0, {dim})")
-    perm = torch.sort(flat, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(flat, minlength=dim)
-    starts = torch.zeros(dim + 1, dtype=torch.int64, device=keys.device)
-    torch.cumsum(counts, 0, out=starts[1:])
-    # heavy and medium runs by length, longest first; short runs after them
-    # in slot order, so a warp's lanes read neighbouring bounds and runs
-    order = torch.sort(torch.where(counts > SHORT_MAX, -counts, 0),
-                       stable=True).indices
-    n_heavy, n_long = torch.stack([(counts >= HEAVY_MIN).sum(),
-                                   (counts > SHORT_MAX).sum()]).tolist()
-    return GradPlan(keys.to(torch.int32).contiguous(), val.contiguous(),
-                    perm.contiguous(), starts.to(torch.int32), int(dim),
-                    order.to(torch.int32), n_heavy, n_long - n_heavy)
+    keys = keys.to(torch.int32).contiguous()
+    return GradPlan(keys, val.contiguous(), int(dim), run_plan(keys, dim))
 
 
 def linear_grad_plain(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:
@@ -125,7 +179,7 @@ def linear_grad_plain(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:
 
 
 # launch counts: kept without a lock, as the other wrappers keep theirs
-_counts: Dict[str, int] = {"linear_grad": 0}
+_counts: Dict[str, int] = {"linear_grad": 0, "scatter_walk": 0}
 _lib_lock = threading.Lock()
 _fns: Optional[Dict[str, Callable[..., int]]] = None
 _sms: Dict[int, int] = {}
@@ -150,12 +204,16 @@ def _functions() -> Dict[str, Callable[..., int]]:
         if _fns is None:
             lib = _build.load_library("linear_grad")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.alink_linear_grad.argtypes = [i, p, p, p, p, p, p, i,
+            lib.alink_linear_grad.argtypes = [i, p, p, p, p, p, p, p, i,
                                               ctypes.c_uint, i, i, i, i, i, p]
             lib.alink_linear_grad.restype = i
+            lib.alink_scatter_walk.argtypes = [i, p, p, p, p, p, p, p, i, i,
+                                               i, i, i, p]
+            lib.alink_scatter_walk.restype = i
             lib.alink_linear_error_string.argtypes = [i]
             lib.alink_linear_error_string.restype = ctypes.c_char_p
             _fns = {"grad": lib.alink_linear_grad,
+                    "scatter": lib.alink_scatter_walk,
                     "error_string": lib.alink_linear_error_string}
         return _fns
 
@@ -172,15 +230,15 @@ def div_magic(width: int) -> Tuple[int, int]:
     return -(-(1 << shift) // width), shift
 
 
-def launch_grid(sms: int, plan: GradPlan) -> Tuple[int, int]:
-    """``(heavy_blocks, light_blocks)`` of the launch on a card of ``sms``
-    SMs. A heavy run is walked by a cluster of two blocks, each holding an
-    SM alone (the launch asks for all the shared memory), so with heavy
-    runs there are at most a quarter of the SMs' clusters of them and the
-    light blocks take the other SMs, one each, in an even number; with
-    none, the light blocks fill every SM. A light block's 8 warps take a
+def launch_grid(sms: int, plan: RunPlan) -> Tuple[int, int]:
+    """``(heavy_blocks, light_blocks)`` of the launch of a plan on a card
+    of ``sms`` SMs. A heavy run is walked by a cluster of two blocks, each
+    holding an SM alone (the launch asks for all the shared memory), so
+    with heavy runs there are at most a quarter of the SMs' clusters of
+    them and the light blocks take the other SMs, one each, in an even
+    number; with none, the light blocks fill every SM. A light block's 8 warps take a
     medium run each or 32 short runs each, striding over them."""
-    n_short = plan.dim - plan.n_heavy - plan.n_medium
+    n_short = plan.runs - plan.n_heavy - plan.n_medium
     light = -(-(plan.n_medium + -(-n_short // 32)) // _WARPS)
     if plan.n_heavy:
         clusters = min(plan.n_heavy, max(1, sms // 4))
@@ -189,7 +247,7 @@ def launch_grid(sms: int, plan: GradPlan) -> Tuple[int, int]:
     return 0, max(1, min(light, sms * _BLOCKS_PER_SM))
 
 
-def _grid(index: int, plan: GradPlan) -> Tuple[int, int]:
+def _grid(index: int, plan: RunPlan) -> Tuple[int, int]:
     sms = _sms.get(index)
     if sms is None:
         sms = _sms[index] = torch.cuda.get_device_properties(
@@ -199,29 +257,33 @@ def _grid(index: int, plan: GradPlan) -> Tuple[int, int]:
 
 def linear_grad(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:
     """``grad = X^T c`` of the plan's design, ``(dim,)`` in the values'
-    dtype: the ordered gradient kernel on the card, its plain version on
-    the CPU. ``c`` (n,) must have the values' dtype."""
+    dtype: the ordered gradient kernel on the card (into a zeroed vector,
+    each run stored at its slot), its plain version on the CPU. ``c`` (n,)
+    must have the values' dtype."""
     if c.device.type == "cpu":
         return linear_grad_plain(plan, c)
-    val = plan.val
+    val, walk = plan.val, plan.walk
     code = _DTYPE_CODES.get(val.dtype)
     index = val.get_device()
     if (code is None or c.dtype != val.dtype or c.dim() != 1
             or c.shape[0] != val.shape[0] or not c.is_contiguous()
-            or any(t.get_device() != index for t in (c, plan.perm,
-                                                     plan.starts,
-                                                     plan.order))):
+            or any(t.get_device() != index for t in (c, walk.perm,
+                                                     walk.starts, walk.order,
+                                                     walk.slots))):
         raise ValueError(f"linear_grad: want c ({val.shape[0]},) of "
                          f"{val.dtype} on {val.device} (float32 or "
                          f"float64), got {c.dtype} {tuple(c.shape)} on "
                          f"{c.device}")
-    out = torch.empty(plan.dim, dtype=val.dtype, device=val.device)
+    out = torch.zeros(plan.dim, dtype=val.dtype, device=val.device)
+    if walk.runs == 0:
+        return out
     fns = _fns or _functions()
-    rc = _build.call(fns["grad"], index, code, plan.perm.data_ptr(),
-                     plan.starts.data_ptr(), plan.order.data_ptr(),
-                     val.data_ptr(), c.data_ptr(), out.data_ptr(), plan.dim,
-                     *div_magic(max(1, val.shape[1])), plan.n_heavy,
-                     plan.n_medium, *_grid(index, plan))
+    rc = _build.call(fns["grad"], index, code, walk.perm.data_ptr(),
+                     walk.starts.data_ptr(), walk.order.data_ptr(),
+                     walk.slots.data_ptr(), val.data_ptr(), c.data_ptr(),
+                     out.data_ptr(), walk.runs,
+                     *div_magic(max(1, val.shape[1])), walk.n_heavy,
+                     walk.n_medium, *_grid(index, walk))
     if rc != 0:
         msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"linear_grad: kernel launch failed: CUDA error "
@@ -245,3 +307,64 @@ def sparse_margins(keys: torch.Tensor, val: torch.Tensor,
         b = _zero_bias[key] = torch.zeros(1, dtype=val.dtype,
                                           device=val.device)
     return sparse_scores((w, b), keys, val, "f32")
+
+
+def scatter_walk_plain(z: torch.Tensor, n: torch.Tensor, keys: torch.Tensor,
+                       terms: torch.Tensor) -> None:
+    """``z[key] += terms[..., 0]`` and ``n[key] += terms[..., 1]`` for
+    each position in flattened order, in place
+    (``kernels/ftrl.py::scatter_add_rows_plain`` on each state): the
+    contract, on any device."""
+    flat = keys.reshape(-1)
+    for q, st in enumerate((z, n)):
+        scatter_add_rows_plain(st, flat, terms[..., q].reshape(-1))
+
+
+def scatter_walk(z: torch.Tensor, n: torch.Tensor, keys: torch.Tensor,
+                 terms: torch.Tensor,
+                 plan: Optional[RunPlan] = None) -> None:
+    """``z[key] += terms[..., 0]`` and ``n[key] += terms[..., 1]`` for
+    every position of ``keys`` in flattened (row-major) order, one rounded
+    add each, IN PLACE; a slot no key names keeps its bits. ``z``, ``n``
+    (S,) contiguous, of one dtype (float32 or float64); ``keys`` int32 of
+    any shape, in ``[0, S)``; ``terms`` of the states' dtype and shape
+    ``keys.shape + (2,)``. The ordered scatter-add kernel on the card (one
+    launch for both states, after the plan of :func:`run_plan`, built
+    here unless ``plan``, the keys', is given), its plain version on the
+    CPU."""
+    if (z.dim() != 1 or n.shape != z.shape or n.dtype != z.dtype
+            or terms.dtype != z.dtype or keys.dtype != torch.int32
+            or tuple(terms.shape) != tuple(keys.shape) + (2,)):
+        raise ValueError(
+            f"scatter_walk: want (S,) z and n of one dtype, int32 keys and "
+            f"terms of shape keys + (2,); got z {z.dtype} "
+            f"{tuple(z.shape)}, n {n.dtype} {tuple(n.shape)}, keys "
+            f"{keys.dtype} {tuple(keys.shape)}, terms {terms.dtype} "
+            f"{tuple(terms.shape)}")
+    if z.device.type == "cpu":
+        scatter_walk_plain(z, n, keys, terms)
+        return
+    code = _DTYPE_CODES.get(z.dtype)
+    index = z.get_device()
+    terms = terms.contiguous()
+    if (code is None or any(t.get_device() != index or not t.is_contiguous()
+                            for t in (z, n, keys, terms))
+            or terms.data_ptr() % (2 * terms.element_size())
+            or z.numel() >= 2 ** 31):
+        raise ValueError(f"scatter_walk: want contiguous float32 or float64 "
+                         f"z, n, keys and terms on {z.device}")
+    if plan is None:
+        plan = run_plan(keys, z.shape[0])
+    if plan.runs == 0:
+        return
+    fns = _fns or _functions()
+    rc = _build.call(fns["scatter"], index, code, plan.perm.data_ptr(),
+                     plan.starts.data_ptr(), plan.order.data_ptr(),
+                     plan.slots.data_ptr(), terms.data_ptr(), z.data_ptr(),
+                     n.data_ptr(), plan.runs, plan.n_heavy, plan.n_medium,
+                     *_grid(index, plan))
+    if rc != 0:
+        msg = fns["error_string"](rc).decode()
+        raise RuntimeError(f"scatter_walk: kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+    _counts["scatter_walk"] += 1

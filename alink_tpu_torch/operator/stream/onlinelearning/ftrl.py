@@ -1,36 +1,46 @@
-"""FTRL online learning — the sparse trainer and the hot-reloading predictor.
+"""FTRL online learning — the trainer and the hot-reloading predictor.
 
 Counterpart: ``alink_tpu/operator/stream/onlinelearning/ftrl.py``
 (re-design of the reference's stream/onlinelearning/FtrlTrainStreamOp.java
 and FtrlPredictStreamOp.java).
 
 Ported: the FTRL-proximal closed form (:func:`ftrl_weights`, the JAX
-package's ``_ftrl_weights``), the three sparse steps the JAX package
-builds in ``_ftrl_sparse_step_factory`` (``update_mode="sample"``, the
-default), ``_ftrl_sparse_staleness_step_factory`` and
-``_ftrl_sparse_chained_step_factory``, :class:`FtrlTrainStreamOp` on
-sparse input and :class:`FtrlPredictStreamOp`.
+package's ``_ftrl_weights``); the three strict or chunked sparse steps the
+JAX package builds in ``_ftrl_sparse_step_factory`` (``update_mode=
+"sample"``, the default), ``_ftrl_sparse_staleness_step_factory`` and
+``_ftrl_sparse_chained_step_factory``; the batch steps of ``update_mode=
+"batch"``, ``_ftrl_sparse_batch_step_factory`` (:func:`ftrl_batch_step`),
+``_ftrl_fb_batch_step_factory`` (:func:`ftrl_fb_batch_step`, both value
+variants) and ``_ftrl_dense_batch_step_factory``
+(:func:`ftrl_dense_batch_step`); the dense strict step of
+``_ftrl_step_factory`` (:func:`ftrl_dense_step`); :class:`FtrlTrainStreamOp`
+on sparse, field-aware and dense input, with its layouts (the
+field-blocked state and its exact demotion), its batch hook and its
+device snapshot consumer; and :class:`FtrlPredictStreamOp`.
 
 On one device the JAX package's feature sharding degenerates: every
 slot is local (``lo = 0``), the margin ``psum`` is the identity and the
 ``where(local, ., 0)`` masks select everything, so the steps below drop
-them. A step is a Python loop over chunks of K rows on the
-device-resident ``(z, n)`` state, its gathers, scatter-adds and (in the
-strict steps) the walk of each chunk's samples going through the CUDA
-kernels of ``kernels/ftrl.py`` (on the CPU, their plain versions): four
-launches a chunk. The staleness step's other ops are eager PyTorch.
+them. The strict and chunked sparse steps are a Python loop over chunks
+of K rows on the device-resident ``(z, n)`` state, its gathers,
+scatter-adds and (in the strict steps) the walk of each chunk's samples
+going through the CUDA kernels of ``kernels/ftrl.py`` (on the CPU, their
+plain versions): four launches a chunk. The batch steps gather the
+touched slots once (``gather_pair``), compute in eager PyTorch, and add
+the micro-batch into the state with the ordered scatter-add
+(``kernels/linear.py::scatter_walk``, padded-COO) or the ordered
+gradient kernel (``linear_grad``, field-blocked). The dense steps are
+eager PyTorch: the batch one a product and column sums, the strict one
+a loop of about 35 small ops a sample.
 
-Left out, raising ``NotImplementedError``: ``update_mode="batch"``, dense
-input (``feature_cols``, or a vector column of dense vectors), which
-needs the dense strict step, ``checkpoint_dir``, ``health``,
-``set_batch_hook`` and ``set_device_snapshot_consumer``. Not ported: the
-feature-sharded state, the field-blocked batch path, the compile plane,
-metrics and tracing.
+Left out, raising ``NotImplementedError``: ``checkpoint_dir`` (ROADMAP
+Queue A4) and ``health`` (Queue A10). Not ported: the feature-sharded
+state, the compile plane, metrics and tracing.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +51,9 @@ from ....common.params import InValidator, ParamInfo, Params, RangeValidator
 from ....common.types import TableSchema
 from ....kernels.ftrl import (ftrl_weights, gather_pair, gather_rows,
                               scatter_add_rows, sigmoid, walk_chunk)
+from ....kernels.linear import grad_plan, linear_grad, scatter_walk
+from ....ops.fieldblock import (FieldBlockMeta, detect_fieldblock,
+                                fb_flat, fb_gather)
 from ....params.shared import (HasFeatureCols, HasLabelCol, HasPredictionCol,
                                HasPredictionDetailCol, HasReservedCols,
                                HasVectorCol)
@@ -169,6 +182,100 @@ def ftrl_chained_step(idx, val, y, z, n, alpha, beta, l1, l2, K: int = 16):
                       chained=True)
 
 
+def ftrl_batch_step(idx, val, y, z, n, alpha, beta, l1, l2):
+    """One micro-batch of batched FTRL on a padded-COO block
+    (``update_mode="batch"``); the JAX package's
+    ``_ftrl_sparse_batch_step_factory``.
+
+    Every row's gradient is taken at the weights from before the
+    micro-batch: one gather of the touched slots' ``(z, n)``
+    (:func:`gather_pair`), the weights, margins ``(val * wj).sum(-1)``
+    and deltas in eager PyTorch, and one ordered scatter-add of ``(dz,
+    dn)`` into ``(z, n)`` in row-major order (``scatter_walk``: duplicate
+    slots accumulate in update order, as ``z.at[li].add(dz)`` does).
+    Arguments and result as :func:`ftrl_sample_step`; the state passed in
+    is updated in place and returned.
+    """
+    B, w = idx.shape
+    idx = idx.contiguous()
+    zn = gather_pair(z, n, idx.view(-1)).view(B, w, 2)
+    zj, nj = zn[..., 0], zn[..., 1]
+    wj = ftrl_weights(zj, nj, alpha, beta, l1, l2)
+    margins = (val * wj).sum(-1)
+    g = (sigmoid(margins) - y)[:, None] * val
+    gg = g * g
+    sigma = (torch.sqrt(nj + gg) - torch.sqrt(nj)) / alpha
+    scatter_walk(z, n, idx, torch.stack([g - sigma * wj, gg], -1))
+    return z, n, margins
+
+
+def ftrl_fb_batch_step(fb_idx, val, y, z, n, meta: FieldBlockMeta,
+                       alpha, beta, l1, l2):
+    """One micro-batch of batched FTRL on a field-blocked block; the JAX
+    package's ``_ftrl_fb_batch_step_factory`` (``val=None``: its
+    ``with_val=False`` program, a full batch of one-hot rows whose values
+    are 1.0 and are not shipped).
+
+    ``fb_idx`` (B, F) field-local indices (int16 or int32), ``val`` (B, F)
+    values or None, ``y`` (B,), ``z``/``n`` the ``meta.dim`` state. The
+    JAX package's float32 arithmetic whatever the state dtype: the
+    touched slots' ``n`` and ``w`` are gathered and rounded to float32
+    (``fb_gather``), and the deltas are rounded to float32 and summed a
+    slot in float32 from ``+0.0`` (``linear_grad`` on one plan for both,
+    in row order where the JAX package's one-hot product sums in XLA's
+    order), then added to the state: ``z + dz``, ``n + dn``. Returns new
+    ``(z, n, margins)``.
+    """
+    flat = fb_flat(fb_idx, meta)
+    nw = fb_gather(fb_idx, n, meta,
+                   other=ftrl_weights(z, n, alpha, beta, l1, l2))
+    nj, wj = nw[..., 0], nw[..., 1]
+    v = (torch.ones(flat.shape, dtype=torch.float32, device=flat.device)
+         if val is None else val)
+    margins = (v * wj).sum(-1)
+    g = (sigmoid(margins) - y)[:, None] * v
+    sigma = (torch.sqrt(nj + g * g) - torch.sqrt(nj)) / alpha
+    plan = grad_plan(flat, meta.dim,
+                     (g - sigma * wj).to(torch.float32).contiguous())
+    ones = torch.ones(flat.shape[0], dtype=torch.float32, device=flat.device)
+    dz = linear_grad(plan, ones)
+    dn = linear_grad(plan._replace(val=(g * g).to(torch.float32)
+                                   .contiguous()), ones)
+    return z + dz.to(z.dtype), n + dn.to(n.dtype), margins
+
+
+def ftrl_dense_batch_step(X, y, z, n, alpha, beta, l1, l2):
+    """One micro-batch of batched FTRL on dense rows ``X`` (B, dim); the
+    JAX package's ``_ftrl_dense_batch_step_factory``: the margins ``X @
+    w`` (``torch.mv``) at the pre-batch weights, then the deltas' column
+    sums added to the state. Returns new ``(z, n, margins)``."""
+    w = ftrl_weights(z, n, alpha, beta, l1, l2)
+    margins = torch.mv(X, w)
+    g = (sigmoid(margins) - y)[:, None] * X
+    sigma = (torch.sqrt(n[None, :] + g * g) - torch.sqrt(n[None, :])) / alpha
+    return (z + (g - sigma * w[None, :]).sum(0), n + (g * g).sum(0),
+            margins)
+
+
+def ftrl_dense_step(X, y, z, n, alpha, beta, l1, l2):
+    """One micro-batch of strict per-sample FTRL on dense rows ``X``
+    (B, dim); the JAX package's ``_ftrl_step_factory`` (its ``lax.scan``
+    over the rows as a Python loop). Each sample sees the weights of
+    every earlier sample's update, over the full-width state: about 35
+    small device ops a sample, none of them a kernel of this package.
+    Returns new ``(z, n, margins)``."""
+    margins = X.new_empty(X.shape[0])
+    for i, x in enumerate(X):
+        w = ftrl_weights(z, n, alpha, beta, l1, l2)
+        m = torch.dot(x, w)
+        margins[i] = m
+        g = (sigmoid(m) - y[i]) * x
+        sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / alpha
+        z = z + g - sigma * w
+        n = n + g * g
+    return z, n, margins
+
+
 def progressive_logloss_sum(margins, y):
     """Sum of the log losses of ``margins`` (computed at pre-update
     weights, so this is progressive validation) against 0/1 labels ``y``,
@@ -179,16 +286,36 @@ def progressive_logloss_sum(margins, y):
             + torch.logaddexp(zero, m) * (1.0 - y)).sum()
 
 
-class FtrlSparseTrainer:
-    """The parts of one sparse FTRL drain, one micro-batch at a time:
+class Encoded(NamedTuple):
+    """One micro-batch as the trainer ships it: ``kind`` ``"sparse"``
+    (``arrays`` = idx, val, y: a padded COO block, the intercept an
+    explicit ``(0, 1.0)`` entry), ``"dense"`` (X, y: the intercept a
+    column of ones) or ``"fb"`` (fb_idx, val or None, y: field-local
+    indices, the intercept a field of its own, ``meta`` its layout);
+    host arrays after :meth:`FtrlTrainer.encode`, device tensors after
+    :meth:`FtrlTrainer.to_device`."""
+    kind: str
+    arrays: tuple
+    width: int = 0
+    meta: Optional[FieldBlockMeta] = None
+
+
+class FtrlTrainer:
+    """The parts of one FTRL drain, one micro-batch at a time:
     :meth:`encode` (host), :meth:`to_device`, :meth:`step` on the
     device-resident state, and :meth:`snapshot` (device to host, model
     table). :class:`FtrlTrainStreamOp` drives them; they are public so a
-    caller can time each stage."""
+    caller can time each stage.
+
+    The state has one of two layouts: ``"std"``, the model's coefficient
+    order, and ``"fb"`` (field-aware input in batch mode), the intercept
+    field of ``fb_S`` slots (only slot 0 used) then the field-major
+    features, so a field-blocked micro-batch addresses it by field."""
 
     def __init__(self, init: LinearModelData, *, alpha: float, beta: float,
                  l1: float, l2: float, update_mode: str, staleness: int,
-                 chunk_size: int, vector_col: str, label_col: str,
+                 chunk_size: int, vector_col: Optional[str],
+                 feature_cols: Optional[List[str]], label_col: str,
                  device: torch.device, ship_dtype: torch.dtype):
         if ship_dtype not in _SHIP_NP:
             raise ValueError(f"ship_dtype {ship_dtype}: want float32 or "
@@ -197,7 +324,8 @@ class FtrlSparseTrainer:
         self.alpha, self.beta, self.l1, self.l2 = alpha, beta, l1, l2
         self.update_mode = update_mode
         self.staleness, self.chunk_size = staleness, chunk_size
-        self.vector_col, self.label_col = vector_col, label_col
+        self.vector_col, self.feature_cols = vector_col, feature_cols
+        self.label_col = label_col
         self.device, self.ship_dtype = device, ship_dtype
         self.ship_np = _SHIP_NP[ship_dtype]
         self.dim = int(np.asarray(init.coef).shape[0])  # with the intercept
@@ -219,26 +347,59 @@ class FtrlSparseTrainer:
             y[:b] = [1.0 if str(v) == pos else 0.0 for v in r]
         return y
 
-    def encode(self, mt: MTable, batch_size: int, width: int = 8):
-        """``(idx, val, y, width)``: the micro-batch as a padded (batch_size,
-        width) COO block, the intercept an explicit ``(0, 1.0)`` entry of
-        every real row and feature indices shifted by one, the width grown
-        in steps of 8 from the given one and never shrunk."""
-        design = extract_design(mt, None, self.vector_col, self.ship_np,
+    def encode(self, mt: MTable, batch_size: int, width: int = 8,
+               allow_fb: bool = False) -> Encoded:
+        """The micro-batch padded to ``batch_size`` rows. Dense input
+        (``feature_cols``, or dense vectors) becomes a (batch_size, dim)
+        block. Sparse input becomes a padded COO block whose width grows in
+        steps of 8 from the given one and never shrinks; or, with
+        ``allow_fb`` (batch mode, before the state has committed to the
+        generic layout), a field-blocked block when the rows are
+        field-aware hashed (``detect_fieldblock``): int16 indices when a
+        field's slots fit, and no value block for a full micro-batch of
+        one-hot rows."""
+        ship = self.ship_np
+        design = extract_design(mt, self.feature_cols, self.vector_col, ship,
                                 vector_size=self.init.vector_size or None)
-        if design["kind"] == "dense":
-            raise NotImplementedError(
-                "FtrlTrainStreamOp: dense input (the dense strict step) is "
-                "not ported yet; feed sparse vectors")
         b = mt.num_rows
+        icpt = self.has_intercept
+        y = self.labels(mt, b, batch_size)
+        if design["kind"] == "dense":
+            Xf = design["X"]
+            X = np.zeros((batch_size, self.dim), ship)
+            if icpt:
+                X[:b, 0] = 1.0
+                X[:b, 1:1 + Xf.shape[1]] = Xf
+            else:
+                X[:b, :Xf.shape[1]] = Xf
+            return Encoded("dense", (X, y))
         idx0, val0 = design["idx"], design["val"]
         hi = int(idx0.max()) if idx0.size else -1
-        if hi + (1 if self.has_intercept else 0) >= self.dim:
+        if hi + (1 if icpt else 0) >= self.dim:
             raise IndexError(
                 f"sparse feature index {hi} out of range for the "
                 f"warm-start model (dim {self.dim}); the dense path fails "
                 f"loudly on the same input")
-        if self.has_intercept:
+        if allow_fb:
+            fbd = detect_fieldblock(idx0, val0, self.dim - (1 if icpt else 0))
+            if fbd is not None:
+                fb_local, fb_val, meta0 = fbd
+                c0 = 1 if icpt else 0
+                idt = (np.int16 if meta0.field_size <= np.iinfo(np.int16).max
+                       else np.int32)
+                fbi = np.zeros((batch_size, meta0.num_fields + c0), idt)
+                fbi[:b, c0:] = fb_local
+                meta = FieldBlockMeta(meta0.num_fields + c0, meta0.field_size)
+                if fb_val is None and b == batch_size:
+                    # padding rows rely on val == 0 to be no-ops, so only
+                    # a full batch goes without values
+                    return Encoded("fb", (fbi, None, y), meta=meta)
+                fbv = np.zeros(fbi.shape, ship)
+                if icpt:
+                    fbv[:b, 0] = 1.0           # intercept field, local 0
+                fbv[:b, c0:] = 1.0 if fb_val is None else fb_val
+                return Encoded("fb", (fbi, fbv, y), meta=meta)
+        if icpt:
             idx0 = np.concatenate(
                 [np.zeros((b, 1), idx0.dtype), idx0 + 1], axis=1)
             val0 = np.concatenate(
@@ -246,42 +407,85 @@ class FtrlSparseTrainer:
         w0 = idx0.shape[1]
         width = max(width, -(-w0 // 8) * 8)
         idx = np.zeros((batch_size, width), np.int32)
-        val = np.zeros((batch_size, width), self.ship_np)
+        val = np.zeros((batch_size, width), ship)
         idx[:b, :w0] = idx0
         val[:b, :w0] = val0
-        return idx, val, self.labels(mt, b, batch_size), width
+        return Encoded("sparse", (idx, val, y), width=width)
 
     # -- device side -------------------------------------------------------
-    def to_device(self, idx: np.ndarray, val: np.ndarray, y: np.ndarray):
-        return tuple(torch.from_numpy(a).to(self.device)
-                     for a in (idx, val, y))
+    def to_device(self, enc: Encoded) -> Encoded:
+        return enc._replace(arrays=tuple(
+            None if a is None else torch.from_numpy(a).to(self.device)
+            for a in enc.arrays))
 
-    def initial_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The warm start: ``z = -coef * (beta/alpha + l2)`` and ``n = 0``,
-        whose weights are the initial model's coefficients."""
-        z0 = -np.asarray(self.init.coef, np.float64) \
+    def fb_size(self, meta: FieldBlockMeta) -> int:
+        """The fb layout's state size: the features' and, with an
+        intercept, its field of ``field_size`` slots."""
+        return (self.dim - 1 + meta.field_size if self.has_intercept
+                else self.dim)
+
+    def initial_state(self, enc: Optional[Encoded] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The warm start in the layout ``enc`` takes (the fb layout for a
+        field-blocked micro-batch): ``z = -coef * (beta/alpha + l2)`` and
+        ``n = 0``, whose weights are the initial model's coefficients."""
+        zc = -np.asarray(self.init.coef, np.float64) \
             * (self.beta / self.alpha + self.l2)
+        if enc is not None and enc.kind == "fb":
+            z0 = np.zeros(self.fb_size(enc.meta))
+            if self.has_intercept:
+                S = enc.meta.field_size
+                z0[0] = zc[0]
+                z0[S:S + self.dim - 1] = zc[1:]
+            else:
+                z0[:] = zc
+        else:
+            z0 = zc
         z = torch.from_numpy(z0).to(self.device, self.ship_dtype)
         return z, torch.zeros_like(z)
 
-    def step(self, idx, val, y, z, n):
+    def to_std_state(self, z, n, fb_S: int):
+        """The exact fb -> std translation: dropping the intercept field's
+        unused slots loses nothing."""
+        if not self.has_intercept:
+            return z[:self.dim].clone(), n[:self.dim].clone()
+        span = slice(fb_S, fb_S + self.dim - 1)
+        return (torch.cat([z[:1], z[span]]), torch.cat([n[:1], n[span]]))
+
+    def step(self, enc: Encoded, z, n):
         """One micro-batch in this trainer's update mode: ``(z, n,
-        margins)``; the state passed in is dead afterwards."""
+        margins)``; the state passed in is dead afterwards. Dense rows
+        outside batch mode take the strict dense step (the JAX package's
+        dense scan, in every strict or chunked mode)."""
         hyper = (self.alpha, self.beta, self.l1, self.l2)
+        a = enc.arrays
+        if enc.kind == "fb":
+            return ftrl_fb_batch_step(a[0], a[1], a[2], z, n, enc.meta,
+                                      *hyper)
+        if enc.kind == "dense":
+            if self.update_mode == "batch":
+                return ftrl_dense_batch_step(*a, z, n, *hyper)
+            return ftrl_dense_step(*a, z, n, *hyper)
+        if self.update_mode == "batch":
+            return ftrl_batch_step(*a, z, n, *hyper)
         if self.update_mode == "staleness":
-            return ftrl_staleness_step(idx, val, y, z, n, *hyper,
-                                       self.staleness)
+            return ftrl_staleness_step(*a, z, n, *hyper, self.staleness)
         if self.update_mode == "chained":
-            return ftrl_chained_step(idx, val, y, z, n, *hyper,
-                                     self.chunk_size)
-        return ftrl_sample_step(idx, val, y, z, n, *hyper)
+            return ftrl_chained_step(*a, z, n, *hyper, self.chunk_size)
+        return ftrl_sample_step(*a, z, n, *hyper)
 
     def weights(self, z, n) -> torch.Tensor:
         return ftrl_weights(z, n, self.alpha, self.beta, self.l1, self.l2)
 
-    def snapshot(self, z, n) -> MTable:
-        """The model table of the live state (one device-to-host fetch)."""
-        w = self.weights(z, n).cpu().numpy()[:self.dim]
+    def snapshot(self, z, n, fb_S: Optional[int] = None) -> MTable:
+        """The model table of the live state (one device-to-host fetch);
+        ``fb_S`` the field size of an fb-layout state, whose intercept and
+        features map back to the model's coefficient order."""
+        w = self.weights(z, n).cpu().numpy()
+        if fb_S is not None and self.has_intercept:
+            w = np.concatenate([w[:1], w[fb_S:fb_S + self.dim - 1]])
+        else:
+            w = w[:self.dim]
         init = self.init
         m = LinearModelData(
             model_name="FTRL", linear_model_type=LinearModelType.LR,
@@ -293,8 +497,7 @@ class FtrlSparseTrainer:
 
 
 class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCol):
-    """Online FTRL trainer on sparse input; output is the model-snapshot
-    stream.
+    """Online FTRL trainer; output is the model-snapshot stream.
 
     Requires a batch-trained initial linear model (warm start), exactly as
     the reference does (FtrlTrainStreamOp.java:56-60). ``device`` is
@@ -314,7 +517,8 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
     # semantics through the chained-correction chunk step; "staleness" =
     # gradients at weights <= staleness-1 samples old (the reference's
     # feedback-edge contract, FtrlTrainStreamOp.java:120-135, with the
-    # bound made explicit); "batch" is not ported yet
+    # bound made explicit); "batch" = gradients at the pre-batch weights,
+    # one update a micro-batch (exact for collision-free batches)
     UPDATE_MODE = ParamInfo("update_mode", str, default="sample",
                             validator=InValidator(["sample", "chained",
                                                    "staleness", "batch"]))
@@ -327,9 +531,10 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                            description="chunk length for update_mode="
                                        "'chained'",
                            validator=RangeValidator(1, None))
-    # durability and health monitoring are not ported yet: a
-    # checkpoint_dir or a health monitor raises NotImplementedError at
-    # link; the params that only tune a checkpoint are not declared
+    # durability (ROADMAP Queue A4) and health monitoring (Queue A10) are
+    # not ported yet: a checkpoint_dir or a health monitor raises
+    # NotImplementedError at link; the params that only tune a checkpoint
+    # are not declared
     CHECKPOINT_DIR = ParamInfo("checkpoint_dir", str, default=None)
     HEALTH = ParamInfo("health", object, default=None)
 
@@ -340,18 +545,30 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
         self._initial_model = initial_model
         self.device = resolve_device(device)
         self.ship_dtype = ship_dtype
-        self.trainer: Optional[FtrlSparseTrainer] = None
+        self.trainer: Optional[FtrlTrainer] = None
         self._progressive: List[Tuple[int, float]] = []
+        self._batch_hook = None
+        self._device_snapshot_hook = None
 
     def set_batch_hook(self, hook) -> "FtrlTrainStreamOp":
-        raise NotImplementedError(
-            "FtrlTrainStreamOp.set_batch_hook (the online DAG's pacing) is "
-            "not ported yet")
+        """Register a micro-batch lifecycle hook (the online DAG's pacing
+        point): ``hook("pre", b, t)`` runs before batch ``b``'s state
+        update (1-based, ``t`` its event time) and ``hook("post", b, t)``
+        after the update, and any snapshot emission it triggered, has
+        committed. It runs on the drain thread and may block."""
+        self._batch_hook = hook
+        return self
 
     def set_device_snapshot_consumer(self, hook) -> "FtrlTrainStreamOp":
-        raise NotImplementedError(
-            "FtrlTrainStreamOp.set_device_snapshot_consumer is not ported "
-            "yet")
+        """Register a device-to-device snapshot consumer: at each emission
+        boundary ``hook(w_device, info)`` is handed the live device
+        weights of the state (in its layout) and ``info`` (``fb_S``,
+        ``dim``, ``has_intercept``, ``batch``, ``event_time``). When it
+        returns True the host snapshot, and its fetch, is skipped for
+        that boundary: nothing is yielded. A False or None return falls
+        back to the host snapshot."""
+        self._device_snapshot_hook = hook
+        return self
 
     def progressive_logloss(self) -> List[Tuple[int, float]]:
         """``(batch, mean log loss)`` of every micro-batch of the latest
@@ -369,48 +586,52 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
 
     def link_from(self, data_op: StreamOperator) -> "FtrlTrainStreamOp":
         m = self.params._m
-        update_mode = m.get("update_mode", "sample")
-        if update_mode == "batch":
-            raise NotImplementedError(
-                "FtrlTrainStreamOp: update_mode='batch' is not ported yet")
-        for key in ("checkpoint_dir", "health"):
+        queue = {"checkpoint_dir": "A4", "health": "A10"}
+        for key, item in queue.items():
             if m.get(key) is not None:
                 raise NotImplementedError(
-                    f"FtrlTrainStreamOp: {key} is not ported yet")
+                    f"FtrlTrainStreamOp: {key} is not ported yet (ROADMAP "
+                    f"Queue {item})")
         init = self._load_initial()
         self._schema = LinearModelDataConverter(init.label_type).schema
-        vector_col = m.get("vector_col") or init.vector_col
-        if m.get("feature_cols") or not vector_col:
-            raise NotImplementedError(
-                "FtrlTrainStreamOp: dense input (feature_cols) is not "
-                "ported yet; set vector_col to a column of sparse vectors")
-        trainer = self.trainer = FtrlSparseTrainer(
+        update_mode = m.get("update_mode", "sample")
+        trainer = self.trainer = FtrlTrainer(
             init, alpha=float(self.get_alpha()), beta=float(self.get_beta()),
             l1=float(self.get_l1()), l2=float(self.get_l2()),
             update_mode=update_mode, staleness=int(m.get("staleness", 32)),
-            chunk_size=int(m.get("chunk_size", 16)), vector_col=vector_col,
+            chunk_size=int(m.get("chunk_size", 16)),
+            vector_col=m.get("vector_col") or init.vector_col,
+            feature_cols=m.get("feature_cols") or init.feature_names,
             label_col=self.get_label_col(), device=self.device,
             ship_dtype=self.ship_dtype)
         interval = float(self.get_time_interval())
-
-        def encoded():
-            """Host leg, run ahead by one thread: the batch size latches
-            on the first non-empty micro-batch (later ones pad to it) and
-            the COO width only grows."""
-            batch_size = None
-            width = 8
-            for t, mt in data_op.timed_batches():
-                if mt.num_rows == 0:
-                    continue
-                if batch_size is None:
-                    batch_size = max(1, mt.num_rows)
-                idx, val, y, width = trainer.encode(
-                    mt, max(batch_size, mt.num_rows), width)
-                yield t, mt.num_rows, (idx, val, y)
+        batch_mode = update_mode == "batch"
 
         def gen():
+            # cleared once the state commits to the generic layout; the
+            # encode thread reads it, so an fb micro-batch already encoded
+            # ahead of the flip is encoded again below
+            allow_fb = [batch_mode]
+
+            def encoded():
+                """Host leg, run ahead by one thread: the batch size
+                latches on the first non-empty micro-batch (later ones pad
+                to it) and the COO width only grows."""
+                batch_size = None
+                width = 8
+                for t, mt in data_op.timed_batches():
+                    if mt.num_rows == 0:
+                        continue
+                    if batch_size is None:
+                        batch_size = max(1, mt.num_rows)
+                    bs = max(batch_size, mt.num_rows)
+                    enc = trainer.encode(mt, bs, width, allow_fb[0])
+                    width = max(width, enc.width)
+                    yield t, mt, bs, trainer.to_device(enc)
+
             progressive = self._progressive = []
             pending: List[Tuple[int, int, torch.Tensor]] = []
+            pace = self._batch_hook
 
             def flush():
                 # one host fetch per snapshot boundary for every queued
@@ -420,30 +641,70 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                 pending.clear()
 
             z = n = None
+            layout = fb_S = fb_meta = None
             next_emit = None
             b_done = 0
-            for t, rows, enc in prefetch(encoded()):
+
+            def device_emit(t_ev, batch) -> bool:
+                hook = self._device_snapshot_hook
+                if hook is None:
+                    return False
+                return bool(hook(trainer.weights(z, n),
+                                 {"fb_S": fb_S, "dim": trainer.dim,
+                                  "has_intercept": trainer.has_intercept,
+                                  "batch": batch, "event_time": t_ev}))
+
+            for t, mt, bs, enc in prefetch(encoded()):
+                if pace is not None:
+                    pace("pre", b_done + 1, t)
                 if next_emit is None:
                     next_emit = (np.floor(t / interval) + 1) * interval
-                if z is None:
-                    z, n = trainer.initial_state()
-                idx, val, y = trainer.to_device(*enc)
-                z, n, mg = trainer.step(idx, val, y, z, n)
+                if (layout == "fb" and (enc.kind != "fb"
+                                        or enc.meta != fb_meta)) or (
+                        layout == "std" and enc.kind == "fb"):
+                    # the first micro-batch's layout was coincidental (or
+                    # the rows changed shape): demote the state to the
+                    # generic layout, exactly, and stay there
+                    if layout == "fb":
+                        z, n = trainer.to_std_state(z, n, fb_S)
+                    layout, fb_S, fb_meta = "std", None, None
+                    allow_fb[0] = False
+                    enc = trainer.to_device(trainer.encode(mt, bs, 8))
+                if layout is None:
+                    if enc.kind == "fb":
+                        layout, fb_S, fb_meta = ("fb", enc.meta.field_size,
+                                                 enc.meta)
+                    else:
+                        layout = "std"
+                        allow_fb[0] = False
+                    z, n = trainer.initial_state(enc)
+                rows = mt.num_rows
+                y = enc.arrays[-1]
+                z, n, mg = trainer.step(enc, z, n)
                 pending.append((b_done + 1, rows,
                                 progressive_logloss_sum(mg[:rows], y[:rows])))
                 if t + 1e-12 >= next_emit:
-                    snap = trainer.snapshot(z, n)
-                    flush()
-                    yield (t, snap)
+                    if not device_emit(t, b_done + 1):
+                        snap = trainer.snapshot(z, n, fb_S)
+                        flush()
+                        yield (t, snap)
+                    else:
+                        flush()
                     while next_emit <= t + 1e-12:
                         next_emit += interval
                 b_done += 1
+                if pace is not None:
+                    pace("post", b_done, t)
             if z is None:
                 # empty stream: emit the warm-start model
                 z, n = trainer.initial_state()
-            snap = trainer.snapshot(z, n)
-            flush()
-            yield (next_emit if next_emit is not None else interval, snap)
+            t_end = next_emit if next_emit is not None else interval
+            if not device_emit(t_end, b_done if b_done > 0 else None):
+                snap = trainer.snapshot(z, n, fb_S)
+                flush()
+                yield (t_end, snap)
+            else:
+                flush()
 
         self._stream_fn = gen
         return self

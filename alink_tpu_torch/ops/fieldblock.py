@@ -22,9 +22,11 @@ what the reference's one-hot product gives on the CPU; the gradient
 adds each slot's terms in row order, where the reference's order is
 XLA's, so the two agree within the float32 summation bound.
 
+:func:`fb_gather` is the JAX package's per-field selection (there a
+one-hot product on float32 operands, exact): here the state gather
+kernel (``kernels/ftrl.py``) at the flat indices, rounded to float32.
 :func:`hash_to_fields` (field-aware hashing, host numpy through the
-port's vectorized murmur) is ported; ``fb_gather`` is not yet (the
-field-blocked FTRL batch step, ROADMAP Queue A).
+port's vectorized murmur) is ported too.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.ftrl import gather_pair, gather_rows
 from ..kernels.linear import grad_plan, linear_grad, sparse_margins
 
 LO = 16  # lo-part width; field_size must be a multiple of this
@@ -135,6 +138,20 @@ def fb_values(fb_idx, val=None):
         return torch.ones(fb_idx.shape, dtype=torch.float32,
                           device=fb_idx.device)
     return val.to(torch.float32).contiguous()
+
+
+def fb_gather(fb_idx, vec, meta: FieldBlockMeta, other=None):
+    """``out[i, k] = vec[k*S + fb_idx[i, k]]`` in float32, (n, F): the
+    state gather kernel at :func:`fb_flat`'s indices, then rounded (a
+    selection, so the JAX package's float32 one-hot product gives the same
+    bits). With ``other`` (a vector of ``vec``'s dtype and size), both in
+    one launch (``gather_pair``): (n, F, 2), ``vec``'s in ``[..., 0]``."""
+    flat = fb_flat(fb_idx, meta)
+    if other is None:
+        out = gather_rows(vec, flat.view(-1)).view(flat.shape)
+    else:
+        out = gather_pair(vec, other, flat.view(-1)).view(*flat.shape, 2)
+    return out.to(torch.float32)
 
 
 def fb_matvec(fb_idx, coef, meta: FieldBlockMeta, val=None, plan=None):

@@ -107,12 +107,15 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    NaN), at the field-blocked ``bench_logreg`` shape (200,000 rows x 33
    fields x 2048, the intercept field every row's), the same without its
    intercept column (the bulk alone), the padded-COO shape of phase 7's
-   rows (100,000 x 40 over 2^20 + 1 slots) and at edges: every position
+   rows (100,000 x 40 over 2^20 + 1 slots), the two shapes of phase 14's
+   field-blocked batch step (bench_ftrl's 4096 x 40 over 40 x 1648 and
+   its stream's 16,384 x 4 over 4 x 1648, each with a run of every row)
+   and at edges: every position
    on one slot, one row, slots never hit, ``-0.0``, NaN and inf terms
    inside runs, heavy runs of many lengths (one 18 times the ring, a
    tie, one at the heavy threshold and one a term short), more heavy runs
    than clusters, and heavy runs carrying NaN, +-inf and ``-0.0`` in
-   the values and in c; at the three main shapes kernel (events), device
+   the values and in c; at the five main shapes kernel (events), device
    (profiler), host, plain (CPU) and ``index_add_`` times, the bytes
    bound, the chain bound of the longest run and the kernel's fraction
    of it. Then L-BFGS at ``bench_logreg``'s configuration
@@ -161,6 +164,43 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    micro-batch, the card's busy
    share under a profiled drain and every window's AUC beside the warm
    start's on the last window's rows.
+
+14. (run before 13, whose profiled drain leaves ``torch.profiler``
+   recording few later kernels) FTRL's batch mode
+   (``update_mode="batch"``) and dense input at
+   ``bench.py::bench_ftrl``'s shapes and hyperparameters: (a) the ordered
+   scatter-add (``scatter_walk``, the batch update of z and n in one
+   launch) against its plain version on the CPU, bitwise, f32 and f64, at
+   the padded-COO batch shape (4096 x 40 over 65,536 + 1 and 2^20 + 1
+   slots), the field-blocked one (4096 x 40 over 40 x 1648), the stream's
+   (16,384 x 4 over 3 x 1648 + 1) and edges (one update, every key one
+   slot, a ``-0.0`` state where no key lands, NaN and inf terms), with
+   the kernel's times (events, profiler, host), its plan's (over the
+   touched slots, shared with ``linear_grad``), the wrapper's, the bytes
+   and chain bounds and two ``index_add_`` calls in turns; ``gather_pair``
+   against its plain version, bitwise, f32 and f64, at the padded-COO
+   batch shape (163,840 positions over 65,536 + 1 and 2^20 + 1 slots)
+   and the stream's field-blocked one (65,536 over 4 x 1648), with its
+   times; (b) the padded-COO, field-blocked (with and without values),
+   dense batch and dense strict steps: float64 on the card against the
+   CPU over 3 micro-batches (2 for the strict one, cut to 512 rows), at
+   rtol 1e-10, the field-blocked ones, float32 inside as in the JAX
+   package, within 1e-6 of their largest change; two float32 runs
+   bitwise; launches, device ops, ms and samples/s of one micro-batch and
+   the card's busy share; then ``FtrlTrainStreamOp(update_mode="batch")``
+   on 6 Criteo-shape micro-batches: one ``gather_pair`` and one
+   ``scatter_walk`` each and nothing else; (c) bench_ftrl's stream on the
+   port: 262,144 rows of site / dev / app hashed field-aware into 3 x
+   1648 in 16,384-row micro-batches, warm-started by 3 L-BFGS supersteps
+   on the first 4,096 rows: the stream's, the host-only and the full
+   DAG's (predict, windowed eval) rows/s and last window AUC, each after
+   a warm run, the field-blocked program on every micro-batch (one
+   ``gather_pair``, two ``linear_grad``), the trainer's stages on one
+   micro-batch and the busy share; a stream that stops being
+   field-blocked demoted exactly (the op's snapshot bitwise equal to the
+   translation by hand); (d) the batch hook's pre and post calls in
+   order and a device snapshot consumer that takes every hand-off of the
+   live card weights, leaving no host snapshot.
 
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
@@ -309,28 +349,38 @@ def device_ms(fn, part: str = "", reps: int = 20, sessions: int = 6):
     return sum(per.values()), per
 
 
-def device_ms_per_launch(fn, part: str, reps: int = 20):
+def device_ms_per_launch(fn, part: str, reps: int = 20, sessions: int = 6):
     """Device time per launch of the one kernel whose name holds
     ``part``, from ``torch.profiler``: its total over ``reps`` calls
     divided by the launches the session recorded (a session can drop
     some of a ctypes kernel's records, which would make a per-call
-    average too small). Returns (ms, launches recorded)."""
+    average too small). A session that recorded none is made again, up
+    to ``sessions`` in all, as :func:`device_ms` does; this fails if none
+    of them saw the kernel. Returns (ms, launches recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, seen = 0.0, 0
-    for e in prof.key_averages():
-        if part in e.key:
-            us += float(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0)) or 0)
-            seen += int(e.count)
-    require(seen > 0, f"the profiler saw a {part} kernel")
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, seen = 0.0, 0
+        for e in prof.key_averages():
+            if part in e.key:
+                us += float(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0))
+                            or 0)
+                seen += int(e.count)
+        if seen:
+            break
+        print(f"chip_smoke: profiler session {session} of {sessions} saw "
+              f"no {part} kernel", file=sys.stderr)
+        time.sleep(0.1)
+    require(seen > 0, f"the profiler saw a {part} kernel in one of "
+                      f"{sessions} sessions")
     return us / seen / 1e3, seen
 
 
@@ -1027,7 +1077,8 @@ def _bound(nbytes, ops, kind):
 def pair_shape(kf, st, ix, kind, size, touched):
     """``gather_pair`` of the two columns of ``st`` (as the sample and
     chained steps hold z and n) against its plain version, bitwise; its
-    times beside the library's two ``index_select`` calls and a stack."""
+    times beside the library's two ``index_select`` calls and a stack
+    (device time per launch the profiler recorded)."""
     import torch
     z, n = st[:, 0].contiguous(), st[:, 1].contiguous()
     got = kf.gather_pair(z, n, ix)
@@ -1045,8 +1096,10 @@ def pair_shape(kf, st, ix, kind, size, touched):
     call = lambda: kf.gather_pair(z, n, ix)                   # noqa: E731
     k_ms, l_ms = cuda_ms_turns(call, lib)
     k_host, l_host = host_ms_turns(call, lib)
+    dev_ms, dev_seen = device_ms_per_launch(call, "ftrl_gather_kernel")
     return {"bitwise": True, "max_abs_err": 0.0, "kernel_ms": k_ms,
-            "device_ms": device_ms(call, "ftrl_gather")[0], "host_ms": k_host,
+            "device_ms": dev_ms, "device_launches_recorded": dev_seen,
+            "host_ms": k_host,
             "plain_ms": cuda_ms(lambda: kf.gather_pair_plain(z, n, ix)),
             "library_ms": l_ms, "library_device_ms": device_ms(lib)[0],
             "library_host_ms": l_host, "bound_ms": b_ms, "bound_by": b_by}
@@ -1279,8 +1332,9 @@ def ftrl_card_vs_cpu(warm, train):
             for b in range(2):
                 mt = train.take_rows(np.arange(b * FTRL_BATCH,
                                                (b + 1) * FTRL_BATCH))
-                idx, val, y, width = tr.encode(mt, FTRL_BATCH, width)
-                z, n, mg = tr.step(*tr.to_device(idx, val, y), z, n)
+                enc = tr.encode(mt, FTRL_BATCH, width)
+                width = enc.width
+                z, n, mg = tr.step(tr.to_device(enc), z, n)
                 margins.append(mg.cpu().numpy())
             runs[dev] = (z.cpu().numpy(), n.cpu().numpy(),
                          np.concatenate(margins))
@@ -1300,28 +1354,34 @@ def ftrl_card_vs_cpu(warm, train):
     return out
 
 
-def trainer_stages(tr, mt, reps):
+def trainer_stages(tr, mt, reps, allow_fb=False):
     """One micro-batch ``mt`` through the FTRL trainer ``tr``'s stages,
     encode, copy in, step and snapshot (host clock, each ending in a
-    synchronize), ``reps`` times from the warm start on: the median ms of
-    each, with the step's samples/s; and the last step's device inputs
-    and state."""
+    synchronize), ``reps`` times from the warm start on (``allow_fb``:
+    the field-blocked encoding and layout where the rows are field-aware
+    hashed): the median ms of each, with the step's samples/s; and the
+    last step's device inputs and state."""
     import torch
     b = mt.num_rows
     stages = {k: [] for k in ("encode", "to_device", "step", "snapshot")}
-    z, n = tr.initial_state()
+    z = n = fb_S = None
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        idx, val, y, _ = tr.encode(mt, b)
+        enc = tr.encode(mt, b, allow_fb=allow_fb)
         t1 = time.perf_counter()
-        dev = tr.to_device(idx, val, y)
+        dev = tr.to_device(enc)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        z, n, _ = tr.step(*dev, z, n)
+        if z is None:
+            z, n = tr.initial_state(enc)
+            fb_S = enc.meta.field_size if enc.kind == "fb" else None
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        z, n, _ = tr.step(dev, z, n)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        tr.snapshot(z, n)
+        tr.snapshot(z, n, fb_S)
         t4 = time.perf_counter()
         for k, a, e in (("encode", t0, t1), ("to_device", t1, t2),
                         ("step", t2, t3), ("snapshot", t3, t4)):
@@ -1351,7 +1411,7 @@ def ftrl_split(warm, train, mode, reps=3, trace=False):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        z, n, _ = tr.step(*dev, z, n)
+        z, n, _ = tr.step(dev, z, n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = 0.0
@@ -2078,6 +2138,17 @@ def grad_inputs(rng, case, dtype):
                 (LR_FIELDS + 1) * LR_FIELD_SIZE)
     if case in ("heavy_runs", "heavy_many", "heavy_specials"):
         return heavy_inputs(rng, case, dtype)
+    if case in ("fb_step", "stream_step"):
+        # the field-blocked batch step's two linear_grad launches (phase
+        # 14): bench_ftrl's 4096 x 40 fields of 1648 and its stream's
+        # 16,384 x (the intercept field and 3) of 1648, field 0 the
+        # intercept (one run of every row), c the step's ones
+        n, f = (BF_ROWS, BF_FIELDS) if case == "fb_step" else (ST_MICRO, 4)
+        keys = (rng.integers(0, BF_S, (n, f))
+                + np.arange(f) * BF_S).astype(np.int32)
+        keys[:, 0] = 0
+        return (keys, rng.standard_normal((n, f)).astype(dtype),
+                np.ones(n, dtype), f * BF_S)
     if case == "coo":
         n = LR_MAIN_ROWS
         keys = np.zeros((n, COO_WIDTH), np.int32)
@@ -2156,17 +2227,18 @@ def heavy_inputs(rng, case, dtype):
     return keys, val, c, dim
 
 
-GRAD_CASES = ("fieldblock", "coo", "fieldblock_bulk", "one_slot", "one_row",
-              "unhit", "specials", "heavy_runs", "heavy_many",
-              "heavy_specials")
-GRAD_TIMED = ("fieldblock", "coo", "fieldblock_bulk")
+GRAD_CASES = ("fieldblock", "coo", "fieldblock_bulk", "fb_step",
+              "stream_step", "one_slot", "one_row", "unhit", "specials",
+              "heavy_runs", "heavy_many", "heavy_specials")
+GRAD_TIMED = ("fieldblock", "coo", "fieldblock_bulk", "fb_step",
+              "stream_step")
 
 
 def grad_case(kl, rng, case, kind, lat):
     """The gradient kernel against its plain version on the same inputs,
     bitwise (a NaN equal to any NaN). The plain version is ``index_add_``,
     ordered on the CPU only, so it runs there; the plans built on the
-    card and on the CPU are equal. The main path's two shapes are timed."""
+    card and on the CPU are equal. The main paths' shapes are timed."""
     import torch
     dtype = np.float32 if kind == "f32" else np.float64
     keys, val, c, dim = grad_inputs(rng, case, dtype)
@@ -2176,9 +2248,9 @@ def grad_case(kl, rng, case, kind, lat):
     cc = torch.from_numpy(c).to(dev)
     got = kl.linear_grad(plan, cc)
     host = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
-    require(all(torch.equal(a.cpu(), b) if torch.is_tensor(a) else a == b
-                for a, b in zip(plan, host)
-                if not torch.is_tensor(a) or a.dtype == torch.int32),
+    require(torch.equal(plan.keys.cpu(), host.keys)
+            and all(torch.equal(a.cpu(), b) if torch.is_tensor(a) else a == b
+                    for a, b in zip(plan.walk, host.walk)),
             f"linear_grad {case} {kind}: the card's plan is the CPU's")
     want = kl.linear_grad_plain(host, torch.from_numpy(c))
     same, raw = same_bits(got.cpu(), want)
@@ -2187,15 +2259,18 @@ def grad_case(kl, rng, case, kind, lat):
         if bool(fin.any()) else 0.0
     require(same, f"linear_grad {case} {kind} bitwise vs its plain version "
                   f"(max abs err {err})")
+    walk = plan.walk
     rec = {"bitwise": True, "raw_bits_equal": raw, "max_abs_err": err,
-           "positions": int(keys.size), "slots": dim,
-           "heavy_runs": plan.n_heavy, "medium_runs": plan.n_medium}
+           "positions": int(keys.size), "slots": dim, "runs": walk.runs,
+           "heavy_runs": walk.n_heavy, "medium_runs": walk.n_medium}
     if case not in GRAD_TIMED:
         return rec
-    P, n = keys.size, keys.shape[0]
+    P, n, U = keys.size, keys.shape[0], walk.runs
     isz = np.dtype(dtype).itemsize
-    longest = int((host.starts[1:] - host.starts[:-1]).max())
-    b_ms, b_by = _bound(4 * P + 4 * (dim + 1) + P * isz + n * isz
+    longest = int(np.unique(keys, return_counts=True)[1].max())
+    # the plan (perm, starts, order, slots), the values and c read once,
+    # the gradient written once
+    b_ms, b_by = _bound(4 * P + 12 * U + 4 + P * isz + n * isz
                         + dim * isz, 2 * P, kind)
     keys_l = plan.keys.reshape(-1).long()
     call = lambda: kl.linear_grad(plan, cc)                     # noqa: E731
@@ -3077,6 +3152,657 @@ def phase_example(kernels, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. FTRL's batch mode: the ordered scatter-add (P2), the batch and dense
+#     steps, bench_ftrl's stream and DAG, the hooks
+# ---------------------------------------------------------------------------
+
+# bench.py::bench_ftrl's shapes: the padded-COO batch step (4096 rows of
+# 39 one-hot slots and the intercept over 65,536 hashed features), the
+# field-blocked one (40 fields of 1648, the intercept field first) and the
+# stream (262,144 rows of site / dev / app hashed field-aware into 3 fields
+# of 1648, 16,384-row micro-batches, a warm start of 3 L-BFGS supersteps on
+# the first 4,096 rows); its hyperparameters are FTRL_HP
+BF_ROWS, BF_DIM, BF_FIELDS, BF_S = 4096, 65_536 + 1, 40, 1648
+ST_ROWS, ST_MICRO, ST_WARM_ROWS, ST_WARM_ITER = 262_144, 16_384, 4096, 3
+# the dense steps: a dense-feature model of 256 columns (no bench shape);
+# the strict one cut to 512-row micro-batches (about 35 small ops a sample)
+DENSE_D, DENSE_STRICT_B = 256, 512
+BATCH_STEP_CHECKS = 3                 # micro-batches of the f64 card vs CPU
+# the field-blocked steps are float32 by the JAX package's semantics: the
+# float64 card run holds the CPU's within this share of the largest change
+# (tests/test_torch_ftrl_batch.py's FB_RTOL)
+FB_RTOL = 1e-6
+SCATTER_CASES = ("coo", "coo_2e20", "fb", "stream", "one", "same_slot",
+                 "negzero", "nan")
+SCATTER_TIMED = ("coo", "coo_2e20", "fb", "stream")
+
+
+def scatter_inputs(rng, case, dtype):
+    """(keys (B, w) int32, terms (B, w, 2), states (2, S)) of one case of
+    the ordered scatter-add: the three batch shapes of ``bench_ftrl``
+    (padded COO over 65,536 + 1 and 2^20 + 1 slots, the intercept in
+    column 0; field-blocked over 40 x 1648; the stream's 16,384 x 4 over 3
+    x 1648 + 1) and edges: one update, every key one slot (a heavy run of
+    16,384), a state of ``-0.0`` wherever no key lands, NaN and inf
+    terms."""
+    B, w, S = {"coo": (BF_ROWS, 40, BF_DIM),
+               "coo_2e20": (BF_ROWS, 40, FEATURES + 1),
+               "fb": (BF_ROWS, BF_FIELDS, BF_FIELDS * BF_S),
+               "stream": (ST_MICRO, 4, 3 * BF_S + 1),
+               "one": (1, 1, 7), "same_slot": (ST_MICRO, 1, BF_DIM),
+               "negzero": (256, 40, BF_DIM), "nan": (256, 40, BF_DIM)}[case]
+    if case == "fb":
+        keys = (rng.integers(0, BF_S, (B, w))
+                + np.arange(w) * BF_S).astype(np.int32)
+        keys[:, 0] = 0
+    elif case == "stream":
+        keys = (rng.integers(0, BF_S, (B, w)) + 1
+                + (np.arange(w) - 1) * BF_S).astype(np.int32)
+        keys[:, 0] = 0
+    elif case == "same_slot":
+        keys = np.full((B, w), 7, np.int32)
+    else:
+        keys = rng.integers(1, S, (B, w)).astype(np.int32)
+        keys[:, 0] = 0
+    terms = rng.standard_normal((B, w, 2)).astype(dtype)
+    states = rng.standard_normal((2, S)).astype(dtype)
+    states[:, ::97] = -0.0
+    if case == "negzero":
+        states[:] = -0.0
+    if case == "nan":
+        terms[::7, 3, 0] = np.nan
+        terms[::11, 0, 1] = np.inf
+        terms[5, 0, 0] = -np.inf
+    return keys, terms, states
+
+
+def scatter_case(kl, rng, case, kind, lat):
+    """The ordered scatter-add on the card against its plain version on
+    the CPU (``scatter_add_rows_plain``), bitwise (a NaN equal to any
+    NaN), both states in one launch. At the timed shapes: the kernel alone
+    on a built plan (events, profiler, host), the plan over the touched
+    slots (``run_plan``, the one both ordered kernels walk), the wrapper
+    (plan and kernel), the plain version, two ``index_add_`` calls
+    in turns (not deterministic; a yardstick), the bytes bound and the
+    chain bound of the longest run (z's and n's chains side by side)."""
+    import torch
+    dtype = np.float32 if kind == "f32" else np.float64
+    keys, terms, states = scatter_inputs(rng, case, dtype)
+    dev = torch.device("cuda")
+    kd, td = torch.from_numpy(keys).to(dev), torch.from_numpy(terms).to(dev)
+    z, n = (torch.from_numpy(s.copy()).to(dev) for s in states)
+    kl.scatter_walk(z, n, kd, td)
+    zc, nc = (torch.from_numpy(s.copy()) for s in states)
+    t0 = time.perf_counter()
+    kl.scatter_walk_plain(zc, nc, torch.from_numpy(keys),
+                          torch.from_numpy(terms))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, raws = 0.0, []
+    for got, want, name in ((z.cpu(), zc, "z"), (n.cpu(), nc, "n")):
+        same, raw = same_bits(got, want)
+        raws.append(raw)
+        fin = torch.isfinite(want)
+        if bool(fin.any()):
+            err = max(err, float((got[fin].double()
+                                  - want[fin].double()).abs().max()))
+        require(same, f"scatter_walk {case} {kind} {name} bitwise vs its "
+                      f"plain version (max abs err {err})")
+    untouched = np.ones(states.shape[1], bool)
+    untouched[keys.reshape(-1)] = False
+    require(bool(torch.equal(bits(z.cpu()[torch.from_numpy(untouched)]),
+                             bits(torch.from_numpy(states[0][untouched])))),
+            f"scatter_walk {case} {kind}: untouched slots keep their bits")
+    plan = kl.run_plan(kd, states.shape[1])
+    counts = np.unique(keys, return_counts=True)[1]
+    rec = {"bitwise": True, "raw_bits_equal": all(raws), "max_abs_err": err,
+           "positions": int(keys.size), "slots": int(states.shape[1]),
+           "runs": plan.runs, "heavy_runs": plan.n_heavy,
+           "medium_runs": plan.n_medium, "longest_run": int(counts.max())}
+    if case not in SCATTER_TIMED:
+        return rec
+    M, U, isz = keys.size, plan.runs, np.dtype(dtype).itemsize
+    # the plan, the terms read once; z and n read and written at the runs
+    b_ms, b_by = _bound(4 * M + 12 * U + 4 + 2 * M * isz + 4 * U * isz,
+                        2 * M, kind)
+    kl_ = kd.reshape(-1).long()
+    tz, tn = td[..., 0].reshape(-1), td[..., 1].reshape(-1)
+    call = lambda: kl.scatter_walk(z, n, kd, td, plan=plan)    # noqa: E731
+    lib = lambda: (z.index_add_(0, kl_, tz),                    # noqa: E731
+                   n.index_add_(0, kl_, tn))
+    k_ms, l_ms = cuda_ms_turns(call, lib, trials=9, reps=5)
+    k_host, l_host = host_ms_turns(call, lib, trials=9, reps=5)
+    dev_ms, dev_seen = device_ms_per_launch(call, "scatter_walk_kernel")
+    wrap_ms = cuda_ms(lambda: kl.scatter_walk(z, n, kd, td), trials=7,
+                      reps=5)
+    plan_ms = cuda_ms(lambda: kl.run_plan(kd, states.shape[1]),
+                      trials=7, reps=5)
+    chain_ms = chain_bound_ms(rec["longest_run"], kind, lat)
+    rec.update(kernel_ms=k_ms, device_ms=dev_ms,
+               device_launches_recorded=dev_seen, host_ms=k_host,
+               wrapper_ms=wrap_ms, plan_ms=plan_ms, plain_ms=plain_ms,
+               plain_where="CPU", library_ms=l_ms,
+               library_device_ms=device_ms(lib)[0], library_host_ms=l_host,
+               library_deterministic=False, bound_ms=b_ms, bound_by=b_by,
+               chain_bound_ms=chain_ms, chain_fraction=chain_ms / k_ms)
+    return rec
+
+
+def batch_gathers(kf, rng):
+    """``gather_pair`` (the batch steps' gather of the touched slots)
+    against its plain version, bitwise, f32 and f64, with its times, at
+    the padded-COO batch shape (bench_ftrl's 4096 x 40, the intercept in
+    column 0, over 65,536 + 1 and 2^20 + 1 slots) and at the stream's
+    field-blocked one (16,384 x 4 over the intercept field and 3 fields
+    of 1648)."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for name, (B, w, S, F) in {
+            "coo": (BF_ROWS, 40, BF_DIM, 0),
+            "coo_2e20": (BF_ROWS, 40, FEATURES + 1, 0),
+            "stream_fb": (ST_MICRO, 4, 4 * BF_S, BF_S)}.items():
+        if F:
+            ix = rng.integers(0, F, (B, w)) + np.arange(w) * F
+        else:
+            ix = rng.integers(1, S, (B, w))
+        ix[:, 0] = 0
+        ix = torch.from_numpy(ix.reshape(-1).astype(np.int32)).to(dev)
+        touched = int(torch.unique(ix).numel())
+        for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
+            st = torch.from_numpy(rng.standard_normal((S, 2))).to(dev, dtype)
+            out[f"{name} {kind} M={B * w}"] = pair_shape(
+                kf, st, ix, kind, 4 if kind == "f32" else 8, touched)
+    return out
+
+
+def batch_rows(rng, n):
+    """``bench.py::make_batch_criteo``'s rows over BF_DIM slots, as the
+    trainer takes them: 39 distinct one-hot slots of the hashed features
+    (the trainer adds the intercept), labels from a seeded sparse true
+    model (2 % of the features non-zero)."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import SparseVector
+    feats = BF_DIM - 1
+    w_true = rng.standard_normal(feats) * (rng.random(feats) < 0.02)
+    raw = np.argsort(rng.random((n, feats // 64)), axis=1)[:, :NNZ]
+    raw = np.sort(raw * 64 + rng.integers(0, 64, (n, NNZ)), axis=1)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-w_true[raw].sum(1)))).astype(
+        np.int64)
+    vecs = np.empty(n, object)
+    ones = np.ones(NNZ)
+    vecs[:] = [SparseVector(feats, raw[i], ones) for i in range(n)]
+    return MTable({"vec": vecs, "label": y}, "vec VECTOR, label LONG")
+
+
+def step_inputs(rng, kind, b, dtype):
+    """One micro-batch of each step's device input, as numpy: ``coo``
+    (idx, val, y) at bench_ftrl's batch shape, ``fb`` (fb_idx int16, val
+    or None, y) over 40 x 1648, ``fb_val`` the same with values, ``dense``
+    (X, y) of DENSE_D columns and the intercept."""
+    y = (rng.random(b) < 0.3).astype(dtype)
+    if kind == "coo":
+        idx = np.zeros((b, 40), np.int32)
+        idx[:, 1:] = np.sort(np.argsort(rng.random((b, (BF_DIM - 1) // 64)),
+                                        axis=1)[:, :NNZ] * 64
+                             + rng.integers(1, 64, (b, NNZ)), axis=1)
+        return idx, np.ones((b, 40), dtype), y
+    if kind in ("fb", "fb_val"):
+        fbi = rng.integers(0, BF_S, (b, BF_FIELDS)).astype(np.int16)
+        fbi[:, 0] = 0
+        val = None if kind == "fb" else np.round(
+            rng.random((b, BF_FIELDS)) * 2, 2).astype(dtype)
+        return fbi, val, y
+    X = rng.standard_normal((b, DENSE_D + 1)).astype(dtype)
+    X[:, 0] = 1.0
+    return X, y
+
+
+STEP_KINDS = ("coo", "fb", "fb_val", "dense", "dense_strict")
+
+
+def run_steps(tf, kind, batches, z0, n0, device, dtype):
+    """``batches`` micro-batches of one step from ``(z0, n0)`` on
+    ``device`` in ``dtype``: (z, n, margins of every micro-batch)."""
+    import torch
+    from alink_tpu_torch.ops.fieldblock import FieldBlockMeta
+    hp = (FTRL_HP["alpha"], FTRL_HP["beta"], FTRL_HP["l1"], FTRL_HP["l2"])
+    # copies: the padded-COO step updates the state in place
+    z = torch.tensor(z0, device=device, dtype=dtype)
+    n = torch.tensor(n0, device=device, dtype=dtype)
+    margins = []
+    for arrays in batches:
+        t = [None if a is None else torch.from_numpy(a).to(device)
+             for a in arrays]
+        t = [a.to(dtype) if a is not None and a.is_floating_point()
+             else a for a in t]
+        if kind == "coo":
+            z, n, m = tf.ftrl_batch_step(*t, z, n, *hp)
+        elif kind.startswith("fb"):
+            z, n, m = tf.ftrl_fb_batch_step(
+                *t, z, n, FieldBlockMeta(BF_FIELDS, BF_S), *hp)
+        elif kind == "dense":
+            z, n, m = tf.ftrl_dense_batch_step(*t, z, n, *hp)
+        else:
+            z, n, m = tf.ftrl_dense_step(*t, z, n, *hp)
+        margins.append(m)
+    return (z.cpu().numpy(), n.cpu().numpy(),
+            torch.cat(margins).cpu().numpy())
+
+
+def step_case(tf, kl, kf, rng, kind):
+    """One step on the card: float64 within rtol 1e-10 (+1e-12 abs) of
+    the CPU on z, n and the margins over BATCH_STEP_CHECKS micro-batches
+    (2 for the strict dense step; the field-blocked steps, float32 inside,
+    within FB_RTOL of the largest change), two float32 runs bitwise, the
+    launches of one micro-batch, its ms alone (each ending in a synchronize) and
+    samples/s, and the card's busy share under one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    b = DENSE_STRICT_B if kind == "dense_strict" else BF_ROWS
+    size = {"coo": BF_DIM, "fb": BF_FIELDS * BF_S,
+            "fb_val": BF_FIELDS * BF_S}.get(kind, DENSE_D + 1)
+    checks = 2 if kind == "dense_strict" else BATCH_STEP_CHECKS
+    src = "dense" if kind.startswith("dense") else kind
+    batches = [step_inputs(rng, src, b, np.float64) for _ in range(checks)]
+    z0 = rng.standard_normal(size) * 0.01
+    n0 = np.abs(rng.standard_normal(size)) * 0.01
+    card = run_steps(tf, kind, batches, z0, n0, "cuda", torch.float64)
+    cpu = run_steps(tf, kind, batches, z0, n0, "cpu", torch.float64)
+    errs = {}
+    for name, a, w, base in zip(("z", "n", "margins"), card, cpu,
+                                (z0, n0, 0.0)):
+        require(bool(np.isfinite(a).all()), f"{kind} step {name} finite")
+        gap = np.abs(a - w)
+        if kind.startswith("fb"):
+            # float32 arithmetic (the JAX package's): within FB_RTOL of
+            # the largest delta (or margin)
+            scale = float(np.abs(w - base).max())
+            ok = float(gap.max()) <= FB_RTOL * scale
+            what = f"within {FB_RTOL} of its largest change {scale}"
+        else:
+            ok = bool((gap <= 1e-10 * np.abs(w) + 1e-12).all())
+            what = "within rtol 1e-10"
+        require(ok, f"{kind} step: card {name} {what} of the CPU (max abs "
+                    f"err {gap.max()})")
+        errs[name] = float(gap.max())
+    f32 = [run_steps(tf, kind, batches, z0, n0, "cuda", torch.float32)
+           for _ in range(2)]
+    require(all(np.array_equal(a.view(np.int32), w.view(np.int32))
+                for a, w in zip(*f32)),
+            f"{kind} step: two float32 card runs bitwise")
+    # one micro-batch alone: launches, ms, busy share
+    z = torch.from_numpy(z0).cuda().float()
+    n = torch.from_numpy(n0).cuda().float()
+    t = [None if a is None else torch.from_numpy(a).cuda() for a in
+         batches[0]]
+    t = [a.float() if a is not None and a.is_floating_point() else a
+         for a in t]
+    hp = tuple(FTRL_HP[k] for k in ("alpha", "beta", "l1", "l2"))
+
+    def one():
+        if kind == "coo":
+            return tf.ftrl_batch_step(*t, z, n, *hp)
+        if kind.startswith("fb"):
+            from alink_tpu_torch.ops.fieldblock import FieldBlockMeta
+            return tf.ftrl_fb_batch_step(
+                *t, z, n, FieldBlockMeta(BF_FIELDS, BF_S), *hp)
+        if kind == "dense":
+            return tf.ftrl_dense_batch_step(*t, z, n, *hp)
+        return tf.ftrl_dense_step(*t, z, n, *hp)
+    one()
+    for k in (kl, kf):
+        k.reset_launch_counts()
+    one()
+    torch.cuda.synchronize()
+    launches = {k: v for m in (kl, kf) for k, v in m.launch_counts().items()
+                if v}
+    times = []
+    for _ in range(3 if kind == "dense_strict" else 9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    busy_us, device_ops = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy_us += float(getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0)))
+            device_ops += int(e.count)
+    return {"rows": b, "check_micro_batches": checks,
+            "f64_card_vs_cpu_max_abs_err": errs, "f32_runs_bitwise": True,
+            "launches_per_micro_batch": launches,
+            "device_ops_per_micro_batch": device_ops, "step_ms": step_ms,
+            "samples_per_s": b / step_ms * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / step_ms if busy_us else None}
+
+
+def batch_main_path(kl, kf, rng):
+    """The COO batch step's main path through the entry point:
+    ``FtrlTrainStreamOp(update_mode="batch")`` on bench_ftrl's Criteo-shape
+    rows (4096-row micro-batches over 65,536 + 1 slots, 6 of them, a
+    snapshot every 2), counts set to 0 just before and read just after:
+    one ``gather_pair`` and one ordered scatter-add a micro-batch, nothing
+    else of the package."""
+    import torch
+    from alink_tpu_torch.model.interop import linear_model_from_numpy
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    from alink_tpu_torch.operator.stream.onlinelearning import \
+        FtrlTrainStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    micro = 6
+    rows = batch_rows(rng, micro * BF_ROWS)
+    coef = rng.standard_normal(BF_DIM) * 0.01
+    warm = MemSourceBatchOp(LinearModelDataConverter("LONG").save_model(
+        linear_model_from_numpy(coef, has_intercept=True, label_values=[1, 0],
+                                vector_col="vec", vector_size=BF_DIM - 1,
+                                label_type="LONG")))
+    op = FtrlTrainStreamOp(warm, vector_col="vec", label_col="label",
+                           update_mode="batch", time_interval=2.0,
+                           **FTRL_HP).link_from(
+        MemSourceStreamOp(rows, batch_size=BF_ROWS))
+    for k in (kl, kf):
+        k.reset_launch_counts()
+    snaps, secs = drain_timed(op)
+    counts = {k: v for m in (kl, kf) for k, v in m.launch_counts().items()}
+    want = dict({k: 0 for k in counts}, ftrl_gather_pair=micro,
+                scatter_walk=micro)
+    require(counts == want,
+            f"the batch main path launched {counts}: one gather_pair and "
+            f"one scatter_walk a micro-batch and nothing else")
+    require(len(snaps) == 3 and all(np.isfinite(_coefs(s)).all()
+                                    for _, s in snaps),
+            "the batch main path's snapshots are finite")
+    pl = op.progressive_logloss()
+    require(len(pl) == micro and all(np.isfinite(v) for _, v in pl),
+            "progressive log loss of every micro-batch")
+    return {"micro_batches": micro, "rows": micro * BF_ROWS,
+            "drain_s": secs, "samples_per_s": micro * BF_ROWS / secs,
+            "main_path_launches": counts,
+            "progressive_logloss": [v for _, v in pl]}
+
+
+def bench_stream_data():
+    """bench.py::bench_ftrl's stream (bench.py:1044-1061): 262,144 rows of
+    site / dev / app from ``RandomState(17)``, the click's rate by the
+    site's parity."""
+    from alink_tpu_torch.common.mtable import MTable
+    srng = np.random.RandomState(17)
+    site_ids = srng.randint(0, 4000, ST_ROWS)
+    sites = np.char.add("s", site_ids.astype("U6"))
+    devs = np.char.add("d", srng.randint(0, 4000, ST_ROWS).astype("U6"))
+    apps = np.char.add("a", srng.randint(0, 4000, ST_ROWS).astype("U6"))
+    ys = (srng.rand(ST_ROWS) < 0.1 + 0.8 * (site_ids % 2)).astype(np.int64)
+    cols = {"site": sites.astype(object), "dev": devs.astype(object),
+            "app": apps.astype(object), "click": ys}
+    return MTable(cols, "site STRING, dev STRING, app STRING, click LONG")
+
+
+ST_HASH = dict(selected_cols=["site", "dev", "app"],
+               categorical_cols=["site", "dev", "app"], output_col="vec",
+               num_features=3 * BF_S, field_aware=True)
+
+
+def bench_stream(kl, kf, table):
+    """bench_ftrl's drain_stream, drain_host_only and drain_full_dag on the
+    port, float32 on the card, each timed after a warm run as bench.py
+    times them; then the trainer's stages on one micro-batch and the
+    card's busy share under a profiled drain."""
+    import json as _json
+    import torch
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        FeatureHasherBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream.batch_twins import \
+        FeatureHasherStreamOp
+    from alink_tpu_torch.operator.stream.evaluation import \
+        EvalBinaryClassStreamOp
+    from alink_tpu_torch.operator.stream.onlinelearning import (
+        FtrlPredictStreamOp, FtrlTrainStreamOp)
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    t0 = time.perf_counter()
+    warm = LogisticRegressionTrainBatchOp(
+        vector_col="vec", label_col="click",
+        max_iter=ST_WARM_ITER).link_from(FeatureHasherBatchOp(
+            **ST_HASH).link_from(MemSourceBatchOp(
+                table.first_n(ST_WARM_ROWS))))
+    warm.get_output_table()
+    out = {"warm_start_s": time.perf_counter() - t0}
+
+    def train_op(interval, time_per_batch=None):
+        kw = {} if time_per_batch is None else {
+            "time_per_batch": time_per_batch}
+        src = MemSourceStreamOp(table, batch_size=ST_MICRO, **kw)
+        feat = FeatureHasherStreamOp(**ST_HASH).link_from(src)
+        return feat, FtrlTrainStreamOp(
+            warm, vector_col="vec", label_col="click", update_mode="batch",
+            time_interval=interval, **FTRL_HP).link_from(feat)
+
+    def drain_stream():
+        _, ftrl = train_op(1e9)
+        last = None
+        for mt in ftrl.micro_batches():
+            last = mt
+        torch.cuda.synchronize()
+        return ftrl, last
+
+    def drain_host_only():
+        src = MemSourceStreamOp(table, batch_size=ST_MICRO)
+        feat = FeatureHasherStreamOp(**ST_HASH).link_from(src)
+        return sum(mt.num_rows for _, mt in feat.timed_batches())
+
+    def drain_full_dag():
+        feat, ftrl = train_op(4.0, time_per_batch=1.0)
+        pred = FtrlPredictStreamOp(
+            warm, vector_col="vec", prediction_col="pred",
+            prediction_detail_col="details").link_from(ftrl, feat)
+        ev = EvalBinaryClassStreamOp(
+            label_col="click", prediction_detail_col="details",
+            time_interval=4.0).link_from(pred)
+        last_auc, rows = float("nan"), 0
+        for _, mt in ev.timed_batches():
+            for s_, d in zip(mt.col("Statistics"), mt.col("Data")):
+                if str(s_) == "window":
+                    v = _json.loads(d).get("AUC")
+                    last_auc = last_auc if v is None else float(v)
+            rows += 1
+        require(rows > 0, "the DAG's eval stream has rows")
+        return last_auc
+
+    drain_stream()                                    # warm
+    for k in (kl, kf):
+        k.reset_launch_counts()
+    t0 = time.perf_counter()
+    ftrl, last = drain_stream()
+    out["stream_s"] = time.perf_counter() - t0
+    counts = {k: v for m in (kl, kf) for k, v in m.launch_counts().items()}
+    micro = ST_ROWS // ST_MICRO
+    require(counts["linear_grad"] == 2 * micro
+            and counts["ftrl_gather_pair"] == micro
+            and counts["scatter_walk"] == 0,
+            f"the stream ran the field-blocked program every micro-batch "
+            f"(launches {counts})")
+    require(bool(np.isfinite(_coefs(last)).all()), "the stream's model "
+                                                   "is finite")
+    out.update(stream_rows_per_s=ST_ROWS / out["stream_s"],
+               stream_launches=counts)
+    t0 = time.perf_counter()
+    require(drain_host_only() == ST_ROWS, "host-only drain's rows")
+    out["host_only_s"] = time.perf_counter() - t0
+    out["host_only_rows_per_s"] = ST_ROWS / out["host_only_s"]
+    drain_full_dag()                                  # warm
+    t0 = time.perf_counter()
+    out["dag_last_window_auc"] = drain_full_dag()
+    out["dag_s"] = time.perf_counter() - t0
+    out["dag_rows_per_s"] = ST_ROWS / out["dag_s"]
+    # bench.py: label-shuffled data would pin the AUC at 0.5
+    require(out["dag_last_window_auc"] > 0.52,
+            f"the DAG learns: last window AUC {out['dag_last_window_auc']}")
+    first = FeatureHasherBatchOp(**ST_HASH).link_from(MemSourceBatchOp(
+        table.first_n(ST_MICRO))).get_output_table()
+    out["stage_ms"] = dict(trainer_stages(ftrl.trainer, first, 3,
+                                          allow_fb=True)[0], rows=ST_MICRO)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drain_stream()
+        wall = time.perf_counter() - t0
+    busy = sum(float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)))
+               for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e6
+    out.update(profiled_stream_s=wall, device_busy_s=busy,
+               device_busy_share=busy / wall)
+    return out
+
+
+def demotion_check(tf):
+    """A stream whose first micro-batch is field-blocked (3 fields of 16,
+    one-hot) and whose second is not (a second slot in field 0), float32
+    on the card: the op's final snapshot bitwise equal to the trainer's
+    stages run by hand (the fb step, the exact fb -> std translation, the
+    padded-COO step), and the fb state's coefficients equal to the
+    translated state's."""
+    import torch
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import SparseVector
+    from alink_tpu_torch.model.interop import linear_model_from_numpy
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    rng = np.random.default_rng(14)
+    vecs = np.empty(512, object)
+    for i in range(512):
+        ix = np.arange(3) * 16 + rng.integers(0, 16, 3)
+        if i >= 256:
+            ix = np.unique(np.append(ix, (ix[0] + 1) % 16))
+        vecs[i] = SparseVector(48, ix, np.ones(len(ix)))
+    table = MTable({"vec": vecs, "label": rng.integers(0, 2, 512)},
+                   "vec VECTOR, label LONG")
+    warm = MemSourceBatchOp(LinearModelDataConverter("LONG").save_model(
+        linear_model_from_numpy(rng.standard_normal(49) * 0.1,
+                                has_intercept=True, label_values=[1, 0],
+                                vector_col="vec", vector_size=48,
+                                label_type="LONG")))
+    op = tf.FtrlTrainStreamOp(warm, vector_col="vec", label_col="label",
+                              update_mode="batch", time_interval=1e9,
+                              **FTRL_HP).link_from(
+        MemSourceStreamOp(table, batch_size=256))
+    (_, snap), = list(op.timed_batches())
+    tr = op.trainer
+    enc = tr.encode(table.first_n(256), 256, allow_fb=True)
+    require(enc.kind == "fb", "the first micro-batch is field-blocked")
+    z, n = tr.initial_state(enc)
+    z, n, _ = tr.step(tr.to_device(enc), z, n)
+    fb_coef = _coefs(tr.snapshot(z, n, 16))
+    z, n = tr.to_std_state(z, n, 16)
+    require(np.array_equal(_coefs(tr.snapshot(z, n)).view(np.int64),
+                           fb_coef.view(np.int64)),
+            "the fb -> std translation keeps every coefficient's bits")
+    second = table.take_rows(np.arange(256, 512))
+    enc2 = tr.encode(second, 256)
+    require(enc2.kind == "sparse", "the second micro-batch is not "
+                                   "field-blocked")
+    z, n, _ = tr.step(tr.to_device(enc2), z, n)
+    require(np.array_equal(_coefs(tr.snapshot(z, n)).view(np.int64),
+                           _coefs(snap).view(np.int64)),
+            "the demoted stream's snapshot equals the translation by hand")
+    return {"fb_micro_batches": 1, "demoted_micro_batches": 1,
+            "bitwise": True}
+
+
+def hooks_check(tf, table):
+    """The two hooks on the card over 4 micro-batches of the bench stream
+    (hashed field-aware, a snapshot every 2 s): the batch hook's pre and
+    post calls in order, and a consumer that takes every hand-off, handed
+    the live weights on the card, leaves no host snapshot."""
+    import torch
+    from alink_tpu_torch.model.interop import linear_model_from_numpy
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    from alink_tpu_torch.operator.stream.batch_twins import \
+        FeatureHasherStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    warm = MemSourceBatchOp(LinearModelDataConverter("LONG").save_model(
+        linear_model_from_numpy(np.zeros(3 * BF_S + 1), has_intercept=True,
+                                label_values=[1, 0], vector_col="vec",
+                                vector_size=3 * BF_S, label_type="LONG")))
+    calls, handed = [], []
+
+    def consumer(w, info):
+        handed.append((w.device.type, tuple(w.shape), dict(info)))
+        return True
+    op = tf.FtrlTrainStreamOp(warm, vector_col="vec", label_col="click",
+                              update_mode="batch", time_interval=2.0,
+                              **FTRL_HP)
+    op.set_batch_hook(lambda *a: calls.append(a))
+    op.set_device_snapshot_consumer(consumer)
+    op.link_from(FeatureHasherStreamOp(**ST_HASH).link_from(
+        MemSourceStreamOp(table.first_n(4 * ST_MICRO), batch_size=ST_MICRO)))
+    snaps = list(op.timed_batches())
+    want = [(ph, b, float(b - 1)) for b in range(1, 5)
+            for ph in ("pre", "post")]
+    require([(ph, b, float(t)) for ph, b, t in calls] == want,
+            f"batch hook calls {calls} are pre/post of each micro-batch in "
+            f"order")
+    require(snaps == [] and len(handed) == 2
+            and all(d == "cuda" and s == (4 * BF_S,) for d, s, _ in handed)
+            and handed[0][2]["fb_S"] == BF_S,
+            f"the consumer took every boundary's live card weights and no "
+            f"host snapshot was made ({len(snaps)} snapshots, {handed})")
+    torch.cuda.synchronize()
+    return {"hook_calls": len(calls), "consumer_calls": len(handed),
+            "host_snapshots": len(snaps)}
+
+
+def phase_batch(kernels, rng, lat, card):
+    """14: FTRL's batch mode on the card at bench_ftrl's shapes."""
+    from alink_tpu_torch.operator.stream.onlinelearning import ftrl as tf
+    kl, kf = kernels
+    tag = f"[{card}]"
+    out = {"card": card}
+    t0 = time.perf_counter()
+    parity = {}
+    for case in SCATTER_CASES:
+        for kind in ("f32", "f64"):
+            key = f"{case} {kind}"
+            parity[key] = scatter_case(kl, rng, case, kind, lat)
+            print(f"scatter_walk {tag} {key}: " + " ".join(
+                f"{k}={v}" for k, v in parity[key].items()), flush=True)
+    out["scatter_s"] = time.perf_counter() - t0
+    out["gather_pair"] = batch_gathers(kf, rng)
+    for key, rec in out["gather_pair"].items():
+        print(f"ftrl_gather_pair {tag} {key}: {rec}", flush=True)
+    steps = {}
+    for kind in STEP_KINDS:
+        steps[kind] = step_case(tf, kl, kf, rng, kind)
+        print(f"batch step {tag} {kind}: {steps[kind]}", flush=True)
+    out["steps"] = steps
+    out["main_path"] = batch_main_path(kl, kf, rng)
+    print(f"batch main path {tag}: {out['main_path']}", flush=True)
+    table = bench_stream_data()
+    out["stream"] = bench_stream(kl, kf, table)
+    print(f"bench stream {tag}: {out['stream']}", flush=True)
+    out["demotion"] = demotion_check(tf)
+    out["hooks"] = hooks_check(tf, table)
+    print(f"demotion and hooks {tag}: {out['demotion']} {out['hooks']}",
+          flush=True)
+    return parity, out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3234,6 +3960,14 @@ def main(argv=None) -> int:
     lr_main = phase_lr_main(kl, ks, kf)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 14. FTRL's batch mode: P2, the batch steps, bench_ftrl's stream --
+    # (before phase 13: after that phase's profiled drain, of over 130,000
+    # kernel launches, torch.profiler in the same process recorded 0 to 2
+    # of 20 ``scatter_walk`` launches a session)
+    t0 = time.perf_counter()
+    scatter_parity, batch = phase_batch((kl, kf), rng, lat, card)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 13. the FTRLExample loop end to end ------------------------------
     t0 = time.perf_counter()
     example = phase_example((ks, kl, kf, kh), args.seed, card)
@@ -3306,6 +4040,12 @@ def main(argv=None) -> int:
             kernels[-1].update(host_ms=r["host_ms"],
                                library_host_ms=r["library_host_ms"])
     kernels[2]["host_parts_ms"] = host_parts
+    next(k for k in kernels if k["name"] == "ftrl_gather_pair")[
+        "shapes"].update(
+        {f"batch {k}": {f: v[f] for f in (
+            "kernel_ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+            "library_device_ms", "library_host_ms", "bound_ms")}
+         for k, v in batch["gather_pair"].items()})
     walk = ftrl_parity["ftrl_walk"][ftrl_rec[-1][2]]
     kernels[-1].update(host_ms=walk["host_ms"],
                        chain_bound_ms=walk["chain_bound_ms"],
@@ -3352,6 +4092,36 @@ def main(argv=None) -> int:
             "chain_fraction", "longest_run", "heavy_runs", "medium_runs",
             "raw_bits_equal") if f in v}
             for k, v in grad_parity.items()}})
+    # the port-only ordered scatter-add: no TPU kernel; it replaces the JAX
+    # package's batch update z.at[li].add(dz), at bench_ftrl's COO shape
+    r = scatter_parity["coo f32"]
+    kernels.append({
+        "name": "scatter_walk", "route": "cuda", "source": LR_SRC,
+        "replaces": "alink_tpu/operator/stream/onlinelearning/ftrl.py:576",
+        "port_only": True,
+        "launches": batch["main_path"]["main_path_launches"]["scatter_walk"],
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in scatter_parity.values()),
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "bitwise": True,
+        "kernel_ms": r["kernel_ms"], "device_ms": r["device_ms"],
+        "host_ms": r["host_ms"], "chain_bound_ms": r["chain_bound_ms"],
+        "wrapper_ms": r["wrapper_ms"], "plan_ms": r["plan_ms"],
+        "shape": f"coo f32 {BF_ROWS} x 40 over {BF_DIM}",
+        "shapes": {k: {f: v[f] for f in (
+            "kernel_ms", "device_ms", "host_ms", "wrapper_ms", "plan_ms",
+            "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "chain_bound_ms",
+            "chain_fraction", "longest_run", "runs", "heavy_runs",
+            "medium_runs", "raw_bits_equal") if f in v}
+            for k, v in scatter_parity.items()}})
+    for rec in kernels:
+        rec["batch_mode_launches"] = {
+            "main_path": batch["main_path"]["main_path_launches"].get(
+                rec["name"], 0),
+            "bench_stream": batch["stream"]["stream_launches"].get(
+                rec["name"], 0)}
     kernels[1]["training_launches"] = lr_main["training_launches"][
         "serve_sparse"]
     kernels[1]["lr_main_path_launches"] = lr_main["main_path_launches"][
@@ -3359,6 +4129,7 @@ def main(argv=None) -> int:
     for rec in kernels:
         rec["example_loop_launches"] = example["launches"][rec["name"]]
     print(json.dumps({"main_path": {
+        "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,
         "ftrl": ftrl, "out_of_range_indices": bad_slots,

@@ -9,14 +9,15 @@ repository, timed in turns on one NVIDIA GPU.
 Each tree named on the command line is measured in a process of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
-its own ``build/``, and its own wrappers and trainer are called. Each run
-prints one JSON line; the last line sums them up by tree (the median of
-its runs).
+its own ``build/``, and its own wrappers, trainer and ``chip_smoke.py``
+helpers are called, so trees whose APIs differ compare. Each run prints
+one JSON line; the last line sums them up by tree (the median of its
+runs).
 
-What a run measures (``chip_smoke.py``'s helpers: kernel time by CUDA
-events over back-to-back calls, device time by ``torch.profiler``, host
-time as the enqueue cost of back-to-back calls; a kernel and the library
-call it is held against are timed in turns):
+What a run measures (the tree's ``chip_smoke.py`` helpers: kernel time
+by CUDA events over back-to-back calls, device time by
+``torch.profiler``, host time as the enqueue cost of back-to-back calls;
+a kernel and the library call it is held against are timed in turns):
 
 * the chunk walk (``ftrl_walk``, where the tree has it) on one Criteo
   chunk of each strict step (K = 4 and 16, width 40), f32 and f64:
@@ -25,7 +26,7 @@ call it is held against are timed in turns):
   ``F.embedding_bag`` beside it; the "kernel" stage of a dispatch (one
   call and a synchronize, host clock, median of 50);
 * one 4096-row micro-batch of Criteo-shape rows (``chip_smoke.py``'s
-  ``criteo_ftrl_rows``, float32) through ``FtrlSparseTrainer`` in each
+  ``criteo_ftrl_rows``, float32) through ``FtrlTrainer`` in each
   update mode (``sample``; ``staleness``, K = 32; ``chained``, K = 16),
   split into encode, copy in, step and snapshot (host clock, each stage
   ending in a synchronize, median of 3), and the step's kernel launches;
@@ -64,12 +65,10 @@ from pathlib import Path
 
 import numpy as np
 
-HERE = Path(__file__).resolve().parent
-
-
-def _helpers():
+def _helpers(tree: Path):
+    """The tree's own ``chip_smoke.py``, loaded as a module."""
     spec = importlib.util.spec_from_file_location("_smoke_helpers",
-                                                  HERE / "chip_smoke.py")
+                                                  tree / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -79,7 +78,7 @@ def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import torch
     import torch.nn.functional as F
-    h = _helpers()
+    h = _helpers(tree)
     from alink_tpu_torch.kernels import _build
     from alink_tpu_torch.kernels import ftrl as kf
     from alink_tpu_torch.kernels import serve as ks
@@ -156,7 +155,9 @@ LINEAR_CASES = (("fieldblock", "f32"), ("fieldblock", "f64"), ("coo", "f32"),
 
 def linear_grad_times(h, kl, lat):
     """The gradient kernel at :data:`LINEAR_CASES` (inputs from
-    ``chip_smoke.py::grad_inputs``, seeded)."""
+    ``chip_smoke.py::grad_inputs``, seeded), through the API every tree
+    has: ``grad_plan(keys, dim, val)``, whose plan holds the keys and
+    values, and ``linear_grad(plan, c)``."""
     import torch
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -180,7 +181,7 @@ def linear_grad_times(h, kl, lat):
         same, _ = h.same_bits(call().cpu(), kl.linear_grad_plain(
             host, torch.from_numpy(c)))
         k_ms, l_ms = h.cuda_ms_turns(call, lib, trials=9, reps=5)
-        longest = int((host.starts[1:] - host.starts[:-1]).max())
+        longest = int(np.unique(keys, return_counts=True)[1].max())
         chain = h.chain_bound_ms(longest, kind, lat)
         out[f"{case} {kind}"] = {
             "bitwise": same, "kernel_ms": k_ms,

@@ -372,33 +372,42 @@ def test_no_device_raises_without_cuda(monkeypatch, stream_case):
     assert op.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [{"update_mode": "batch"},
-                                {"checkpoint_dir": "/nonexistent"},
-                                {"health": object()},
-                                {"feature_cols": ["f0", "f1"]}])
+@pytest.mark.parametrize("kw", [{"checkpoint_dir": "/nonexistent"},
+                                {"health": object()}])
 def test_left_out_options_raise(stream_case, kw):
+    """Durability and health monitoring are not ported: they raise at
+    link, naming their ROADMAP items (Queue A4, A10)."""
     _, rows, _, twarm = stream_case
     op = tf.FtrlTrainStreamOp(twarm, device="cpu", label_col="label",
                               **kw)
-    with pytest.raises(NotImplementedError):
+    item = "A4" if "checkpoint_dir" in kw else "A10"
+    with pytest.raises(NotImplementedError, match=f"Queue {item}"):
         op.link_from(TMemS(_torch_table(rows)))
 
 
-def test_left_out_hooks_and_dense_rows_raise(stream_case):
+def test_dense_vector_rows_train_like_the_sparse_ones(stream_case):
+    """Dense vectors in the vector column take the strict dense step: a
+    dense row equal to a sparse one gives the same snapshot (rtol 1e-12;
+    the margin sums its terms in another order)."""
     _, rows, _, twarm = stream_case
-    op = tf.FtrlTrainStreamOp(twarm, device="cpu", vector_col="vec",
-                              label_col="label")
-    with pytest.raises(NotImplementedError):
-        op.set_batch_hook(lambda *a: None)
-    with pytest.raises(NotImplementedError):
-        op.set_device_snapshot_consumer(lambda *a: True)
-    vecs = np.empty(4, object)
-    vecs[:] = [TDense(np.ones(DIM)) for _ in range(4)]
-    dense = TMTable({"vec": vecs, "label": np.ones(4, np.int64)},
-                    "vec VECTOR, label LONG")
-    op.link_from(TMemS(dense))
-    with pytest.raises(NotImplementedError, match="dense"):
-        list(op.timed_batches())
+    idx, val, y = rows
+    dense, sparse = np.empty(8, object), np.empty(8, object)
+    for i in range(8):
+        x = np.zeros(DIM)
+        x[idx[i]] = val[i]
+        dense[i], sparse[i] = TDense(x), TSparse(DIM, idx[i], val[i])
+    snaps = []
+    for vecs in (dense, sparse):
+        op = tf.FtrlTrainStreamOp(twarm, device="cpu", vector_col="vec",
+                                  label_col="label", vector_size=DIM,
+                                  ship_dtype=torch.float64).link_from(
+            TMemS(TMTable({"vec": vecs, "label": y[:8]},
+                          "vec VECTOR, label LONG"), batch_size=4))
+        snaps.append([TConverter.load_table(s).coef
+                      for s in op.micro_batches()])
+    assert len(snaps[0]) == len(snaps[1]) == 2
+    for a, b in zip(*snaps):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-15)
 
 
 def test_out_of_range_feature_raises(stream_case):

@@ -100,34 +100,65 @@ def test_plain_is_the_sequential_loop(layout, dt):
 
 
 def test_plan_runs_intercept_and_unhit_slots():
-    """Each slot's run lists its positions in ascending order; the
-    intercept's run is every row's first position; a slot no key names
-    has an empty run and a +0.0 gradient."""
+    """The runs are the distinct keys in key order, each listing its
+    positions in ascending order; the intercept's run is every row's
+    first position; a slot no key names has no run and a +0.0
+    gradient."""
     keys, val, c, dim = _design("coo", np.float64)
     plan = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
-    starts, perm = plan.starts.numpy(), plan.perm.numpy()
+    walk = plan.walk
+    starts, perm = walk.starts.numpy(), walk.perm.numpy()
+    slots = walk.slots.numpy()[:walk.runs]
     flat = keys.reshape(-1)
-    assert starts[0] == 0 and starts[-1] == flat.size
-    for s in range(dim):
-        run = perm[starts[s]:starts[s + 1]]
+    np.testing.assert_array_equal(slots, np.unique(flat))
+    assert starts[0] == 0 and starts[walk.runs] == flat.size
+    for r, s in enumerate(slots):
+        run = perm[starts[r]:starts[r + 1]]
         np.testing.assert_array_equal(run, np.flatnonzero(flat == s))
     n, w = keys.shape
+    assert slots[0] == 0
     np.testing.assert_array_equal(perm[starts[0]:starts[1]],
                                   np.arange(n) * w)
     unhit = np.setdiff1d(np.arange(dim), flat)
     assert unhit.size >= 5
-    assert (starts[unhit + 1] == starts[unhit]).all()
     got = kl.linear_grad(plan, torch.from_numpy(c)).numpy()
     assert (_bits(got[unhit]) == 0).all()              # +0.0
 
 
-def _classes(keys, dim):
-    """The numpy reference of the plan's run classes: the runs of more than
-    ``SHORT_MAX`` terms by length, longest first, ties by slot, then the
-    short runs by slot; the heavy and medium counts."""
-    counts = np.bincount(keys.reshape(-1), minlength=dim)
-    order = np.lexsort((np.arange(dim),
-                        np.where(counts > kl.SHORT_MAX, -counts, 0)))
+@pytest.mark.parametrize("layout", ["coo", "fieldblock", "heavy"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_plan_walk_is_the_plain_bits(layout, dt):
+    """The kernel's walk of the shared run plan, in Python: each run from
+    +0.0, its positions' rounded products in order, stored at its slot of
+    a zeroed vector, gives the plain version's bits."""
+    npd, _ = DTYPES[dt]
+    keys, val, c, dim = (_heavy_design(npd) if layout == "heavy"
+                         else _design(layout, npd))
+    plan = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
+    walk = plan.walk
+    perm, starts = walk.perm.numpy(), walk.starts.numpy()
+    slots, order = walk.slots.numpy(), walk.order.numpy()[:walk.runs]
+    assert sorted(order) == list(range(walk.runs))
+    width = keys.shape[1]
+    fv = val.reshape(-1)
+    out = np.zeros(dim, npd)
+    for r in order:
+        acc = npd(0)
+        for p in perm[starts[r]:starts[r + 1]]:
+            acc = acc + fv[p] * c[p // width]
+        out[slots[r]] = acc
+    want = kl.linear_grad(plan, torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+
+
+def _classes(keys):
+    """The numpy reference of the plan's run classes, as the runs' slots:
+    the runs of more than ``SHORT_MAX`` terms by length, longest first,
+    ties by slot, then the short runs by slot; the heavy and medium
+    counts."""
+    slots, counts = np.unique(keys, return_counts=True)
+    order = slots[np.lexsort((slots,
+                              np.where(counts > kl.SHORT_MAX, -counts, 0)))]
     n_heavy = int((counts >= kl.HEAVY_MIN).sum())
     n_medium = int(((counts > kl.SHORT_MAX) & (counts < kl.HEAVY_MIN)).sum())
     return order, n_heavy, n_medium
@@ -161,13 +192,14 @@ def test_plan_classes_runs_by_length(case):
     more than ``SHORT_MAX``; a run exactly at a threshold takes the longer
     class, one short of it the shorter."""
     keys, dim = _class_case(case)
-    plan = kl.grad_plan(torch.from_numpy(keys), dim,
-                        torch.ones(keys.shape, dtype=torch.float64))
-    order, n_heavy, n_medium = _classes(keys, dim)
-    assert plan.order.dtype == torch.int32
-    np.testing.assert_array_equal(plan.order.numpy(), order)
-    assert (plan.n_heavy, plan.n_medium) == (n_heavy, n_medium)
-    runs = np.diff(plan.starts.numpy())[plan.order.numpy()]
+    walk = kl.grad_plan(torch.from_numpy(keys), dim,
+                        torch.ones(keys.shape, dtype=torch.float64)).walk
+    order, n_heavy, n_medium = _classes(keys)
+    assert walk.order.dtype == walk.slots.dtype == torch.int32
+    by_run = walk.order.numpy()[:walk.runs]
+    np.testing.assert_array_equal(walk.slots.numpy()[by_run], order)
+    assert (walk.n_heavy, walk.n_medium) == (n_heavy, n_medium)
+    runs = np.diff(walk.starts.numpy()[:walk.runs + 1])[by_run]
     assert (runs[:n_heavy] >= kl.HEAVY_MIN).all()
     assert (runs[n_heavy:n_heavy + n_medium] > kl.SHORT_MAX).all()
     assert (runs[n_heavy + n_medium:] <= kl.SHORT_MAX).all()
@@ -176,15 +208,15 @@ def test_plan_classes_runs_by_length(case):
             "dim_below_grid": (1, 0)}[case]
     assert (n_heavy, n_medium) == want
     if case == "equal_heavy":
-        np.testing.assert_array_equal(plan.order.numpy()[:4], [2, 5, 9, 30])
+        np.testing.assert_array_equal(order[:4], [2, 5, 9, 30])
     if case == "threshold":
-        np.testing.assert_array_equal(plan.order.numpy(), [6, 2, 0, 1, 3, 4, 5, 7])
-    short = plan.order.numpy()[n_heavy + n_medium:]
+        np.testing.assert_array_equal(order, [6, 2, 0, 7])
+    short = by_run[n_heavy + n_medium:]
     assert (np.diff(short) > 0).all()
 
 
-def _plan_of(dim, n_heavy, n_medium):
-    return kl.GradPlan(None, None, None, None, dim, None, n_heavy, n_medium)
+def _plan_of(runs, n_heavy, n_medium):
+    return kl.RunPlan(None, None, None, None, runs, n_heavy, n_medium)
 
 
 @pytest.mark.parametrize("sms,dim,n_heavy,n_medium,want", [
@@ -281,6 +313,7 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
     slots' order too), with the division's magic number, the run classes'
     counts and the grid."""
     fake = types.SimpleNamespace(alink_linear_grad=_FakeFn(),
+                                 alink_scatter_walk=_FakeFn(),
                                  alink_linear_error_string=_FakeFn())
     monkeypatch.setattr(kl, "_fns", None)
     monkeypatch.setattr(kl, "_sms", {0: 132})
@@ -296,28 +329,30 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
     monkeypatch.setattr(kl, "linear_grad_plain", no_plain)
     kl.reset_launch_counts()
     with FakeTensorMode():
+        walk = kl.RunPlan(*(torch.zeros(n, dtype=torch.int32, device="cuda")
+                            for n in (40, 41, 40, 40)), 30, 1, 3)
         plan = kl.GradPlan(
             torch.zeros((10, 4), dtype=torch.int32, device="cuda"),
-            torch.zeros((10, 4), dtype=torch.float64, device="cuda"),
-            torch.zeros(40, dtype=torch.int32, device="cuda"),
-            torch.zeros(101, dtype=torch.int32, device="cuda"), 100,
-            torch.zeros(100, dtype=torch.int32, device="cuda"), 1, 3)
+            torch.zeros((10, 4), dtype=torch.float64, device="cuda"), 100,
+            walk)
         c = torch.zeros(10, dtype=torch.float64, device="cuda")
         out = kl.linear_grad(plan, c)
+        assert out.shape == (100,)
         with pytest.raises(ValueError):
             kl.linear_grad(plan, torch.zeros(10, device="cuda"))
         with pytest.raises(ValueError):
-            kl.linear_grad(plan._replace(order=torch.zeros(100, dtype=torch.int32,
-                                                           device="meta")), c)
+            kl.linear_grad(plan._replace(walk=walk._replace(
+                slots=torch.zeros(40, dtype=torch.int32, device="meta"))), c)
     (args,) = fake.alink_linear_grad.calls
     assert args[0] == 1
-    assert args[1:7] == tuple(t.data_ptr() for t in (
-        plan.perm, plan.starts, plan.order, plan.val, c, out))
-    assert len(set(args[1:7])) == 6
-    assert args[7:] == (100, *kl.div_magic(4), 1, 3,
-                        *kl.launch_grid(132, plan), 55)
-    assert kl.launch_grid(132, plan) == (2, 2)
-    assert kl.launch_counts() == {"linear_grad": 1}
+    assert args[1:8] == tuple(t.data_ptr() for t in (
+        walk.perm, walk.starts, walk.order, walk.slots, plan.val, c, out))
+    assert len(set(args[1:8])) == 7
+    assert args[8:] == (30, *kl.div_magic(4), 1, 3,
+                        *kl.launch_grid(132, walk), 55)
+    assert kl.launch_grid(132, walk) == (2, 2)
+    # the module's other kernel, the ordered scatter-add, launched nothing
+    assert kl.launch_counts() == {"linear_grad": 1, "scatter_walk": 0}
 
 
 def test_margins_route_to_the_sparse_score_kernel(monkeypatch):
