@@ -6,7 +6,7 @@ session holds one ``torch.device``, resolved once by
 :func:`~alink_tpu_torch.common.device.resolve_device` (``cuda`` unless
 the caller asks for the CPU), and runs one worker: ``num_workers`` is 1.
 Asking for ``parallelism > 1`` raises ``NotImplementedError``: several
-cards wait for the multi-GPU slice (ROADMAP A12). Not ported: the model
+cards wait for the multi-GPU slice (ROADMAP A9). Not ported: the model
 axis, ``use_remote_env``, the lazy-objects manager and the mesh-size
 flags.
 """

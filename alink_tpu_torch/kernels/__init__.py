@@ -9,10 +9,12 @@
   versions and launch counts;
 * ``tree_hist`` — the level histogram of tree growing
   (``csrc/tree_hist.cu``), its plain version and launch count;
-* ``linear`` — the ordered sparse gradient of linear training
-  (``csrc/linear_grad.cu``, a kernel of the port's own: no TPU kernel
-  computes it), its plan, plain version and launch count, and the
-  training margins through ``serve``'s sparse kernel;
+* ``linear`` — the ordered sparse gradient of linear training and the
+  ordered scatter-add of FTRL's batch step (``csrc/linear_grad.cu``,
+  kernels of the port's own: no TPU kernel computes them), the run plan
+  both walk (built on the card by ``csrc/run_plan.cu``), their plain
+  versions and launch counts, and the training margins through
+  ``serve``'s sparse kernel;
 * ``_build`` — builds ``csrc/*.cu`` with ``nvcc`` at first use and
   loads the library with ``ctypes``.
 

@@ -27,18 +27,22 @@ the kernel is timed against.
 distinct keys of the positions it is given, so its work and memory
 follow the keys, not the state: the positions stably sorted by key
 (``perm``), each distinct key's run in it (``starts``) and its key
-(``slots``), and the runs in the kernel's order (``order``: runs of
-more than :data:`SHORT_MAX` terms by length, longest first, then the
-rest by key), with the count of heavy runs (at least :data:`HEAVY_MIN`
-terms: each walked by a cluster of two blocks, one walker thread fed by
-a block of producer warps) and of medium runs (more than
-:data:`SHORT_MAX`: a warp each); the short rest goes one lane a run. It
-reads the host once (the runs, the two counts and the keys' range).
-:func:`grad_plan` keeps a design's keys and values beside the plan of
-its keys, built once a training (the key layout does not change between
-supersteps) or once an FTRL micro-batch; the gradient kernel writes
-each run at its slot of a zeroed vector, so a slot no key names is
-``+0.0``.
+(``slots``), the runs in the kernel's order (``order``: runs of more
+than :data:`SHORT_MAX` terms by length, longest first, then the rest by
+key), and ``counts``, a device tensor of the runs, the heavy runs (at
+least :data:`HEAVY_MIN` terms: each walked by a cluster of two blocks,
+one walker thread fed by a block of producer warps), the medium runs
+(more than :data:`SHORT_MAX`: a warp each) and the short rest (a lane
+each). On the card it is one call of ``csrc/run_plan.cu`` (a radix
+sort, then the runs), and the kernels read ``counts``
+from device memory, so nothing waits for the card: the launch grids come
+from upper bounds of the positions (:func:`launch_grid`). Its plain
+version, :func:`run_plan_plain` (torch ops and one host read), is the
+CPU's plan. :func:`grad_plan` keeps a design's keys and values beside
+the plan of its keys, built once a training (the key layout does not
+change between supersteps) or once an FTRL micro-batch; the gradient
+kernel writes each run at its slot of a zeroed vector, so a slot no key
+names is ``+0.0``.
 
 :func:`sparse_margins` is the forward product ``eta[i] = sum_k
 val[i, k] * w[keys[i, k]]``: the sparse serving score kernel
@@ -75,24 +79,31 @@ from . import _build
 from .ftrl import scatter_add_rows_plain
 from .serve import sparse_scores
 
-__all__ = ["RunPlan", "run_plan", "GradPlan", "grad_plan", "linear_grad",
-           "linear_grad_plain", "sparse_margins", "scatter_walk",
-           "scatter_walk_plain", "launch_counts", "reset_launch_counts",
-           "HEAVY_MIN", "SHORT_MAX"]
+__all__ = ["RunPlan", "run_plan", "run_plan_plain", "plan_counts",
+           "GradPlan", "grad_plan", "linear_grad", "linear_grad_plain",
+           "sparse_margins", "scatter_walk", "scatter_walk_plain",
+           "launch_counts", "reset_launch_counts", "HEAVY_MIN", "SHORT_MAX"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
-HEAVY_MIN = 2048            # a heavy run's least length: two ring slots
+HEAVY_MIN = 2048            # a heavy run's least length: two of P1's stages
 SHORT_MAX = 32              # a short run's most length: one lane walks it
-_WARPS = 8                  # warps a block (csrc/linear_grad.cu kWarps)
-_BLOCKS_PER_SM = 8          # light blocks an SM with no heavy run (2048
-#                             threads; registers may allow fewer)
+#                             (both compiled into csrc/run_plan.cu too)
+_WARPS = 8                  # warps a light block (csrc/linear_grad.cu kWarps)
+_BLOCKS_PER_SM = 8          # light blocks an SM (2048 threads; registers may
+#                             allow fewer)
+_PLAN_THREADS = 1024        # csrc/run_plan.cu kThreads
+_PLAN_MAX_BLOCKS = 1024     # csrc/run_plan.cu kMaxBlocks
+_PLAN_MIN_CHUNK = 4096      # positions a plan block takes at the least
+_SORT_MAX_BITS = 9          # csrc/run_plan.cu kMaxDigitBits
 
 
 class RunPlan(NamedTuple):
     """The runs of a set of keys (one device): the distinct keys in key
     order, each run's positions in flattened order, the runs in the
     kernel's order. The arrays have the keys' length ``M``; the first
-    ``runs`` entries (``runs + 1`` of ``starts``) are the plan."""
+    ``runs`` entries (``runs + 1`` of ``starts``) are the plan, the rest
+    is not defined on the card. ``counts`` stays on the keys' device:
+    :func:`plan_counts` reads it."""
     perm: torch.Tensor      # (M,) int32 positions stably sorted by key
     starts: torch.Tensor    # (M + 1,) int32: run r is
     #                         perm[starts[r]:starts[r + 1]]
@@ -100,30 +111,46 @@ class RunPlan(NamedTuple):
     #                         longest first (ties by run), then the short
     #                         ones by run
     slots: torch.Tensor     # (M,) int32: run r's key
-    runs: int               # the distinct keys
-    n_heavy: int            # runs of at least HEAVY_MIN terms
-    n_medium: int           # the other runs of more than SHORT_MAX
+    counts: torch.Tensor    # (4,) int32: runs, heavy runs (at least
+    #                         HEAVY_MIN terms), medium runs (the other runs
+    #                         of more than SHORT_MAX), short runs
 
 
-def run_plan(keys: torch.Tensor, size: int) -> RunPlan:
-    """The plan of the keyed sums at ``keys`` (any shape, int32, in ``[0,
-    size)``) on the keys' device: a stable sort of the flat keys, their
-    runs (a run id by a running count of the key changes, each run's
-    length by an integer scatter-add, the starts by a running sum) and
-    the runs in the kernel's order. Every array has the keys' length, not
-    the state's. One host read: the runs, the heavy and medium counts and
-    the keys' range; a key outside ``[0, size)`` raises ``IndexError``.
-    No keys: a plan of no runs."""
-    flat = keys.reshape(-1)
-    M = flat.numel()
+def plan_counts(plan: RunPlan) -> Tuple[int, int, int, int]:
+    """``(runs, n_heavy, n_medium, n_short)`` as ints: a host read of a
+    card plan (for checks and records, never on the main path)."""
+    runs, n_heavy, n_medium, n_short = plan.counts.tolist()
+    return runs, n_heavy, n_medium, n_short
+
+
+def _check_sizes(M: int, size: int) -> None:
     if M >= 2 ** 31 or size >= 2 ** 31:
         raise ValueError(f"run_plan: {M} keys over {size} slots exceed "
                          f"the kernel's int sizes")
+
+
+def _empty_plan(dev) -> RunPlan:
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    return RunPlan(empty, torch.zeros(1, dtype=torch.int32, device=dev),
+                   empty, empty, torch.zeros(4, dtype=torch.int32,
+                                             device=dev))
+
+
+def run_plan_plain(keys: torch.Tensor, size: int) -> RunPlan:
+    """The plan of the keyed sums at ``keys`` (any shape, integer, in
+    ``[0, size)``) with torch ops on the keys' device: a stable sort of
+    the flat keys, their runs (a run id by a running count of the key
+    changes, each run's length by an integer scatter-add, the starts by a
+    running sum) and the runs in the kernel's order by a second stable
+    sort. One host read: the counts and the keys' range; a key outside
+    ``[0, size)`` raises ``IndexError``. No keys: a plan of no runs. The
+    CPU's plan, and what the card's is held to."""
+    flat = keys.reshape(-1)
+    M = flat.numel()
+    _check_sizes(M, size)
     dev = flat.device
     if M == 0:
-        empty = torch.zeros(0, dtype=torch.int32, device=dev)
-        return RunPlan(empty, torch.zeros(1, dtype=torch.int32, device=dev),
-                       empty, empty, 0, 0, 0)
+        return _empty_plan(dev)
     sk, perm = torch.sort(flat, stable=True)
     head = torch.ones(M, dtype=torch.bool, device=dev)
     torch.ne(sk[1:], sk[:-1], out=head[1:])
@@ -144,7 +171,74 @@ def run_plan(keys: torch.Tensor, size: int) -> RunPlan:
     if lo < 0 or hi >= size:
         raise IndexError(f"run_plan: keys outside [0, {size})")
     return RunPlan(perm.to(torch.int32), starts, order.to(torch.int32),
-                   slots.to(torch.int32), runs, n_heavy, n_long - n_heavy)
+                   slots.to(torch.int32),
+                   torch.tensor([runs, n_heavy, n_long - n_heavy,
+                                 runs - n_long], dtype=torch.int32,
+                                device=dev))
+
+
+def plan_blocks(M: int) -> Tuple[int, int]:
+    """``(chunk, blocks)`` of the card's plan over ``M > 0`` positions:
+    blocks of ``chunk`` positions (a multiple of the plan kernels' 1024
+    threads, at least 4096), at most 1024 blocks (each reads every
+    block's counts), the last one partial."""
+    per = max(_PLAN_MIN_CHUNK, -(-M // _PLAN_MAX_BLOCKS))
+    chunk = -(-per // _PLAN_THREADS) * _PLAN_THREADS
+    return chunk, -(-M // chunk)
+
+
+def sort_digits(size: int) -> Tuple[int, int]:
+    """``(passes, bits)`` of the card's radix sort of keys in ``[0,
+    size)``: the fewest passes of at most 9 bits that cover the bits of
+    ``size - 1`` (at least one pass), the bits spread evenly."""
+    need = max(0, size - 1).bit_length()
+    passes = max(1, -(-need // _SORT_MAX_BITS))
+    return passes, max(1, -(-need // passes))
+
+
+def run_plan(keys: torch.Tensor, size: int) -> RunPlan:
+    """The plan of the keyed sums at ``keys`` (any shape, in ``[0,
+    size)``) on the keys' device. On the card (int32 keys): one call of
+    ``csrc/run_plan.cu``, a stable radix sort of the flat keys with their
+    positions (:func:`sort_digits`), then the runs (heads, a scan, the
+    long runs sorted by length in one block, the counts), with no host
+    read: a key outside ``[0, size)`` fails a device-side assert, which
+    the stream reports at its next synchronize. On the CPU:
+    :func:`run_plan_plain`, which raises ``IndexError``. No keys: a plan
+    of no runs."""
+    if keys.device.type == "cpu":
+        return run_plan_plain(keys, size)
+    flat = keys.reshape(-1).contiguous()
+    M = flat.numel()
+    _check_sizes(M, size)
+    if flat.dtype != torch.int32:
+        raise ValueError(f"run_plan: want int32 keys on the card, got "
+                         f"{flat.dtype}")
+    dev = flat.device
+    if M == 0:
+        return _empty_plan(dev)
+    chunk, blocks = plan_blocks(M)
+    passes, bits = sort_digits(size)
+    plan = RunPlan(*(torch.empty(k, dtype=torch.int32, device=dev)
+                     for k in (M, M + 1, M, M, 4)))
+    # the kernels' scratch: the sort's keys and positions twice and its
+    # counts, each block's counts, the long runs twice
+    scratch = torch.empty(4 * M + ((1 << bits) + 3) * blocks
+                          + 2 * (M // (SHORT_MAX + 1) + 1),
+                          dtype=torch.int32, device=dev)
+    fns = _fns or _functions()
+    index = flat.get_device()
+    rc = _build.call(fns["plan"], index, flat.data_ptr(), M, int(size),
+                     chunk, blocks, passes, bits, plan.perm.data_ptr(),
+                     plan.starts.data_ptr(), plan.slots.data_ptr(),
+                     plan.order.data_ptr(), plan.counts.data_ptr(),
+                     scratch.data_ptr(), scratch.numel())
+    if rc != 0:
+        msg = fns["plan_error_string"](rc).decode()
+        raise RuntimeError(f"run_plan: kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+    _counts["run_plan"] += 1
+    return plan
 
 
 class GradPlan(NamedTuple):
@@ -179,7 +273,8 @@ def linear_grad_plain(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:
 
 
 # launch counts: kept without a lock, as the other wrappers keep theirs
-_counts: Dict[str, int] = {"linear_grad": 0, "scatter_walk": 0}
+_counts: Dict[str, int] = {"linear_grad": 0, "scatter_walk": 0,
+                           "run_plan": 0}
 _lib_lock = threading.Lock()
 _fns: Optional[Dict[str, Callable[..., int]]] = None
 _sms: Dict[int, int] = {}
@@ -196,25 +291,34 @@ def reset_launch_counts() -> None:
 
 
 def _functions() -> Dict[str, Callable[..., int]]:
-    """The built ``linear_grad`` library's C functions, resolved once."""
+    """The built ``linear_grad`` and ``run_plan`` libraries' C functions,
+    resolved once."""
     global _fns
     if _fns is not None:
         return _fns
     with _lib_lock:
         if _fns is None:
             lib = _build.load_library("linear_grad")
+            plan = _build.load_library("run_plan")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.alink_linear_grad.argtypes = [i, p, p, p, p, p, p, p, i,
-                                              ctypes.c_uint, i, i, i, i, i, p]
+            lib.alink_linear_grad.argtypes = [i, i, p, p, p, p, p, p, p, p,
+                                              ctypes.c_uint, i, i, i, p]
             lib.alink_linear_grad.restype = i
-            lib.alink_scatter_walk.argtypes = [i, p, p, p, p, p, p, p, i, i,
-                                               i, i, i, p]
+            lib.alink_scatter_walk.argtypes = [i, i, p, p, p, p, p, p, p, p,
+                                               i, i, p]
             lib.alink_scatter_walk.restype = i
             lib.alink_linear_error_string.argtypes = [i]
             lib.alink_linear_error_string.restype = ctypes.c_char_p
+            plan.alink_run_plan.argtypes = [p, i, i, i, i, i, i, p, p, p, p,
+                                            p, p, ctypes.c_longlong, p]
+            plan.alink_run_plan.restype = i
+            plan.alink_run_plan_error_string.argtypes = [i]
+            plan.alink_run_plan_error_string.restype = ctypes.c_char_p
             _fns = {"grad": lib.alink_linear_grad,
                     "scatter": lib.alink_scatter_walk,
-                    "error_string": lib.alink_linear_error_string}
+                    "error_string": lib.alink_linear_error_string,
+                    "plan": plan.alink_run_plan,
+                    "plan_error_string": plan.alink_run_plan_error_string}
         return _fns
 
 
@@ -230,29 +334,28 @@ def div_magic(width: int) -> Tuple[int, int]:
     return -(-(1 << shift) // width), shift
 
 
-def launch_grid(sms: int, plan: RunPlan) -> Tuple[int, int]:
-    """``(heavy_blocks, light_blocks)`` of the launch of a plan on a card
-    of ``sms`` SMs. A heavy run is walked by a cluster of two blocks, each
-    holding an SM alone (the launch asks for all the shared memory), so
-    with heavy runs there are at most a quarter of the SMs' clusters of
-    them and the light blocks take the other SMs, one each, in an even
-    number; with none, the light blocks fill every SM. A light block's 8 warps take a
-    medium run each or 32 short runs each, striding over them."""
-    n_short = plan.runs - plan.n_heavy - plan.n_medium
-    light = -(-(plan.n_medium + -(-n_short // 32)) // _WARPS)
-    if plan.n_heavy:
-        clusters = min(plan.n_heavy, max(1, sms // 4))
-        free = max(2, (sms - 2 * clusters) // 2 * 2)
-        return 2 * clusters, min(light + light % 2, free)
-    return 0, max(1, min(light, sms * _BLOCKS_PER_SM))
+def launch_grid(sms: int, M: int) -> Tuple[int, int]:
+    """``(heavy_blocks, light_blocks)`` of the walk of a plan over ``M``
+    positions on a card of ``sms`` SMs, from upper bounds (the host does
+    not read the plan's counts; a block with no work leaves). A heavy run
+    has at least ``HEAVY_MIN`` positions, so there are at most ``M //
+    HEAVY_MIN`` of them, each walked by a cluster of two blocks that hold
+    an SM alone: at most a quarter of the SMs' clusters, which then take
+    several runs each. A light block's 8 warps take a medium run each or
+    32 short runs each, so ``M / 256`` blocks have a run a warp or a lane
+    at the most; at most 8 an SM, striding over the rest (beside a heavy
+    walk one light block an SM works and the others leave at once)."""
+    clusters = min(M // HEAVY_MIN, max(1, sms // 4))
+    light = max(1, min(-(-M // (32 * _WARPS)), sms * _BLOCKS_PER_SM))
+    return 2 * clusters, light
 
 
-def _grid(index: int, plan: RunPlan) -> Tuple[int, int]:
+def _grid(index: int, M: int) -> Tuple[int, int]:
     sms = _sms.get(index)
     if sms is None:
         sms = _sms[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
-    return launch_grid(sms, plan)
+    return launch_grid(sms, M)
 
 
 def linear_grad(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:
@@ -269,21 +372,22 @@ def linear_grad(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:
             or c.shape[0] != val.shape[0] or not c.is_contiguous()
             or any(t.get_device() != index for t in (c, walk.perm,
                                                      walk.starts, walk.order,
-                                                     walk.slots))):
+                                                     walk.slots,
+                                                     walk.counts))):
         raise ValueError(f"linear_grad: want c ({val.shape[0]},) of "
                          f"{val.dtype} on {val.device} (float32 or "
                          f"float64), got {c.dtype} {tuple(c.shape)} on "
                          f"{c.device}")
     out = torch.zeros(plan.dim, dtype=val.dtype, device=val.device)
-    if walk.runs == 0:
+    M = walk.perm.shape[0]
+    if M == 0:
         return out
     fns = _fns or _functions()
-    rc = _build.call(fns["grad"], index, code, walk.perm.data_ptr(),
+    rc = _build.call(fns["grad"], index, index, code, walk.perm.data_ptr(),
                      walk.starts.data_ptr(), walk.order.data_ptr(),
-                     walk.slots.data_ptr(), val.data_ptr(), c.data_ptr(),
-                     out.data_ptr(), walk.runs,
-                     *div_magic(max(1, val.shape[1])), walk.n_heavy,
-                     walk.n_medium, *_grid(index, walk))
+                     walk.slots.data_ptr(), walk.counts.data_ptr(),
+                     val.data_ptr(), c.data_ptr(), out.data_ptr(),
+                     *div_magic(max(1, val.shape[1])), *_grid(index, M))
     if rc != 0:
         msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"linear_grad: kernel launch failed: CUDA error "
@@ -328,10 +432,11 @@ def scatter_walk(z: torch.Tensor, n: torch.Tensor, keys: torch.Tensor,
     add each, IN PLACE; a slot no key names keeps its bits. ``z``, ``n``
     (S,) contiguous, of one dtype (float32 or float64); ``keys`` int32 of
     any shape, in ``[0, S)``; ``terms`` of the states' dtype and shape
-    ``keys.shape + (2,)``. The ordered scatter-add kernel on the card (one
-    launch for both states, after the plan of :func:`run_plan`, built
-    here unless ``plan``, the keys', is given), its plain version on the
-    CPU."""
+    ``keys.shape + (2,)``. The ordered scatter-add kernel on the card
+    (both states in one walk: the heavy clusters and the light blocks, two
+    launches from upper bounds of the positions, after the plan of
+    :func:`run_plan`, built here unless ``plan``, the keys', is given;
+    nothing waits for the card), its plain version on the CPU."""
     if (z.dim() != 1 or n.shape != z.shape or n.dtype != z.dtype
             or terms.dtype != z.dtype or keys.dtype != torch.int32
             or tuple(terms.shape) != tuple(keys.shape) + (2,)):
@@ -353,16 +458,21 @@ def scatter_walk(z: torch.Tensor, n: torch.Tensor, keys: torch.Tensor,
             or z.numel() >= 2 ** 31):
         raise ValueError(f"scatter_walk: want contiguous float32 or float64 "
                          f"z, n, keys and terms on {z.device}")
+    M = keys.numel()
+    if M == 0:
+        return
     if plan is None:
         plan = run_plan(keys, z.shape[0])
-    if plan.runs == 0:
-        return
+    elif plan.perm.shape[0] != M or any(
+            t.get_device() != index for t in plan):
+        raise ValueError(f"scatter_walk: the plan is not one of these "
+                         f"{M} keys on {z.device}")
     fns = _fns or _functions()
-    rc = _build.call(fns["scatter"], index, code, plan.perm.data_ptr(),
+    rc = _build.call(fns["scatter"], index, index, code, plan.perm.data_ptr(),
                      plan.starts.data_ptr(), plan.order.data_ptr(),
-                     plan.slots.data_ptr(), terms.data_ptr(), z.data_ptr(),
-                     n.data_ptr(), plan.runs, plan.n_heavy, plan.n_medium,
-                     *_grid(index, plan))
+                     plan.slots.data_ptr(), plan.counts.data_ptr(),
+                     terms.data_ptr(), z.data_ptr(), n.data_ptr(),
+                     *_grid(index, M))
     if rc != 0:
         msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"scatter_walk: kernel launch failed: CUDA error "

@@ -28,8 +28,8 @@ going through the CUDA kernels of ``kernels/ftrl.py`` (on the CPU, their
 plain versions): four launches a chunk. The batch steps gather the
 touched slots once (``gather_pair``), compute in eager PyTorch, and add
 the micro-batch into the state with the ordered scatter-add
-(``kernels/linear.py::scatter_walk``, padded-COO) or the ordered
-gradient kernel (``linear_grad``, field-blocked). The dense steps are
+(``kernels/linear.py::scatter_walk``: in place, padded-COO; into a
+zeroed float32 buffer of the deltas, field-blocked). The dense steps are
 eager PyTorch: the batch one a product and column sums, the strict one
 a loop of about 35 small ops a sample.
 
@@ -51,7 +51,7 @@ from ....common.params import InValidator, ParamInfo, Params, RangeValidator
 from ....common.types import TableSchema
 from ....kernels.ftrl import (ftrl_weights, gather_pair, gather_rows,
                               scatter_add_rows, sigmoid, walk_chunk)
-from ....kernels.linear import grad_plan, linear_grad, scatter_walk
+from ....kernels.linear import scatter_walk
 from ....ops.fieldblock import (FieldBlockMeta, detect_fieldblock,
                                 fb_flat, fb_gather)
 from ....params.shared import (HasFeatureCols, HasLabelCol, HasPredictionCol,
@@ -221,10 +221,10 @@ def ftrl_fb_batch_step(fb_idx, val, y, z, n, meta: FieldBlockMeta,
     JAX package's float32 arithmetic whatever the state dtype: the
     touched slots' ``n`` and ``w`` are gathered and rounded to float32
     (``fb_gather``), and the deltas are rounded to float32 and summed a
-    slot in float32 from ``+0.0`` (``linear_grad`` on one plan for both,
-    in row order where the JAX package's one-hot product sums in XLA's
-    order), then added to the state: ``z + dz``, ``n + dn``. Returns new
-    ``(z, n, margins)``.
+    slot in float32 from ``+0.0`` (one ``scatter_walk`` of the pairs into
+    a zeroed float32 ``(2, dim)`` buffer, in row order where the JAX
+    package's one-hot product sums in XLA's order), then added to the
+    state: ``z + dz``, ``n + dn``. Returns new ``(z, n, margins)``.
     """
     flat = fb_flat(fb_idx, meta)
     nw = fb_gather(fb_idx, n, meta,
@@ -235,13 +235,10 @@ def ftrl_fb_batch_step(fb_idx, val, y, z, n, meta: FieldBlockMeta,
     margins = (v * wj).sum(-1)
     g = (sigmoid(margins) - y)[:, None] * v
     sigma = (torch.sqrt(nj + g * g) - torch.sqrt(nj)) / alpha
-    plan = grad_plan(flat, meta.dim,
-                     (g - sigma * wj).to(torch.float32).contiguous())
-    ones = torch.ones(flat.shape[0], dtype=torch.float32, device=flat.device)
-    dz = linear_grad(plan, ones)
-    dn = linear_grad(plan._replace(val=(g * g).to(torch.float32)
-                                   .contiguous()), ones)
-    return z + dz.to(z.dtype), n + dn.to(n.dtype), margins
+    d = torch.zeros((2, meta.dim), dtype=torch.float32, device=flat.device)
+    scatter_walk(d[0], d[1], flat,
+                 torch.stack([g - sigma * wj, g * g], -1).to(torch.float32))
+    return z + d[0].to(z.dtype), n + d[1].to(n.dtype), margins
 
 
 def ftrl_dense_batch_step(X, y, z, n, alpha, beta, l1, l2):

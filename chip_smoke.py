@@ -96,15 +96,17 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    equal to the host loop, labels and details equal to ``map_table``;
    rows/s and the p50 per bucket;
 11. an out-of-range slot handed to the gather, the pair gather and the
-   scatter-add kernel, and an out-of-range bin handed to the histogram
+   scatter-add kernel, an out-of-range key handed to the plan kernel
+   (``run_plan``), and an out-of-range bin handed to the histogram
    kernel, fails its device-side assert, and the stream raises at its
    next synchronize (each in a process of its own).
 
 12. linear training (the main path's first stage): the ordered gradient
    kernel (``linear_grad``) against its plain version (``index_add_`` on
-   the CPU, the only place it keeps the order; the card's plan equal to
-   the CPU's, field for field), f32 and f64, bitwise (a NaN equal to any
-   NaN), at the field-blocked ``bench_logreg`` shape (200,000 rows x 33
+   the CPU, the only place it keeps the order; the card's plan, built by
+   ``csrc/run_plan.cu``, equal to ``run_plan_plain``'s on the CPU over
+   its runs), f32 and f64, bitwise (a NaN equal to any NaN), at the
+   field-blocked ``bench_logreg`` shape (200,000 rows x 33
    fields x 2048, the intercept field every row's), the same without its
    intercept column (the bulk alone), the padded-COO shape of phase 7's
    rows (100,000 x 40 over 2^20 + 1 slots), the two shapes of phase 14's
@@ -116,7 +118,8 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    tie, one at the heavy threshold and one a term short), more heavy runs
    than clusters, and heavy runs carrying NaN, +-inf and ``-0.0`` in
    the values and in c; at the five main shapes kernel (events), device
-   (profiler), host, plain (CPU) and ``index_add_`` times, the bytes
+   (the span of its two launches under the profiler), host, plain (CPU)
+   and ``index_add_`` times, the bytes
    bound, the chain bound of the longest run and the kernel's fraction
    of it. Then L-BFGS at ``bench_logreg``'s configuration
    (l2 1e-4, warm start ``randn * 1e-6``) through ``optimize``: ms a
@@ -169,15 +172,20 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    recording few later kernels) FTRL's batch mode
    (``update_mode="batch"``) and dense input at
    ``bench.py::bench_ftrl``'s shapes and hyperparameters: (a) the ordered
-   scatter-add (``scatter_walk``, the batch update of z and n in one
-   launch) against its plain version on the CPU, bitwise, f32 and f64, at
-   the padded-COO batch shape (4096 x 40 over 65,536 + 1 and 2^20 + 1
-   slots), the field-blocked one (4096 x 40 over 40 x 1648), the stream's
-   (16,384 x 4 over 3 x 1648 + 1) and edges (one update, every key one
-   slot, a ``-0.0`` state where no key lands, NaN and inf terms), with
-   the kernel's times (events, profiler, host), its plan's (over the
-   touched slots, shared with ``linear_grad``), the wrapper's, the bytes
-   and chain bounds and two ``index_add_`` calls in turns; ``gather_pair``
+   scatter-add (``scatter_walk``, the batch update of z and n: heavy
+   clusters and light blocks, two launches on two streams) against its
+   plain version on the CPU, bitwise, f32 and f64, at the padded-COO
+   batch shape (4096 x 40 over 65,536 + 1 and 2^20 + 1 slots), the
+   field-blocked one (4096 x 40 over 40 x 1648), the stream's (16,384 x
+   4 over 3 x 1648 + 1), the field-blocked step's use of it (float32
+   into zeroed states over 40 x 1648 and 3 x 1648 + 1) and edges (one
+   update, every key one slot, a ``-0.0`` state where no key lands, NaN
+   and inf terms); the card's plan (``run_plan``: ``csrc/run_plan.cu``'s
+   radix sort and runs, no host read) equal to ``run_plan_plain``'s on
+   the CPU over its runs at every case; with the kernel's times (events,
+   the profiler's span of its launches, host), the plan's (events, and
+   its device time), the wrapper's, the bytes and chain bounds and two
+   ``index_add_`` calls in turns; ``gather_pair``
    against its plain version, bitwise, f32 and f64, at the padded-COO
    batch shape (163,840 positions over 65,536 + 1 and 2^20 + 1 slots)
    and the stream's field-blocked one (65,536 over 4 x 1648), with its
@@ -186,16 +194,19 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    CPU over 3 micro-batches (2 for the strict one, cut to 512 rows), at
    rtol 1e-10, the field-blocked ones, float32 inside as in the JAX
    package, within 1e-6 of their largest change; two float32 runs
-   bitwise; launches, device ops, ms and samples/s of one micro-batch and
+   bitwise; the padded-COO and field-blocked steps once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no call waits on the
+   card); launches, device ops, ms and samples/s of one micro-batch and
    the card's busy share; then ``FtrlTrainStreamOp(update_mode="batch")``
-   on 6 Criteo-shape micro-batches: one ``gather_pair`` and one
-   ``scatter_walk`` each and nothing else; (c) bench_ftrl's stream on the
+   on 6 Criteo-shape micro-batches: one ``gather_pair``, one ``run_plan``
+   and one ``scatter_walk`` each and nothing else; (c) bench_ftrl's stream on the
    port: 262,144 rows of site / dev / app hashed field-aware into 3 x
    1648 in 16,384-row micro-batches, warm-started by 3 L-BFGS supersteps
    on the first 4,096 rows: the stream's, the host-only and the full
    DAG's (predict, windowed eval) rows/s and last window AUC, each after
    a warm run, the field-blocked program on every micro-batch (one
-   ``gather_pair``, two ``linear_grad``), the trainer's stages on one
+   ``gather_pair``, ``run_plan`` and ``scatter_walk``, no
+   ``linear_grad``), the trainer's stages on one
    micro-batch and the busy share; a stream that stops being
    field-blocked demoted exactly (the op's snapshot bitwise equal to the
    translation by hand); (d) the batch hook's pre and post calls in
@@ -222,6 +233,7 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
 # float32 and float64 outside the tensor cores, ops/s
 PEAK_BYTES_S = 3.35e12
+SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz: a queue's head start
 PEAK_OPS_S = {"f32": 67e12, "f64": 34e12, "bf16": 67e12, "int8": 67e12}
 DENSE_SHAPE = (512, 1024)             # the top bucket x the dense model's dim8
 SPARSE_ROWS, NNZ, FEATURES = 512, 39, 1 << 20
@@ -382,6 +394,67 @@ def device_ms_per_launch(fn, part: str, reps: int = 20, sessions: int = 6):
     require(seen > 0, f"the profiler saw a {part} kernel in one of "
                       f"{sessions} sessions")
     return us / seen / 1e3, seen
+
+
+def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
+    """The device time a call of ``fn`` holds the card with the kernels
+    whose names hold ``part``: the union of those kernels' intervals in a
+    ``torch.profiler`` trace of ``reps`` back-to-back calls, over the
+    calls it saw (a call's launches overlap and count once, and a call is
+    a run of overlapping launches: the gaps between calls do not count,
+    and a call whose records the profiler dropped does not count either).
+    The calls are queued behind a sleeping kernel
+    of a few milliseconds, so the host's enqueue does not space a call's
+    launches apart. A session that recorded none is made again, up to
+    ``sessions`` in all, as :func:`device_ms` does; this fails if none of
+    them saw the kernels. Returns (ms, launches recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    iv = []
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPAN_SLEEP_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        iv = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and part in e.name)
+        if iv:
+            break
+        print(f"chip_smoke: profiler session {session} of {sessions} saw "
+              f"no {part} kernel", file=sys.stderr)
+        time.sleep(0.1)
+    require(bool(iv), f"the profiler saw a {part} kernel in one of "
+                      f"{sessions} sessions")
+    covered, calls, lo, hi = 0.0, 1, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > hi:
+            covered += hi - lo
+            calls += 1
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    covered += hi - lo
+    return covered / calls / 1e3, len(iv)
+
+
+def plan_equal(kl, card, host) -> bool:
+    """The card's run plan equals the plain one built on the CPU: the
+    four counts, every position of ``perm``, and the first ``runs``
+    entries of ``slots`` and ``order`` (``runs + 1`` of ``starts``); the
+    card leaves the rest undefined."""
+    import torch
+    runs = kl.plan_counts(host)[0]
+    return (torch.equal(card.counts.cpu(), host.counts)
+            and torch.equal(card.perm.cpu(), host.perm)
+            and all(torch.equal(getattr(card, f).cpu()[:runs + (f == "starts")],
+                                getattr(host, f)[:runs + (f == "starts")])
+                    for f in ("starts", "slots", "order")))
 
 
 def host_ms_turns(*fns, trials: int = 15, reps: int = 20):
@@ -2088,6 +2161,7 @@ def phase_tree_serving(train):
 # ---------------------------------------------------------------------------
 
 LR_SRC = "alink_tpu_torch/kernels/csrc/linear_grad.cu"
+PLAN_SRC = "alink_tpu_torch/kernels/csrc/run_plan.cu"
 # bench.py's bench_logreg: 200,000 rows of 32 fields of 2048 (plus the
 # intercept field that LogisticRegressionTrainBatchOp prepends), l2 1e-4
 LR_ROWS, LR_FIELDS, LR_FIELD_SIZE, LR_L2 = 200_000, 32, 2048, 1e-4
@@ -2249,8 +2323,7 @@ def grad_case(kl, rng, case, kind, lat):
     got = kl.linear_grad(plan, cc)
     host = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
     require(torch.equal(plan.keys.cpu(), host.keys)
-            and all(torch.equal(a.cpu(), b) if torch.is_tensor(a) else a == b
-                    for a, b in zip(plan.walk, host.walk)),
+            and plan_equal(kl, plan.walk, host.walk),
             f"linear_grad {case} {kind}: the card's plan is the CPU's")
     want = kl.linear_grad_plain(host, torch.from_numpy(c))
     same, raw = same_bits(got.cpu(), want)
@@ -2259,13 +2332,13 @@ def grad_case(kl, rng, case, kind, lat):
         if bool(fin.any()) else 0.0
     require(same, f"linear_grad {case} {kind} bitwise vs its plain version "
                   f"(max abs err {err})")
-    walk = plan.walk
+    runs, n_heavy, n_medium, _ = kl.plan_counts(host.walk)
     rec = {"bitwise": True, "raw_bits_equal": raw, "max_abs_err": err,
-           "positions": int(keys.size), "slots": dim, "runs": walk.runs,
-           "heavy_runs": walk.n_heavy, "medium_runs": walk.n_medium}
+           "positions": int(keys.size), "slots": dim, "runs": runs,
+           "heavy_runs": n_heavy, "medium_runs": n_medium}
     if case not in GRAD_TIMED:
         return rec
-    P, n, U = keys.size, keys.shape[0], walk.runs
+    P, n, U = keys.size, keys.shape[0], runs
     isz = np.dtype(dtype).itemsize
     longest = int(np.unique(keys, return_counts=True)[1].max())
     # the plan (perm, starts, order, slots), the values and c read once,
@@ -2284,7 +2357,7 @@ def grad_case(kl, rng, case, kind, lat):
         t0 = time.perf_counter()
         kl.linear_grad_plain(host, cpu_c)
         plain.append((time.perf_counter() - t0) * 1e3)
-    dev_ms, dev_seen = device_ms_per_launch(call, "linear_grad_kernel")
+    dev_ms, dev_seen = device_span_ms(call, "linear_grad_")
     chain_ms = chain_bound_ms(longest, kind, lat)
     rec.update(
         kernel_ms=k_ms, device_ms=dev_ms, device_launches_recorded=dev_seen,
@@ -2484,7 +2557,7 @@ def lbfgs_timing(kl, ks, data, seed):
     total, busy = total / k, busy / k
     recorded = sum(v for name, v in events.items()
                    if "serve_sparse_kernel" in name
-                   or "linear_grad_kernel" in name) / k
+                   or "linear_grad_" in name) / k
     wrappers = {"serve_sparse": ks.launch_counts()["serve_sparse"] / n,
                 "linear_grad": kl.launch_counts()["linear_grad"] / n}
     require(wrappers == {"serve_sparse": 2.0, "linear_grad": 1.0},
@@ -2503,7 +2576,8 @@ def lbfgs_timing(kl, ks, data, seed):
     print(f"lbfgs: {ms:.4f} ms a superstep (median of {len(per) - k}), "
           f"{out['rows_supersteps_per_s']:.1f} rows x supersteps/s, "
           f"{total} device ops a superstep ({wrappers}; the profiler "
-          f"recorded {recorded} of the 3 port kernels), busy {busy:.4f} ms "
+          f"recorded {recorded} of the 4 port kernels: 2 margins, the "
+          f"gradient's 2 launches), busy {busy:.4f} ms "
           f"({busy / ms:.3f})", flush=True)
     with StageSplit() as split:
         lbfgs_run(data, LR_CHECK_STEPS, seed=seed)
@@ -2667,6 +2741,9 @@ try:
         kf.gather_pair(st, st, ix)
     elif sys.argv[1] == "scatter":
         kf.scatter_add_rows(st, ix, torch.ones(3, device="cuda"))
+    elif sys.argv[1] == "run_plan":
+        from alink_tpu_torch.kernels import linear as kl
+        kl.run_plan(ix.view(1, 3), 1 << 20)
     else:
         from alink_tpu_torch.kernels import tree_hist as kh
         kh.level_hist(torch.tensor([[1], [64], [2]], dtype=torch.int32,
@@ -2691,7 +2768,8 @@ def phase_bad_slots():
     procs = {k: subprocess.Popen([sys.executable, "-c", BAD_SLOT_PROBE, k],
                                  cwd=root, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
-             for k in ("gather", "gather_pair", "scatter", "tree_hist")}
+             for k in ("gather", "gather_pair", "scatter", "run_plan",
+                       "tree_hist")}
     out = {}
     for k, p in procs.items():
         try:
@@ -3173,9 +3251,17 @@ BATCH_STEP_CHECKS = 3                 # micro-batches of the f64 card vs CPU
 # float64 card run holds the CPU's within this share of the largest change
 # (tests/test_torch_ftrl_batch.py's FB_RTOL)
 FB_RTOL = 1e-6
-SCATTER_CASES = ("coo", "coo_2e20", "fb", "stream", "one", "same_slot",
-                 "negzero", "nan")
-SCATTER_TIMED = ("coo", "coo_2e20", "fb", "stream")
+# each case with its kinds: the field-blocked step's use of the kernel
+# (float32 terms into zeroed states) is float32 only. Those two cases draw
+# from a generator of their own (SCATTER_USE_SEED), so the phase's shared
+# generator reaches the steps of 14(b) in the state it had before they were
+# added: the field-blocked steps' float64 card-vs-CPU gate depends on its
+# data (see step_case)
+SCATTER_CASES = tuple((c, ("f32", "f64")) for c in (
+    "coo", "coo_2e20", "fb", "stream", "one", "same_slot", "negzero",
+    "nan")) + (("fb_use", ("f32",)), ("stream_use", ("f32",)))
+SCATTER_USE_SEED = 1411
+SCATTER_TIMED = ("coo", "coo_2e20", "fb", "stream", "fb_use", "stream_use")
 
 
 def scatter_inputs(rng, case, dtype):
@@ -3183,9 +3269,13 @@ def scatter_inputs(rng, case, dtype):
     the ordered scatter-add: the three batch shapes of ``bench_ftrl``
     (padded COO over 65,536 + 1 and 2^20 + 1 slots, the intercept in
     column 0; field-blocked over 40 x 1648; the stream's 16,384 x 4 over 3
-    x 1648 + 1) and edges: one update, every key one slot (a heavy run of
-    16,384), a state of ``-0.0`` wherever no key lands, NaN and inf
+    x 1648 + 1), the field-blocked step's use of the last two (states of
+    zeros, ``*_use``) and edges: one update, every key one slot (a heavy
+    run of 16,384), a state of ``-0.0`` wherever no key lands, NaN and inf
     terms."""
+    if case.endswith("_use"):
+        keys, terms, states = scatter_inputs(rng, case[:-4], dtype)
+        return keys, terms, np.zeros_like(states)
     B, w, S = {"coo": (BF_ROWS, 40, BF_DIM),
                "coo_2e20": (BF_ROWS, 40, FEATURES + 1),
                "fb": (BF_ROWS, BF_FIELDS, BF_FIELDS * BF_S),
@@ -3228,6 +3318,8 @@ def scatter_case(kl, rng, case, kind, lat):
     chain bound of the longest run (z's and n's chains side by side)."""
     import torch
     dtype = np.float32 if kind == "f32" else np.float64
+    if case.endswith("_use"):
+        rng = np.random.default_rng(SCATTER_USE_SEED)
     keys, terms, states = scatter_inputs(rng, case, dtype)
     dev = torch.device("cuda")
     kd, td = torch.from_numpy(keys).to(dev), torch.from_numpy(terms).to(dev)
@@ -3254,14 +3346,20 @@ def scatter_case(kl, rng, case, kind, lat):
                              bits(torch.from_numpy(states[0][untouched])))),
             f"scatter_walk {case} {kind}: untouched slots keep their bits")
     plan = kl.run_plan(kd, states.shape[1])
+    host = kl.run_plan_plain(torch.from_numpy(keys), states.shape[1])
+    require(plan_equal(kl, plan, host),
+            f"scatter_walk {case} {kind}: the card's plan is the plain "
+            f"one's")
+    runs, n_heavy, n_medium, _ = kl.plan_counts(host)
     counts = np.unique(keys, return_counts=True)[1]
     rec = {"bitwise": True, "raw_bits_equal": all(raws), "max_abs_err": err,
-           "positions": int(keys.size), "slots": int(states.shape[1]),
-           "runs": plan.runs, "heavy_runs": plan.n_heavy,
-           "medium_runs": plan.n_medium, "longest_run": int(counts.max())}
+           "plan_equal": True, "positions": int(keys.size),
+           "slots": int(states.shape[1]), "runs": runs,
+           "heavy_runs": n_heavy, "medium_runs": n_medium,
+           "longest_run": int(counts.max())}
     if case not in SCATTER_TIMED:
         return rec
-    M, U, isz = keys.size, plan.runs, np.dtype(dtype).itemsize
+    M, U, isz = keys.size, runs, np.dtype(dtype).itemsize
     # the plan, the terms read once; z and n read and written at the runs
     b_ms, b_by = _bound(4 * M + 12 * U + 4 + 2 * M * isz + 4 * U * isz,
                         2 * M, kind)
@@ -3272,15 +3370,24 @@ def scatter_case(kl, rng, case, kind, lat):
                    n.index_add_(0, kl_, tn))
     k_ms, l_ms = cuda_ms_turns(call, lib, trials=9, reps=5)
     k_host, l_host = host_ms_turns(call, lib, trials=9, reps=5)
-    dev_ms, dev_seen = device_ms_per_launch(call, "scatter_walk_kernel")
-    wrap_ms = cuda_ms(lambda: kl.scatter_walk(z, n, kd, td), trials=7,
-                      reps=5)
-    plan_ms = cuda_ms(lambda: kl.run_plan(kd, states.shape[1]),
-                      trials=7, reps=5)
+    dev_ms, dev_seen = device_span_ms(call, "scatter_walk_")
+    plan_fn = lambda: kl.run_plan(kd, states.shape[1])         # noqa: E731
+    wrap_ms, plan_ms, plan_plain_ms = cuda_ms_turns(
+        lambda: kl.scatter_walk(z, n, kd, td), plan_fn,
+        lambda: kl.run_plan_plain(kd, states.shape[1]), trials=7, reps=5)
+    plan_dev_ms, plan_kernels = device_ms(plan_fn)
+    plan_host_ms = host_ms(plan_fn, trials=7, reps=5)
+    # the plan's bound: the keys read once; perm, starts, slots, order and
+    # the counts written once
+    plan_b_ms, plan_b_by = _bound(4 * M + 4 * M + 12 * U + 4 + 16, 0, kind)
     chain_ms = chain_bound_ms(rec["longest_run"], kind, lat)
     rec.update(kernel_ms=k_ms, device_ms=dev_ms,
                device_launches_recorded=dev_seen, host_ms=k_host,
-               wrapper_ms=wrap_ms, plan_ms=plan_ms, plain_ms=plain_ms,
+               wrapper_ms=wrap_ms, plan_ms=plan_ms,
+               plan_device_ms=plan_dev_ms, plan_host_ms=plan_host_ms,
+               plan_device_kernels=plan_kernels,
+               plan_plain_ms=plan_plain_ms, plan_bound_ms=plan_b_ms,
+               plan_bound_by=plan_b_by, plain_ms=plain_ms,
                plain_where="CPU", library_ms=l_ms,
                library_device_ms=device_ms(lib)[0], library_host_ms=l_host,
                library_deterministic=False, bound_ms=b_ms, bound_by=b_by,
@@ -3394,7 +3501,10 @@ def step_case(tf, kl, kf, rng, kind):
     """One step on the card: float64 within rtol 1e-10 (+1e-12 abs) of
     the CPU on z, n and the margins over BATCH_STEP_CHECKS micro-batches
     (2 for the strict dense step; the field-blocked steps, float32 inside,
-    within FB_RTOL of the largest change), two float32 runs bitwise, the
+    within FB_RTOL of the largest change: a bound that holds for some data
+    only, since on other data the CPU run alone, its margins perturbed in
+    their last bits, moves the intercept's z by more), two float32 runs
+    bitwise, the
     launches of one micro-batch, its ms alone (each ending in a synchronize) and
     samples/s, and the card's busy share under one profiled step."""
     import torch
@@ -3451,6 +3561,15 @@ def step_case(tf, kl, kf, rng, kind):
             return tf.ftrl_dense_batch_step(*t, z, n, *hp)
         return tf.ftrl_dense_step(*t, z, n, *hp)
     one()
+    no_wait = kind in ("coo", "fb", "fb_val")
+    if no_wait:
+        # the sparse batch steps issue no call that waits on the card
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     for k in (kl, kf):
         k.reset_launch_counts()
     one()
@@ -3476,6 +3595,7 @@ def step_case(tf, kl, kf, rng, kind):
             device_ops += int(e.count)
     return {"rows": b, "check_micro_batches": checks,
             "f64_card_vs_cpu_max_abs_err": errs, "f32_runs_bitwise": True,
+            "ran_under_sync_debug_error": no_wait,
             "launches_per_micro_batch": launches,
             "device_ops_per_micro_batch": device_ops, "step_ms": step_ms,
             "samples_per_s": b / step_ms * 1e3,
@@ -3488,8 +3608,8 @@ def batch_main_path(kl, kf, rng):
     ``FtrlTrainStreamOp(update_mode="batch")`` on bench_ftrl's Criteo-shape
     rows (4096-row micro-batches over 65,536 + 1 slots, 6 of them, a
     snapshot every 2), counts set to 0 just before and read just after:
-    one ``gather_pair`` and one ordered scatter-add a micro-batch, nothing
-    else of the package."""
+    one ``gather_pair``, one plan and one ordered scatter-add a
+    micro-batch, nothing else of the package."""
     import torch
     from alink_tpu_torch.model.interop import linear_model_from_numpy
     from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
@@ -3514,10 +3634,10 @@ def batch_main_path(kl, kf, rng):
     snaps, secs = drain_timed(op)
     counts = {k: v for m in (kl, kf) for k, v in m.launch_counts().items()}
     want = dict({k: 0 for k in counts}, ftrl_gather_pair=micro,
-                scatter_walk=micro)
+                run_plan=micro, scatter_walk=micro)
     require(counts == want,
-            f"the batch main path launched {counts}: one gather_pair and "
-            f"one scatter_walk a micro-batch and nothing else")
+            f"the batch main path launched {counts}: one gather_pair, one "
+            f"run_plan and one scatter_walk a micro-batch and nothing else")
     require(len(snaps) == 3 and all(np.isfinite(_coefs(s)).all()
                                     for _, s in snaps),
             "the batch main path's snapshots are finite")
@@ -3627,11 +3747,13 @@ def bench_stream(kl, kf, table):
     out["stream_s"] = time.perf_counter() - t0
     counts = {k: v for m in (kl, kf) for k, v in m.launch_counts().items()}
     micro = ST_ROWS // ST_MICRO
-    require(counts["linear_grad"] == 2 * micro
+    require(counts["scatter_walk"] == micro
+            and counts["run_plan"] == micro
             and counts["ftrl_gather_pair"] == micro
-            and counts["scatter_walk"] == 0,
-            f"the stream ran the field-blocked program every micro-batch "
-            f"(launches {counts})")
+            and counts["linear_grad"] == 0,
+            f"the stream ran the field-blocked program every micro-batch: "
+            f"one plan and one scatter_walk, no linear_grad (launches "
+            f"{counts})")
     require(bool(np.isfinite(_coefs(last)).all()), "the stream's model "
                                                    "is finite")
     out.update(stream_rows_per_s=ST_ROWS / out["stream_s"],
@@ -3775,8 +3897,8 @@ def phase_batch(kernels, rng, lat, card):
     out = {"card": card}
     t0 = time.perf_counter()
     parity = {}
-    for case in SCATTER_CASES:
-        for kind in ("f32", "f64"):
+    for case, kinds in SCATTER_CASES:
+        for kind in kinds:
             key = f"{case} {kind}"
             parity[key] = scatter_case(kl, rng, case, kind, lat)
             print(f"scatter_walk {tag} {key}: " + " ".join(
@@ -4116,6 +4238,26 @@ def main(argv=None) -> int:
             "chain_fraction", "longest_run", "runs", "heavy_runs",
             "medium_runs", "raw_bits_equal") if f in v}
             for k, v in scatter_parity.items()}})
+    # the plan both ordered kernels walk, built on the card: no TPU kernel
+    # (the JAX package's scatter-adds need no plan); at the same shape. Its
+    # plain version is run_plan_plain on the card; no one PyTorch call
+    # computes a plan
+    kernels.append({
+        "name": "run_plan", "route": "cuda", "source": PLAN_SRC,
+        "replaces": "alink_tpu/operator/stream/onlinelearning/ftrl.py:576",
+        "port_only": True,
+        "launches": batch["main_path"]["main_path_launches"]["run_plan"],
+        "max_abs_err": 0, "ms": r["plan_ms"], "plain_ms": r["plan_plain_ms"],
+        "plain_where": "card (torch ops and one host read)",
+        "bound_ms": r["plan_bound_ms"], "bound_by": r["plan_bound_by"],
+        "library_ms": None, "plan_equal": True,
+        "device_ms": r["plan_device_ms"], "host_ms": r["plan_host_ms"],
+        "device_kernels": r["plan_device_kernels"],
+        "shape": f"coo {BF_ROWS} x 40 over {BF_DIM}",
+        "shapes": {k: {f: v[f] for f in (
+            "plan_ms", "plan_device_ms", "plan_host_ms", "plan_plain_ms",
+            "plan_bound_ms") if f in v}
+            for k, v in scatter_parity.items() if "plan_ms" in v}})
     for rec in kernels:
         rec["batch_mode_launches"] = {
             "main_path": batch["main_path"]["main_path_launches"].get(

@@ -5,8 +5,12 @@ repository, timed in turns on one NVIDIA GPU.
 
     mkdir -p ab/parent && git archive <commit> | tar -x -C ab/parent
     python3 kernel_ab.py ab/parent . . ab/parent     # ab/: listed in .gitignore
+    python3 kernel_ab.py --parts=p2,steps,linear_grad ab/parent . . ab/parent
 
-Each tree named on the command line is measured in a process of its own,
+``--parts`` names the parts below to measure (default: all of them:
+``sparse``, ``walk``, ``split``, ``linear_grad``, ``lbfgs``, ``p2``,
+``steps``). Each tree named on the command line is measured in a process
+of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
 its own ``build/``, and its own wrappers, trainer and ``chip_smoke.py``
@@ -50,7 +54,26 @@ a kernel and the library call it is held against are timed in turns):
   run), the card's busy share over 5 profiled supersteps, and the
   ``StageSplit`` of the superstep into gradient, direction, line search
   and update (each stage ending in a synchronize, median of supersteps
-  2-10).
+  2-10);
+* ``p2``: the ordered scatter-add (``scatter_walk``) at ``chip_smoke.py``
+  phase 14's shapes (``scatter_inputs``): the padded-COO batch shape
+  (4096 x 40 over 65,537 slots, the intercept in column 0), its
+  intercept column alone (one run of 4,096 terms) and its bulk alone (no
+  run of ``HEAVY_MIN`` terms), the stream's 16,384 x 4 over 3 x 1648 + 1,
+  and the field-blocked step's use (float32 terms into zeroed states
+  over 40 x 1648, and over the stream's 3 x 1648 + 1), f32 and f64: the
+  kernel on a built plan, the wrapper (plan and walk), the plan alone and
+  two ``index_add_`` calls, by CUDA events in turns; the walk's device
+  span (``device_span_ms``); the enqueue cost of the kernel and of the
+  wrapper; the chain bound of the longest run; bitwise to its plain
+  version on the CPU. At the padded-COO and field-blocked shapes in
+  f32, the plan's device ops one by one (``torch.profiler``: each op's
+  count, host time and device time a plan);
+* ``steps``: one 4096-row micro-batch of the padded-COO and the
+  field-blocked batch steps (``chip_smoke.py``'s ``step_inputs``,
+  float32 state): ms by the host clock, each call ending in a
+  synchronize (median of 15), device ops and busy time under one
+  profiled step, the launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -74,10 +97,56 @@ def _helpers(tree: Path):
     return mod
 
 
-def measure(tree: Path) -> dict:
+SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
+PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps")
+
+
+def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
+    """The device time a call of ``fn`` holds the card with the kernels
+    whose names hold ``part``: the union of those kernels' intervals in a
+    ``torch.profiler`` trace of ``reps`` back-to-back calls, over the
+    calls it saw (a call's launches overlap and count once, and a call is
+    a run of overlapping launches: the gaps between calls do not count,
+    and a call whose records the profiler dropped does not count either).
+    The calls are queued behind a sleeping kernel
+    of a few milliseconds, so the host's enqueue does not space a call's
+    launches apart. A session that recorded none of them is made again,
+    up to ``sessions`` in all. Returns (ms, kernels recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPAN_SLEEP_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        iv = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and part in e.name)
+        if iv:
+            break
+        time.sleep(0.1)
+    if not iv:
+        raise SystemExit(f"kernel_ab: the profiler saw no {part} kernel")
+    covered, calls, lo, hi = 0.0, 1, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > hi:
+            covered += hi - lo
+            calls += 1
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    covered += hi - lo
+    return covered / calls / 1e3, len(iv)
+
+
+def measure(tree: Path, parts=PARTS) -> dict:
     sys.path.insert(0, str(tree))
     import torch
-    import torch.nn.functional as F
     h = _helpers(tree)
     from alink_tpu_torch.kernels import _build
     from alink_tpu_torch.kernels import ftrl as kf
@@ -87,6 +156,46 @@ def measure(tree: Path) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     out = {"tree": str(tree), "sparse": {}, "split_ms": {}, "launches": {}}
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    if "sparse" in parts:
+        sparse_times(h, ks, rng, dev, out)
+    if "walk" in parts and hasattr(kf, "walk_chunk"):
+        # the walk of one Criteo chunk at each strict step's K
+        out["walk"] = {}
+        for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
+            for chained, K in ((False, 4), (True, h.CHAIN_K)):
+                xi, xv, yy, zn = h.walk_inputs(rng, "criteo", K, dtype, dev)
+                mg = xv.new_zeros(K)
+                fn = functools.partial(kf.walk_chunk, xi, xv, yy, zn, mg, 0,
+                                       **h.FTRL_HP, chained=chained)
+                out["walk"][f"{kind} K={K}"] = {
+                    "device_ms": h.device_ms(fn, "ftrl_walk")[0]}
+    if "split" in parts:
+        warm = h.ftrl_warm_model(rng)
+        train = h.criteo_ftrl_rows(1, h.FTRL_BATCH)
+        out["split_ms"], out["launches"] = h.ftrl_splits(warm, train, kf)
+    from alink_tpu_torch.kernels import linear as kl
+    lat = h.add_latency(*h.start_chain_probe(_build))
+    if "linear_grad" in parts:
+        out["linear_grad"] = linear_grad_times(h, kl, lat)
+    if "lbfgs" in parts:
+        fb, y = h.fb_criteo(0)
+        out["lbfgs"] = h.lbfgs_timing(kl, ks, {
+            "fb_idx": fb, "y": y, "w": np.ones(len(y), np.float32)}, 0)
+    if "p2" in parts:
+        out["p2"] = scatter_times(h, kl, lat)
+    if "steps" in parts:
+        out["steps"] = step_times(h, kl, kf)
+    return out
+
+
+def sparse_times(h, ks, rng, dev, out):
+    """``serve_sparse`` in the four modes and ``F.embedding_bag``."""
+    import torch
+    import torch.nn.functional as F
     n, width = h.SPARSE_ROWS, -(-h.NNZ // 8) * 8
     ws = torch.from_numpy((rng.standard_normal(h.FEATURES) * 0.05)
                           .astype(np.float32))
@@ -121,31 +230,6 @@ def measure(tree: Path) -> dict:
             torch.cuda.synchronize()
             stage.append((time.perf_counter() - t0) * 1e3)
         out["sparse"]["kernel_stage_ms"] = float(np.median(stage[1:]))
-    if hasattr(kf, "walk_chunk"):
-        # the walk of one Criteo chunk at each strict step's K
-        out["walk"] = {}
-        for dtype, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
-            for chained, K in ((False, 4), (True, h.CHAIN_K)):
-                xi, xv, yy, zn = h.walk_inputs(rng, "criteo", K, dtype, dev)
-                mg = xv.new_zeros(K)
-                fn = functools.partial(kf.walk_chunk, xi, xv, yy, zn, mg, 0,
-                                       **h.FTRL_HP, chained=chained)
-                out["walk"][f"{kind} K={K}"] = {
-                    "device_ms": h.device_ms(fn, "ftrl_walk")[0]}
-    warm = h.ftrl_warm_model(rng)
-    train = h.criteo_ftrl_rows(1, h.FTRL_BATCH)
-    out["split_ms"], out["launches"] = h.ftrl_splits(warm, train, kf)
-    from alink_tpu_torch.kernels import linear as kl
-    out["linear_grad"] = linear_grad_times(h, kl, h.add_latency(
-        *h.start_chain_probe(_build)))
-    fb, y = h.fb_criteo(0)
-    out["lbfgs"] = h.lbfgs_timing(kl, ks, {
-        "fb_idx": fb, "y": y, "w": np.ones(len(y), np.float32)}, 0)
-    out["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    return out
 
 
 LINEAR_CASES = (("fieldblock", "f32"), ("fieldblock", "f64"), ("coo", "f32"),
@@ -185,11 +269,164 @@ def linear_grad_times(h, kl, lat):
         chain = h.chain_bound_ms(longest, kind, lat)
         out[f"{case} {kind}"] = {
             "bitwise": same, "kernel_ms": k_ms,
-            "device_ms": h.device_ms_per_launch(call,
-                                                "linear_grad_kernel")[0],
+            "device_ms": device_span_ms(call, "linear_grad")[0],
             "index_add_ms": l_ms, "chain_bound_ms": chain,
             "chain_fraction": chain / k_ms, "longest_run": longest}
     out["add_latency"] = lat
+    return out
+
+
+P2_CASES = (("coo", "f32"), ("coo", "f64"), ("coo_intercept", "f32"),
+            ("coo_intercept", "f64"), ("coo_bulk", "f32"), ("coo_bulk", "f64"),
+            ("stream", "f32"), ("stream", "f64"), ("fb_use", "f32"),
+            ("stream_use", "f32"))
+
+
+def p2_inputs(h, rng, case, dtype):
+    """(keys, terms, states) of one ``P2_CASES`` case, from the tree's
+    ``chip_smoke.py::scatter_inputs``: the intercept column alone, the
+    bulk alone, or zeroed states (the field-blocked step's use)."""
+    base = {"coo_intercept": "coo", "coo_bulk": "coo", "fb_use": "fb",
+            "stream_use": "stream"}.get(case, case)
+    keys, terms, states = h.scatter_inputs(rng, base, dtype)
+    if case == "coo_intercept":
+        keys, terms = keys[:, :1], terms[:, :1]
+    elif case == "coo_bulk":
+        keys, terms = keys[:, 1:], terms[:, 1:]
+    elif case.endswith("_use"):
+        states = np.zeros_like(states)
+    return (np.ascontiguousarray(keys), np.ascontiguousarray(terms),
+            states)
+
+
+def plan_ops(kl, kd, size, reps=5):
+    """The plan's ops one by one under ``torch.profiler`` (host and
+    device): each op's count, self host time and device time a plan."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        kl.run_plan(kd, size)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kl.run_plan(kd, size)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        dev_us = float(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) or 0)
+        ops[e.key] = {"count": e.count / reps,
+                      "self_host_us": e.self_cpu_time_total / reps,
+                      "device_us": dev_us / reps,
+                      "device": str(getattr(e, "device_type", ""))}
+    return ops
+
+
+def scatter_times(h, kl, lat):
+    """The ordered scatter-add at :data:`P2_CASES`, through the API every
+    tree has: ``run_plan(keys, size)`` and ``scatter_walk(z, n, keys,
+    terms, plan=)``."""
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    out = {}
+    for case, kind in P2_CASES:
+        dtype = np.float32 if kind == "f32" else np.float64
+        keys, terms, states = p2_inputs(h, rng, case, dtype)
+        S = states.shape[1]
+        kd, td = torch.from_numpy(keys).to(dev), torch.from_numpy(terms).to(dev)
+        z, n = (torch.from_numpy(s.copy()).to(dev) for s in states)
+        kl.scatter_walk(z, n, kd, td)
+        zc, nc = (torch.from_numpy(s.copy()) for s in states)
+        kl.scatter_walk_plain(zc, nc, torch.from_numpy(keys),
+                              torch.from_numpy(terms))
+        same = all(h.same_bits(a.cpu(), b)[0] for a, b in ((z, zc), (n, nc)))
+        plan = kl.run_plan(kd, S)
+        kls = kd.reshape(-1).long()
+        tz, tn = td[..., 0].reshape(-1), td[..., 1].reshape(-1)
+
+        def call():
+            kl.scatter_walk(z, n, kd, td, plan=plan)
+
+        def wrapper():
+            kl.scatter_walk(z, n, kd, td)
+
+        def plan_only():
+            kl.run_plan(kd, S)
+
+        def lib():
+            z.index_add_(0, kls, tz)
+            n.index_add_(0, kls, tn)
+        k_ms, w_ms, p_ms, l_ms = h.cuda_ms_turns(call, wrapper, plan_only,
+                                                 lib, trials=9, reps=5)
+        k_host, w_host = h.host_ms_turns(call, wrapper, trials=9, reps=5)
+        span, seen = device_span_ms(call, "scatter_walk")
+        longest = int(np.unique(keys, return_counts=True)[1].max())
+        chain = h.chain_bound_ms(longest, kind, lat)
+        rec = {"bitwise": same, "kernel_ms": k_ms, "device_ms": span,
+               "device_kernels_recorded": seen, "wrapper_ms": w_ms,
+               "plan_ms": p_ms, "index_add_ms": l_ms, "host_ms": k_host,
+               "wrapper_host_ms": w_host, "chain_bound_ms": chain,
+               "device_chain_fraction": chain / span,
+               "longest_run": longest, "positions": int(keys.size)}
+        if kind == "f32" and case in ("coo", "fb_use"):
+            rec["plan_ops"] = plan_ops(kl, kd, S)
+        out[f"{case} {kind}"] = rec
+    out["add_latency"] = lat
+    return out
+
+
+def step_times(h, kl, kf, reps=15):
+    """One 4096-row micro-batch of the padded-COO and field-blocked batch
+    steps, float32: ms (host clock, each call ending in a synchronize),
+    device ops and busy time under one profiled step, launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from alink_tpu_torch.operator.stream.onlinelearning import ftrl as tf
+    from alink_tpu_torch.ops.fieldblock import FieldBlockMeta
+    rng = np.random.default_rng(0)
+    hp = tuple(h.FTRL_HP[k] for k in ("alpha", "beta", "l1", "l2"))
+    out = {}
+    for kind, size in (("coo", h.BF_DIM), ("fb", h.BF_FIELDS * h.BF_S)):
+        arrays = h.step_inputs(rng, kind, h.BF_ROWS, np.float32)
+        t = [None if a is None else torch.from_numpy(a).cuda()
+             for a in arrays]
+        z = torch.from_numpy(rng.standard_normal(size) * 0.01).cuda().float()
+        n = torch.from_numpy(np.abs(rng.standard_normal(size))
+                             * 0.01).cuda().float()
+        meta = FieldBlockMeta(h.BF_FIELDS, h.BF_S)
+
+        def one():
+            if kind == "coo":
+                return tf.ftrl_batch_step(*t, z, n, *hp)
+            return tf.ftrl_fb_batch_step(*t, z, n, meta, *hp)
+        one()
+        for k in (kl, kf):
+            k.reset_launch_counts()
+        one()
+        torch.cuda.synchronize()
+        launches = {k: v for m in (kl, kf)
+                    for k, v in m.launch_counts().items() if v}
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        busy_us, ops = 0.0, 0
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                busy_us += float(getattr(e, "self_device_time_total",
+                                         getattr(e, "self_cuda_time_total",
+                                                 0)) or 0)
+                ops += int(e.count)
+        out[kind] = {"step_ms": float(np.median(times)), "device_ops": ops,
+                     "device_busy_ms": busy_us / 1e3, "launches": launches}
     return out
 
 
@@ -228,6 +465,16 @@ def _summary(runs):
                             rs, "linear_grad", key, f)
                 s[f"linear_grad {key} bitwise"] = all(
                     r["linear_grad"][key]["bitwise"] for r in rs)
+        for key, rec in rs[0].get("p2", {}).items():
+            if key == "add_latency":
+                continue
+            for f, v in rec.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    s[f"p2 {key} {f}"] = med(rs, "p2", key, f)
+            s[f"p2 {key} bitwise"] = all(r["p2"][key]["bitwise"] for r in rs)
+        for kind, rec in rs[0].get("steps", {}).items():
+            for f in ("step_ms", "device_ops", "device_busy_ms"):
+                s[f"step {kind} {f}"] = med(rs, "steps", kind, f)
         lb = rs[0].get("lbfgs")
         if lb:
             for f in ("ms_per_superstep", "device_busy_ms",
@@ -240,8 +487,15 @@ def _summary(runs):
 
 
 def main(argv) -> int:
+    parts = PARTS
+    if argv and argv[0].startswith("--parts="):
+        parts = tuple(argv[0].split("=", 1)[1].split(","))
+        if not set(parts) <= set(PARTS):
+            print(f"kernel_ab: parts are {PARTS}", file=sys.stderr)
+            return 2
+        argv = argv[1:]
     if len(argv) >= 2 and argv[0] == "--measure":
-        print(json.dumps(measure(Path(argv[1]))))
+        print(json.dumps(measure(Path(argv[1]), parts)))
         return 0
     import torch
     if not torch.cuda.is_available() or not argv:
@@ -251,7 +505,8 @@ def main(argv) -> int:
     runs = []
     for tree in argv:
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--measure", str(Path(tree).resolve())],
+                              f"--parts={','.join(parts)}", "--measure",
+                              str(Path(tree).resolve())],
                              cwd=tree, capture_output=True, text=True,
                              timeout=1200)
         if res.returncode != 0:

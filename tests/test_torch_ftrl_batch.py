@@ -142,9 +142,10 @@ def _walk_plan(plan, state, terms):
     of the state's dtype)."""
     perm, starts = plan.perm.numpy(), plan.starts.numpy()
     slots, order = plan.slots.numpy(), plan.order.numpy()
+    runs = kl.plan_counts(plan)[0]
     out = state.copy()
-    assert sorted(order[:plan.runs]) == list(range(plan.runs))
-    for r in order[:plan.runs]:
+    assert sorted(order[:runs]) == list(range(runs))
+    for r in order[:runs]:
         for q in range(out.shape[0]):
             acc = out[q, slots[r]]
             for p in perm[starts[r]:starts[r + 1]]:
@@ -164,13 +165,15 @@ def test_run_plan_walks_to_the_plain_bits(name, monkeypatch):
     keys, terms, state = _scatter_case(name, np.float64)
     plan = kl.run_plan(torch.from_numpy(keys), state.shape[1])
     uniq, counts = np.unique(keys, return_counts=True)
-    assert plan.runs == len(uniq)
-    np.testing.assert_array_equal(plan.slots.numpy()[:plan.runs], uniq)
-    np.testing.assert_array_equal(np.diff(plan.starts.numpy()[:plan.runs + 1]),
+    runs, n_heavy, n_medium, n_short = kl.plan_counts(plan)
+    assert runs == len(uniq)
+    np.testing.assert_array_equal(plan.slots.numpy()[:runs], uniq)
+    np.testing.assert_array_equal(np.diff(plan.starts.numpy()[:runs + 1]),
                                   counts)
-    assert plan.n_heavy == int((counts >= 200).sum())
-    assert plan.n_medium == int(((counts > 4) & (counts < 200)).sum())
-    lens = counts[plan.order.numpy()[:plan.n_heavy + plan.n_medium]]
+    assert n_heavy == int((counts >= 200).sum())
+    assert n_medium == int(((counts > 4) & (counts < 200)).sum())
+    assert n_short == int((counts <= 4).sum())
+    lens = counts[plan.order.numpy()[:n_heavy + n_medium]]
     assert list(lens) == sorted(lens, reverse=True)
     z, n = _torch(state[0].copy(), state[1].copy())
     kf.scatter_add_rows_plain(z, torch.from_numpy(keys.reshape(-1)),
@@ -181,10 +184,11 @@ def test_run_plan_walks_to_the_plain_bits(name, monkeypatch):
     np.testing.assert_array_equal(walked.view(np.uint8),
                                   np.stack([z.numpy(), n.numpy()])
                                   .view(np.uint8))
-    # the CUDA grid of that plan on an H100's 132 SMs
-    heavy, light = kl.launch_grid(132, plan)
-    assert heavy == 2 * min(plan.n_heavy, 33)
-    assert light >= 1 or plan.n_heavy == plan.runs
+    # the CUDA grid of that plan on an H100's 132 SMs, from the positions
+    # alone: room for every heavy run the keys could hold
+    heavy, light = kl.launch_grid(132, keys.size)
+    assert heavy == 2 * min(keys.size // kl.HEAVY_MIN, 33) >= 2 * min(n_heavy, 33)
+    assert light >= 1
 
 
 def test_run_plan_rejects_keys_out_of_range():
@@ -193,10 +197,51 @@ def test_run_plan_rejects_keys_out_of_range():
     with pytest.raises(IndexError):
         kl.run_plan(torch.tensor([[-1, 2]], dtype=torch.int32), 9)
     empty = kl.run_plan(torch.zeros((0, 4), dtype=torch.int32), 9)
-    assert (empty.runs, empty.n_heavy, empty.n_medium) == (0, 0, 0)
+    assert kl.plan_counts(empty) == (0, 0, 0, 0)
     with pytest.raises(ValueError, match="scatter_walk"):
         kl.scatter_walk(torch.zeros(4), torch.zeros(4),
                         torch.zeros(2, dtype=torch.int64), torch.zeros(2, 2))
+
+
+def _same_bits_nan_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    nan = np.isnan(a)
+    return (nan == np.isnan(b)).all() and \
+        (a[~nan].view(np.int32) == b[~nan].view(np.int32)).all()
+
+
+@pytest.mark.parametrize("B,F,dim,shift", [
+    (4096, 40, 40 * 1648, 0),          # bench_ftrl's field-blocked step
+    (16_384, 4, 3 * 1648 + 1, 1),      # its stream: the intercept, 3 fields
+])
+def test_fb_deltas_through_scatter_walk_equal_two_gradients(B, F, dim, shift):
+    """The field-blocked step's float32 deltas summed a slot from +0.0:
+    one ordered scatter-add of the (dz, dn) pairs into a zeroed (2, dim)
+    buffer (what the step does) gives the bits of two gradients with c = 1
+    on one plan (what it did): ``v * 1.0`` is ``v``, and an accumulator
+    from +0.0 takes a -0.0 term to +0.0 either way. With -0.0, NaN and
+    +-inf terms; a NaN equals any NaN, other values their raw bits."""
+    rng = np.random.RandomState(B + F)
+    keys = (rng.randint(0, 1648, (B, F)) + shift
+            + (np.arange(F) - shift) * 1648).astype(np.int32)
+    keys[:, 0] = 0                                   # the intercept field
+    terms = rng.randn(B, F, 2).astype(np.float32)
+    terms[rng.rand(B, F, 2) < 0.02] = -0.0
+    terms[7, 2, 0], terms[9, 0, 1] = np.nan, np.nan
+    terms[100, 1, 0], terms[101, 1, 0] = np.inf, -np.inf
+    terms[B - 1, F - 1, 1] = np.inf
+    kt, tt = torch.from_numpy(keys), torch.from_numpy(terms)
+    d = torch.zeros((2, dim), dtype=torch.float32)
+    kl.scatter_walk(d[0], d[1], kt, tt)
+    plan = kl.grad_plan(kt, dim, tt[..., 0].contiguous())
+    ones = torch.ones(B, dtype=torch.float32)
+    dz = kl.linear_grad_plain(plan, ones)
+    dn = kl.linear_grad_plain(plan._replace(val=tt[..., 1].contiguous()), ones)
+    assert _same_bits_nan_equal(d[0].numpy(), dz.numpy())
+    assert _same_bits_nan_equal(d[1].numpy(), dn.numpy())
+    assert np.isnan(d[0].numpy()).any() and np.isinf(d[1].numpy()).any()
+    unhit = np.setdiff1d(np.arange(dim), keys)
+    assert (d.numpy()[:, unhit].view(np.int32) == 0).all()      # +0.0
 
 
 class _FakeFn:
@@ -220,7 +265,9 @@ def test_cuda_states_reach_the_kernel_not_the_plain_version(monkeypatch):
     from alink_tpu_torch.kernels import _build
     fake = types.SimpleNamespace(alink_linear_grad=_FakeFn(),
                                  alink_scatter_walk=_FakeFn(),
-                                 alink_linear_error_string=_FakeFn())
+                                 alink_linear_error_string=_FakeFn(),
+                                 alink_run_plan=_FakeFn(),
+                                 alink_run_plan_error_string=_FakeFn())
     monkeypatch.setattr(kl, "_fns", None)
     monkeypatch.setattr(kl, "_sms", {0: 132})
     monkeypatch.setattr(_build, "load_library", lambda n: fake)
@@ -237,7 +284,7 @@ def test_cuda_states_reach_the_kernel_not_the_plain_version(monkeypatch):
     with FakeTensorMode():
         keys = torch.zeros((10, 4), dtype=torch.int32, device="cuda")
         plan = kl.RunPlan(*(torch.zeros(n, dtype=torch.int32, device="cuda")
-                            for n in (40, 41, 40, 40)), 30, 1, 3)
+                            for n in (40, 41, 40, 40, 4)))
         z = torch.zeros(100, dtype=torch.float64, device="cuda")
         n = torch.zeros(100, dtype=torch.float64, device="cuda")
         terms = torch.zeros((10, 4, 2), dtype=torch.float64, device="cuda")
@@ -245,14 +292,66 @@ def test_cuda_states_reach_the_kernel_not_the_plain_version(monkeypatch):
         with pytest.raises(ValueError):
             kl.scatter_walk(z, n, keys, torch.zeros(
                 (10, 4, 2), dtype=torch.float32, device="cuda"), plan=plan)
+        with pytest.raises(ValueError):            # another set of keys'
+            kl.scatter_walk(z, n, torch.zeros(
+                (5, 4), dtype=torch.int32, device="cuda"), torch.zeros(
+                (5, 4, 2), dtype=torch.float64, device="cuda"), plan=plan)
     (args,) = fake.alink_scatter_walk.calls
-    assert args[0] == 1
-    assert args[1:8] == tuple(t.data_ptr() for t in (
-        plan.perm, plan.starts, plan.order, plan.slots, terms, z, n))
-    assert len(set(args[1:8])) == 7
-    assert args[8:] == (30, 1, 3, *kl.launch_grid(132, plan), 55)
+    assert args[:2] == (0, 1)
+    assert args[2:10] == tuple(t.data_ptr() for t in (
+        plan.perm, plan.starts, plan.order, plan.slots, plan.counts, terms,
+        z, n))
+    assert len(set(args[2:10])) == 8
+    assert args[10:] == (*kl.launch_grid(132, 40), 55)
     assert not fake.alink_linear_grad.calls
-    assert kl.launch_counts() == {"linear_grad": 0, "scatter_walk": 1}
+    assert kl.launch_counts() == {"linear_grad": 0, "scatter_walk": 1,
+                                  "run_plan": 0}
+
+
+def test_cuda_keys_reach_the_plan_kernel_with_no_host_read(monkeypatch):
+    """On the card the plan is one call of ``alink_run_plan`` (its chunks
+    from ``plan_blocks``, its sort's digits from ``sort_digits``) into the
+    plan's arrays and counts and a scratch of the sort's buffers, the
+    chunks' counts and the long runs; nothing reads the host
+    (FakeTensorMode raises on a read of a fake tensor's data). Keys that
+    are not int32 raise."""
+    import types
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from alink_tpu_torch.kernels import _build
+    fake = types.SimpleNamespace(alink_linear_grad=_FakeFn(),
+                                 alink_scatter_walk=_FakeFn(),
+                                 alink_linear_error_string=_FakeFn(),
+                                 alink_run_plan=_FakeFn(),
+                                 alink_run_plan_error_string=_FakeFn())
+    monkeypatch.setattr(kl, "_fns", None)
+    monkeypatch.setattr(_build, "load_library", lambda n: fake)
+    monkeypatch.setattr(_build, "current_device", lambda: 0)
+    monkeypatch.setattr(_build, "stream_handle", lambda i: 55)
+    ptrs = {}
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda t: ptrs.setdefault(
+        id(t), 4096 * (len(ptrs) + 1)))
+
+    def no_plain(*a):
+        raise AssertionError("CUDA keys reached the plain plan")
+    monkeypatch.setattr(kl, "run_plan_plain", no_plain)
+    kl.reset_launch_counts()
+    with FakeTensorMode():
+        keys = torch.zeros((4096, 40), dtype=torch.int32, device="cuda")
+        plan = kl.run_plan(keys, 65_537)
+        with pytest.raises(ValueError):
+            kl.run_plan(keys.long(), 65_537)
+    M = 4096 * 40
+    (args,) = fake.alink_run_plan.calls
+    chunk, blocks = kl.plan_blocks(M)
+    assert args[1:7] == (M, 65_537, chunk, blocks, *kl.sort_digits(65_537))
+    assert [t.shape[0] for t in plan] == [M, M + 1, M, M, 4]
+    assert args[7:12] == tuple(t.data_ptr() for t in (
+        plan.perm, plan.starts, plan.slots, plan.order, plan.counts))
+    assert len(set(args[:1] + args[7:13])) == 7      # seven buffers
+    assert args[13] == 4 * M + (2 ** 9 + 3) * blocks + 2 * (M // 33 + 1)
+    assert args[14] == 55
+    assert kl.launch_counts() == {"linear_grad": 0, "scatter_walk": 0,
+                                  "run_plan": 1}
 
 
 # ---------------------------------------------------------------------------

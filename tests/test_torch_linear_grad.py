@@ -7,8 +7,10 @@ plain version (``index_add_`` on the CPU) is held to that loop bit for
 bit, and to the JAX package's padded-COO gradient (an XLA scatter-add)
 bit for bit. The kernel itself is held to the plain version on the card
 by ``chip_smoke.py`` phase 12. Here also: the plan's classes of runs
-(heavy, medium, short) against a numpy reference, the launch's grid, the
-kernel's division by the row width, and what reaches the C function.
+(heavy, medium, short) against a numpy reference, the card's plan
+(``csrc/run_plan.cu``) step by step in numpy against the plain plan, the
+launch's grid, the kernel's division by the row width, and what reaches
+the C function.
 """
 
 import types
@@ -107,11 +109,12 @@ def test_plan_runs_intercept_and_unhit_slots():
     keys, val, c, dim = _design("coo", np.float64)
     plan = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
     walk = plan.walk
+    runs = kl.plan_counts(walk)[0]
     starts, perm = walk.starts.numpy(), walk.perm.numpy()
-    slots = walk.slots.numpy()[:walk.runs]
+    slots = walk.slots.numpy()[:runs]
     flat = keys.reshape(-1)
     np.testing.assert_array_equal(slots, np.unique(flat))
-    assert starts[0] == 0 and starts[walk.runs] == flat.size
+    assert starts[0] == 0 and starts[runs] == flat.size
     for r, s in enumerate(slots):
         run = perm[starts[r]:starts[r + 1]]
         np.testing.assert_array_equal(run, np.flatnonzero(flat == s))
@@ -136,9 +139,10 @@ def test_plan_walk_is_the_plain_bits(layout, dt):
                          else _design(layout, npd))
     plan = kl.grad_plan(torch.from_numpy(keys), dim, torch.from_numpy(val))
     walk = plan.walk
+    runs = kl.plan_counts(walk)[0]
     perm, starts = walk.perm.numpy(), walk.starts.numpy()
-    slots, order = walk.slots.numpy(), walk.order.numpy()[:walk.runs]
-    assert sorted(order) == list(range(walk.runs))
+    slots, order = walk.slots.numpy(), walk.order.numpy()[:runs]
+    assert sorted(order) == list(range(runs))
     width = keys.shape[1]
     fv = val.reshape(-1)
     out = np.zeros(dim, npd)
@@ -196,10 +200,12 @@ def test_plan_classes_runs_by_length(case):
                         torch.ones(keys.shape, dtype=torch.float64)).walk
     order, n_heavy, n_medium = _classes(keys)
     assert walk.order.dtype == walk.slots.dtype == torch.int32
-    by_run = walk.order.numpy()[:walk.runs]
+    runs_, heavy_, medium_, short_ = kl.plan_counts(walk)
+    by_run = walk.order.numpy()[:runs_]
     np.testing.assert_array_equal(walk.slots.numpy()[by_run], order)
-    assert (walk.n_heavy, walk.n_medium) == (n_heavy, n_medium)
-    runs = np.diff(walk.starts.numpy()[:walk.runs + 1])[by_run]
+    assert (heavy_, medium_) == (n_heavy, n_medium)
+    assert short_ == runs_ - n_heavy - n_medium
+    runs = np.diff(walk.starts.numpy()[:runs_ + 1])[by_run]
     assert (runs[:n_heavy] >= kl.HEAVY_MIN).all()
     assert (runs[n_heavy:n_heavy + n_medium] > kl.SHORT_MAX).all()
     assert (runs[n_heavy + n_medium:] <= kl.SHORT_MAX).all()
@@ -215,27 +221,215 @@ def test_plan_classes_runs_by_length(case):
     assert (np.diff(short) > 0).all()
 
 
-def _plan_of(runs, n_heavy, n_medium):
-    return kl.RunPlan(None, None, None, None, runs, n_heavy, n_medium)
+def _radix_sort(flat, size, chunk, blocks):
+    """``csrc/run_plan.cu``'s sort in numpy: passes of ``sort_digits``
+    bits; each pass counts every chunk's digits, takes the exclusive sum
+    digit-major (a chunk's digit starts after the smaller digits of every
+    chunk and the same digit of the earlier chunks) and places each chunk
+    in order, its 16 warps' parts one after the other."""
+    passes, bits = kl.sort_digits(size)
+    D, M = 1 << bits, flat.size
+    kin, pin = flat.astype(np.int64), np.arange(M)
+    part = -(-chunk // 512) * 32
+    for p in range(passes):
+        dig = (kin >> (p * bits)) & (D - 1)
+        hist = np.stack([np.bincount(dig[b * chunk:(b + 1) * chunk],
+                                     minlength=D) for b in range(blocks)], 1)
+        offs = (np.cumsum(hist.ravel()) - hist.ravel()).reshape(D, blocks)
+        kout, pout = np.full(M, -1), np.full(M, -1)
+        for b in range(blocks):
+            cur = offs[:, b].copy()
+            lo, hi = b * chunk, min(M, (b + 1) * chunk)
+            for w in range(16):
+                for i in range(min(hi, lo + w * part),
+                               min(hi, lo + w * part + part)):
+                    kout[cur[dig[i]]], pout[cur[dig[i]]] = kin[i], pin[i]
+                    cur[dig[i]] += 1
+        kin, pin = kout, pout
+    return kin, pin
 
 
-@pytest.mark.parametrize("sms,dim,n_heavy,n_medium,want", [
-    (132, 67_584, 1, 65_536, (2, 130)),        # field-blocked: the intercept
-    (132, (1 << 20) + 1, 1, 0, (2, 130)),      # padded-COO: short bulk
-    (132, 67_584, 0, 65_536, (0, 1056)),       # no intercept: light fills
-    (132, 3, 1, 0, (2, 2)),                    # dim below the grid
-    (132, 3, 0, 0, (0, 1)),
-    (132, 2, 2, 0, (4, 0)),                    # every slot heavy
-    (132, 5000, 200, 100, (66, 32)),           # clusters: a quarter of SMs
-    (132, 90_000, 200, 8000, (66, 66)),
-    (1, 10, 4, 0, (2, 2)),
+def _card_plan(keys, size):
+    """``csrc/run_plan.cu`` step by step in numpy: the radix sort, then
+    ``plan_count`` (each chunk's heads, long and heavy heads, a run's class
+    read off the sorted keys at ``SHORT_MAX`` and ``HEAVY_MIN - 1`` past
+    its head), ``plan_runs`` (each chunk's offsets from the chunks before
+    it; per tile of 1024 positions one exclusive scan of the heads and
+    long heads packed in 16-bit halves: starts, slots, the long runs
+    compacted, the short runs placed) and ``plan_order`` (the long runs'
+    LSD radix sort by ``maxlen - length``, 8 bits a pass, each of 32 warps
+    counting its part's digits and placing its lanes 32 at a time). The
+    arrays past ``runs`` stay -1."""
+    H, S = kl.HEAVY_MIN, kl.SHORT_MAX
+    flat = keys.reshape(-1)
+    M = flat.size
+    assert 0 <= flat.min() and flat.max() < size
+    chunk, blocks = kl.plan_blocks(M)
+    assert chunk % 1024 == 0 and (blocks - 1) * chunk < M <= blocks * chunk
+    sk, perm = _radix_sort(flat, size, chunk, blocks)
+    head = np.ones(M, bool)
+    head[1:] = sk[1:] != sk[:-1]
+    p_all = np.arange(M)
+    long_ = np.zeros(M, bool)
+    ok = p_all < M - S
+    long_[ok] = sk[p_all[ok] + S] == sk[ok]
+    heavy = np.zeros(M, bool)
+    ok = p_all <= M - H
+    heavy[ok] = sk[p_all[ok] + H - 1] == sk[ok]
+    blk = []
+    for b in range(blocks):
+        h = head[b * chunk:(b + 1) * chunk]
+        lg = long_[b * chunk:(b + 1) * chunk] & h
+        blk.append((int(h.sum()), int(lg.sum()),
+                    int((lg & heavy[b * chunk:(b + 1) * chunk]).sum())))
+    runs = sum(x[0] for x in blk)
+    n_long = sum(x[1] for x in blk)
+    n_heavy = sum(x[2] for x in blk)
+    starts = np.full(M + 1, -1, np.int64)
+    slots = np.full(M, -1, np.int64)
+    order = np.full(M, -1, np.int64)
+    lng = np.full(M // (S + 1) + 1, -1, np.int64)
+    for b in range(blocks):
+        h_before = sum(x[0] for x in blk[:b])
+        l_before = sum(x[1] for x in blk[:b])
+        for base in range(b * chunk, min(M, (b + 1) * chunk), 1024):
+            p = np.arange(base, min(base + 1024, (b + 1) * chunk, M))
+            flags = head[p] * (1 + (long_[p] << 16))
+            excl = np.cumsum(flags) - flags
+            for q in np.flatnonzero(flags):
+                r = h_before + (excl[q] & 0xffff)
+                ll = l_before + (excl[q] >> 16)
+                starts[r], slots[r] = p[q], sk[p[q]]
+                if flags[q] >> 16:
+                    lng[ll] = r
+                else:
+                    order[n_long + r - ll] = r
+            tot = int(flags.sum())
+            h_before += tot & 0xffff
+            l_before += tot >> 16
+    starts[runs] = M
+    lens = {r: starts[r + 1] - starts[r] for r in lng[:n_long]}
+    maxlen = max(lens.values(), default=0)
+    passes = 0
+    if n_long > 1:
+        v = maxlen - (S + 1)
+        while v > 0:
+            passes += 1
+            v >>= 8
+    cur = list(lng[:n_long])
+    part = -(-n_long // 1024) * 32
+    for pas in range(passes):
+        shift = 8 * pas
+        digit = {r: ((maxlen - lens[r]) >> shift) & 255 for r in cur}
+        parts = [cur[min(n_long, w * part):min(n_long, w * part + part)]
+                 for w in range(32)]
+        hist = [[sum(digit[r] == d for r in pt) for d in range(256)]
+                for pt in parts]
+        cursor, c = [[0] * 256 for _ in range(32)], 0
+        for d in range(256):
+            for w in range(32):
+                cursor[w][d] = c
+                c += hist[w][d]
+        out = [None] * n_long
+        for w, pt in enumerate(parts):
+            for r in pt:
+                out[cursor[w][digit[r]]] = r
+                cursor[w][digit[r]] += 1
+        cur = out
+    order[:n_long] = cur
+    return (perm, starts, slots, order,
+            np.array([runs, n_heavy, n_long - n_heavy, runs - n_long]))
+
+
+def _plan_case(case):
+    H, S = kl.HEAVY_MIN, kl.SHORT_MAX
+    rng = np.random.RandomState(11)
+    if case == "every_class":
+        return _heavy_design(np.float64)[0], 4096
+    if case == "coo":
+        return _design("coo", np.float64)[0], 64
+    if case == "lengths":           # long runs of 33 .. 700 terms: 2 passes
+        lens = rng.permutation(np.arange(S + 1, 700, 7))
+        keys = np.repeat(np.arange(lens.size) * 3, lens)
+        keys = np.concatenate([keys, rng.randint(0, 3 * lens.size, 3000)])
+        return rng.permutation(keys).astype(np.int32)[:, None], 3 * lens.size
+    if case == "straddle":          # runs across the chunks of 1024
+        keys = np.repeat(np.arange(40), rng.randint(1, 600, 40))
+        return keys.astype(np.int32)[:, None], 40
+    if case == "one_run":
+        return np.full((H + 5, 3), 2, np.int32), 3
+    if case == "all_short":
+        return rng.randint(0, 5000, (2000, 3)).astype(np.int32), 5000
+    keys = np.concatenate([np.full(H, 6), np.full(H - 1, 2),   # threshold
+                           np.full(S + 1, 0), np.full(S, 7)])
+    return keys.astype(np.int32)[:, None], 8
+
+
+@pytest.mark.parametrize("case", ["every_class", "coo", "lengths",
+                                  "straddle", "one_run", "all_short",
+                                  "threshold"])
+def test_card_plan_algorithm_is_the_plain_plan(case, monkeypatch):
+    """The card's plan (``csrc/run_plan.cu``, modelled step by step) equals
+    the plain one array by array over the first ``runs`` entries (all of
+    ``perm``), and the four counts; with chunks of 1024 positions, so the
+    small cases span several blocks and tiles."""
+    monkeypatch.setattr(kl, "_PLAN_MIN_CHUNK", 1024)
+    keys, size = _plan_case(case)
+    perm, starts, slots, order, counts = _card_plan(keys, size)
+    plain = kl.run_plan(torch.from_numpy(keys), size)
+    runs = kl.plan_counts(plain)[0]
+    np.testing.assert_array_equal(counts, plain.counts.numpy())
+    np.testing.assert_array_equal(perm, plain.perm.numpy())
+    np.testing.assert_array_equal(starts[:runs + 1],
+                                  plain.starts.numpy()[:runs + 1])
+    np.testing.assert_array_equal(slots[:runs], plain.slots.numpy()[:runs])
+    np.testing.assert_array_equal(order[:runs], plain.order.numpy()[:runs])
+
+
+@pytest.mark.parametrize("size,want", [
+    (1, (1, 1)), (2, (1, 1)), (512, (1, 9)), (513, (2, 5)),
+    (3 * 1648 + 1, (2, 7)),                     # bench_ftrl's stream
+    (65_537, (2, 9)),                           # its padded-COO batch
+    (40 * 1648, (2, 9)),                        # its field-blocked batch
+    ((1 << 20) + 1, (3, 7)),                    # 2^20 hashed + intercept
+    (2 ** 31 - 1, (4, 8)),
 ])
-def test_launch_grid(sms, dim, n_heavy, n_medium, want):
-    """Heavy blocks: a cluster of two per heavy run, up to a quarter of the
-    SMs' clusters; light blocks (8 warps): a warp a medium run or 32
-    short runs, up to the SMs the heavy blocks leave (one each, an even
-    number) or, with no heavy run, 8 an SM."""
-    assert kl.launch_grid(sms, _plan_of(dim, n_heavy, n_medium)) == want
+def test_sort_digits(size, want):
+    """The card's radix sort: the fewest passes of at most 9 bits that
+    cover ``size - 1``, the bits spread evenly."""
+    passes, bits = kl.sort_digits(size)
+    assert (passes, bits) == want
+    assert bits <= 9 and passes * bits >= (size - 1).bit_length()
+
+
+@pytest.mark.parametrize("M", [1, 4095, 4096, 4097, 163_840, 4_194_304,
+                               4_194_305, 6_600_000, 2 ** 31 - 1])
+def test_plan_blocks(M):
+    """The card's plan takes chunks of a multiple of 1024 positions, at
+    least 4096, at most 1024 of them, covering ``M`` with the last one
+    partial."""
+    chunk, blocks = kl.plan_blocks(M)
+    assert chunk % 1024 == 0 and chunk >= 4096 and 1 <= blocks <= 1024
+    assert (blocks - 1) * chunk < M <= blocks * chunk
+
+
+@pytest.mark.parametrize("sms,M,want", [
+    (132, 200_000 * 33, (66, 1056)),           # field-blocked bench_logreg
+    (132, 100_000 * 40, (66, 1056)),           # padded-COO, phase 7's rows
+    (132, 4096 * 40, (66, 640)),               # bench_ftrl's batch step
+    (132, 2047, (0, 8)),                       # no room for a heavy run
+    (132, 1, (0, 1)),
+    (132, 4096, (4, 16)),                      # two heavy runs at most
+    (132, 16_384 * 4, (64, 256)),              # bench_ftrl's stream
+    (1, 10_000, (2, 8)),                       # one cluster, 8 light blocks
+    (132, 2 ** 31 - 1, (66, 1056)),
+])
+def test_launch_grid(sms, M, want):
+    """From upper bounds of the positions: heavy blocks, a cluster of two
+    per possible heavy run (``M // HEAVY_MIN``), up to a quarter of the
+    SMs' clusters; light blocks (8 warps), a warp a medium run or 32
+    short runs (``M / 256``), up to 8 an SM."""
+    assert kl.launch_grid(sms, M) == want
 
 
 @pytest.mark.parametrize("width", [1, 2, 3, 7, 8, 33, 40, 41, 1000, 2048,
@@ -314,7 +508,9 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
     counts and the grid."""
     fake = types.SimpleNamespace(alink_linear_grad=_FakeFn(),
                                  alink_scatter_walk=_FakeFn(),
-                                 alink_linear_error_string=_FakeFn())
+                                 alink_linear_error_string=_FakeFn(),
+                                 alink_run_plan=_FakeFn(),
+                                 alink_run_plan_error_string=_FakeFn())
     monkeypatch.setattr(kl, "_fns", None)
     monkeypatch.setattr(kl, "_sms", {0: 132})
     monkeypatch.setattr(_build, "load_library", lambda n: fake)
@@ -330,7 +526,7 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
     kl.reset_launch_counts()
     with FakeTensorMode():
         walk = kl.RunPlan(*(torch.zeros(n, dtype=torch.int32, device="cuda")
-                            for n in (40, 41, 40, 40)), 30, 1, 3)
+                            for n in (40, 41, 40, 40, 4)))
         plan = kl.GradPlan(
             torch.zeros((10, 4), dtype=torch.int32, device="cuda"),
             torch.zeros((10, 4), dtype=torch.float64, device="cuda"), 100,
@@ -342,17 +538,19 @@ def test_cuda_tensors_reach_the_kernel_not_the_plain_version(monkeypatch):
             kl.linear_grad(plan, torch.zeros(10, device="cuda"))
         with pytest.raises(ValueError):
             kl.linear_grad(plan._replace(walk=walk._replace(
-                slots=torch.zeros(40, dtype=torch.int32, device="meta"))), c)
+                counts=torch.zeros(4, dtype=torch.int32, device="meta"))), c)
     (args,) = fake.alink_linear_grad.calls
-    assert args[0] == 1
-    assert args[1:8] == tuple(t.data_ptr() for t in (
-        walk.perm, walk.starts, walk.order, walk.slots, plan.val, c, out))
-    assert len(set(args[1:8])) == 7
-    assert args[8:] == (30, *kl.div_magic(4), 1, 3,
-                        *kl.launch_grid(132, walk), 55)
-    assert kl.launch_grid(132, walk) == (2, 2)
-    # the module's other kernel, the ordered scatter-add, launched nothing
-    assert kl.launch_counts() == {"linear_grad": 1, "scatter_walk": 0}
+    assert args[:2] == (0, 1)
+    assert args[2:10] == tuple(t.data_ptr() for t in (
+        walk.perm, walk.starts, walk.order, walk.slots, walk.counts,
+        plan.val, c, out))
+    assert len(set(args[2:10])) == 8
+    assert args[10:] == (*kl.div_magic(4), *kl.launch_grid(132, 40), 55)
+    assert kl.launch_grid(132, 40) == (0, 1)
+    # the module's other kernels, the ordered scatter-add and the plan,
+    # launched nothing
+    assert kl.launch_counts() == {"linear_grad": 1, "scatter_walk": 0,
+                                  "run_plan": 0}
 
 
 def test_margins_route_to_the_sparse_score_kernel(monkeypatch):
