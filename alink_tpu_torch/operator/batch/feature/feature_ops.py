@@ -5,12 +5,13 @@ Ported: ``murmur32``, ``_format_tokens``, ``murmur32_cells`` and
 ``FeatureHasherBatchOp`` (the flat layout and ``field_aware=True``),
 the Criteo / avazu front end of the reference's FTRLExample.java:46-57.
 
-The JAX package hashes a batch through a C library
-(``alink_tpu/native``) and falls back to a Python loop without it. The
-port has one batch path: :func:`murmur32_cells` is MurmurHash3 x86 32
-vectorized in numpy over the ``(n, w)`` byte matrix of the tokens (the
-4-byte blocks a column of words at a time, then the 0-3-byte tail and
-the final mix, in uint32 arithmetic), bitwise to :func:`murmur32`.
+:func:`murmur32_cells` hashes a batch in one call of the port's native
+library (``alink_tpu_torch/native``, ``murmur_batch``), as the JAX
+package does; there is no fallback. :func:`murmur32_cells_plain` is its
+plain version: MurmurHash3 x86 32 vectorized in numpy over the ``(n, w)``
+byte matrix of the tokens (the 4-byte blocks a column of words at a
+time, then the 0-3-byte tail and the final mix, in uint32 arithmetic),
+bitwise to :func:`murmur32`, which the tests hold the library against.
 
 Not ported yet: OneHot, QuantileDiscretizer, Bucketizer, Binarizer,
 ChiSqSelector, PCA and DCT (ROADMAP Queue A).
@@ -26,6 +27,7 @@ from ....common.params import ParamInfo, RangeValidator
 from ....common.types import AlinkTypes
 from ....common.vector import SparseVector, SparseVectorColumn
 from ....mapper.base import OutputColsHelper
+from ....native import murmur32_batch
 from ....params.shared import HasOutputCol, HasReservedCols, HasSelectedCols
 from ...base import BatchOperator
 
@@ -118,7 +120,14 @@ def _mix_k(k: np.ndarray) -> np.ndarray:
 
 def murmur32_cells(tokens, seed: int = 0, mod: int = 0) -> np.ndarray:
     """murmur3_32 of every byte-string token (int64 array, the raw
-    uint32 range, or ``% mod`` when ``mod > 0``).
+    uint32 range, or ``% mod`` when ``mod > 0``), in one call of the
+    native library. A fixed-width ``S`` array gives its tokens without
+    their trailing NULs."""
+    return murmur32_batch(tokens, seed=seed, mod=mod)
+
+
+def murmur32_cells_plain(tokens, seed: int = 0, mod: int = 0) -> np.ndarray:
+    """The plain version of :func:`murmur32_cells`, in numpy.
 
     One vectorized pass over the tokens' byte matrix: block ``j`` of
     every token at once, masked to the tokens that have it, then the

@@ -1,5 +1,7 @@
 """Batch sources (counterpart: ``alink_tpu/operator/batch/source``)."""
 
-from .sources import BaseSourceBatchOp, MemSourceBatchOp
+from .sources import (BaseSourceBatchOp, CsvSourceBatchOp, LibSvmSourceBatchOp,
+                      MemSourceBatchOp, TextSourceBatchOp)
 
-__all__ = ["BaseSourceBatchOp", "MemSourceBatchOp"]
+__all__ = ["BaseSourceBatchOp", "CsvSourceBatchOp", "LibSvmSourceBatchOp",
+           "MemSourceBatchOp", "TextSourceBatchOp"]

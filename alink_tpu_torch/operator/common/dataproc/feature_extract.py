@@ -1,9 +1,9 @@
 """Host->device feature-encode boundary.
 
-PyTorch port of ``alink_tpu/operator/common/dataproc/feature_extract.py``,
-without its native fast path (``_native_sparse_fast_path``, which loads
-``alink_tpu/native/_parser.native.so``): the per-row parse below gives the
-same arrays. Numpy only; the encoded arrays become tensors in
+PyTorch port of ``alink_tpu/operator/common/dataproc/feature_extract.py``.
+A column of sparse-vector literals (strings) parses in one call of the
+port's native library (:func:`_native_sparse_fast_path`); other columns
+parse row by row. Numpy only; the encoded arrays become tensors in
 ``LinearModelMapper.serving_kernel``'s encoder.
 
 The reference trains on ``Tuple3(weight, label, vec)`` rows built by
@@ -22,6 +22,7 @@ import numpy as np
 
 from ....common.mtable import MTable
 from ....common.vector import DenseVector, SparseBatch, SparseVector, VectorUtil
+from ....native import parse_vector_lines
 
 
 def extract_design(table: MTable, feature_cols: Optional[Sequence[str]],
@@ -39,6 +40,9 @@ def extract_design(table: MTable, feature_cols: Optional[Sequence[str]],
                     "idx": col.idx.astype(np.int32, copy=False),
                     "val": col.val.astype(dtype, copy=False),
                     "dim": max(int(vector_size or 0), col.dim)}
+        fast = _native_sparse_fast_path(col, vector_size, dtype)
+        if fast is not None:
+            return fast
         vecs = [VectorUtil.parse(v) for v in table.col(vector_col)]
         any_sparse = any(isinstance(v, SparseVector) for v in vecs)
         dim = vector_size or 0
@@ -59,6 +63,39 @@ def extract_design(table: MTable, feature_cols: Optional[Sequence[str]],
         raise ValueError("either feature_cols or vector_col must be set")
     X = table.numeric_block(list(feature_cols), dtype)
     return {"kind": "dense", "X": X, "dim": X.shape[1]}
+
+
+def _native_sparse_fast_path(col, vector_size, dtype) -> Optional[Dict]:
+    """The design of a column whose every value is a sparse-vector
+    literal string (``"$n$i:v ..."`` or ``"i:v ..."``), parsed in one
+    native call (``parse_vector_lines``): the Criteo-style hot path. None
+    when a value is not such a string, or when a blank line collapsed a
+    row or a ``$`` does not open its literal (the parser would drop the
+    token that holds it; the per-row parse reads it or raises).
+
+    The padded design repeats index 0 with value 0 past each row's
+    entries, as ``SparseBatch.from_vectors`` pads. A literal's entries
+    keep their written order, where the per-row parse sorts them by
+    index: for literals written in index order the two give the same
+    arrays."""
+    vals = list(col)
+    if not vals or not all(isinstance(v, str) and ":" in v
+                           and (v[0] == "$" or "$" not in v) for v in vals):
+        return None
+    indptr, indices, values, mx = parse_vector_lines(
+        ("\n".join(vals) + "\n").encode())
+    n = len(vals)
+    if indptr.shape[0] != n + 1:
+        return None
+    dim = max(int(vector_size or 0), mx)
+    lens = np.diff(indptr)
+    width = max(int(lens.max()), 1)
+    idx = np.zeros((n, width), np.int32)
+    val = np.zeros((n, width), dtype)
+    pos = np.arange(width)[None, :] < lens[:, None]
+    idx[pos] = indices
+    val[pos] = values.astype(dtype)
+    return {"kind": "sparse", "idx": idx, "val": val, "dim": dim}
 
 
 def resolve_feature_cols(table: MTable, feature_cols, label_col=None,

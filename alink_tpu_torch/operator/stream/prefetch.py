@@ -1,12 +1,15 @@
-"""The bounded, stop-aware channel and the one-thread run-ahead.
+"""The bounded, stop-aware channel, the one-thread run-ahead and the
+ordered worker pool.
 
 Counterpart: ``alink_tpu/operator/stream/prefetch.py``. Ported:
 ``_Channel`` with its two markers (:class:`~alink_tpu_torch.serving.
 server.PredictServer`'s admission queue, and the channel under
-:func:`prefetch`) and :func:`prefetch`, which ``StreamOperator.execute``
-and the FTRL trainer's drain use. Left out: ``prefetch_map`` and its
-worker pool, the env knobs (the depth is fixed at ``PREFETCH_DEPTH``),
-the depth gauge and the fault injection site.
+:func:`prefetch`), :func:`prefetch`, which ``StreamOperator.execute``
+and the FTRL trainer's drain use, and :func:`prefetch_map`, the ordered
+pool that the sharded file reads run on, with its width
+``ALINK_TPU_STREAM_WORKERS`` (:func:`stream_workers`). Left out: the
+depth knob (the depth is fixed at ``PREFETCH_DEPTH``), the depth gauge
+and the fault injection site.
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Iterable, Iterator, Optional, TypeVar
+from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
 T = TypeVar("T")
+U = TypeVar("U")
 
 _SENTINEL = object()
 # timed-get miss marker (serving micro-batcher): distinct from the
@@ -132,12 +136,7 @@ def prefetch(it: Iterable[T]) -> Iterator[T]:
         except BaseException as e:      # re-raised at the consumer
             err.append(e)
         finally:
-            close = getattr(it, "close", None)
-            if close is not None:
-                try:
-                    close()
-                except BaseException as e:
-                    err.append(e)
+            _close_upstream(it, err)
             ch.close()
 
     th = threading.Thread(target=worker, daemon=True,
@@ -153,8 +152,156 @@ def prefetch(it: Iterable[T]) -> Iterator[T]:
             yield item[0]
     finally:
         ch.stop()
-        th.join(timeout=5.0)
-        if th.is_alive():
-            logging.getLogger(__name__).warning(
-                "prefetch worker did not exit within 5 s of the consumer "
-                "stopping; the upstream source appears blocked")
+        _warn_stuck([th])
+
+
+def _close_upstream(it, err: list) -> None:
+    """Close the upstream iterator on every exit of its producer (the
+    end, an error, the consumer stopping), so an error of its close still
+    reaches the consumer."""
+    try:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+    except BaseException as e:
+        err.append(e)
+
+
+def _warn_stuck(threads, timeout: float = 5.0) -> None:
+    """Join ``threads`` against one shared deadline. A thread alive past
+    it is blocked inside the upstream iterator or ``fn`` and cannot see
+    the stop: log it rather than hang."""
+    deadline = time.monotonic() + timeout
+    for th in threads:
+        th.join(timeout=max(0.0, deadline - time.monotonic()))
+    stuck = [th.name for th in threads if th.is_alive()]
+    if stuck:
+        logging.getLogger(__name__).warning(
+            "prefetch worker(s) %s did not exit within %.0f s of the "
+            "consumer stopping; the upstream source appears blocked",
+            ", ".join(stuck), timeout)
+
+
+def stream_workers() -> int:
+    """``ALINK_TPU_STREAM_WORKERS``: the width of the :func:`prefetch_map`
+    pool when its caller passes none (at least 1; unset or 1 is the
+    one-thread path)."""
+    from ...common.flags import flag_value
+    return flag_value("ALINK_TPU_STREAM_WORKERS")
+
+
+def prefetch_map(it: Iterable[T], fn: Callable[[T], U],
+                 workers: Optional[int] = None) -> Iterator[U]:
+    """Ordered parallel map: ``fn(item)`` for every item of ``it`` on a
+    pool of ``workers`` threads (``alink-prefetch-<i>``), yielded in the
+    exact input order.
+
+    A dispatcher thread drains the upstream iterator in order; the work
+    in ``fn`` (read, parse, encode) is what runs in parallel. A reorder
+    buffer holds at most ``workers + PREFETCH_DEPTH`` finished results:
+    a worker takes new work only while it has room. ``workers=None``
+    reads :func:`stream_workers`; ``workers=1`` is :func:`prefetch` over
+    the mapped iterator. An exception of ``fn(item_k)``, or of the
+    upstream while it produces item k, re-raises at the consumer where
+    item k would have come, after every earlier item."""
+    workers = stream_workers() if workers is None else max(1, int(workers))
+    if workers <= 1:
+        # a generator, not map(): closing it closes the upstream too
+        def _mapped():
+            try:
+                for item in it:
+                    yield fn(item)
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+        yield from prefetch(_mapped())
+        return
+
+    in_ch = _Channel(PREFETCH_DEPTH)
+    done = threading.Condition(threading.Lock())
+    results: dict = {}          # seq -> ("ok", value) | ("err", exc)
+    state = {"stop": False, "total": None}  # total: set when upstream ends
+
+    def dispatcher():
+        seq = 0
+        try:
+            for item in it:
+                if not in_ch.put((seq, item)):
+                    return
+                seq += 1
+        except BaseException as e:
+            # the upstream failed producing item seq: deliver the error
+            # at that position, after every earlier item
+            with done:
+                results[seq] = ("err", e)
+                seq += 1
+                done.notify_all()
+        finally:
+            err: list = []
+            _close_upstream(it, err)
+            with done:
+                if err and seq not in results:
+                    results[seq] = ("err", err[0])
+                    seq += 1
+                state["total"] = seq
+                done.notify_all()
+            in_ch.close()       # queued items still reach the workers
+
+    bound = workers + PREFETCH_DEPTH
+
+    def worker():
+        while True:
+            with done:
+                # admission, not storage: a worker pulls new work only
+                # while the buffer has room, but always stores what it
+                # finished (gating the store would deadlock when the
+                # buffer fills with items after the one the consumer
+                # waits for)
+                while not state["stop"] and len(results) >= bound:
+                    done.wait()
+                if state["stop"]:
+                    return
+            got = in_ch.get()
+            if got is _SENTINEL:
+                return
+            seq, item = got
+            try:
+                out = ("ok", fn(item))
+            except BaseException as e:
+                out = ("err", e)
+            with done:
+                if state["stop"]:
+                    return
+                results[seq] = out
+                done.notify_all()
+
+    threads = [threading.Thread(target=dispatcher, daemon=True,
+                                name="alink-prefetch-dispatch")]
+    threads += [threading.Thread(target=worker, daemon=True,
+                                 name=f"alink-prefetch-{i}")
+                for i in range(workers)]
+    for th in threads:
+        th.start()
+    next_seq = 0
+    try:
+        while True:
+            with done:
+                while next_seq not in results:
+                    if state["total"] is not None \
+                            and next_seq >= state["total"]:
+                        return
+                    done.wait()
+                kind, val = results.pop(next_seq)
+                done.notify_all()     # workers waiting for room wake
+            if kind == "err":
+                raise val
+            yield val
+            next_seq += 1
+    finally:
+        with done:
+            state["stop"] = True
+            results.clear()
+            done.notify_all()
+        in_ch.stop()
+        _warn_stuck(threads)

@@ -1,5 +1,7 @@
 """Stream sinks (counterpart: ``alink_tpu/operator/stream/sink``)."""
 
-from .sinks import BaseSinkStreamOp, CollectSinkStreamOp
+from .sinks import (BaseSinkStreamOp, CollectSinkStreamOp, CsvSinkStreamOp,
+                    LibSvmSinkStreamOp, TextSinkStreamOp)
 
-__all__ = ["BaseSinkStreamOp", "CollectSinkStreamOp"]
+__all__ = ["BaseSinkStreamOp", "CollectSinkStreamOp", "CsvSinkStreamOp",
+           "LibSvmSinkStreamOp", "TextSinkStreamOp"]

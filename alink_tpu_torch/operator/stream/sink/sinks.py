@@ -1,9 +1,12 @@
 """Stream sink operators.
 
 Counterpart: ``alink_tpu/operator/stream/sink/sinks.py``. Ported:
-``BaseSinkStreamOp`` and ``CollectSinkStreamOp``, the in-memory sink
-that ``StreamOperator.execute()`` drains into. The file and checkpoint
-sinks wait for the IO and durability slices.
+``BaseSinkStreamOp``, ``CollectSinkStreamOp`` (the in-memory sink that
+``StreamOperator.execute()`` drains into) and the file sinks
+``CsvSinkStreamOp``, ``LibSvmSinkStreamOp`` and ``TextSinkStreamOp``,
+which write the first micro-batch of a run and append the others. The
+checkpoint sink waits for the durability slice (ROADMAP A4(b)), the
+database sinks for A8.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import List, Optional
 
 from ....common.mtable import MTable
 from ....common.params import Params
+from ....io.csv import format_csv_rows, format_libsvm_rows
 from ...base import StreamOperator
 
 
@@ -46,3 +50,58 @@ class CollectSinkStreamOp(BaseSinkStreamOp):
             out = mt if out is None else out.concat_rows(mt)
         self._batches = []
         return out
+
+
+class _FileSinkStreamOp(BaseSinkStreamOp):
+    """A file sink: the first micro-batch after ``link_from`` truncates
+    the file, the later ones append."""
+
+    def __init__(self, file_path: str, params=None, **kwargs):
+        super().__init__(params, **kwargs)
+        self.file_path = file_path
+        self._started = False
+
+    def link_from(self, in_op):
+        self._started = False
+        return super().link_from(in_op)
+
+    def _format(self, mt: MTable) -> str:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def _consume(self, mt: MTable):
+        with open(self.file_path, "a" if self._started else "w") as f:
+            f.write(self._format(mt))
+        self._started = True
+
+
+class CsvSinkStreamOp(_FileSinkStreamOp):
+    """reference: stream/sink/CsvSinkStreamOp (append a micro-batch)."""
+
+    def __init__(self, file_path: str, field_delimiter: str = ",",
+                 params=None, **kwargs):
+        super().__init__(file_path, params, **kwargs)
+        self.field_delimiter = field_delimiter
+
+    def _format(self, mt: MTable) -> str:
+        return format_csv_rows(mt, self.field_delimiter)
+
+
+class LibSvmSinkStreamOp(_FileSinkStreamOp):
+    """reference: stream/sink/LibSvmSinkStreamOp."""
+
+    def __init__(self, file_path: str, label_col: str, vector_col: str,
+                 params=None, **kwargs):
+        super().__init__(file_path, params, **kwargs)
+        self.label_col = label_col
+        self.vector_col = vector_col
+
+    def _format(self, mt: MTable) -> str:
+        return format_libsvm_rows(mt, self.label_col, self.vector_col)
+
+
+class TextSinkStreamOp(_FileSinkStreamOp):
+    """reference: stream/sink/TextSinkStreamOp (its first column, a line
+    a value)."""
+
+    def _format(self, mt: MTable) -> str:
+        return "".join(f"{v}\n" for v in mt.col(mt.col_names[0]))

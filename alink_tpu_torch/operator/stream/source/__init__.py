@@ -1,7 +1,9 @@
 """Stream sources (counterpart: ``alink_tpu/operator/stream/source``)."""
 
-from .sources import (BoundedTableStreamSource, MemSourceStreamOp,
-                      TableSourceStreamOp)
+from .sources import (BoundedTableStreamSource, CsvSourceStreamOp,
+                      LibSvmSourceStreamOp, MemSourceStreamOp,
+                      TableSourceStreamOp, TextSourceStreamOp)
 
-__all__ = ["BoundedTableStreamSource", "MemSourceStreamOp",
-           "TableSourceStreamOp"]
+__all__ = ["BoundedTableStreamSource", "CsvSourceStreamOp",
+           "LibSvmSourceStreamOp", "MemSourceStreamOp", "TableSourceStreamOp",
+           "TextSourceStreamOp"]

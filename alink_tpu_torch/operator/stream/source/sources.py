@@ -1,10 +1,12 @@
 """Stream source operators.
 
 Counterpart: ``alink_tpu/operator/stream/source/sources.py``. Ported:
-``BoundedTableStreamSource``, ``MemSourceStreamOp`` and
-``TableSourceStreamOp``. A bounded table is chopped into timed
-micro-batches: ``batch_size`` rows each, at event time ``k *
-time_per_batch`` for the k-th. The file sources wait for the IO slice.
+``BoundedTableStreamSource``, ``MemSourceStreamOp``,
+``TableSourceStreamOp`` and the file sources ``CsvSourceStreamOp``,
+``LibSvmSourceStreamOp`` and ``TextSourceStreamOp``. A bounded table is
+chopped into timed micro-batches: ``batch_size`` rows each, at event time
+``k * time_per_batch`` for the k-th. The database, Kafka and generator
+sources are not ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 
 from ....common.mtable import MTable
 from ....common.params import Params
+from ....common.types import TableSchema
+from ....io.csv import read_csv, read_libsvm
 from ...base import BatchOperator, StreamOperator
 
 
@@ -72,3 +76,34 @@ class TableSourceStreamOp(BoundedTableStreamSource):
         if isinstance(table, BatchOperator):
             table = table.get_output_table()
         self._set_table(table)
+
+
+class CsvSourceStreamOp(BoundedTableStreamSource):
+    """reference: stream/source/CsvSourceStreamOp."""
+
+    def __init__(self, file_path: str, schema_str: str, field_delimiter: str = ",",
+                 batch_size: int = 256, time_per_batch: float = 1.0,
+                 params=None, **kwargs):
+        super().__init__(params, batch_size, time_per_batch, **kwargs)
+        self._set_table(read_csv(file_path, TableSchema.parse(schema_str),
+                                 field_delimiter))
+
+
+class LibSvmSourceStreamOp(BoundedTableStreamSource):
+    """reference: stream/source/LibSvmSourceStreamOp."""
+
+    def __init__(self, file_path: str, batch_size: int = 256,
+                 time_per_batch: float = 1.0, params=None, **kwargs):
+        super().__init__(params, batch_size, time_per_batch, **kwargs)
+        self._set_table(read_libsvm(file_path))
+
+
+class TextSourceStreamOp(BoundedTableStreamSource):
+    """reference: stream/source/TextSourceStreamOp (one 'text' column)."""
+
+    def __init__(self, file_path: str, text_col: str = "text", batch_size: int = 256,
+                 time_per_batch: float = 1.0, params=None, **kwargs):
+        super().__init__(params, batch_size, time_per_batch, **kwargs)
+        with open(file_path) as f:
+            lines = [ln.rstrip("\n") for ln in f]
+        self._set_table(MTable({text_col: lines}))

@@ -166,7 +166,10 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    evaluated, JSON values), FTRL samples/s, the trainer's stages on one
    micro-batch, the card's busy
    share under a profiled drain and every window's AUC beside the warm
-   start's on the last window's rows.
+   start's on the last window's rows. The host-only drain reports the
+   feature hasher's stages (token formatting, hashing, building the rows,
+   the rest) and times the native hash against its numpy plain version
+   on the drain's tokens, in turns, with the host's CPU beside them.
 
 14. (run before 13, whose profiled drain leaves ``torch.profiler``
    recording few later kernels) FTRL's batch mode
@@ -211,7 +214,31 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    field-blocked demoted exactly (the op's snapshot bitwise equal to the
    translation by hand); (d) the batch hook's pre and post calls in
    order and a device snapshot consumer that takes every hand-off of the
-   live card weights, leaving no host snapshot.
+   live card weights, leaving no host snapshot. The host-only drain
+   reports the hasher's stages and the hash in turns, as in phase 13.
+
+15. the ingest path (after 13): (a) ``bench.py::bench_logreg_from_disk``
+   on the port: 1,000,000 ``make_ctr_fieldblock`` rows (32 fields of
+   2048, seed 42) written once as LibSVM under ``tempfile.gettempdir()``
+   (about 360 MB, removed at the end), read in 64 byte-range shards by
+   ``prefetch_map`` through ``io/csv.py::_load_line_bytes`` and parsed
+   by the native ``parse_libsvm_fb16`` into int16 ids and float32
+   labels, sent to the card in 16 groups of pinned buffers with
+   non-blocking copies, joined and widened to int32 on the card, then 3
+   field-blocked L-BFGS supersteps through ``optimize``: the card's ids
+   and labels bitwise equal to the generated arrays, the coefficients
+   bitwise equal to those trained from the arrays in memory, P1 and B5
+   launched; read_s, parse_s, encode_s, rp_wall_s, train_s, pipeline
+   and in-memory samples/s and pipeline_vs_memory (medians of 3 paired
+   reps), the raw read MB/s of the same sharded reads; (b) 100,000
+   ``make_batch_criteo`` rows (39 one-hot slots over 65,536) written by
+   ``LibSvmSinkBatchOp``, read back bitwise by ``LibSvmSourceBatchOp``,
+   whose 4 sharded reads' union is the whole table, ->
+   ``LogisticRegressionTrainBatchOp`` -> ``CompiledPredictor`` on 8,192
+   held-out rows: the model bitwise equal to the one trained from the
+   rows in a ``MemSourceBatchOp``, served labels equal to ``map_table``'s
+   outside the rounding band, P1 and B5 launched. Every number beside
+   the card's name and power limit and the host's CPU and core count.
 
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
@@ -2172,10 +2199,17 @@ COO_WIDTH = NNZ + 1                      # 39 slots and the intercept
 
 
 def fb_criteo(seed, n=LR_ROWS):
-    """``bench.py::make_ctr_fieldblock`` (32 fields of 2048, labels from
-    the logistic of a seeded sparse true model) with the intercept field
-    in front, as the trainer lays it out: (n, 33) field-local indices and
+    """``bench.py::make_ctr_fieldblock`` with the intercept field in
+    front, as the trainer lays it out: (n, 33) field-local indices and
     {-1, +1} float32 labels."""
+    fb, y = ctr_fieldblock(n, seed)
+    return np.concatenate([np.zeros((n, 1), np.int32), fb], 1), y
+
+
+def ctr_fieldblock(n, seed):
+    """``bench.py::make_ctr_fieldblock`` (bench.py:488): (n, 32) int32
+    field-local indices of 32 fields of 2048 and {-1, +1} float32 labels
+    from the logistic of a seeded sparse true model."""
     rng = np.random.RandomState(seed)
     fb = rng.randint(0, LR_FIELD_SIZE, size=(n, LR_FIELDS)).astype(np.int32)
     dim = LR_FIELDS * LR_FIELD_SIZE
@@ -2184,7 +2218,7 @@ def fb_criteo(seed, n=LR_ROWS):
     margin = w_true[flat].sum(-1)
     y = np.where(rng.rand(n) < 1.0 / (1.0 + np.exp(-margin)), 1.0,
                  -1.0).astype(np.float32)
-    return np.concatenate([np.zeros((n, 1), np.int32), fb], 1), y
+    return fb, y
 
 
 def grad_inputs(rng, case, dtype):
@@ -2697,19 +2731,9 @@ def phase_lr_main(kl, ks, kf):
     for name, table in (("lbfgs", model), ("ftrl", snap)):
         if name == "ftrl":
             gpu.swap_model(table)
-        card = [str(v) for v in gpu.predict_table(req).col("pred")]
-        host_map = gpu._active.mapper
-        s_host = host_map.predict_scores(req)
-        host = [str(v) for v in host_map.map_table(req).col("pred")]
-        c = LinearModelDataConverter.load_table(table).coef
-        terms = np.asarray([abs(c[0]) + np.abs(c[1 + v.indices]).sum()
-                            for v in req.col("vec")])
-        clear = np.abs(s_host) > 64 * 2.0 ** -24 * terms
-        require(all(a == b for a, b, ok in zip(card, host, clear) if ok),
-                f"CompiledPredictor labels ({name}) equal map_table's "
-                f"outside the rounding band")
+        s_host, band = served_labels_match(gpu, req, table, name)
         served[name] = {"held_out_auc": rank_auc(y_held, s_host),
-                        "rows_in_rounding_band": int((~clear).sum())}
+                        "rows_in_rounding_band": band}
     torch.cuda.synchronize()
     launches = {**ks.launch_counts(), **kl.launch_counts(),
                 **kf.launch_counts()}
@@ -3106,13 +3130,18 @@ def phase_example(kernels, seed, card):
           f"{out['click_rate']:.4f}, Bayes AUC {out['bayes_auc']}; "
           f"pipeline fit {times['fit_s']:.3f} s, save + load "
           f"{times['save_load_s']:.3f} s", flush=True)
-    host_s, sizes, first, last = example_host_only(data, loaded)
+    with HashStages() as stages:
+        host_s, sizes, first, last = example_host_only(data, loaded)
     out.update(host_only_s=host_s,
                host_only_rows_per_s=EX_STREAM_ROWS / host_s,
-               train_rows=int(sum(sizes)), train_micro_batches=len(sizes))
-    print(f"ftrl example {tag}: host-only drain (source -> split -> "
-          f"transform_stream on both halves) {host_s:.3f} s, "
-          f"{EX_STREAM_ROWS / host_s:.1f} stream rows/s", flush=True)
+               train_rows=int(sum(sizes)), train_micro_batches=len(sizes),
+               host=host_cpu(), host_only_stages_s=stages.split(host_s),
+               hash_in_turns=stages.hash_in_turns())
+    print(f"ftrl example {tag} [{out['host']}]: host-only drain (source -> "
+          f"split -> transform_stream on both halves) {host_s:.3f} s, "
+          f"{EX_STREAM_ROWS / host_s:.1f} stream rows/s; stages (s) "
+          f"{out['host_only_stages_s']}; the hash in turns, native vs "
+          f"numpy: {out['hash_in_turns']}", flush=True)
     # the float32 card run: launch counts, times, the busy share
     for k in kernels:
         k.reset_launch_counts()
@@ -3758,10 +3787,14 @@ def bench_stream(kl, kf, table):
                                                    "is finite")
     out.update(stream_rows_per_s=ST_ROWS / out["stream_s"],
                stream_launches=counts)
-    t0 = time.perf_counter()
-    require(drain_host_only() == ST_ROWS, "host-only drain's rows")
-    out["host_only_s"] = time.perf_counter() - t0
+    with HashStages() as stages:
+        t0 = time.perf_counter()
+        require(drain_host_only() == ST_ROWS, "host-only drain's rows")
+        out["host_only_s"] = time.perf_counter() - t0
     out["host_only_rows_per_s"] = ST_ROWS / out["host_only_s"]
+    out.update(host=host_cpu(),
+               host_only_stages_s=stages.split(out["host_only_s"]),
+               hash_in_turns=stages.hash_in_turns())
     drain_full_dag()                                  # warm
     t0 = time.perf_counter()
     out["dag_last_window_auc"] = drain_full_dag()
@@ -3923,6 +3956,507 @@ def phase_batch(kernels, rng, lat, card):
           flush=True)
     return parity, out
 
+
+
+# ---------------------------------------------------------------------------
+# the host's hashing stages (phases 13 and 14) and 15. the ingest path
+# ---------------------------------------------------------------------------
+
+def host_cpu() -> str:
+    """The host's CPU and core count: the ingest path and the hashing run
+    on it, and hosts of one card type differ by up to 2x. The model name
+    with the vendor, family, model number and clock that ``/proc/cpuinfo``
+    gives (some hosts report the model as "unknown"), the
+    architecture and ``os.cpu_count()``."""
+    import os
+    import platform
+    keys = ("model name", "vendor_id", "cpu family", "model", "cpu MHz")
+    got = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                k = k.strip()
+                if k in keys and k not in got:
+                    got[k] = v.strip()
+                if not line.strip() and got:
+                    break
+    except OSError:
+        pass
+    ids = ", ".join(f"{k} {got[k]}" for k in keys[1:] if k in got)
+    return (f"{got.get('model name', 'CPU model not reported')} ({ids}; "
+            f"{platform.machine()}), {os.cpu_count()} cores")
+
+
+class HashStages:
+    """Times the feature hasher's stages inside a drain: token formatting
+    (``_format_tokens``), hashing (``murmur32_cells``) and building the
+    rows (``_flat_rows``, or ``SparseVectorColumn`` field-aware), each by
+    host clock summed over its calls; keeps every hashing call's
+    arguments, so :meth:`hash_in_turns` can time the native hash against
+    its numpy plain version on the same tokens."""
+
+    STAGES = (("format", "_format_tokens"), ("hash", "murmur32_cells"),
+              ("rows", "_flat_rows"), ("rows", "SparseVectorColumn"))
+
+    def __init__(self):
+        self.s = {"format": 0.0, "hash": 0.0, "rows": 0.0}
+        self.calls = []
+        self._lock = threading.Lock()
+        self._saved = {}
+
+    def _timed(self, stage, fn, keep):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.s[stage] += dt
+                    if keep:
+                        self.calls.append((a, k))
+        return timed
+
+    def __enter__(self):
+        from alink_tpu_torch.operator.batch.feature import feature_ops as fo
+        self._fo = fo
+        for stage, name in self.STAGES:
+            self._saved[name] = getattr(fo, name)
+            setattr(fo, name, self._timed(stage, self._saved[name],
+                                          stage == "hash"))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._fo, name, fn)
+        return False
+
+    def split(self, total_s: float) -> dict:
+        return dict(self.s, other=total_s - sum(self.s.values()),
+                    total=total_s,
+                    tokens=sum(len(a[0]) for a, _ in self.calls))
+
+    def hash_in_turns(self, rounds: int = 2) -> dict:
+        """The native hash and the numpy plain version (the hash before
+        the native path) over this drain's tokens, in turns (plain,
+        native, native, plain), each turn all the calls; bitwise equal."""
+        fo = self._fo
+        for a, k in self.calls:
+            require(np.array_equal(fo.murmur32_cells(*a, **k),
+                                   fo.murmur32_cells_plain(*a, **k)),
+                    "the native hash equals its plain version")
+        times = {"native": [], "plain": []}
+        for _ in range(rounds):
+            for name in ("plain", "native", "native", "plain"):
+                fn = fo.murmur32_cells if name == "native" \
+                    else fo.murmur32_cells_plain
+                t0 = time.perf_counter()
+                for a, k in self.calls:
+                    fn(*a, **k)
+                times[name].append(time.perf_counter() - t0)
+        native = float(np.median(times["native"]))
+        plain = float(np.median(times["plain"]))
+        return {"native_s": native, "plain_s": plain,
+                "plain_over_native": plain / native,
+                "turns": times, "calls": len(self.calls)}
+
+
+# bench.py::bench_logreg_from_disk (bench.py:1266-1460): make_ctr_fieldblock
+# rows (bench.py:488, 32 fields of 2048, seed 42) at its default of
+# 1,000,000 rows, read in 64 shards, sent to the card in 16 groups, three
+# L-BFGS supersteps
+DISK_ROWS, DISK_SEED, DISK_SHARDS, DISK_GROUPS = 1_000_000, 42, 64, 16
+DISK_STEPS, DISK_REPS = 3, 3
+# (b): make_batch_criteo rows (bench.py:313: 39 distinct one-hot slots
+# over 65,536), read by LibSvmSourceBatchOp; held-out rows served
+INGEST_ROWS, INGEST_HELD, INGEST_DIM, INGEST_SHARDS = 100_000, 8192, 65_536, 4
+
+
+def write_fieldblock_libsvm(path, fb, y):
+    """The rows as LibSVM lines ``label j:1 ...`` (1-based global ids,
+    field by field), bench.py's bytes, written to a temporary name and
+    renamed."""
+    import os
+    n, f = fb.shape
+    flat = fb + (np.arange(f, dtype=np.int32) * LR_FIELD_SIZE)[None, :]
+    tok = np.array([f" {j + 1}:1".encode() for j in range(f * LR_FIELD_SIZE)],
+                   object)
+    lab = np.where(y > 0, b"1", b"-1").astype(object)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as out:
+        for lo in range(0, n, 100_000):
+            hi = min(lo + 100_000, n)
+            cells = np.empty((hi - lo, f + 2), object)
+            cells[:, 0] = lab[lo:hi]
+            cells[:, 1:f + 1] = tok[flat[lo:hi]]
+            cells[:, f + 1] = b"\n"
+            out.write(b"".join(cells.ravel().tolist()))
+    os.replace(tmp, path)
+
+
+def disk_load(path, workers, dev):
+    """bench_logreg_from_disk's loader on the port: 64 byte-range shards
+    through ``prefetch_map`` (read by ``_load_line_bytes``, parsed by
+    ``parse_libsvm_fb16`` into int16 field-local ids and float32 labels),
+    every 4 shards joined into a pinned host buffer and copied to the
+    card with ``non_blocking=True`` while later shards parse, then one
+    ``torch.cat`` and the int16 -> int32 widening on the card. Returns
+    (fb, labels, stage seconds): read and parse summed over the shards,
+    encode (the groups' joins and copy issue), rp_wall (the loader's wall
+    clock, copies done)."""
+    import torch
+    from alink_tpu_torch.io.csv import _load_line_bytes
+    from alink_tpu_torch.native import parse_libsvm_fb16
+    from alink_tpu_torch.operator.stream.prefetch import prefetch_map
+    pin = dev.type == "cuda"
+
+    def load_shard(i):
+        t0 = time.perf_counter()
+        b = _load_line_bytes(path, False, (i, DISK_SHARDS))
+        t1 = time.perf_counter()
+        got = parse_libsvm_fb16(b, LR_FIELDS, LR_FIELD_SIZE, 1)
+        require(got is not None, f"shard {i} parses field-blocked")
+        return got, t1 - t0, time.perf_counter() - t1
+
+    per_group = -(-DISK_SHARDS // DISK_GROUPS)
+    st = {"read_s": 0.0, "parse_s": 0.0, "encode_s": 0.0}
+    hosts, fb_parts, lab_parts, pend = [], [], [], []
+
+    def flush():
+        t0 = time.perf_counter()
+        rows = sum(len(lab) for lab, _ in pend)
+        fb_h = torch.empty((rows, LR_FIELDS), dtype=torch.int16,
+                           pin_memory=pin)
+        lab_h = torch.empty(rows, dtype=torch.float32, pin_memory=pin)
+        np.concatenate([fb for _, fb in pend], out=fb_h.numpy())
+        np.concatenate([lab for lab, _ in pend], out=lab_h.numpy())
+        hosts.append((fb_h, lab_h))      # each outlives its copy
+        fb_parts.append(fb_h.to(dev, non_blocking=True))
+        lab_parts.append(lab_h.to(dev, non_blocking=True))
+        pend.clear()
+        st["encode_s"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for part, r_s, p_s in prefetch_map(iter(range(DISK_SHARDS)), load_shard,
+                                       workers=workers):
+        st["read_s"] += r_s
+        st["parse_s"] += p_s
+        pend.append(part)
+        if len(pend) >= per_group:
+            flush()
+    if pend:
+        flush()
+    fb = torch.cat(fb_parts).to(torch.int32)
+    labels = torch.cat(lab_parts)
+    if pin:
+        torch.cuda.synchronize()
+    st["rp_wall_s"] = time.perf_counter() - t0
+    st["groups"] = len(hosts)
+    return fb, labels, st
+
+
+def disk_train(fb, y, dev):
+    """bench_logreg_from_disk's train leg: three field-blocked L-BFGS
+    supersteps (l2 1e-4, epsilon 0, no warm start) through the port's
+    ``optimize``; the coefficients on the host."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.optim import objfunc as ob
+    from alink_tpu_torch.operator.common.optim import optimizers as opt
+    from alink_tpu_torch.ops.fieldblock import FieldBlockMeta
+    meta = FieldBlockMeta(LR_FIELDS, LR_FIELD_SIZE)
+    obj = ob.UnaryLossObjFunc(ob.LogLossFunc(), meta.dim, l2=LR_L2,
+                              fb_meta=meta)
+    w = torch.ones_like(y) if isinstance(y, torch.Tensor) \
+        else np.ones(len(y), np.float32)
+    coef, _, steps = opt.optimize(obj, {"fb_idx": fb, "y": y, "w": w},
+                                  opt.OptimParams(method="LBFGS",
+                                                  max_iter=DISK_STEPS,
+                                                  epsilon=0.0),
+                                  MLEnvironment(device=dev))
+    require(steps == DISK_STEPS, f"{DISK_STEPS} supersteps ran: {steps}")
+    return np.asarray(coef)
+
+
+def disk_pipeline(ks, kl, dev, workers):
+    """15(a): the LibSVM fixture through the loader and the train leg, in
+    bench.py's paired reps, against the same training from the generated
+    arrays in memory."""
+    import os
+    import tempfile
+    import torch
+    from alink_tpu_torch.io.csv import _load_line_bytes
+    from alink_tpu_torch.io.sharding import parallel_shard_map
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    fb_true, y_true = ctr_fieldblock(DISK_ROWS, DISK_SEED)
+    path = os.path.join(tempfile.gettempdir(),
+                        f"alink_torch_diskbench_{DISK_ROWS}_{LR_FIELDS}"
+                        f".libsvm")
+    out = {"rows": DISK_ROWS, "shards": DISK_SHARDS, "workers": workers}
+    try:
+        t0 = time.perf_counter()
+        write_fieldblock_libsvm(path, fb_true, y_true)
+        out["fixture_write_s"] = time.perf_counter() - t0
+        out["fixture_mb"] = os.path.getsize(path) / 1e6
+        # the main path, counted: load and train once
+        ks.reset_launch_counts()
+        kl.reset_launch_counts()
+        fb, labels, _ = disk_load(path, workers, dev)
+        coef_disk = disk_train(fb, labels, dev)
+        sync()
+        out["launches"] = {**ks.launch_counts(), **kl.launch_counts()}
+        for name in ("linear_grad", "serve_sparse"):
+            require(out["launches"][name] > 0 or dev.type != "cuda",
+                    f"the from-disk path launched {name}: "
+                    f"{out['launches']}")
+        require(fb.dtype == torch.int32 and fb.device.type == dev.type
+                and np.array_equal(fb.cpu().numpy(), fb_true),
+                "the card's field ids equal the generated ones")
+        require(labels.cpu().numpy().tobytes() == y_true.tobytes(),
+                "the card's labels equal the generated ones bitwise")
+        coef_mem = disk_train(fb_true, y_true, dev)
+        require(coef_disk.tobytes() == coef_mem.tobytes(),
+                "the coefficients trained from disk equal those trained "
+                "from memory bitwise")
+        del fb, labels
+        pipe, mem, ratio, splits = [], [], [], []
+        for _ in range(DISK_REPS):
+            sync()
+            t0 = time.perf_counter()
+            fb, labels, split = disk_load(path, workers, dev)
+            disk_train(fb, labels, dev)
+            sync()
+            t_pipe = time.perf_counter() - t0
+            del fb, labels
+            t0 = time.perf_counter()
+            disk_train(fb_true, y_true, dev)
+            sync()
+            t_mem = time.perf_counter() - t0
+            pipe.append(t_pipe)
+            mem.append(t_mem)
+            ratio.append(t_mem / t_pipe)
+            splits.append(split)
+        k = int(np.argsort(pipe)[len(pipe) // 2])
+        split = splits[k]
+        out.update(split, train_s=pipe[k] - split["rp_wall_s"],
+                   pipeline_s=pipe[k],
+                   memory_s=float(np.median(mem)),
+                   pipeline_samples_per_s=DISK_ROWS / pipe[k],
+                   memory_samples_per_s=DISK_ROWS / float(np.median(mem)),
+                   source_samples_per_s=DISK_ROWS / split["rp_wall_s"],
+                   pipeline_vs_memory=float(np.median(ratio)),
+                   reps={"pipeline_s": pipe, "memory_s": mem,
+                         "ratio": ratio})
+        # the rig's raw read rate: the same sharded reads, no parse
+        t0 = time.perf_counter()
+        sizes = parallel_shard_map(
+            lambda i: len(_load_line_bytes(path, False, (i, DISK_SHARDS))),
+            DISK_SHARDS)
+        read_s = time.perf_counter() - t0
+        require(sum(sizes) == os.path.getsize(path),
+                "the shards read the whole fixture")
+        out.update(rig_read_s=read_s,
+                   rig_read_mb_per_s=out["fixture_mb"] / read_s,
+                   source_mb_per_s=out["fixture_mb"] / split["rp_wall_s"])
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    return out
+
+
+def criteo_batch(seed, n):
+    """bench.py::make_batch_criteo (bench.py:313) at ``B = n``: 39
+    distinct one-hot slots of 65,536 a row (slot 0 left to the
+    intercept), labels from the logistic of a seeded sparse true model;
+    as a table (label DOUBLE, features SPARSE_VECTOR)."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import SparseVector
+    r = np.random.RandomState(seed)
+    rngw = np.random.RandomState(0)
+    w_true = (rngw.randn(INGEST_DIM) * (rngw.rand(INGEST_DIM) < 0.02))
+    raw = r.randint(1, INGEST_DIM, size=(n, NNZ)).astype(np.int32)
+    for _ in range(64):                   # resample intra-row collisions
+        srt = np.sort(raw, axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]).any(1)
+        if not dup.any():
+            break
+        raw[dup] = r.randint(1, INGEST_DIM, size=(int(dup.sum()), NNZ))
+    y = (r.rand(n) < 1.0 / (1.0 + np.exp(-w_true[raw].sum(1)))).astype(
+        np.float64)
+    vecs = np.empty(n, object)
+    ones = np.ones(NNZ)
+    vecs[:] = [SparseVector(INGEST_DIM, raw[i], ones) for i in range(n)]
+    return MTable({"label": y, "features": vecs},
+                  "label DOUBLE, features SPARSE_VECTOR")
+
+
+def served_labels_match(gpu, req, table, name):
+    """``CompiledPredictor`` (holding ``table``) labels ``req`` as its
+    float64 host mapper's ``map_table`` does, outside the float32
+    rounding band of each row's score; returns the host scores and the
+    rows inside the band."""
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    col = req.col_names[0]
+    card = [str(v) for v in gpu.predict_table(req).col("pred")]
+    host_map = gpu._active.mapper
+    s_host = host_map.predict_scores(req)
+    host = [str(v) for v in host_map.map_table(req).col("pred")]
+    c = LinearModelDataConverter.load_table(table).coef
+    terms = np.asarray([abs(c[0]) + np.abs(c[1 + v.indices]).sum()
+                        for v in req.col(col)])
+    clear = np.abs(s_host) > 64 * 2.0 ** -24 * terms
+    require(all(a == b for a, b, ok in zip(card, host, clear) if ok),
+            f"CompiledPredictor labels ({name}) equal map_table's outside "
+            f"the rounding band")
+    return s_host, int((~clear).sum())
+
+
+def libsvm_source_path(ks, kl, dev):
+    """15(b): Criteo-shape rows written by ``LibSvmSinkBatchOp``, read by
+    ``LibSvmSourceBatchOp`` (whole, and as the union of 4 shards) ->
+    ``LogisticRegressionTrainBatchOp`` -> ``CompiledPredictor``; the
+    model from the file bitwise equal to the model from the same rows in
+    a ``MemSourceBatchOp``."""
+    import os
+    import tempfile
+    import torch
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.common.types import TableSchema
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.sink import LibSvmSinkBatchOp
+    from alink_tpu_torch.operator.batch.source import (LibSvmSourceBatchOp,
+                                                       MemSourceBatchOp)
+    from alink_tpu_torch.operator.common.linear.mapper import \
+        LinearModelMapper
+    from alink_tpu_torch.serving import CompiledPredictor
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    table = criteo_batch(7, INGEST_ROWS)
+    held = criteo_batch(8, INGEST_HELD)
+    path = os.path.join(tempfile.gettempdir(),
+                        f"alink_torch_criteo_{os.getpid()}.libsvm")
+    out = {"rows": INGEST_ROWS, "features": INGEST_DIM}
+    try:
+        t0 = time.perf_counter()
+        LibSvmSinkBatchOp(file_path=path, label_col="label",
+                          vector_col="features").link_from(
+            MemSourceBatchOp(table))
+        out["write_s"] = time.perf_counter() - t0
+        out["file_mb"] = os.path.getsize(path) / 1e6
+
+        def source(**kw):
+            return LibSvmSourceBatchOp(file_path=path,
+                                       vector_size=INGEST_DIM, **kw)
+
+        def parts(t):
+            v = t.col("features")
+            return (np.asarray(t.col("label")).tobytes(),
+                    np.concatenate([x.indices for x in v]).tobytes(),
+                    np.concatenate([x.values for x in v]).tobytes(),
+                    [len(x.indices) for x in v], {x.n for x in v})
+
+        t0 = time.perf_counter()
+        whole = source().get_output_table()
+        out["read_s"] = time.perf_counter() - t0
+        require(parts(whole) == parts(table),
+                "the file reads back the written rows bitwise")
+        shards = [source(sharded=True, shard_index=i,
+                         num_shards=INGEST_SHARDS).get_output_table()
+                  for i in range(INGEST_SHARDS)]
+        union = shards[0]
+        for s in shards[1:]:
+            union = union.concat_rows(s)
+        require(parts(union) == parts(whole)
+                and sum(s.num_rows for s in shards) == whole.num_rows,
+                f"the union of {INGEST_SHARDS} sharded reads is the whole "
+                f"table")
+        out["shard_rows"] = [s.num_rows for s in shards]
+        # the main path, counted: file -> LR -> CompiledPredictor
+        ks.reset_launch_counts()
+        kl.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        lr = LogisticRegressionTrainBatchOp(
+            vector_col="features", label_col="label", l2=LR_L2,
+            device=dev).link_from(source())
+        model = lr.get_output_table()
+        sync()
+        out["train_s"] = time.perf_counter() - t0
+        curve = np.asarray(lr.get_side_output(0).get_output_table()
+                           .col("loss"))
+        require(np.isfinite(curve).all() and curve[-1] < curve[0],
+                "the loss fell")
+        mapper = LinearModelMapper(
+            model.schema, TableSchema(["features"], ["SPARSE_VECTOR"]),
+            Params({"prediction_col": "pred", "vector_col": "features"}))
+        mapper.load_model(model)
+        gpu = CompiledPredictor(mapper, device=dev)
+        req = held.select(["features"])
+        s_host, band = served_labels_match(gpu, req, model, "from the file")
+        sync()
+        out["launches"] = {**ks.launch_counts(), **kl.launch_counts()}
+        for k in ("linear_grad", "serve_sparse"):
+            require(out["launches"][k] > 0 or dev.type != "cuda",
+                    f"the file path launched {k}: {out['launches']}")
+        mem = LogisticRegressionTrainBatchOp(
+            vector_col="features", label_col="label", l2=LR_L2,
+            device=dev).link_from(MemSourceBatchOp(table))
+        require(model.to_rows() == mem.get_output_table().to_rows(),
+                "the model trained from the file equals the model trained "
+                "from memory")
+        out.update(supersteps=len(curve), loss_first=float(curve[0]),
+                   loss_last=float(curve[-1]), rows_in_rounding_band=band,
+                   held_out_auc=rank_auc(
+                       np.asarray(held.col("label")).astype(np.int64),
+                       s_host))
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    return out
+
+
+def phase_ingest(kernels, card, dev=None):
+    """15: the ingest path: (a) bench_logreg_from_disk on the port, (b) a
+    LibSVM file through the batch source, L-BFGS and serving. ``kernels``
+    are the ``serve`` and ``linear`` kernel modules."""
+    import os
+    import torch
+    ks, kl = kernels
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    workers = min(8, os.cpu_count() or 1)
+    host = host_cpu()
+    tag = f"[{card}] [{host}]"
+    out = {"card": card, "host": host,
+           "disk": disk_pipeline(ks, kl, dev, workers)}
+    d = out["disk"]
+    print(f"ingest (a) {tag}: {DISK_ROWS} rows, {d['fixture_mb']:.1f} MB "
+          f"in {DISK_SHARDS} shards on {workers} workers: read_s "
+          f"{d['read_s']} parse_s {d['parse_s']} encode_s {d['encode_s']} "
+          f"rp_wall_s {d['rp_wall_s']} train_s {d['train_s']}; pipeline "
+          f"{d['pipeline_samples_per_s']} samples/s, in memory "
+          f"{d['memory_samples_per_s']} samples/s, pipeline_vs_memory "
+          f"{d['pipeline_vs_memory']}; raw read {d['rig_read_mb_per_s']} "
+          f"MB/s, source {d['source_mb_per_s']} MB/s; launches "
+          f"{d['launches']}", flush=True)
+    out["libsvm"] = b = libsvm_source_path(ks, kl, dev)
+    print(f"ingest (b) {tag}: {INGEST_ROWS} rows ({b['file_mb']:.1f} MB) "
+          f"written {b['write_s']:.3f} s, read {b['read_s']:.3f} s, "
+          f"{INGEST_SHARDS} shards {b['shard_rows']}, LR "
+          f"{b['supersteps']} supersteps in {b['train_s']:.3f} s, held-out "
+          f"AUC {b['held_out_auc']}, launches {b['launches']}", flush=True)
+    out["launches"] = {k: d["launches"].get(k, 0) + b["launches"].get(k, 0)
+                       for k in set(d["launches"]) | set(b["launches"])}
+    return out
 
 
 def main(argv=None) -> int:
@@ -4094,6 +4628,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     example = phase_example((ks, kl, kf, kh), args.seed, card)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 15. the ingest path: files, the native parser, L-BFGS on the card
+    t0 = time.perf_counter()
+    ingest = phase_ingest((ks, kl), card)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
@@ -4270,8 +4809,9 @@ def main(argv=None) -> int:
         "serve_sparse"]
     for rec in kernels:
         rec["example_loop_launches"] = example["launches"][rec["name"]]
+        rec["ingest_launches"] = ingest["launches"].get(rec["name"], 0)
     print(json.dumps({"main_path": {
-        "ftrl_batch": batch,
+        "ingest": ingest, "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,
         "ftrl": ftrl, "out_of_range_indices": bad_slots,

@@ -2,11 +2,12 @@
 the split and JSON stream ops, the binary metrics and the eval ops,
 held against the JAX package on the CPU.
 
-* ``murmur32_cells`` (the port's one vectorized batch path) and
-  ``murmur32`` equal the JAX package's ``murmur32_cells`` (its native C
-  hasher here) and its pure-Python ``murmur32`` exactly, with and
-  without ``mod``: byte strings of 0-64 bytes (every tail length),
-  empty strings, NULs inside, non-ASCII text.
+* ``murmur32_cells`` (the port's native batch hasher), its numpy plain
+  version ``murmur32_cells_plain`` and ``murmur32`` equal the JAX
+  package's ``murmur32_cells`` (its native C hasher here) and its
+  pure-Python ``murmur32`` exactly, with and without ``mod``: byte
+  strings of 0-64 bytes (every tail length), empty strings, NULs inside,
+  non-ASCII text.
 * ``FeatureHasherBatchOp``: equal indices and bitwise values in the
   flat and field-aware layouts, over integer, string and ``bytes``
   categoricals, numeric columns with ``None`` and NaN, forced collisions
@@ -62,10 +63,13 @@ def _jfo():
 
 
 def _hash_all(tokens, seed, mod):
-    """The four hashers' outputs over one token list."""
+    """The five hashers' outputs over one token list (the port's numpy
+    plain version first)."""
     jfo = _jfo()
     want = np.array([jfo.murmur32(t, seed) % mod if mod else
                      jfo.murmur32(t, seed) for t in tokens], np.int64)
+    plain = tfo.murmur32_cells_plain(tokens, seed=seed, mod=mod)
+    np.testing.assert_array_equal(plain, want)
     return (tfo.murmur32_cells(tokens, seed=seed, mod=mod),
             jfo.murmur32_cells(tokens, seed=seed, mod=mod),
             np.array([tfo.murmur32(t, seed) % mod if mod else
@@ -102,8 +106,10 @@ def test_murmur_every_tail_length(mod):
     np.testing.assert_array_equal(got, j_py)
     np.testing.assert_array_equal(native, j_py)
     arr = np.array(tokens)
-    np.testing.assert_array_equal(tfo.murmur32_cells(arr, mod=mod),
-                                  _jfo().murmur32_cells(arr, mod=mod))
+    want = _jfo().murmur32_cells(arr, mod=mod)
+    np.testing.assert_array_equal(tfo.murmur32_cells(arr, mod=mod), want)
+    np.testing.assert_array_equal(tfo.murmur32_cells_plain(arr, mod=mod),
+                                  want)
 
 
 def _hasher_table(case, n=300, seed=0):

@@ -110,11 +110,44 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.stream.evaluation",
               "alink_tpu_torch.pipeline.base",
               "alink_tpu_torch.pipeline.feature",
-              "alink_tpu_torch.pipeline.classification"):
+              "alink_tpu_torch.pipeline.classification",
+              "alink_tpu_torch.native",
+              "alink_tpu_torch.io.csv",
+              "alink_tpu_torch.io.sharding",
+              "alink_tpu_torch.operator.batch.sink.sinks",
+              "alink_tpu_torch.operator.common.dataproc.feature_extract"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
-                "linear_grad.cu"):
+                "linear_grad.cu", "run_plan.cu"):
         assert (PKG / "kernels" / "csrc" / src).exists(), src
+    assert (PKG / "native" / "csrc" / "parser.cpp").exists()
+
+
+def test_native_library_is_the_ports_own_build():
+    """The port's native library loads from ``build/`` at the root of the
+    checkout, under the hash of ``alink_tpu_torch/native/csrc/parser.cpp``
+    and its flags; no file under ``alink_tpu/`` is read or mapped."""
+    code = (
+        "import hashlib, sys\n"
+        "from pathlib import Path\n"
+        "import alink_tpu_torch.native as n\n"
+        "root = Path.cwd().resolve()\n"
+        "assert n.SRC == root / 'alink_tpu_torch/native/csrc/parser.cpp'\n"
+        "assert n.BUILD_DIR == root / 'build'\n"
+        "h = hashlib.sha256(' '.join(n.FLAGS).encode())\n"
+        "h.update(n.SRC.read_bytes())\n"
+        "lib = root / 'build' / f'libparser-{h.hexdigest()[:16]}.so'\n"
+        "assert n.target() == lib, (n.target(), lib)\n"
+        "n.murmur32_batch([b'a'])\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert str(lib) in maps, 'the port library is not mapped'\n"
+        "assert '_parser.native' not in maps and 'alink_tpu/native' "
+        "not in maps, 'a JAX-package library is mapped'\n"
+        "assert not [k for k in sys.modules if k == 'alink_tpu' or "
+        "k.startswith('alink_tpu.')]\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_chip_smoke_names_no_jax():
