@@ -1,8 +1,7 @@
-"""The environment flags the port reads.
+"""The serving environment flags the port reads.
 
 Counterpart: ``alink_tpu/common/flags.py``. Only the serving entries of
-that registry and the stream pool's width are kept, with the same
-parsers and defaults. The JAX
+that registry are kept, with the same parsers and defaults. The JAX
 package's cache-key declarations (``folds_into`` / ``key_neutral``) are
 left out: the port compiles no programs, so there is no cache key for
 a flag to fold into.
@@ -72,10 +71,6 @@ FLAGS: Dict[str, Flag] = {f.name: f for f in (
          "micro-batcher fill target in rows (1 = dispatch the moment "
          "the queue drains)", parser=lambda raw: int(raw.strip()),
          clamp=lambda n: max(1, n)),
-    Flag("ALINK_TPU_STREAM_WORKERS", 1,
-         "width of the ordered stream pool (prefetch_map) when its caller "
-         "passes none; 1 is the one-thread path",
-         parser=lambda raw: int(raw.strip()), clamp=lambda n: max(1, n)),
     Flag("ALINK_TPU_SERVE_QUEUE", 1024,
          "admission-control bound of the serving request channel (a "
          "full queue blocks submitters)",

@@ -13,7 +13,9 @@ path.
 The default topology is one process, ``(0, 1)``: the port runs on one
 host until its multi-process layer comes (ROADMAP A9), which also brings
 the JAX package's device-side partition rules (``match_partition_rules``,
-``state_sharding``, ``device_put_state``).
+``state_sharding``, ``device_put_state``). Its ``parallel_shard_map`` is
+not kept: the port's shards run on its one ordered pool,
+``operator/stream/prefetch.py::prefetch_map``.
 """
 
 from __future__ import annotations
@@ -105,15 +107,3 @@ def _scan_to_newline(f, chunk: int = 1 << 16) -> bytes:
             f.seek(f.tell() - (len(c) - j - 1))
             return out
         out += c
-
-
-def parallel_shard_map(fn, n: int, max_workers: Optional[int] = None) -> list:
-    """``[fn(0), ..., fn(n-1)]`` on a thread pool, in shard order. File
-    reads and the native parsers (ctypes calls) release the GIL, so the
-    shards read and parse at once. An exception of a shard propagates."""
-    if n <= 1:
-        return [fn(i) for i in range(n)]
-    from concurrent.futures import ThreadPoolExecutor
-    workers = max_workers or min(n, os.cpu_count() or 4)
-    with ThreadPoolExecutor(workers) as ex:
-        return list(ex.map(fn, range(n)))

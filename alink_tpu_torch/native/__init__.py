@@ -247,9 +247,10 @@ def parse_libsvm_bytes_parallel(data: bytes, start_index: int = 1,
     if k <= 1:
         return parse_libsvm_bytes(data, start_index)
     chunks = split_newline_chunks(data, k)
-    from ..io.sharding import parallel_shard_map
-    parts = parallel_shard_map(
-        lambda i: parse_libsvm_bytes(chunks[i], start_index), len(chunks))
+    from ..operator.stream.prefetch import prefetch_map
+    parts = list(prefetch_map(
+        iter(chunks), lambda c: parse_libsvm_bytes(c, start_index),
+        workers=len(chunks)))
     labels = np.concatenate([p[0] for p in parts])
     indices = np.concatenate([p[2] for p in parts])
     values = np.concatenate([p[3] for p in parts])

@@ -6,8 +6,10 @@ Counterpart: ``alink_tpu/operator/stream/prefetch.py``. Ported:
 server.PredictServer`'s admission queue, and the channel under
 :func:`prefetch`), :func:`prefetch`, which ``StreamOperator.execute``
 and the FTRL trainer's drain use, and :func:`prefetch_map`, the ordered
-pool that the sharded file reads run on, with its width
-``ALINK_TPU_STREAM_WORKERS`` (:func:`stream_workers`). Left out: the
+pool that the sharded file reads and the native parser's chunks run on.
+Left out: ``stream_workers`` (``ALINK_TPU_STREAM_WORKERS``), the width
+the JAX package's FTRL drain takes from the environment (the port's
+drain does not run on the pool, and its callers pass a width), the
 depth knob (the depth is fixed at ``PREFETCH_DEPTH``), the depth gauge
 and the fault injection site.
 """
@@ -182,16 +184,8 @@ def _warn_stuck(threads, timeout: float = 5.0) -> None:
             ", ".join(stuck), timeout)
 
 
-def stream_workers() -> int:
-    """``ALINK_TPU_STREAM_WORKERS``: the width of the :func:`prefetch_map`
-    pool when its caller passes none (at least 1; unset or 1 is the
-    one-thread path)."""
-    from ...common.flags import flag_value
-    return flag_value("ALINK_TPU_STREAM_WORKERS")
-
-
 def prefetch_map(it: Iterable[T], fn: Callable[[T], U],
-                 workers: Optional[int] = None) -> Iterator[U]:
+                 workers: int = 1) -> Iterator[U]:
     """Ordered parallel map: ``fn(item)`` for every item of ``it`` on a
     pool of ``workers`` threads (``alink-prefetch-<i>``), yielded in the
     exact input order.
@@ -199,12 +193,12 @@ def prefetch_map(it: Iterable[T], fn: Callable[[T], U],
     A dispatcher thread drains the upstream iterator in order; the work
     in ``fn`` (read, parse, encode) is what runs in parallel. A reorder
     buffer holds at most ``workers + PREFETCH_DEPTH`` finished results:
-    a worker takes new work only while it has room. ``workers=None``
-    reads :func:`stream_workers`; ``workers=1`` is :func:`prefetch` over
-    the mapped iterator. An exception of ``fn(item_k)``, or of the
-    upstream while it produces item k, re-raises at the consumer where
-    item k would have come, after every earlier item."""
-    workers = stream_workers() if workers is None else max(1, int(workers))
+    a worker takes new work only while it has room. ``workers=1`` is
+    :func:`prefetch` over the mapped iterator. An exception of
+    ``fn(item_k)``, or of the upstream while it produces item k,
+    re-raises at the consumer where item k would have come, after every
+    earlier item."""
+    workers = max(1, int(workers))
     if workers <= 1:
         # a generator, not map(): closing it closes the upstream too
         def _mapped():

@@ -166,10 +166,11 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    evaluated, JSON values), FTRL samples/s, the trainer's stages on one
    micro-batch, the card's busy
    share under a profiled drain and every window's AUC beside the warm
-   start's on the last window's rows. The host-only drain reports the
-   feature hasher's stages (token formatting, hashing, building the rows,
-   the rest) and times the native hash against its numpy plain version
-   on the drain's tokens, in turns, with the host's CPU beside them.
+   start's on the last window's rows. The host-only drain is timed bare;
+   a second one, under the stage timer, reports the feature hasher's
+   stages (token formatting, hashing, building the rows, the rest) and
+   times the native hash against its numpy plain version on the drain's
+   tokens, in turns, with the host's CPU beside them.
 
 14. (run before 13, whose profiled drain leaves ``torch.profiler``
    recording few later kernels) FTRL's batch mode
@@ -214,23 +215,26 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    field-blocked demoted exactly (the op's snapshot bitwise equal to the
    translation by hand); (d) the batch hook's pre and post calls in
    order and a device snapshot consumer that takes every hand-off of the
-   live card weights, leaving no host snapshot. The host-only drain
-   reports the hasher's stages and the hash in turns, as in phase 13.
+   live card weights, leaving no host snapshot. The host-only drain is
+   timed bare, then a second one reports the hasher's stages and the
+   hash in turns, as in phase 13.
 
 15. the ingest path (after 13): (a) ``bench.py::bench_logreg_from_disk``
    on the port: 1,000,000 ``make_ctr_fieldblock`` rows (32 fields of
    2048, seed 42) written once as LibSVM under ``tempfile.gettempdir()``
-   (about 360 MB, removed at the end), read in 64 byte-range shards by
-   ``prefetch_map`` through ``io/csv.py::_load_line_bytes`` and parsed
-   by the native ``parse_libsvm_fb16`` into int16 ids and float32
-   labels, sent to the card in 16 groups of pinned buffers with
-   non-blocking copies, joined and widened to int32 on the card, then 3
+   (about 253 MB, removed at the end), loaded by the port's
+   ``io/fieldblock.py::load_fieldblock_libsvm``: read in 64 byte-range
+   shards on ``prefetch_map``'s pool and parsed by the native
+   ``parse_libsvm_fb16`` into int16 ids and float32 labels, sent to the
+   card in 16 groups of pinned buffers with non-blocking copies, joined
+   and widened to int32 on the card; then 3
    field-blocked L-BFGS supersteps through ``optimize``: the card's ids
    and labels bitwise equal to the generated arrays, the coefficients
    bitwise equal to those trained from the arrays in memory, P1 and B5
-   launched; read_s, parse_s, encode_s, rp_wall_s, train_s, pipeline
+   launched; read_s, parse_s, copy_s, rp_wall_s, train_s, pipeline
    and in-memory samples/s and pipeline_vs_memory (medians of 3 paired
-   reps), the raw read MB/s of the same sharded reads; (b) 100,000
+   reps), the raw read MB/s of the same sharded reads at the loader's
+   width; (b) 100,000
    ``make_batch_criteo`` rows (39 one-hot slots over 65,536) written by
    ``LibSvmSinkBatchOp``, read back bitwise by ``LibSvmSourceBatchOp``,
    whose 4 sharded reads' union is the whole table, ->
@@ -3130,18 +3134,21 @@ def phase_example(kernels, seed, card):
           f"{out['click_rate']:.4f}, Bayes AUC {out['bayes_auc']}; "
           f"pipeline fit {times['fit_s']:.3f} s, save + load "
           f"{times['save_load_s']:.3f} s", flush=True)
+    host_s, sizes, first, last = example_host_only(data, loaded)
+    # the stage split from a second drain: the timer and the kept tokens
+    # stay out of host_only_s
     with HashStages() as stages:
-        host_s, sizes, first, last = example_host_only(data, loaded)
+        staged_s = example_host_only(data, loaded)[0]
     out.update(host_only_s=host_s,
                host_only_rows_per_s=EX_STREAM_ROWS / host_s,
                train_rows=int(sum(sizes)), train_micro_batches=len(sizes),
-               host=host_cpu(), host_only_stages_s=stages.split(host_s),
+               host=host_cpu(), host_only_stages_s=stages.split(staged_s),
                hash_in_turns=stages.hash_in_turns())
     print(f"ftrl example {tag} [{out['host']}]: host-only drain (source -> "
           f"split -> transform_stream on both halves) {host_s:.3f} s, "
-          f"{EX_STREAM_ROWS / host_s:.1f} stream rows/s; stages (s) "
-          f"{out['host_only_stages_s']}; the hash in turns, native vs "
-          f"numpy: {out['hash_in_turns']}", flush=True)
+          f"{EX_STREAM_ROWS / host_s:.1f} stream rows/s; a second drain's "
+          f"stages (s) {out['host_only_stages_s']}; the hash in turns, "
+          f"native vs numpy: {out['hash_in_turns']}", flush=True)
     # the float32 card run: launch counts, times, the busy share
     for k in kernels:
         k.reset_launch_counts()
@@ -3787,13 +3794,17 @@ def bench_stream(kl, kf, table):
                                                    "is finite")
     out.update(stream_rows_per_s=ST_ROWS / out["stream_s"],
                stream_launches=counts)
+    t0 = time.perf_counter()
+    require(drain_host_only() == ST_ROWS, "host-only drain's rows")
+    out["host_only_s"] = time.perf_counter() - t0
+    out["host_only_rows_per_s"] = ST_ROWS / out["host_only_s"]
+    # the stage split from a second drain: the timer and the kept tokens
+    # stay out of host_only_s
     with HashStages() as stages:
         t0 = time.perf_counter()
         require(drain_host_only() == ST_ROWS, "host-only drain's rows")
-        out["host_only_s"] = time.perf_counter() - t0
-    out["host_only_rows_per_s"] = ST_ROWS / out["host_only_s"]
-    out.update(host=host_cpu(),
-               host_only_stages_s=stages.split(out["host_only_s"]),
+        staged_s = time.perf_counter() - t0
+    out.update(host=host_cpu(), host_only_stages_s=stages.split(staged_s),
                hash_in_turns=stages.hash_in_turns())
     drain_full_dag()                                  # warm
     t0 = time.perf_counter()
@@ -4095,67 +4106,6 @@ def write_fieldblock_libsvm(path, fb, y):
     os.replace(tmp, path)
 
 
-def disk_load(path, workers, dev):
-    """bench_logreg_from_disk's loader on the port: 64 byte-range shards
-    through ``prefetch_map`` (read by ``_load_line_bytes``, parsed by
-    ``parse_libsvm_fb16`` into int16 field-local ids and float32 labels),
-    every 4 shards joined into a pinned host buffer and copied to the
-    card with ``non_blocking=True`` while later shards parse, then one
-    ``torch.cat`` and the int16 -> int32 widening on the card. Returns
-    (fb, labels, stage seconds): read and parse summed over the shards,
-    encode (the groups' joins and copy issue), rp_wall (the loader's wall
-    clock, copies done)."""
-    import torch
-    from alink_tpu_torch.io.csv import _load_line_bytes
-    from alink_tpu_torch.native import parse_libsvm_fb16
-    from alink_tpu_torch.operator.stream.prefetch import prefetch_map
-    pin = dev.type == "cuda"
-
-    def load_shard(i):
-        t0 = time.perf_counter()
-        b = _load_line_bytes(path, False, (i, DISK_SHARDS))
-        t1 = time.perf_counter()
-        got = parse_libsvm_fb16(b, LR_FIELDS, LR_FIELD_SIZE, 1)
-        require(got is not None, f"shard {i} parses field-blocked")
-        return got, t1 - t0, time.perf_counter() - t1
-
-    per_group = -(-DISK_SHARDS // DISK_GROUPS)
-    st = {"read_s": 0.0, "parse_s": 0.0, "encode_s": 0.0}
-    hosts, fb_parts, lab_parts, pend = [], [], [], []
-
-    def flush():
-        t0 = time.perf_counter()
-        rows = sum(len(lab) for lab, _ in pend)
-        fb_h = torch.empty((rows, LR_FIELDS), dtype=torch.int16,
-                           pin_memory=pin)
-        lab_h = torch.empty(rows, dtype=torch.float32, pin_memory=pin)
-        np.concatenate([fb for _, fb in pend], out=fb_h.numpy())
-        np.concatenate([lab for lab, _ in pend], out=lab_h.numpy())
-        hosts.append((fb_h, lab_h))      # each outlives its copy
-        fb_parts.append(fb_h.to(dev, non_blocking=True))
-        lab_parts.append(lab_h.to(dev, non_blocking=True))
-        pend.clear()
-        st["encode_s"] += time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    for part, r_s, p_s in prefetch_map(iter(range(DISK_SHARDS)), load_shard,
-                                       workers=workers):
-        st["read_s"] += r_s
-        st["parse_s"] += p_s
-        pend.append(part)
-        if len(pend) >= per_group:
-            flush()
-    if pend:
-        flush()
-    fb = torch.cat(fb_parts).to(torch.int32)
-    labels = torch.cat(lab_parts)
-    if pin:
-        torch.cuda.synchronize()
-    st["rp_wall_s"] = time.perf_counter() - t0
-    st["groups"] = len(hosts)
-    return fb, labels, st
-
-
 def disk_train(fb, y, dev):
     """bench_logreg_from_disk's train leg: three field-blocked L-BFGS
     supersteps (l2 1e-4, epsilon 0, no warm start) through the port's
@@ -4179,25 +4129,35 @@ def disk_train(fb, y, dev):
     return np.asarray(coef)
 
 
-def disk_pipeline(ks, kl, dev, workers):
-    """15(a): the LibSVM fixture through the loader and the train leg, in
-    bench.py's paired reps, against the same training from the generated
-    arrays in memory."""
+def disk_pipeline(ks, kl, dev):
+    """15(a): the LibSVM fixture through the port's loader
+    (``io/fieldblock.py::load_fieldblock_libsvm``: 64 byte-range shards
+    on ``prefetch_map``'s pool, parsed by ``parse_libsvm_fb16`` into
+    int16 field-local ids and float32 labels, 16 pinned groups copied
+    with ``non_blocking=True``, one ``torch.cat`` and the int16 -> int32
+    widening on the card) and the train leg, in bench.py's paired reps,
+    against the same training from the generated arrays in memory."""
     import os
     import tempfile
     import torch
-    from alink_tpu_torch.io.csv import _load_line_bytes
-    from alink_tpu_torch.io.sharding import parallel_shard_map
+    from alink_tpu_torch.io.fieldblock import load_fieldblock_libsvm
+    from alink_tpu_torch.io.sharding import read_file_shard
+    from alink_tpu_torch.operator.stream.prefetch import prefetch_map
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    def disk_load():
+        return load_fieldblock_libsvm(path, LR_FIELDS, LR_FIELD_SIZE,
+                                      shards=DISK_SHARDS,
+                                      groups=DISK_GROUPS, device=dev)
+
     fb_true, y_true = ctr_fieldblock(DISK_ROWS, DISK_SEED)
     path = os.path.join(tempfile.gettempdir(),
-                        f"alink_torch_diskbench_{DISK_ROWS}_{LR_FIELDS}"
-                        f".libsvm")
-    out = {"rows": DISK_ROWS, "shards": DISK_SHARDS, "workers": workers}
+                        f"alink_torch_diskbench_{DISK_ROWS}_{LR_FIELDS}_"
+                        f"{os.getpid()}.libsvm")
+    out = {"rows": DISK_ROWS, "shards": DISK_SHARDS}
     try:
         t0 = time.perf_counter()
         write_fieldblock_libsvm(path, fb_true, y_true)
@@ -4206,7 +4166,8 @@ def disk_pipeline(ks, kl, dev, workers):
         # the main path, counted: load and train once
         ks.reset_launch_counts()
         kl.reset_launch_counts()
-        fb, labels, _ = disk_load(path, workers, dev)
+        fb, labels, st = disk_load()
+        out["workers"] = workers = st["workers"]
         coef_disk = disk_train(fb, labels, dev)
         sync()
         out["launches"] = {**ks.launch_counts(), **kl.launch_counts()}
@@ -4228,7 +4189,7 @@ def disk_pipeline(ks, kl, dev, workers):
         for _ in range(DISK_REPS):
             sync()
             t0 = time.perf_counter()
-            fb, labels, split = disk_load(path, workers, dev)
+            fb, labels, split = disk_load()
             disk_train(fb, labels, dev)
             sync()
             t_pipe = time.perf_counter() - t0
@@ -4252,11 +4213,13 @@ def disk_pipeline(ks, kl, dev, workers):
                    pipeline_vs_memory=float(np.median(ratio)),
                    reps={"pipeline_s": pipe, "memory_s": mem,
                          "ratio": ratio})
-        # the rig's raw read rate: the same sharded reads, no parse
+        # the rig's raw read rate: the loader's sharded reads on its pool
+        # at its width, no parse
         t0 = time.perf_counter()
-        sizes = parallel_shard_map(
-            lambda i: len(_load_line_bytes(path, False, (i, DISK_SHARDS))),
-            DISK_SHARDS)
+        sizes = list(prefetch_map(
+            iter(range(DISK_SHARDS)),
+            lambda i: len(read_file_shard(path, i, DISK_SHARDS)),
+            workers=workers))
         read_s = time.perf_counter() - t0
         require(sum(sizes) == os.path.getsize(path),
                 "the shards read the whole fixture")
@@ -4429,19 +4392,17 @@ def phase_ingest(kernels, card, dev=None):
     """15: the ingest path: (a) bench_logreg_from_disk on the port, (b) a
     LibSVM file through the batch source, L-BFGS and serving. ``kernels``
     are the ``serve`` and ``linear`` kernel modules."""
-    import os
     import torch
     ks, kl = kernels
     dev = torch.device("cuda") if dev is None else torch.device(dev)
-    workers = min(8, os.cpu_count() or 1)
     host = host_cpu()
     tag = f"[{card}] [{host}]"
     out = {"card": card, "host": host,
-           "disk": disk_pipeline(ks, kl, dev, workers)}
+           "disk": disk_pipeline(ks, kl, dev)}
     d = out["disk"]
     print(f"ingest (a) {tag}: {DISK_ROWS} rows, {d['fixture_mb']:.1f} MB "
-          f"in {DISK_SHARDS} shards on {workers} workers: read_s "
-          f"{d['read_s']} parse_s {d['parse_s']} encode_s {d['encode_s']} "
+          f"in {DISK_SHARDS} shards on {d['workers']} workers: read_s "
+          f"{d['read_s']} parse_s {d['parse_s']} copy_s {d['copy_s']} "
           f"rp_wall_s {d['rp_wall_s']} train_s {d['train_s']}; pipeline "
           f"{d['pipeline_samples_per_s']} samples/s, in memory "
           f"{d['memory_samples_per_s']} samples/s, pipeline_vs_memory "

@@ -14,6 +14,9 @@ file trained by L-BFGS.
 * The operators give the JAX package's tables, files and micro-batches.
 * ``prefetch_map`` keeps its input's order at any width, and an error of
   item k arrives after items 0..k-1.
+* ``io/fieldblock.py``'s loader reads a field-blocked LibSVM file in
+  shards to the JAX package's ``parse_libsvm_fb16`` of the whole file,
+  and refuses rows that are not field-blocked.
 * ``extract_design`` on a column of sparse-vector literals equals the
   JAX package's native fast path bitwise, and the per-row parse on
   literals written in index order.
@@ -464,21 +467,10 @@ def _pool_threads():
 
 @pytest.mark.parametrize("workers", [None, 1, 2, 4, 16])
 def test_prefetch_map_keeps_the_order(workers):
-    got = list(prefetch_map(iter(range(60)), _slow_square, workers=workers))
+    kw = {} if workers is None else {"workers": workers}
+    got = list(prefetch_map(iter(range(60)), _slow_square, **kw))
     assert got == [i * i for i in range(60)]
     assert not _pool_threads()
-
-
-@pytest.mark.parametrize("raw,want", [(None, 1), ("", 1), ("3", 3),
-                                      ("0", 1), ("-2", 1)])
-def test_stream_workers_reads_its_flag(raw, want, monkeypatch):
-    from alink_tpu.operator.stream.prefetch import stream_workers as jsw
-    from alink_tpu_torch.operator.stream.prefetch import stream_workers
-    if raw is None:
-        monkeypatch.delenv("ALINK_TPU_STREAM_WORKERS", raising=False)
-    else:
-        monkeypatch.setenv("ALINK_TPU_STREAM_WORKERS", raw)
-    assert stream_workers() == jsw() == want
 
 
 @pytest.mark.parametrize("where", ["fn", "upstream"])
@@ -532,6 +524,76 @@ def test_prefetch_map_order_under_contention():
         sys.setswitchinterval(old)
     assert got == [(i, i + 1) for i in range(3000)]
 
+
+
+# -- the field-blocked loader ------------------------------------------------
+
+FB_FIELDS, FB_SIZE = 4, 16
+
+
+def _fieldblock_file(path, rows, seed, bad=None):
+    """One-hot field-major LibSVM rows (1-based global ids) as
+    ``bench.py::bench_logreg_from_disk`` writes them; ``bad`` breaks one
+    row: a value other than 1, or a missing field."""
+    rng = np.random.RandomState(seed)
+    fb = rng.randint(0, FB_SIZE, size=(rows, FB_FIELDS)).astype(np.int32)
+    y = np.where(rng.rand(rows) < 0.5, 1.0, -1.0).astype(np.float32)
+    lines = []
+    for r in range(rows):
+        ids = fb[r] + np.arange(FB_FIELDS) * FB_SIZE + 1
+        toks = [f"{j}:1" for j in ids]
+        if r == rows // 2 and bad == "value":
+            toks[1] = f"{ids[1]}:2"
+        if r == rows // 2 and bad == "field":
+            del toks[2]
+        lines.append(" ".join(["1" if y[r] > 0 else "-1"] + toks))
+    _write(path, "\n".join(lines) + "\n")
+    return fb, y
+
+
+@pytest.mark.parametrize("shards,groups,workers",
+                         [(1, 1, 1), (4, 2, 2), (7, 3, 3), (16, 4, 8)])
+def test_fieldblock_loader_reads_the_rows_in_order(shards, groups, workers,
+                                                   tmp_path):
+    from alink_tpu.native import parse_libsvm_fb16 as jfb16
+    from alink_tpu_torch.io.fieldblock import load_fieldblock_libsvm
+    path = str(tmp_path / "fb.svm")
+    fb_true, y_true = _fieldblock_file(path, 500, shards)
+    fb, labels, st = load_fieldblock_libsvm(
+        path, FB_FIELDS, FB_SIZE, shards=shards, groups=groups,
+        workers=workers, device="cpu")
+    assert fb.dtype == torch.int32 and labels.dtype == torch.float32
+    assert np.array_equal(fb.numpy(), fb_true)
+    assert labels.numpy().tobytes() == y_true.tobytes()
+    with open(path, "rb") as f:
+        want = jfb16(f.read(), FB_FIELDS, FB_SIZE, 1)
+    assert want is not None
+    assert labels.numpy().tobytes() == want[0].tobytes()
+    assert np.array_equal(fb.numpy(), want[1].astype(np.int32))
+    assert (st["shards"], st["workers"]) == (shards, workers)
+    assert st["groups"] == -(-shards // -(-shards // groups))
+    assert all(st[k] >= 0.0 for k in ("read_s", "parse_s", "copy_s",
+                                      "rp_wall_s"))
+
+
+@pytest.mark.parametrize("bad", ["value", "field"])
+def test_fieldblock_loader_refuses_rows_that_are_not_field_blocked(
+        bad, tmp_path):
+    from alink_tpu_torch.io.fieldblock import load_fieldblock_libsvm
+    path = str(tmp_path / "fb.svm")
+    _fieldblock_file(path, 64, 0, bad=bad)
+    with pytest.raises(ValueError, match="not one-hot field-major"):
+        load_fieldblock_libsvm(path, FB_FIELDS, FB_SIZE, shards=4,
+                               groups=2, workers=2, device="cpu")
+
+
+def test_fieldblock_loader_defaults_to_the_card(tmp_path, monkeypatch):
+    from alink_tpu_torch.io.fieldblock import load_fieldblock_libsvm
+    path = str(tmp_path / "fb.svm")
+    _fieldblock_file(path, 16, 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_fieldblock_libsvm(path, FB_FIELDS, FB_SIZE)
 
 # -- extract_design's native fast path --------------------------------------
 

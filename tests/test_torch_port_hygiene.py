@@ -114,6 +114,7 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.native",
               "alink_tpu_torch.io.csv",
               "alink_tpu_torch.io.sharding",
+              "alink_tpu_torch.io.fieldblock",
               "alink_tpu_torch.operator.batch.sink.sinks",
               "alink_tpu_torch.operator.common.dataproc.feature_extract"):
         assert m in mods, m
