@@ -22,7 +22,11 @@ designs, with the ordered gradient kernel of ``kernels/linear.py``.
 Slice 9 is the FTRLExample loop: the ``pipeline`` API (feature scalers,
 ``FeatureHasher``, ``LogisticRegression``), the stream transform runtime
 (``operator/stream/core.py``, ``stream/utils``), ``SplitStreamOp``,
-``JsonValueStreamOp`` and the windowed binary evaluation.
+``JsonValueStreamOp`` and the windowed binary evaluation. Slice 13 is
+the rest of the linear family (linear SVM, perceptron, Softmax, linear,
+ridge, lasso and SVR regression, with SGD and Newton beside L-BFGS) and
+KMeans, in ``operator.batch.classification``, ``operator.batch.
+regression``, ``operator.batch.clustering`` and their pipeline twins.
 """
 
 __version__ = "0.1.0"

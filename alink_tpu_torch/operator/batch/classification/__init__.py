@@ -1,11 +1,15 @@
-"""Batch classification (and regression) operators of the port
+"""Batch classification (and tree regression) operators of the port
 (counterpart: ``alink_tpu/operator/batch/classification``). The tree
-family and logistic regression are ported; the other linear trainers,
-FM, MLPC and naive Bayes wait for later slices."""
+family and the linear classifiers (logistic regression, linear SVM,
+Softmax, the perceptron) are ported; FM, MLPC and naive Bayes wait for
+later slices."""
 
 from .linear import (BaseLinearTrainBatchOp, LinearModelPredictBatchOp,
+                     LinearSvmPredictBatchOp, LinearSvmTrainBatchOp,
                      LogisticRegressionPredictBatchOp,
-                     LogisticRegressionTrainBatchOp)
+                     LogisticRegressionTrainBatchOp,
+                     PerceptronPredictBatchOp, PerceptronTrainBatchOp,
+                     SoftmaxPredictBatchOp, SoftmaxTrainBatchOp)
 
 from .tree_ops import (DecisionTreePredictBatchOp, DecisionTreeRegPredictBatchOp,
                        DecisionTreeRegTrainBatchOp, DecisionTreeTrainBatchOp,
@@ -24,4 +28,7 @@ __all__ = ["GbdtTrainBatchOp", "GbdtRegTrainBatchOp",
            "DecisionTreePredictBatchOp", "DecisionTreeRegPredictBatchOp",
            "TreeModelData", "TreeModelDataConverter", "TreeModelMapper",
            "BaseLinearTrainBatchOp", "LogisticRegressionTrainBatchOp",
-           "LinearModelPredictBatchOp", "LogisticRegressionPredictBatchOp"]
+           "LinearModelPredictBatchOp", "LogisticRegressionPredictBatchOp",
+           "LinearSvmTrainBatchOp", "LinearSvmPredictBatchOp",
+           "SoftmaxTrainBatchOp", "SoftmaxPredictBatchOp",
+           "PerceptronTrainBatchOp", "PerceptronPredictBatchOp"]

@@ -1,12 +1,12 @@
 """Linear classifier batch operators.
 
 Counterpart: ``alink_tpu/operator/batch/classification/linear.py``
-(the reference's LogisticRegressionTrainBatchOp and its predict op),
-thin shells over the linear training core (``common/linear/base.py``).
-A train op takes ``device=`` (``cuda`` unless the caller asks for the
-CPU; raises without it) and ``dtype=`` (``torch.float32`` by default;
-``torch.float64`` for parity with the JAX package under x64). SVM,
-Softmax and Perceptron are not ported yet (ROADMAP Queue A item 5).
+(the reference's LogisticRegressionTrainBatchOp, LinearSvmTrainBatchOp,
+SoftmaxTrainBatchOp, the perceptron and their predict ops), thin shells
+over the linear training core (``common/linear/base.py``). A train op
+takes ``device=`` (``cuda`` unless the caller asks for the CPU; raises
+without it) and ``dtype=`` (``torch.float32`` by default;
+``torch.float64`` for parity with the JAX package under x64).
 """
 
 from __future__ import annotations
@@ -72,4 +72,31 @@ class LogisticRegressionTrainBatchOp(BaseLinearTrainBatchOp, HasPositiveLabelVal
 
 
 class LogisticRegressionPredictBatchOp(LinearModelPredictBatchOp):
+    pass
+
+
+class LinearSvmTrainBatchOp(BaseLinearTrainBatchOp, HasPositiveLabelValueString):
+    """reference: batch/classification/LinearSvmTrainBatchOp.java (hinge loss)"""
+    MODEL_TYPE = LinearModelType.SVM
+
+
+class LinearSvmPredictBatchOp(LinearModelPredictBatchOp):
+    pass
+
+
+class SoftmaxTrainBatchOp(BaseLinearTrainBatchOp):
+    """reference: batch/classification/SoftmaxTrainBatchOp.java (multinomial LR)"""
+    MODEL_TYPE = LinearModelType.Softmax
+
+
+class SoftmaxPredictBatchOp(LinearModelPredictBatchOp):
+    pass
+
+
+class PerceptronTrainBatchOp(BaseLinearTrainBatchOp):
+    """perceptron loss on the same optimizer stack (reference unarylossfunc/PerceptronLossFunc)"""
+    MODEL_TYPE = LinearModelType.Perceptron
+
+
+class PerceptronPredictBatchOp(LinearModelPredictBatchOp):
     pass

@@ -15,9 +15,10 @@ caller asks for the CPU). Field-aware-hashed input is detected and
 trains field-blocked, with the intercept as a prepended constant field,
 as in the JAX package.
 
-Only the LR loss is ported (``LinearModelType.LOSSES``); the other
-types, Softmax among them, raise ``NotImplementedError`` (ROADMAP Queue
-A item 5).
+Every model type of ``LinearModelType`` but AFT trains: the binary and
+regression types through ``UnaryLossObjFunc`` with their losses
+(``LinearModelType.LOSSES``), Softmax through ``SoftmaxObjFunc`` on
+integer class ids, with no field-blocked layout.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ from ....model.converters import (LabeledModelDataConverter, decode_array,
                                   encode_array)
 from ..dataproc.feature_extract import (add_intercept, extract_design,
                                         resolve_feature_cols)
-from ..optim.objfunc import LogLossFunc, UnaryLossObjFunc
+from ..optim.objfunc import (HingeLossFunc, LogLossFunc, PerceptronLossFunc,
+                             SoftmaxObjFunc, SquareLossFunc, SvrLossFunc,
+                             UnaryLossObjFunc)
 from ..optim.optimizers import OptimParams, optimize
 
 
@@ -49,7 +52,10 @@ class LinearModelType:
     Softmax = "Softmax"
     AFT = "AFT"
 
-    LOSSES = {"LR": LogLossFunc}
+    LOSSES = {
+        "LR": LogLossFunc, "SVM": HingeLossFunc, "LinearReg": SquareLossFunc,
+        "SVR": SvrLossFunc, "Perceptron": PerceptronLossFunc,
+    }
     IS_REGRESSION = {"LinearReg", "SVR"}
 
 
@@ -175,11 +181,10 @@ class LinearTrainPrep:
 
     def objective(self, l1: float, l2: float):
         """The training objective at (l1, l2)."""
-        loss_cls = LinearModelType.LOSSES.get(self.model_type)
-        if loss_cls is None:
-            raise NotImplementedError(
-                f"linear model type {self.model_type} is not ported yet "
-                f"(ROADMAP Queue A item 5); LR is")
+        if self.softmax:
+            return SoftmaxObjFunc(len(self.labels), self.dim, l1=l1, l2=l2,
+                                  reg_free_cols=self.reg_free)
+        loss_cls = LinearModelType.LOSSES[self.model_type]
         return UnaryLossObjFunc(loss_cls(**self.loss_kwargs), self.dim,
                                 l1=l1, l2=l2, reg_free_head=self.reg_free,
                                 fb_meta=self.fb_meta)
@@ -216,10 +221,6 @@ def prepare_linear_train(data: MTable, op, model_type: str
                          ) -> LinearTrainPrep:
     """The front half of :func:`train_linear_model`. ``op`` supplies the
     params and its ``device`` and ``dtype`` (a torch float dtype)."""
-    if model_type not in LinearModelType.LOSSES:
-        raise NotImplementedError(
-            f"linear model type {model_type} is not ported yet (ROADMAP "
-            f"Queue A item 5); LR is")
     env = MLEnvironment(device=op.device)
     feature_cols = op.params._m.get("feature_cols")
     vector_col = op.params._m.get("vector_col")
@@ -290,6 +291,8 @@ def prepare_linear_train(data: MTable, op, model_type: str
     reg_free = 0 if not with_intercept else \
         (meta.field_size if fb is not None else 1)
     loss_kwargs: Dict[str, Any] = {}
+    if model_type == LinearModelType.SVR:
+        loss_kwargs["epsilon"] = float(op.params._m.get("tau", 0.1))
 
     if fb is not None:
         train = {"fb_idx": fb_idx}

@@ -2,11 +2,14 @@
 
 Counterpart: ``alink_tpu/operator/common/linear/mapper.py``. The host
 path (``map_table``, ``_finish``) is the JAX package's numpy code;
-:meth:`LinearModelMapper.serving_kernel` builds the device path for the
-binary and regression family (LR, SVM, Perceptron, LinearReg, SVR),
-scored by the CUDA kernels of ``kernels/serve.py``. A Softmax model has
-no serving kernel yet: ``serving_kernel`` raises ``NotImplementedError``
-and ``map_table`` serves it on the host.
+:meth:`LinearModelMapper.serving_kernel` builds the device path, scored
+by the CUDA kernels of ``kernels/serve.py``: for the binary and
+regression family (LR, SVM, Perceptron, LinearReg, SVR) one launch a
+request block, for Softmax one launch for each of its ``k - 1``
+non-pivot class columns (``f32`` mode whatever ``ALINK_TPU_SERVE_DTYPE``
+says, as the JAX package serves Softmax). Each column sums a row left
+to right in the order of the JAX package's Softmax serving program
+(``seq_chunk_sum``), so its scores keep their bits in every bucket.
 """
 
 from __future__ import annotations
@@ -78,10 +81,6 @@ class LinearModelMapper(ModelMapper):
         if m is None:
             raise RuntimeError(
                 "load_model must be called before serving_kernel")
-        if m.linear_model_type == LinearModelType.Softmax:
-            raise NotImplementedError(
-                "the Softmax serving kernel is not ported yet; map_table "
-                "serves Softmax models on the host")
         if ship_dtype not in _SHIP_DTYPES:
             raise ValueError(f"ship dtype {ship_dtype}: want float32 or "
                              f"float64")
@@ -90,16 +89,23 @@ class LinearModelMapper(ModelMapper):
         from ....serving.predictor import ServingKernel
         from ....serving.sharded import LANE_PAD, SERVE_CHUNK
         ship_dt = _SHIP_DTYPES[ship_dtype]
+        softmax = m.linear_model_type == LinearModelType.Softmax
         coef = np.asarray(m.coef, ship_dt)
-        if m.has_intercept:
+        if softmax:
+            W = coef.reshape(len(m.label_values) - 1, -1)
+            if m.has_intercept:
+                b, wf = W[:, 0], W[:, 1:]
+            else:
+                b, wf = np.zeros(W.shape[0], ship_dt), W
+        elif m.has_intercept:
             b, wf = coef[0], coef[1:]
         else:
             b, wf = ship_dt(0.0), coef
-        dim = wf.shape[0]
+        dim = wf.shape[-1]
         dim8 = -(-dim // LANE_PAD) * LANE_PAD
-        sdtype = serve_dtype()
+        sdtype = "f32" if softmax else serve_dtype()
         signature = ("linear", str(m.linear_model_type), int(dim),
-                     bool(m.has_intercept), False,
+                     bool(m.has_intercept), softmax,
                      len(m.label_values or ()), ship_dt.__name__, sdtype)
 
         def encode(data: MTable, bucket: int):
@@ -130,19 +136,30 @@ class LinearModelMapper(ModelMapper):
             val[:n, :val0.shape[1]] = val0
             return ("sparse", (torch.from_numpy(idx), torch.from_numpy(val)))
 
-        wf8 = np.zeros(dim8, ship_dt)
-        wf8[:dim] = wf
-        if sdtype == "f32":
+        wf8 = np.zeros(wf.shape[:-1] + (dim8,), ship_dt)
+        wf8[..., :dim] = wf
+        if softmax:
+            model_arrays = (torch.from_numpy(wf8),
+                            torch.from_numpy(np.ascontiguousarray(b)))
+            device_fns = _softmax_score_fns(make_score_fns("f32"))
+        elif sdtype == "f32":
             model_arrays = (torch.from_numpy(wf8),
                             torch.tensor(b, dtype=ship_dtype))
+            device_fns = make_score_fns(sdtype)
         else:
             model_arrays = lowp_model_arrays(wf8, b, sdtype)
+            device_fns = make_score_fns(sdtype)
 
         def decode(outputs, data: MTable) -> MTable:
-            return self._finish(np.asarray(outputs[0]), data)
+            scores = np.asarray(outputs[0])
+            if softmax:     # the pivot class's zero logit
+                scores = np.concatenate(
+                    [scores, np.zeros((scores.shape[0], 1), scores.dtype)],
+                    axis=1)
+            return self._finish(scores, data)
 
         return ServingKernel(signature=signature, model_arrays=model_arrays,
-                             encode=encode, device_fns=make_score_fns(sdtype),
+                             encode=encode, device_fns=device_fns,
                              decode=decode)
 
     def get_output_schema(self) -> TableSchema:
@@ -214,6 +231,19 @@ class LinearModelMapper(ModelMapper):
                           else np.asarray([None] * len(preds), object))
         helper = OutputColsHelper(data.schema, cols, out_types, reserved)
         return helper.build_output(data, values)
+
+
+def _softmax_score_fns(fns):
+    """Softmax's ``device_fns`` over the binary ones: each non-pivot class
+    column ``(W[c], b[c])`` scored by one launch, stacked to (rows,
+    k - 1)."""
+    def per_class(fn):
+        def score(mdl, *encoded):
+            W, b = mdl
+            return torch.stack([fn((W[c], b[c]), *encoded)
+                                for c in range(W.shape[0])], 1)
+        return score
+    return {kind: per_class(fn) for kind, fn in fns.items()}
 
 
 def _matmul(design, w, dim):

@@ -1,8 +1,9 @@
 """Optimizers on the one-worker BSP engine.
 
 Counterpart: ``alink_tpu/operator/common/optim/optimizers.py`` (the
-reference's Lbfgs.java, Owlqn.java, Gd.java). Each optimizer is an
-``IterativeComQueue`` program with the JAX package's stages:
+reference's Lbfgs.java, Owlqn.java, Gd.java, Sgd.java, Newton.java).
+Each optimizer is an ``IterativeComQueue`` program with the JAX
+package's stages; the quasi-Newton ones:
 
   CalcGradient      -> the shard's gradient, loss and weight sums
   AllReduce(glw)    -> the identity at one worker
@@ -27,9 +28,16 @@ ordered gradient's run plan) is built once, in the init superstep. The
 JAX package's one-hot precompute (``fb_onehot_parts``) is a TPU layout
 and is not ported.
 
-Ported: ``OptimParams``, :func:`optimize` with LBFGS, OWLQN and GD.
-SGD (its draws cannot match JAX's PRNG) and NEWTON (the Hessian path)
-raise ``NotImplementedError``, as do checkpoints and health monitors.
+SGD draws its mini-batch mask a superstep with ``torch.bernoulli`` from
+the superstep's generator (``ComContext.rng``), whose draws differ from
+JAX's PRNG by design: at ``mini_batch_fraction`` 1.0 the mask is all
+ones and the run is the JAX package's; below it, it agrees in its
+properties only. NEWTON forms the dense Hessian (``hessian_shard``) and
+solves with ``torch.linalg.solve``.
+
+Ported: ``OptimParams``, :func:`optimize` with LBFGS, OWLQN, GD, SGD
+and NEWTON. Checkpoints and health monitors raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch
 
 from ....common.mlenv import MLEnvironment
 from ....engine import AllReduce, IterativeComQueue
-from .objfunc import DESIGN, OptimObjFunc, design_plan
+from .objfunc import DESIGN, OptimObjFunc, check_full_float32, design_plan
 
 _TINY = 1e-12
 _NUM_SEARCH_STEP = 10  # line-search ladder size (reference numSearchStep=4, widened)
@@ -91,10 +99,10 @@ def optimize(obj: OptimObjFunc, data: Dict, params: OptimParams,
     if method == "GD":
         return _quasi_newton(obj, data, params, env, warm_start, owlqn=False,
                              history=0)
-    if method in ("SGD", "NEWTON"):
-        raise NotImplementedError(
-            f"optim method {method} is not ported yet (ROADMAP Queue A "
-            f"item 5)")
+    if method == "SGD":
+        return _sgd(obj, data, params, env, warm_start)
+    if method == "NEWTON":
+        return _newton(obj, data, params, env, warm_start)
     raise ValueError(f"unknown optim method {params.method}")
 
 
@@ -166,21 +174,18 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
     dim = obj.dim
     data_keys = tuple(data)
     dtype = _ship_dtype(data["y"])
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     m = history
     max_iter = params.max_iter
     eps = params.epsilon
-    w0 = np.zeros(dim, np_dtype) if warm_start is None \
-        else np.asarray(warm_start, np_dtype)
+    w0 = _start(dim, dtype, warm_start)
     ladder = params.learning_rate * np.power(
         2.0, 1 - np.arange(_NUM_SEARCH_STEP, dtype=np.float64))
-    ladder = np.concatenate([[0.0], ladder]).astype(np_dtype)
+    ladder = np.concatenate([[0.0], ladder]).astype(w0.dtype)
 
     def calc_grad(ctx):
         if ctx.is_init_step:
-            coef0 = ctx.get_obj("coef0")
+            coef0 = _init_state(ctx, obj, data_keys, dtype, max_iter)
             dev = coef0.device
-            ctx.put_obj("coef", coef0)
             ctx.put_obj("coef_prev", coef0)
             ctx.put_obj("grad_prev", torch.zeros(dim, dtype=dtype, device=dev))
             if m > 0:
@@ -190,13 +195,6 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
             ctx.put_obj("nvalid", 0)
             ctx.put_obj("step_scale", torch.ones((), dtype=dtype, device=dev))
             ctx.put_obj("ladder", torch.from_numpy(ladder).to(dev))
-            ctx.put_obj("loss_curve", torch.full((max_iter,), float("nan"),
-                                                 dtype=dtype, device=dev))
-            ctx.put_obj("conv", torch.zeros((), dtype=torch.bool, device=dev))
-            plan = design_plan(_shard_views(ctx, data_keys), dim,
-                               getattr(obj, "fb_meta", None))
-            if plan is not None:
-                ctx.put_obj(DESIGN, plan)
         shard = _shard_views(ctx, data_keys)
         g, loss, wsum, eta = obj.calc_grad_eta_shard(shard, ctx.get_obj("coef"))
         if eta is not None:
@@ -211,8 +209,6 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
         g_plain = glw[:dim] / W + obj.l2_grad(coef)
         loss_total = glw[dim] / W + obj.regular_loss(coef)
         step = ctx.step_no
-        ctx.get_obj("loss_curve")[step - 1] = loss_total
-
         if owlqn:
             g_dir = _pseudo_grad(g_plain, coef, obj.l1, obj._reg_mask(coef))
         else:
@@ -220,9 +216,7 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
         gnorm = torch.linalg.vector_norm(g_dir) / torch.clamp(
             torch.linalg.vector_norm(coef), min=1.0)
         ctx.put_obj("conv", gnorm < eps)
-        ctx.probe("loss", loss_total)
-        ctx.probe("grad_norm", gnorm)
-        ctx.probe_nonfinite("grad", g_plain)
+        _record_loss(ctx, loss_total, gnorm, g_plain)
 
         if m > 0:
             # push pair (coef - coef_prev, g - g_prev); none on step 1
@@ -267,8 +261,7 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
             new_coef = torch.where(new_coef * orthant < 0, 0.0, new_coef)
         ctx.put_obj("coef_prev", coef)
         ctx.put_obj("coef", new_coef)
-        ctx.probe("update_ratio", torch.linalg.vector_norm(new_coef - coef)
-                  / torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
+        _probe_update(ctx, new_coef - coef, coef)
         # adapt the ladder like the reference's step grow/shrink heuristic
         scale = ctx.get_obj("step_scale")
         scale = torch.where(best == 0, scale * 0.25,
@@ -285,6 +278,163 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
              .add(AllReduce("line_losses"))
              .add(update_model)
              .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
+    return _run(queue, data)
+
+
+# ---------------------------------------------------------------------------
+# mini-batch SGD (reference Sgd.java CalcSubGradient :101-140)
+# ---------------------------------------------------------------------------
+
+def _sgd(obj, data, params, env, warm_start):
+    dim = obj.dim
+    data_keys = tuple(data)
+    dtype = _ship_dtype(data["y"])
+    max_iter = params.max_iter
+    frac = params.mini_batch_fraction
+    w0 = _start(dim, dtype, warm_start)
+
+    def calc_grad(ctx):
+        if ctx.is_init_step:
+            _init_state(ctx, obj, data_keys, dtype, max_iter)
+        shard = _shard_views(ctx, data_keys)
+        # this superstep's random sub-sample, drawn on the device
+        w = shard["w"]
+        mask = torch.bernoulli(torch.full(shard["y"].shape, frac,
+                                          dtype=w.dtype, device=w.device),
+                               generator=ctx.rng())
+        sub = dict(shard)
+        sub["w"] = w * mask
+        g, loss, wsum = obj.calc_grad_shard(sub, ctx.get_obj("coef"))
+        ctx.put_obj("glw", torch.cat([g.to(dtype),
+                                      torch.stack([loss, wsum]).to(dtype)]))
+
+    def update(ctx):
+        glw = ctx.get_obj("glw")
+        coef = ctx.get_obj("coef")
+        wsum = glw[dim + 1]
+        nonempty = wsum > 0
+        W = torch.clamp(wsum, min=_TINY)
+        g = glw[:dim] / W + obj.l2_grad(coef)
+        step = ctx.step_no
+        lr = params.learning_rate / torch.sqrt(
+            torch.tensor(float(step), dtype=dtype, device=coef.device))
+        new_coef = coef - lr * g
+        if obj.l1 > 0:  # proximal soft-threshold for L1
+            thr = obj.l1 * lr * obj._reg_mask(coef)
+            new_coef = torch.sign(new_coef) * torch.clamp(
+                torch.abs(new_coef) - thr, min=0.0)
+        new_coef = torch.where(nonempty, new_coef, coef)  # skip empty batches
+        ctx.put_obj("coef", new_coef)
+        loss_total = glw[dim] / W + obj.regular_loss(coef)
+        ctx.put_obj("conv", nonempty & (
+            torch.linalg.vector_norm(lr * g) < params.epsilon * torch.clamp(
+                torch.linalg.vector_norm(coef), min=1.0)))
+        _record_loss(ctx, loss_total, torch.linalg.vector_norm(g), g)
+        _probe_update(ctx, new_coef - coef, coef)
+
+    queue = (IterativeComQueue(env=env, max_iter=max_iter, seed=params.seed)
+             .init_with_broadcast_data("coef0", w0)
+             .add(calc_grad)
+             .add(AllReduce("glw"))
+             .add(update)
+             .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
+    return _run(queue, data)
+
+
+# ---------------------------------------------------------------------------
+# Newton (reference Newton.java: dense Hessian + solve)
+# ---------------------------------------------------------------------------
+
+def _newton(obj, data, params, env, warm_start):
+    dim = obj.dim
+    data_keys = tuple(data)
+    dtype = _ship_dtype(data["y"])
+    max_iter = params.max_iter
+    w0 = _start(dim, dtype, warm_start)
+
+    def calc(ctx):
+        if ctx.is_init_step:
+            _init_state(ctx, obj, data_keys, dtype, max_iter, densified=True)
+        shard = _shard_views(ctx, data_keys)
+        H, g, loss, wsum = obj.hessian_shard(shard, ctx.get_obj("coef"))
+        ctx.put_obj("H", H)
+        ctx.put_obj("glw", torch.cat([g.to(dtype),
+                                      torch.stack([loss, wsum]).to(dtype)]))
+
+    def update(ctx):
+        glw = ctx.get_obj("glw")
+        coef = ctx.get_obj("coef")
+        W = torch.clamp(glw[dim + 1], min=_TINY)
+        g = glw[:dim] / W + obj.l2_grad(coef)
+        H = ctx.get_obj("H") / W
+        reg_diag = obj.l2 * obj._reg_mask(coef) + 1e-8
+        H = H + torch.diag(reg_diag.to(H.dtype))
+        d = torch.linalg.solve(H, g)
+        ctx.put_obj("coef", coef - d)
+        loss_total = glw[dim] / W + obj.regular_loss(coef)
+        ctx.put_obj("conv", torch.linalg.vector_norm(d) < params.epsilon
+                    * torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
+        _record_loss(ctx, loss_total, torch.linalg.vector_norm(g), g)
+        _probe_update(ctx, d, coef)
+
+    queue = (IterativeComQueue(env=env, max_iter=max_iter, seed=params.seed)
+             .init_with_broadcast_data("coef0", w0)
+             .add(calc)
+             .add(AllReduce("H"))
+             .add(AllReduce("glw"))
+             .add(update)
+             .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
+    return _run(queue, data)
+
+
+# ---------------------------------------------------------------------------
+
+def _start(dim: int, dtype: torch.dtype, warm_start) -> np.ndarray:
+    """The starting coefficients on the host: zeros, or the warm start."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return np.zeros(dim, np_dtype) if warm_start is None \
+        else np.asarray(warm_start, np_dtype)
+
+
+def _init_state(ctx, obj, keys, dtype, max_iter: int,
+                densified: bool = False):
+    """The init superstep's state that every optimizer keeps: ``coef``
+    from ``coef0``, the NaN loss curve and the convergence bit; then the
+    TF32 check of the training's dense products (``densified``: Newton's
+    Hessian reads the densified design) and the design's plan, built once
+    (a sparse shard only). Returns ``coef0``."""
+    coef0 = ctx.get_obj("coef0")
+    ctx.put_obj("coef", coef0)
+    ctx.put_obj("loss_curve", torch.full((max_iter,), float("nan"),
+                                         dtype=dtype, device=coef0.device))
+    ctx.put_obj("conv", torch.zeros((), dtype=torch.bool,
+                                    device=coef0.device))
+    shard = _shard_views(ctx, keys)
+    check_full_float32(shard, densified)
+    plan = design_plan(shard, obj.design_dim, getattr(obj, "fb_meta", None))
+    if plan is not None:
+        ctx.put_obj(DESIGN, plan)
+    return coef0
+
+
+def _record_loss(ctx, loss, grad_norm, grad) -> None:
+    """This superstep's loss into the curve, and the loss, grad_norm and
+    nonfinite.grad probes."""
+    ctx.get_obj("loss_curve")[ctx.step_no - 1] = loss
+    ctx.probe("loss", loss)
+    ctx.probe("grad_norm", grad_norm)
+    ctx.probe_nonfinite("grad", grad)
+
+
+def _probe_update(ctx, step, coef) -> None:
+    """The update_ratio probe: |step| over max(|coef|, 1)."""
+    ctx.probe("update_ratio", torch.linalg.vector_norm(step)
+              / torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
+
+
+def _run(queue, data):
+    """Partition the training arrays into the queue, run it; (coef, loss
+    curve, supersteps)."""
     for k, v in data.items():
         queue.init_with_partitioned_data(k, v)
     res = queue.exec()

@@ -12,9 +12,10 @@ Ported: ``PipelineStage``, ``Transformer``, ``Estimator``, ``Model``,
 
 The port's difference: a stage takes ``device=`` (not a param, not
 saved; ``clone()`` keeps it). ``Trainer.fit`` hands it to a train op
-that takes one (the linear and tree train ops), so such an estimator
-runs on ``cuda`` unless the caller asks for the CPU, and raises without
-CUDA. A ``Pipeline``'s ``device`` is the device of every estimator stage
+that takes one (the linear, tree and KMeans train ops), so such an
+estimator runs on ``cuda`` unless the caller asks for the CPU, and
+raises without CUDA, and to the fitted model (a KMeans model assigns
+there). A ``Pipeline``'s ``device`` is the device of every estimator stage
 that was given none. Not ported: the lazy train-info and model-info
 printing hooks of ``Trainer`` (``enable_lazy_print_*``), which wait for
 the lazy-callback machinery of ``operator/base.py``.
@@ -117,7 +118,7 @@ class Trainer(Estimator):
             **({"device": self.device} if takes_device else {}))
         train_op.link_from(in_op)
         self._last_train_op = train_op
-        model = self.MODEL_CLS(self.params.clone())
+        model = self.MODEL_CLS(self.params.clone(), device=self.device)
         model.set_model_data(train_op.get_output_table())
         return model
 

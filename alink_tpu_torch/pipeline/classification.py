@@ -2,16 +2,16 @@
 
 Counterpart: ``alink_tpu/pipeline/classification.py`` (the reference's
 pipeline/classification/ shells over the batch ops, Trainer.java's
-reflection pattern). Ported: ``LogisticRegression`` and
-``LogisticRegressionModel``; each estimator carries both train and
-predict params so the fitted model transforms directly. The estimator
-trains on ``cuda`` unless given ``device=`` (``Trainer.fit``). The SVM,
-Softmax and Perceptron shells wait for their train ops (ROADMAP Queue
-A).
+reflection pattern): ``LogisticRegression``, ``LinearSvm``, ``Softmax``
+and ``Perceptron``, each with its Model. Each estimator carries both
+train and predict params so the fitted model transforms directly. The
+estimator trains on ``cuda`` unless given ``device=`` (``Trainer.fit``).
 """
 
 from ..operator.batch.classification.linear import (
-    LogisticRegressionTrainBatchOp, _LinearPredictParams, _LinearTrainParams)
+    LinearSvmTrainBatchOp, LogisticRegressionTrainBatchOp,
+    PerceptronTrainBatchOp, SoftmaxTrainBatchOp, _LinearPredictParams,
+    _LinearTrainParams)
 from ..operator.common.linear.mapper import LinearModelMapper
 from ..params.shared import HasPositiveLabelValueString
 from .base import MapModel, Trainer
@@ -28,3 +28,30 @@ class LogisticRegressionModel(MapModel, _LinearPredictParams):
 class LogisticRegression(Trainer, _LinearParams, HasPositiveLabelValueString):
     TRAIN_OP_CLS = LogisticRegressionTrainBatchOp
     MODEL_CLS = LogisticRegressionModel
+
+
+class LinearSvmModel(MapModel, _LinearPredictParams):
+    MAPPER_CLS = LinearModelMapper
+
+
+class LinearSvm(Trainer, _LinearParams, HasPositiveLabelValueString):
+    TRAIN_OP_CLS = LinearSvmTrainBatchOp
+    MODEL_CLS = LinearSvmModel
+
+
+class SoftmaxModel(MapModel, _LinearPredictParams):
+    MAPPER_CLS = LinearModelMapper
+
+
+class Softmax(Trainer, _LinearParams):
+    TRAIN_OP_CLS = SoftmaxTrainBatchOp
+    MODEL_CLS = SoftmaxModel
+
+
+class PerceptronModel(MapModel, _LinearPredictParams):
+    MAPPER_CLS = LinearModelMapper
+
+
+class Perceptron(Trainer, _LinearParams):
+    TRAIN_OP_CLS = PerceptronTrainBatchOp
+    MODEL_CLS = PerceptronModel

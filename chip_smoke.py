@@ -244,6 +244,43 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    outside the rounding band, P1 and B5 launched. Every number beside
    the card's name and power limit and the host's CPU and core count.
 
+16. the rest of the linear family and KMeans (after 15; TF32 off for
+   every dense product): (a) ``bench.py::bench_softmax`` at its shape
+   (60,000 x 784 seeded blobs plus the intercept, k = 10, l2 1e-4, warm
+   start ``randn * 1e-6``) on the card once through ``optimize`` with
+   ``SoftmaxObjFunc``: ms a superstep (median of the untraced
+   supersteps of 30 at epsilon 0), samples/s, the superstep's stages
+   (logits, gradient, direction, line search, update), its device ops
+   and busy share under the profiler, supersteps to converge (epsilon
+   1e-6, at most 60) and the training accuracy; two float32 runs
+   bitwise; float64 on the card within rtol 1e-10 of the CPU on the loss
+   curve over 10 supersteps on the first 6,000 rows; the converged model
+   served by ``CompiledPredictor`` on 4,096 dense rows (B4 once a class
+   column a chunk), labels equal to ``map_table``'s outside the rounding
+   band; (b) ``SoftmaxTrainBatchOp`` on 100,000 Criteo-shape rows (39
+   one-hot slots over 65,536, k = 4 labels from seeded sparse linear
+   models and Gumbel noise): 2(k-1) B5 and (k-1) P1 launches a superstep
+   and one plan, then 8,192 held-out rows served (k - 1 B5 launches a
+   chunk), labels equal to ``map_table``'s outside the band; (c) on the
+   same rows the linear SVM, perceptron, linear, ridge, lasso (OWLQN)
+   and SVR regression train ops (20 supersteps each, B5 and P1
+   launched), each served by ``CompiledPredictor`` against
+   ``map_table`` (labels outside the band, or scores within it); Newton
+   on bench_softmax's first 6,000 rows (class 0 against the rest, 785
+   columns): float64 card within rtol 1e-10 of the CPU; SGD at
+   ``mini_batch_fraction`` 0.1: two card runs bitwise; (d)
+   ``bench.py::bench_kmeans`` at its shape without scikit-learn (150
+   iris-shaped seeded rows tiled 10,000 times plus 0.05 noise: 1,500,000
+   x 4 float32, k = 3, RANDOM init): ms a superstep of 200 at tol 0,
+   samples/s and busy share, iterations to converge (tol 1e-4, at most
+   500, RANDOM and K_MEANS_PARALLEL), two runs bitwise, float64 card
+   centroids within rtol 1e-10 of the CPU's over 20 iterations with
+   equal assignments, ``KMeansPredictBatchOp`` on the card equal to the
+   CPU's (ids; squared distances within 8 eps (|x| + |c|)^2, the
+   rounding of the one-product distance), and
+   ``dryrun_multichip``'s KMeans leg (``KMeansTrainBatchOp(feature_cols=
+   ["x0", "x1"], k=2, max_iter=3)``).
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -2458,17 +2495,21 @@ class SuperstepClock:
     def superstep_ms(self):
         return np.diff(self.stamps) * 1e3
 
-    def profiled(self):
+    def profiled(self, by_name=False):
         """(device events by name, their count, device busy ms) of the
-        profiled supersteps, summed."""
-        counts, busy = {}, 0.0
+        profiled supersteps, summed; with ``by_name`` also the device ms
+        of each name."""
+        counts, busy, ms = {}, 0.0, {}
         for e in self.prof.key_averages():
             if getattr(e, "device_type", None) is not None \
                     and str(e.device_type).endswith("CUDA"):
                 us = float(getattr(e, "self_device_time_total",
                                    getattr(e, "self_cuda_time_total", 0)))
                 counts[e.key] = counts.get(e.key, 0) + int(e.count)
+                ms[e.key] = ms.get(e.key, 0.0) + us / 1e3
                 busy += us / 1e3
+        if by_name:
+            return counts, sum(counts.values()), busy, ms
         return counts, sum(counts.values()), busy
 
 
@@ -2477,11 +2518,13 @@ class StageSplit:
     stage and piece ending in a synchronize: the queue's stages
     (``calc_grad``, ``direction_and_losses``, ``update_model``; the
     identity ``AllReduce`` stages are not timed) and, inside them, the
-    objective's ``calc_grad_eta_shard`` (margins, loss, gradient) and
-    ``line_losses_shard`` (the direction's margins, the 11 losses)."""
+    objective's ``pieces`` (by default ``UnaryLossObjFunc``'s
+    ``calc_grad_eta_shard``: margins, loss, gradient; and
+    ``line_losses_shard``: the direction's margins, the 11 losses)."""
 
-    def __init__(self):
+    def __init__(self, pieces=None):
         self.times = {}
+        self.pieces = pieces
 
     def _timed(self, name, fn):
         import torch
@@ -2499,10 +2542,12 @@ class StageSplit:
     def __enter__(self):
         from alink_tpu_torch.engine import comqueue
         from alink_tpu_torch.operator.common.optim import objfunc as ob
+        pieces = self.pieces or [
+            (ob.UnaryLossObjFunc, k)
+            for k in ("calc_grad_eta_shard", "line_losses_shard")]
         self._saved = [(comqueue._FnStage, "calc",
                         comqueue._FnStage.calc)] + [
-            (ob.UnaryLossObjFunc, k, getattr(ob.UnaryLossObjFunc, k))
-            for k in ("calc_grad_eta_shard", "line_losses_shard")]
+            (cls, k, getattr(cls, k)) for cls, k in pieces]
         split = self
         calc = comqueue._FnStage.calc
 
@@ -2517,12 +2562,16 @@ class StageSplit:
         for cls, k, fn in self._saved:
             setattr(cls, k, fn)
 
+    def raw_medians(self):
+        """Median ms of each timed stage and piece, supersteps 2..N."""
+        return {k: float(np.median(v[1:])) for k, v in self.times.items()}
+
     def medians(self):
         """Median ms per superstep of each stage, supersteps 2..N, with
         the pieces split out: gradient (calc_grad), direction (the
         two-loop and the rest of direction_and_losses), line search,
         update."""
-        med = {k: float(np.median(v[1:])) for k, v in self.times.items()}
+        med = self.raw_medians()
         return {"gradient": med["calc_grad"],
                 "gradient_objective": med["calc_grad_eta_shard"],
                 "direction": med["direction_and_losses"]
@@ -4420,6 +4469,787 @@ def phase_ingest(kernels, card, dev=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16. the rest of the linear family and KMeans: bench_softmax's and
+# bench_kmeans's shapes, sparse Softmax and the family on Criteo rows
+# ---------------------------------------------------------------------------
+
+SM_ROWS, SM_DIM, SM_K, SM_L2 = 60_000, 784, 10, 1e-4
+SM_TIMED_STEPS, SM_CHECK_STEPS, SM_CONVERGE_MAX = 30, 10, 60
+SM_PROFILED = (5, 9)                     # supersteps under the profiler
+SM_F64_ROWS, SM_SERVE_ROWS = 6_000, 4096
+SPS_ROWS, SPS_HELD, SPS_K, SPS_STEPS = 100_000, 8192, 4, 30
+FAMILY_STEPS, NEWTON_STEPS, SGD_FRACTION = 20, 8, 0.1
+F64_STEPS = 10                           # float64 card vs CPU, sparse ops
+KM_REPS, KM_K, KM_NOISE = 10_000, 3, 0.05
+KM_TIMED_STEPS, KM_CHECK_STEPS, KM_CONVERGE_MAX = 200, 20, 500
+KM_PROFILED = (50, 59)
+# Fisher's iris: each class's mean and standard deviation of sepal
+# length, sepal width, petal length, petal width (cm); 50 rows a class
+IRIS_MEANS = ((5.006, 3.428, 1.462, 0.246), (5.936, 2.770, 4.260, 1.326),
+              (6.588, 2.974, 5.552, 2.026))
+IRIS_STDS = ((0.352, 0.379, 0.174, 0.105), (0.516, 0.314, 0.470, 0.198),
+             (0.636, 0.322, 0.552, 0.275))
+U32 = 2.0 ** -24
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def np_bits_equal(a, b) -> bool:
+    """Two host float arrays with the same bits."""
+    a, b = np.asarray(a), np.asarray(b)
+    view = np.int64 if a.dtype == np.float64 else np.int32
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        np.array_equal(a.view(view), b.view(view)))
+
+
+def softmax_data(seed=0):
+    """bench.py::bench_softmax's data (:637-641): k centers ``randn * 0.5``,
+    a center per row plus ``randn`` noise, float32, the intercept column
+    first; class ids ``yc``."""
+    n, d, k = SM_ROWS, SM_DIM, SM_K
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(k, d).astype(np.float32) * 0.5
+    yc = rng.randint(0, k, n)
+    X = (centers[yc] + rng.randn(n, d).astype(np.float32)).astype(np.float32)
+    return np.concatenate([np.ones((n, 1), np.float32), X], 1), yc
+
+
+def softmax_run(data, steps, dev, eps=0.0):
+    """bench_softmax's training through ``optimize``: ``SoftmaxObjFunc``
+    (l2 1e-4, the intercept column unregularized), warm start ``randn *
+    1e-6`` (seed 11), L-BFGS. Returns (coef, curve, supersteps, s)."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.optim import objfunc as ob
+    from alink_tpu_torch.operator.common.optim import optimizers as opt
+    d, k = data["X"].shape[1], SM_K
+    obj = ob.SoftmaxObjFunc(k, d, l2=SM_L2, reg_free_cols=1)
+    w0 = (np.random.RandomState(11).randn((k - 1) * d) * 1e-6).astype(
+        np.float64 if data["X"].dtype == torch.float64 else np.float32)
+    _sync(dev)
+    t0 = time.perf_counter()
+    coef, curve, n = opt.optimize(obj, data, opt.OptimParams(
+        method="LBFGS", max_iter=steps, epsilon=eps), MLEnvironment(
+        device=dev), warm_start=w0)
+    return coef, curve, n, time.perf_counter() - t0
+
+
+def softmax_tensors(X, yc, dev, dtype):
+    import torch
+    X = torch.from_numpy(np.ascontiguousarray(X)).to(dev, dtype)
+    return {"X": X, "y": torch.from_numpy(yc.astype(np.float64)).to(dev,
+                                                                     dtype),
+            "w": torch.ones(X.shape[0], dtype=dtype, device=dev)}
+
+
+def softmax_model_table(coef, d, k, vector_col="vec"):
+    """A Softmax model table of ``coef`` ((k-1) x (d+1), intercept
+    first), classes 0..k-1."""
+    from alink_tpu_torch.operator.common.linear.base import (
+        LinearModelData, LinearModelDataConverter)
+    return LinearModelDataConverter("LONG").save_model(LinearModelData(
+        model_name="Softmax model", linear_model_type="Softmax",
+        has_intercept=True, vector_col=vector_col, feature_names=None,
+        vector_size=d, coef=np.asarray(coef, np.float64),
+        label_values=list(range(k)), label_type="LONG"))
+
+
+def softmax_labels_match(gpu, req, table, name, X=None):
+    """``CompiledPredictor`` labels equal to its float64 host mapper's
+    ``map_table`` outside the float32 rounding band of the two leading
+    logits (``X`` the dense request rows, else the sparse rows' one-hot
+    slots); returns the rows inside the band."""
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    m = LinearModelDataConverter.load_table(table)
+    k = len(m.label_values)
+    W = m.coef.reshape(k - 1, -1)
+    card = [str(v) for v in gpu.predict_table(req).col("pred")]
+    host_map = gpu._active.mapper
+    z = host_map.predict_scores(req)                      # (n, k), pivot 0
+    host = [str(v) for v in host_map.map_table(req).col("pred")]
+    if X is not None:
+        terms = np.abs(X) @ np.abs(W[:, 1:]).T + np.abs(W[:, 0])
+    else:
+        terms = np.stack([np.abs(W[:, 1:][:, v.indices]).sum(1)
+                          for v in req.col(req.col_names[0])]) \
+            + np.abs(W[:, 0])
+    terms = np.concatenate([terms, np.zeros((len(terms), 1))], 1)
+    top2 = np.argsort(-z, 1)[:, :2]
+    rows = np.arange(len(z))
+    gap = z[rows, top2[:, 0]] - z[rows, top2[:, 1]]
+    band = 64 * U32 * (terms[rows, top2[:, 0]] + terms[rows, top2[:, 1]])
+    clear = gap > band
+    require(all(a == b for a, b, ok in zip(card, host, clear) if ok),
+            f"CompiledPredictor labels ({name}) equal map_table's outside "
+            f"the rounding band")
+    return int((~clear).sum())
+
+
+def served_scores_match(gpu, req, table, name):
+    """``CompiledPredictor`` scores of a regression model within the
+    float32 rounding band of the float64 host mapper's; returns the
+    largest gap over its band."""
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    col = req.col_names[0]
+    card = np.asarray(gpu.predict_table(req).col("pred"), np.float64)
+    host = np.asarray(gpu._active.mapper.map_table(req).col("pred"),
+                      np.float64)
+    c = LinearModelDataConverter.load_table(table).coef
+    terms = np.asarray([abs(c[0]) + np.abs(c[1 + v.indices]).sum()
+                        for v in req.col(col)])
+    ratio = np.abs(card - host) / (64 * U32 * terms)
+    require(bool((ratio <= 1.0).all()),
+            f"CompiledPredictor scores ({name}) within the rounding band of "
+            f"map_table's (worst {ratio.max()} of the band)")
+    return float(ratio.max())
+
+
+def phase_softmax_dense(ks, dev, card):
+    """16(a): bench_softmax at its full shape on the card: 30 timed
+    supersteps (ms, samples/s, stages, busy share), supersteps to
+    converge and the training accuracy, two runs bitwise, float64 card vs
+    CPU on the first 6,000 rows, and the model served by
+    ``CompiledPredictor`` (dense requests: B4 once for each class
+    column)."""
+    import torch
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.common.types import TableSchema
+    from alink_tpu_torch.common.vector import DenseVector
+    from alink_tpu_torch.operator.common.linear.mapper import \
+        LinearModelMapper
+    from alink_tpu_torch.operator.common.optim import objfunc as ob
+    from alink_tpu_torch.serving import CompiledPredictor
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the dense products")
+    X, yc = softmax_data()
+    n, d = X.shape
+    t0 = time.perf_counter()
+    data = softmax_tensors(X, yc, dev, torch.float32)
+    _sync(dev)
+    out = {"rows": n, "cols": d, "k": SM_K, "l2": SM_L2,
+           "to_card_s": time.perf_counter() - t0}
+    softmax_run(data, 3, dev)                             # warm-up
+    with SuperstepClock(profile=SM_PROFILED
+                        if torch.device(dev).type == "cuda" else None) \
+            as clock:
+        _, curve, steps, secs = softmax_run(data, SM_TIMED_STEPS, dev)
+    require(steps == SM_TIMED_STEPS and np.isfinite(curve).all(),
+            "Softmax ran its fixed-length supersteps with finite losses")
+    per = clock.superstep_ms()
+    traced = np.arange(SM_PROFILED[0] - 2, SM_PROFILED[1] - 1)
+    ms = float(np.median(np.delete(per, traced)))
+    out.update(ms_per_superstep=ms, superstep_ms_min=float(per.min()),
+               superstep_ms_max=float(per.max()), run_s=secs,
+               samples_per_s=n / ms * 1e3, loss_first=float(curve[0]),
+               loss_last=float(curve[-1]))
+    if clock.prof is not None:
+        kk = SM_PROFILED[1] - SM_PROFILED[0] + 1
+        _, total, busy = clock.profiled()
+        out.update(device_ops_per_superstep=total / kk,
+                   device_busy_ms=busy / kk,
+                   device_busy_share=busy / kk / ms)
+    pieces = [(ob.SoftmaxObjFunc, "calc_grad_eta_shard"),
+              (ob.SoftmaxObjFunc, "_grad_loss_from_logits"),
+              (ob.SoftmaxObjFunc, "line_losses_shard")]
+    with StageSplit(pieces) as split:
+        softmax_run(data, SM_CHECK_STEPS, dev)
+    med = split.raw_medians()
+    out["stage_ms"] = {
+        "logits": med["calc_grad_eta_shard"] - med["_grad_loss_from_logits"],
+        "gradient": med["_grad_loss_from_logits"],
+        "gradient_stage": med["calc_grad"],
+        "direction": med["direction_and_losses"] - med["line_losses_shard"],
+        "line_search": med["line_losses_shard"],
+        "update": med["update_model"],
+        "superstep_sum": med["calc_grad"] + med["direction_and_losses"]
+        + med["update_model"]}
+    coef, conv_curve, n_conv, conv_s = softmax_run(
+        data, SM_CONVERGE_MAX, dev, eps=1e-6)
+    W = torch.tensor(np.asarray(coef), device=dev).reshape(SM_K - 1, d)
+    z = torch.cat([data["X"] @ W.T, torch.zeros(n, 1, device=dev)], 1)
+    acc = float((z.argmax(1).cpu().numpy() == yc).mean())
+    out.update(supersteps_to_converge=n_conv, converge_s=conv_s,
+               converged_loss=float(conv_curve[-1]), train_accuracy=acc)
+    require(acc > 0.9, f"Softmax trains: accuracy {acc}")
+    a = softmax_run(data, SM_CHECK_STEPS, dev)
+    b = softmax_run(data, SM_CHECK_STEPS, dev)
+    require(np_bits_equal(a[0], b[0]) and np_bits_equal(a[1], b[1]),
+            "two float32 card runs give bitwise-equal coefficients and "
+            "loss curves")
+    m = SM_F64_ROWS
+    gc, gl, _, _ = softmax_run(softmax_tensors(X[:m], yc[:m], dev,
+                                               torch.float64),
+                               SM_CHECK_STEPS, dev)
+    cc, cl, _, cpu_s = softmax_run(softmax_tensors(X[:m], yc[:m], "cpu",
+                                                   torch.float64),
+                                   SM_CHECK_STEPS, "cpu")
+    gap = np.abs(gl - cl) / np.abs(cl)
+    require(bool((gap <= 1e-10).all()),
+            f"the float64 card run's loss curve within rtol 1e-10 of the "
+            f"CPU's over {SM_CHECK_STEPS} supersteps (max rel {gap.max()})")
+    out.update(two_runs_bitwise=True, card_vs_cpu_f64={
+        "rows": m, "supersteps": SM_CHECK_STEPS,
+        "loss_max_rel_gap": float(gap.max()),
+        "coef_max_abs_gap": float(np.abs(gc - cc).max()),
+        "coef_max_abs": float(np.abs(cc).max()), "cpu_s": cpu_s})
+    # the converged model served: dense requests, B4 once for each of the
+    # k - 1 non-pivot class columns
+    table = softmax_model_table(coef, d - 1, SM_K)
+    Xr = X[:SM_SERVE_ROWS, 1:].astype(np.float64)
+    vecs = np.empty(len(Xr), object)
+    vecs[:] = [DenseVector(x) for x in Xr]
+    req = MTable({"vec": vecs}, "vec VECTOR")
+    mapper = LinearModelMapper(table.schema, TableSchema(["vec"], ["VECTOR"]),
+                               Params({"prediction_col": "pred",
+                                       "vector_col": "vec"}))
+    mapper.load_model(table)
+    gpu = CompiledPredictor(mapper, device=dev)
+    ks.reset_launch_counts()
+    band = softmax_labels_match(gpu, req, table, "dense Softmax", X=Xr)
+    launches = ks.launch_counts()
+    chunks = -(-len(Xr) // gpu.buckets[-1])
+    if torch.device(dev).type == "cuda":
+        require(launches["serve_dense"] == chunks * (SM_K - 1),
+                f"dense Softmax serving launches B4 once a class column a "
+                f"chunk: {launches}")
+    out["served"] = {"rows": len(Xr), "rows_in_rounding_band": band,
+                     "launches": launches}
+    print(f"softmax (a) [{card}]: {n} x {d}, k {SM_K}: {ms:.4f} ms a "
+          f"superstep (median of {len(per) - len(traced)}), "
+          f"{out['samples_per_s']:.1f} samples/s, busy "
+          f"{out.get('device_busy_share')}, stages {out['stage_ms']}; "
+          f"{n_conv} supersteps to converge, accuracy {acc}; two runs "
+          f"bitwise; f64 card vs CPU loss gap {gap.max()}; served "
+          f"{len(Xr)} rows ({band} in the band), launches {launches}",
+          flush=True)
+    return out
+
+
+def criteo_softmax_rows(seed, n):
+    """bench.py::make_batch_criteo's rows (39 distinct one-hot slots of
+    65,536 a row, slot 0 left to the intercept) with three labels from
+    seeded sparse linear models over the slots: ``label``, the argmax
+    over k classes of the logits plus Gumbel noise; ``bin``, whether it
+    is class 0 or 1; ``target``, class 0's logit less class 1's plus
+    0.3 ``randn``."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import SparseVector
+    k = SPS_K
+    r = np.random.RandomState(seed)
+    rngw = np.random.RandomState(1)
+    W = rngw.randn(k, INGEST_DIM) * (rngw.rand(k, INGEST_DIM) < 0.05)
+    raw = r.randint(1, INGEST_DIM, size=(n, NNZ)).astype(np.int32)
+    for _ in range(64):                   # resample intra-row collisions
+        srt = np.sort(raw, axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]).any(1)
+        if not dup.any():
+            break
+        raw[dup] = r.randint(1, INGEST_DIM, size=(int(dup.sum()), NNZ))
+    logits = W[:, raw].sum(-1).T                          # (n, k)
+    y = np.argmax(logits + r.gumbel(size=(n, k)), 1).astype(np.int64)
+    target = logits[:, 0] - logits[:, 1] + 0.3 * r.randn(n)
+    vecs = np.empty(n, object)
+    ones = np.ones(NNZ)
+    vecs[:] = [SparseVector(INGEST_DIM, raw[i], ones) for i in range(n)]
+    return MTable({"label": y, "bin": (y < 2).astype(np.int64),
+                   "target": target, "features": vecs},
+                  "label LONG, bin LONG, target DOUBLE, "
+                  "features SPARSE_VECTOR")
+
+
+def served_predictor(table, req, dev):
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.operator.common.linear.mapper import \
+        LinearModelMapper
+    from alink_tpu_torch.serving import CompiledPredictor
+    mapper = LinearModelMapper(table.schema, req.schema,
+                               Params({"prediction_col": "pred",
+                                       "vector_col": req.col_names[0]}))
+    mapper.load_model(table)
+    return CompiledPredictor(mapper, device=dev)
+
+
+def op_coef_curve(op):
+    """A linear train op's model coefficients and loss curve."""
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    return (LinearModelDataConverter.load_table(op.get_output_table()).coef,
+            np.asarray(op.get_side_output(0).get_output_table().col("loss")))
+
+
+def card_vs_cpu_f64(ks, kl, dev, name, train):
+    """``train(where)`` -> (coef, loss curve) of a float64 training on
+    ``where``. The card's run goes through B5 and P1 (the CPU's through
+    their plain versions), its loss curve lies within rtol 1e-10 of the
+    CPU's and its coefficients within 1e-10 of the CPU's largest; returns
+    the gaps and times."""
+    import torch
+    ks.reset_launch_counts()
+    kl.reset_launch_counts()
+    t0 = time.perf_counter()
+    gc, gl = train(dev)
+    _sync(dev)
+    card_s = time.perf_counter() - t0
+    launches = {**ks.launch_counts(), **kl.launch_counts()}
+    t0 = time.perf_counter()
+    cc, cl = train("cpu")
+    cpu_s = time.perf_counter() - t0
+    if torch.device(dev).type == "cuda":
+        require(launches["serve_sparse"] > 0 and launches["linear_grad"] > 0,
+                f"{name}: the float64 card run launched B5 and P1: "
+                f"{launches}")
+    tiny = np.finfo(np.float64).tiny
+    lgap = np.abs(gl - cl) / np.maximum(np.abs(cl), tiny)
+    cgap = float(np.abs(gc - cc).max() / max(np.abs(cc).max(), tiny))
+    require(gl.shape == cl.shape and bool((lgap <= 1e-10).all())
+            and cgap <= 1e-10,
+            f"{name}: the float64 card run within rtol 1e-10 of the CPU's "
+            f"over {len(cl)} supersteps (loss {lgap.max()}, coefficients "
+            f"{cgap} of the largest)")
+    return {"supersteps": len(gl), "loss_first": float(cl[0]),
+            "loss_last": float(cl[-1]), "loss_max_rel_gap": float(lgap.max()),
+            "coef_max_gap_of_largest": cgap,
+            "coef_max_abs": float(np.abs(cc).max()), "card_s": card_s,
+            "cpu_s": cpu_s, "card_launches": launches}
+
+
+def phase_softmax_sparse(ks, kl, dev, card, train, held):
+    """16(b): ``SoftmaxTrainBatchOp`` on 100,000 Criteo-shape rows (k = 4,
+    padded-COO: 2(k-1) B5 and (k-1) P1 launches a superstep, one plan a
+    training), held in float64 against the CPU over 10 supersteps, and
+    served on 8,192 held-out rows by ``CompiledPredictor`` (k - 1 B5
+    launches a chunk)."""
+    import torch
+    from alink_tpu_torch.operator.batch.classification import \
+        SoftmaxTrainBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    cuda = torch.device(dev).type == "cuda"
+    ks.reset_launch_counts()
+    kl.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with SuperstepClock(profile=SM_PROFILED if cuda else None) as clock:
+        op = SoftmaxTrainBatchOp(vector_col="features", label_col="label",
+                                 l2=1e-4, max_iter=SPS_STEPS, epsilon=0.0,
+                                 device=dev).link_from(
+            MemSourceBatchOp(train))
+    _sync(dev)
+    train_s = time.perf_counter() - t0
+    launches = {**ks.launch_counts(), **kl.launch_counts()}
+    per = clock.superstep_ms()
+    traced = np.arange(SM_PROFILED[0] - 2, SM_PROFILED[1] - 1)
+    ms = float(np.median(np.delete(per, traced)))
+    kernel_share = {}
+    if clock.prof is not None:
+        kk = SM_PROFILED[1] - SM_PROFILED[0] + 1
+        _, total, busy, by_name = clock.profiled(by_name=True)
+        b5 = sum(v for k, v in by_name.items()
+                 if "serve_sparse_kernel" in k) / kk
+        p1 = sum(v for k, v in by_name.items() if "linear_grad_" in k) / kk
+        kernel_share = {"device_ops_per_superstep": total / kk,
+                        "device_busy_ms": busy / kk,
+                        "device_busy_share": busy / kk / ms,
+                        "b5_device_ms": b5, "p1_device_ms": p1,
+                        "b5_p1_share_of_superstep": (b5 + p1) / ms}
+    curve = np.asarray(op.get_side_output(0).get_output_table().col("loss"))
+    steps = len(curve)
+    require(steps == SPS_STEPS and np.isfinite(curve).all()
+            and curve[-1] < curve[0], "the sparse Softmax loss fell over "
+                                      "its fixed-length supersteps")
+    want = {"serve_sparse": 2 * (SPS_K - 1) * steps,
+            "linear_grad": (SPS_K - 1) * steps, "run_plan": 1}
+    if cuda:
+        require(all(launches[k] == v for k, v in want.items()),
+                f"sparse Softmax launches 2(k-1) B5 and (k-1) P1 a "
+                f"superstep and one plan: {launches} against {want}")
+    # the training held to a reference: float64 on the card (B5 and P1 a
+    # class column each, on one plan at the design's width) against the
+    # CPU (their plain versions)
+    f64 = card_vs_cpu_f64(ks, kl, dev, "sparse Softmax", lambda where: (
+        op_coef_curve(SoftmaxTrainBatchOp(
+            vector_col="features", label_col="label", l2=1e-4,
+            max_iter=F64_STEPS, epsilon=0.0, device=where,
+            dtype=torch.float64).link_from(MemSourceBatchOp(train)))))
+    table = op.get_output_table()
+    req = held.select(["features"])
+    gpu = served_predictor(table, req, dev)
+    ks.reset_launch_counts()
+    band = softmax_labels_match(gpu, req, table, "sparse Softmax")
+    serve_launches = ks.launch_counts()["serve_sparse"]
+    chunks = -(-req.num_rows // gpu.buckets[-1])
+    if cuda:
+        require(serve_launches == chunks * (SPS_K - 1),
+                f"sparse Softmax serving launches B5 once a class column "
+                f"a chunk: {serve_launches}")
+    pred = np.asarray(gpu.predict_table(req).col("pred"))
+    acc = float((pred == np.asarray(held.col("label"))).mean())
+    out = {"rows": train.num_rows, "k": SPS_K, "supersteps": steps,
+           "train_s": train_s, "ms_per_superstep": ms,
+           "samples_per_s": train.num_rows / ms * 1e3, **kernel_share,
+           "loss_first": float(curve[0]), "loss_last": float(curve[-1]),
+           "training_launches": launches,
+           "launches_per_superstep": {k: launches[k] / steps for k in
+                                      ("serve_sparse", "linear_grad")},
+           "card_vs_cpu_f64": f64,
+           "served_rows": req.num_rows, "rows_in_rounding_band": band,
+           "serving_launches": serve_launches, "held_out_accuracy": acc}
+    print(f"softmax (b) [{card}]: {train.num_rows} Criteo rows, k {SPS_K}: "
+          f"{steps} supersteps in {train_s:.3f} s, {ms:.4f} ms a superstep, "
+          f"{kernel_share}; launches {launches}; f64 card vs CPU {f64}; "
+          f"served {req.num_rows} rows ({band} in the band, "
+          f"{serve_launches} launches), held-out accuracy {acc}",
+          flush=True)
+    return out
+
+
+FAMILY_OPS = (("LinearSvmTrainBatchOp", "bin", {}, False),
+              ("PerceptronTrainBatchOp", "bin", {}, False),
+              ("LinearRegTrainBatchOp", "target", {}, True),
+              ("RidgeRegTrainBatchOp", "target", {"lambda_": 1e-3}, True),
+              ("LassoRegTrainBatchOp", "target", {"lambda_": 1e-4}, True),
+              ("LinearSvrTrainBatchOp", "target", {"tau": 0.1}, True))
+
+
+def family_op(name):
+    from alink_tpu_torch.operator.batch import classification, regression
+    return getattr(classification, name, None) or getattr(regression, name)
+
+
+def perceptron_warm(train, dev, dtype, steps):
+    """The perceptron from a seeded warm start (``randn * 0.1``, seed 9:
+    at zero its gradient vanishes): the train op's preparation, L-BFGS
+    through ``optimize``, its model table. Returns (table, coef, curve)."""
+    from alink_tpu_torch.operator.common.linear.base import (
+        LinearModelDataConverter, prepare_linear_train)
+    from alink_tpu_torch.operator.common.optim import optimizers as opt
+    op = family_op("PerceptronTrainBatchOp")(
+        vector_col="features", label_col="bin", device=dev, dtype=dtype)
+    prep = prepare_linear_train(train, op, "Perceptron")
+    w0 = np.random.RandomState(9).randn(prep.dim) * 0.1
+    coef, curve, _ = opt.optimize(prep.objective(0.0, 0.0), prep.train,
+                                  opt.OptimParams(method="LBFGS",
+                                                  max_iter=steps,
+                                                  epsilon=0.0),
+                                  prep.env, warm_start=w0)
+    table, _ = prep.finish(coef, curve)
+    return table, LinearModelDataConverter.load_table(table).coef, \
+        np.asarray(curve)
+
+
+def phase_family(ks, kl, dev, card, train, held):
+    """16(c): the binary and regression types on the same Criteo rows,
+    each trained through its op, held in float64 against the CPU over 10
+    supersteps (the perceptron from a seeded warm start) and served by
+    ``CompiledPredictor`` against ``map_table``; Newton on a dense binary
+    task at 785 columns (float64 card vs CPU); SGD at
+    ``mini_batch_fraction`` 0.1 (two card runs bitwise)."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.optim import objfunc as ob
+    from alink_tpu_torch.operator.common.optim import optimizers as opt
+    req = held.select(["features"])
+    src = MemSourceBatchOp(train)
+    out = {"ops": {}}
+    for name, label, extra, regression in FAMILY_OPS:
+        ks.reset_launch_counts()
+        kl.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        op = family_op(name)(vector_col="features", label_col=label,
+                             max_iter=FAMILY_STEPS, device=dev,
+                             **extra).link_from(src)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        launches = {**ks.launch_counts(), **kl.launch_counts()}
+        curve = np.asarray(op.get_side_output(0).get_output_table()
+                           .col("loss"))
+        require(np.isfinite(curve).all(), f"{name}: finite losses")
+        if torch.device(dev).type == "cuda":
+            require(launches["serve_sparse"] > 0
+                    and launches["linear_grad"] > 0,
+                    f"{name} launched B5 and P1: {launches}")
+        table = op.get_output_table()
+        check = {}
+        if name == "PerceptronTrainBatchOp":
+            # from zero the perceptron stops after one superstep with an
+            # all-zero model, as in the JAX package: serve one trained
+            # from a seeded warm start instead
+            table, _, wcurve = perceptron_warm(train, dev, torch.float32,
+                                               FAMILY_STEPS)
+            check["served_model"] = {"warm_start": "randn * 0.1, seed 9",
+                                     "loss_first": float(wcurve[0]),
+                                     "loss_last": float(wcurve[-1])}
+        gpu = served_predictor(table, req, dev)
+        ks.reset_launch_counts()
+        if regression:
+            check["worst_gap_of_band"] = served_scores_match(gpu, req, table,
+                                                             name)
+        else:
+            _, band = served_labels_match(gpu, req, table, name)
+            require(band < req.num_rows // 2,
+                    f"{name}: most served labels are compared ({band} of "
+                    f"{req.num_rows} rows in the rounding band)")
+            check["rows_in_rounding_band"] = band
+        out["ops"][name] = {"supersteps": len(curve), "train_s": secs,
+                            "loss_first": float(curve[0]),
+                            "loss_last": float(curve[-1]),
+                            "training_launches": launches,
+                            "serving_launches": ks.launch_counts(), **check}
+        print(f"family (c) [{card}] {name}: {len(curve)} supersteps in "
+              f"{secs:.3f} s, loss {curve[0]} -> {curve[-1]}, launches "
+              f"{launches}, serving {ks.launch_counts()} {check}",
+              flush=True)
+    # the trainings held to a reference: float64 on the card (B5 and P1)
+    # against the CPU (their plain versions)
+    out["f64"] = {}
+    for name, label, extra, _ in FAMILY_OPS:
+        if name == "PerceptronTrainBatchOp":
+            def fit(where):
+                return perceptron_warm(train, where, torch.float64,
+                                       F64_STEPS)[1:]
+        else:
+            def fit(where, name=name, label=label, extra=extra):
+                return op_coef_curve(family_op(name)(
+                    vector_col="features", label_col=label,
+                    max_iter=F64_STEPS, epsilon=0.0, device=where,
+                    dtype=torch.float64, **extra).link_from(src))
+        out["f64"][name] = card_vs_cpu_f64(ks, kl, dev, name, fit)
+        print(f"family (c) [{card}] {name}: f64 card vs CPU "
+              f"{out['f64'][name]}", flush=True)
+    # Newton: the dense Hessian and torch.linalg.solve, bench_softmax's
+    # first rows as class 0 against the rest
+    X, yc = softmax_data()
+    m = SM_F64_ROWS
+    runs = {}
+    for where in (dev, "cpu"):
+        data = {"X": torch.from_numpy(X[:m].astype(np.float64)).to(where),
+                "y": torch.from_numpy(np.where(yc[:m] == 0, 1.0, -1.0))
+                .to(where), "w": torch.ones(m, dtype=torch.float64,
+                                            device=where)}
+        obj = ob.UnaryLossObjFunc(ob.LogLossFunc(), X.shape[1], l2=SM_L2,
+                                  reg_free_head=1)
+        _sync(where)
+        t0 = time.perf_counter()
+        runs[where] = opt.optimize(obj, data, opt.OptimParams(
+            method="NEWTON", max_iter=NEWTON_STEPS, epsilon=0.0),
+            MLEnvironment(device=where)) + (time.perf_counter() - t0,)
+    (gc, gl, gn, gs), (cc, cl, cn, cs) = runs[dev], runs["cpu"]
+    lgap = np.abs(gl - cl) / np.abs(cl)
+    cgap = np.abs(gc - cc) / np.abs(cc).max()
+    require(gn == cn == NEWTON_STEPS and bool((lgap <= 1e-10).all())
+            and bool((cgap <= 1e-10).all()),
+            f"Newton float64 card within rtol 1e-10 of the CPU (loss "
+            f"{lgap.max()}, coef {cgap.max()})")
+    out["newton"] = {"rows": m, "cols": X.shape[1], "supersteps": gn,
+                     "card_s": gs, "cpu_s": cs,
+                     "loss_max_rel_gap": float(lgap.max()),
+                     "coef_max_rel_gap": float(cgap.max()),
+                     "loss_last": float(gl[-1])}
+    # SGD at a tenth of the rows a superstep: two card runs bitwise
+    tables = []
+    for _ in range(2):
+        op = family_op("LinearSvmTrainBatchOp")(
+            vector_col="features", label_col="bin", optim_method="SGD",
+            mini_batch_fraction=SGD_FRACTION, max_iter=FAMILY_STEPS,
+            device=dev).link_from(src)
+        tables.append(op.get_output_table().to_rows())
+    require(tables[0] == tables[1], "two SGD card runs give the same "
+                                    "model table")
+    out["sgd"] = {"fraction": SGD_FRACTION, "supersteps": FAMILY_STEPS,
+                  "two_runs_bitwise": True}
+    print(f"family (c) [{card}]: Newton f64 card vs CPU loss gap "
+          f"{lgap.max()}, coef gap {cgap.max()} ({gs:.3f} s card, {cs:.3f} "
+          f"s CPU); SGD at {SGD_FRACTION} two runs bitwise", flush=True)
+    return out
+
+
+def iris_rows(seed=0):
+    """bench.py::bench_kmeans's data (:565-572) without scikit-learn:
+    150 iris-shaped base rows (50 a class from a seeded normal with that
+    class's mean and standard deviation), tiled 10,000 times plus 0.05
+    ``randn`` noise (``RandomState(0)``, as bench.py), float32."""
+    rng = np.random.RandomState(seed)
+    base = np.concatenate([rng.randn(50, 4) * np.asarray(s) + np.asarray(m)
+                           for m, s in zip(IRIS_MEANS, IRIS_STDS)])
+    base = base.astype(np.float32)
+    noise = np.random.RandomState(0)
+    return np.tile(base, (KM_REPS, 1)) + noise.randn(
+        150 * KM_REPS, 4).astype(np.float32) * KM_NOISE
+
+
+def kmeans_run(X, steps, dev, tol=0.0, init="RANDOM"):
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.clustering.kmeans import \
+        kmeans_train
+    _sync(dev)
+    t0 = time.perf_counter()
+    C, w, n = kmeans_train(X, k=KM_K, max_iter=steps, tol=tol, init=init,
+                           seed=0, env=MLEnvironment(device=dev))
+    return np.asarray(C), np.asarray(w), n, time.perf_counter() - t0
+
+
+def phase_kmeans(dev, card):
+    """16(d): bench_kmeans at its full shape on the card: 200 timed Lloyd
+    supersteps (ms, samples/s, busy share), iterations to converge, two
+    runs bitwise, float64 card vs CPU over 20 iterations with equal
+    assignments, ``KMeansPredictBatchOp`` card vs CPU, and
+    ``dryrun_multichip``'s KMeans leg."""
+    import torch
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch.clustering import (
+        KMeansModelData, KMeansModelDataConverter, KMeansPredictBatchOp,
+        KMeansTrainBatchOp)
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.clustering.kmeans import \
+        assign_clusters
+    cuda = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    X = iris_rows()
+    n = X.shape[0]
+    out = {"rows": n, "cols": 4, "k": KM_K, "data_s": time.perf_counter() - t0}
+    kmeans_run(X, 3, dev)                                 # warm-up
+    with SuperstepClock(profile=KM_PROFILED if cuda else None) as clock:
+        _, _, steps, secs = kmeans_run(X, KM_TIMED_STEPS, dev)
+    require(steps == KM_TIMED_STEPS, f"KMeans ran {steps} supersteps")
+    per = clock.superstep_ms()
+    traced = np.arange(KM_PROFILED[0] - 2, KM_PROFILED[1] - 1)
+    ms = float(np.median(np.delete(per, traced)))
+    out.update(ms_per_superstep=ms, superstep_ms_min=float(per.min()),
+               superstep_ms_max=float(per.max()), run_s=secs,
+               samples_per_s=n / ms * 1e3)
+    if clock.prof is not None:
+        kk = KM_PROFILED[1] - KM_PROFILED[0] + 1
+        _, total, busy = clock.profiled()
+        out.update(device_ops_per_superstep=total / kk,
+                   device_busy_ms=busy / kk,
+                   device_busy_share=busy / kk / ms)
+    _, _, n_rand, s_rand = kmeans_run(X, KM_CONVERGE_MAX, dev, tol=1e-4)
+    _, _, n_par, s_par = kmeans_run(X, KM_CONVERGE_MAX, dev, tol=1e-4,
+                                    init="K_MEANS_PARALLEL")
+    out.update(iters_to_converge_random=n_rand, converge_random_s=s_rand,
+               iters_to_converge_parallel=n_par, converge_parallel_s=s_par)
+    a = kmeans_run(X, KM_CHECK_STEPS, dev)
+    b = kmeans_run(X, KM_CHECK_STEPS, dev)
+    require(np_bits_equal(a[0], b[0]) and np_bits_equal(a[1], b[1]),
+            "two float32 card runs give bitwise-equal centroids")
+    X64 = X.astype(np.float64)
+    gc, _, _, _ = kmeans_run(X64, KM_CHECK_STEPS, dev)
+    cc, _, _, cpu_s = kmeans_run(X64, KM_CHECK_STEPS, "cpu")
+    gap = np.abs(gc - cc) / np.abs(cc)
+    ids = [assign_clusters(torch.from_numpy(X64).to(where),
+                           torch.tensor(c, device=where))[0].cpu().numpy()
+           for where, c in ((dev, gc), ("cpu", cc))]
+    require(bool((gap <= 1e-10).all()) and np.array_equal(*ids),
+            f"float64 card centroids within rtol 1e-10 of the CPU's over "
+            f"{KM_CHECK_STEPS} iterations ({gap.max()}), equal "
+            f"assignments")
+    # KMeansPredictBatchOp on the card against the CPU's, on the float64
+    # model
+    model = KMeansModelDataConverter().save_model(KMeansModelData(
+        gc, np.ones(KM_K), "EUCLIDEAN", None, ["x0", "x1", "x2", "x3"]))
+    table = MTable({f"x{j}": X64[:, j] for j in range(4)},
+                   "x0 DOUBLE, x1 DOUBLE, x2 DOUBLE, x3 DOUBLE")
+    pp = dict(prediction_col="cid", prediction_distance_col="dist")
+    got = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        got[where] = KMeansPredictBatchOp(device=where, **pp).link_from(
+            MemSourceBatchOp(model), MemSourceBatchOp(table)) \
+            .get_output_table()
+        got[where + "_s"] = time.perf_counter() - t0
+    # the distance is sqrt(x2 - 2 x.c + c2): its square carries the
+    # products' rounding, about eps (x2 + 2|x||c| + c2), which the
+    # subtraction does not shrink
+    dc, dh = (np.asarray(got[w].col("dist"), np.float64)
+              for w in (dev, "cpu"))
+    dgap = np.abs(dc - dh)
+    dist_rel = float((dgap / np.maximum(dh, 1e-300)).max())
+    cid = np.asarray(got["cpu"].col("cid"))
+    xn = np.sqrt((X64 ** 2).sum(1))
+    cn = np.sqrt((gc[cid] ** 2).sum(1))
+    sq_band = float((np.abs(dc ** 2 - dh ** 2) / (
+        np.finfo(np.float64).eps * (xn + cn) ** 2)).max())
+    require(np.array_equal(np.asarray(got[dev].col("cid")), cid)
+            and sq_band <= 8.0,
+            f"KMeansPredictBatchOp on the card equals the CPU's: the ids, "
+            f"and the squared distances within 8 eps (|x| + |c|)^2 "
+            f"({sq_band} eps of it; distances rel {dist_rel})")
+    # dryrun_multichip's leg: the operator on two columns, the default
+    # (k-means||) init
+    rng = np.random.RandomState(0)
+    pts = rng.randn(256, 2)
+    km = KMeansTrainBatchOp(feature_cols=["x0", "x1"], k=2, max_iter=3,
+                            device=dev).link_from(MemSourceBatchOp(
+                                [[float(a), float(b)] for a, b in pts],
+                                "x0 DOUBLE, x1 DOUBLE"))
+    kmd = KMeansModelDataConverter().load_model(km.get_output_table())
+    require(kmd.centroids.shape == (2, 2)
+            and np.isfinite(kmd.centroids).all()
+            and kmd.weights.sum() == 256, "dryrun_multichip's KMeans leg")
+    out.update(two_runs_bitwise=True, card_vs_cpu_f64={
+        "iterations": KM_CHECK_STEPS, "centroid_max_rel_gap": float(
+            gap.max()), "cpu_s": cpu_s, "assignments_equal": True},
+        predict={"rows": n, "ids_equal": True,
+                 "distance_max_rel_gap": dist_rel,
+                 "squared_distance_gap_eps": sq_band,
+                 "distances_bitwise": bool((dgap == 0).all()),
+                 "card_s": got[dev + "_s"], "cpu_s": got["cpu_s"]},
+        dryrun_leg={"centroids": kmd.centroids.tolist(),
+                    "weights": kmd.weights.tolist()})
+    print(f"kmeans (d) [{card}]: {n} x 4, k {KM_K}: {ms:.4f} ms a superstep "
+          f"(median of {len(per) - len(traced)}), {out['samples_per_s']:.1f} "
+          f"samples/s, busy {out.get('device_busy_share')}; converge "
+          f"{n_rand} (RANDOM) / {n_par} (K_MEANS_PARALLEL) iterations; two "
+          f"runs bitwise; f64 card vs CPU {gap.max()}; predict card vs CPU "
+          f"distances rel {dist_rel} (squared {sq_band} eps); dryrun leg "
+          f"{kmd.weights}",
+          flush=True)
+    return out
+
+
+def phase_family_main(kernels, card, dev=None):
+    """16: the rest of the linear family and KMeans on the card.
+    ``kernels`` are the ``serve`` and ``linear`` kernel modules."""
+    import torch
+    ks, kl = kernels
+    dev = "cuda" if dev is None else dev
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the dense products")
+    out = {"card": card}
+    t0 = time.perf_counter()
+    out["softmax_dense"] = phase_softmax_dense(ks, dev, card)
+    t1 = time.perf_counter()
+    train = criteo_softmax_rows(7, SPS_ROWS)
+    held = criteo_softmax_rows(8, SPS_HELD)
+    out["rows_s"] = time.perf_counter() - t1
+    out["softmax_sparse"] = phase_softmax_sparse(ks, kl, dev, card, train,
+                                                 held)
+    out["family"] = phase_family(ks, kl, dev, card, train, held)
+    out["kmeans"] = phase_kmeans(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    launches = {"serve_sparse": 0, "linear_grad": 0, "serve_dense": 0,
+                "run_plan": 0}
+    parts = [out["softmax_sparse"]["training_launches"],
+             {"serve_sparse": out["softmax_sparse"]["serving_launches"]},
+             out["softmax_dense"]["served"]["launches"]]
+    for rec in out["family"]["ops"].values():
+        parts += [rec["training_launches"], rec["serving_launches"]]
+    for p in parts:
+        for k in launches:
+            launches[k] += p.get(k, 0)
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4594,6 +5424,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ingest = phase_ingest((ks, kl), card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 16. the rest of the linear family and KMeans ---------------------
+    t0 = time.perf_counter()
+    family = phase_family_main((ks, kl), card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
@@ -4771,7 +5606,10 @@ def main(argv=None) -> int:
     for rec in kernels:
         rec["example_loop_launches"] = example["launches"][rec["name"]]
         rec["ingest_launches"] = ingest["launches"].get(rec["name"], 0)
+        rec["linear_family_launches"] = family["launches"].get(rec["name"],
+                                                               0)
     print(json.dumps({"main_path": {
+        "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,

@@ -34,7 +34,6 @@ from alink_tpu_torch.operator.batch.classification import (
     LogisticRegressionPredictBatchOp as TPredict,
     LogisticRegressionTrainBatchOp as TTrain)
 from alink_tpu_torch.operator.batch.source import MemSourceBatchOp as TMem
-from alink_tpu_torch.operator.common.linear import base as tbase
 from alink_tpu_torch.operator.common.linear.base import \
     LinearModelDataConverter as TConverter
 
@@ -212,11 +211,3 @@ def test_float32_training_runs_on_the_cpu():
     loss = np.asarray(op.get_side_output(0).get_output_table().col("loss"))
     assert np.isfinite(loss).all() and loss[-1] < loss[0]
     assert np.isfinite(TConverter.load_table(op.get_output_table()).coef).all()
-
-
-def test_other_linear_types_raise():
-    _, tt = _tables("dense")
-    op = TTrain(device="cpu", **_params("dense", True, True))
-    for kind in ("SVM", "Softmax", "LinearReg"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tbase.prepare_linear_train(tt, op, kind)

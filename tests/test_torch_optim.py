@@ -249,9 +249,6 @@ def test_argmin_keeps_jax_first_index_rule(vals):
 def test_left_out_methods_and_options_raise(tenv):
     data, dim, meta = _data("dense")
     _, tobj = _objs(dim, meta)
-    for method in ("SGD", "NEWTON"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            topt.optimize(tobj, data, topt.OptimParams(method=method), tenv)
     for kw in ({"checkpoint_dir": "/x"}, {"resume_from": "/x"},
                {"health": object()}):
         with pytest.raises(NotImplementedError, match="item 4"):

@@ -116,7 +116,16 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.io.sharding",
               "alink_tpu_torch.io.fieldblock",
               "alink_tpu_torch.operator.batch.sink.sinks",
-              "alink_tpu_torch.operator.common.dataproc.feature_extract"):
+              "alink_tpu_torch.operator.common.dataproc.feature_extract",
+              "alink_tpu_torch.operator.common.linear.mapper",
+              "alink_tpu_torch.operator.batch.regression",
+              "alink_tpu_torch.operator.batch.regression.linear",
+              "alink_tpu_torch.operator.common.clustering",
+              "alink_tpu_torch.operator.common.clustering.kmeans",
+              "alink_tpu_torch.operator.batch.clustering",
+              "alink_tpu_torch.operator.batch.clustering.kmeans_ops",
+              "alink_tpu_torch.pipeline.regression",
+              "alink_tpu_torch.pipeline.clustering"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):
@@ -242,3 +251,25 @@ def test_estimators_default_to_the_card(monkeypatch):
     assert LogisticRegression(device="cpu", **kw).clone().device == "cpu"
     assert "device" not in LogisticRegression(device="cpu", **kw) \
         .params.to_json()
+
+
+@pytest.mark.parametrize("name", [
+    "classification.LinearSvmTrainBatchOp",
+    "classification.SoftmaxTrainBatchOp",
+    "classification.PerceptronTrainBatchOp",
+    "regression.LinearRegTrainBatchOp", "regression.RidgeRegTrainBatchOp",
+    "regression.LassoRegTrainBatchOp", "regression.LinearSvrTrainBatchOp",
+    "clustering.KMeansTrainBatchOp", "clustering.KMeansPredictBatchOp"])
+def test_slice_13_ops_default_to_the_card(monkeypatch, name):
+    """The train ops of slice 13 (and the KMeans predict op) given no
+    device raise without CUDA; given ``device="cpu"`` they take it."""
+    import importlib
+
+    import torch
+    pkg, cls = name.split(".")
+    op = getattr(importlib.import_module(
+        f"alink_tpu_torch.operator.batch.{pkg}"), cls)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        op()
+    assert op(device="cpu").device == torch.device("cpu")

@@ -127,6 +127,12 @@ def _cells(table, col):
     return [str(v) for v in table.col(col)]
 
 
+def _details(table):
+    import json
+    return np.asarray([list(json.loads(str(d)).values())
+                       for d in table.col("det")])
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("case,buckets,sizes", [
     ("dense", (1, 4, 16), (1, 3, 13, 40)),
@@ -210,12 +216,20 @@ def test_predict_server_answers_like_predict_table(sparse_case):
 
 
 def test_softmax_serves_on_the_host_only():
+    """A Softmax model (k = 3) serves through the port's kernels (one
+    launch for each non-pivot class column): dense and sparse requests,
+    several buckets. Its scores are the JAX package's Softmax serving
+    program's (each column a left-to-right sum) within 1.1 eps
+    sum|terms|, keep their bits in every bucket, its labels equal
+    ``map_table``'s and its details lie within rtol 1e-12 of them; the
+    port's ``map_table`` equals the JAX package's."""
     from alink_tpu.common.mtable import MTable
     from alink_tpu.common.params import Params
-    from alink_tpu.common.vector import DenseVector
+    from alink_tpu.common.vector import DenseVector, SparseVector
     from alink_tpu.operator.common.linear.base import (
         LinearModelData, LinearModelDataConverter)
     from alink_tpu.operator.common.linear.mapper import LinearModelMapper
+    from alink_tpu.serving import CompiledPredictor
     rng = np.random.RandomState(2)
     dim, k = 6, 3
     model = LinearModelData(
@@ -224,17 +238,43 @@ def test_softmax_serves_on_the_host_only():
         vector_size=dim, coef=rng.randn((k - 1) * (dim + 1)),
         label_values=["a", "b", "c"], label_type="STRING")
     table = LinearModelDataConverter("STRING").save_model(model)
-    vecs = np.empty(9, object)
-    vecs[:] = [DenseVector(x) for x in rng.randn(9, dim)]
-    jax_req = MTable({"vec": vecs}, "vec VECTOR")
-    jm = LinearModelMapper(table.schema, jax_req.schema, Params(PARAMS))
-    jm.load_model(table)
-    _, pm, req = _mappers(table, jax_req)
-    got, want = pm.map_table(req), jm.map_table(jax_req)
-    assert _cells(got, "pred") == _cells(want, "pred")
-    assert _cells(got, "det") == _cells(want, "det")
-    with pytest.raises(NotImplementedError):
-        pm.serving_kernel()
+    dense = np.empty(9, object)
+    dense[:] = [DenseVector(x) for x in rng.randn(9, dim)]
+    sparse = np.empty(9, object)
+    sparse[:] = [SparseVector(dim, np.sort(rng.choice(dim, 3, False)),
+                              rng.randn(3)) for _ in range(9)]
+    for vecs in (dense, sparse):
+        jax_req = MTable({"vec": vecs}, "vec VECTOR")
+        jm = LinearModelMapper(table.schema, jax_req.schema, Params(PARAMS))
+        jm.load_model(table)
+        _, pm, req = _mappers(table, jax_req)
+        want = jm.map_table(jax_req)
+        got = pm.map_table(req)
+        assert _cells(got, "pred") == _cells(want, "pred")
+        assert _cells(got, "det") == _cells(want, "det")
+        # the served scores sum in the kernels' order, map_table's in
+        # numpy's: the labels are equal, the details within rtol 1e-12
+        ppred = TPredictor(pm, buckets=(1, 4, 16), device="cpu",
+                           ship_dtype=torch.float64)
+        served = ppred.predict_table(req)
+        assert _cells(served, "pred") == _cells(want, "pred")
+        np.testing.assert_allclose(_details(served), _details(want),
+                                   rtol=1e-12)
+        jpred = CompiledPredictor(jm, buckets=(16,))
+        scores = ppred.predict_scores(req)
+        assert scores.shape == (9, k - 1)
+        # XLA's CPU backend contracts this short chain's multiplies into
+        # its adds (ROADMAP Queue C, slice 1); the kernels do not
+        W = model.coef.reshape(k - 1, dim + 1)
+        X = np.stack([v.to_dense().data if hasattr(v, "indices") else v.data
+                      for v in vecs])
+        terms = np.abs(X) @ np.abs(W[:, 1:]).T + np.abs(W[:, 0])
+        gap = np.abs(scores - _jax_scores(jpred, jax_req, 16))
+        assert (gap <= 1.1 * np.finfo(np.float64).eps * terms).all()
+        for n in (1, 3):        # the bucket does not move a row's bits
+            np.testing.assert_array_equal(
+                _bits(ppred.predict_scores(req.take_rows(np.arange(n)))),
+                _bits(scores[:n]))
 
 
 def test_model_tables_load_in_both_packages():
