@@ -1,7 +1,9 @@
-"""The serving environment flags the port reads.
+"""The environment flags the port reads.
 
 Counterpart: ``alink_tpu/common/flags.py``. Only the serving entries of
-that registry are kept, with the same parsers and defaults. The JAX
+that registry and the durability ones (``ALINK_TPU_FAULT_INJECT``,
+``ALINK_TPU_ASYNC_SNAPSHOT``) are kept, with the same parsers and
+defaults. The JAX
 package's cache-key declarations (``folds_into`` / ``key_neutral``) are
 left out: the port compiles no programs, so there is no cache key for
 a flag to fold into.
@@ -31,6 +33,11 @@ def _serve_dtype_parse(raw: str) -> str:
         return "int8"
     raise ValueError(
         f"ALINK_TPU_SERVE_DTYPE={raw!r}: want f32 | bf16 | int8")
+
+
+def _bool_parse(raw: str) -> bool:
+    """On unless the value is one of the falsy spellings."""
+    return raw.strip().lower() not in _FALSY
 
 
 @dataclass(frozen=True)
@@ -75,6 +82,13 @@ FLAGS: Dict[str, Flag] = {f.name: f for f in (
          "admission-control bound of the serving request channel (a "
          "full queue blocks submitters)",
          parser=lambda raw: int(raw.strip()), clamp=lambda n: max(1, n)),
+    Flag("ALINK_TPU_FAULT_INJECT", "",
+         "armed fault sites, site:index[-end][:mode[:param]] entries "
+         "separated by ';' (grammar in common/faults.py)", parser=str),
+    Flag("ALINK_TPU_ASYNC_SNAPSHOT", True,
+         "write the engine's superstep snapshots from a background "
+         "writer, one snapshot in flight (off: write them in line)",
+         parser=_bool_parse),
 )}
 
 

@@ -1,5 +1,6 @@
 """The BSP engine of the port at one worker (counterpart:
-``alink_tpu/engine``). ``recovery.py`` (checkpoints) is not ported."""
+``alink_tpu/engine``), with its superstep checkpoints and resume
+(``recovery.py``)."""
 
 from .context import ComContext
 from .comqueue import IterativeComQueue, ComputeFunction, ComQueueResult

@@ -15,14 +15,21 @@ port runs the same loop eagerly on the session's device:
 
 Partitioned and broadcast data become tensors on the session's device
 once, before superstep 1; at one worker a partition is the whole table
-and ``__total_<name>`` holds its row count. ``set_program_key`` is
-accepted and ignored: eager PyTorch has no program cache. Health probe
-series (``ComContext.probe``) are kept in the carry and read through
-:meth:`ComQueueResult.probe_series`. Checkpoints, boundary hooks and
-health monitors are not ported:
-:meth:`IterativeComQueue.set_checkpoint`, ``set_boundary`` and
-``set_health`` raise ``NotImplementedError``. Not ported either: the
-chunked and lowered programs, donation, metrics and tracing spans.
+and ``__total_<name>`` holds its row count. Health probe series
+(``ComContext.probe``) are kept in the carry and read through
+:meth:`ComQueueResult.probe_series`.
+
+Durability (``engine/recovery.py``): :meth:`IterativeComQueue.
+set_checkpoint` (or the constructor's ``checkpoint_dir`` /
+``checkpoint_every`` / ``checkpoint_keep`` / ``resume_from``) persists
+the carry at every ``every``-th superstep boundary and at the final
+state; ``resume_from=`` re-enters a killed run at ``step + 1`` from its
+newest valid snapshot, bit for bit. :meth:`IterativeComQueue.
+set_boundary` runs a host hook every N supersteps, with or without a
+checkpoint. ``set_program_key`` names the program in the snapshot
+signature (eager PyTorch caches no program). ``set_health`` raises
+``NotImplementedError`` (ROADMAP A10). Not ported: the chunked and
+lowered programs, donation, metrics and tracing spans.
 """
 
 from __future__ import annotations
@@ -169,9 +176,8 @@ class ComQueueResult:
 class IterativeComQueue:
     def __init__(self, env: Optional[MLEnvironment] = None, max_iter: int = 100,
                  seed: int = 0, checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1, checkpoint_keep: int = 3,
                  resume_from: Optional[str] = None):
-        if checkpoint_dir is not None or resume_from is not None:
-            self.set_checkpoint(checkpoint_dir)
         self.env = env
         self.max_iter = max_iter
         self.seed = seed
@@ -180,6 +186,17 @@ class IterativeComQueue:
         self._broadcast: Dict[str, Any] = {}
         self._criterion: Optional[Callable[[ComContext], Any]] = None
         self._close: Optional[Callable[[ComQueueResult], Any]] = None
+        self._program_key = None
+        self._ckpt = None
+        self._boundary = None     # (every, hook): set_boundary
+        if checkpoint_dir is not None:
+            self.set_checkpoint(checkpoint_dir, every=checkpoint_every,
+                                keep_last=checkpoint_keep,
+                                resume_from=resume_from)
+        elif resume_from is not None:
+            raise ValueError("resume_from= requires checkpoint_dir= "
+                             "(an explicit resume request must not "
+                             "silently retrain from scratch)")
 
     # -- construction API (mirrors BaseComQueue.java:75-148) --------------
     def init_with_partitioned_data(self, name: str, data) -> "IterativeComQueue":
@@ -211,28 +228,98 @@ class IterativeComQueue:
         return self
 
     def set_program_key(self, key) -> "IterativeComQueue":
-        """Accepted and ignored: eager PyTorch compiles no program."""
+        """Name the program: eager PyTorch compiles none, so the key only
+        enters the checkpoint signature (:func:`freeze_config`), where it
+        tells apart programs whose stages share their names (L-BFGS and
+        OWLQN, objectives of other losses)."""
+        self._program_key = freeze_config(key)
         return self
 
     def set_checkpoint(self, directory: str, every: int = 1,
                        keep_last: int = 3,
-                       resume_from: Optional[str] = None):
-        raise NotImplementedError(
-            "IterativeComQueue checkpoints are not ported yet")
+                       resume_from: Optional[str] = None
+                       ) -> "IterativeComQueue":
+        """Persist the superstep carry every ``every`` supersteps (and at
+        the final state) under ``directory``: durable, checksummed,
+        atomically published snapshots (``common/checkpoint.py``).
+        ``resume_from=`` restarts a killed run from its newest valid
+        snapshot with bitwise-identical results (``engine/recovery.py``)."""
+        from .recovery import CheckpointConfig
+        self._ckpt = CheckpointConfig(directory=str(directory),
+                                      every=int(every),
+                                      keep_last=int(keep_last),
+                                      resume_from=resume_from)
+        return self
 
-    def set_boundary(self, every: int, hook):
-        raise NotImplementedError(
-            "IterativeComQueue.set_boundary is not ported yet")
+    def set_boundary(self, every: int, hook) -> "IterativeComQueue":
+        """Run a host hook every ``every`` supersteps: ``hook(carry, step)
+        -> carry | None`` may replace the carry between supersteps
+        (``None`` keeps it); the compare criterion is then read again.
+        With :meth:`set_checkpoint` the boundary cadence wins and the hook
+        runs right after each snapshot is handed over, and again after a
+        resume, so a resumed run re-derives the same deterministic
+        decisions. Without a checkpoint nothing is persisted."""
+        if int(every) < 1:
+            raise ValueError(f"set_boundary(every=) must be >= 1, "
+                             f"got {every}")
+        self._boundary = (int(every), hook)
+        return self
 
     def set_health(self, monitor):
         raise NotImplementedError(
             "IterativeComQueue.set_health (the health monitor) is not "
-            "ported yet; probes are recorded (ComContext.probe)")
+            "ported yet (ROADMAP A10); probes are recorded "
+            "(ComContext.probe)")
 
     # -- execution --------------------------------------------------------
+    def _stages_digest(self) -> tuple:
+        """The stages' names in order, with each communication stage's
+        public settings, and the criterion's name."""
+        items = []
+        for s in self._stages:
+            if isinstance(s, _FnStage):
+                items.append(("fn", getattr(s.fn, "__qualname__",
+                                            s.__name__)))
+            else:
+                items.append((type(s).__qualname__, freeze_config(
+                    {k: v for k, v in vars(s).items()
+                     if not k.startswith("_")})))
+        if self._criterion is not None:
+            items.append(("criterion", getattr(self._criterion,
+                                               "__qualname__", "?")))
+        return tuple(items)
+
+    def _signature(self, max_iter: int):
+        from .recovery import data_digest, program_signature
+        parts = self._partitioned
+        part_sig = tuple(
+            (k, tuple(map(int, np.shape(parts[k]))),
+             str(getattr(parts[k], "dtype", "?")))
+            for k in sorted(parts))
+        return program_signature(
+            num_workers=1, max_iter=max_iter, seed=self.seed,
+            part_sig=part_sig, bcast_names=tuple(sorted(self._broadcast)),
+            stages_digest=self._stages_digest(),
+            program_key=self._program_key,
+            data_token=data_digest({"parts": parts,
+                                    "bcast": self._broadcast}))
+
     def exec(self):
         env = self.env or MLEnvironmentFactory.get_default()
         device = env.device
+        max_iter = int(self.max_iter)
+        ck = self._ckpt
+        if self._boundary is not None:
+            import dataclasses
+            from .recovery import CheckpointConfig
+            b_every = self._boundary[0]
+            ck = CheckpointConfig(directory=None, every=b_every) \
+                if ck is None else dataclasses.replace(ck, every=b_every)
+        resumed = signature = None
+        if ck is not None and (ck.directory or ck.resume_from):
+            from .recovery import resume_state
+            signature = self._signature(max_iter)
+            resumed = resume_state(ck, signature)
         static: Dict[str, Any] = {}
         for k, arr in self._partitioned.items():
             static[k] = _to_device(arr, device)
@@ -240,18 +327,34 @@ class IterativeComQueue:
         for k, v in self._broadcast.items():
             static[k] = _to_device(v, device)
         carry: Dict[str, Any] = {}
-        max_iter = int(self.max_iter)
-        step = 1
-        while True:
-            ctx = ComContext(carry, static, device, step, self.seed,
-                             max_iter)
+        derived: Dict[str, Any] = {}
+        entry = 1 if resumed is None else int(resumed[1]["step"]) + 1
+
+        def context(step):
+            return ComContext(carry, static, device, step, self.seed,
+                              max_iter, derived, entry)
+
+        def criterion(step) -> bool:
+            return (self._criterion is not None
+                    and bool(self._criterion(context(step))))
+
+        def superstep(step) -> bool:
+            ctx = context(step)
             for s in self._stages:
                 s.calc(ctx)
-            stop = (self._criterion is not None
-                    and bool(self._criterion(ctx)))
-            if stop or step >= max_iter:
-                break
-            step += 1
+            return criterion(step)
+
+        if ck is None:
+            step = 1
+            while not superstep(step) and step < max_iter:
+                step += 1
+        else:
+            from .recovery import drive
+            step = drive(ck, superstep=superstep, criterion=criterion,
+                         carry=carry, max_iter=max_iter, signature=signature,
+                         device=device, resumed=resumed,
+                         on_boundary=None if self._boundary is None
+                         else self._boundary[1])
         result = ComQueueResult(carry, step)
         if self._close is not None:
             return self._close(result)

@@ -5,7 +5,10 @@ pytree traced through ``lax.while_loop`` and ``task_id`` is the mesh
 axis index. Here the engine runs eagerly at one worker: the carry is a
 plain dict of tensors (and whatever else a stage stores), ``task_id`` is
 0, ``num_task`` is 1 and ``step_no`` is a Python int starting at 1.
-Partitioned and broadcast data are read-only entries beside the carry.
+Partitioned and broadcast data are read-only entries beside the carry,
+and so are the derived entries (:meth:`ComContext.put_derived`):
+data-derived objects a stage builds on the run's entry superstep
+(:attr:`ComContext.is_entry_step`) that a snapshot does not hold.
 Health probes ride the carry as in the JAX package (which records them
 by default): one float32 ``(max_iter,)`` series per probe, prefilled
 with NaN and written at ``step_no - 1`` on the device, with no host
@@ -15,7 +18,7 @@ them to (``IterativeComQueue.set_health`` raises).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,9 +34,12 @@ class ComContext:
 
     def __init__(self, carry: Dict[str, Any], static: Dict[str, Any],
                  device: torch.device, step_no: int, seed: int,
-                 max_iter: int = 0):
+                 max_iter: int = 0, derived: Optional[Dict[str, Any]] = None,
+                 entry_step: int = 1):
         self._carry = carry
         self._static = static
+        self._derived = {} if derived is None else derived
+        self._entry_step = int(entry_step)
         self._device = device
         self._step_no = int(step_no)
         self._seed = int(seed)
@@ -61,6 +67,13 @@ class ComContext:
         return self._step_no == 1
 
     @property
+    def is_entry_step(self) -> bool:
+        """True on the first superstep this run executes: the init pass,
+        or the superstep after the one a resumed run's snapshot holds.
+        Data-derived objects (:meth:`put_derived`) are built here."""
+        return self._step_no == self._entry_step
+
+    @property
     def device(self) -> torch.device:
         return self._device
 
@@ -68,6 +81,8 @@ class ComContext:
     def get_obj(self, name: str):
         if name in self._carry:
             return self._carry[name]
+        if name in self._derived:
+            return self._derived[name]
         if name in self._static:
             return self._static[name]
         raise KeyError(f"ComContext: no object '{name}' "
@@ -75,12 +90,23 @@ class ComContext:
                        f"static keys: {sorted(self._static)})")
 
     def put_obj(self, name: str, value):
-        if name in self._static:
-            raise ValueError(f"'{name}' is immutable partitioned/broadcast data")
+        if name in self._static or name in self._derived:
+            raise ValueError(f"'{name}' is immutable partitioned/broadcast "
+                             f"data or a derived object")
         self._carry[name] = value
 
+    def put_derived(self, name: str, value):
+        """Keep a data-derived object for the rest of the run, outside the
+        carry: a snapshot does not hold it, so a stage builds it on the
+        entry superstep (:attr:`is_entry_step`), fresh or resumed."""
+        if name in self._static or name in self._carry:
+            raise ValueError(f"'{name}' is partitioned/broadcast data or a "
+                             f"carry object")
+        self._derived[name] = value
+
     def contains_obj(self, name: str) -> bool:
-        return name in self._carry or name in self._static
+        return (name in self._carry or name in self._derived
+                or name in self._static)
 
     def remove_obj(self, name: str):
         self._carry.pop(name, None)

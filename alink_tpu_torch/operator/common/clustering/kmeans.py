@@ -23,6 +23,8 @@ JAX package's does with its health probes on. The products are
 Gumbel keys from the superstep's generator (``ComContext.rng``), whose
 draws differ from JAX's PRNG by design, so it agrees with the JAX
 package in its properties, not its bits. EUCLIDEAN and COSINE distances.
+The Lloyd loop takes superstep checkpoints and resumes from them
+(``checkpoint_dir`` / ``resume_from``, ``engine/recovery.py``).
 """
 
 from __future__ import annotations
@@ -226,12 +228,20 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
     K_MEANS_PLUS_PLUS draw their rows as the JAX package does (bit for
     bit); K_MEANS_PARALLEL (the default) runs
     :func:`kmeans_parallel_init`.
-    ``checkpoint_dir``, ``resume_from`` and ``health`` are not ported:
-    they raise ``NotImplementedError`` (ROADMAP A4, A10)."""
-    if checkpoint_dir or resume_from or health is not None:
+
+    ``checkpoint_dir=`` makes the Lloyd loop durable: the superstep carry
+    (centroids, movement, the buffer, the probes) is snapshotted every
+    ``checkpoint_every`` supersteps, and ``resume_from=`` re-enters a
+    killed run with bitwise-identical final centroids and weights
+    (``engine/recovery.py``). The k-means|| init queue is NOT
+    checkpointed: it is short, and exact resume still holds because the
+    init is deterministic in ``seed`` (a resumed run draws it again).
+    ``health`` is not ported: it raises ``NotImplementedError`` (ROADMAP
+    A10)."""
+    if health is not None:
         raise NotImplementedError(
-            "kmeans_train: checkpoint_dir, resume_from and health are not "
-            "ported yet (ROADMAP Queue A items 4 and 10)")
+            "kmeans_train: health is not ported yet (ROADMAP Queue A item "
+            "10)")
     X = np.asarray(X)
     d = X.shape[1]
     w = np.ones(X.shape[0], X.dtype) if sample_weight is None \
@@ -247,8 +257,9 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
     data = np.concatenate([X, w[:, None]], axis=1)
 
     def assign(ctx):
-        if ctx.is_init_step:
+        if ctx.is_entry_step:
             check_full_float32({"X": ctx.get_obj("data")})
+        if ctx.is_init_step:
             C0 = ctx.get_obj("init_centroids")
             ctx.put_obj("centroids", C0)
             ctx.put_obj("movement", torch.full((), torch.inf, dtype=C0.dtype,
@@ -284,14 +295,24 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
         ctx.put_obj("centroids", newC)
         ctx.put_obj("cluster_weights", cnts)
 
-    result = (IterativeComQueue(env=env, max_iter=max_iter, seed=seed)
-              .init_with_partitioned_data("data", data)
-              .init_with_broadcast_data("init_centroids", init_c)
-              .add(assign)
-              .add(AllReduce("buf"))
-              .add(update)
-              .set_compare_criterion(
-                  lambda ctx: ctx.get_obj("movement") < tol)
-              .exec())
+    queue = (IterativeComQueue(env=env, max_iter=max_iter, seed=seed)
+             .init_with_partitioned_data("data", data)
+             .init_with_broadcast_data("init_centroids", init_c)
+             .add(assign)
+             .add(AllReduce("buf"))
+             .add(update)
+             .set_compare_criterion(
+                 lambda ctx: ctx.get_obj("movement") < tol)
+             .set_program_key(("kmeans", k, d, distance_type, float(tol),
+                               str(X.dtype))))
+    if checkpoint_dir:
+        # knob validation (every/keep_last >= 1) lives in CheckpointConfig
+        queue.set_checkpoint(checkpoint_dir, every=int(checkpoint_every),
+                             keep_last=int(checkpoint_keep),
+                             resume_from=resume_from)
+    elif resume_from:
+        raise ValueError("resume_from requires checkpoint_dir (an explicit "
+                         "resume request must not silently retrain)")
+    result = queue.exec()
     return (result.get("centroids"), result.get("cluster_weights"),
             result.step_count)

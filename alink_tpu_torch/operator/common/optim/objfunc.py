@@ -21,8 +21,9 @@ The design-matrix products:
 
 A shard may carry ``"__design"``, the design's
 :class:`~alink_tpu_torch.kernels.linear.GradPlan` (:func:`design_plan`,
-built once a training by the optimizers); without it each product builds
-what it needs.
+built once a run by the optimizers, on its entry superstep: the init
+pass, or the first superstep after a resume, since a snapshot does not
+hold it); without it each product builds what it needs.
 
 Softmax runs the same kernels once for each non-pivot class column: its
 padded-COO logits are ``k - 1`` sparse-margin launches and its gradient

@@ -24,7 +24,9 @@ update_ratio) are recorded every superstep, as the JAX package records
 them by default.
 
 A sparse shard's plan (``objfunc.design_plan``: flat keys, values and the
-ordered gradient's run plan) is built once, in the init superstep. The
+ordered gradient's run plan) is built once a run, on its entry superstep
+(the init pass, or the first superstep after a resume), and kept out of
+the carry (``ComContext.put_derived``): a snapshot does not hold it. The
 JAX package's one-hot precompute (``fb_onehot_parts``) is a TPU layout
 and is not ported.
 
@@ -36,8 +38,12 @@ properties only. NEWTON forms the dense Hessian (``hessian_shard``) and
 solves with ``torch.linalg.solve``.
 
 Ported: ``OptimParams``, :func:`optimize` with LBFGS, OWLQN, GD, SGD
-and NEWTON. Checkpoints and health monitors raise
-``NotImplementedError``.
+and NEWTON, each with superstep checkpoints and resume
+(``checkpoint_dir`` / ``checkpoint_every`` / ``checkpoint_keep`` /
+``resume_from``, ``engine/recovery.py``): a run killed between
+snapshots and resumed from the newest one ends with the uninterrupted
+run's coefficients, loss curve and step count, bit for bit. The health
+monitor raises ``NotImplementedError`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 
 from ....common.mlenv import MLEnvironment
 from ....engine import AllReduce, IterativeComQueue
+from ....engine.comqueue import freeze_config
 from .objfunc import DESIGN, OptimObjFunc, check_full_float32, design_plan
 
 _TINY = 1e-12
@@ -67,18 +74,34 @@ class OptimParams:
     learning_rate: float = 1.0
     mini_batch_fraction: float = 0.1
     seed: int = 0
-    # superstep durability and the health watchdog: not ported yet
+    # superstep durability (engine/recovery.py): persist the carry every N
+    # supersteps; resume_from= re-enters a killed run with bitwise-
+    # identical results
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 1
     checkpoint_keep: int = 3
     resume_from: Optional[str] = None
+    # the health watchdog: not ported yet
     health: Optional[object] = None
 
     def __post_init__(self):
-        if self.checkpoint_dir or self.resume_from or self.health is not None:
+        if self.health is not None:
             raise NotImplementedError(
-                "OptimParams: checkpoint_dir, resume_from and health are not "
-                "ported yet (ROADMAP Queue A item 4)")
+                "OptimParams: health is not ported yet (ROADMAP Queue A "
+                "item 10)")
+
+
+def _apply_checkpoint(queue, params: OptimParams):
+    if params.checkpoint_dir:
+        # knob validation (every/keep_last >= 1) lives in CheckpointConfig
+        queue.set_checkpoint(params.checkpoint_dir,
+                             every=int(params.checkpoint_every),
+                             keep_last=int(params.checkpoint_keep),
+                             resume_from=params.resume_from)
+    elif params.resume_from:
+        raise ValueError("OptimParams.resume_from requires checkpoint_dir "
+                         "(an explicit resume request must not silently "
+                         "retrain from scratch)")
 
 
 def optimize(obj: OptimObjFunc, data: Dict, params: OptimParams,
@@ -184,7 +207,7 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
 
     def calc_grad(ctx):
         if ctx.is_init_step:
-            coef0 = _init_state(ctx, obj, data_keys, dtype, max_iter)
+            coef0 = _init_state(ctx, dtype, max_iter)
             dev = coef0.device
             ctx.put_obj("coef_prev", coef0)
             ctx.put_obj("grad_prev", torch.zeros(dim, dtype=dtype, device=dev))
@@ -195,6 +218,7 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
             ctx.put_obj("nvalid", 0)
             ctx.put_obj("step_scale", torch.ones((), dtype=dtype, device=dev))
             ctx.put_obj("ladder", torch.from_numpy(ladder).to(dev))
+        _enter(ctx, obj, data_keys)
         shard = _shard_views(ctx, data_keys)
         g, loss, wsum, eta = obj.calc_grad_eta_shard(shard, ctx.get_obj("coef"))
         if eta is not None:
@@ -277,8 +301,11 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
              .add(direction_and_losses)
              .add(AllReduce("line_losses"))
              .add(update_model)
-             .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
-    return _run(queue, data)
+             .set_compare_criterion(lambda ctx: ctx.get_obj("conv"))
+             .set_program_key(("qn", owlqn, m, params.learning_rate,
+                               params.epsilon, str(dtype), data_keys,
+                               freeze_config(obj))))
+    return _run(queue, data, params)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +322,8 @@ def _sgd(obj, data, params, env, warm_start):
 
     def calc_grad(ctx):
         if ctx.is_init_step:
-            _init_state(ctx, obj, data_keys, dtype, max_iter)
+            _init_state(ctx, dtype, max_iter)
+        _enter(ctx, obj, data_keys)
         shard = _shard_views(ctx, data_keys)
         # this superstep's random sub-sample, drawn on the device
         w = shard["w"]
@@ -337,8 +365,11 @@ def _sgd(obj, data, params, env, warm_start):
              .add(calc_grad)
              .add(AllReduce("glw"))
              .add(update)
-             .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
-    return _run(queue, data)
+             .set_compare_criterion(lambda ctx: ctx.get_obj("conv"))
+             .set_program_key(("sgd", params.learning_rate, params.epsilon,
+                               params.mini_batch_fraction, str(dtype),
+                               data_keys, freeze_config(obj))))
+    return _run(queue, data, params)
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +385,8 @@ def _newton(obj, data, params, env, warm_start):
 
     def calc(ctx):
         if ctx.is_init_step:
-            _init_state(ctx, obj, data_keys, dtype, max_iter, densified=True)
+            _init_state(ctx, dtype, max_iter)
+        _enter(ctx, obj, data_keys, densified=True)
         shard = _shard_views(ctx, data_keys)
         H, g, loss, wsum = obj.hessian_shard(shard, ctx.get_obj("coef"))
         ctx.put_obj("H", H)
@@ -383,8 +415,10 @@ def _newton(obj, data, params, env, warm_start):
              .add(AllReduce("H"))
              .add(AllReduce("glw"))
              .add(update)
-             .set_compare_criterion(lambda ctx: ctx.get_obj("conv")))
-    return _run(queue, data)
+             .set_compare_criterion(lambda ctx: ctx.get_obj("conv"))
+             .set_program_key(("newton", params.epsilon, str(dtype),
+                               data_keys, freeze_config(obj))))
+    return _run(queue, data, params)
 
 
 # ---------------------------------------------------------------------------
@@ -396,25 +430,32 @@ def _start(dim: int, dtype: torch.dtype, warm_start) -> np.ndarray:
         else np.asarray(warm_start, np_dtype)
 
 
-def _init_state(ctx, obj, keys, dtype, max_iter: int,
-                densified: bool = False):
-    """The init superstep's state that every optimizer keeps: ``coef``
-    from ``coef0``, the NaN loss curve and the convergence bit; then the
-    TF32 check of the training's dense products (``densified``: Newton's
-    Hessian reads the densified design) and the design's plan, built once
-    (a sparse shard only). Returns ``coef0``."""
+def _init_state(ctx, dtype, max_iter: int):
+    """The state every optimizer keeps, built in the init superstep:
+    ``coef`` from ``coef0``, the NaN loss curve and the convergence bit.
+    Returns ``coef0``. The data-derived rest is :func:`_enter`'s."""
     coef0 = ctx.get_obj("coef0")
     ctx.put_obj("coef", coef0)
     ctx.put_obj("loss_curve", torch.full((max_iter,), float("nan"),
                                          dtype=dtype, device=coef0.device))
     ctx.put_obj("conv", torch.zeros((), dtype=torch.bool,
                                     device=coef0.device))
+    return coef0
+
+
+def _enter(ctx, obj, keys, densified: bool = False) -> None:
+    """On a run's entry superstep (the init pass, or the first superstep
+    after a resume): the TF32 check of the training's dense products
+    (``densified``: Newton's Hessian reads the densified design) and the
+    design's plan, built once and kept out of the carry (a sparse shard
+    only)."""
+    if not ctx.is_entry_step:
+        return
     shard = _shard_views(ctx, keys)
     check_full_float32(shard, densified)
     plan = design_plan(shard, obj.design_dim, getattr(obj, "fb_meta", None))
     if plan is not None:
-        ctx.put_obj(DESIGN, plan)
-    return coef0
+        ctx.put_derived(DESIGN, plan)
 
 
 def _record_loss(ctx, loss, grad_norm, grad) -> None:
@@ -432,11 +473,12 @@ def _probe_update(ctx, step, coef) -> None:
               / torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
 
 
-def _run(queue, data):
-    """Partition the training arrays into the queue, run it; (coef, loss
-    curve, supersteps)."""
+def _run(queue, data, params: OptimParams):
+    """Partition the training arrays into the queue, set its checkpoint,
+    run it; (coef, loss curve, supersteps)."""
     for k, v in data.items():
         queue.init_with_partitioned_data(k, v)
+    _apply_checkpoint(queue, params)
     res = queue.exec()
     steps = res.step_count
     return res.get("coef"), _trim_curve(res.get("loss_curve"), steps), steps

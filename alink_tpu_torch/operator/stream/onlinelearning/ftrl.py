@@ -33,22 +33,40 @@ zeroed float32 buffer of the deltas, field-blocked). The dense steps are
 eager PyTorch: the batch one a product and column sums, the strict one
 a loop of about 35 small ops a sample.
 
-Left out, raising ``NotImplementedError``: ``checkpoint_dir`` (ROADMAP
-Queue A4) and ``health`` (Queue A10). Not ported: the feature-sharded
-state, the compile plane, metrics and tracing.
+Durability, as in the JAX package: with ``checkpoint_dir`` and
+``checkpoint_every_batches`` the drain persists the ``(z, n)`` state
+every N micro-batches and at the end of the stream (one fetch of the
+state a boundary, ``common/checkpoint.py``), and a restarted op with the
+same directory resumes from the newest valid snapshot: it skips the
+committed prefix of the replayed input before encoding it, keeps the
+micro-batch geometry of the uninterrupted drain (the batch size latched
+on the first micro-batch, the padded-COO width the committed batches
+reached, the layout), and ends with the uninterrupted drain's model, bit
+for bit, on a deterministic source. A snapshot of another configuration
+(:func:`ftrl_checkpoint_signature`) raises ``CheckpointError``.
+
+Left out, raising ``NotImplementedError``: ``health`` (ROADMAP Queue
+A10). Not ported: the feature-sharded state, the compile plane, metrics
+and tracing.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+import hashlib
+import time
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ....common.checkpoint import (CheckpointError, load_latest_validated,
+                                   save_checkpoint)
 from ....common.device import resolve_device
+from ....common.faults import maybe_crash
 from ....common.mtable import MTable
 from ....common.params import InValidator, ParamInfo, Params, RangeValidator
 from ....common.types import TableSchema
+from ....engine.recovery import payload_bytes, record
 from ....kernels.ftrl import (ftrl_weights, gather_pair, gather_rows,
                               scatter_add_rows, sigmoid, walk_chunk)
 from ....kernels.linear import scatter_walk
@@ -493,6 +511,28 @@ class FtrlTrainer:
         return LinearModelDataConverter(init.label_type).save_model(m)
 
 
+def ftrl_checkpoint_signature(trainer: FtrlTrainer) -> Dict[str, Any]:
+    """The identity of an FTRL drain's snapshots, with the keys of the JAX
+    package's (``common/plan.py::ftrl_checkpoint_signature``): the
+    hyperparameters, the geometry (one device: ``dim_pad`` is ``dim``),
+    the update mode with its chunk sizes, and a blake2b of the warm-start
+    coefficients (a same-dim but different warm model is another model).
+    The input stream itself cannot be fingerprinted at link time: resume
+    assumes a deterministic, replayed source."""
+    warm = hashlib.blake2b(np.ascontiguousarray(
+        np.asarray(trainer.init.coef)).tobytes(), digest_size=12).hexdigest()
+    mode = trainer.update_mode
+    sig: Dict[str, Any] = {
+        "kind": "ftrl_state", "alpha": trainer.alpha, "beta": trainer.beta,
+        "l1": trainer.l1, "l2": trainer.l2, "dim": trainer.dim,
+        "dim_pad": trainer.dim, "update_mode": mode,
+        "staleness": trainer.staleness if mode == "staleness" else None,
+        "has_intercept": trainer.has_intercept, "warm_coef_blake2b": warm}
+    if mode == "chained":
+        sig["chunk_size"] = trainer.chunk_size
+    return sig
+
+
 class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCol):
     """Online FTRL trainer; output is the model-snapshot stream.
 
@@ -528,11 +568,23 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                            description="chunk length for update_mode="
                                        "'chained'",
                            validator=RangeValidator(1, None))
-    # durability (ROADMAP Queue A4) and health monitoring (Queue A10) are
-    # not ported yet: a checkpoint_dir or a health monitor raises
-    # NotImplementedError at link; the params that only tune a checkpoint
-    # are not declared
+    # stream durability (common/checkpoint.py): persist the (z, n) state
+    # every N micro-batches with bounded retention; a crash-restarted op
+    # with the same checkpoint_dir resumes from the newest valid snapshot
+    # and SKIPS the already-committed prefix of the (replayed) input
+    # stream: on a deterministic source the recovered model is
+    # bit-identical to the uninterrupted run's
     CHECKPOINT_DIR = ParamInfo("checkpoint_dir", str, default=None)
+    CHECKPOINT_EVERY = ParamInfo("checkpoint_every_batches", int, default=0,
+                                 description="micro-batches between state "
+                                             "snapshots (0 = off)")
+    CHECKPOINT_KEEP = ParamInfo("checkpoint_keep", int, default=3,
+                                validator=RangeValidator(1, None))
+    RESUME = ParamInfo("resume", bool, default=True,
+                       description="resume from the newest valid snapshot "
+                                   "in checkpoint_dir when one exists")
+    # health monitoring (ROADMAP Queue A10) is not ported yet: a monitor
+    # raises NotImplementedError at link
     HEALTH = ParamInfo("health", object, default=None)
 
     def __init__(self, initial_model: Optional[BatchOperator] = None,
@@ -583,12 +635,10 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
 
     def link_from(self, data_op: StreamOperator) -> "FtrlTrainStreamOp":
         m = self.params._m
-        queue = {"checkpoint_dir": "A4", "health": "A10"}
-        for key, item in queue.items():
-            if m.get(key) is not None:
-                raise NotImplementedError(
-                    f"FtrlTrainStreamOp: {key} is not ported yet (ROADMAP "
-                    f"Queue {item})")
+        if m.get("health") is not None:
+            raise NotImplementedError(
+                "FtrlTrainStreamOp: health is not ported yet (ROADMAP Queue "
+                "A10)")
         init = self._load_initial()
         self._schema = LinearModelDataConverter(init.label_type).schema
         update_mode = m.get("update_mode", "sample")
@@ -603,24 +653,69 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
             ship_dtype=self.ship_dtype)
         interval = float(self.get_time_interval())
         batch_mode = update_mode == "batch"
+        ck_dir = m.get("checkpoint_dir")
+        ck_every = int(m.get("checkpoint_every_batches", 0) or 0)
+        ck_keep = int(m.get("checkpoint_keep", 3))
+        ck_resume = bool(m.get("resume", True))
+        ck_signature = ftrl_checkpoint_signature(trainer) if ck_dir else None
+
+        def restore():
+            """The newest valid snapshot's ``(payload, meta)``, checked
+            against this drain's signature and ship dtype; None when
+            there is none (or resuming is off)."""
+            if not (ck_dir and ck_resume):
+                return None
+            t0 = time.perf_counter()
+            got = load_latest_validated(ck_dir, ck_signature, scope="ftrl",
+                                        what="FTRL program")
+            if got is None:
+                return None
+            if got[0]["z"].dtype != trainer.ship_np:
+                raise CheckpointError(
+                    f"{ck_dir}: the snapshot's state is "
+                    f"{got[0]['z'].dtype}, this drain ships "
+                    f"{np.dtype(trainer.ship_np)}; refusing to resume")
+            record(scope="ftrl", what="load",
+                   tag=int(got[1]["batches_done"]),
+                   load_ms=(time.perf_counter() - t0) * 1e3)
+            return got
 
         def gen():
+            # -- crash-restart resume (common/checkpoint.py): the newest
+            # valid snapshot carries the committed (z, n) state, the count
+            # of micro-batches folded into it and the padded-COO width
+            # they reached; the replayed input's committed prefix is
+            # skipped below, before encode
+            restored = restore()
+            resume_skip = 0 if restored is None \
+                else int(restored[1]["batches_done"])
             # cleared once the state commits to the generic layout; the
             # encode thread reads it, so an fb micro-batch already encoded
             # ahead of the flip is encoded again below
-            allow_fb = [batch_mode]
+            allow_fb = [batch_mode and (restored is None
+                                        or restored[1]["layout"] == "fb")]
+            # the COO width of the committed micro-batches: a sparse
+            # micro-batch is padded to max(this, its own width), whoever
+            # encoded it, so a resumed drain pads as the uninterrupted one
+            width0 = 8 if restored is None \
+                else int(restored[1]["coo_width"])
 
             def encoded():
                 """Host leg, run ahead by one thread: the batch size
                 latches on the first non-empty micro-batch (later ones pad
-                to it) and the COO width only grows."""
+                to it), even when a resume skips it; the committed prefix
+                is skipped before encode; the COO width only grows."""
                 batch_size = None
-                width = 8
+                width = width0
+                seen = 0
                 for t, mt in data_op.timed_batches():
                     if mt.num_rows == 0:
                         continue
                     if batch_size is None:
                         batch_size = max(1, mt.num_rows)
+                    seen += 1
+                    if seen <= resume_skip:
+                        continue           # committed before the crash
                     bs = max(batch_size, mt.num_rows)
                     enc = trainer.encode(mt, bs, width, allow_fb[0])
                     width = max(width, enc.width)
@@ -640,7 +735,45 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
             z = n = None
             layout = fb_S = fb_meta = None
             next_emit = None
-            b_done = 0
+            b_done = resume_skip
+            width_done = width0
+            if restored is not None:
+                payload, meta = restored
+                layout = meta["layout"]
+                # next_emit is NOT restored: it re-derives from the first
+                # replayed batch's event time, so a restart never
+                # re-emits for the committed prefix
+                if layout == "fb":
+                    fb_S = int(meta["fb_S"])
+                    fb_meta = FieldBlockMeta(int(meta["fb_num_fields"]),
+                                             int(meta["fb_field_size"]))
+                z = torch.from_numpy(np.array(payload["z"])).to(
+                    trainer.device)
+                n = torch.from_numpy(np.array(payload["n"])).to(
+                    trainer.device)
+
+            def save_state():
+                # ONE fetch of (z, n) a boundary: everything before the
+                # snapshot is committed, everything after replays on
+                # restart
+                meta = {"signature": ck_signature, "layout": layout,
+                        "batches_done": b_done,
+                        "next_emit": None if next_emit is None
+                        else float(next_emit), "coo_width": width_done}
+                if layout == "fb":
+                    meta["fb_S"] = int(fb_S)
+                    meta["fb_num_fields"] = int(fb_meta.num_fields)
+                    meta["fb_field_size"] = int(fb_meta.field_size)
+                t0 = time.perf_counter()
+                zn = torch.stack([z, n]).cpu().numpy()
+                t1 = time.perf_counter()
+                path = save_checkpoint(ck_dir, b_done,
+                                       {"z": zn[0], "n": zn[1]}, meta=meta,
+                                       scope="ftrl", keep_last=ck_keep)
+                record(scope="ftrl", what="save", tag=b_done,
+                       fetch_ms=(t1 - t0) * 1e3,
+                       write_ms=(time.perf_counter() - t1) * 1e3,
+                       bytes=payload_bytes(path))
 
             def device_emit(t_ev, batch) -> bool:
                 hook = self._device_snapshot_hook
@@ -666,7 +799,13 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                         z, n = trainer.to_std_state(z, n, fb_S)
                     layout, fb_S, fb_meta = "std", None, None
                     allow_fb[0] = False
-                    enc = trainer.to_device(trainer.encode(mt, bs, 8))
+                    enc = trainer.to_device(trainer.encode(mt, bs,
+                                                           width_done))
+                elif enc.kind == "sparse" and enc.width < width_done:
+                    # encoded ahead with a width a re-encoded micro-batch
+                    # has since outgrown
+                    enc = trainer.to_device(trainer.encode(mt, bs,
+                                                           width_done))
                 if layout is None:
                     if enc.kind == "fb":
                         layout, fb_S, fb_meta = ("fb", enc.meta.field_size,
@@ -678,6 +817,7 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                 rows = mt.num_rows
                 y = enc.arrays[-1]
                 z, n, mg = trainer.step(enc, z, n)
+                width_done = max(width_done, enc.width)
                 pending.append((b_done + 1, rows,
                                 progressive_logloss_sum(mg[:rows], y[:rows])))
                 if t + 1e-12 >= next_emit:
@@ -692,6 +832,17 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                 b_done += 1
                 if pace is not None:
                     pace("post", b_done, t)
+                # the injected-preemption point sits BEFORE the periodic
+                # save: a crash at batch k genuinely loses the work since
+                # the last snapshot
+                maybe_crash("ftrl.batch", b_done)
+                if ck_dir and ck_every and b_done % ck_every == 0:
+                    save_state()
+            if ck_dir and ck_every and z is not None \
+                    and b_done > resume_skip and b_done % ck_every != 0:
+                # end-of-stream snapshot so a restart of a COMPLETED drain
+                # resumes instead of retraining the tail
+                save_state()
             if z is None:
                 # empty stream: emit the warm-start model
                 z, n = trainer.initial_state()

@@ -10,8 +10,9 @@ pool that the sharded file reads and the native parser's chunks run on.
 Left out: ``stream_workers`` (``ALINK_TPU_STREAM_WORKERS``), the width
 the JAX package's FTRL drain takes from the environment (the port's
 drain does not run on the pool, and its callers pass a width), the
-depth knob (the depth is fixed at ``PREFETCH_DEPTH``), the depth gauge
-and the fault injection site.
+depth knob (the depth is fixed at ``PREFETCH_DEPTH``) and the depth
+gauge. ``_Channel.get`` is the ``prefetch.get`` fault site
+(``common/faults.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import threading
 import time
 from collections import deque
 from typing import Callable, Iterable, Iterator, Optional, TypeVar
+
+from ...common.faults import maybe_crash
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -68,6 +71,10 @@ class _Channel:
         """Dequeue one item; blocks until an item, close
         (``_SENTINEL``) or — when ``timeout`` is given — the deadline
         (``_EMPTY``). ``timeout=0`` polls without blocking."""
+        # deterministic fault site: every consumer (stream drains and the
+        # serving micro-batcher) pulls through here. Unarmed cost: one
+        # os.environ probe
+        maybe_crash("prefetch.get")
         deadline = None if timeout is None \
             else time.monotonic() + max(0.0, timeout)
         with self._not_empty:

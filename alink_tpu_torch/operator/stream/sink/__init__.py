@@ -1,7 +1,9 @@
 """Stream sinks (counterpart: ``alink_tpu/operator/stream/sink``)."""
 
-from .sinks import (BaseSinkStreamOp, CollectSinkStreamOp, CsvSinkStreamOp,
-                    LibSvmSinkStreamOp, TextSinkStreamOp)
+from .sinks import (BaseSinkStreamOp, CheckpointSinkStreamOp,
+                    CollectSinkStreamOp, CsvSinkStreamOp, LibSvmSinkStreamOp,
+                    TextSinkStreamOp)
 
-__all__ = ["BaseSinkStreamOp", "CollectSinkStreamOp", "CsvSinkStreamOp",
-           "LibSvmSinkStreamOp", "TextSinkStreamOp"]
+__all__ = ["BaseSinkStreamOp", "CheckpointSinkStreamOp",
+           "CollectSinkStreamOp", "CsvSinkStreamOp", "LibSvmSinkStreamOp",
+           "TextSinkStreamOp"]

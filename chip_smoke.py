@@ -281,6 +281,30 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    ``dryrun_multichip``'s KMeans leg (``KMeansTrainBatchOp(feature_cols=
    ["x0", "x1"], k=2, max_iter=3)``).
 
+17. durability (after 16): faults armed in process
+   (``common/faults.py::scoped_fault_env``); each armed site must raise
+   ``FaultInjected`` and nothing else may. (a) L-BFGS at
+   ``bench_logreg``'s field-blocked shape (phase 12(b)'s data, 12
+   supersteps at epsilon 0): plain, then, with the async snapshot writer
+   on and then off, checkpointed every 4, killed at superstep 8 (only
+   ckpt-4 survives) and resumed: coefficients, loss curve and step count
+   bitwise the plain run's; the two writers' snapshot array files equal;
+   the resumed run's P1, B5 and ``run_plan`` launches those of 8
+   supersteps of the uninterrupted run plus the plan's rebuild; ms a
+   superstep with and without checkpoints, each snapshot's fetch and
+   write ms and MB, the resume's load ms. (b) FTRL: ``update_mode=
+   "sample"`` on 8 Criteo-shape micro-batches of 4096 at 2^20 features,
+   checkpointed every 2, killed after micro-batch 5; and bench_ftrl's
+   stream as phase 14 runs it, checkpointed every 4, killed after
+   micro-batch 9 of 16: each final model bitwise the uninterrupted
+   drain's, the resumed drains' B1-B3 or P2 / plan / gather launches
+   those of the micro-batches left; each checkpoint's ms and MB (2^20 + 1
+   slots) beside the JSON model snapshot's ms. (c) KMeans at
+   ``bench_kmeans``' shape, 8 supersteps at tol 0, checkpointed every 2,
+   killed at 4: centroids and weights bitwise. (d) one array file of
+   (a)'s directory corrupted: ``validate_checkpoint`` raises and
+   ``latest_checkpoint`` falls back to the older snapshot.
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -290,6 +314,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -5250,6 +5275,434 @@ def phase_family_main(kernels, card, dev=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17. durability: kill-and-resume on the card
+# ---------------------------------------------------------------------------
+
+DUR_STEPS, DUR_EVERY, DUR_KILL = 12, 4, 8        # (a) L-BFGS
+DUR_SAMPLE_BATCHES, DUR_SAMPLE_EVERY, DUR_SAMPLE_KILL = 8, 2, 5
+DUR_STREAM_EVERY, DUR_STREAM_KILL = 4, 9         # (b) bench_ftrl's stream
+DUR_KM_STEPS, DUR_KM_EVERY, DUR_KM_KILL = 8, 2, 4
+
+
+def killed(spec, site, run):
+    """Run ``run()`` with ``spec`` armed in process: the armed site must
+    raise ``FaultInjected``; any other exception propagates (and fails the
+    script), and no raise fails it too."""
+    from alink_tpu_torch.common.faults import FaultInjected, scoped_fault_env
+    with scoped_fault_env(spec):
+        try:
+            run()
+        except FaultInjected as e:
+            require(e.site == site, f"the fault fired at {site}: {e}")
+            return
+    require(False, f"{spec} raised no FaultInjected")
+
+
+def _ckpt_tags(d):
+    from alink_tpu_torch.common.checkpoint import (checkpoint_tag,
+                                                   list_checkpoints)
+    return [checkpoint_tag(p) for p in list_checkpoints(d)]
+
+
+def _array_digests(d):
+    """{tag: blake2b of every array file} of a checkpoint directory."""
+    import hashlib
+    from alink_tpu_torch.common.checkpoint import (checkpoint_tag,
+                                                   list_checkpoints)
+    out = {}
+    for p in list_checkpoints(d):
+        out[checkpoint_tag(p)] = [
+            hashlib.blake2b(Path(p, f).read_bytes(), digest_size=16)
+            .hexdigest() for f in sorted(os.listdir(p)) if f.endswith(".npy")]
+    return out
+
+
+def _counts(*mods):
+    return {k: v for m in mods for k, v in m.launch_counts().items()}
+
+
+def _reset(*mods):
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def durability_lbfgs(ks, kl, root, card):
+    """17(a): L-BFGS at bench_logreg's field-blocked shape, 12 supersteps
+    at epsilon 0: plain, then for each writer (async on, off) checkpointed
+    every 4, killed at superstep 8 and resumed; every result bitwise the
+    plain one's, the two writers' snapshot files equal, the resumed run's
+    launches those of supersteps 9-12 of the uninterrupted one plus one
+    plan."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.engine import recovery
+    from alink_tpu_torch.operator.common.optim import objfunc as ob
+    from alink_tpu_torch.operator.common.optim import optimizers as opt
+    from alink_tpu_torch.ops.fieldblock import FieldBlockMeta
+    fb, y = fb_criteo(0)
+    data = {"fb_idx": fb, "y": y, "w": np.ones(LR_ROWS, np.float32)}
+    meta = FieldBlockMeta(LR_FIELDS + 1, LR_FIELD_SIZE)
+    w0 = (np.random.RandomState(123).randn(meta.dim) * 1e-6).astype(
+        np.float32)
+
+    def run(**ck):
+        obj = ob.UnaryLossObjFunc(ob.LogLossFunc(), meta.dim, l2=LR_L2,
+                                  reg_free_head=LR_FIELD_SIZE, fb_meta=meta)
+        with SuperstepClock() as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coef, curve, n = opt.optimize(obj, data, opt.OptimParams(
+                method="LBFGS", max_iter=DUR_STEPS, epsilon=0.0, **ck),
+                MLEnvironment(device="cuda"), warm_start=w0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        return (coef, curve, n), secs, clock.superstep_ms()
+
+    def same(a, b):
+        return (a[2] == b[2] and np_bits_equal(a[0], b[0])
+                and np_bits_equal(a[1], b[1]))
+
+    run()                                              # warm-up
+    plain, plain_s, plain_ms = run()
+    require(plain[2] == DUR_STEPS, f"L-BFGS ran {plain[2]} supersteps")
+    out = {"rows": LR_ROWS, "fields": LR_FIELDS + 1,
+           "field_size": LR_FIELD_SIZE, "supersteps": DUR_STEPS,
+           "every": DUR_EVERY, "kill_at": DUR_KILL,
+           "plain_s": plain_s,
+           "plain_ms_per_superstep": float(plain_ms.mean()),
+           "writers": {}}
+    resumed_launches = None
+    for flag in ("1", "0"):
+        os.environ["ALINK_TPU_ASYNC_SNAPSHOT"] = flag
+        try:
+            full_dir, kill_dir = (str(root / f"lbfgs-{k}-{flag}")
+                                  for k in ("full", "kill"))
+            ck = dict(checkpoint_dir=full_dir, checkpoint_every=DUR_EVERY)
+            recovery.reset_snapshot_records()
+            _reset(ks, kl)
+            full, full_s, full_ms = run(**ck)
+            full_launches = _counts(ks, kl)
+            saves = [r for r in recovery.snapshot_records()
+                     if r["what"] == "save"]
+            require(_ckpt_tags(full_dir) == [4, 8, 12],
+                    f"snapshots at 4, 8, 12: {_ckpt_tags(full_dir)}")
+            ck = dict(checkpoint_dir=kill_dir, checkpoint_every=DUR_EVERY)
+            _reset(ks, kl)
+            killed(f"comqueue.superstep:{DUR_KILL}", "comqueue.superstep",
+                   lambda: run(**ck))
+            kill_launches = _counts(ks, kl)
+            require(_ckpt_tags(kill_dir) == [4], f"only ckpt-4 survives "
+                    f"the kill at {DUR_KILL}: {_ckpt_tags(kill_dir)}")
+            recovery.reset_snapshot_records()
+            _reset(ks, kl)
+            res, res_s, _ = run(resume_from=kill_dir, **ck)
+            res_launches = _counts(ks, kl)
+            loads = [r for r in recovery.snapshot_records()
+                     if r["what"] == "load"]
+            require(same(full, plain) and same(res, plain),
+                    f"writer {flag}: checkpointed and resumed L-BFGS "
+                    f"bitwise the plain run's coefficients, loss curve and "
+                    f"step count")
+            # supersteps 9-12 of the uninterrupted run issue what 9-12
+            # of the killed one would have: 2 x (full - killed)
+            # (supersteps 9-12 minus 5-8's) per kernel, plus the plan
+            per4 = {k: full_launches[k] - kill_launches[k]
+                    for k in full_launches}
+            want = {k: 2 * v for k, v in per4.items()}
+            want["run_plan"] += 1
+            require(res_launches == want,
+                    f"the resumed run's launches {res_launches} are 8 "
+                    f"supersteps' of the uninterrupted run plus one plan "
+                    f"({want})")
+            for k in ("linear_grad", "serve_sparse", "run_plan"):
+                require(res_launches[k] > 0, f"the resumed L-BFGS launched "
+                                             f"{k}")
+            resumed_launches = res_launches
+            out["writers"]["async" if flag == "1" else "sync"] = {
+                "checkpointed_s": full_s,
+                "checkpointed_ms_per_superstep": float(full_ms.mean()),
+                "overhead": float(full_ms.mean() / plain_ms.mean() - 1.0),
+                "snapshots": [{"step": r["tag"], "fetch_ms": r["fetch_ms"],
+                               "write_ms": r["write_ms"],
+                               "mb": r["bytes"] / 1e6} for r in saves],
+                "resume_load_ms": loads[0]["load_ms"], "resumed_s": res_s,
+                "launches_full": full_launches,
+                "launches_resumed": res_launches,
+                "digests": _array_digests(full_dir)}
+        finally:
+            os.environ.pop("ALINK_TPU_ASYNC_SNAPSHOT", None)
+    w = out["writers"]
+    require(w["async"].pop("digests") == w["sync"].pop("digests"),
+            "the async and sync writers wrote the same snapshot arrays")
+    out["launches"] = resumed_launches
+    for name, rec in w.items():
+        print(f"durability (a) [{card}]: {name} writer: "
+              f"{rec['checkpointed_ms_per_superstep']:.4f} ms a superstep "
+              f"checkpointed every {DUR_EVERY} vs "
+              f"{out['plain_ms_per_superstep']:.4f} plain (overhead "
+              f"{rec['overhead']:+.4f}); snapshots " + ", ".join(
+                  f"{s['step']}: {s['fetch_ms']:.3f} + {s['write_ms']:.3f} "
+                  f"ms, {s['mb']:.3f} MB" for s in rec["snapshots"])
+              + f"; resume load {rec['resume_load_ms']:.3f} ms; "
+              f"launches resumed {rec['launches_resumed']}", flush=True)
+    return out
+
+
+def durability_ftrl_sample(kf, root, card):
+    """17(b), strict drain: ``update_mode="sample"`` on Criteo-shape rows
+    at 2^20 features, 8 micro-batches of 4096, checkpointed every 2,
+    killed after micro-batch 5 and restarted: the final model bitwise the
+    uninterrupted drain's; the checkpoint's ms and MB at 2^20 + 1 slots
+    beside the JSON model snapshot's ms (H1)."""
+    import torch
+    from alink_tpu_torch.common.checkpoint import (latest_checkpoint,
+                                                   load_checkpoint)
+    from alink_tpu_torch.engine import recovery
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    rows = criteo_ftrl_rows(11, DUR_SAMPLE_BATCHES * FTRL_BATCH)
+    warm = ftrl_warm_model(np.random.default_rng(11))
+    d = str(root / "ftrl-sample")
+
+    def drain(**ck):
+        op = ftrl_op(warm, "sample", time_interval=1e9, **ck).link_from(
+            MemSourceStreamOp(rows, batch_size=FTRL_BATCH))
+        snaps, secs = drain_timed(op)
+        require(len(snaps) == 1, "one snapshot, at the end")
+        return op, _coefs(snaps[-1][1]), secs
+
+    _, base, base_s = drain()
+    ck = dict(checkpoint_dir=d, checkpoint_every_batches=DUR_SAMPLE_EVERY)
+    recovery.reset_snapshot_records()
+    killed(f"ftrl.batch:{DUR_SAMPLE_KILL}", "ftrl.batch",
+           lambda: drain(**ck))
+    saves = [r for r in recovery.snapshot_records() if r["what"] == "save"]
+    require(_ckpt_tags(d) == [2, 4], f"ckpt-2 and ckpt-4 survive the kill "
+                                     f"after batch 5: {_ckpt_tags(d)}")
+    recovery.reset_snapshot_records()
+    _reset(kf)
+    op, res, res_s = drain(**ck)
+    launches = _counts(kf)
+    loads = [r for r in recovery.snapshot_records() if r["what"] == "load"]
+    require(np_bits_equal(res, base), "the resumed strict drain's model "
+                                      "bitwise the uninterrupted one's")
+    micro = DUR_SAMPLE_BATCHES - 4
+    chunks = micro * FTRL_BATCH // 4
+    require(launches["ftrl_gather_pair"] == chunks
+            and launches["ftrl_walk"] == chunks
+            and launches["ftrl_scatter_add"] == 2 * chunks,
+            f"the resumed drain ran micro-batches 5-8 on B1-B3: {launches}")
+    # the JSON model snapshot of the same state (H1), timed alone
+    payload, _ = load_checkpoint(latest_checkpoint(d))
+    z = torch.from_numpy(payload["z"]).cuda()
+    n = torch.from_numpy(payload["n"]).cuda()
+    op.trainer.snapshot(z, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op.trainer.snapshot(z, n)
+    json_ms = (time.perf_counter() - t0) * 1e3
+    out = {"rows": DUR_SAMPLE_BATCHES * FTRL_BATCH, "micro_batch": FTRL_BATCH,
+           "slots": FEATURES + 1, "every": DUR_SAMPLE_EVERY,
+           "kill_after": DUR_SAMPLE_KILL, "drain_s": base_s,
+           "resumed_s": res_s,
+           "checkpoints": [{"batch": r["tag"], "fetch_ms": r["fetch_ms"],
+                            "write_ms": r["write_ms"],
+                            "mb": r["bytes"] / 1e6} for r in saves],
+           "resume_load_ms": loads[0]["load_ms"],
+           "json_snapshot_ms": json_ms, "launches": launches}
+    print(f"durability (b) strict [{card}]: {FEATURES + 1} slots: "
+          + ", ".join(f"ckpt {c['batch']}: {c['fetch_ms']:.3f} + "
+                      f"{c['write_ms']:.3f} ms, {c['mb']:.3f} MB"
+                      for c in out["checkpoints"])
+          + f"; JSON model snapshot {json_ms:.3f} ms; resume load "
+          f"{out['resume_load_ms']:.3f} ms; drain {base_s:.3f} s, resumed "
+          f"{res_s:.3f} s; launches {launches}", flush=True)
+    return out
+
+
+def durability_ftrl_stream(kl, kf, root, card):
+    """17(b), batch drain: bench_ftrl's stream as phase 14 runs it
+    (262,144 rows hashed field-aware into 3 x 1648, 16,384-row
+    micro-batches, the field-blocked program), checkpointed every 4,
+    killed after micro-batch 9 of 16 and restarted: the final model
+    bitwise the uninterrupted drain's."""
+    from alink_tpu_torch.engine import recovery
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        FeatureHasherBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream.batch_twins import \
+        FeatureHasherStreamOp
+    from alink_tpu_torch.operator.stream.onlinelearning import \
+        FtrlTrainStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    table = bench_stream_data()
+    warm = LogisticRegressionTrainBatchOp(
+        vector_col="vec", label_col="click",
+        max_iter=ST_WARM_ITER).link_from(FeatureHasherBatchOp(
+            **ST_HASH).link_from(MemSourceBatchOp(
+                table.first_n(ST_WARM_ROWS))))
+    warm.get_output_table()
+    d = str(root / "ftrl-stream")
+    micro = ST_ROWS // ST_MICRO
+
+    def drain(**ck):
+        feat = FeatureHasherStreamOp(**ST_HASH).link_from(
+            MemSourceStreamOp(table, batch_size=ST_MICRO))
+        op = FtrlTrainStreamOp(
+            warm, vector_col="vec", label_col="click", update_mode="batch",
+            time_interval=1e9, **FTRL_HP, **ck).link_from(feat)
+        snaps, secs = drain_timed(op)
+        require(len(snaps) == 1, "one snapshot, at the end")
+        return _coefs(snaps[-1][1]), secs
+
+    base, base_s = drain()
+    ck = dict(checkpoint_dir=d, checkpoint_every_batches=DUR_STREAM_EVERY)
+    recovery.reset_snapshot_records()
+    killed(f"ftrl.batch:{DUR_STREAM_KILL}", "ftrl.batch",
+           lambda: drain(**ck))
+    saves = [r for r in recovery.snapshot_records() if r["what"] == "save"]
+    require(_ckpt_tags(d) == [4, 8], f"ckpt-4 and ckpt-8 survive the kill "
+                                     f"after batch 9: {_ckpt_tags(d)}")
+    recovery.reset_snapshot_records()
+    _reset(kl, kf)
+    res, res_s = drain(**ck)
+    launches = _counts(kl, kf)
+    loads = [r for r in recovery.snapshot_records() if r["what"] == "load"]
+    require(np_bits_equal(res, base), "the resumed stream's model bitwise "
+                                      "the uninterrupted one's")
+    left = micro - 8
+    require(launches["scatter_walk"] == left and launches["run_plan"] == left
+            and launches["ftrl_gather_pair"] == left
+            and launches["linear_grad"] == 0,
+            f"the resumed stream ran micro-batches 9-16 field-blocked: one "
+            f"gather_pair, plan and scatter_walk each ({launches})")
+    out = {"rows": ST_ROWS, "micro_batch": ST_MICRO, "every":
+           DUR_STREAM_EVERY, "kill_after": DUR_STREAM_KILL,
+           "drain_s": base_s, "resumed_s": res_s,
+           "checkpoints": [{"batch": r["tag"], "fetch_ms": r["fetch_ms"],
+                            "write_ms": r["write_ms"],
+                            "mb": r["bytes"] / 1e6} for r in saves],
+           "resume_load_ms": loads[0]["load_ms"], "launches": launches}
+    print(f"durability (b) stream [{card}]: " + ", ".join(
+        f"ckpt {c['batch']}: {c['fetch_ms']:.3f} + {c['write_ms']:.3f} ms, "
+        f"{c['mb']:.4f} MB" for c in out["checkpoints"])
+        + f"; resume load {out['resume_load_ms']:.3f} ms; drain "
+        f"{base_s:.3f} s, resumed {res_s:.3f} s; launches {launches}",
+        flush=True)
+    return out
+
+
+def durability_kmeans(root, card):
+    """17(c): KMeans at bench_kmeans' shape (1,500,000 x 4, k = 3, RANDOM,
+    tol 0), 8 Lloyd supersteps checkpointed every 2, killed at 4 and
+    resumed: centroids and weights bitwise the uninterrupted run's."""
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.engine import recovery
+    from alink_tpu_torch.operator.common.clustering.kmeans import \
+        kmeans_train
+    X = iris_rows()
+    d = str(root / "kmeans")
+
+    def run(**ck):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        C, w, n = kmeans_train(X, k=KM_K, max_iter=DUR_KM_STEPS, tol=0.0,
+                               init="RANDOM", seed=0,
+                               env=MLEnvironment(device="cuda"), **ck)
+        _sync("cuda")
+        return (np.asarray(C), np.asarray(w), n), time.perf_counter() - t0
+
+    base, base_s = run()
+    ck = dict(checkpoint_dir=d, checkpoint_every=DUR_KM_EVERY)
+    recovery.reset_snapshot_records()
+    killed(f"comqueue.superstep:{DUR_KM_KILL}", "comqueue.superstep",
+           lambda: run(**ck))
+    saves = [r for r in recovery.snapshot_records() if r["what"] == "save"]
+    require(_ckpt_tags(d) == [2], f"only ckpt-2 survives the kill at "
+                                  f"{DUR_KM_KILL}: {_ckpt_tags(d)}")
+    recovery.reset_snapshot_records()
+    res, res_s = run(resume_from=d, **ck)
+    loads = [r for r in recovery.snapshot_records() if r["what"] == "load"]
+    require(res[2] == base[2] == DUR_KM_STEPS and np_bits_equal(res[0], base[0])
+            and np_bits_equal(res[1], base[1]),
+            "the resumed KMeans' centroids and weights bitwise the "
+            "uninterrupted run's")
+    out = {"rows": X.shape[0], "k": KM_K, "supersteps": DUR_KM_STEPS,
+           "every": DUR_KM_EVERY, "kill_at": DUR_KM_KILL, "run_s": base_s,
+           "resumed_s": res_s,
+           "snapshots": [{"step": r["tag"], "fetch_ms": r["fetch_ms"],
+                          "write_ms": r["write_ms"], "mb": r["bytes"] / 1e6}
+                         for r in saves],
+           "resume_load_ms": loads[0]["load_ms"]}
+    print(f"durability (c) [{card}]: {X.shape[0]} x 4, k {KM_K}: run "
+          f"{base_s:.3f} s, resumed {res_s:.3f} s; snapshots "
+          + ", ".join(f"{s['step']}: {s['fetch_ms']:.3f} + "
+                      f"{s['write_ms']:.3f} ms, {s['mb']:.4f} MB"
+                      for s in out["snapshots"])
+          + f"; resume load {out['resume_load_ms']:.3f} ms", flush=True)
+    return out
+
+
+def durability_corruption(root, card):
+    """17(d): one array file of (a)'s killed-and-resumed directory
+    corrupted: ``validate_checkpoint`` raises and ``latest_checkpoint``
+    falls back to the older snapshot."""
+    from alink_tpu_torch.common.checkpoint import (CheckpointError,
+                                                   checkpoint_tag,
+                                                   latest_checkpoint,
+                                                   list_checkpoints,
+                                                   validate_checkpoint)
+    d = str(root / "lbfgs-kill-1")
+    paths = list_checkpoints(d)
+    require([checkpoint_tag(p) for p in paths] == [4, 8, 12],
+            f"(a)'s resumed directory holds 4, 8, 12: {paths}")
+    target = Path(paths[-1], "arr_00000.npy")
+    raw = bytearray(target.read_bytes())
+    raw[-1] ^= 0xFF
+    target.write_bytes(bytes(raw))
+    try:
+        validate_checkpoint(paths[-1])
+        require(False, "a corrupted snapshot validated")
+    except CheckpointError as e:
+        reason = str(e)
+    fallback = checkpoint_tag(latest_checkpoint(d))
+    require(fallback == 8, f"latest_checkpoint falls back to ckpt-8: "
+                           f"{fallback}")
+    print(f"durability (d) [{card}]: corrupted ckpt-12 refused "
+          f"({reason.split(': ', 1)[-1][:60]}...), latest falls back to "
+          f"ckpt-{fallback}", flush=True)
+    return {"refused": True, "fallback_tag": fallback}
+
+
+def phase_durability(kernels, card):
+    """17: durability on the card. ``kernels`` are the ``serve``,
+    ``linear`` and ``ftrl`` kernel modules. Snapshots go to a directory
+    under ``tempfile.gettempdir()``, removed at the end."""
+    import shutil
+    import tempfile
+    ks, kl, kf = kernels
+    root = Path(tempfile.mkdtemp(prefix=f"alink-durability-{os.getpid()}-"))
+    t0 = time.perf_counter()
+    try:
+        out = {"card": card}
+        out["lbfgs"] = durability_lbfgs(ks, kl, root, card)
+        out["ftrl_sample"] = durability_ftrl_sample(kf, root, card)
+        out["ftrl_stream"] = durability_ftrl_stream(kl, kf, root, card)
+        out["kmeans"] = durability_kmeans(root, card)
+        out["corruption"] = durability_corruption(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    launches = {}
+    for part in ("lbfgs", "ftrl_sample", "ftrl_stream"):
+        for k, v in out[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5430,6 +5883,11 @@ def main(argv=None) -> int:
     family = phase_family_main((ks, kl), card)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 17. durability: kill-and-resume on the card ----------------------
+    t0 = time.perf_counter()
+    durability = phase_durability((ks, kl, kf), card)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -5608,8 +6066,10 @@ def main(argv=None) -> int:
         rec["ingest_launches"] = ingest["launches"].get(rec["name"], 0)
         rec["linear_family_launches"] = family["launches"].get(rec["name"],
                                                                0)
+        rec["durability_launches"] = durability["launches"].get(rec["name"],
+                                                                0)
     print(json.dumps({"main_path": {
-        "linear_family": family,
+        "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,

@@ -372,16 +372,17 @@ def test_no_device_raises_without_cuda(monkeypatch, stream_case):
     assert op.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [{"checkpoint_dir": "/nonexistent"},
+@pytest.mark.parametrize("kw", [{"checkpoint_dir": "/nonexistent",
+                                 "health": object()},
                                 {"health": object()}])
 def test_left_out_options_raise(stream_case, kw):
-    """Durability and health monitoring are not ported: they raise at
-    link, naming their ROADMAP items (Queue A4, A10)."""
+    """Health monitoring is not ported: it raises at link, naming its
+    ROADMAP item (Queue A10), with or without a checkpoint directory
+    (durability is ported: tests/test_torch_recovery.py)."""
     _, rows, _, twarm = stream_case
     op = tf.FtrlTrainStreamOp(twarm, device="cpu", label_col="label",
                               **kw)
-    item = "A4" if "checkpoint_dir" in kw else "A10"
-    with pytest.raises(NotImplementedError, match=f"Queue {item}"):
+    with pytest.raises(NotImplementedError, match="Queue A10"):
         op.link_from(TMemS(_torch_table(rows)))
 
 
