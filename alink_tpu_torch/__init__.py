@@ -27,6 +27,10 @@ the rest of the linear family (linear SVM, perceptron, Softmax, linear,
 ridge, lasso and SVR regression, with SGD and Newton beside L-BFGS) and
 KMeans, in ``operator.batch.classification``, ``operator.batch.
 regression``, ``operator.batch.clustering`` and their pipeline twins.
+Slice 15 is ALS (``operator.batch.recommendation``, the float32
+training of ``operator/common/recommendation/als.py`` on the engine),
+the multiclass, regression and cluster evaluation, and the stream
+predict twins of ``operator/stream/predict_ops.py``.
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,16 @@
 
 Counterpart: ``alink_tpu/engine/communication.py``. The signatures are
 the JAX package's, so trainer code reads the same; at one worker every
-reduction is the identity and a gather adds the worker axis of length
-1. The collective manifest, the fusion of adjacent reductions and the
-ReduceScatter helper are not ported: there is nothing to count or fuse
-until the engine runs on several cards. The stage-level ``AllReduce``
-is ported for the optimizers; ``AllGather`` and ``BroadcastFromWorker0``
-wait for a caller.
+reduction is the identity and an untiled gather adds the worker axis
+of length 1. ``manifest_psum_scatter`` and ``manifest_all_gather`` (ALS'
+``shard_solve``) follow ``lax.psum_scatter`` and ``lax.all_gather`` at
+one worker: tiled, both are the identity; untiled, the scatter drops
+its length-1 worker axis and the gather adds one. Several workers
+raise. The collective manifest and the fusion of adjacent reductions
+are not ported: there is nothing to count or fuse until the engine
+runs on several cards. The stage-level ``AllReduce`` is ported for the
+optimizers; ``AllGather`` and ``BroadcastFromWorker0`` wait for a
+caller.
 """
 
 from __future__ import annotations
@@ -40,6 +44,32 @@ def manifest_pmin(x, axis_name, *, name: str = "<pmin>",
     """``lax.pmin`` at one worker: the identity."""
     _one_worker(name, num_workers)
     return x
+
+
+def manifest_all_gather(x, axis_name, *, axis: int = 0, tiled: bool = False,
+                        name: str = "<all_gather>", num_workers: int = 1):
+    """``lax.all_gather`` at one worker: the identity when ``tiled``, else
+    ``x`` with a worker axis of length 1 inserted at ``axis``."""
+    _one_worker(name, num_workers)
+    return x if tiled else x.unsqueeze(axis)
+
+
+def manifest_psum_scatter(x, axis_name, *, scatter_dimension: int = 0,
+                          tiled: bool = False,
+                          name: str = "<psum_scatter>",
+                          num_workers: int = 1):
+    """``lax.psum_scatter`` at one worker: the identity when ``tiled``;
+    untiled, ``x``'s ``scatter_dimension`` must have the worker count's
+    length 1 and is dropped."""
+    _one_worker(name, num_workers)
+    if tiled:
+        return x
+    if x.shape[scatter_dimension] != num_workers:
+        raise ValueError(
+            f"{name}: untiled psum_scatter needs dimension "
+            f"{scatter_dimension} of length {num_workers}, got "
+            f"{tuple(x.shape)}")
+    return x.squeeze(scatter_dimension)
 
 
 class CommunicateFunction:

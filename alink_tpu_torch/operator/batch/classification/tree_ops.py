@@ -11,8 +11,9 @@ session on it (``common/mlenv.py``). ``TreeModelMapper.serving_kernel``
 scores on the device with torch ops for ``serving.CompiledPredictor``:
 one gather per level of every tree, then the trees' terms summed left
 to right in the host loop's order, so float64 device scores equal
-``map_table`` bit for bit. The stream predict twins and the pipeline
-stages wait for later slices.
+``map_table`` bit for bit. The stream predict twins are in
+``operator/stream/predict_ops.py``, the pipeline stages in
+``pipeline/tree.py``.
 """
 
 from __future__ import annotations

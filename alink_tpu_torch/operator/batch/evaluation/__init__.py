@@ -1,7 +1,8 @@
 """Evaluation batch operators of the port (counterpart:
-``alink_tpu/operator/batch/evaluation``); only the binary one is
-ported."""
+``alink_tpu/operator/batch/evaluation``)."""
 
-from .eval_ops import EvalBinaryClassBatchOp
+from .eval_ops import (EvalBinaryClassBatchOp, EvalClusterBatchOp,
+                       EvalMultiClassBatchOp, EvalRegressionBatchOp)
 
-__all__ = ["EvalBinaryClassBatchOp"]
+__all__ = ["EvalBinaryClassBatchOp", "EvalMultiClassBatchOp",
+           "EvalRegressionBatchOp", "EvalClusterBatchOp"]

@@ -1,16 +1,18 @@
-"""Stream evaluation: windowed and cumulative binary metrics.
+"""Stream evaluation: windowed and cumulative metrics.
 
 Counterpart: ``alink_tpu/operator/stream/evaluation/__init__.py`` (the
 re-design of the reference's stream/evaluation/,
 BaseEvalClassStreamOp.java:44-87: ``timeWindowAll(timeInterval)`` emits
 a "window" metrics row and an "all" cumulative row per interval).
-Ported: ``_BaseEvalStreamOp`` and ``EvalBinaryClassStreamOp``. Each
-closed event-time window (the first ends at ``(floor(t / interval) + 1)
+Ported: ``_BaseEvalStreamOp``, ``EvalBinaryClassStreamOp``,
+``EvalMultiClassStreamOp`` and ``EvalRegressionStreamOp``. Each closed
+event-time window (the first ends at ``(floor(t / interval) + 1)
 * interval``; a window that saw no rows does not fire) emits
 (Statistics='window', Data=json) over its rows and (Statistics='all',
 Data=json) over every row so far; in a window with one label class AUC,
-KS and PRC are null. The multiclass and regression stream evals wait
-with their metrics.
+KS and PRC are null. The multiclass and regression windows compute the
+batch ops' metrics (``multiclass_metrics`` without details,
+``regression_metrics``) over the window's rows.
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ from ....common.mtable import MTable
 from ....common.params import ParamInfo
 from ....common.types import AlinkTypes, TableSchema
 from ....params.shared import (HasLabelCol, HasPositiveLabelValueString,
-                               HasPredictionDetailCol)
+                               HasPredictionCol, HasPredictionDetailCol)
 from ...base import StreamOperator
 from ...batch.evaluation.eval_ops import parse_detail_probs
-from ...common.evaluation.metrics import BinaryClassMetrics, binary_metrics
+from ...common.evaluation.metrics import (BinaryClassMetrics, binary_metrics,
+                                          multiclass_metrics,
+                                          regression_metrics)
 
 _OUT_SCHEMA = TableSchema(["Statistics", "Data"],
                           [AlinkTypes.STRING, AlinkTypes.STRING])
@@ -97,3 +101,22 @@ class EvalBinaryClassStreamOp(_BaseEvalStreamOp, HasLabelCol,
                 d[k] = None
             return BinaryClassMetrics(d).to_json()
         return m.to_json()
+
+
+class EvalMultiClassStreamOp(_BaseEvalStreamOp, HasLabelCol, HasPredictionCol,
+                             HasPredictionDetailCol):
+    """reference: stream/evaluation/EvalMultiClassStreamOp."""
+
+    def _metrics_json(self, table: MTable) -> str:
+        labels = table.col(self.get_label_col())
+        preds = table.col(self.get_prediction_col())
+        return multiclass_metrics(labels, preds).to_json()
+
+
+class EvalRegressionStreamOp(_BaseEvalStreamOp, HasLabelCol, HasPredictionCol):
+    """reference: stream/evaluation/EvalRegressionStreamOp."""
+
+    def _metrics_json(self, table: MTable) -> str:
+        y = np.asarray(table.col(self.get_label_col()), np.float64)
+        p = np.asarray(table.col(self.get_prediction_col()), np.float64)
+        return regression_metrics(y, p).to_json()

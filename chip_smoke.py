@@ -305,6 +305,39 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    (a)'s directory corrupted: ``validate_checkpoint`` raises and
    ``latest_checkpoint`` falls back to the older snapshot.
 
+18. ALS, the evaluation and the stream twins (after 17; TF32 off): (a)
+   ``bench.py::bench_als`` at its shape, not cut (6,040 users x 3,706
+   items, 1,000,000 ratings from its ``RandomState(0)`` generator, rank
+   10, lambda 0.1) through ``als_train`` on the card: ms a superstep (CUDA
+   events at each superstep's end, median of 39), samples/s, peak memory,
+   device ops and busy share under the profiler (supersteps 5-9), the
+   stage split (gather and contributions, prefix, slots, solve, RMSE;
+   host clock, each ending in a synchronize), the bound (bench.py's
+   3,168 bytes a rating-iteration at 3.35 TB/s), bench.py's ``tol=1e-3``
+   run (the same 10 iterations as the JAX package, its RMSE curve within
+   5e-5 of the JAX package's figures), two card runs bitwise, the card
+   within 1e-4 (factors, of the largest) and 1e-5 (curve) of the port on
+   the CPU over 5 supersteps, and bench.py's numpy host sweep with
+   vs_baseline; (b) ``bench_als_large`` at its shape (69,878 x 10,677,
+   10,000,000 ratings): the same numbers over 8 timed supersteps and its
+   5-iteration RMSE; (c) at (a)'s ratings through ``MemSourceBatchOp``:
+   ``AlsTrainBatchOp`` -> ``AlsPredictBatchOp`` on 100,000 held-out
+   pairs (about 4 % with an unknown id: NaN) equal to a numpy float64
+   re-rating from the model table -> ``EvalRegressionBatchOp`` (its RMSE
+   numpy's), ``AlsTopKPredictBatchOp`` for 1,000 users (numpy's top 10),
+   ``AlsPredictStreamOp`` over 4096-row micro-batches equal to the batch
+   op, and ``implicit_prefs`` and ``nonnegative`` 3 supersteps each on
+   the card against the CPU (5e-3 and 1e-4 of the largest factor;
+   nonnegative factors >= 0), and ``dryrun_multichip``'s ALS leg (15
+   ratings, rank 2, 2 iterations); (d) ``LogisticRegressionPredictStreamOp``,
+   ``SoftmaxPredictStreamOp``, ``GbdtPredictStreamOp`` and
+   ``KMeansPredictStreamOp`` on the card with phase 9's and 16's models
+   (trained again from their seeds), row for row their batch ops', then
+   ``EvalMultiClassBatchOp`` on Softmax's output and
+   ``EvalClusterBatchOp`` on KMeans'. ALS, its operators, the twins and
+   their batch ops launch no hand kernel (the counts read 0 over (a)-(c)
+   and over (d)'s predictions).
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -5702,6 +5735,590 @@ def phase_durability(kernels, card):
     out["launches"] = launches
     return out
 
+# ---------------------------------------------------------------------------
+# 18. ALS: bench_als and bench_als_large, the operators, the twins
+# ---------------------------------------------------------------------------
+
+ALS_RANK, ALS_LAMBDA = 10, 0.1
+ALS_SHAPE = (6040, 3706, 1_000_000)              # MovieLens-1M (bench_als)
+# MovieLens-10M (bench_als_large at ALINK_TPU_ALS_LARGE_NNZ's default)
+ALS_LARGE_SHAPE = (69_878, 10_677, 10_000_000)
+ALS_TIMED, ALS_LARGE_TIMED = 40, 8               # timed supersteps
+ALS_PROFILED, ALS_LARGE_PROFILED = (5, 9), (3, 4)
+ALS_SPLIT_STEPS, ALS_CHECK_STEPS, ALS_MODE_STEPS = 5, 5, 3
+ALS_LARGE_RMSE_STEPS = 5                         # bench_als_large's short fit
+# bench.py:1765-1767: a rating-iteration moves 2 half-sweeps x 6 passes
+# over the (nnz, K) float32 contributions, K = r(r+1)/2 + r + 1 = 66
+ALS_K = ALS_RANK * (ALS_RANK + 1) // 2 + ALS_RANK + 1
+ALS_BYTES_PER_RATING = 2 * 6 * ALS_K * 4         # 3,168 B
+# the JAX package's als_train at (a)'s shape (tol 1e-3, at most 30
+# iterations) on a CPU: its RMSE curve, to 5 decimals; it stops after 10
+ALS_JAX_CURVE = (0.51052, 0.50996, 0.50233, 0.47428, 0.43759, 0.41297,
+                 0.39708, 0.38818, 0.38381, 0.38300)
+# the figures' 5 decimals (5e-6) and the float32 sums' order over a
+# million ratings and 10 supersteps
+ALS_CURVE_ATOL = 5e-5
+# card vs the port on the CPU: factors of their largest |value| and the
+# curve relative, float32 in both (the prefix and the solve each keep
+# about 1e-6; CUDA's and the CPU's sum orders differ)
+ALS_CARD_CPU_TOL, ALS_CURVE_RTOL = 1e-4, 1e-5
+# implicit preferences (alpha 40: weights up to 200, condition numbers in
+# the thousands) amplify float32 rounding about 100x
+# (tests/test_torch_als.py measures the JAX package's own float32-to-float64
+# gap at 8.4e-4 to 1.8e-3 after 6 supersteps)
+ALS_IMPLICIT_TOL = 5e-3
+ALS_HELD, ALS_TOPK_USERS, ALS_TOPK, ALS_MICRO = 100_000, 1000, 10, 4096
+TWIN_MICRO, TWIN_KM_ROWS, TWIN_EVAL_ROWS = 1024, 131_072, 20_000
+ALS_STAGES = (("contributions", "gather_contributions"),
+              ("prefix_sums", "prefix"), ("run_slots", "slots"),
+              ("solve_normal", "solve"), ("train_rmse", "rmse"))
+
+
+def als_data(U, I, nnz, rank=ALS_RANK):
+    """bench.py::bench_als's ratings (:1708-1714, ``RandomState(0)``):
+    (users, items, ratings float32, (uf_true, if_true), the generator
+    after its draws)."""
+    rng = np.random.RandomState(0)
+    users = rng.randint(0, U, nnz).astype(np.int32)
+    items = rng.randint(0, I, nnz).astype(np.int32)
+    uf_true = rng.randn(U, rank).astype(np.float32) / np.sqrt(rank)
+    if_true = rng.randn(I, rank).astype(np.float32) / np.sqrt(rank)
+    ratings = ((uf_true[users] * if_true[items]).sum(1) * 1.5 + 3.5
+               + 0.2 * rng.randn(nnz)).astype(np.float32)
+    return users, items, ratings, (uf_true, if_true), rng
+
+
+def als_run(data, U, I, steps, dev, **kw):
+    """``als_train`` at rank 10, lambda 0.1 on ``dev``: (uf, if_, curve,
+    seconds)."""
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.recommendation.als import (
+        AlsTrainParams, als_train)
+    p = AlsTrainParams(rank=ALS_RANK, num_iter=steps, lambda_reg=ALS_LAMBDA,
+                       **kw)
+    _sync(dev)
+    t0 = time.perf_counter()
+    uf, if_, curve = als_train(data[0], data[1], data[2], p,
+                               env=MLEnvironment(device=dev), num_users=U,
+                               num_items=I)
+    return uf, if_, curve, time.perf_counter() - t0
+
+
+def als_rmse(uf, if_, users, items, ratings):
+    """bench.py's training RMSE of final factors (:1741-1743)."""
+    preds = (uf[users] * if_[items]).sum(1)
+    return float(np.sqrt(((preds - ratings) ** 2).mean()))
+
+
+class AlsClock(SuperstepClock):
+    """A CUDA event at the end of each ALS superstep (after its RMSE, the
+    superstep's last stage; at tol 0 the queue reads nothing back), and
+    optionally ``torch.profiler`` over supersteps ``profile[0]`` to
+    ``profile[1]``, with a synchronize at each edge."""
+
+    def __enter__(self):
+        import torch
+        from alink_tpu_torch.operator.common.recommendation import als
+        from torch.profiler import ProfilerActivity, profile
+        self._mod, self._orig = als, als.train_rmse
+        if self.profile is not None:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+        clock, orig = self, self._orig
+
+        def timed(*a, **kw):
+            out = orig(*a, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            clock.stamps.append(ev)
+            k = len(clock.stamps)
+            if clock.prof is not None and k in (clock.profile[0] - 1,
+                                                clock.profile[1]):
+                torch.cuda.synchronize()
+                if k == clock.profile[1]:
+                    clock.prof.stop()
+                else:
+                    clock.prof.start()
+            return out
+        als.train_rmse = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.train_rmse = self._orig
+
+    def superstep_ms(self):
+        """ms of supersteps 2..N by the events."""
+        import torch
+        torch.cuda.synchronize()
+        return np.asarray([a.elapsed_time(b) for a, b in
+                           zip(self.stamps, self.stamps[1:])])
+
+
+class AlsStages(StageSplit):
+    """Host-clock ms of each stage of the ALS superstep, each ending in a
+    synchronize: the gather and contributions, the prefix, the run slots
+    and the solve of both half-sweeps, and the RMSE."""
+
+    def __enter__(self):
+        from alink_tpu_torch.operator.common.recommendation import als
+        self._mod = als
+        self._saved = [(k, getattr(als, k)) for k, _ in ALS_STAGES]
+        for k, fn in self._saved:
+            setattr(als, k, self._timed(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._saved:
+            setattr(self._mod, k, fn)
+
+    def medians(self):
+        """Median ms a superstep of each stage (both half-sweeps summed),
+        supersteps 2..N."""
+        out = {}
+        for k, name in ALS_STAGES:
+            v = np.asarray(self.times[k])
+            per = v.reshape(-1, 1 if k == "train_rmse" else 2).sum(1)
+            out[name] = float(np.median(per[1:]))
+        out["superstep_sum"] = sum(out.values())
+        return out
+
+
+def als_timing(data, U, I, timed, profile, dev):
+    """ms a superstep by events (median of supersteps 2..timed), peak
+    memory, device ops and busy share under the profiler, and the stage
+    split of one shape."""
+    import torch
+    nnz = len(data[2])
+    als_run(data, U, I, 2, dev)                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with AlsClock() as clock:
+        _, _, curve, secs = als_run(data, U, I, timed, dev)
+    require(len(curve) == timed and bool(np.isfinite(curve).all()),
+            f"ALS ran {timed} finite supersteps")
+    per = clock.superstep_ms()
+    ms = float(np.median(per))
+    bound = ALS_BYTES_PER_RATING * nnz / PEAK_BYTES_S * 1e3
+    out = {"ratings": nnz, "users": U, "items": I, "rank": ALS_RANK,
+           "timed_supersteps": timed, "run_s": secs, "ms_per_superstep": ms,
+           "superstep_ms_min": float(per.min()),
+           "superstep_ms_max": float(per.max()),
+           "samples_per_s": nnz / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bound_ms": bound, "bound_by": "bytes",
+           "bound_bytes_per_rating": ALS_BYTES_PER_RATING,
+           "bound_fraction": bound / ms}
+    with AlsClock(profile=profile) as pclock:
+        _, _, pcurve, _ = als_run(data, U, I, profile[1] + 1, dev)
+    kk = profile[1] - profile[0] + 1
+    _, total, busy, by_name = pclock.profiled(by_name=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out.update(device_ops_per_superstep=total / kk,
+               device_busy_ms=busy / kk, device_busy_share=busy / kk / ms,
+               top_device_ms_per_superstep={k: v / kk for k, v in top})
+    with AlsStages() as st:
+        als_run(data, U, I, ALS_SPLIT_STEPS, dev)
+    out["stages_ms"] = st.medians()
+    return out, pcurve
+
+
+def als_bench(data, dev, card):
+    """18(a): bench_als's shape on the card."""
+    U, I, nnz = ALS_SHAPE
+    users, items, ratings, _, rng = data
+    out, _ = als_timing(data, U, I, ALS_TIMED, ALS_PROFILED, dev)
+    # the tol=1e-3 run bench.py reports (at most 30 iterations)
+    uf, if_, curve, secs = als_run(data, U, I, 30, dev, tol=1e-3)
+    rmse = als_rmse(uf, if_, users, items, ratings)
+    ref = np.asarray(ALS_JAX_CURVE)
+    gap = (float(np.abs(curve - ref).max()) if len(curve) == len(ref)
+           else None)
+    out.update(iters_to_converge=len(curve), converge_s=secs, rmse=rmse,
+               rmse_curve=curve.tolist(), jax_curve_max_abs_gap=gap)
+    require(len(curve) == len(ref) and gap <= ALS_CURVE_ATOL
+            and abs(rmse - ref[-1]) <= ALS_CURVE_ATOL,
+            f"the tol=1e-3 run stops after the JAX package's {len(ref)} "
+            f"iterations ({len(curve)}) with its curve within "
+            f"{ALS_CURVE_ATOL} ({gap}; training RMSE {rmse})")
+    # two card runs bitwise; the card against the port on the CPU
+    a = als_run(data, U, I, ALS_CHECK_STEPS, dev)
+    b = als_run(data, U, I, ALS_CHECK_STEPS, dev)
+    require(all(np_bits_equal(x, y) for x, y in zip(a[:3], b[:3])),
+            "two card runs give bitwise-equal factors and curves")
+    c = als_run(data, U, I, ALS_CHECK_STEPS, "cpu")
+    fgap = max(float(np.abs(x - y).max() / np.abs(y).max())
+               for x, y in zip(a[:2], c[:2]))
+    cgap = float((np.abs(a[2] - c[2]) / c[2]).max())
+    require(fgap <= ALS_CARD_CPU_TOL and cgap <= ALS_CURVE_RTOL,
+            f"the card within {ALS_CARD_CPU_TOL} of the CPU's factors and "
+            f"{ALS_CURVE_RTOL} of its curve over {ALS_CHECK_STEPS} "
+            f"supersteps ({fgap}, {cgap})")
+    out.update(two_runs_bitwise=True, card_vs_cpu={
+        "supersteps": ALS_CHECK_STEPS, "factor_max_gap_of_largest": fgap,
+        "curve_max_rel_gap": cgap, "cpu_s": c[3], "card_s": a[3]})
+    # bench.py's host baseline: one numpy sweep of batched normal
+    # equations (:1746-1761), drawn from the data generator after its draws
+    rank = ALS_RANK
+    ufc = rng.rand(U, rank).astype(np.float32)
+    ifc = rng.rand(I, rank).astype(np.float32)
+    eye = np.eye(rank, dtype=np.float32)
+    t0 = time.perf_counter()
+    for ids, oids, nrows, fac, ofac in ((users, items, U, ufc, ifc),
+                                        (items, users, I, ifc, ufc)):
+        x = ofac[oids]
+        A = np.zeros((nrows, rank, rank), np.float32)
+        bb = np.zeros((nrows, rank), np.float32)
+        np.add.at(A, ids, x[:, :, None] * x[:, None, :])
+        np.add.at(bb, ids, ratings[:, None] * x)
+        fac[:] = np.linalg.solve(A + 0.1 * eye, bb[:, :, None])[:, :, 0]
+    base_s = time.perf_counter() - t0
+    out.update(host_baseline_s=base_s, host_baseline_samples_per_s=nnz
+               / base_s, vs_baseline=out["samples_per_s"] * base_s / nnz,
+               host_cpu=host_cpu())
+    print(f"als (a) [{card}]: {U} x {I}, {nnz} ratings, rank {rank}: "
+          f"{out['ms_per_superstep']:.4f} ms a superstep (median of "
+          f"{ALS_TIMED - 1}; bound {out['bound_ms']:.4f} ms, "
+          f"{out['bound_fraction']:.3f} of it), {out['samples_per_s']:.1f} "
+          f"samples/s, {out['device_ops_per_superstep']} device ops a "
+          f"superstep, busy {out['device_busy_share']:.3f}, peak "
+          f"{out['peak_memory_gb']:.3f} GB; stages {out['stages_ms']}; top "
+          f"ops {out['top_device_ms_per_superstep']}; tol 1e-3: "
+          f"{len(curve)} iterations, RMSE {rmse} (curve {curve.tolist()}, "
+          f"gap {gap}); two runs bitwise; card vs CPU {fgap} / {cgap}; "
+          f"host sweep {base_s:.3f} s, vs_baseline {out['vs_baseline']:.1f}",
+          flush=True)
+    return out
+
+
+def als_bench_large(dev, card):
+    """18(b): bench_als_large's shape on the card."""
+    U, I, nnz = ALS_LARGE_SHAPE
+    t0 = time.perf_counter()
+    data = als_data(U, I, nnz)
+    data_s = time.perf_counter() - t0
+    out, curve = als_timing(data, U, I, ALS_LARGE_TIMED, ALS_LARGE_PROFILED,
+                            dev)
+    # bench_als_large's quality anchor: a 5-iteration fit's RMSE (the
+    # profiled run is that fit)
+    require(len(curve) == ALS_LARGE_RMSE_STEPS and curve[-1] < curve[0],
+            f"the 5-iteration fit's RMSE fell: {curve}")
+    out.update(data_s=data_s, rmse_5=float(curve[-1]),
+               rmse_curve=curve.tolist())
+    print(f"als (b) [{card}]: {U} x {I}, {nnz} ratings: "
+          f"{out['ms_per_superstep']:.4f} ms a superstep (median of "
+          f"{ALS_LARGE_TIMED - 1}; bound {out['bound_ms']:.4f} ms, "
+          f"{out['bound_fraction']:.3f} of it), {out['samples_per_s']:.1f} "
+          f"samples/s, {out['device_ops_per_superstep']} device ops, busy "
+          f"{out['device_busy_share']:.3f}, peak {out['peak_memory_gb']:.3f}"
+          f" GB; stages {out['stages_ms']}; 5-iteration RMSE "
+          f"{curve.tolist()}", flush=True)
+    return out
+
+
+def als_operators(data, dev, card):
+    """18(c): the operator path at (a)'s ratings, and the implicit and
+    nonnegative modes card vs CPU."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch.evaluation import \
+        EvalRegressionBatchOp
+    from alink_tpu_torch.operator.batch.recommendation import (
+        AlsModelDataConverter, AlsPredictBatchOp, AlsTopKPredictBatchOp,
+        AlsTrainBatchOp)
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream import AlsPredictStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    U, I, nnz = ALS_SHAPE
+    users, items, ratings, (uf_true, if_true), _ = data
+    out = {}
+    table = MTable({"user": users.astype(np.int64),
+                    "item": items.astype(np.int64),
+                    "rating": ratings.astype(np.float64)},
+                   "user LONG, item LONG, rating DOUBLE")
+    t0 = time.perf_counter()
+    train = AlsTrainBatchOp(user_col="user", item_col="item",
+                            rate_col="rating", rank=ALS_RANK, num_iter=10,
+                            lambda_=ALS_LAMBDA, device=dev).link_from(
+        MemSourceBatchOp(table))
+    out["train_op_s"] = time.perf_counter() - t0
+    side = train.get_side_output(0).get_output_table()
+    out["train_rmse"] = np.asarray(side.col("train_rmse")).tolist()
+    # 100,000 held-out pairs; about 2 % of the users and items unknown
+    r = np.random.RandomState(11)
+    hu = r.randint(0, U + U // 50, ALS_HELD)
+    hi = r.randint(0, I + I // 50, ALS_HELD)
+    known = (hu < U) & (hi < I)
+    truth = (uf_true[np.minimum(hu, U - 1)]
+             * if_true[np.minimum(hi, I - 1)]).sum(1) * 1.5 + 3.5
+    hr = np.where(known, truth + 0.2 * r.randn(ALS_HELD), 3.5)
+    held = MTable({"user": hu.astype(np.int64), "item": hi.astype(np.int64),
+                   "rating": hr}, "user LONG, item LONG, rating DOUBLE")
+    t0 = time.perf_counter()
+    pred = AlsPredictBatchOp(user_col="user", item_col="item",
+                             prediction_col="pred").link_from(
+        train, MemSourceBatchOp(held)).get_output_table()
+    out["predict_s"] = time.perf_counter() - t0
+    got = np.asarray(pred.col("pred"), np.float64)
+    # the numpy float64 re-rating from the model table
+    m = AlsModelDataConverter().load_model(train.get_output_table())
+    upos = {int(u): k for k, u in enumerate(m.user_ids)}
+    ipos = {int(i): k for k, i in enumerate(m.item_ids)}
+    ui = np.asarray([upos.get(int(u), -1) for u in hu])
+    ii = np.asarray([ipos.get(int(i), -1) for i in hi])
+    valid = (ui >= 0) & (ii >= 0)
+    want = np.where(valid, np.einsum(
+        "ij,ij->i", m.user_factors[np.maximum(ui, 0)],
+        m.item_factors[np.maximum(ii, 0)]), np.nan)
+    require(np.array_equal(valid, known) and np.array_equal(
+        np.isnan(got), ~valid) and np.array_equal(got[valid], want[valid]),
+            "AlsPredictBatchOp equals a numpy float64 re-rating from the "
+            "model table, NaN for the unknown ids")
+    # EvalRegressionBatchOp over the rows with a prediction
+    rated = pred.filter_mask(valid)
+    ev = EvalRegressionBatchOp(label_col="rating", prediction_col="pred") \
+        .link_from(MemSourceBatchOp(rated))
+    rm = ev.collect_metrics()
+    y, p = hr[valid], got[valid]
+    np_rmse = float(np.sqrt(((p - y) ** 2).mean()))
+    require(rm.get("Count") == int(valid.sum())
+            and abs(rm.get("RMSE") - np_rmse) <= 1e-12 * np_rmse,
+            f"EvalRegressionBatchOp's RMSE equals numpy's ({rm.get('RMSE')}"
+            f" against {np_rmse})")
+    out.update(held_out=ALS_HELD, unknown=int((~valid).sum()),
+               held_out_rmse=rm.get("RMSE"), held_out_mae=rm.get("MAE"),
+               held_out_r2=rm.get("R2"), predictions_equal=True)
+    # top-K for 1,000 users
+    t0 = time.perf_counter()
+    topk = AlsTopKPredictBatchOp(user_col="user", prediction_col="recs",
+                                 top_k=ALS_TOPK).link_from(
+        train, MemSourceBatchOp(MTable(
+            {"user": np.arange(ALS_TOPK_USERS, dtype=np.int64)},
+            "user LONG"))).get_output_table()
+    out["topk_s"] = time.perf_counter() - t0
+    scores = m.user_factors[[upos[u] for u in range(ALS_TOPK_USERS)]] \
+        @ m.item_factors.T
+    for u, rec in enumerate(topk.col("recs")):
+        d = json.loads(rec)
+        top = np.argsort(-scores[u])[:ALS_TOPK]
+        require(d["object"] == [str(m.item_ids[j]) for j in top]
+                and d["rate"] == [float(scores[u, j]) for j in top],
+                f"user {u}'s top {ALS_TOPK} are numpy's")
+    # the stream twin over 4096-row micro-batches
+    t0 = time.perf_counter()
+    stream = AlsPredictStreamOp(train, user_col="user", item_col="item",
+                                prediction_col="pred").link_from(
+        MemSourceStreamOp(held, batch_size=ALS_MICRO))
+    parts = [np.asarray(mt.col("pred"), np.float64)
+             for mt in stream.micro_batches()]
+    out["stream_s"] = time.perf_counter() - t0
+    sp = np.concatenate(parts)
+    require(len(parts) == -(-ALS_HELD // ALS_MICRO)
+            and np.array_equal(sp, got, equal_nan=True),
+            "AlsPredictStreamOp equals AlsPredictBatchOp")
+    out.update(stream_batches=len(parts), stream_rows_per_s=ALS_HELD
+               / out["stream_s"], topk_users=ALS_TOPK_USERS)
+    # the implicit and nonnegative modes, card vs CPU
+    modes = {}
+    for mode, tol in (("implicit_prefs", ALS_IMPLICIT_TOL),
+                      ("nonnegative", ALS_CARD_CPU_TOL)):
+        g = als_run(data, U, I, ALS_MODE_STEPS, dev, **{mode: True})
+        c = als_run(data, U, I, ALS_MODE_STEPS, "cpu", **{mode: True})
+        fgap = max(float(np.abs(x - y).max() / np.abs(y).max())
+                   for x, y in zip(g[:2], c[:2]))
+        cgap = float((np.abs(g[2] - c[2]) / c[2]).max())
+        require(fgap <= tol and cgap <= ALS_CURVE_RTOL * (
+            tol / ALS_CARD_CPU_TOL) and bool(np.isfinite(g[2]).all()),
+                f"{mode}: the card within {tol} of the CPU's factors over "
+                f"{ALS_MODE_STEPS} supersteps ({fgap}; curve {cgap})")
+        if mode == "nonnegative":
+            require(bool((g[0] >= 0).all() and (g[1] >= 0).all()),
+                    "nonnegative factors on the card")
+        modes[mode] = {"factor_max_gap_of_largest": fgap,
+                       "curve_max_rel_gap": cgap, "card_s": g[3],
+                       "cpu_s": c[3], "curve": g[2].tolist()}
+    out["modes"] = modes
+    # dryrun_multichip's ALS leg (__graft_entry__.py:130-137) on the card
+    leg = AlsTrainBatchOp(user_col="u", item_col="i", rate_col="r", rank=2,
+                          num_iter=2, device=dev).link_from(MemSourceBatchOp(
+                              [[u, i, float(2.0 + (u * i) % 3)]
+                               for u in range(6) for i in range(5)
+                               if (u + i) % 2 == 0], "u INT, i INT, r DOUBLE"))
+    lm = AlsModelDataConverter().load_model(leg.get_output_table())
+    require(lm.user_factors.shape == (6, 2) and lm.item_factors.shape
+            == (5, 2) and bool(np.isfinite(lm.user_factors).all()),
+            "dryrun_multichip's ALS leg")
+    out["dryrun_leg"] = {"user_factors": lm.user_factors.tolist(),
+                         "item_factors": lm.item_factors.tolist()}
+    print(f"als (c) [{card}]: AlsTrainBatchOp {out['train_op_s']:.3f} s "
+          f"(curve {out['train_rmse']}); {ALS_HELD} held-out pairs "
+          f"({out['unknown']} unknown -> NaN) predicted in "
+          f"{out['predict_s']:.3f} s, equal to numpy; RMSE "
+          f"{out['held_out_rmse']} (= numpy's); top-{ALS_TOPK} of "
+          f"{ALS_TOPK_USERS} users in {out['topk_s']:.3f} s; stream "
+          f"{len(parts)} micro-batches in {out['stream_s']:.3f} s, equal; "
+          f"modes {modes}", flush=True)
+    return out
+
+
+def _rows_equal(a, b) -> bool:
+    """Two tables with the same columns and the same cells, row for row."""
+    return a.col_names == b.col_names and [
+        tuple(repr(v) for v in r) for r in a.to_rows()] == [
+        tuple(repr(v) for v in r) for r in b.to_rows()]
+
+
+def _twin_rows(op, table):
+    """A twin over ``table`` in TWIN_MICRO-row micro-batches: (the rows as
+    one table, seconds)."""
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    t0 = time.perf_counter()
+    parts = list(op.link_from(MemSourceStreamOp(
+        table, batch_size=TWIN_MICRO)).micro_batches())
+    secs = time.perf_counter() - t0
+    out = parts[0]
+    for mt in parts[1:]:
+        out = out.concat_rows(mt)
+    return out, secs
+
+
+def als_twins(kernels, dev, card):
+    """18(d): four stream twins on the card, each row for row its batch
+    op's, on phase 9's and 16's models (trained again from their seeds:
+    both phases hold two trainings bitwise; their training launches B5,
+    P1, the plan and B6), with the multiclass and cluster evaluation.
+    The kernels' counts are set to 0 after the trainings and read after
+    the twins and their batch ops ran: they launch none."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch.classification import (
+        GbdtPredictBatchOp, LogisticRegressionPredictBatchOp,
+        LogisticRegressionTrainBatchOp, SoftmaxPredictBatchOp,
+        SoftmaxTrainBatchOp)
+    from alink_tpu_torch.operator.batch.clustering import (
+        KMeansModelData, KMeansModelDataConverter, KMeansPredictBatchOp)
+    from alink_tpu_torch.operator.batch.evaluation import (
+        EvalClusterBatchOp, EvalMultiClassBatchOp)
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream import (
+        GbdtPredictStreamOp, KMeansPredictStreamOp,
+        LogisticRegressionPredictStreamOp, SoftmaxPredictStreamOp)
+    out = {}
+    train = criteo_softmax_rows(7, SPS_ROWS)
+    held = criteo_softmax_rows(8, SPS_HELD)
+    req = held.select(["features", "label", "bin"])
+    src = MemSourceBatchOp(train)
+    softmax = SoftmaxTrainBatchOp(vector_col="features", label_col="label",
+                                  l2=1e-4, max_iter=SPS_STEPS, epsilon=0.0,
+                                  device=dev).link_from(src)
+    lr = LogisticRegressionTrainBatchOp(vector_col="features",
+                                        label_col="bin",
+                                        max_iter=FAMILY_STEPS,
+                                        device=dev).link_from(src)
+    X, _, adult = adult_data(N_SERVE, seed=1)
+    gbdt = gbdt_op(num_trees=GBDT_TREES, device=dev).link_from(
+        MemSourceBatchOp(adult_data(ADULT_N)[2]))
+    Xk = iris_rows().astype(np.float64)
+    gc = kmeans_run(Xk, KM_CHECK_STEPS, dev)[0]
+    cols = ["x0", "x1", "x2", "x3"]
+    km = KMeansModelDataConverter().save_model(KMeansModelData(
+        gc, np.ones(KM_K), "EUCLIDEAN", None, cols))
+    kx = Xk[:TWIN_KM_ROWS]
+    ktable = MTable({c: kx[:, j] for j, c in enumerate(cols)},
+                    ", ".join(f"{c} DOUBLE" for c in cols))
+    cls_out = dict(prediction_col="pred", prediction_detail_col="detail")
+    cases = (
+        ("LogisticRegression", LogisticRegressionPredictBatchOp(**cls_out),
+         LogisticRegressionPredictStreamOp(lr, device=dev, **cls_out), lr,
+         req),
+        ("Softmax", SoftmaxPredictBatchOp(**cls_out),
+         SoftmaxPredictStreamOp(softmax, device=dev, **cls_out), softmax,
+         req),
+        ("Gbdt", GbdtPredictBatchOp(**cls_out),
+         GbdtPredictStreamOp(gbdt, device=dev, **cls_out), gbdt, adult),
+        ("KMeans", KMeansPredictBatchOp(prediction_col="cid",
+                                        prediction_distance_col="dist",
+                                        device=dev),
+         KMeansPredictStreamOp(MemSourceBatchOp(km), prediction_col="cid",
+                               prediction_distance_col="dist",
+                               device=dev), MemSourceBatchOp(km), ktable))
+    outputs = {}
+    _reset(*kernels)
+    for name, batch_op, twin, model, table in cases:
+        t0 = time.perf_counter()
+        want = batch_op.link_from(model, MemSourceBatchOp(table)) \
+            .get_output_table()
+        batch_s = time.perf_counter() - t0
+        got, twin_s = _twin_rows(twin, table)
+        require(_rows_equal(got, want),
+                f"{name}PredictStreamOp on the card equals its batch op, "
+                f"row for row")
+        outputs[name] = want
+        out[name] = {"rows": table.num_rows, "batch_s": batch_s,
+                     "twin_s": twin_s, "twin_rows_per_s": table.num_rows
+                     / twin_s, "micro_batch": TWIN_MICRO,
+                     "rows_equal": True}
+    out["launches"] = _counts(*kernels)
+    require(not any(out["launches"].values()),
+            f"the twins and their batch ops launched no hand kernel: "
+            f"{out['launches']}")
+    # EvalMultiClassBatchOp on Softmax's output
+    sm = outputs["Softmax"]
+    mc = EvalMultiClassBatchOp(label_col="label", prediction_col="pred",
+                               prediction_detail_col="detail").link_from(
+        MemSourceBatchOp(sm)).collect_metrics()
+    acc = float((np.asarray(sm.col("pred")).astype(str)
+                 == np.asarray(sm.col("label")).astype(str)).mean())
+    require(mc.get("Accuracy") == acc and np.asarray(
+        mc.get("ConfusionMatrix")).sum() == sm.num_rows,
+            f"EvalMultiClassBatchOp's accuracy is numpy's ({acc})")
+    out["Softmax"].update(accuracy=acc, macro_f1=mc.get("MacroF1"),
+                          kappa=mc.get("Kappa"),
+                          log_loss=mc.to_dict().get("LogLoss"))
+    # EvalClusterBatchOp on KMeans' output (its first rows, as vectors)
+    ko = outputs["KMeans"]
+    n = TWIN_EVAL_ROWS
+    ids = np.asarray(ko.col("cid"))[:n]
+    vec = np.asarray([" ".join(repr(float(v)) for v in x) for x in kx[:n]],
+                     object)
+    cm = EvalClusterBatchOp(vector_col="vec", prediction_col="cid").link_from(
+        MemSourceBatchOp(MTable({"vec": vec, "cid": ids},
+                                "vec STRING, cid LONG"))).collect_metrics()
+    xs = kx[:n]
+    ssw = float(sum(((xs[ids == c] - xs[ids == c].mean(0)) ** 2).sum()
+                    for c in sorted(set(ids.tolist()))))
+    require(cm.get("ClusterArray") == np.bincount(ids).tolist()
+            and abs(cm.get("SSW") - ssw) <= 1e-9 * ssw,
+            f"EvalClusterBatchOp's counts and SSW are numpy's "
+            f"({cm.get('SSW')} against {ssw})")
+    out["KMeans"].update(eval_rows=n, calinski_harabasz=cm.get(
+        "CalinskiHarabasz"), davies_bouldin=cm.get("DaviesBouldin"),
+        silhouette=cm.get("SilhouetteCoefficient"), ssw=ssw)
+    print(f"twins (d) [{card}]: {out}", flush=True)
+    return out
+
+
+def phase_als(kernels, card, dev=None):
+    """18: ALS, the operators and the twins on the card. ``kernels`` are
+    the kernel modules; their counts are set to 0 before the phase and
+    read after it (ALS launches none of them)."""
+    import torch
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the solve's product")
+    dev = "cuda" if dev is None else dev
+    out = {"card": card}
+    t0 = time.perf_counter()
+    _reset(*kernels)
+    data = als_data(*ALS_SHAPE)
+    out["data_s"] = time.perf_counter() - t0
+    out["bench_als"] = als_bench(data, dev, card)
+    out["operators"] = als_operators(data, dev, card)
+    del data
+    out["bench_als_large"] = als_bench_large(dev, card)
+    out["launches"] = _counts(*kernels)
+    require(not any(out["launches"].values()),
+            f"ALS and its operators launched no hand kernel: "
+            f"{out['launches']}")
+    out["twins"] = als_twins(kernels, dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5888,6 +6505,11 @@ def main(argv=None) -> int:
     durability = phase_durability((ks, kl, kf), card)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 18. ALS, the operators and the stream twins ----------------------
+    t0 = time.perf_counter()
+    als = phase_als((ks, kl, kf, kh), card)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -6068,8 +6690,9 @@ def main(argv=None) -> int:
                                                                0)
         rec["durability_launches"] = durability["launches"].get(rec["name"],
                                                                 0)
+        rec["als_launches"] = als["launches"].get(rec["name"], 0)
     print(json.dumps({"main_path": {
-        "durability": durability, "linear_family": family,
+        "als": als, "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,

@@ -125,7 +125,16 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.batch.clustering",
               "alink_tpu_torch.operator.batch.clustering.kmeans_ops",
               "alink_tpu_torch.pipeline.regression",
-              "alink_tpu_torch.pipeline.clustering"):
+              "alink_tpu_torch.pipeline.clustering",
+              "alink_tpu_torch.ops.smallsolve",
+              "alink_tpu_torch.operator.common.recommendation.als",
+              "alink_tpu_torch.operator.batch.recommendation",
+              "alink_tpu_torch.operator.batch.recommendation.als_ops",
+              "alink_tpu_torch.operator.stream.recommendation",
+              "alink_tpu_torch.operator.stream.predict_ops",
+              "alink_tpu_torch.operator.batch.evaluation",
+              "alink_tpu_torch.pipeline.extras",
+              "alink_tpu_torch.pipeline.tree"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):
