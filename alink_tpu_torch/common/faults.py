@@ -9,16 +9,17 @@ the job restarts from the last completed checkpoint). Here faults are
 injected *in process*: durability hot paths call ``maybe_crash(site,
 index)`` at the exact points where a real failure would bite — a
 ComQueue superstep boundary, an FTRL micro-batch boundary, a checkpoint
-publish — and the hook acts once the configured index window is
-reached.
+publish, a serving dispatch — and the hook acts once the configured
+index window is reached.
 
 Configuration rides in one env var so tests (and operators reproducing a
 field failure) need no code changes::
 
     ALINK_TPU_FAULT_INJECT="comqueue.superstep:9"          # kill (default)
     ALINK_TPU_FAULT_INJECT="ftrl.batch:5;ckpt.save:2"      # several sites
-    ALINK_TPU_FAULT_INJECT="prefetch.get:1-40:error"       # transient storm
-    ALINK_TPU_FAULT_INJECT="prefetch.get:5:delay:250"      # +250 ms latency
+    ALINK_TPU_FAULT_INJECT="serve.dispatch:1-40:error"     # transient storm
+    ALINK_TPU_FAULT_INJECT="serve.dispatch:5:delay:250"    # +250 ms latency
+    ALINK_TPU_FAULT_INJECT="feeder.snapshot:2-2:corrupt"   # one bad snapshot
 
 Each entry is ``site:index[-end][:mode[:param]]``:
 
@@ -49,13 +50,21 @@ Sites are plain dotted strings; the port's producers:
     (operator/stream/onlinelearning/ftrl.py), index = 1-based batch count;
   * ``ckpt.save``           — just before a checkpoint directory is
     published (common/checkpoint.py), auto-indexed per process;
+  * ``serve.dispatch``      — before each serving dispatch
+    (serving/predictor.py), auto-indexed;
+  * ``serve.swap``          — at each hot model/weights swap
+    (serving/predictor.py), auto-indexed;
+  * ``feeder.snapshot``     — at each FTRL model-snapshot emission
+    (the serving feeder's input; ``corrupt`` mangles the emitted model
+    table so the consumer's load fails loudly), auto-indexed;
   * ``prefetch.get``        — inside the bounded channel's ``get``
     (operator/stream/prefetch.py — the serving loop and every stream
     drain pull through it), auto-indexed.
 
-The JAX package's serving, feeder and ingest sites have no producer in
-the port yet. Not ported: the trace instant and the post-mortem bundle
-an injected fault records there (ROADMAP A10).
+The JAX package's ``ingest.batch`` site comes with the online DAG
+(ROADMAP A4(c)). A fault that fires records a ``fault.injected`` trace
+instant, and a kill a post-mortem bundle (both off unless their flags
+are set).
 
 The env var is re-read on every call (monkeypatch-friendly); parsing is
 cached per raw string so the hot-path cost is one dict lookup. Tests
@@ -293,7 +302,22 @@ def maybe_crash(site: str, index: Optional[int] = None) -> bool:
     rule = spec.get(site)
     if rule is None or not rule.active(index):
         return False
+    # mark the fault in the trace timeline BEFORE acting, so a flight
+    # recorder dumped by a crash handler shows exactly where the
+    # injected failure hit relative to checkpoint saves / dispatches
+    from .tracing import trace_instant
+    trace_instant("fault.injected", cat="fault",
+                  args={"site": site, "index": int(index),
+                        "threshold": rule.lo, "mode": rule.mode})
     if rule.mode == "kill":
+        # the injected process kill is the crash class the post-mortem
+        # bundle exists for: freeze the evidence BEFORE the raise
+        # unwinds the rings' producers (debounced; off without
+        # ALINK_TPU_POSTMORTEM_DIR)
+        from .postmortem import maybe_bundle
+        maybe_bundle("injected_kill", f"fault injected at {site}:{index}",
+                     extra={"site": site, "index": int(index),
+                            "threshold": rule.lo})
         raise FaultInjected(site, int(index), rule.lo)
     if rule.mode == "error":
         raise TransientFault(site, int(index), rule.lo)

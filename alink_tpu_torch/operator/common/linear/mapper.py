@@ -87,6 +87,7 @@ class LinearModelMapper(ModelMapper):
         from ....kernels.serve import (lowp_model_arrays, make_score_fns,
                                        serve_dtype)
         from ....serving.predictor import ServingKernel
+        from ....serving.predictor import GeometryRefused
         from ....serving.sharded import LANE_PAD, SERVE_CHUNK
         ship_dt = _SHIP_DTYPES[ship_dtype]
         softmax = m.linear_model_type == LinearModelType.Softmax
@@ -115,7 +116,7 @@ class LinearModelMapper(ModelMapper):
             if design["kind"] == "dense":
                 Xf = design["X"]
                 if Xf.shape[1] > dim:
-                    raise ValueError(
+                    raise GeometryRefused(
                         f"request has {Xf.shape[1]} features, model has "
                         f"{dim}")
                 X = np.zeros((bucket, dim8), ship_dt)
@@ -123,7 +124,7 @@ class LinearModelMapper(ModelMapper):
                 return ("dense", (torch.from_numpy(X),))
             idx0, val0 = design["idx"], design["val"]
             if idx0.size and (idx0.min() < 0 or idx0.max() >= dim):
-                raise ValueError(
+                raise GeometryRefused(
                     f"request feature index {int(idx0.max())} out of range "
                     f"for a model of {dim} features")
             # pad width in steps of the chunk so a few widths cover

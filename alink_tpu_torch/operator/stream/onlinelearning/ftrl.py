@@ -88,6 +88,22 @@ SAMPLE_CHUNK = 4
 _SHIP_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+def _corrupt_snapshot_table(snap: MTable) -> MTable:
+    """The ``feeder.snapshot`` fault site's ``corrupt`` mode
+    (``common/faults.py``), as in the JAX package: a copy of the emitted
+    model table with the first coefficient payload row mangled into
+    invalid JSON, so the consumer's ``load_model`` fails LOUDLY (the
+    serving feeder's poisoned-snapshot path) instead of silently serving
+    flipped bits. The trainer's own state is not touched."""
+    rows = [list(snap.row(i)) for i in range(snap.num_rows)]
+    for r in rows:
+        # payload rows carry model_id >= 1 and a JSON string
+        if r[0] and isinstance(r[1], str) and r[1]:
+            r[1] = "\x00CORRUPT" + r[1][1:]
+            break
+    return MTable([tuple(r) for r in rows], snap.schema)
+
+
 def _pad_rows(idx, val, y, K: int):
     """Pad the micro-batch to a multiple of K rows with zero rows: slot 0
     and value 0.0, algebraic no-ops whose zero adds still land on slot 0,
@@ -822,7 +838,13 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                                 progressive_logloss_sum(mg[:rows], y[:rows])))
                 if t + 1e-12 >= next_emit:
                     if not device_emit(t, b_done + 1):
+                        # fault site: kill/error fail the emission before
+                        # the snapshot fetch; corrupt mangles the EMITTED
+                        # table without touching the state
+                        poison = maybe_crash("feeder.snapshot")
                         snap = trainer.snapshot(z, n, fb_S)
+                        if poison:
+                            snap = _corrupt_snapshot_table(snap)
                         flush()
                         yield (t, snap)
                     else:
@@ -848,7 +870,10 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                 z, n = trainer.initial_state()
             t_end = next_emit if next_emit is not None else interval
             if not device_emit(t_end, b_done if b_done > 0 else None):
+                poison = maybe_crash("feeder.snapshot")
                 snap = trainer.snapshot(z, n, fb_S)
+                if poison:
+                    snap = _corrupt_snapshot_table(snap)
                 flush()
                 yield (t_end, snap)
             else:

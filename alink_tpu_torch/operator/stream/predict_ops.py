@@ -17,9 +17,10 @@ scalers (``StandardScaler``, ``MinMaxScaler``, ``MaxAbsScaler``,
 ``Imputer``). A twin takes ``device=`` as the port's entry points do
 (``cuda`` unless the caller asks for the CPU; raises without CUDA) and
 hands it to a mapper that takes one (KMeans assigns there); the linear,
-tree and scaler mappers map on the host, as their batch ops do. The
-compiled-serving route of ``ModelMapStreamOp`` is not ported (ROADMAP
-A4(c)).
+tree and scaler mappers map on the host, as their batch ops do. With
+``ALINK_TPU_SERVE_COMPILED`` on, a twin whose mapper has a serving
+kernel (the linear and tree ones) scores through ``CompiledPredictor``
+on its device (``ModelMapStreamOp``'s compiled route).
 
 Waiting with their batch ops (ROADMAP A7): ``NaiveBayesText``,
 ``NaiveBayes``, ``Fm``, ``MultilayerPerceptron``, ``Glm``,
@@ -91,6 +92,7 @@ class PredictStreamOp(ModelMapStreamOp):
             model_table.schema, in_schema, self.params,
             **({"device": self.device} if takes_device else {}))
         self._mapper.load_model(model_table)
+        self._open_predictor()
         return self._mapper.get_output_schema()
 
 

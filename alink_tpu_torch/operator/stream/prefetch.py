@@ -40,9 +40,11 @@ class _Channel:
 
     ``put`` blocks while the channel is full and wakes when it is
     closed; ``get`` blocks until an item or the sentinel arrives. One
-    lock + two conditions; unbounded when ``maxsize <= 0``."""
+    lock + two conditions; unbounded when ``maxsize <= 0``. With a
+    ``gauge_label`` every change of depth sets the
+    ``alink_prefetch_depth{consumer=}`` gauge (metrics on)."""
 
-    def __init__(self, maxsize: int):
+    def __init__(self, maxsize: int, gauge_label: Optional[str] = None):
         self._buf: deque = deque()
         self._maxsize = maxsize
         self._lock = threading.Lock()
@@ -50,6 +52,15 @@ class _Channel:
         self._not_empty = threading.Condition(self._lock)
         self._closed = False
         self._stopped = False
+        self._gauge_label = gauge_label
+
+    def _gauge(self, depth: int) -> None:
+        if self._gauge_label is None:
+            return
+        from ...common.metrics import get_registry, metrics_enabled
+        if metrics_enabled():
+            get_registry().set_gauge("alink_prefetch_depth", depth,
+                                     {"consumer": self._gauge_label})
 
     def put(self, item) -> bool:
         """Enqueue; False when the consumer has stopped or the channel
@@ -64,6 +75,7 @@ class _Channel:
             if self._closed or self._stopped:
                 return False
             self._buf.append(item)
+            self._gauge(len(self._buf))
             self._not_empty.notify()
             return True
 
@@ -89,8 +101,15 @@ class _Channel:
                     return _EMPTY
                 self._not_empty.wait(remaining)
             item = self._buf.popleft()
+            self._gauge(len(self._buf))
             self._not_full.notify()
             return item
+
+    def depth(self) -> int:
+        """Items currently buffered (the admission-control reading the
+        serving tier exports as ``alink_serve_queue_depth``)."""
+        with self._lock:
+            return len(self._buf)
 
     def drain(self, max_items: int) -> list:
         """Pop up to ``max_items`` buffered items under ONE lock
@@ -101,6 +120,7 @@ class _Channel:
             if k <= 0:
                 return []
             items = [self._buf.popleft() for _ in range(k)]
+            self._gauge(len(self._buf))
             self._not_full.notify_all()
             return items
 
@@ -118,6 +138,7 @@ class _Channel:
         with self._lock:
             self._stopped = True
             self._buf.clear()
+            self._gauge(0)
             self._not_full.notify_all()
             self._not_empty.notify_all()
 

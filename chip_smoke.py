@@ -338,6 +338,40 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    their batch ops launch no hand kernel (the counts read 0 over (a)-(c)
    and over (d)'s predictions).
 
+19. the serving tier at ``bench.py``'s serving shapes (after 18), each
+   leg's dense LR from ``_serve_fixture``'s recipe (seeded rows, a
+   4-iteration warm start on the card) served by ``CompiledPredictor``
+   on the card through B4: (a) ``bench_serve_logreg`` (2,000 x 64):
+   20,000 requests from 4 clients with pipeline 32 through
+   ``PredictServer`` against 2,000 serial requests (``max_batch=1``),
+   each warmed and timed under ``measured_region`` — qps, serial qps,
+   speedup, p50 and p99, occupancy, bucket hit rate, B4's summed
+   CUDA-event time as a share of the leg's wall time, and the split of
+   one dispatch of 1, 8, 32 and 128 rows; (b) ``bench_serve_hot_swap``
+   (6,144 x 64): 4,000 probe requests a phase before, during (8,000)
+   and after the swaps of an ``update_mode="batch"`` FTRL stream on
+   256-row micro-batches, once through ``ModelStreamFeeder`` and once
+   through ``DeviceWeightsFeeder``; (c) ``bench_serve_chaos`` (4,096 x
+   48, 3,000 requests a phase, ``ALINK_TPU_SERVE_BREAKER_MAX_MS=200``):
+   ``serve.dispatch:1-14:error;feeder.snapshot:1-1:corrupt`` under the
+   swap stream, probes until the breaker closes, ``serve.dispatch:1:
+   delay:30`` with 6 requests of a 4 ms deadline behind it, then a
+   recovery phase. Gates: on 300 rows of each leg the card's scores and
+   labels equal the same predictor's on the CPU bit for bit, and its
+   labels the float64 host mapper's outside the float32 rounding band;
+   no failed request in (a) and (b); no torn response in (b) and (c)
+   (every answer one of the versions' CPU-predictor answers, the
+   versions those of the model tables the ``ModelStreamFeeder`` leg
+   swapped in); the weights ``DeviceWeightsFeeder`` installs on the
+   card equal those tables' bitwise, swap by swap; the swap
+   count the CPU run's for the same stream, with both feeders (in (c)
+   one fewer: the corrupt snapshot skipped); in (c) no silent drop,
+   typed rejections, at least one breaker open, the breaker closed at
+   the end and device batches after the storm; no fallback batch and no
+   breaker open in (a), (b) and (c)'s clean phases; B4 launched once a
+   dispatched batch in (a) and (b), and before and after the storm in
+   (c).
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -1023,14 +1057,14 @@ def bucket_latency(pred, req):
     return rows
 
 
-def dispatch_breakdown(pred, req, reps=30):
-    """Where one top-bucket ``predict_table`` dispatch spends its time:
-    the median host-clock time of each stage, each ending in a
-    synchronize, and the kernel's share of the sum (the card is idle
-    for the rest)."""
+def dispatch_breakdown(pred, req, reps=30, rows=None):
+    """Where one ``predict_table`` dispatch of ``rows`` rows (default:
+    the top bucket) spends its time: the median host-clock time of each
+    stage, each ending in a synchronize, and the kernel's share of the
+    sum (the card is idle for the rest)."""
     import torch
     ver = pred._active                   # the predictor's active model
-    sub = req.first_n(pred.buckets[-1])
+    sub = req.first_n(pred.buckets[-1] if rows is None else rows)
     n = sub.num_rows
     stages = {k: [] for k in ("encode", "to_device", "kernel", "fetch",
                               "decode")}
@@ -6320,6 +6354,528 @@ def phase_als(kernels, card, dev=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 19. the serving tier at bench.py's shapes: serve_logreg, serve_hot_swap,
+#     serve_chaos
+# ---------------------------------------------------------------------------
+
+SERVE_LOGREG = dict(n_rows=2000, dim=64, seed=0, requests=20_000,
+                    serial=2_000)                          # bench.py:2501
+SERVE_SWAP = dict(n_rows=6144, dim=64, seed=7, per_phase=4_000,
+                  micro=256)                               # bench.py:2505
+SERVE_CHAOS = dict(n_rows=4096, dim=48, seed=13, per_phase=3_000,
+                   micro=128)                              # bench.py:2981
+SERVE_PARITY_ROWS = 300
+SERVE_SPLIT_ROWS = (1, 8, 32, 128)
+FTRL_SWAP_KW = dict(vector_col="vec", label_col="label", alpha=0.1,
+                    update_mode="batch", time_interval=1.0)
+
+
+def serve_fixture(n_rows, dim, seed):
+    """``bench.py::_serve_fixture`` on the port: seeded dense rows,
+    labels from a seeded plane, an LR warm start (4 iterations on the
+    first 512 rows, on the card) and its float64 host mapper."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.common.vector import DenseVector
+    from alink_tpu_torch.operator.batch.classification.linear import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.source.sources import \
+        MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.mapper import \
+        LinearModelMapper
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n_rows, dim)
+    y = (X @ rng.randn(dim) > 0).astype(np.int64)
+    vecs = np.empty(n_rows, object)
+    vecs[:] = [DenseVector(X[i]) for i in range(n_rows)]
+    tbl = MTable({"vec": vecs, "label": y}, "vec VECTOR, label LONG")
+    warm = LogisticRegressionTrainBatchOp(
+        vector_col="vec", label_col="label", max_iter=4).link_from(
+        MemSourceBatchOp(tbl.first_n(min(512, n_rows))))
+    mapper = LinearModelMapper(
+        warm.get_output_table().schema, tbl.select(["vec"]).schema,
+        Params({"prediction_col": "pred", "vector_col": "vec"}))
+    mapper.load_model(warm.get_output_table())
+    return X, tbl, warm, mapper
+
+
+def serve_predictor(mapper, req, name):
+    """A card predictor with every bucket served once (bench.py's warm
+    compile; here the first launch of each bucket shape)."""
+    from alink_tpu_torch.serving import CompiledPredictor
+    pred = CompiledPredictor(mapper, name=name)
+    for b in pred.buckets:
+        pred.predict_table(req.first_n(min(b, req.num_rows)))
+    return pred
+
+
+def serve_parity(pred, mapper, X, req, name):
+    """On 300 rows: the card's scores and labels equal the same
+    predictor's on the CPU bit for bit, and its labels equal the float64
+    host mapper's outside the float32 rounding band of each row."""
+    from alink_tpu_torch.serving import CompiledPredictor
+    sub = req.first_n(SERVE_PARITY_ROWS)
+    n = sub.num_rows
+    cpu = CompiledPredictor(mapper, device="cpu", name=f"{name}_cpu")
+    s_gpu, s_cpu = pred.predict_scores(sub), cpu.predict_scores(sub)
+    require(s_gpu.dtype == np.float32 and bool(np.isfinite(s_gpu).all()),
+            f"{name}: finite float32 scores")
+    require(np.array_equal(s_gpu.view(np.int32), s_cpu.view(np.int32)),
+            f"{name}: card scores bitwise equal to the CPU predictor's")
+    card = [str(v) for v in pred.predict_table(sub).col("pred")]
+    require(card == [str(v) for v in cpu.predict_table(sub).col("pred")],
+            f"{name}: card labels equal to the CPU predictor's")
+    coef = np.asarray(mapper.model.coef)
+    terms = np.abs(X[:n]) @ np.abs(coef[1:]) + abs(coef[0])
+    s_host = mapper.predict_scores(sub)
+    clear = np.abs(s_host) > 64 * 2.0 ** -24 * terms
+    host = [str(v) for v in mapper.map_table(sub).col("pred")]
+    require(all(a == b for a, b, ok in zip(card, host, clear) if ok),
+            f"{name}: labels equal to the float64 host mapper's outside "
+            f"the rounding band")
+    return {"rows": n, "cpu_bitwise": True,
+            "inside_band": int((~clear).sum())}
+
+
+class B4Clock:
+    """CUDA events around every ``serve_dense`` (B4) launch while
+    entered: the launching thread records one event before and one after
+    the launch on its stream, so the pairs sum the kernel's device time
+    over a leg (the events add host time to every dispatch of it)."""
+
+    def __init__(self, ks):
+        self.ks = ks
+        self.pairs = []
+        self._real = None
+
+    def __enter__(self):
+        import torch
+        real = self._real = self.ks._launch
+        pairs = self.pairs
+
+        def timed(name, kind, index, *args):
+            if name != "serve_dense":
+                return real(name, kind, index, *args)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            real(name, kind, index, *args)
+            b.record()
+            pairs.append((a, b))
+        self.ks._launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.ks._launch = self._real
+        return False
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.pairs))
+
+
+def _leg_stats(stats):
+    return {"bucket_hit_rate": stats["bucket_hit_rate"],
+            "batch_occupancy": stats["mean_occupancy"],
+            "mean_batch_rows": stats["mean_batch_rows"],
+            "batches": stats["batches"], "failed": stats["failed"],
+            "shed": stats["shed"],
+            "fallback_batches": stats["fallback_batches"],
+            "loop_respawns": stats["loop_respawns"],
+            "programs": stats["programs"],
+            "breaker": stats["breaker"]}
+
+
+def serve_logreg_leg(ks):
+    """19(a): bench_serve_logreg — 20,000 requests from 4 clients with
+    pipeline 32 against 2,000 serial requests (``max_batch=1``), each
+    warmed and timed under ``measured_region``."""
+    from alink_tpu_torch.common.profiling2 import measured_region
+    from alink_tpu_torch.serving import LoadGenerator, PredictServer
+    c = SERVE_LOGREG
+    t0 = time.perf_counter()
+    X, tbl, _warm, mapper = serve_fixture(c["n_rows"], c["dim"], c["seed"])
+    req = tbl.select(["vec"])
+    pred = serve_predictor(mapper, req, "serve")
+    parity = serve_parity(pred, mapper, X, req, "serve_logreg")
+    rows = [req.row(i) for i in range(64)]
+    ks.reset_launch_counts()
+    serial_srv = PredictServer(pred, max_batch=1, name="serve_serial")
+    slg = LoadGenerator(serial_srv.submit, rows, clients=1, pipeline=1)
+    slg.run(max(50, c["serial"] // 4))
+    with B4Clock(ks) as sclk, measured_region():
+        t1 = time.perf_counter()
+        srep = slg.run(c["serial"])
+        swall = time.perf_counter() - t1
+    sstats = serial_srv.stats()
+    serial_srv.close()
+    srv = PredictServer(pred, name="serve")
+    lg = LoadGenerator(srv.submit, rows, clients=4, pipeline=32)
+    lg.run(max(100, c["requests"] // 8))
+    with B4Clock(ks) as clk, measured_region():
+        t1 = time.perf_counter()
+        rep = lg.run(c["requests"])
+        wall = time.perf_counter() - t1
+    stats = srv.stats()
+    srv.close()
+    launches = ks.launch_counts()
+    failed = rep.failures + srep.failures + stats["failed"] + sstats["failed"]
+    require(failed == 0, f"serve_logreg: {failed} failed requests")
+    for st in (stats, sstats):
+        require(st["fallback_batches"] == 0 and st["breaker"]["opens"] == 0,
+                f"serve_logreg: no fallback batch and no breaker open "
+                f"({st['fallback_batches']}, {st['breaker']})")
+    require(launches["serve_dense"] == stats["batches"] + sstats["batches"]
+            and launches["serve_dense"] > 0,
+            f"serve_logreg: B4 launched once a dispatched batch "
+            f"({launches['serve_dense']} launches, "
+            f"{stats['batches'] + sstats['batches']} batches)")
+    split = {b: dispatch_breakdown(pred, req, reps=30, rows=b)
+             for b in SERVE_SPLIT_ROWS}
+    b4_ms, sb4_ms = clk.ms(), sclk.ms()
+    return {
+        "qps": rep.qps, "serial_qps": srep.qps,
+        "speedup_vs_serial": rep.qps / max(srep.qps, 1e-9),
+        "p50_ms": rep.p50_s * 1e3, "p99_ms": rep.p99_s * 1e3,
+        "serial_p50_ms": srep.p50_s * 1e3, "serial_p99_ms": srep.p99_s * 1e3,
+        "failed_requests": failed, "parity": parity,
+        "b4_ms": b4_ms, "b4_share": b4_ms / (wall * 1e3),
+        "serial_b4_ms": sb4_ms, "serial_b4_share": sb4_ms / (swall * 1e3),
+        "b4_launches_timed": len(clk.pairs) + len(sclk.pairs),
+        "wall_s": wall, "serial_wall_s": swall,
+        **_leg_stats(stats), "serial": _leg_stats(sstats),
+        "launches": launches, "dispatch_split_ms": split,
+        "bound": "serving-host", "dt_s": time.perf_counter() - t0}
+
+
+def ftrl_swap_stream(tbl, warm, micro, dev=None):
+    from alink_tpu_torch.operator.stream.onlinelearning.ftrl import \
+        FtrlTrainStreamOp
+    from alink_tpu_torch.operator.stream.source.sources import \
+        MemSourceStreamOp
+    return FtrlTrainStreamOp(warm, device=dev, **FTRL_SWAP_KW).link_from(
+        MemSourceStreamOp(tbl, batch_size=micro))
+
+
+def tensors_bitwise(a, b):
+    """Two tuples of CPU tensors equal in dtype, shape and bytes."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and tuple(x.shape) == tuple(y.shape)
+        and x.numpy().tobytes() == y.numpy().tobytes() for x, y in zip(a, b))
+
+
+def serve_hot_swap_leg(ks, feeder_kind, fixture, tables):
+    """19(b): bench_serve_hot_swap — 4,000 requests of one probe row a
+    phase before, during (2x) and after the swaps of an FTRL stream on
+    256-row micro-batches, through ``ModelStreamFeeder`` or
+    ``DeviceWeightsFeeder``; every response checked against the set of
+    the versions' CPU-predictor answers. The model leg runs first and
+    puts the model tables it swapped in into ``tables``; the device leg
+    runs the same stream and requires the weights it installed on the
+    card to equal those tables' bitwise, swap by swap, so both legs'
+    expected sets come from the host tables, never from the card's own
+    arrays."""
+    from alink_tpu_torch.common.profiling2 import measured_region
+    from alink_tpu_torch.serving import (CompiledPredictor,
+                                         DeviceWeightsFeeder, LoadGenerator,
+                                         ModelStreamFeeder, PredictServer)
+    c = SERVE_SWAP
+    t0 = time.perf_counter()
+    X, tbl, warm, mapper, cpu_swaps = fixture
+    req = tbl.select(["vec"])
+    name = f"serve_swap_{feeder_kind}"
+    pred = serve_predictor(mapper, req, name)
+    parity = serve_parity(pred, mapper, X, req, name)
+    probe = req.row(0)
+    cpu = CompiledPredictor(mapper, device="cpu", name=f"{name}_cpu")
+    srv = PredictServer(pred, name=name)
+    lg = LoadGenerator(srv.submit, [probe], clients=4, pipeline=8,
+                       collect_responses=True)
+    lg.run(max(100, c["per_phase"] // 4))
+    ks.reset_launch_counts()
+    batches0 = srv.stats()["batches"]
+
+    installed = []
+
+    def device_swap(_version):
+        # the weights just installed on the card, copied to the host for
+        # the check (the feeder itself makes no host copy)
+        installed.append(tuple(a.cpu() for a in pred.model_arrays))
+    ftrl = ftrl_swap_stream(tbl, warm, c["micro"])
+    with B4Clock(ks) as clk, measured_region():
+        t1 = time.perf_counter()
+        rep_before = lg.run(c["per_phase"])
+        feeder = (ModelStreamFeeder(srv, ftrl) if feeder_kind == "model"
+                  else DeviceWeightsFeeder(srv, ftrl, on_swap=device_swap))
+        feeder.start()
+        rep_during = lg.run(2 * c["per_phase"])
+        swaps = feeder.join(timeout=300)
+        rep_after = lg.run(c["per_phase"])
+        wall = time.perf_counter() - t1
+    stats = srv.stats()
+    srv.close()
+    launches = ks.launch_counts()
+    if feeder_kind == "model":
+        tables[:] = [mt for _v, mt in feeder.versions]
+    expected = {repr(tuple(cpu.predict_row(probe)))}
+    unequal = 0
+    for k, mt in enumerate(tables):
+        cpu.swap_model(mt)
+        expected.add(repr(tuple(cpu.predict_row(probe))))
+        if feeder_kind == "device" and k < len(installed):
+            unequal += not tensors_bitwise(installed[k], cpu.model_arrays)
+    if feeder_kind == "device":
+        require(len(installed) == len(tables) == swaps and unequal == 0,
+                f"{name}: the weights installed on the card equal the "
+                f"model leg's tables bitwise ({len(installed)} installed, "
+                f"{len(tables)} tables, {unequal} unequal)")
+    observed = {repr(tuple(r)) for rep in (rep_before, rep_during, rep_after)
+                for r in rep.responses}
+    torn = len(observed - expected)
+    failed = (rep_before.failures + rep_during.failures + rep_after.failures
+              + stats["failed"])
+    require(torn == 0, f"{name}: {torn} torn responses")
+    require(failed == 0, f"{name}: {failed} failed requests")
+    require(swaps == cpu_swaps and feeder.skipped == 0,
+            f"{name}: {swaps} swaps, the CPU run emits {cpu_swaps}")
+    require(stats["fallback_batches"] == 0
+            and stats["breaker"]["opens"] == 0,
+            f"{name}: no fallback batch and no breaker open")
+    dispatched = stats["batches"] - batches0
+    require(launches["serve_dense"] == dispatched > 0,
+            f"{name}: B4 launched once a dispatched batch "
+            f"({launches['serve_dense']} launches, {dispatched} batches)")
+    b4_ms = clk.ms()
+    return {
+        "feeder": feeder_kind, "qps": rep_during.qps,
+        "model_swaps": swaps, "cpu_model_swaps": cpu_swaps,
+        "failed_requests": failed, "torn_responses": torn,
+        "distinct_responses": len(observed), "versions": len(expected),
+        "p99_ms_before": rep_before.p99_s * 1e3,
+        "p99_ms_during": rep_during.p99_s * 1e3,
+        "p99_ms_after": rep_after.p99_s * 1e3,
+        "p50_ms_during": rep_during.p50_s * 1e3,
+        "qps_before": rep_before.qps, "qps_after": rep_after.qps,
+        "b4_ms": b4_ms, "b4_share": b4_ms / (wall * 1e3), "wall_s": wall,
+        "weights_checked": len(installed), "parity": parity,
+        **_leg_stats(stats), "launches": launches,
+        "bound": "serving-host", "dt_s": time.perf_counter() - t0}
+
+
+def serve_chaos_leg(ks):
+    """19(c): bench_serve_chaos — 3,000 requests a phase; the storm
+    ``serve.dispatch:1-14:error;feeder.snapshot:1-1:corrupt`` under an
+    FTRL swap stream, probes until the breaker closes, then
+    ``serve.dispatch:1:delay:30`` with 6 requests of a 4 ms deadline
+    queued behind it, then a recovery phase with the faults cleared.
+    ``ALINK_TPU_SERVE_BREAKER_MAX_MS=200``."""
+    from alink_tpu_torch.common.faults import (FAULT_ENV, reset_faults,
+                                               scoped_fault_env)
+    from alink_tpu_torch.common.profiling2 import measured_region
+    from alink_tpu_torch.serving import (CompiledPredictor, LoadGenerator,
+                                         ModelStreamFeeder, PredictServer)
+    c = SERVE_CHAOS
+    t0 = time.perf_counter()
+    X, tbl, warm, mapper = serve_fixture(c["n_rows"], c["dim"], c["seed"])
+    req = tbl.select(["vec"])
+    cpu_snapshots = sum(1 for _ in ftrl_swap_stream(
+        tbl, warm, c["micro"], dev="cpu").timed_batches())
+    pred = serve_predictor(mapper, req, "serve_chaos")
+    parity = serve_parity(pred, mapper, X, req, "serve_chaos")
+    probe = req.row(0)
+    require(FAULT_ENV not in os.environ, "no fault armed before the storm")
+    os.environ["ALINK_TPU_SERVE_BREAKER_MAX_MS"] = "200"
+    srv = PredictServer(pred, name="serve_chaos")
+    tally = {"submitted": 0, "results": 0, "typed": 0, "silent": 0}
+    responses = []
+
+    def lg(requests):
+        rep = LoadGenerator(srv.submit, [probe], clients=4, pipeline=8,
+                            collect_responses=True).run(requests)
+        tally["submitted"] += rep.requests
+        tally["results"] += rep.requests - rep.failures
+        tally["typed"] += rep.failures - rep.timeouts
+        tally["silent"] += rep.timeouts
+        responses.extend(rep.responses)
+        return rep
+
+    def settle(futs):
+        for f in futs:
+            try:
+                responses.append(tuple(f.result(60)))
+                tally["results"] += 1
+            except TimeoutError:
+                tally["silent"] += 1
+            except Exception:
+                tally["typed"] += 1
+
+    lg(max(100, c["per_phase"] // 4))
+    ks.reset_launch_counts()
+    with B4Clock(ks) as clk, measured_region():
+        rep_before = lg(c["per_phase"])
+        clean = srv.stats()
+        launches_before = ks.launch_counts()["serve_dense"]
+        reset_faults()
+        with scoped_fault_env("serve.dispatch:1-14:error;"
+                              "feeder.snapshot:1-1:corrupt"):
+            feeder = ModelStreamFeeder(
+                srv, ftrl_swap_stream(tbl, warm, c["micro"])).start()
+            rep_storm = lg(c["per_phase"])
+            wait_until = time.monotonic() + 20
+            while srv.breaker_stats()["state"] != "closed" \
+                    and time.monotonic() < wait_until:
+                tally["submitted"] += 1
+                settle([srv.submit(probe)])
+                time.sleep(0.05)
+            # the same visit counters: the corrupt window stays
+            # exactly-once (the scope restores the variable on exit)
+            os.environ[FAULT_ENV] = ("serve.dispatch:1:delay:30;"
+                                     "feeder.snapshot:1-1:corrupt")
+            first = srv.submit(probe)
+            time.sleep(0.01)
+            shed = [srv.submit(probe, deadline_s=0.004) for _ in range(6)]
+            tally["submitted"] += 7
+            settle([first] + shed)
+            swaps = feeder.join(timeout=180)
+        reset_faults()
+        time.sleep(0.25)
+        pre = srv.stats()
+        launches_pre = ks.launch_counts()["serve_dense"]
+        rep_after = lg(c["per_phase"])
+        stats = srv.stats()
+    srv.close()
+    del os.environ["ALINK_TPU_SERVE_BREAKER_MAX_MS"]
+    launches = ks.launch_counts()
+    compiled_after = (stats["batches"] - pre["batches"]) \
+        - (stats["fallback_batches"] - pre["fallback_batches"])
+    expected = set()
+    cpu = CompiledPredictor(mapper, device="cpu", name="serve_chaos_cpu")
+    expected.add(repr(tuple(cpu.predict_row(probe))))
+    for _v, mt in feeder.versions:
+        cpu.swap_model(mt)
+        expected.add(repr(tuple(cpu.predict_row(probe))))
+    torn = len({repr(tuple(r)) for r in responses} - expected)
+    brk = stats["breaker"]
+    require(tally["silent"] == 0, f"serve_chaos: {tally['silent']} silent "
+            f"drops")
+    require(tally["results"] + tally["typed"] == tally["submitted"],
+            f"serve_chaos: every request answered or rejected {tally}")
+    require(tally["typed"] > 0, "serve_chaos: typed rejections in the storm")
+    require(torn == 0, f"serve_chaos: {torn} torn responses")
+    require(brk["opens"] >= 1 and brk["state"] == "closed",
+            f"serve_chaos: the breaker opened and ends closed ({brk})")
+    require(compiled_after > 0, "serve_chaos: device batches after the storm")
+    require(clean["fallback_batches"] == 0
+            and clean["breaker"]["opens"] == 0
+            and stats["fallback_batches"] == pre["fallback_batches"]
+            and brk["opens"] == pre["breaker"]["opens"],
+            "serve_chaos: no fallback batch and no breaker open in the "
+            "clean phases")
+    require(feeder.skipped == 1 and swaps == cpu_snapshots - 1,
+            f"serve_chaos: {swaps} swaps and {feeder.skipped} skipped; the "
+            f"CPU run emits {cpu_snapshots}")
+    require(launches_before > 0
+            and launches["serve_dense"] - launches_pre >= compiled_after,
+            f"serve_chaos: B4 launched before and after the storm "
+            f"({launches_before}, {launches['serve_dense'] - launches_pre} "
+            f"for {compiled_after} device batches)")
+    b4_ms = clk.ms()
+    return {
+        "qps": rep_storm.qps, "qps_before": rep_before.qps,
+        "qps_after": rep_after.qps,
+        "p99_ms_before": rep_before.p99_s * 1e3,
+        "p99_ms_during": rep_storm.p99_s * 1e3,
+        "p99_ms_after": rep_after.p99_s * 1e3,
+        "p50_ms_during": rep_storm.p50_s * 1e3,
+        "requests_total": tally["submitted"],
+        "typed_rejections": tally["typed"], "silent_drops": tally["silent"],
+        "torn_responses": torn, "shed_requests": stats["shed"],
+        "breaker_opens": brk["opens"], "breaker_reopens": brk["reopens"],
+        "breaker_probes": brk["probes"],
+        "fallback_batches": stats["fallback_batches"],
+        "loop_respawns": stats["loop_respawns"],
+        "feeder_retries": feeder.retried, "feeder_skipped": feeder.skipped,
+        "model_swaps": swaps, "cpu_snapshots": cpu_snapshots,
+        "post_storm_compiled_batches": compiled_after,
+        "b4_ms": b4_ms, "launches": launches, "parity": parity,
+        "bound": "serving-host", "dt_s": time.perf_counter() - t0}
+
+
+def phase_serving(kernels, card):
+    """19: the serving tier at bench.py's serving shapes. ``kernels``
+    are the kernel modules (``serve`` first); their counts are set to 0
+    before the phase and read after it."""
+    ks = kernels[0]
+    out = {"card": card}
+    t0 = time.perf_counter()
+    _reset(*kernels)
+    out["serve_logreg"] = serve_logreg_leg(ks)
+    c = SERVE_SWAP
+    X, tbl, warm, mapper = serve_fixture(c["n_rows"], c["dim"], c["seed"])
+    cpu_swaps = sum(1 for _ in ftrl_swap_stream(
+        tbl, warm, c["micro"], dev="cpu").timed_batches())
+    fixture = (X, tbl, warm, mapper, cpu_swaps)
+    tables = []
+    out["serve_hot_swap"] = serve_hot_swap_leg(ks, "model", fixture, tables)
+    out["serve_hot_swap_device"] = serve_hot_swap_leg(ks, "device", fixture,
+                                                      tables)
+    out["serve_chaos"] = serve_chaos_leg(ks)
+    # each leg reads B4's and B5's counts from its own reset; the other
+    # modules' counts run over the whole phase
+    legs = ("serve_logreg", "serve_hot_swap", "serve_hot_swap_device",
+            "serve_chaos")
+    out["launches"] = {k: sum(out[leg]["launches"][k] for leg in legs)
+                       for k in ks.launch_counts()}
+    others = _counts(*kernels[1:])
+    require(not any(others.values()),
+            f"the serving legs launch no other kernel: {others}")
+    out["launches"].update(others)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_serving(rec):
+    a, ch = rec["serve_logreg"], rec["serve_chaos"]
+    print(f"19(a) serve_logreg: {a['qps']:.1f} qps, serial "
+          f"{a['serial_qps']:.1f} qps, speedup {a['speedup_vs_serial']:.2f}, "
+          f"p50 {a['p50_ms']:.4f} ms, p99 {a['p99_ms']:.4f} ms (serial "
+          f"{a['serial_p50_ms']:.4f} / {a['serial_p99_ms']:.4f}), "
+          f"occupancy {a['batch_occupancy']:.4f}, mean batch "
+          f"{a['mean_batch_rows']:.2f} rows, bucket hit rate "
+          f"{a['bucket_hit_rate']:.4f}, B4 {a['b4_ms']:.3f} ms = "
+          f"{a['b4_share']:.5f} of {a['wall_s']:.3f} s (serial "
+          f"{a['serial_b4_share']:.5f}), launches {a['launches']}",
+          flush=True)
+    for b, split in a["dispatch_split_ms"].items():
+        print(f"19(a) one {b}-row dispatch, median ms per stage: {split}")
+    for leg in ("serve_hot_swap", "serve_hot_swap_device"):
+        h = rec[leg]
+        print(f"19(b) {leg}: {h['qps']:.1f} qps during, swaps "
+              f"{h['model_swaps']} (CPU {h['cpu_model_swaps']}), torn "
+              f"{h['torn_responses']}, failed {h['failed_requests']}, "
+              f"installed weights checked {h['weights_checked']}, p99 "
+              f"before / during / after {h['p99_ms_before']:.4f} / "
+              f"{h['p99_ms_during']:.4f} / {h['p99_ms_after']:.4f} ms, "
+              f"occupancy {h['batch_occupancy']:.4f}, bucket hit rate "
+              f"{h['bucket_hit_rate']:.4f}, shed {h['shed']}, B4 share "
+              f"{h['b4_share']:.5f}, {h['dt_s']:.1f} s", flush=True)
+    print(f"19(c) serve_chaos: {ch['qps']:.1f} qps in the storm, "
+          f"{ch['requests_total']} requests, typed {ch['typed_rejections']}, "
+          f"silent {ch['silent_drops']}, torn {ch['torn_responses']}, shed "
+          f"{ch['shed_requests']}, breaker opens / reopens / probes "
+          f"{ch['breaker_opens']} / {ch['breaker_reopens']} / "
+          f"{ch['breaker_probes']}, fallback {ch['fallback_batches']}, "
+          f"swaps {ch['model_swaps']} (skipped {ch['feeder_skipped']}), "
+          f"post-storm device batches {ch['post_storm_compiled_batches']}, "
+          f"p99 before / during / after {ch['p99_ms_before']:.4f} / "
+          f"{ch['p99_ms_during']:.4f} / {ch['p99_ms_after']:.4f} ms, "
+          f"{ch['dt_s']:.1f} s", flush=True)
+    print(f"phase 19: {rec['seconds']:.1f} s, launches {rec['launches']}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6510,6 +7066,10 @@ def main(argv=None) -> int:
     als = phase_als((ks, kl, kf, kh), card)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 19. the serving tier: serve_logreg, serve_hot_swap, serve_chaos --
+    serving = phase_serving((ks, kl, kf, kh), card)
+    print_serving(serving)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -6691,8 +7251,10 @@ def main(argv=None) -> int:
         rec["durability_launches"] = durability["launches"].get(rec["name"],
                                                                 0)
         rec["als_launches"] = als["launches"].get(rec["name"], 0)
+        rec["serving_tier_launches"] = serving["launches"].get(rec["name"],
+                                                               0)
     print(json.dumps({"main_path": {
-        "als": als, "durability": durability, "linear_family": family,
+        "serving_tier": serving, "als": als, "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,
         "gbdt": gbdt, "tree_serving": tree_serving,

@@ -134,7 +134,20 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.stream.predict_ops",
               "alink_tpu_torch.operator.batch.evaluation",
               "alink_tpu_torch.pipeline.extras",
-              "alink_tpu_torch.pipeline.tree"):
+              "alink_tpu_torch.pipeline.tree",
+              "alink_tpu_torch.common.flags",
+              "alink_tpu_torch.common.metrics",
+              "alink_tpu_torch.common.tracing",
+              "alink_tpu_torch.common.reqtrace",
+              "alink_tpu_torch.common.postmortem",
+              "alink_tpu_torch.common.adminz",
+              "alink_tpu_torch.common.profiling2",
+              "alink_tpu_torch.serving.loadgen",
+              "alink_tpu_torch.serving.resilience",
+              "alink_tpu_torch.serving.plan",
+              "alink_tpu_torch.serving.server",
+              "alink_tpu_torch.serving",
+              "alink_tpu_torch.operator.stream.utils"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):

@@ -304,7 +304,33 @@ def test_model_tables_load_in_both_packages():
     ("ALINK_TPU_SERVE_DTYPE", ["", "bf16", "BFLOAT16", "i8", "fp32", "0"]),
     ("ALINK_TPU_SERVE_WINDOW_MS", ["", "3.5", "-1"]),
     ("ALINK_TPU_SERVE_MIN_FILL", ["", "4", "0"]),
-    ("ALINK_TPU_SERVE_QUEUE", ["", "16", "-5"])])
+    ("ALINK_TPU_SERVE_QUEUE", ["", "16", "-5"]),
+    ("ALINK_TPU_SERVE_COMPILED", ["", "0", "1", "off", "YES"]),
+    ("ALINK_TPU_SERVE_BREAKER", ["", "0", "false", "on"]),
+    ("ALINK_TPU_SERVE_BREAKER_THRESHOLD", ["", "0", "5"]),
+    ("ALINK_TPU_SERVE_BREAKER_BACKOFF_MS", ["", "-3", "12.5"]),
+    ("ALINK_TPU_SERVE_BREAKER_FACTOR", ["", "0.5", "3"]),
+    ("ALINK_TPU_SERVE_BREAKER_MAX_MS", ["", "-1", "200"]),
+    ("ALINK_TPU_SERVE_FEEDER_RETRIES", ["", "-2", "7"]),
+    ("ALINK_TPU_SERVE_FEEDER_BACKOFF_MS", ["", "-1", "5"]),
+    ("ALINK_TPU_SERVE_SWAP", ["", "sync", " SYNC ", "double", "other"]),
+    ("ALINK_TPU_METRICS", ["", "0", "off", "1"]),
+    ("ALINK_TPU_STEP_LOG", ["", "0", "1"]),
+    ("ALINK_TPU_TRACE", ["", "no", "1"]),
+    ("ALINK_TPU_TRACE_BUFFER", ["", "0", "64", "junk"]),
+    ("ALINK_TPU_REQTRACE", ["", "0", "true"]),
+    ("ALINK_TPU_REQTRACE_RING", ["", "-4", "8", "x"]),
+    ("ALINK_TPU_POSTMORTEM_DIR", ["", "/tmp/pm"]),
+    ("ALINK_TPU_POSTMORTEM_KEEP", ["", "0", "3", "junk"]),
+    ("ALINK_TPU_POSTMORTEM_DEBOUNCE_S", ["", "-1", "0.5", "junk"]),
+    ("ALINK_TPU_ADMIN_PORT", ["", "-7", "0", "8080", "junk"]),
+    ("ALINK_TPU_ADMIN_HOST", ["", "0.0.0.0"]),
+    ("ALINK_TPU_ADMIN_TRACEZ", ["", "0", "9", "junk"]),
+    ("ALINK_TPU_ADMIN_REQUESTZ", ["", "-1", "9", "junk"]),
+    ("ALINK_TPU_PROFILE", ["", "0", "1"]),
+    ("ALINK_TPU_PROFILE_DIR", ["", "/tmp/prof"]),
+    ("ALINK_TPU_ASYNC_SNAPSHOT", ["", "0", "1"]),
+    ("ALINK_TPU_FAULT_INJECT", ["", "serve.dispatch:1-2:error"])])
 def test_serving_flags_parse_like_the_jax_package(monkeypatch, name, raws):
     from alink_tpu.common.flags import flag_value as jax_flag
     from alink_tpu.serving.predictor import serve_buckets as jax_buckets
