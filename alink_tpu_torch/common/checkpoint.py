@@ -48,11 +48,10 @@ Durability contract:
     ``allow_pickle=False``; float arrays reload bit-identical, which is
     what makes kill-and-resume parity provable (tests/test_checkpoint.py).
 
-Not ported: the MetricsRegistry series (``alink_checkpoint_total`` /
-``_bytes_total`` / ``_seconds`` / ``_restore_total``) and the trace
-instants a save or a load reports in the JAX package; they wait for the
-port's metrics and tracing (ROADMAP A10). ``scope=`` is accepted, as
-there, and labels nothing yet.
+Every successful save/load reports into the MetricsRegistry
+(``alink_checkpoint_total`` / ``_bytes_total`` / ``_seconds`` /
+``_last_tag`` / ``_restore_total``, labelled by ``scope``) and emits a
+``checkpoint.save`` / ``checkpoint.restore`` trace instant.
 """
 
 from __future__ import annotations
@@ -67,6 +66,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .faults import maybe_crash
+from .metrics import get_registry, metrics_enabled
+from .tracing import trace_instant
 
 __all__ = [
     "CheckpointError", "FORMAT_NAME", "FORMAT_VERSION",
@@ -190,6 +191,7 @@ def save_checkpoint(directory: str, tag: int, payload: Any,
     ``keep_last=N`` prunes older snapshots after a successful publish
     (bounded retention; the just-written snapshot always survives).
     """
+    t0 = time.perf_counter()
     tag = int(tag)
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"{_PREFIX}{tag:012d}")
@@ -202,6 +204,7 @@ def save_checkpoint(directory: str, tag: int, payload: Any,
         leaves: List[np.ndarray] = []
         structure = _encode_structure(payload, leaves)
         arrays = []
+        total_bytes = 0
         for i, arr in enumerate(leaves):
             fname = f"arr_{i:05d}.npy"
             fpath = os.path.join(tmp, fname)
@@ -209,6 +212,7 @@ def save_checkpoint(directory: str, tag: int, payload: Any,
                 np.save(f, arr, allow_pickle=False)
                 f.flush()
                 os.fsync(f.fileno())
+            total_bytes += os.path.getsize(fpath)
             arrays.append({"file": fname, "shape": list(arr.shape),
                            "dtype": str(arr.dtype),
                            "bytes": os.path.getsize(fpath),
@@ -243,6 +247,16 @@ def save_checkpoint(directory: str, tag: int, payload: Any,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    if metrics_enabled():
+        reg = get_registry()
+        lbl = {"scope": scope}
+        reg.inc("alink_checkpoint_total", 1, lbl)
+        reg.inc("alink_checkpoint_bytes_total", total_bytes, lbl)
+        reg.observe("alink_checkpoint_seconds", time.perf_counter() - t0, lbl)
+        reg.set_gauge("alink_checkpoint_last_tag", tag, lbl)
+    trace_instant("checkpoint.save", cat="ckpt",
+                  args={"scope": scope, "tag": tag, "bytes": total_bytes,
+                        "seconds": round(time.perf_counter() - t0, 6)})
     if keep_last is not None:
         prune_checkpoints(directory, keep_last)
     return final
@@ -317,6 +331,11 @@ def load_checkpoint(path: str, *, scope: str = "default",
                 f"manifest says {spec['shape']}/{spec['dtype']}")
         leaves.append(arr)
     payload = _decode_structure(manifest["structure"], leaves)
+    if metrics_enabled():
+        get_registry().inc("alink_checkpoint_restore_total", 1,
+                           {"scope": scope})
+    trace_instant("checkpoint.restore", cat="ckpt",
+                  args={"scope": scope, "tag": manifest.get("tag")})
     return payload, manifest.get("meta", {})
 
 

@@ -59,10 +59,12 @@ Sites are plain dotted strings; the port's producers:
     table so the consumer's load fails loudly), auto-indexed;
   * ``prefetch.get``        — inside the bounded channel's ``get``
     (operator/stream/prefetch.py — the serving loop and every stream
-    drain pull through it), auto-indexed.
+    drain pull through it), auto-indexed;
+  * ``ingest.batch``        — at each micro-batch the online DAG's
+    resumable ingest delivers (online/dag.py), auto-indexed, so a
+    bounded kill window clears on redelivery.
 
-The JAX package's ``ingest.batch`` site comes with the online DAG
-(ROADMAP A4(c)). A fault that fires records a ``fault.injected`` trace
+A fault that fires records a ``fault.injected`` trace
 instant, and a kill a post-mortem bundle (both off unless their flags
 are set).
 

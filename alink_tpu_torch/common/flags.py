@@ -5,8 +5,9 @@ are kept with the JAX package's kinds, parsers, clamps and defaults:
 the serving tier (buckets, precision, batching, breakers, feeders, the
 swap mode and the compiled stream route), the observability planes
 (metrics, tracing, request tracing, post-mortem bundles, the admin
-plane, measured profiling) and durability (``ALINK_TPU_FAULT_INJECT``,
-``ALINK_TPU_ASYNC_SNAPSHOT``). One parser per kind: a boolean is off
+plane, measured profiling, the health probe channel), durability
+(``ALINK_TPU_FAULT_INJECT``, ``ALINK_TPU_ASYNC_SNAPSHOT``) and the
+online DAG (the ``ALINK_TPU_E2E_*`` family). One parser per kind: a boolean is off
 for ``0/false/off/no`` (any case) and on otherwise; other kinds read a
 set-but-empty value as unset; a ``tolerant`` flag falls back to its
 default on a value it cannot parse.
@@ -73,7 +74,8 @@ _KIND_PARSERS: Dict[str, Callable[[str], Any]] = {
 class Flag:
     """One declared environment flag: ``kind`` picks the parser unless
     ``parser`` overrides it, ``clamp`` bounds the value, ``section``
-    groups it (``serving`` / ``observability`` / ``durability``), and a
+    groups it (``serving`` / ``observability`` / ``durability`` /
+    ``e2e``), and a
     ``tolerant`` flag returns its default on an unparsable value."""
     name: str
     kind: str
@@ -189,6 +191,9 @@ _reg("ALINK_TPU_PROFILE", "bool", False,
      "memory (common/profiling2.py)", "observability")
 _reg("ALINK_TPU_PROFILE_DIR", "str", "",
      "artifact directory of the profile export", "observability")
+_reg("ALINK_TPU_HEALTH", "bool", True,
+     "in-program training-health probe channel (stacked carry series)",
+     "observability")
 _reg("ALINK_TPU_REQTRACE", "bool", True,
      "request-scoped tracing (common/reqtrace.py): per-request phase "
      "timelines, tail-latency exemplars and overlap annotations",
@@ -267,6 +272,57 @@ _reg("ALINK_TPU_ASYNC_SNAPSHOT", "bool", True,
 _reg("ALINK_TPU_FAULT_INJECT", "str", "",
      "armed fault sites, site:index[-end][:mode[:param]] entries "
      "separated by ';' (grammar in common/faults.py)", "durability")
+
+# -- online-learning DAG (online/) ------------------------------------------
+# Host-side DAG runtime policy: stage supervision, SLO bounds, request
+# pacing. With the family at its defaults (and no OnlineDag built) the
+# serving and trainer paths answer the same bytes as without it.
+_reg("ALINK_TPU_E2E_DAG", "bool", False,
+     "arm the online DAG's flag-derived defaults: an OnlineDag built "
+     "without an explicit SloContract/deadline picks them up from the "
+     "ALINK_TPU_E2E_SLO_*/_DEADLINE_MS flags (off = explicit arguments "
+     "only; constructing the DAG itself is always explicit API)", "e2e")
+_reg("ALINK_TPU_E2E_SLO_P99_MS", "float", 0.0,
+     "end-to-end SLO: serving p99 bound in ms evaluated live per eval "
+     "window by the online DAG's SloContract (0 = clause off)", "e2e",
+     clamp=lambda v: max(0.0, v))
+_reg("ALINK_TPU_E2E_SLO_STALENESS_MS", "float", 0.0,
+     "end-to-end SLO: model swap staleness bound in ms (snapshot "
+     "emission -> swap installed) for the online DAG (0 = clause off)",
+     "e2e", clamp=lambda v: max(0.0, v))
+_reg("ALINK_TPU_E2E_SLO_AUC", "float", 0.0,
+     "end-to-end SLO: final-window AUC floor for the online DAG's "
+     "windowed stream eval (0 = clause off)", "e2e",
+     clamp=lambda v: max(0.0, min(1.0, v)))
+_reg("ALINK_TPU_E2E_DEADLINE_MS", "float", 0.0,
+     "default request deadline the online DAG stamps on its side "
+     "traffic when ALINK_TPU_E2E_DAG=1 and no explicit deadline_s was "
+     "passed (0 = no deadline); eval ground-truth traffic retries typed "
+     "rejections instead of dropping windows", "e2e",
+     clamp=lambda v: max(0.0, v))
+_reg("ALINK_TPU_E2E_BURN_FAST_S", "float", 300.0,
+     "SLO burn-rate monitor: FAST window length in seconds (the paging "
+     "window — mean clause burn over it >= 1.0 marks a CRITICAL burn "
+     "and flips /readyz to 503 while active)", "e2e",
+     clamp=lambda v: max(1.0, v), tolerant=True)
+_reg("ALINK_TPU_E2E_BURN_SLOW_S", "float", 3600.0,
+     "SLO burn-rate monitor: SLOW window length in seconds (the "
+     "sustained-burn window — budget-fraction burn over it >= 1.0 "
+     "means the whole window's error budget is spent)", "e2e",
+     clamp=lambda v: max(1.0, v), tolerant=True)
+_reg("ALINK_TPU_E2E_MAX_RESTARTS", "int", 3,
+     "per-stage restart budget of the online DAG's supervisors "
+     "(trainer restart-from-checkpoint, feeder respawn-with-last-good-"
+     "model, ingest resume-at-offset)", "e2e",
+     clamp=lambda n: max(0, n))
+_reg("ALINK_TPU_E2E_PACING", "mode", "deterministic",
+     "online DAG pacing: deterministic (score batch k+1 only after "
+     "train-commit k — bitwise-resumable eval windows) | throughput "
+     "(free-running scoring; the bench's steady-state mode)", "e2e",
+     parser=lambda raw: ("throughput"
+                         if raw.strip().lower() in ("throughput", "free",
+                                                    "async")
+                         else "deterministic"))
 del _reg
 
 

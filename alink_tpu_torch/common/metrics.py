@@ -13,9 +13,10 @@ the runtime reports into, with two exporters —
 
 Producers in the port: the serving tier (``serving/predictor.py``,
 ``serving/server.py``, ``serving/resilience.py``), the admin plane, the
-post-mortem writer and the request channel's depth gauge. The JAX
-package's engine, FTRL and checkpoint series are not reported here yet
-(ROADMAP A10(a)).
+post-mortem writer, the prefetch channels' depth gauge, the engine
+(``engine/comqueue.py``, ``communication.py``, ``recovery.py``), FTRL,
+the checkpoint store, the batch and stream operators, training health
+(``common/health.py``) and the online DAG (``online/``).
 
 Metrics are ON by default; export ``ALINK_TPU_METRICS=0`` (or ``false`` /
 ``off``) and every producer skips its registry updates. The recording cost

@@ -10,9 +10,9 @@ into ``ALINK_TPU_POSTMORTEM_DIR`` — so the verdict and any single
 request's lifetime can be read *offline*, with no live process left to
 scrape. Counterpart: ``alink_tpu/common/postmortem.py``, copied, with
 the same bundle format; ``flags`` resolves the port's registry. The
-port's trigger is a serving breaker opening; the JAX package's SLO
-burn, DAG stage abort and injected-kill triggers come with their
-modules (ROADMAP A4(c), A10).
+port's triggers are the JAX package's: a serving breaker opening, an
+injected kill, an SLO's fast-window burn (``online/slo.py``) and the
+online DAG's first stage abort (``online/dag.py``).
 
 Bundle shape (``format: alink_tpu_postmortem_v1``)::
 

@@ -7,16 +7,51 @@ of length 1. ``manifest_psum_scatter`` and ``manifest_all_gather`` (ALS'
 ``shard_solve``) follow ``lax.psum_scatter`` and ``lax.all_gather`` at
 one worker: tiled, both are the identity; untiled, the scatter drops
 its length-1 worker axis and the gather adds one. Several workers
-raise. The collective manifest and the fusion of adjacent reductions
-are not ported: there is nothing to count or fuse until the engine
-runs on several cards. The stage-level ``AllReduce`` is ported for the
-optimizers; ``AllGather`` and ``BroadcastFromWorker0`` wait for a
-caller.
+raise.
+
+Telemetry: every wrapper call records its collective through
+:func:`record_collective` — ``alink_collective_calls_total`` and
+``alink_collective_logical_bytes_total`` (the payload summed over the
+workers) by ``collective`` — as the JAX package charges its traced
+manifest once an executed superstep; the eager engine calls the
+wrappers once a superstep, so the counts agree. Not ported: the
+fusion of adjacent reductions and its series
+(``alink_collective_fused_total``, ``_payload_fused_bytes``; ROADMAP
+A9): there is nothing to fuse at one worker. The stage-level
+``AllReduce`` is ported for the optimizers; ``AllGather`` and
+``BroadcastFromWorker0`` wait for a caller.
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..common.metrics import get_registry, metrics_enabled
 from .context import ComContext
+
+
+def payload_nbytes(value) -> int:
+    """Logical payload bytes of a buffer (a tensor, or a list, tuple or
+    dict of them) as seen by one worker."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    if isinstance(value, dict):
+        return sum(payload_nbytes(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return sum(payload_nbytes(v) for v in value)
+    return 8
+
+
+def record_collective(kind: str, per_worker_bytes: int,
+                      num_workers: int) -> None:
+    """Record one collective invocation: its logical bytes are the
+    payload summed over the workers."""
+    if metrics_enabled():
+        reg = get_registry()
+        lbl = {"collective": kind}
+        reg.inc("alink_collective_calls_total", 1, lbl)
+        reg.inc("alink_collective_logical_bytes_total",
+                int(per_worker_bytes) * int(num_workers), lbl)
 
 
 def _one_worker(name: str, num_workers: int) -> None:
@@ -29,6 +64,7 @@ def manifest_psum(x, axis_name, *, name: str = "<psum>",
                   num_workers: int = 1):
     """``lax.psum`` at one worker: the identity."""
     _one_worker(name, num_workers)
+    record_collective("AllReduce", payload_nbytes(x), num_workers)
     return x
 
 
@@ -36,6 +72,7 @@ def manifest_pmax(x, axis_name, *, name: str = "<pmax>",
                   num_workers: int = 1):
     """``lax.pmax`` at one worker: the identity."""
     _one_worker(name, num_workers)
+    record_collective("AllReduce", payload_nbytes(x), num_workers)
     return x
 
 
@@ -43,6 +80,7 @@ def manifest_pmin(x, axis_name, *, name: str = "<pmin>",
                   num_workers: int = 1):
     """``lax.pmin`` at one worker: the identity."""
     _one_worker(name, num_workers)
+    record_collective("AllReduce", payload_nbytes(x), num_workers)
     return x
 
 
@@ -51,6 +89,7 @@ def manifest_all_gather(x, axis_name, *, axis: int = 0, tiled: bool = False,
     """``lax.all_gather`` at one worker: the identity when ``tiled``, else
     ``x`` with a worker axis of length 1 inserted at ``axis``."""
     _one_worker(name, num_workers)
+    record_collective("AllGather", payload_nbytes(x), num_workers)
     return x if tiled else x.unsqueeze(axis)
 
 
@@ -62,6 +101,7 @@ def manifest_psum_scatter(x, axis_name, *, scatter_dimension: int = 0,
     untiled, ``x``'s ``scatter_dimension`` must have the worker count's
     length 1 and is dropped."""
     _one_worker(name, num_workers)
+    record_collective("ReduceScatter", payload_nbytes(x), num_workers)
     if tiled:
         return x
     if x.shape[scatter_dimension] != num_workers:

@@ -17,7 +17,14 @@ Partitioned and broadcast data become tensors on the session's device
 once, before superstep 1; at one worker a partition is the whole table
 and ``__total_<name>`` holds its row count. Health probe series
 (``ComContext.probe``) are kept in the carry and read through
-:meth:`ComQueueResult.probe_series`.
+:meth:`ComQueueResult.probe_series`; ``ALINK_TPU_HEALTH`` is latched
+once a run (off: no probe, and no ``health_probes`` in the snapshot
+signature). :meth:`IterativeComQueue.set_health` attaches a
+``common/health.py::HealthMonitor``: at every checkpoint boundary it is
+fed the probes of the carry the snapshot has just copied to the host
+(no read of its own), and after the run those of the result; each
+feeding ends in ``evaluate()``, whose ``HealthAlertError`` aborts the
+run after the boundary's snapshot is on disk.
 
 Durability (``engine/recovery.py``): :meth:`IterativeComQueue.
 set_checkpoint` (or the constructor's ``checkpoint_dir`` /
@@ -27,9 +34,17 @@ state; ``resume_from=`` re-enters a killed run at ``step + 1`` from its
 newest valid snapshot, bit for bit. :meth:`IterativeComQueue.
 set_boundary` runs a host hook every N supersteps, with or without a
 checkpoint. ``set_program_key`` names the program in the snapshot
-signature (eager PyTorch caches no program). ``set_health`` raises
-``NotImplementedError`` (ROADMAP A10). Not ported: the chunked and
-lowered programs, donation, metrics and tracing spans.
+signature (eager PyTorch caches no program).
+
+Telemetry, as in the JAX package: one ``comqueue.exec`` span a run,
+``alink_comqueue_execs_total`` and ``alink_comqueue_supersteps_total``
+(the supersteps this run executed: a resumed run's start after its
+snapshot), and the collectives' series from
+``engine/communication.py``. Not ported: the chunked and lowered
+programs, donation, and the program-cache and cost gauges
+(``alink_comqueue_program_cache_total``, ``alink_program_flops``,
+``alink_program_bytes_accessed`` and the achieved rates), which wait for
+a compile plane (ROADMAP A10(b)): eager PyTorch caches no program.
 """
 
 from __future__ import annotations
@@ -39,7 +54,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..common.health import health_enabled
+from ..common.metrics import get_registry, metrics_enabled
 from ..common.mlenv import MLEnvironment, MLEnvironmentFactory
+from ..common.tracing import trace_span
 from .communication import CommunicateFunction
 from .context import ComContext
 
@@ -72,6 +90,17 @@ def freeze_config(v):
     raise TypeError(f"freeze_config: cannot build a stable key from "
                     f"{type(v).__name__!r}; pass scalars, arrays, "
                     f"dataclasses, or objects with public __dict__ attrs")
+
+
+def _program_label(program_key) -> str:
+    """A short, bounded-cardinality label of a program key: its leading
+    string (``("qn", ...)``, ``("kmeans", ...)``), else a digest."""
+    if isinstance(program_key, (tuple, list)) and program_key \
+            and isinstance(program_key[0], str):
+        return program_key[0]
+    import hashlib
+    return hashlib.blake2b(repr(program_key).encode(),
+                           digest_size=6).hexdigest()
 
 
 class ComputeFunction:
@@ -189,6 +218,7 @@ class IterativeComQueue:
         self._program_key = None
         self._ckpt = None
         self._boundary = None     # (every, hook): set_boundary
+        self._health = None       # HealthMonitor: set_health
         if checkpoint_dir is not None:
             self.set_checkpoint(checkpoint_dir, every=checkpoint_every,
                                 keep_last=checkpoint_keep,
@@ -265,11 +295,28 @@ class IterativeComQueue:
         self._boundary = (int(every), hook)
         return self
 
-    def set_health(self, monitor):
-        raise NotImplementedError(
-            "IterativeComQueue.set_health (the health monitor) is not "
-            "ported yet (ROADMAP A10); probes are recorded "
-            "(ComContext.probe)")
+    def set_health(self, monitor) -> "IterativeComQueue":
+        """Attach a ``common.health.HealthMonitor``: after the run (and,
+        for checkpointed runs, at every snapshot boundary, on the carry
+        the snapshot has already copied to the host) the engine feeds it
+        every ``ctx.probe`` series and calls ``evaluate()``. A monitor
+        with ``raise_on={"critical"}`` therefore aborts a poisoned
+        checkpointed run at the next boundary, with that boundary's
+        snapshot published. No-op when ``ALINK_TPU_HEALTH`` is off
+        (stages record no probes)."""
+        self._health = monitor
+        return self
+
+    @staticmethod
+    def _ingest_probes(monitor, host, step):
+        """Feed the probe prefix of a host carry (a snapshot payload) to
+        a HealthMonitor and evaluate."""
+        pre = ComContext.PROBE_PREFIX
+        series = {k[len(pre):]: np.asarray(v)[:int(step)]
+                  for k, v in host.items() if k.startswith(pre)}
+        if series:
+            monitor.ingest(series)
+            monitor.evaluate()
 
     # -- execution --------------------------------------------------------
     def _stages_digest(self) -> tuple:
@@ -289,7 +336,7 @@ class IterativeComQueue:
                                                "__qualname__", "?")))
         return tuple(items)
 
-    def _signature(self, max_iter: int):
+    def _signature(self, max_iter: int, probes_on: bool):
         from .recovery import data_digest, program_signature
         parts = self._partitioned
         part_sig = tuple(
@@ -302,13 +349,24 @@ class IterativeComQueue:
             stages_digest=self._stages_digest(),
             program_key=self._program_key,
             data_token=data_digest({"parts": parts,
-                                    "bcast": self._broadcast}))
+                                    "bcast": self._broadcast}),
+            probes_on=probes_on)
 
     def exec(self):
+        # one root span a run: the snapshot spans and instants of its
+        # boundaries nest under it
+        with trace_span("comqueue.exec", cat="engine") as sp:
+            sp.set(max_iter=int(self.max_iter),
+                   program=_program_label(self._program_key)
+                   if self._program_key is not None else "uncached")
+            return self._run()
+
+    def _run(self):
         env = self.env or MLEnvironmentFactory.get_default()
         device = env.device
         max_iter = int(self.max_iter)
         ck = self._ckpt
+        probes_on = health_enabled()
         if self._boundary is not None:
             import dataclasses
             from .recovery import CheckpointConfig
@@ -318,7 +376,7 @@ class IterativeComQueue:
         resumed = signature = None
         if ck is not None and (ck.directory or ck.resume_from):
             from .recovery import resume_state
-            signature = self._signature(max_iter)
+            signature = self._signature(max_iter, probes_on)
             resumed = resume_state(ck, signature)
         static: Dict[str, Any] = {}
         for k, arr in self._partitioned.items():
@@ -332,7 +390,7 @@ class IterativeComQueue:
 
         def context(step):
             return ComContext(carry, static, device, step, self.seed,
-                              max_iter, derived, entry)
+                              max_iter, derived, entry, probes_on)
 
         def criterion(step) -> bool:
             return (self._criterion is not None
@@ -350,12 +408,30 @@ class IterativeComQueue:
                 step += 1
         else:
             from .recovery import drive
+            on_snapshot = None
+            if self._health is not None and probes_on:
+                # the mid-run watchdog reads the carry the boundary's
+                # snapshot has just copied to the host; a HealthAlertError
+                # aborts the run after that snapshot is published
+                def on_snapshot(host, step, _m=self._health):
+                    self._ingest_probes(_m, host, step)
             step = drive(ck, superstep=superstep, criterion=criterion,
                          carry=carry, max_iter=max_iter, signature=signature,
                          device=device, resumed=resumed,
                          on_boundary=None if self._boundary is None
-                         else self._boundary[1])
+                         else self._boundary[1], on_snapshot=on_snapshot)
         result = ComQueueResult(carry, step)
+        if metrics_enabled():
+            reg = get_registry()
+            reg.inc("alink_comqueue_execs_total", 1)
+            reg.inc("alink_comqueue_supersteps_total",
+                    step - (entry - 1))
+        if self._health is not None and probes_on \
+                and result.probe_names():
+            # the final pass (after a checkpointed run's last boundary it
+            # evaluates again; the monitor dedupes its alerts)
+            self._health.ingest_result(result)
+            self._health.evaluate()
         if self._close is not None:
             return self._close(result)
         return result

@@ -9,11 +9,14 @@ Partitioned and broadcast data are read-only entries beside the carry,
 and so are the derived entries (:meth:`ComContext.put_derived`):
 data-derived objects a stage builds on the run's entry superstep
 (:attr:`ComContext.is_entry_step`) that a snapshot does not hold.
-Health probes ride the carry as in the JAX package (which records them
-by default): one float32 ``(max_iter,)`` series per probe, prefilled
-with NaN and written at ``step_no - 1`` on the device, with no host
-read. The port has no switch to turn them off and no monitor to feed
-them to (``IterativeComQueue.set_health`` raises).
+Health probes ride the carry as in the JAX package: one float32
+``(max_iter,)`` series per probe, prefilled with NaN and written at
+``step_no - 1`` on the device, with no host read. ``ALINK_TPU_HEALTH``
+(``common/health.py``, default on), latched once a run by the engine,
+switches them off: :meth:`ComContext.probe` is then a no-op and
+:attr:`ComContext.probes_enabled` lets a stage skip probe-only
+arithmetic. ``IterativeComQueue.set_health`` feeds the series to a
+``HealthMonitor``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class ComContext:
     def __init__(self, carry: Dict[str, Any], static: Dict[str, Any],
                  device: torch.device, step_no: int, seed: int,
                  max_iter: int = 0, derived: Optional[Dict[str, Any]] = None,
-                 entry_step: int = 1):
+                 entry_step: int = 1, probes_on: bool = True):
         self._carry = carry
         self._static = static
         self._derived = {} if derived is None else derived
@@ -44,6 +47,7 @@ class ComContext:
         self._step_no = int(step_no)
         self._seed = int(seed)
         self._max_iter = int(max_iter)
+        self._probes_on = bool(probes_on) and self._max_iter > 0
 
     # -- identity --------------------------------------------------------
     @property
@@ -112,12 +116,19 @@ class ComContext:
         self._carry.pop(name, None)
 
     # -- health probes ---------------------------------------------------
+    @property
+    def probes_enabled(self) -> bool:
+        """The run's ``ALINK_TPU_HEALTH`` switch. A stage may branch on it
+        to skip probe-only arithmetic."""
+        return self._probes_on
+
     def probe(self, name: str, value) -> None:
         """Record one named per-superstep scalar: series ``name`` (float32,
         ``(max_iter,)``, NaN where no superstep wrote) gets ``value`` at
         ``step_no - 1``. The write stays on the device. As in the JAX
-        package, a probe must first be recorded in the init pass."""
-        if self._max_iter <= 0:
+        package, a probe must first be recorded in the init pass. A no-op
+        while the switch is off."""
+        if not self._probes_on:
             return
         key = self.PROBE_PREFIX + name
         v = torch.as_tensor(value, device=self._device).to(
@@ -136,6 +147,8 @@ class ComContext:
     def probe_nonfinite(self, name: str, value: torch.Tensor) -> None:
         """Probe the count of non-finite elements of a tensor as series
         ``nonfinite.<name>``."""
+        if not self._probes_on:
+            return
         self.probe("nonfinite." + name,
                    value.numel() - torch.isfinite(value).sum())
 

@@ -37,12 +37,21 @@ writer commits strictly in order, its failure fails the run at the next
 boundary (or at the end), and the loop waits for it before returning,
 so the snapshots on disk are the same files as the synchronous path's.
 
-Not ported: the health watchdog's snapshot hook (ROADMAP A10), the
-metrics and trace spans of a boundary, the chunked and lowered programs
-and donation. Every snapshot's fetch and write times, its bytes, and
-every resume's load time are kept in a process-wide record
-(:func:`snapshot_records`), the counterpart of the JAX package's
-checkpoint metrics until A10.
+``on_snapshot(host, step)`` — the health watchdog's hook — fires after
+each publish with the host payload the snapshot has just fetched (from
+the writer thread when the writer is on; its error then fails the run
+at the next boundary, with that snapshot on disk). With health probes on
+the signature carries ``health_probes``: a probe-less snapshot is not
+resumed by a probed program, nor the reverse.
+
+Telemetry, as in the JAX package: a ``snapshot.write`` span a background
+write, ``alink_overlap_snapshot_writes_total`` and
+``alink_overlap_submit_wait_seconds`` (the loop's wait for the previous
+write) with the ``snapshot.submit`` instant; ``common/checkpoint.py``
+reports every save and load. Not ported: the chunked and lowered
+programs and donation. Every snapshot's fetch and write times, its
+bytes, and every resume's load time are also kept in a process-wide
+record (:func:`snapshot_records`), which the metrics do not split.
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ import torch
 from ..common.checkpoint import (CheckpointError, load_latest_validated,
                                  read_manifest, save_checkpoint)
 from ..common.faults import maybe_crash
+from ..common.metrics import get_registry, metrics_enabled
+from ..common.tracing import trace_instant, trace_span
 
 __all__ = ["CheckpointConfig", "program_signature", "data_digest",
            "resume_state", "drive", "async_snapshot_enabled",
@@ -107,7 +118,8 @@ class CheckpointConfig:
 def program_signature(*, num_workers: int, max_iter: int, seed: int,
                       part_sig: Tuple, bcast_names: Tuple,
                       stages_digest: Any, program_key: Any = None,
-                      data_token: Optional[str] = None) -> Dict[str, Any]:
+                      data_token: Optional[str] = None,
+                      probes_on: bool = False) -> Dict[str, Any]:
     """JSON identity of the superstep program a snapshot belongs to. A
     resume target must match exactly: same worker count, same input
     geometry, same stages in the same order, same program key — otherwise
@@ -115,7 +127,10 @@ def program_signature(*, num_workers: int, max_iter: int, seed: int,
     contract would silently turn into garbage. ``data_token``
     (:func:`data_digest`) fingerprints the training data, so a finished
     run's final snapshot is never 'resumed' as done for other data of the
-    same geometry."""
+    same geometry. ``probes_on`` adds ``health_probes``, as in the JAX
+    package (emitted only when on, so probe-less snapshots keep their
+    signature): the probe series are carry entries, so a probe-less
+    snapshot must not resume a probed program, nor the reverse."""
     stages = hashlib.blake2b(repr(stages_digest).encode(),
                              digest_size=12).hexdigest()
     sig = {"kind": "comqueue_carry", "num_workers": int(num_workers),
@@ -123,6 +138,8 @@ def program_signature(*, num_workers: int, max_iter: int, seed: int,
            "parts": [list(map(str, item)) for item in part_sig],
            "bcast": [str(n) for n in bcast_names],
            "stages_blake2b": stages}
+    if probes_on:
+        sig["health_probes"] = True
     if program_key is not None:
         sig["program_key_blake2b"] = hashlib.blake2b(
             repr(program_key).encode(), digest_size=12).hexdigest()
@@ -276,14 +293,17 @@ class _SnapshotWriter:
     loop runs at most one boundary ahead of durability). The worker
     thread makes its own stream wait on the event, copies every tensor
     into a pinned host buffer on that stream, synchronizes the stream,
-    and publishes through ``save_checkpoint``: commits are strictly in
-    submission order. Any exception — an injected ``ckpt.save`` kill, a
-    real IO error — is kept and re-raised ON THE LOOP'S THREAD (the
-    original object) at the next ``submit()`` or ``barrier()``."""
+    publishes through ``save_checkpoint``, then fires ``on_snapshot``:
+    commits are strictly in submission order. Any exception — an
+    injected ``ckpt.save`` kill, a watchdog ``HealthAlertError``, a real
+    IO error — is kept and re-raised ON THE LOOP'S THREAD (the original
+    object) at the next ``submit()`` or ``barrier()``."""
 
-    def __init__(self, config: CheckpointConfig, signature: Dict[str, Any]):
+    def __init__(self, config: CheckpointConfig, signature: Dict[str, Any],
+                 on_snapshot: Optional[Callable] = None):
         self._config = config
         self._signature = signature
+        self._on_snapshot = on_snapshot
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._errs: list = []
         self._stream = None
@@ -320,19 +340,29 @@ class _SnapshotWriter:
                 if item is None:
                     return
                 copy, event, step, stopped = item
-                t0 = time.perf_counter()
-                host = self._fetch(copy, event)
-                del copy
-                t1 = time.perf_counter()
-                path = save_checkpoint(
-                    self._config.directory, step, host,
-                    meta={"signature": self._signature, "step": step,
-                          "stopped": stopped},
-                    scope=SCOPE, keep_last=self._config.keep_last)
-                t2 = time.perf_counter()
+                with trace_span("snapshot.write", cat="ckpt") as sp:
+                    t0 = time.perf_counter()
+                    host = self._fetch(copy, event)
+                    del copy
+                    t1 = time.perf_counter()
+                    path = save_checkpoint(
+                        self._config.directory, step, host,
+                        meta={"signature": self._signature, "step": step,
+                              "stopped": stopped},
+                        scope=SCOPE, keep_last=self._config.keep_last)
+                    t2 = time.perf_counter()
+                    sp.set(step=step, mode="async")
                 record(scope=SCOPE, what="save", tag=step, mode="async",
                        fetch_ms=(t1 - t0) * 1e3, write_ms=(t2 - t1) * 1e3,
                        bytes=payload_bytes(path))
+                if metrics_enabled():
+                    get_registry().inc("alink_overlap_snapshot_writes_total",
+                                       1, {"scope": SCOPE})
+                if self._on_snapshot is not None:
+                    # the watchdog hook: a HealthAlertError lands in _errs
+                    # and fails the run at the next boundary, with this
+                    # snapshot already on disk
+                    self._on_snapshot(host, step)
             except BaseException as e:
                 self._errs.append(e)
             finally:
@@ -345,8 +375,15 @@ class _SnapshotWriter:
 
     def submit(self, carry, step: int, stopped: bool):
         copy, event = _device_copy(carry)
+        t0 = time.perf_counter()
         self._q.join()       # the previous snapshot commits first (bound)
+        wait = time.perf_counter() - t0
         self.check()         # a failed previous write aborts HERE
+        if metrics_enabled():
+            get_registry().observe("alink_overlap_submit_wait_seconds",
+                                   wait, {"scope": SCOPE})
+        trace_instant("snapshot.submit", cat="ckpt",
+                      args={"step": step, "waited_s": round(wait, 6)})
         self._q.put((copy, event, step, stopped))
 
     def barrier(self):
@@ -387,7 +424,8 @@ def drive(config: CheckpointConfig, *, superstep: Callable[[int], bool],
           max_iter: int, signature: Optional[Dict[str, Any]],
           device: torch.device,
           resumed: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None,
-          on_boundary: Optional[Callable] = None) -> int:
+          on_boundary: Optional[Callable] = None,
+          on_snapshot: Optional[Callable] = None) -> int:
     """Run the superstep loop with host-side persistence.
 
     ``superstep(step)`` runs every stage of superstep ``step`` on
@@ -404,11 +442,12 @@ def drive(config: CheckpointConfig, *, superstep: Callable[[int], bool],
     before any new superstep) and may return a replacement carry
     (``None`` keeps it); the stop bit is then re-read. A resumed run
     re-derives the same deterministic boundary decisions. With
-    ``config.directory`` None nothing is persisted. Returns the
-    superstep count."""
+    ``config.directory`` None nothing is persisted.
+    ``on_snapshot(host, step)`` — if given — fires after each publish
+    with the snapshot's host payload. Returns the superstep count."""
     every = int(config.every)
     max_iter = int(max_iter)
-    writer = _SnapshotWriter(config, signature) \
+    writer = _SnapshotWriter(config, signature, on_snapshot) \
         if (async_snapshot_enabled() and config.directory) else None
 
     def persist(step, stopped):
@@ -428,6 +467,8 @@ def drive(config: CheckpointConfig, *, superstep: Callable[[int], bool],
                fetch_ms=(t1 - t0) * 1e3,
                write_ms=(time.perf_counter() - t1) * 1e3,
                bytes=payload_bytes(path))
+        if on_snapshot is not None:
+            on_snapshot(host, step)
 
     try:
         if resumed is None:

@@ -5,11 +5,16 @@ Counterpart: ``alink_tpu/operator/base.py``. Ported: ``AlgoOperator``,
 ``get_side_output``),
 ``TableSourceBatchOp`` and ``StreamOperator`` (``link_from``,
 ``timed_batches``, ``micro_batches``, ``get_schema``, the sink registry
-and ``execute``). Left out: ``link``, ``collect`` and the other
-conveniences, link metering, lazy printing and collecting, statistics,
-train info, the SQL helpers and ``get_ml_env``:
-the port has no session mesh, and each entry point takes its device
-explicitly.
+and ``execute``), and the link metering: every ``BatchOperator``
+subclass's ``link_from`` (the eager execute path) reports
+``alink_batch_op_seconds``, ``alink_batch_rows_in_total`` and
+``alink_batch_rows_out_total`` by ``op`` and opens a ``link:<Op>``
+span, and ``execute`` counts each sink's micro-batches and rows
+(``alink_stream_sink_batches_total``, ``_rows_total``). Left out:
+``link``, ``collect`` and the other conveniences, lazy printing and
+collecting, statistics, train info, the SQL helpers and
+``get_ml_env``: the port has no session mesh, and each entry point
+takes its device explicitly.
 
 Execution model (the JAX package's): batch operators compute eagerly
 when linked; a stream is a host-side iterator of timed micro-batches
@@ -18,11 +23,59 @@ when linked; a stream is a host-side iterator of timed micro-batches
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import Any, Callable, List, Optional
 
+from ..common.metrics import get_registry, metrics_enabled
 from ..common.mtable import MTable
 from ..common.params import Params, WithParams
+from ..common.tracing import trace_span, tracing_enabled
 from ..common.types import TableSchema
+
+
+def _meter_link_from(fn: Callable) -> Callable:
+    """Wrap a ``link_from`` with batch-execute telemetry: wall time
+    (``alink_batch_op_seconds{op=...}``) and rows in and out
+    (``alink_batch_rows_{in,out}_total{op=...}``), and a ``link:<Op>``
+    span under ``ALINK_TPU_TRACE`` (composite operators link their
+    sub-operators inside their own link_from, so the spans nest).
+    Applied to every BatchOperator subclass by ``__init_subclass__``;
+    a reentrant link on the same instance records once, at the
+    outermost frame."""
+
+    @functools.wraps(fn)
+    def metered(self, *inputs, **kwargs):
+        mx = metrics_enabled()
+        if (not mx and not tracing_enabled()) \
+                or getattr(self, "_in_metered_link", False):
+            return fn(self, *inputs, **kwargs)
+        self._in_metered_link = True
+        t0 = time.perf_counter()
+        try:
+            with trace_span(f"link:{type(self).__name__}", cat="batch") as sp:
+                res = fn(self, *inputs, **kwargs)
+                out_t = getattr(self, "_output", None)
+                if out_t is not None:
+                    sp.set(rows_out=out_t.num_rows)
+        finally:
+            self._in_metered_link = False
+        if not mx:
+            return res
+        reg = get_registry()
+        lbl = {"op": type(self).__name__}
+        reg.observe("alink_batch_op_seconds", time.perf_counter() - t0, lbl)
+        rows_in = sum(t.num_rows for t in
+                      (getattr(i, "_output", None) for i in inputs)
+                      if t is not None)
+        reg.inc("alink_batch_rows_in_total", rows_in, lbl)
+        out = getattr(self, "_output", None)
+        if out is not None:
+            reg.inc("alink_batch_rows_out_total", out.num_rows, lbl)
+        return res
+
+    metered._alink_metered = True
+    return metered
 
 
 class AlgoOperator(WithParams):
@@ -41,6 +94,15 @@ class AlgoOperator(WithParams):
 
 class BatchOperator(AlgoOperator):
     """Batch operator with link semantics (reference batch/BatchOperator.java)."""
+
+    def __init_subclass__(cls, **kwargs):
+        # every subclass's link_from (the eager execute path) is metered
+        # (_meter_link_from), wrapped once a class at definition time
+        super().__init_subclass__(**kwargs)
+        lf = cls.__dict__.get("link_from")
+        if lf is not None and callable(lf) \
+                and not getattr(lf, "_alink_metered", False):
+            cls.link_from = _meter_link_from(lf)
 
     def __init__(self, params: Optional[Params] = None, **kwargs):
         super().__init__(params, **kwargs)
@@ -123,6 +185,14 @@ class StreamOperator(AlgoOperator):
         streams = StreamOperator._session_streams
         StreamOperator._session_streams = []
         for s in streams:
-            for mt in prefetch(s.micro_batches()):
+            mx = metrics_enabled()
+            lbl = {"op": type(s).__name__}
+            # per-op gauge label: concurrent sink drains must not
+            # overwrite each other's alink_prefetch_depth reading
+            for mt in prefetch(s.micro_batches(), name=type(s).__name__):
+                if mx:
+                    reg = get_registry()
+                    reg.inc("alink_stream_sink_batches_total", 1, lbl)
+                    reg.inc("alink_stream_sink_rows_total", mt.num_rows, lbl)
                 for sink in s._sinks:
                     sink(mt)

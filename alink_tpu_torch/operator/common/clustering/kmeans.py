@@ -16,8 +16,10 @@ reference's common/clustering/kmeans/):
   KMeansIterTermination        -> centroid movement < tol, the one host
                                   read of a superstep
 
-The buffer carries one extra row, the weighted inertia probe, as the
-JAX package's does with its health probes on. The products are
+With health probes on (``ALINK_TPU_HEALTH``) the buffer carries one
+extra row, the weighted inertia probe, as the JAX package's does; the
+other rows are computed apart from it, so a run with probes gives the
+centroids of a run without, bit for bit. The products are
 ``torch.matmul`` in the data's dtype (full float32 on the card:
 ``objfunc.check_full_float32``, once a training). k-means|| draws its
 Gumbel keys from the superstep's generator (``ComContext.rng``), whose
@@ -236,12 +238,11 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
     (``engine/recovery.py``). The k-means|| init queue is NOT
     checkpointed: it is short, and exact resume still holds because the
     init is deterministic in ``seed`` (a resumed run draws it again).
-    ``health`` is not ported: it raises ``NotImplementedError`` (ROADMAP
-    A10)."""
-    if health is not None:
-        raise NotImplementedError(
-            "kmeans_train: health is not ported yet (ROADMAP Queue A item "
-            "10)")
+
+    ``health=`` attaches a ``common.health.HealthMonitor`` fed the Lloyd
+    loop's probe series (``inertia``, ``movement``, ``empty_clusters``)
+    after the run and at every checkpoint boundary; probes record only
+    while ``ALINK_TPU_HEALTH`` is on."""
     X = np.asarray(X)
     d = X.shape[1]
     w = np.ones(X.shape[0], X.dtype) if sample_weight is None \
@@ -272,19 +273,23 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
             * wb[:, None]                                       # (n, k)
         sums = onehot.T @ Xb                      # (k, d)
         cnts = onehot.sum(0)                                    # (k,)
-        # the weighted inertia rides the buffer's AllReduce as one extra
-        # row (padding rows have wb == 0)
-        inertia = torch.cat([(dist * wb).sum().reshape(1, 1),
-                             Xb.new_zeros((1, d))], 1)
-        ctx.put_obj("buf", torch.cat([torch.cat([sums, cnts[:, None]], 1),
-                                      inertia], 0))
+        buf = torch.cat([sums, cnts[:, None]], 1)
+        if ctx.probes_enabled:
+            # the weighted inertia rides the buffer's AllReduce as one
+            # extra row (padding rows have wb == 0): a probe adds no
+            # collective of its own
+            inertia = torch.cat([(dist * wb).sum().reshape(1, 1),
+                                 Xb.new_zeros((1, d))], 1)
+            buf = torch.cat([buf, inertia], 0)
+        ctx.put_obj("buf", buf)
 
     def update(ctx):
         buf = ctx.get_obj("buf")
         C = ctx.get_obj("centroids")
-        # pre-update inertia: the objective of the assignment the
-        # centroids being replaced produced
-        ctx.probe("inertia", buf[k, 0])
+        if ctx.probes_enabled:
+            # pre-update inertia: the objective of the assignment the
+            # centroids being replaced produced
+            ctx.probe("inertia", buf[k, 0])
         sums, cnts = buf[:k, :d], buf[:k, d]
         newC = torch.where(cnts[:, None] > 0,
                            sums / torch.clamp(cnts[:, None], min=1e-12), C)
@@ -313,6 +318,10 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
     elif resume_from:
         raise ValueError("resume_from requires checkpoint_dir (an explicit "
                          "resume request must not silently retrain)")
+    if health is not None:
+        from ....common.health import warn_if_disabled
+        warn_if_disabled("kmeans_train(health=...)", stacklevel=3)
+        queue.set_health(health)
     result = queue.exec()
     return (result.get("centroids"), result.get("cluster_weights"),
             result.step_count)

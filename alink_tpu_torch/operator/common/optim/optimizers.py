@@ -42,8 +42,11 @@ and NEWTON, each with superstep checkpoints and resume
 (``checkpoint_dir`` / ``checkpoint_every`` / ``checkpoint_keep`` /
 ``resume_from``, ``engine/recovery.py``): a run killed between
 snapshots and resumed from the newest one ends with the uninterrupted
-run's coefficients, loss curve and step count, bit for bit. The health
-monitor raises ``NotImplementedError`` (ROADMAP A10).
+run's coefficients, loss curve and step count, bit for bit.
+``OptimParams.health`` attaches a ``common/health.py::HealthMonitor``
+through ``IterativeComQueue.set_health``, as in the JAX package: it
+reads the probe series after the run and at every snapshot boundary,
+and changes no bit of the model.
 """
 
 from __future__ import annotations
@@ -81,14 +84,12 @@ class OptimParams:
     checkpoint_every: int = 1
     checkpoint_keep: int = 3
     resume_from: Optional[str] = None
-    # the health watchdog: not ported yet
+    # training-health watchdog (common/health.py): a HealthMonitor fed
+    # the run's probe series (loss, grad_norm, update_ratio,
+    # nonfinite.grad, recorded whenever ALINK_TPU_HEALTH is on) after the
+    # run and, on checkpointed runs, at every snapshot boundary; the
+    # monitor only reads them
     health: Optional[object] = None
-
-    def __post_init__(self):
-        if self.health is not None:
-            raise NotImplementedError(
-                "OptimParams: health is not ported yet (ROADMAP Queue A "
-                "item 10)")
 
 
 def _apply_checkpoint(queue, params: OptimParams):
@@ -102,6 +103,11 @@ def _apply_checkpoint(queue, params: OptimParams):
         raise ValueError("OptimParams.resume_from requires checkpoint_dir "
                          "(an explicit resume request must not silently "
                          "retrain from scratch)")
+    if params.health is not None:
+        from ....common.health import warn_if_disabled
+        warn_if_disabled("OptimParams.health", stacklevel=4)
+        queue.set_health(params.health)
+    return queue
 
 
 def optimize(obj: OptimObjFunc, data: Dict, params: OptimParams,
@@ -469,6 +475,8 @@ def _record_loss(ctx, loss, grad_norm, grad) -> None:
 
 def _probe_update(ctx, step, coef) -> None:
     """The update_ratio probe: |step| over max(|coef|, 1)."""
+    if not ctx.probes_enabled:
+        return      # no norms queued for a probe that records nothing
     ctx.probe("update_ratio", torch.linalg.vector_norm(step)
               / torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
 

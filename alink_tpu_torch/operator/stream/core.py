@@ -5,20 +5,22 @@ substrate, reference stream/StreamOperator.java and the per-op
 RichFlatMap / CoFlatMap functions, replaced by lazy generators of
 ``(event_time, MTable)``). Ported: :func:`merge_timed`, ``STOP``,
 :class:`BaseStreamTransformOp` (its per-drain shallow copy of the
-operator and its data-dependent schema), :class:`BatchApplyStreamOp`
-and :class:`FnStreamOp`. Not ported: the per-batch metrics and tracing
-hooks of the JAX package's drain loop, which wait for the port's
-``common/metrics.py`` and ``common/tracing.py`` (ROADMAP Queue A,
-observability).
+operator and its data-dependent schema, and the per-batch telemetry:
+a ``stream:<Op>`` span and ``alink_stream_batch_seconds``,
+``alink_stream_batches_total`` and ``alink_stream_rows_total`` by
+``op``), :class:`BatchApplyStreamOp` and :class:`FnStreamOp`.
 """
 
 from __future__ import annotations
 
 import copy
 import heapq
+import time
 from typing import Callable, Iterable, Iterator, Optional, Tuple
 
+from ...common.metrics import get_registry, metrics_enabled
 from ...common.mtable import MTable
+from ...common.tracing import trace_complete
 from ...common.types import TableSchema
 from ..base import StreamOperator, TableSourceBatchOp
 
@@ -74,12 +76,29 @@ class BaseStreamTransformOp(StreamOperator):
             worker = copy.copy(self)  # per-drain mutable state lives here
             opened = False
             last_t = 0.0
+            # per-drain telemetry, resolved once a drain
+            mx = metrics_enabled()
+            reg = get_registry() if mx else None
+            lbl = {"op": type(self).__name__}
             for t, mt in in_op.timed_batches():
                 if not opened:
                     self._schema = worker._open(mt.schema)
                     opened = True
                 last_t = t
+                t0 = time.perf_counter()
                 out = worker._transform(mt)
+                dt = time.perf_counter() - t0
+                # retroactive span: this generator suspends at ``yield``
+                # in the caller's context, so a span held open across it
+                # would adopt unrelated downstream spans as children
+                trace_complete(f"stream:{type(self).__name__}", dt,
+                               cat="stream",
+                               args={"rows": mt.num_rows,
+                                     "event_time": t})
+                if mx:
+                    reg.observe("alink_stream_batch_seconds", dt, lbl)
+                    reg.inc("alink_stream_batches_total", 1, lbl)
+                    reg.inc("alink_stream_rows_total", mt.num_rows, lbl)
                 if out is STOP:
                     break
                 if out is not None and out.num_rows > 0:

@@ -45,9 +45,27 @@ reached, the layout), and ends with the uninterrupted drain's model, bit
 for bit, on a deterministic source. A snapshot of another configuration
 (:func:`ftrl_checkpoint_signature`) raises ``CheckpointError``.
 
-Left out, raising ``NotImplementedError``: ``health`` (ROADMAP Queue
-A10). Not ported: the feature-sharded state, the compile plane, metrics
-and tracing.
+Every micro-batch queues its progressive log loss at the pre-update
+weights (:func:`pv_logloss_sum`) on the device; the queue is read in
+one fetch at the next snapshot boundary, where the state fetch has
+already synced the card (:meth:`FtrlTrainStreamOp.progressive_logloss`).
+Health (``health=``, a ``common/health.py::HealthMonitor``), as in the
+JAX package, queues :func:`pv_stats` instead (the log loss sum, correct
+predictions, non-finite margins) and reads it at checkpoint boundaries
+too, as the series ``ftrl.pv_logloss``, ``ftrl.pv_accuracy`` and
+``nonfinite.margin``; each host snapshot records ``ftrl.weight_drift``
+(the relative L2 distance to the previous one) from the weights it
+fetched. The monitor then evaluates; its ``HealthAlertError`` leaves the
+boundary's checkpoint on disk. No step reads anything back for health,
+and the state is the same bits with a monitor as without.
+
+Telemetry: ``alink_ftrl_batch_seconds``, ``alink_ftrl_rows_total`` and
+the stream totals by micro-batch, ``alink_ftrl_snapshots_total`` and
+``alink_ftrl_device_snapshots_total`` by emission, with the
+``ftrl.batch`` span and ``ftrl.snapshot`` instant. Not ported: the
+feature-sharded state, and with it the margin AllReduce that the JAX
+package's steps count in ``alink_collective_*`` (the port's one-device
+step makes none), and the compile plane.
 """
 
 from __future__ import annotations
@@ -63,8 +81,10 @@ from ....common.checkpoint import (CheckpointError, load_latest_validated,
                                    save_checkpoint)
 from ....common.device import resolve_device
 from ....common.faults import maybe_crash
+from ....common.metrics import get_registry, metrics_enabled
 from ....common.mtable import MTable
 from ....common.params import InValidator, ParamInfo, Params, RangeValidator
+from ....common.tracing import trace_complete, trace_instant
 from ....common.types import TableSchema
 from ....engine.recovery import payload_bytes, record
 from ....kernels.ftrl import (ftrl_weights, gather_pair, gather_rows,
@@ -307,14 +327,29 @@ def ftrl_dense_step(X, y, z, n, alpha, beta, l1, l2):
     return z, n, margins
 
 
-def progressive_logloss_sum(margins, y):
+def pv_logloss_sum(margins, y):
     """Sum of the log losses of ``margins`` (computed at pre-update
     weights, so this is progressive validation) against 0/1 labels ``y``,
-    as a device scalar; margins clipped to [-35, 35] as the steps clip."""
+    as a device scalar; margins clipped to [-35, 35] as the steps clip,
+    and NaN when a margin is not finite (clipping must not hide it)."""
     m = torch.clamp(margins, -35.0, 35.0)
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
-    return (torch.logaddexp(zero, -m) * y
-            + torch.logaddexp(zero, m) * (1.0 - y)).sum()
+    ll = torch.logaddexp(zero, -m) * y + torch.logaddexp(zero, m) * (1.0 - y)
+    return torch.where(torch.isfinite(margins), ll, float("nan")).sum()
+
+
+def pv_stats(margins, y):
+    """Progressive-validation scalars of one micro-batch's real rows, as
+    one ``(3,)`` device tensor in the margins' dtype: the log loss sum
+    (:func:`pv_logloss_sum`), the correct predictions (a non-finite
+    margin is never correct) and the non-finite margins. The JAX
+    package's ``_pv_stats_fn``."""
+    finite = torch.isfinite(margins)
+    correct = (((margins > 0) == (y > 0.5)) & finite).sum()
+    nonfinite = (~finite).sum()
+    return torch.stack([pv_logloss_sum(margins, y),
+                        correct.to(margins.dtype),
+                        nonfinite.to(margins.dtype)])
 
 
 class Encoded(NamedTuple):
@@ -512,7 +547,12 @@ class FtrlTrainer:
         """The model table of the live state (one device-to-host fetch);
         ``fb_S`` the field size of an fb-layout state, whose intercept and
         features map back to the model's coefficient order."""
-        w = self.weights(z, n).cpu().numpy()
+        return self.model_table(self.weights(z, n).cpu().numpy(), fb_S)
+
+    def model_table(self, w: np.ndarray, fb_S: Optional[int] = None
+                    ) -> MTable:
+        """The model table of the state's host weights ``w`` (in the
+        state's layout, as :meth:`weights` gives them)."""
         if fb_S is not None and self.has_intercept:
             w = np.concatenate([w[:1], w[fb_S:fb_S + self.dim - 1]])
         else:
@@ -599,9 +639,14 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
     RESUME = ParamInfo("resume", bool, default=True,
                        description="resume from the newest valid snapshot "
                                    "in checkpoint_dir when one exists")
-    # health monitoring (ROADMAP Queue A10) is not ported yet: a monitor
-    # raises NotImplementedError at link
-    HEALTH = ParamInfo("health", object, default=None)
+    # training-health monitoring (common/health.py): a HealthMonitor fed
+    # per-micro-batch progressive-validation logloss/accuracy (margins at
+    # pre-update weights), non-finite margin counts, and per-snapshot
+    # weight drift vs the previous emitted model. The scalars are read
+    # at snapshot/checkpoint boundaries only, so no step waits on a read.
+    HEALTH = ParamInfo("health", object, default=None,
+                       description="HealthMonitor for per-batch "
+                                   "progressive validation + drift")
 
     def __init__(self, initial_model: Optional[BatchOperator] = None,
                  params: Optional[Params] = None, device=None,
@@ -638,7 +683,8 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
     def progressive_logloss(self) -> List[Tuple[int, float]]:
         """``(batch, mean log loss)`` of every micro-batch of the latest
         drain, at the weights each sample saw before its update, fetched
-        at the snapshot boundaries."""
+        at the snapshot boundaries (NaN where a margin was not
+        finite)."""
         return list(self._progressive)
 
     def _load_initial(self) -> LinearModelData:
@@ -651,10 +697,10 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
 
     def link_from(self, data_op: StreamOperator) -> "FtrlTrainStreamOp":
         m = self.params._m
-        if m.get("health") is not None:
-            raise NotImplementedError(
-                "FtrlTrainStreamOp: health is not ported yet (ROADMAP Queue "
-                "A10)")
+        from ....common.health import warn_if_disabled
+        monitor = m.get("health")
+        mon_on = monitor is not None \
+            and warn_if_disabled("FtrlTrainStreamOp(health=...)")
         init = self._load_initial()
         self._schema = LinearModelDataConverter(init.label_type).schema
         update_mode = m.get("update_mode", "sample")
@@ -740,13 +786,52 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
             progressive = self._progressive = []
             pending: List[Tuple[int, int, torch.Tensor]] = []
             pace = self._batch_hook
+            prev_w: List[Optional[np.ndarray]] = [None]
 
             def flush():
-                # one host fetch per snapshot boundary for every queued
-                # per-batch loss: the state fetch has synced the card
-                for b, rows, ll in pending:
-                    progressive.append((b, float(ll) / rows))
-                pending.clear()
+                # one host fetch per boundary for every queued per-batch
+                # loss (or pv_stats row): the state fetch has synced the
+                # card
+                if pending:
+                    got = torch.stack([v for _, _, v in pending]).cpu() \
+                        .numpy().astype(np.float64).reshape(len(pending), -1)
+                    for (b, rows, _), v in zip(pending, got):
+                        progressive.append((b, float(v[0]) / rows))
+                        if mon_on:
+                            monitor.record("ftrl.pv_logloss", b,
+                                           float(v[0]) / rows)
+                            monitor.record("ftrl.pv_accuracy", b,
+                                           float(v[1]) / rows)
+                            monitor.record("nonfinite.margin", b,
+                                           float(v[2]))
+                    pending.clear()
+                if mon_on:
+                    # may raise HealthAlertError (raise_on=...): the
+                    # watchdog abort leaves any checkpoint this boundary
+                    # published on disk
+                    monitor.evaluate()
+
+            def host_snapshot(batch):
+                """The model table of the live state; with a monitor, the
+                weight drift against the previous host snapshot, from the
+                same fetch."""
+                w_full = trainer.weights(z, n).cpu().numpy()
+                if mon_on and batch is not None:
+                    prev = prev_w[0]
+                    if prev is not None and prev.shape == w_full.shape:
+                        # the denominator holds the new norm too: growth
+                        # from an all-zero snapshot caps at 1.0
+                        denom = max(float(np.linalg.norm(prev)),
+                                    float(np.linalg.norm(w_full)), 1e-12)
+                        monitor.record("ftrl.weight_drift", int(batch),
+                                       float(np.linalg.norm(w_full - prev))
+                                       / denom)
+                    prev_w[0] = w_full.copy()
+                return trainer.model_table(w_full, fb_S)
+
+            mx = metrics_enabled()
+            reg = get_registry() if mx else None
+            m_lbl = {"op": "FtrlTrainStreamOp", "mode": update_mode}
 
             z = n = None
             layout = fb_S = fb_meta = None
@@ -790,17 +875,25 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                        fetch_ms=(t1 - t0) * 1e3,
                        write_ms=(time.perf_counter() - t1) * 1e3,
                        bytes=payload_bytes(path))
+                if mon_on:
+                    # the state fetch just synced the card: the queued pv
+                    # scalars are free to read now
+                    flush()
 
             def device_emit(t_ev, batch) -> bool:
                 hook = self._device_snapshot_hook
                 if hook is None:
                     return False
-                return bool(hook(trainer.weights(z, n),
-                                 {"fb_S": fb_S, "dim": trainer.dim,
-                                  "has_intercept": trainer.has_intercept,
-                                  "batch": batch, "event_time": t_ev}))
+                consumed = bool(hook(trainer.weights(z, n),
+                                     {"fb_S": fb_S, "dim": trainer.dim,
+                                      "has_intercept": trainer.has_intercept,
+                                      "batch": batch, "event_time": t_ev}))
+                if consumed and mx:
+                    reg.inc("alink_ftrl_device_snapshots_total", 1)
+                return consumed
 
-            for t, mt, bs, enc in prefetch(encoded()):
+            for t, mt, bs, enc in prefetch(encoded(), name="ftrl.encode"):
+                t0 = time.perf_counter()
                 if pace is not None:
                     pace("pre", b_done + 1, t)
                 if next_emit is None:
@@ -834,21 +927,43 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
                 y = enc.arrays[-1]
                 z, n, mg = trainer.step(enc, z, n)
                 width_done = max(width_done, enc.width)
-                pending.append((b_done + 1, rows,
-                                progressive_logloss_sum(mg[:rows], y[:rows])))
+                pending.append((b_done + 1, rows, (pv_stats if mon_on
+                                                   else pv_logloss_sum)(
+                    mg[:rows], y[:rows])))
+                if mon_on and len(pending) >= 512:
+                    flush()     # an emission-less drain queues no more
+                # retroactive span (this generator suspends at yield): the
+                # consumer-side dispatch latency of one micro-batch
+                trace_complete("ftrl.batch", time.perf_counter() - t0,
+                               cat="stream",
+                               args={"mode": update_mode, "rows": rows,
+                                     "batch": b_done + 1})
+                if mx:
+                    reg.observe("alink_ftrl_batch_seconds",
+                                time.perf_counter() - t0, m_lbl)
+                    reg.inc("alink_ftrl_rows_total", rows, m_lbl)
+                    reg.inc("alink_stream_batches_total", 1,
+                            {"op": "FtrlTrainStreamOp"})
+                    reg.inc("alink_stream_rows_total", rows,
+                            {"op": "FtrlTrainStreamOp"})
                 if t + 1e-12 >= next_emit:
+                    trace_instant("ftrl.snapshot", cat="stream",
+                                  args={"event_time": t,
+                                        "batch": b_done + 1})
                     if not device_emit(t, b_done + 1):
                         # fault site: kill/error fail the emission before
                         # the snapshot fetch; corrupt mangles the EMITTED
                         # table without touching the state
                         poison = maybe_crash("feeder.snapshot")
-                        snap = trainer.snapshot(z, n, fb_S)
+                        snap = host_snapshot(b_done + 1)
                         if poison:
                             snap = _corrupt_snapshot_table(snap)
                         flush()
                         yield (t, snap)
                     else:
                         flush()
+                    if mx:
+                        reg.inc("alink_ftrl_snapshots_total", 1)
                     while next_emit <= t + 1e-12:
                         next_emit += interval
                 b_done += 1
@@ -868,10 +983,14 @@ class FtrlTrainStreamOp(StreamOperator, HasVectorCol, HasFeatureCols, HasLabelCo
             if z is None:
                 # empty stream: emit the warm-start model
                 z, n = trainer.initial_state()
+            if mx:
+                reg.inc("alink_ftrl_snapshots_total", 1)
+            trace_instant("ftrl.snapshot", cat="stream",
+                          args={"batch": b_done, "final": True})
             t_end = next_emit if next_emit is not None else interval
             if not device_emit(t_end, b_done if b_done > 0 else None):
                 poison = maybe_crash("feeder.snapshot")
-                snap = trainer.snapshot(z, n, fb_S)
+                snap = host_snapshot(b_done if b_done > 0 else None)
                 if poison:
                     snap = _corrupt_snapshot_table(snap)
                 flush()

@@ -10,8 +10,9 @@ pool that the sharded file reads and the native parser's chunks run on.
 Left out: ``stream_workers`` (``ALINK_TPU_STREAM_WORKERS``), the width
 the JAX package's FTRL drain takes from the environment (the port's
 drain does not run on the pool, and its callers pass a width), the
-depth knob (the depth is fixed at ``PREFETCH_DEPTH``) and the depth
-gauge. ``_Channel.get`` is the ``prefetch.get`` fault site
+depth knob (the depth is fixed at ``PREFETCH_DEPTH``). A
+:func:`prefetch` channel sets the ``alink_prefetch_depth{consumer=}``
+gauge, as the JAX package's does. ``_Channel.get`` is the ``prefetch.get`` fault site
 (``common/faults.py``), as in the JAX package.
 """
 
@@ -146,16 +147,17 @@ class _Channel:
 PREFETCH_DEPTH = 2
 
 
-def prefetch(it: Iterable[T]) -> Iterator[T]:
+def prefetch(it: Iterable[T], name: Optional[str] = None) -> Iterator[T]:
     """Iterate ``it`` in one background thread, ``PREFETCH_DEPTH`` items
-    ahead.
+    ahead. ``name`` labels the channel's ``alink_prefetch_depth`` gauge
+    (``consumer=<name>``, ``prefetch`` by default).
 
     Order is kept exactly; the bound is the backpressure (the thread
     blocks while the consumer is behind); an exception of the upstream
     iterator re-raises at the consumer where its item would have come.
     A consumer that stops early (or raises) stops the thread, which
     closes the upstream iterator."""
-    ch = _Channel(PREFETCH_DEPTH)
+    ch = _Channel(PREFETCH_DEPTH, gauge_label=name or "prefetch")
     err: list = []
 
     def worker():

@@ -20,7 +20,8 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    latency and the top SM clock). Then the dense kernel at the shapes its
    one-warp-per-row design could get wrong, bitwise in all four modes:
    n = 1, 7, 33, 512, 513 and 4096 at dim 1024, dims 8, 1031 and 65,536 at
-   n = 512, a request and weights off the 16-byte boundary, and signed
+   n = 512, the online DAG's 128-row bucket at dim 32 (phase 20), a
+   request and weights off the 16-byte boundary, and signed
    zeros, infinities and NaN inside chains; and the sparse kernel at the
    shapes its warp-per-rows design could get wrong: 1, 7, 513, 4096 and
    100,000 rows, width 1031, and signed zeros, infinities and NaN inside
@@ -371,6 +372,41 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    breaker open in (a), (b) and (c)'s clean phases; B4 launched once a
    dispatched batch in (a) and (b), and before and after the storm in
    (c).
+
+20. the online DAG (after 19): (a)-(d) ``bench.py::
+   bench_serve_online_e2e`` at its shape through ``OnlineDag`` on the
+   card — the FTRLExample loop as one supervised program (ingest, FTRL
+   batch mode with checkpoints every 2 micro-batches, the snapshot
+   stream, hot swaps into ``PredictServer`` over B4, windowed eval, SLO
+   verdicts) on ``_serve_fixture(4096, 32, seed=17)``'s rows in 128-row
+   micro-batches with ``ALINK_TPU_SERVE_BREAKER_MAX_MS=200``: (a) steady
+   state, throughput pacing, ``time_interval=3.0``, under ``SloContract(
+   serve_p99_s=2.0, swap_staleness_s=30.0, final_window_auc=0.75)``;
+   (b) the deterministic golden run on the first 2,048 rows,
+   ``time_interval=2.0``, twice; (c) the trainer storm ``ftrl.batch:4-4;
+   ckpt.save:2-2:error;ingest.batch:3-3;prefetch.get:1-60:delay:1`` with
+   bench.py's ``clear_trainer_kill``; (d) the serve storm
+   ``serve.dispatch:1-8:error;feeder.snapshot:1-1:corrupt``; then (b)
+   again on the CPU (float32). Gates: (a) the SLO contract holds and the
+   final-window AUC is at least 0.75; the second golden run's journals
+   and (c)'s are (b)'s byte for byte, every restart of (c) typed by its
+   policy with a measured recovery; (d) the breaker opens and ends
+   closed, the last scored batch is (b)'s bitwise, the corrupt snapshot
+   skipped, typed rejections; no silent drop in any run; no fallback
+   batch, breaker open or failed request in (a)-(c); B4 launched for
+   every batch the card served and no other kernel; (b) on the CPU: the
+   same windows, rows and swaps, each window's AUC within
+   ``E2E_AUC_TOL``, each scored probability within ``E2E_P_TOL`` and the
+   labels equal outside ``E2E_LABEL_BAND``; the
+   last swap's ``last_good.json`` loads in ``load_model_table`` and
+   answers as the served model bit for bit. (e) health on the card:
+   L-BFGS at 12(b)'s shape, KMeans at 16(d)'s and the padded-COO FTRL
+   batch drain at 14's, each with a ``HealthMonitor``, bitwise the runs
+   without one, the monitors' series the results' probes; the sparse
+   batch step and its progressive scalars, with a monitor and without,
+   under sync debug "error"; a NaN label raising
+   ``HealthAlertError`` at the first checkpoint boundary with that
+   snapshot on disk, which then resumes.
 
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
@@ -824,7 +860,8 @@ def dense_edges(ks, rng, dev):
     """The dense kernel against its plain version, bitwise, in all four
     modes, at the shapes the one-warp-per-row design could get wrong:
     n = 1, 7, 33, 512, 513 and 4096 at dim 1024; dims 8, 1031 and 65536 at
-    n = 512; a request and weights that start off the 16-byte boundary
+    n = 512; the online DAG's 128-row bucket at dim 32 (phase 20); a
+    request and weights that start off the 16-byte boundary
     (bf16 values passed as bf16, so the kernel sees the view); signed
     zeros, infinities and NaN inside chains. Kernel and device times in
     f32 at each shape."""
@@ -833,11 +870,15 @@ def dense_edges(ks, rng, dev):
     cases = [(f"n={n} dim=1024", n, 1024, "plain") for n in
              (1, 7, 33, 512, 513, 4096)]
     cases += [(f"n=512 dim={d}", 512, d, "plain") for d in (8, 1031, 65536)]
+    # the online DAG's bucket draws from a generator of its own, so every
+    # later case's and phase's inputs stay as they were
+    cases += [("n=128 dim=32", 128, 32, "dag")]
     cases += [("misaligned n=512 dim=1024", 512, 1024, "misaligned"),
               ("specials n=33 dim=1024", 33, 1024, "specials")]
     out = {}
     for key, n, dim, kind in cases:
-        Xh, wh = dense_inputs(rng, n, dim, kind)
+        Xh, wh = dense_inputs(np.random.default_rng(17) if kind == "dag"
+                              else rng, n, dim, kind)
         rec = {}
         for mode, sdtype in MODES:
             ship = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
@@ -2693,9 +2734,11 @@ def host_reads(run, lo=6, hi=11):
     return (counts[1] - counts[0]) / (hi - lo)
 
 
-def lbfgs_run(data, steps, eps=0.0, device="cuda", warm=True, seed=0):
+def lbfgs_run(data, steps, eps=0.0, device="cuda", warm=True, seed=0,
+              **params):
     """``optimize`` (LBFGS) on the bench_logreg objective; returns (coef,
-    loss curve, supersteps, seconds)."""
+    loss curve, supersteps, seconds). ``params`` go to ``OptimParams``
+    (a health monitor, checkpoints)."""
     import torch
     from alink_tpu_torch.common.mlenv import MLEnvironment
     from alink_tpu_torch.operator.common.optim import objfunc as ob
@@ -2710,7 +2753,7 @@ def lbfgs_run(data, steps, eps=0.0, device="cuda", warm=True, seed=0):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     coef, curve, n = opt.optimize(obj, data, opt.OptimParams(
-        method="LBFGS", max_iter=steps, epsilon=eps),
+        method="LBFGS", max_iter=steps, epsilon=eps, **params),
         MLEnvironment(device=device), warm_start=w0)
     return coef, curve, n, time.perf_counter() - t0
 
@@ -5178,14 +5221,15 @@ def iris_rows(seed=0):
         150 * KM_REPS, 4).astype(np.float32) * KM_NOISE
 
 
-def kmeans_run(X, steps, dev, tol=0.0, init="RANDOM"):
+def kmeans_run(X, steps, dev, tol=0.0, init="RANDOM", health=None):
     from alink_tpu_torch.common.mlenv import MLEnvironment
     from alink_tpu_torch.operator.common.clustering.kmeans import \
         kmeans_train
     _sync(dev)
     t0 = time.perf_counter()
     C, w, n = kmeans_train(X, k=KM_K, max_iter=steps, tol=tol, init=init,
-                           seed=0, env=MLEnvironment(device=dev))
+                           seed=0, env=MLEnvironment(device=dev),
+                           health=health)
     return np.asarray(C), np.asarray(w), n, time.perf_counter() - t0
 
 
@@ -6371,10 +6415,11 @@ FTRL_SWAP_KW = dict(vector_col="vec", label_col="label", alpha=0.1,
                     update_mode="batch", time_interval=1.0)
 
 
-def serve_fixture(n_rows, dim, seed):
+def serve_fixture(n_rows, dim, seed, dev=None):
     """``bench.py::_serve_fixture`` on the port: seeded dense rows,
     labels from a seeded plane, an LR warm start (4 iterations on the
-    first 512 rows, on the card) and its float64 host mapper."""
+    first 512 rows, on the card unless ``dev`` says otherwise) and its
+    float64 host mapper."""
     from alink_tpu_torch.common.mtable import MTable
     from alink_tpu_torch.common.params import Params
     from alink_tpu_torch.common.vector import DenseVector
@@ -6391,7 +6436,8 @@ def serve_fixture(n_rows, dim, seed):
     vecs[:] = [DenseVector(X[i]) for i in range(n_rows)]
     tbl = MTable({"vec": vecs, "label": y}, "vec VECTOR, label LONG")
     warm = LogisticRegressionTrainBatchOp(
-        vector_col="vec", label_col="label", max_iter=4).link_from(
+        vector_col="vec", label_col="label", max_iter=4,
+        **({"device": dev} if dev else {})).link_from(
         MemSourceBatchOp(tbl.first_n(min(512, n_rows))))
     mapper = LinearModelMapper(
         warm.get_output_table().schema, tbl.select(["vec"]).schema,
@@ -6876,6 +6922,463 @@ def print_serving(rec):
           flush=True)
 
 
+E2E = dict(n_rows=4096, dim=32, seed=17, storm_rows=2048,
+           batch_rows=128)                                  # bench.py:3145
+E2E_TRAIN_STORM = ("ftrl.batch:4-4;ckpt.save:2-2:error;ingest.batch:3-3;"
+                   "prefetch.get:1-60:delay:1")             # bench.py:3077
+E2E_SERVE_STORM = "serve.dispatch:1-8:error;feeder.snapshot:1-1:corrupt"
+# the card's golden run against the CPU's, both float32: each window's
+# AUC within this, and a label may differ only where the CPU's
+# probability is this close to 0.5 (the float32 rounding band of a
+# margin near 0 after a few hundred float32 FTRL updates)
+E2E_AUC_TOL = 1e-4
+E2E_LABEL_BAND = 1e-4
+# ... and each scored probability within this of the CPU's: B4 meets its
+# plain version at the DAG's shapes (d = 32, 128-row buckets) only here,
+# and the AUC and the labels above hold under any monotone, sign-keeping
+# error (a doubled margin); float32 rounding reads 1.35e-5 on an H100
+E2E_P_TOL = 1e-4
+
+
+def e2e_eval_files(art):
+    return tuple(Path(art, "eval", f).read_text()
+                 for f in ("windows.jsonl", "scores.jsonl"))
+
+
+def e2e_scores(art):
+    return [json.loads(ln) for ln in
+            Path(art, "eval", "scores.jsonl").read_text().splitlines()]
+
+
+def e2e_run(ks, dag):
+    """One DAG run: its report, B4's launches during it and its seconds."""
+    b4 = ks.launch_counts()["serve_dense"]
+    t0 = time.perf_counter()
+    rep = dag.run()
+    return rep, ks.launch_counts()["serve_dense"] - b4, \
+        time.perf_counter() - t0
+
+
+def e2e_compiled_batches(rep):
+    """A floor of the dispatched batches that the kernel served: all but
+    the breaker's host fallbacks and the batches that failed (each failed
+    batch failed at least one request, so the failed requests bound
+    them)."""
+    st = rep.server_stats
+    return max(0, st["batches"] - st["fallback_batches"] - st["failed"])
+
+
+def phase_online(kernels, card, dev=None, sizes=None):
+    """20: ``bench.py::bench_serve_online_e2e`` on the port — the whole
+    FTRLExample loop as one supervised ``OnlineDag`` on the card (dense
+    rows of ``_serve_fixture(4096, 32, seed=17)``, 128-row micro-batches,
+    a checkpoint every 2, ``ALINK_TPU_SERVE_BREAKER_MAX_MS=200``): (a)
+    steady state, throughput pacing, ``time_interval=3.0``, under
+    ``SloContract(2.0, 30.0, 0.75)``; (b) the deterministic golden run on
+    the first 2,048 rows, ``time_interval=2.0``, twice; (c) the trainer
+    storm with bench.py's ``clear_trainer_kill``; (d) the serve storm;
+    then (b) on the CPU (float32) against the card's. ``kernels`` are the
+    kernel modules (``serve`` first); their counts are set to 0 just
+    before the runs and read just after them."""
+    import gc
+    import shutil
+    import tempfile
+    from alink_tpu_torch.common.faults import FAULT_ENV, scoped_fault_env
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.online import (RESTART_POLICIES, OnlineDag,
+                                        SloContract, load_model_table)
+    from alink_tpu_torch.operator.common.linear.mapper import \
+        LinearModelMapper
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    from alink_tpu_torch.serving import CompiledPredictor
+    c = dict(E2E, **(sizes or {}))
+    ks = kernels[0]
+    t_phase = time.perf_counter()
+    X, tbl, warm, _mapper = serve_fixture(c["n_rows"], c["dim"], c["seed"],
+                                          dev=dev)
+    storm_tbl = tbl.first_n(c["storm_rows"])
+    dirs = []
+
+    def art(prefix):
+        dirs.append(tempfile.mkdtemp(prefix=f"e2e_{prefix}_{os.getpid()}_"))
+        return dirs[-1]
+
+    def mkdag(source_tbl, path, interval, device=dev, **kw):
+        return OnlineDag(
+            source_fn=lambda: MemSourceStreamOp(
+                source_tbl, batch_size=c["batch_rows"]),
+            warm_model=warm, artifacts_dir=path, label_col="label",
+            vector_col="vec", time_interval=interval, checkpoint_every=2,
+            name="serve_online_e2e", device=device, **kw)
+
+    def clear_trainer_kill(stage, exc):
+        # the kill is keyed on the batch NUMBER, which the checkpoint
+        # replay revisits: the supervisor's callback clears that entry
+        if getattr(exc, "site", None) == "ftrl.batch":
+            os.environ[FAULT_ENV] = ";".join(
+                e for e in os.environ.get(FAULT_ENV, "").split(";")
+                if e and not e.startswith("ftrl.batch"))
+
+    require(FAULT_ENV not in os.environ, "no fault armed before phase 20")
+    os.environ["ALINK_TPU_SERVE_BREAKER_MAX_MS"] = "200"
+    runs = {}
+    try:
+        _reset(*kernels)
+        slo = SloContract(serve_p99_s=2.0, swap_staleness_s=30.0,
+                          final_window_auc=0.75, name="serve_online_e2e")
+        with scoped_fault_env(None):
+            gen2 = gc.get_stats()[2]["collections"]
+            runs["a"] = e2e_run(ks, mkdag(tbl, art("steady"), 3.0,
+                                          pacing="throughput", slo=slo))
+            gen2 = gc.get_stats()[2]["collections"] - gen2
+            g_art = art("gold")
+            golden = mkdag(storm_tbl, g_art, 2.0)
+            runs["b"] = e2e_run(ks, golden)
+            g2_art = art("gold2")
+            runs["b2"] = e2e_run(ks, mkdag(storm_tbl, g2_art, 2.0))
+        s3_art = art("storm_train")
+        with scoped_fault_env(E2E_TRAIN_STORM):
+            runs["c"] = e2e_run(ks, mkdag(storm_tbl, s3_art, 2.0,
+                                          on_stage_event=clear_trainer_kill))
+        s4_art = art("storm_serve")
+        with scoped_fault_env(E2E_SERVE_STORM):
+            runs["d"] = e2e_run(ks, mkdag(storm_tbl, s4_art, 2.0))
+        launches = _counts(*kernels)
+        # (b) on the CPU, float32 as on the card, from the same warm start
+        c_art = art("gold_cpu")
+        with scoped_fault_env(None):
+            cpu_rep = mkdag(storm_tbl, c_art, 2.0, device="cpu").run()
+        # the last swap's artifact answers as the model the server served
+        last = load_model_table(os.path.join(g_art, "serving",
+                                             "last_good.json"))
+        require(last is not None, "20(b): last_good.json loads")
+        req = storm_tbl.select(["vec"]).first_n(512)
+        m = LinearModelMapper(last[1].schema, req.schema,
+                              Params({"prediction_col": "pred",
+                                      "prediction_detail_col": "detail",
+                                      "vector_col": "vec"}))
+        m.load_model(last[1])
+        reloaded = CompiledPredictor(m, device=dev, name="e2e_last_good")
+        served = golden.predictor
+        require(last[0] == served.model_version
+                and golden._versions[-1][0] == last[0],
+                f"20(b): last_good.json holds the last swapped version "
+                f"({last[0]}, served {served.model_version})")
+        got = reloaded.predict_table(req).to_rows()
+        want = served.predict_table(req).to_rows()
+        require([repr(tuple(r)) for r in got] == [repr(tuple(r))
+                                                  for r in want],
+                "20(b): the reloaded last good model answers as the served "
+                "model, bit for bit")
+        files = {k: e2e_eval_files(d) for k, d in (
+            ("b", g_art), ("b2", g2_art), ("c", s3_art), ("d", s4_art))}
+        c_scores, g_scores = e2e_scores(c_art), e2e_scores(g_art)
+    finally:
+        del os.environ["ALINK_TPU_SERVE_BREAKER_MAX_MS"]
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    reps = {k: v[0] for k, v in runs.items()}
+    a, b, r3, r4 = reps["a"], reps["b"], reps["c"], reps["d"]
+    for k, rep in reps.items():
+        require(rep.failed is None, f"20({k}) failed: {rep.failed}")
+    require(a.slo_ok() and a.final_window_auc is not None
+            and a.final_window_auc >= 0.75,
+            f"20(a): the SLO contract holds and the final-window AUC "
+            f"{a.final_window_auc} >= 0.75 ({[v.to_dict() for v in a.slo]})")
+    require(files["b2"] == files["b"],
+            "20(b): a second golden run's journals are byte-identical")
+    require(files["c"] == files["b"],
+            "20(c): the trainer storm's journals are the golden run's, "
+            "byte for byte")
+    require(r3.restarts and all(
+        r["policy"] == (RESTART_POLICIES["ingest"] if r["stage"] == "ingest"
+                        else RESTART_POLICIES["train"])
+        and r["recovery_s"] is not None for r in r3.restarts),
+        f"20(c): every restart typed by its policy with a measured "
+        f"recovery: {r3.restarts}")
+    require({r.get("site") for r in r3.restarts}
+            == {"ftrl.batch", "ckpt.save", "ingest.batch"},
+            f"20(c): the storm's three faults restarted their stages: "
+            f"{r3.restarts}")
+    brk = r4.server_stats["breaker"]
+    require(brk["opens"] >= 1 and brk["state"] == "closed",
+            f"20(d): the breaker opened and ends closed ({brk})")
+    require(files["d"][1].splitlines()[-1] == files["b"][1].splitlines()[-1],
+            "20(d): the last scored batch is the golden run's, bitwise")
+    require(r4.feeder_skipped >= 1 and r4.typed_rejections > 0,
+            f"20(d): the corrupt snapshot skipped ({r4.feeder_skipped}) and "
+            f"typed rejections ({r4.typed_rejections})")
+    require(sum(r.silent_drops for r in reps.values()) == 0,
+            "20: no silent drop in any run")
+    for k in ("a", "b", "b2", "c"):
+        st = reps[k].server_stats
+        require(st["fallback_batches"] == 0 and st["breaker"]["opens"] == 0
+                and st["failed"] == 0,
+                f"20({k}): no fallback batch, breaker open or failed "
+                f"request ({st['fallback_batches']}, {st['breaker']}, "
+                f"{st['failed']})")
+    for k, (rep, b4, _) in runs.items():
+        require(b4 >= e2e_compiled_batches(rep) and b4 > 0,
+                f"20({k}): B4 launched for every batch the card served "
+                f"({b4} launches, {e2e_compiled_batches(rep)} batches)")
+    others = {k: v for k, v in launches.items() if k != "serve_dense"}
+    require(not any(others.values()),
+            f"the DAG launches no other kernel: {others}")
+    # (b) on the card against the same run on the CPU
+    require(len(cpu_rep.windows) == len(b.windows)
+            and cpu_rep.scored_rows == b.scored_rows
+            and cpu_rep.swaps == b.swaps
+            and [w["n"] for w in cpu_rep.windows]
+            == [w["n"] for w in b.windows],
+            f"20(b): the CPU run's windows, rows and swaps are the card's "
+            f"({len(cpu_rep.windows)}, {cpu_rep.scored_rows}, "
+            f"{cpu_rep.swaps})")
+    auc_gap = max(abs(w["auc"] - v["auc"])
+                  for w, v in zip(b.windows, cpu_rep.windows))
+    pg = np.concatenate([s["p"] for s in g_scores])
+    pc = np.concatenate([s["p"] for s in c_scores])
+    outside = np.abs(pc - 0.5) > E2E_LABEL_BAND
+    p_gap = float(np.abs(pg - pc).max())
+    require(auc_gap <= E2E_AUC_TOL,
+            f"20(b): each window's AUC within {E2E_AUC_TOL} of the CPU's "
+            f"({auc_gap})")
+    require(p_gap <= E2E_P_TOL,
+            f"20(b): each scored probability within {E2E_P_TOL} of the "
+            f"CPU's ({p_gap})")
+    require(np.array_equal((pg > 0.5)[outside], (pc > 0.5)[outside])
+            and [s["y"] for s in g_scores] == [s["y"] for s in c_scores],
+            "20(b): the card's labels are the CPU's outside the rounding "
+            "band")
+    recovery = {}
+    for rec in r3.restarts:
+        recovery[rec.get("site") or rec.get("error")] = rec["recovery_s"]
+    out = {
+        "qps": a.qps, "p99_ms": a.p99_s * 1e3,
+        "p50_ms": a.server_stats["p50_s"] * 1e3, "gen2_collections": gen2,
+        "swap_staleness_max_ms": a.swap_staleness_max_s * 1e3,
+        "swap_staleness_mean_ms": a.swap_staleness_mean_s * 1e3,
+        "model_swaps": a.swaps, "windows": len(a.windows),
+        "window_auc": [w["auc"] for w in a.windows],
+        "final_window_auc": a.final_window_auc,
+        "slo": [v.to_dict() for v in a.slo], "slo_breaches": len(a.breaches),
+        "scored_rows": a.scored_rows, "shed_requests": a.shed_requests,
+        "silent_drops": sum(r.silent_drops for r in reps.values()),
+        "typed_rejections": r4.typed_rejections,
+        "storm_restarts": len(r3.restarts), "storm_bitwise_journals": True,
+        "recovery_s_by_fault": recovery,
+        "breaker_opens": brk["opens"],
+        "fallback_batches": r4.server_stats["fallback_batches"],
+        "feeder_skipped": r4.feeder_skipped,
+        "golden": {"windows": len(b.windows), "swaps": b.swaps,
+                   "window_auc": [w["auc"] for w in b.windows],
+                   "card_vs_cpu_auc_max_gap": auc_gap,
+                   "card_vs_cpu_p_max_gap": p_gap,
+                   "rows_in_band": int((~outside).sum())},
+        "run_s": {k: v[2] for k, v in runs.items()},
+        "b4_launches": {k: v[1] for k, v in runs.items()},
+        "compiled_batches": {k: e2e_compiled_batches(v[0])
+                             for k, v in runs.items()},
+        "launches": launches, "bound": "serving-host",
+        "seconds": time.perf_counter() - t_phase}
+    return out
+
+
+def print_online(rec):
+    print(f"20(a) serve_online_e2e: {rec['qps']:.1f} qps, p50 "
+          f"{rec['p50_ms']:.4f} ms, p99 {rec['p99_ms']:.4f} ms, swap "
+          f"staleness max / mean "
+          f"{rec['swap_staleness_max_ms']:.4f} / "
+          f"{rec['swap_staleness_mean_ms']:.4f} ms, swaps "
+          f"{rec['model_swaps']}, windows {rec['windows']} AUC "
+          f"{[round(v, 6) for v in rec['window_auc']]}, final "
+          f"{rec['final_window_auc']}, SLO "
+          f"{[(v['slo'], v['ok'], v['observed']) for v in rec['slo']]}, "
+          f"scored rows {rec['scored_rows']}, shed {rec['shed_requests']}, "
+          f"gen-2 collections {rec['gen2_collections']}", flush=True)
+    g = rec["golden"]
+    print(f"20(b) golden: windows {g['windows']}, swaps {g['swaps']}, AUC "
+          f"{[round(v, 6) for v in g['window_auc']]}; card vs CPU: AUC max "
+          f"gap {g['card_vs_cpu_auc_max_gap']}, probability max gap "
+          f"{g['card_vs_cpu_p_max_gap']}, rows in the band "
+          f"{g['rows_in_band']}; a second run byte-identical", flush=True)
+    print(f"20(c) trainer storm: {rec['storm_restarts']} restarts, recovery "
+          f"s by fault {rec['recovery_s_by_fault']}, journals bitwise "
+          f"{rec['storm_bitwise_journals']}", flush=True)
+    print(f"20(d) serve storm: breaker opens {rec['breaker_opens']}, "
+          f"fallback batches {rec['fallback_batches']}, feeder skipped "
+          f"{rec['feeder_skipped']}, typed rejections "
+          f"{rec['typed_rejections']}; silent drops {rec['silent_drops']}",
+          flush=True)
+    print(f"phase 20: B4 launches by run {rec['b4_launches']} for compiled "
+          f"batches {rec['compiled_batches']}, run s "
+          f"{ {k: round(v, 3) for k, v in rec['run_s'].items()} }, "
+          f"{rec['seconds']:.1f} s", flush=True)
+
+
+class _ExecSpy:
+    """Keep the result of every ``IterativeComQueue.exec`` while active."""
+
+    def __enter__(self):
+        from alink_tpu_torch.engine import IterativeComQueue
+        self.cls, self.orig, self.results = IterativeComQueue, \
+            IterativeComQueue.exec, []
+        spy = self
+
+        def exec_(q):
+            r = spy.orig(q)
+            spy.results.append(r)
+            return r
+        IterativeComQueue.exec = exec_
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.exec = self.orig
+
+
+def health_series_equal(mon, result):
+    """The monitor's series are the probes the result carries."""
+    probes = result.probes()
+    return sorted(probes) == mon.series_names() and all(
+        np.array_equal(mon.series(k)[1], np.asarray(v, np.float64))
+        and list(mon.series(k)[0]) == list(range(1, len(v) + 1))
+        for k, v in probes.items())
+
+
+def phase_health(kernels, card):
+    """20(e): training health on the card. L-BFGS at phase 12(b)'s shape,
+    KMeans at 16(d)'s and the FTRL batch drain at phase 14's (padded-COO,
+    6 x 4096 rows over 65,537) with a ``HealthMonitor`` give the bits of
+    the same runs without one, and the monitors' series are the probes
+    the results carry (FTRL: its progressive log loss); the sparse batch
+    step and the monitor's per-micro-batch scalars run under sync debug
+    "error"; a NaN label raises ``HealthAlertError``
+    (``raise_on=("critical",)``) at the first checkpoint boundary with
+    that snapshot on disk, and the snapshot resumes."""
+    import tempfile
+    import torch
+    from alink_tpu_torch.common.health import HealthAlertError, HealthMonitor
+    from alink_tpu_torch.engine import recovery
+    from alink_tpu_torch.model.interop import linear_model_from_numpy
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    from alink_tpu_torch.operator.stream.onlinelearning import ftrl as tf
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    t0 = time.perf_counter()
+    out = {}
+    _reset(*kernels)
+    # L-BFGS, bench_logreg's field-blocked shape
+    fb, y = fb_criteo(0)
+    data = {"fb_idx": fb, "y": y, "w": np.ones(LR_ROWS, np.float32)}
+    bare = lbfgs_run(data, LR_CHECK_STEPS)
+    mon = HealthMonitor(source="qn")
+    with _ExecSpy() as spy:
+        withm = lbfgs_run(data, LR_CHECK_STEPS, health=mon)
+    require(np_bits_equal(bare[0], withm[0])
+            and np_bits_equal(bare[1], withm[1]) and bare[2] == withm[2],
+            "20(e): L-BFGS with a monitor is bitwise the run without")
+    require(health_series_equal(mon, spy.results[-1]),
+            f"20(e): the L-BFGS monitor's series are the result's probes "
+            f"({mon.series_names()})")
+    out["lbfgs"] = {"supersteps": int(withm[2]), "alerts": [
+        a.to_dict() for a in mon.alerts], "s": withm[3], "bare_s": bare[3]}
+    # KMeans, bench_kmeans' shape
+    X = iris_rows()
+    kb = kmeans_run(X, KM_CHECK_STEPS, "cuda")
+    mon = HealthMonitor(source="kmeans")
+    with _ExecSpy() as spy:
+        kw = kmeans_run(X, KM_CHECK_STEPS, "cuda", health=mon)
+    require(np_bits_equal(kb[0], kw[0]) and np_bits_equal(kb[1], kw[1]),
+            "20(e): KMeans with a monitor is bitwise the run without")
+    require(health_series_equal(mon, spy.results[-1]),
+            "20(e): the KMeans monitor's series are the result's probes")
+    out["kmeans"] = {"supersteps": int(kw[2]), "alerts": [
+        a.to_dict() for a in mon.alerts]}
+    # the FTRL batch drain, phase 14's padded-COO main path
+    rng = np.random.default_rng(1417)
+    micro = 6
+    rows = batch_rows(rng, micro * BF_ROWS)
+    coef = rng.standard_normal(BF_DIM) * 0.01
+    warm = MemSourceBatchOp(LinearModelDataConverter("LONG").save_model(
+        linear_model_from_numpy(coef, has_intercept=True, label_values=[1, 0],
+                                vector_col="vec", vector_size=BF_DIM - 1,
+                                label_type="LONG")))
+
+    def drain(**kw):
+        op = tf.FtrlTrainStreamOp(warm, vector_col="vec", label_col="label",
+                                  update_mode="batch", time_interval=2.0,
+                                  **FTRL_HP, **kw).link_from(
+            MemSourceStreamOp(rows, batch_size=BF_ROWS))
+        return op, [_coefs(s) for _, s in drain_timed(op)[0]]
+
+    _, fb_bare = drain()
+    mon = HealthMonitor(source="ftrl")
+    op, fb_mon = drain(health=mon)
+    require(len(fb_bare) == len(fb_mon) == 3 and all(
+        np_bits_equal(a, b) for a, b in zip(fb_bare, fb_mon)),
+        "20(e): the FTRL batch drain with a monitor gives the snapshots "
+        "without one, bitwise")
+    pl = op.progressive_logloss()
+    steps, vals = mon.series("ftrl.pv_logloss")
+    require(list(steps) == [b for b, _ in pl] == list(range(1, micro + 1))
+            and np.array_equal(vals, [v for _, v in pl])
+            and len(mon.series("ftrl.weight_drift")[0]) == 2,
+            "20(e): the FTRL monitor's series: one point a micro-batch, "
+            "the drain's progressive log loss, a drift a later snapshot")
+    # the per-micro-batch work of a drain, monitored or not, no host wait
+    tr = op.trainer
+    enc = tr.to_device(tr.encode(rows.first_n(BF_ROWS), BF_ROWS, 8))
+    z, n = tr.initial_state(enc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            z, n, mg = tr.step(enc, z, n)
+            ll = tf.pv_logloss_sum(mg[:BF_ROWS], enc.arrays[-1][:BF_ROWS])
+            stats = tf.pv_stats(mg[:BF_ROWS], enc.arrays[-1][:BF_ROWS])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(bool(torch.isfinite(stats[:2]).all())
+            and bool(torch.equal(ll, stats[0])),
+            "20(e): the step's scalars are finite, and the log loss is the "
+            "same bits with a monitor and without")
+    out["ftrl"] = {"micro_batches": micro, "alerts": [
+        a.to_dict() for a in mon.alerts], "sync_debug_error_steps": 2}
+    # a NaN label: the watchdog aborts after the boundary's snapshot
+    bad = dict(data, y=data["y"].copy())
+    bad["y"][17] = np.nan
+    with tempfile.TemporaryDirectory(prefix="e2e_health_") as d:
+        mon = HealthMonitor(raise_on=("critical",), source="qn")
+        try:
+            lbfgs_run(bad, 6, health=mon, checkpoint_dir=d,
+                      checkpoint_every=2)
+            raised = None
+        except HealthAlertError as e:
+            raised = e
+        require(raised is not None and _ckpt_tags(d) == [2],
+                f"20(e): the NaN run raised HealthAlertError at the first "
+                f"boundary with its snapshot on disk ({raised!r}, "
+                f"{_ckpt_tags(d)})")
+        recovery.reset_snapshot_records()
+        res = lbfgs_run(bad, 6, health=HealthMonitor(), checkpoint_dir=d,
+                        resume_from=d, checkpoint_every=2)
+        loads = [r for r in recovery.snapshot_records()
+                 if r["what"] == "load"]
+        require(res[2] == 6 and loads and loads[0]["tag"] == 2,
+                f"20(e): the snapshot resumed ({res[2]} supersteps, "
+                f"{loads})")
+        out["nan"] = {"alert": raised.alerts[0].to_dict(),
+                      "resumed_from": 2}
+    out["launches"] = _counts(*kernels)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"20(e) health [{card}]: L-BFGS, KMeans and the FTRL batch drain "
+          f"bitwise with a monitor; series = probes; the sparse step under "
+          f"sync debug error; NaN: {out['nan']['alert']['message']}, resumed "
+          f"from superstep 2; launches {out['launches']}; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7070,6 +7573,11 @@ def main(argv=None) -> int:
     serving = phase_serving((ks, kl, kf, kh), card)
     print_serving(serving)
 
+    # -- 20. the online DAG (bench_serve_online_e2e) and health on the card
+    online = phase_online((ks, kl, kf, kh), card)
+    print_online(online)
+    health = phase_health((ks, kl, kf, kh), card)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -7253,7 +7761,10 @@ def main(argv=None) -> int:
         rec["als_launches"] = als["launches"].get(rec["name"], 0)
         rec["serving_tier_launches"] = serving["launches"].get(rec["name"],
                                                                0)
+        rec["online_e2e_launches"] = online["launches"].get(rec["name"], 0)
+        rec["health_launches"] = health["launches"].get(rec["name"], 0)
     print(json.dumps({"main_path": {
+        "online_e2e": online, "health": health,
         "serving_tier": serving, "als": als, "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,
         "ftrl_example": example, "lbfgs": lbfgs, "lr_main": lr_main,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Old against new: the FTRL steps, the sparse serving kernel, the ordered
-gradient kernel and the L-BFGS superstep of two trees of this
-repository, timed in turns on one NVIDIA GPU.
+"""Old against new: the FTRL steps and drains, the sparse serving kernel,
+the ordered gradient kernel and the L-BFGS superstep of two trees of
+this repository, timed in turns on one NVIDIA GPU.
 
     mkdir -p ab/parent && git archive <commit> | tar -x -C ab/parent
     python3 kernel_ab.py ab/parent . . ab/parent     # ab/: listed in .gitignore
@@ -9,7 +9,7 @@ repository, timed in turns on one NVIDIA GPU.
 
 ``--parts`` names the parts below to measure (default: all of them:
 ``sparse``, ``walk``, ``split``, ``linear_grad``, ``lbfgs``, ``p2``,
-``steps``). Each tree named on the command line is measured in a process
+``steps``, ``drain``). Each tree named on the command line is measured in a process
 of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
@@ -73,7 +73,16 @@ a kernel and the library call it is held against are timed in turns):
   field-blocked batch steps (``chip_smoke.py``'s ``step_inputs``,
   float32 state): ms by the host clock, each call ending in a
   synchronize (median of 15), device ops and busy time under one
-  profiled step, the launches of each wrapper.
+  profiled step, the launches of each wrapper;
+* ``drain``: ``chip_smoke.py`` phase 14's two FTRL batch drains through
+  the entry point, ``FtrlTrainStreamOp(update_mode="batch")`` in float32:
+  the padded-COO main path (6 micro-batches of 4096 rows over 65,537
+  slots, a snapshot every 2) and bench_ftrl's stream (16 field-blocked
+  micro-batches of 16,384 hashed rows, one snapshot at the end), each
+  the median of 5 drains after a warm one (host clock, from a
+  synchronize to a synchronize), without a monitor and, where the tree
+  has ``common/health.py``, with a default ``HealthMonitor``, the two in
+  turns.
 """
 
 from __future__ import annotations
@@ -98,7 +107,8 @@ def _helpers(tree: Path):
 
 
 SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
-PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps")
+PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps",
+         "drain")
 
 
 def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
@@ -189,6 +199,8 @@ def measure(tree: Path, parts=PARTS) -> dict:
         out["p2"] = scatter_times(h, kl, lat)
     if "steps" in parts:
         out["steps"] = step_times(h, kl, kf)
+    if "drain" in parts:
+        out["drain"] = drain_times(h)
     return out
 
 
@@ -430,6 +442,81 @@ def step_times(h, kl, kf, reps=15):
     return out
 
 
+def drain_times(h, reps=5):
+    """Phase 14's padded-COO batch main path and bench_ftrl's stream,
+    each drained through ``FtrlTrainStreamOp`` on the card: seconds a
+    drain (median of ``reps`` after a warm one), bare and, where the tree
+    has health, with a ``HealthMonitor``, in turns."""
+    import torch
+    from alink_tpu_torch.model.interop import linear_model_from_numpy
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        FeatureHasherBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        LinearModelDataConverter
+    from alink_tpu_torch.operator.stream.batch_twins import \
+        FeatureHasherStreamOp
+    from alink_tpu_torch.operator.stream.onlinelearning import \
+        FtrlTrainStreamOp
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    try:
+        from alink_tpu_torch.common.health import HealthMonitor
+    except ImportError:
+        HealthMonitor = None
+    rng = np.random.default_rng(1417)
+    micro = 6
+    rows = h.batch_rows(rng, micro * h.BF_ROWS)
+    coef = rng.standard_normal(h.BF_DIM) * 0.01
+    coo_warm = MemSourceBatchOp(LinearModelDataConverter("LONG").save_model(
+        linear_model_from_numpy(coef, has_intercept=True, label_values=[1, 0],
+                                vector_col="vec", vector_size=h.BF_DIM - 1,
+                                label_type="LONG")))
+    table = h.bench_stream_data()
+    st_warm = LogisticRegressionTrainBatchOp(
+        vector_col="vec", label_col="click",
+        max_iter=h.ST_WARM_ITER).link_from(FeatureHasherBatchOp(
+            **h.ST_HASH).link_from(MemSourceBatchOp(
+                table.first_n(h.ST_WARM_ROWS))))
+    st_warm.get_output_table()
+
+    def coo(**kw):
+        op = FtrlTrainStreamOp(coo_warm, vector_col="vec", label_col="label",
+                               update_mode="batch", time_interval=2.0,
+                               **h.FTRL_HP, **kw).link_from(
+            MemSourceStreamOp(rows, batch_size=h.BF_ROWS))
+        snaps, secs = h.drain_timed(op)
+        assert len(snaps) == micro // 2
+        return secs
+
+    def stream(**kw):
+        feat = FeatureHasherStreamOp(**h.ST_HASH).link_from(
+            MemSourceStreamOp(table, batch_size=h.ST_MICRO))
+        op = FtrlTrainStreamOp(st_warm, vector_col="vec", label_col="click",
+                               update_mode="batch", time_interval=1e9,
+                               **h.FTRL_HP, **kw).link_from(feat)
+        snaps, secs = h.drain_timed(op)
+        assert snaps
+        return secs
+
+    out = {}
+    for name, fn in (("coo", coo), ("stream", stream)):
+        kinds = ["bare"] + (["monitored"] if HealthMonitor else [])
+        times = {k: [] for k in kinds}
+        for i in range(reps + 1):
+            for k in kinds:
+                kw = {"health": HealthMonitor()} if k == "monitored" else {}
+                secs = fn(**kw)
+                if i:
+                    times[k].append(secs)
+        torch.cuda.synchronize()
+        for k, v in times.items():
+            out[f"{name} {k}"] = {"drain_s": float(np.median(v)),
+                                  "runs_s": v}
+    return out
+
+
 def _summary(runs):
     by = {}
     for r in runs:
@@ -475,6 +562,8 @@ def _summary(runs):
         for kind, rec in rs[0].get("steps", {}).items():
             for f in ("step_ms", "device_ops", "device_busy_ms"):
                 s[f"step {kind} {f}"] = med(rs, "steps", kind, f)
+        for key in rs[0].get("drain", {}):
+            s[f"drain {key} s"] = med(rs, "drain", key, "drain_s")
         lb = rs[0].get("lbfgs")
         if lb:
             for f in ("ms_per_superstep", "device_busy_ms",

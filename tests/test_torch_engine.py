@@ -199,14 +199,14 @@ def test_rng_is_seeded_by_queue_step_and_task(tenv):
 
 
 def test_left_out_features_raise(tenv, monkeypatch):
-    """The health monitor and more than one worker are not ported; a
-    resume request without a checkpoint directory is refused (checkpoints
-    and boundary hooks are ported: tests/test_torch_recovery.py)."""
+    """More than one worker is not ported; a resume request without a
+    checkpoint directory is refused (checkpoints and boundary hooks are
+    ported: tests/test_torch_recovery.py; the health monitor attaches:
+    tests/test_torch_health.py)."""
     q = IterativeComQueue(env=tenv)
-    for call in (lambda: q.set_health(None),
-                 lambda: MLEnvironment(parallelism=2, device="cpu")):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert q.set_health(None) is q
+    with pytest.raises(NotImplementedError):
+        MLEnvironment(parallelism=2, device="cpu")
     with pytest.raises(ValueError, match="requires checkpoint_dir"):
         IterativeComQueue(env=tenv, resume_from="x")
     assert q.set_program_key(("any", 1)) is q   # names the program only

@@ -373,17 +373,53 @@ def test_no_device_raises_without_cuda(monkeypatch, stream_case):
 
 
 @pytest.mark.parametrize("kw", [{"checkpoint_dir": "/nonexistent",
-                                 "health": object()},
-                                {"health": object()}])
+                                 "health": True},
+                                {"health": True}])
 def test_left_out_options_raise(stream_case, kw):
-    """Health monitoring is not ported: it raises at link, naming its
-    ROADMAP item (Queue A10), with or without a checkpoint directory
-    (durability is ported: tests/test_torch_recovery.py)."""
+    """Health monitoring is ported: a monitor attaches at link, with or
+    without a checkpoint directory, and the drain feeds it the
+    progressive-validation series of every micro-batch and the weight
+    drift of every snapshot after the first (parity with the JAX
+    package: tests/test_torch_health.py). No option of the op raises."""
+    from alink_tpu_torch.common.health import HealthMonitor
     _, rows, _, twarm = stream_case
+    mon = HealthMonitor(rules=[])
     op = tf.FtrlTrainStreamOp(twarm, device="cpu", label_col="label",
-                              **kw)
-    with pytest.raises(NotImplementedError, match="Queue A10"):
-        op.link_from(TMemS(_torch_table(rows)))
+                              **{**kw, "health": mon})
+    op.link_from(TMemS(_torch_table(rows), batch_size=32))
+    snaps = list(op.timed_batches())
+    assert len(snaps) > 1
+    assert mon.series_names() == ["ftrl.pv_accuracy", "ftrl.pv_logloss",
+                                  "ftrl.weight_drift", "nonfinite.margin"]
+    batches = len(op.progressive_logloss())
+    assert len(mon.series("ftrl.pv_logloss")[0]) == batches > 0
+    assert len(mon.series("ftrl.weight_drift")[0]) == len(snaps) - 1
+
+
+def test_progressive_logloss_is_the_same_bits_with_a_monitor(stream_case):
+    """A drain queues only the log loss sum without a monitor and the three
+    progressive-validation scalars with one: the progressive log loss is
+    the same bits either way, and both keep a non-finite margin visible
+    (NaN loss, never correct, counted) where the clip would hide it."""
+    from alink_tpu_torch.common.health import HealthMonitor
+    _, rows, _, twarm = stream_case
+    got = []
+    for kw in ({}, {"health": HealthMonitor(rules=[])}):
+        op = tf.FtrlTrainStreamOp(twarm, device="cpu", label_col="label",
+                                  **kw)
+        op.link_from(TMemS(_torch_table(rows), batch_size=32))
+        list(op.timed_batches())
+        got.append(op.progressive_logloss())
+    assert len(got[0]) > 1 and got[0] == got[1]
+    mg = torch.tensor([2.0, -1.0, float("inf"), float("nan")],
+                      dtype=torch.float64)
+    y = torch.tensor([1.0, 1.0, 0.0, 1.0], dtype=torch.float64)
+    ll = tf.pv_logloss_sum(mg, y)
+    stats = tf.pv_stats(mg, y)
+    assert torch.isnan(ll) and torch.isnan(stats[0])
+    assert stats[1:].tolist() == [1.0, 2.0]
+    assert torch.equal(tf.pv_logloss_sum(mg[:2], y[:2]),
+                       tf.pv_stats(mg[:2], y[:2])[0])
 
 
 def test_dense_vector_rows_train_like_the_sparse_ones(stream_case):

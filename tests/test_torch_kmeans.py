@@ -314,14 +314,20 @@ def test_kmeans_defaults_to_the_card(monkeypatch):
     assert TTrain(device="cpu").dtype == torch.float32
 
 
-def test_left_out_options_raise(tenv):
-    """The health monitor is not ported (ROADMAP A10); a resume request
-    without a checkpoint directory is refused (checkpoints are ported:
-    tests/test_torch_recovery.py)."""
+def test_left_out_options_raise(tenv, tmp_path):
+    """A resume request without a checkpoint directory is refused
+    (checkpoints are ported: tests/test_torch_recovery.py). The health
+    monitor is ported: with or without a checkpoint directory it reads
+    the Lloyd loop's probes and changes no bit of the centroids
+    (tests/test_torch_health.py holds it against the JAX package)."""
+    from alink_tpu_torch.common.health import HealthMonitor
     X = _blobs()
-    for kw in ({"health": object()},
-               {"checkpoint_dir": "/x", "health": object()}):
-        with pytest.raises(NotImplementedError, match="10"):
-            tk.kmeans_train(X, 3, env=tenv, **kw)
+    bare = tk.kmeans_train(X, 3, env=tenv)
+    for kw in ({}, {"checkpoint_dir": str(tmp_path / "ck")}):
+        mon = HealthMonitor()
+        got = tk.kmeans_train(X, 3, env=tenv, health=mon, **kw)
+        assert all(np.array_equal(a, b) for a, b in zip(got[:2], bare[:2]))
+        assert mon.series_names() == ["empty_clusters", "inertia",
+                                      "movement"]
     with pytest.raises(ValueError, match="requires checkpoint_dir"):
         tk.kmeans_train(X, 3, env=tenv, resume_from="/x")

@@ -824,3 +824,156 @@ def test_profile_export_and_live_bytes(tmp_path, monkeypatch):
     monkeypatch.setenv("ALINK_TPU_PROFILE", "1")
     assert col.hbm_snapshot("s") == 0
     assert col.summary()["hbm"][0]["count"] == 1
+
+
+# -- the engine's, FTRL's, the checkpoint store's and the operators' series ---
+
+# Series the port does not emit: the compile plane's (the program cache,
+# its compiles and storms, the programs' static cost gauges) and the
+# engine's step timer, whose ``program`` label is that cache's status.
+# They wait for a program cache (ROADMAP A10(b)); eager PyTorch caches
+# no program.
+_COMPILE_PLANE = ("alink_compile_", "alink_comqueue_program_cache_total",
+                  "alink_program_", "alink_step_timer_seconds")
+# byte counters of payloads whose layout differs by design: the JAX
+# package's engine snapshot holds its stacked, padded while-loop carry
+_LAYOUT_BYTES = {("alink_checkpoint_bytes_total", '{"scope": "comqueue"}')}
+# the series that the JAX package's FTRL steps move with their margin
+# AllReduce across feature shards; the port's one-device step makes none
+_MARGIN_REDUCE = ("alink_collective_calls_total",
+                  "alink_collective_logical_bytes_total")
+
+
+def _series_counts(snapshot):
+    """``{(name, labels): (kind, count)}``: counters' values, histograms'
+    observation counts, and gauges by name and labels only (their values
+    are times, depths and tags)."""
+    out = {}
+    for e in snapshot:
+        if e["name"].startswith(_COMPILE_PLANE):
+            continue
+        key = (e["name"], json.dumps(e["labels"], sort_keys=True))
+        if e["kind"] == "histogram":
+            val = e["count"]
+        elif e["kind"] == "counter" and key not in _LAYOUT_BYTES:
+            val = e["value"]
+        else:
+            val = None
+        out[key] = (e["kind"], val)
+    return out
+
+
+def _training_runs(pkg, tmp):
+    """One L-BFGS run with checkpoints, one KMeans run, one batch-mode
+    FTRL drain with checkpoints behind a batch LR warm start; returns the
+    registry's snapshot from just before the drain."""
+    import jax
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    n, d = 320, 6
+    X = rng.randn(n, d)
+    y = (X @ rng.randn(d) > 0).astype(np.int64)
+    data = {"X": X, "y": np.where(y > 0, 1.0, -1.0), "w": np.ones(n)}
+    if pkg == "jax":
+        from alink_tpu.common.mlenv import MLEnvironment, MLEnvironmentFactory
+        from alink_tpu.common.mtable import MTable
+        from alink_tpu.common.vector import DenseVector
+        from alink_tpu.operator.batch.classification.linear import \
+            LogisticRegressionTrainBatchOp as LR
+        from alink_tpu.operator.batch.source.sources import \
+            MemSourceBatchOp as Mem
+        from alink_tpu.operator.common.clustering import kmeans as km
+        from alink_tpu.operator.common.optim import objfunc as obj
+        from alink_tpu.operator.common.optim import optimizers as opt
+        from alink_tpu.operator.stream.onlinelearning.ftrl import \
+            FtrlTrainStreamOp as Ftrl
+        from alink_tpu.operator.stream.source.sources import \
+            MemSourceStreamOp as Src
+        env = MLEnvironment(parallelism=1, devices=jax.devices()[:1])
+        prev = MLEnvironmentFactory.get_default()
+        MLEnvironmentFactory.set_default(env)
+        dev = {}
+    else:
+        from alink_tpu_torch.common.mlenv import MLEnvironment
+        from alink_tpu_torch.common.mtable import MTable
+        from alink_tpu_torch.common.vector import DenseVector
+        from alink_tpu_torch.operator.batch.classification.linear import \
+            LogisticRegressionTrainBatchOp as LR
+        from alink_tpu_torch.operator.batch.source.sources import \
+            MemSourceBatchOp as Mem
+        from alink_tpu_torch.operator.common.clustering import kmeans as km
+        from alink_tpu_torch.operator.common.optim import objfunc as obj
+        from alink_tpu_torch.operator.common.optim import optimizers as opt
+        from alink_tpu_torch.operator.stream.onlinelearning.ftrl import \
+            FtrlTrainStreamOp as Ftrl
+        from alink_tpu_torch.operator.stream.source.sources import \
+            MemSourceStreamOp as Src
+        env = MLEnvironment(device="cpu")
+        dev = {"device": "cpu"}
+    try:
+        o = obj.UnaryLossObjFunc(obj.LogLossFunc(), d, l2=1e-3)
+        opt.optimize(o, data, opt.OptimParams(
+            max_iter=6, epsilon=0.0, checkpoint_dir=os.path.join(tmp, "qn"),
+            checkpoint_every=2), env)
+        km.kmeans_train(X, 3, init="RANDOM", max_iter=5, tol=0.0, env=env)
+        vecs = np.empty(n, object)
+        vecs[:] = [DenseVector(x) for x in X]
+        tbl = MTable({"vec": vecs, "label": y}, "vec VECTOR, label LONG")
+        lr_kw = dict(dev, dtype=torch.float64) if dev else {}
+        warm = LR(vector_col="vec", label_col="label", max_iter=3,
+                  **lr_kw).link_from(Mem(tbl.first_n(100)))
+        ftrl_kw = dict(dev, ship_dtype=torch.float64) if dev else {}
+        op = Ftrl(warm, vector_col="vec", label_col="label",
+                  update_mode="batch", time_interval=2.0,
+                  checkpoint_dir=os.path.join(tmp, "ftrl"),
+                  checkpoint_every_batches=3, **ftrl_kw).link_from(
+            Src(tbl, batch_size=40))
+        before = (J if pkg == "jax" else T).metrics.get_registry().snapshot()
+        for _ in op.timed_batches():
+            pass
+        return before
+    finally:
+        if pkg == "jax":
+            MLEnvironmentFactory.set_default(prev)
+
+
+def test_training_series_equal_the_jax_package(tmp_path, monkeypatch):
+    """L-BFGS with checkpoints, KMeans, a batch LR op and a checkpointed
+    FTRL drain give the JAX package's series: the same names and labels,
+    counters' values and histograms' counts (not the seconds), apart
+    from the compile plane's series, which the port does not have, and
+    the FTRL steps' margin AllReduce, which the port's one-device step
+    does not make: the drain moves no ``alink_collective_*`` series in
+    the port, and in the JAX package those series are held at their
+    values from before the drain; the trace holds the engine's, the
+    snapshot writer's and the FTRL drain's spans and instants."""
+    monkeypatch.setenv("ALINK_TPU_TRACE", "1")
+    got, before = {}, {}
+    for pkg, ns in (("jax", J), ("torch", T)):
+        pre = _training_runs(pkg, str(tmp_path / pkg))
+        got[pkg] = _series_counts(ns.metrics.get_registry().snapshot())
+        before[pkg] = {k: v for k, v in _series_counts(pre).items()
+                       if k[0].startswith(_MARGIN_REDUCE)}
+    assert before["jax"] and before["torch"] == before["jax"]
+    drained = {k: v for k, v in got["jax"].items()
+               if k[0].startswith(_MARGIN_REDUCE) and v != before["jax"][k]}
+    assert drained       # the JAX package's drain counts its AllReduce
+    assert {k: got["torch"][k] for k in before["torch"]} == before["torch"]
+    got["jax"].update(before["jax"])
+    assert got["torch"] == got["jax"]
+    names = {k[0] for k in got["torch"]}
+    for want in ("alink_comqueue_execs_total",
+                 "alink_comqueue_supersteps_total",
+                 "alink_collective_calls_total",
+                 "alink_checkpoint_total", "alink_checkpoint_last_tag",
+                 "alink_overlap_snapshot_writes_total",
+                 "alink_overlap_submit_wait_seconds",
+                 "alink_batch_op_seconds", "alink_batch_rows_in_total",
+                 "alink_ftrl_batch_seconds", "alink_ftrl_rows_total",
+                 "alink_ftrl_snapshots_total", "alink_stream_batches_total"):
+        assert want in names, want
+    events = {e["name"] for e in T.tracing.get_tracer().events()}
+    assert {"comqueue.exec", "snapshot.write", "snapshot.submit",
+            "checkpoint.save", "link:LogisticRegressionTrainBatchOp",
+            "ftrl.batch", "ftrl.snapshot"} <= events

@@ -249,13 +249,12 @@ def test_argmin_keeps_jax_first_index_rule(vals):
 def test_left_out_methods_and_options_raise(tenv):
     data, dim, meta = _data("dense")
     _, tobj = _objs(dim, meta)
-    # the health monitor is not ported (ROADMAP A10); a resume request
-    # without a checkpoint directory is refused (checkpoints are ported:
-    # tests/test_torch_recovery.py)
+    # a resume request without a checkpoint directory is refused
+    # (checkpoints are ported: tests/test_torch_recovery.py); a health
+    # monitor is accepted with or without one (tests/test_torch_health.py)
     for kw in ({"health": object()},
                {"checkpoint_dir": "/x", "health": object()}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            topt.OptimParams(**kw)
+        assert topt.OptimParams(**kw).health is kw["health"]
     with pytest.raises(ValueError, match="requires checkpoint_dir"):
         topt.optimize(tobj, data, topt.OptimParams(resume_from="/x"), tenv)
     with pytest.raises(ValueError):

@@ -147,7 +147,11 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.serving.plan",
               "alink_tpu_torch.serving.server",
               "alink_tpu_torch.serving",
-              "alink_tpu_torch.operator.stream.utils"):
+              "alink_tpu_torch.operator.stream.utils",
+              "alink_tpu_torch.common.health",
+              "alink_tpu_torch.online",
+              "alink_tpu_torch.online.slo",
+              "alink_tpu_torch.online.dag"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):
