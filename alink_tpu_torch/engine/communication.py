@@ -146,5 +146,15 @@ class AllReduce(CommunicateFunction):
             out = wrap(context.get_obj(name), ComContext.AXIS, name=name,
                        num_workers=context.num_task)
             if self.mean:
-                out = out / context.num_task
+                out = _divide(out, context.num_task)
             context.put_obj(name, out)
+
+
+def _divide(value, n: int):
+    """A buffer (a tensor, or a dict of them, as Word2Vec's two-leaf
+    ``emb``) divided by the worker count: the identity at one worker."""
+    if n == 1:
+        return value
+    if isinstance(value, dict):
+        return {k: _divide(v, n) for k, v in value.items()}
+    return value / n

@@ -163,9 +163,12 @@ class ComQueueResult:
     fetch a carry object to the host on first use (read-only numpy
     arrays, memoized); the rest stays on the device."""
 
-    def __init__(self, carry: Dict[str, Any], step_count: int):
+    def __init__(self, carry: Dict[str, Any], step_count: int,
+                 totals: Optional[Dict[str, int]] = None):
         self._carry = carry
         self.step_count = step_count
+        # each partitioned input's row count
+        self.totals: Dict[str, int] = dict(totals or {})
         self._fetched: Dict[str, Any] = {}
 
     def get(self, name: str):
@@ -180,6 +183,16 @@ class ComQueueResult:
     def shards(self, name: str):
         """The per-worker values stacked on a leading axis: ``(1, ...)``."""
         return _stack1(self.get(name))
+
+    def concat(self, name: str, total: Optional[int] = None):
+        """The per-worker shards concatenated along axis 0 (the JAX
+        package's departitioning), cut to ``total`` rows; ``total``
+        defaults to the partitioned inputs' row count when they all have
+        one. At one worker that is the value itself."""
+        out = np.concatenate(list(self.shards(name)), axis=0)
+        if total is None and len(set(self.totals.values())) == 1:
+            total = next(iter(self.totals.values()), None)
+        return out if total is None else out[:total]
 
     def keys(self):
         return [k for k in self._carry if not k.startswith("__")]
@@ -420,7 +433,8 @@ class IterativeComQueue:
                          device=device, resumed=resumed,
                          on_boundary=None if self._boundary is None
                          else self._boundary[1], on_snapshot=on_snapshot)
-        result = ComQueueResult(carry, step)
+        result = ComQueueResult(
+            carry, step, {k: static[f"__total_{k}"] for k in self._partitioned})
         if metrics_enabled():
             reg = get_registry()
             reg.inc("alink_comqueue_execs_total", 1)

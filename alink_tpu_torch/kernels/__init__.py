@@ -15,6 +15,12 @@
   both walk (built on the card by ``csrc/run_plan.cu``), their plain
   versions and launch counts, and the training margins through
   ``serve``'s sparse kernel;
+* ``rows`` — the ordered row scatter-add "P3" (``csrc/row_scatter.cu``,
+  a kernel of the port's own: Word2Vec's embedding updates, FM's sparse
+  gradient, LDA's ``segment_sum``), its plain version and launch count;
+* ``fm`` — the FM serving score "P4" (``csrc/fm_score.cu``, the port's
+  own: the strict-order score of ``FmModelMapper.serving_kernel``), its
+  plain version and launch count;
 * ``_build`` — builds ``csrc/*.cu`` with ``nvcc`` at first use and
   loads the library with ``ctypes``.
 

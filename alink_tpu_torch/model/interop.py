@@ -12,7 +12,15 @@ either package), the way the tree train ops build theirs. A fitted
 pipeline saved by the JAX package (``PipelineModel.save``, the
 ``"alink_tpu.pipeline.v1"`` JSON) loads as the port's ``PipelineModel``:
 every stage class maps to the port's class of the same module path and
-name, and its model table comes through ``MTable.from_json_rows``.
+name, and its model table comes through ``MTable.from_json_rows``. The
+FM and LDA model tables are both packages' ``(model_id, model_info)``
+rows of the simple converter, carried by
+:func:`simple_model_table_from_reference`, or built from a trainer's
+arrays (:func:`fm_model_from_numpy`, :func:`lda_model_from_numpy`); the
+Word2Vec table's ``(word, vec)`` rows by
+:func:`word2vec_table_from_reference` or :func:`word2vec_model_from_numpy`.
+A table the port saves loads in the JAX package from its rows the same
+way (``MTable(table.to_rows(), schema)`` there), bit for bit.
 """
 
 from __future__ import annotations
@@ -150,3 +158,69 @@ def pipeline_model_from_reference(obj_or_path: Union[str, dict]):
         return "alink_tpu_torch." + name[len(_REFERENCE):]
 
     return stages_from_json(obj, rename)
+
+
+def simple_model_table_from_reference(rows: Iterable[Tuple[Any, Any]]
+                                      ) -> MTable:
+    """The port's table of a simple-converter model (FM, LDA, ALS, ...)
+    from the JAX package's ``(model_id, model_info)`` rows (e.g.
+    ``table.to_rows()`` on the JAX side)."""
+    from .converters import SimpleModelDataConverter
+    return MTable([(int(_plain(i)), str(_plain(info))) for i, info in rows],
+                  SimpleModelDataConverter.SCHEMA)
+
+
+def fm_model_from_numpy(w0: float, w: np.ndarray, V: np.ndarray, *,
+                        is_regression: bool,
+                        label_values: Sequence[Any] = (),
+                        vector_col: Optional[str] = None,
+                        feature_cols: Optional[Sequence[str]] = None,
+                        label_type: str = AlinkTypes.STRING) -> MTable:
+    """An FM model table from an FM trainer's arrays (``fm_train`` of
+    either package): ``w0``, ``w`` (dim,), ``V`` (dim, k);
+    ``label_values[0]`` is the positive label."""
+    from ..operator.batch.classification.fm_ops import (FmModelData,
+                                                        FmModelDataConverter)
+    return FmModelDataConverter().save_model(FmModelData(
+        float(w0), np.asarray(w, np.float64), np.asarray(V, np.float64),
+        bool(is_regression), vector_col,
+        list(feature_cols) if feature_cols else None,
+        [_plain(v) for v in label_values], label_type))
+
+
+def lda_model_from_numpy(gamma: np.ndarray, alpha, beta: float,
+                         vocab: Sequence[str], method: str = "em",
+                         log_likelihood: float = 0.0,
+                         log_perplexity: float = 0.0) -> MTable:
+    """An LDA model table from the ``(V + 1, k)`` ``gamma`` layout (the
+    word-topic counts with the topic totals last), the alpha vector (or
+    one value), beta, the vocabulary and the method (``em`` or
+    ``online``)."""
+    from ..operator.batch.clustering.lda_ops import (LdaModelData,
+                                                     LdaModelDataConverter)
+    gamma = np.asarray(gamma, np.float64)
+    k = gamma.shape[1]
+    a = np.asarray(alpha, np.float64)
+    return LdaModelDataConverter().save_model(LdaModelData(
+        k, list(vocab), gamma, np.full((k,), float(a)) if a.ndim == 0 else a,
+        float(beta), method, float(log_likelihood), float(log_perplexity)))
+
+
+def word2vec_model_from_numpy(vocab: Sequence[str],
+                              vectors: np.ndarray) -> MTable:
+    """A Word2Vec model table, ``(word, vec)`` rows, from a trainer's
+    vocabulary and (V, D) vectors."""
+    from ..operator.common.nlp.word2vec import word2vec_model_table
+    return word2vec_model_table(list(vocab), np.asarray(vectors))
+
+
+def word2vec_table_from_reference(rows: Iterable[Tuple[Any, Any]]) -> MTable:
+    """The port's Word2Vec table from the JAX package's ``(word, vec)``
+    rows: each vector (the JAX package's ``DenseVector`` or an array)
+    becomes the port's ``DenseVector`` of the same float64 values."""
+    words, vecs = [], []
+    for word, vec in rows:
+        words.append(str(_plain(word)))
+        vecs.append(np.asarray(getattr(vec, "data", vec), np.float64))
+    return word2vec_model_from_numpy(words, np.asarray(vecs).reshape(
+        len(words), -1))

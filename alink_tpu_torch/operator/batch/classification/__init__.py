@@ -1,8 +1,14 @@
 """Batch classification (and tree regression) operators of the port
 (counterpart: ``alink_tpu/operator/batch/classification``). The tree
-family and the linear classifiers (logistic regression, linear SVM,
-Softmax, the perceptron) are ported; FM, MLPC and naive Bayes wait for
+family, the linear classifiers (logistic regression, linear SVM,
+Softmax, the perceptron) and FM are ported; MLPC and naive Bayes wait for
 later slices."""
+
+from .fm_ops import (BaseFmTrainBatchOp, FmClassifierPredictBatchOp,
+                     FmClassifierTrainBatchOp, FmModelData,
+                     FmModelDataConverter, FmModelInfo, FmModelInfoBatchOp,
+                     FmModelMapper, FmPredictBatchOp,
+                     FmRegressorPredictBatchOp, FmRegressorTrainBatchOp)
 
 from .linear import (BaseLinearTrainBatchOp, LinearModelPredictBatchOp,
                      LinearSvmPredictBatchOp, LinearSvmTrainBatchOp,
@@ -31,4 +37,9 @@ __all__ = ["GbdtTrainBatchOp", "GbdtRegTrainBatchOp",
            "LinearModelPredictBatchOp", "LogisticRegressionPredictBatchOp",
            "LinearSvmTrainBatchOp", "LinearSvmPredictBatchOp",
            "SoftmaxTrainBatchOp", "SoftmaxPredictBatchOp",
-           "PerceptronTrainBatchOp", "PerceptronPredictBatchOp"]
+           "PerceptronTrainBatchOp", "PerceptronPredictBatchOp",
+           "BaseFmTrainBatchOp", "FmClassifierTrainBatchOp",
+           "FmRegressorTrainBatchOp", "FmPredictBatchOp",
+           "FmClassifierPredictBatchOp", "FmRegressorPredictBatchOp",
+           "FmModelData", "FmModelDataConverter", "FmModelInfo",
+           "FmModelInfoBatchOp", "FmModelMapper"]

@@ -1,3 +1,2 @@
 """Clustering internals of the port (counterpart:
-``alink_tpu/operator/common/clustering``): KMeans. LDA waits for its
-slice (ROADMAP A7)."""
+``alink_tpu/operator/common/clustering``): KMeans and LDA."""

@@ -222,30 +222,38 @@ def train_rmse(uf, if_, bids, brw):
 
 def als_train(users: np.ndarray, items: np.ndarray, ratings: np.ndarray,
               p: AlsTrainParams, env: Optional[MLEnvironment] = None,
-              num_users: Optional[int] = None, num_items: Optional[int] = None
+              num_users: Optional[int] = None, num_items: Optional[int] = None,
+              dtype: torch.dtype = torch.float32
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (user_factors (U, rank), item_factors (I, rank), rmse_curve)
-    as float32 host arrays; ``len(rmse_curve)`` is the measured number of
-    iterations run. Runs on ``env``'s device (the default session's when
-    none is given)."""
+    as host arrays (the factors in ``dtype``, the curve float32);
+    ``len(rmse_curve)`` is the measured number of iterations run. Runs on
+    ``env``'s device (the default session's when none is given).
+    ``dtype``: float32, the JAX package's arithmetic; float64 runs the
+    same ops from the same (float32) initial draws, to tell float32
+    rounding from a fault (card against CPU)."""
     env = env or MLEnvironmentFactory.get_default()
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype}: want torch.float32 or "
+                         f"torch.float64")
+    fdt = np.float64 if dtype == torch.float64 else np.float32
     users = np.asarray(users, np.int32)
     items = np.asarray(items, np.int32)
-    ratings = np.asarray(ratings, np.float32)
+    ratings = np.asarray(np.asarray(ratings, np.float32), fdt)
     U = int(num_users if num_users is not None else users.max() + 1)
     I = int(num_items if num_items is not None else items.max() + 1)
     rank = p.rank
     rng = np.random.RandomState(p.seed)
     # the JAX package's draws; its float32 training reads them in float32
-    uf0 = np.asarray(rng.rand(U, rank).astype(np.float32) / np.sqrt(rank),
-                     np.float32)
-    if0 = np.asarray(rng.rand(I, rank).astype(np.float32) / np.sqrt(rank),
-                     np.float32)
+    uf0 = np.asarray(np.asarray(rng.rand(U, rank).astype(np.float32)
+                                / np.sqrt(rank), np.float32), fdt)
+    if0 = np.asarray(np.asarray(rng.rand(I, rank).astype(np.float32)
+                                / np.sqrt(rank), np.float32), fdt)
     nw = env.num_workers
     nnz = len(ratings)
     L = -(-max(nnz, 1) // nw)
     ids = np.zeros((nw * L, 2), np.int32)          # id-0 padding rows
-    rw = np.zeros((nw * L, 2), np.float32)         # weight-0 padding rows
+    rw = np.zeros((nw * L, 2), fdt)                # weight-0 padding rows
     ids[:nnz, 0] = users
     ids[:nnz, 1] = items
     rw[:nnz, 0] = ratings
@@ -349,9 +357,9 @@ def als_train(users: np.ndarray, items: np.ndarray, ratings: np.ndarray,
              .init_with_broadcast_data("il", il.astype(np.int64))
              .init_with_broadcast_data("jl", jl.astype(np.int64))
              .init_with_broadcast_data("unpack", unpack)
-             .init_with_broadcast_data("eye", np.eye(rank, dtype=np.float32))
+             .init_with_broadcast_data("eye", np.eye(rank, dtype=fdt))
              .add(step))
-    queue.set_program_key(("als", U, I, freeze_config(p)))
+    queue.set_program_key(("als", U, I, freeze_config(p), str(dtype)))
     if p.tol > 0:
         # KMeansIterTermination analogue: stop when the train-RMSE moves
         # less than tol between supersteps, after a burn-in of

@@ -22,7 +22,8 @@ _LAZY.update((f"{n}PredictStreamOp", ".predict_ops") for n in (
     "LogisticRegression", "LinearSvm", "Softmax", "Perceptron", "Gbdt",
     "GbdtReg", "RandomForest", "RandomForestReg", "DecisionTree",
     "DecisionTreeReg", "LinearReg", "RidgeReg", "LassoReg", "LinearSvr",
-    "KMeans", "StandardScaler", "MinMaxScaler", "MaxAbsScaler", "Imputer"))
+    "KMeans", "StandardScaler", "MinMaxScaler", "MaxAbsScaler", "Imputer",
+    "Fm", "DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec"))
 
 __all__ = ["BaseSinkStreamOp", "CheckpointSinkStreamOp",
            "CollectSinkStreamOp", "CsvSinkStreamOp", "LibSvmSinkStreamOp",

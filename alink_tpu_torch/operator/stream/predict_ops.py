@@ -8,29 +8,29 @@ micro-batch through the batch op's model mapper
 (stream/utils/ModelMapStreamOp). Here each twin is generated from its
 batch class: the same mapper and the same params.
 
-Ported, for the families the port has (19 twins): the linear ones
+Ported, for the families the port has (23 twins): the linear ones
 (``LogisticRegression``, ``LinearSvm``, ``Softmax``, ``Perceptron``,
 ``LinearReg``, ``RidgeReg``, ``LassoReg``, ``LinearSvr``), the trees
 (``Gbdt``, ``GbdtReg``, ``RandomForest``, ``RandomForestReg``,
-``DecisionTree``, ``DecisionTreeReg``), ``KMeans`` and the column
+``DecisionTree``, ``DecisionTreeReg``), ``Fm``, ``KMeans``, the column
 scalers (``StandardScaler``, ``MinMaxScaler``, ``MaxAbsScaler``,
-``Imputer``). A twin takes ``device=`` as the port's entry points do
-(``cuda`` unless the caller asks for the CPU; raises without CUDA) and
-hands it to a mapper that takes one (KMeans assigns there); the linear,
-tree and scaler mappers map on the host, as their batch ops do. With
-``ALINK_TPU_SERVE_COMPILED`` on, a twin whose mapper has a serving
-kernel (the linear and tree ones) scores through ``CompiledPredictor``
-on its device (``ModelMapStreamOp``'s compiled route).
+``Imputer``) and the NLP ones (``DocCountVectorizer``,
+``DocHashCountVectorizer``, ``Word2Vec``). A twin takes ``device=`` as
+the port's entry points do (``cuda`` unless the caller asks for the CPU;
+raises without CUDA) and hands it to a mapper that takes one (KMeans
+assigns there); the other mappers map on the host, as their batch ops
+do. With ``ALINK_TPU_SERVE_COMPILED`` on, a twin whose mapper has a
+serving kernel (the linear, tree and FM ones) scores through
+``CompiledPredictor`` on its device (``ModelMapStreamOp``'s compiled
+route; FM's through the FM score kernel, ``kernels/fm.py``).
 
-Waiting with their batch ops (ROADMAP A7): ``NaiveBayesText``,
-``NaiveBayes``, ``Fm``, ``MultilayerPerceptron``, ``Glm``,
-``IsotonicReg``, ``AftSurvivalReg``, ``Gmm``, ``BisectingKMeans``, the
-vector scalers and imputer (``VectorStandardScaler``,
-``VectorMinMaxScaler``, ``VectorMaxAbsScaler``, ``VectorImputer``), the
-indexers (``StringIndexer``, ``MultiStringIndexer``,
-``IndexToString``), ``OneHot``, ``QuantileDiscretizer``, ``Pca`` and
-the NLP ones (``DocCountVectorizer``, ``DocHashCountVectorizer``,
-``Word2Vec``).
+Waiting with their batch ops (ROADMAP A7(c)): ``NaiveBayesText``,
+``NaiveBayes``, ``MultilayerPerceptron``, ``Glm``, ``IsotonicReg``,
+``AftSurvivalReg``, ``Gmm``, ``BisectingKMeans``, the vector scalers and
+imputer (``VectorStandardScaler``, ``VectorMinMaxScaler``,
+``VectorMaxAbsScaler``, ``VectorImputer``), the indexers
+(``StringIndexer``, ``MultiStringIndexer``, ``IndexToString``),
+``OneHot``, ``QuantileDiscretizer`` and ``Pca``.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ _BATCH_PREDICT_OPS = {
     "RandomForestRegPredictStreamOp": ("..batch.classification.tree_ops", "RandomForestRegPredictBatchOp"),
     "DecisionTreePredictStreamOp": ("..batch.classification.tree_ops", "DecisionTreePredictBatchOp"),
     "DecisionTreeRegPredictStreamOp": ("..batch.classification.tree_ops", "DecisionTreeRegPredictBatchOp"),
+    "FmPredictStreamOp": ("..batch.classification.fm_ops", "FmPredictBatchOp"),
     # regression
     "LinearRegPredictStreamOp": ("..batch.regression.linear", "LinearRegPredictBatchOp"),
     "RidgeRegPredictStreamOp": ("..batch.regression.linear", "RidgeRegPredictBatchOp"),
@@ -68,6 +69,10 @@ _BATCH_PREDICT_OPS = {
     "MinMaxScalerPredictStreamOp": ("..batch.dataproc.scalers", "MinMaxScalerPredictBatchOp"),
     "MaxAbsScalerPredictStreamOp": ("..batch.dataproc.scalers", "MaxAbsScalerPredictBatchOp"),
     "ImputerPredictStreamOp": ("..batch.dataproc.scalers", "ImputerPredictBatchOp"),
+    # nlp
+    "DocCountVectorizerPredictStreamOp": ("..batch.nlp", "DocCountVectorizerPredictBatchOp"),
+    "DocHashCountVectorizerPredictStreamOp": ("..batch.nlp", "DocHashCountVectorizerPredictBatchOp"),
+    "Word2VecPredictStreamOp": ("..batch.nlp", "Word2VecPredictBatchOp"),
 }
 
 __all__ = sorted(_BATCH_PREDICT_OPS)

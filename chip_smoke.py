@@ -408,6 +408,43 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    ``HealthAlertError`` at the first checkpoint boundary with that
    snapshot on disk, which then resumes.
 
+21. FM, LDA and Word2Vec with their text front end (after 20; TF32 off):
+   (a) ``FmClassifierTrainBatchOp`` on phase 16's 100,000 Criteo-shape
+   rows (39 one-hot slots of 65,536; ``num_factor`` 10, 10 epochs of 8
+   mini-batches): two float32 card runs bitwise, P3 once a mini-batch on
+   one plan; ``fm_train`` at one mini-batch an epoch in float64 on the
+   first 20,000 rows, card within rtol 1e-10 of the CPU on ``w0``, ``w``,
+   ``V`` and the loss curve; P3 (``kernels/rows.py``) bitwise to its
+   plain version at the gradient's shape (3,900,000 x 12 over 65,536, f32
+   and f64); P4 (``kernels/fm.py``) bitwise to its plain version at every
+   bucket 1-512, sparse and dense (1,024 features), f32 and f64; the
+   model served by ``CompiledPredictor`` on 8,192 held-out rows, P4 once
+   a 512-row chunk, labels equal to the float64 host ``map_table``'s
+   outside the rounding band; (b) LDA on a seeded corpus shaped like 20
+   Newsgroups' training split (11,314 docs of Poisson(150) tokens over
+   30,000 words, 20 planted topics), ``em``, ``gibbs`` and ``online``
+   (sub-sampling 0.25, offset 1) at 10 iterations: two card runs bitwise
+   each, P3 once a superstep on one plan (em, online), the planted topics
+   recovered (``LDA_MIN_RECOVERED`` at cosine 0.9 and
+   ``LDA_MIN_MEAN_COSINE``, each method's lowest reading of both packages
+   on the CPU over 5 seeds: ``tools/lda_recovery.py``), Gibbs' counts
+   totalling the tokens exactly; the float64
+   E-step on the card within rtol 1e-10 of the CPU's from one ``gamma0``;
+   ``LdaTrainBatchOp`` on the first 2,000 docs' text and
+   ``LdaPredictBatchOp``'s topics on the card equal to the CPU mapper's
+   away from ties; (c) Word2Vec (the op's widths: 100, window 5, batch
+   256; 2 epochs) on a text8-shaped corpus (Zipf over 30,000 words,
+   200,000 tokens): two float32 card runs bitwise, P3 twice a batch, P3
+   bitwise at the ``in`` and ``out`` scatters' shapes, float64 card vs CPU
+   within 1e-10 and float32 within ``W2V_TOL`` (the CPU test's) on the
+   corpus cut to 20,000 and 2,000 tokens, device ops a batch from the
+   profiler; (d) ``DocCountVectorizer`` and ``DocHashCountVectorizer`` on
+   (b)'s corpus equal to counts made with numpy and the native hash, and
+   ``dryrun_multichip``'s Gibbs LDA, Word2Vec and FM legs on the card.
+   P3's and P4's kernel, device, host, plain and library times and bounds
+   at every case. Phase 18(c) also runs the implicit case in float64, the
+   card within ``ALS_IMPLICIT_F64_TOL`` of the CPU.
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -5845,6 +5882,9 @@ ALS_CARD_CPU_TOL, ALS_CURVE_RTOL = 1e-4, 1e-5
 # (tests/test_torch_als.py measures the JAX package's own float32-to-float64
 # gap at 8.4e-4 to 1.8e-3 after 6 supersteps)
 ALS_IMPLICIT_TOL = 5e-3
+# the same case in float64: the card within rounding of the CPU (the
+# float32 gap is then float32 rounding amplified by the conditioning)
+ALS_IMPLICIT_F64_TOL = 1e-9
 ALS_HELD, ALS_TOPK_USERS, ALS_TOPK, ALS_MICRO = 100_000, 1000, 10, 4096
 TWIN_MICRO, TWIN_KM_ROWS, TWIN_EVAL_ROWS = 1024, 131_072, 20_000
 ALS_STAGES = (("contributions", "gather_contributions"),
@@ -5866,9 +5906,10 @@ def als_data(U, I, nnz, rank=ALS_RANK):
     return users, items, ratings, (uf_true, if_true), rng
 
 
-def als_run(data, U, I, steps, dev, **kw):
-    """``als_train`` at rank 10, lambda 0.1 on ``dev``: (uf, if_, curve,
-    seconds)."""
+def als_run(data, U, I, steps, dev, dtype=None, **kw):
+    """``als_train`` at rank 10, lambda 0.1 on ``dev`` (in ``dtype``,
+    float32 when none is given): (uf, if_, curve, seconds)."""
+    import torch
     from alink_tpu_torch.common.mlenv import MLEnvironment
     from alink_tpu_torch.operator.common.recommendation.als import (
         AlsTrainParams, als_train)
@@ -5878,7 +5919,7 @@ def als_run(data, U, I, steps, dev, **kw):
     t0 = time.perf_counter()
     uf, if_, curve = als_train(data[0], data[1], data[2], p,
                                env=MLEnvironment(device=dev), num_users=U,
-                               num_items=I)
+                               num_items=I, dtype=dtype or torch.float32)
     return uf, if_, curve, time.perf_counter() - t0
 
 
@@ -6094,7 +6135,8 @@ def als_bench_large(dev, card):
 
 def als_operators(data, dev, card):
     """18(c): the operator path at (a)'s ratings, and the implicit and
-    nonnegative modes card vs CPU."""
+    nonnegative modes card vs CPU (the implicit one in float64 too)."""
+    import torch
     from alink_tpu_torch.common.mtable import MTable
     from alink_tpu_torch.operator.batch.evaluation import \
         EvalRegressionBatchOp
@@ -6212,6 +6254,22 @@ def als_operators(data, dev, card):
         modes[mode] = {"factor_max_gap_of_largest": fgap,
                        "curve_max_rel_gap": cgap, "card_s": g[3],
                        "cpu_s": c[3], "curve": g[2].tolist()}
+    # the implicit case in float64, card against CPU: rounding, or a fault?
+    g = als_run(data, U, I, ALS_MODE_STEPS, dev, dtype=torch.float64,
+                implicit_prefs=True)
+    c = als_run(data, U, I, ALS_MODE_STEPS, "cpu", dtype=torch.float64,
+                implicit_prefs=True)
+    fgap = max(float(np.abs(x - y).max() / np.abs(y).max())
+               for x, y in zip(g[:2], c[:2]))
+    require(fgap <= ALS_IMPLICIT_F64_TOL,
+            f"implicit_prefs in float64: the card within "
+            f"{ALS_IMPLICIT_F64_TOL} of the CPU's factors over "
+            f"{ALS_MODE_STEPS} supersteps ({fgap})")
+    modes["implicit_prefs_f64"] = {
+        "factor_max_gap_of_largest": fgap, "card_s": g[3], "cpu_s": c[3],
+        "curve": g[2].tolist(),
+        "float32_gap_over_float64": modes["implicit_prefs"][
+            "factor_max_gap_of_largest"] / max(fgap, 1e-300)}
     out["modes"] = modes
     # dryrun_multichip's ALS leg (__graft_entry__.py:130-137) on the card
     leg = AlsTrainBatchOp(user_col="u", item_col="i", rate_col="r", rank=2,
@@ -7379,6 +7437,769 @@ def phase_health(kernels, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21. FM, LDA and Word2Vec with their text front end: P3 and P4
+# ---------------------------------------------------------------------------
+
+ROW_SRC = "alink_tpu_torch/kernels/csrc/row_scatter.cu"
+FM_SRC = "alink_tpu_torch/kernels/csrc/fm_score.cu"
+FM_K, FM_EPOCHS, FM_BATCHES = 10, 10, 8          # FmClassifierTrainBatchOp
+FM_F64_ROWS, FM_F64_EPOCHS = 20_000, 3           # the float64 card-vs-CPU gate
+FM_RTOL = 1e-10
+FM_DENSE_DIM = 1024                              # P4's dense layout
+FM_BUCKETS = (1, 8, 32, 128, 512)
+LDA_DOCS, LDA_LEN, LDA_VOCAB, LDA_K, LDA_ITERS = 11_314, 150, 30_000, 20, 10
+LDA_ONLINE = dict(subsample=0.25, tau0=1.0)      # 10 supersteps that learn
+LDA_ESTEP_DOCS, LDA_PREDICT_DOCS = 2048, 2000
+LDA_COSINE, LDA_TIE = 0.9, 1e-3
+# planted topics (of 20) whose best learned topic reaches LDA_COSINE, and
+# the mean over the planted topics of their best cosine: each the lowest
+# that the JAX package and the port read on the CPU at this corpus over
+# seeds 0-4 (tools/lda_recovery.py; the means floored to 2 digits). Ten
+# iterations leave some planted topics merged in both packages; 0.22 is
+# the mean of a topic that learned nothing.
+LDA_MIN_RECOVERED = {"em": 14, "gibbs": 0, "online": 10}
+LDA_MIN_MEAN_COSINE = {"em": 0.91, "gibbs": 0.65, "online": 0.83}
+W2V_TOKENS, W2V_VOCAB, W2V_DOC_LEN, W2V_EPOCHS = 200_000, 30_000, 1000, 2
+# card against CPU, float32: tests/test_torch_nlp.py::W2V_TOL
+W2V_TOL = 1e-5
+W2V_F64_TOL = 1e-10
+# the corpora (cut to their first tokens) of the card-vs-CPU checks: on the
+# whole corpus the float32 gap grows to 4.5e-4 over 7,868 batches (my chip
+# call 5), the association of cuBLAS' batched products against the CPU's
+W2V_F64_TOKENS = 20_000
+W2V_F32_TOKENS = (2_000, 20_000)
+W2V_PROFILED_TOKENS = 20_000
+
+
+class Laps:
+    """Host-clock laps of a leg's stages: ``lap(name)`` records the time
+    since the last lap under ``name``."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.laps[name] = round(now - self.t, 3)
+        self.t = now
+
+
+def device_ms_seen(fn, part: str, reps: int = 10, sessions: int = 3):
+    """:func:`device_ms` of ``fn``'s kernels, or ``None`` when none of
+    ``sessions`` profiler sessions recorded one (after long unprofiled
+    runs this process's profiler can record no kernel at all)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            us = float(getattr(e, "self_device_time_total", 0) or 0)
+            if us > 0 and part in e.key:
+                name = re.search(r"(\w+_kernel)", e.key)
+                key = name.group(1) if name else e.key
+                per[key] = per.get(key, 0.0) + us / reps / 1e3
+        if per:
+            return sum(per.values()), per
+    return None, {}
+
+
+def p3_case(kr, kl, state, keys, terms):
+    """P3 (``kernels/rows.py::scatter_rows``) on the card against its
+    plain version (``index_add_`` on CPU copies, ordered there), bitwise
+    (a NaN equal to any NaN); its times: kernel (events), device (the
+    profiler's time of the kernel and, above ``SMALL_MAX``, the plan's),
+    host (enqueue), plain (CPU, host clock), ``index_add_`` on the card
+    (atomic, a yardstick only); the bytes bound (terms and keys read
+    once, each touched row read and written once) and the adds over the
+    peak rate."""
+    import torch
+    got = state.clone()
+    kr.scatter_rows(got, keys, terms)
+    want = kr.scatter_rows_plain(state.cpu().clone(), keys.cpu(),
+                                 terms.cpu())
+    torch.cuda.synchronize()
+    ok = same_bits(got.cpu(), want)[0]
+    M, C = terms.shape
+    require(ok, f"P3 bitwise to its plain version at S={state.shape[0]} "
+                f"C={C} M={M} {state.dtype}")
+    st = state.clone()
+    fn = lambda: kr.scatter_rows(st, keys, terms)    # noqa: E731
+    lib = lambda: st.index_add_(0, keys, terms)       # noqa: E731
+    k_ms, lib_ms = cuda_ms_turns(fn, lib, trials=9, reps=10)
+    dev_ms, per = device_ms_seen(fn, "")
+    h_ms = host_ms(fn, trials=9, reps=10)
+    sc, kc, tc = state.cpu().clone(), keys.cpu(), terms.cpu()
+    t0 = time.perf_counter()
+    kr.scatter_rows_plain(sc, kc, tc)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    touched = int(torch.unique(keys).numel())
+    es = terms.element_size()
+    nbytes = M * C * es + M * 4 + 2 * touched * C * es
+    kind = "f64" if terms.dtype == torch.float64 else "f32"
+    bound, by = _bound(nbytes, M * C, kind)
+    return {"bitwise": True, "max_abs_err": 0.0, "kernel_ms": k_ms,
+            "device_ms": dev_ms, "device_kernels": per, "host_ms": h_ms,
+            "plain_ms": plain_ms, "plain_where": "CPU (index_add_)",
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "touched_rows": touched, "path": "one block"
+            if M <= kr.SMALL_MAX else "plan + walk"}
+
+
+def p4_case(kfm, model, idx, val, profiled=True):
+    """P4 (``kernels/fm.py::fm_scores``) against its plain version on the
+    card, bitwise; kernel, device and host times, the plain version's
+    time and the bound (the rows' values and indices read once, each
+    row of w and V that an index names read once: all of them in the
+    dense layout, the distinct indices' in the sparse one; the margins
+    written; 3 k + 1 products and as many adds a position)."""
+    import torch
+    got = kfm.fm_scores(model, idx, val)
+    want = kfm.fm_scores_plain(model, idx, val)
+    torch.cuda.synchronize()
+    require(same_bits(got, want)[0],
+            f"P4 bitwise to its plain version at {tuple(val.shape)} "
+            f"{'sparse' if idx is not None else 'dense'} {val.dtype}")
+    n, width = val.shape
+    k = model[2].shape[1]
+    fn = lambda: kfm.fm_scores(model, idx, val)       # noqa: E731
+    k_ms = cuda_ms(fn, trials=9, reps=10)
+    dev_ms = device_ms_seen(fn, "fm_score")[0] if profiled else None
+    h_ms = host_ms(fn, trials=9, reps=10)
+    plain_ms = cuda_ms(lambda: kfm.fm_scores_plain(model, idx, val),
+                       trials=1, reps=1, warm=1)
+    es = val.element_size()
+    rows = width if idx is None else int(torch.unique(idx).numel())
+    nbytes = (n * width * (es + (4 if idx is not None else 0))
+              + (rows * (k + 1) + 1) * es + n * es)
+    kind = "f64" if val.dtype == torch.float64 else "f32"
+    bound, by = _bound(nbytes, n * width * (6 * k + 2) + n * (3 * k + 3),
+                       kind)
+    return {"bitwise": True, "max_abs_err": 0.0, "kernel_ms": k_ms,
+            "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "model_rows": rows}
+
+
+def _fm_scale(m, idx, val):
+    """The magnitude of FM rows' terms: |w0| + sum |x w| + 0.5 sum_f
+    ((sum |x||V|)^2 + q_f) (host float64)."""
+    w, V = np.asarray(m.w), np.asarray(m.V)
+    sa = (np.abs(val)[..., None] * np.abs(V[idx])).sum(1)
+    q = ((val ** 2)[..., None] * (V ** 2)[idx]).sum(1)
+    return abs(m.w0) + np.abs(val * w[idx]).sum(1) + 0.5 * (sa ** 2 + q).sum(1)
+
+
+def fm_leg(kr, kfm, kl, card):
+    """21(a): FM on phase 16's 100,000 Criteo-shape rows."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.operator.batch.classification.fm_ops import (
+        FmClassifierTrainBatchOp, FmModelDataConverter, FmModelMapper)
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.dataproc.feature_extract import \
+        extract_design
+    from alink_tpu_torch.operator.common.fm.fm import (FmTrainParams,
+                                                        fm_predict_margin,
+                                                        fm_train)
+    from alink_tpu_torch.operator.common.linear.base import encode_labels
+    from alink_tpu_torch.serving import CompiledPredictor
+    out = {}
+    lap = Laps()
+    train = criteo_softmax_rows(7, SPS_ROWS)
+    held = criteo_softmax_rows(8, SPS_HELD)
+    lap("rows")
+    kw = dict(vector_col="features", label_col="bin", num_factor=FM_K,
+              num_epochs=FM_EPOCHS)
+    tables = []
+    for run in range(2):
+        _reset(kr, kfm, kl)
+        t0 = time.perf_counter()
+        op = FmClassifierTrainBatchOp(**kw).link_from(MemSourceBatchOp(train))
+        tables.append(op.get_output_table())
+        torch.cuda.synchronize()
+        if run == 0:
+            out["op_s"] = time.perf_counter() - t0
+            out["main_path_launches"] = _counts(kr, kfm, kl)
+    require(tables[0].to_rows() == tables[1].to_rows(),
+            "two float32 FM card trainings give bitwise equal model tables")
+    launches = out["main_path_launches"]
+    require(launches["row_scatter"] == FM_EPOCHS * FM_BATCHES
+            and launches["run_plan"] == 1,
+            f"FM launched P3 once a mini-batch on one plan: {launches}")
+    curve = np.asarray(op.get_side_output(0).get_output_table().col("loss"))
+    out["loss_curve"] = curve.tolist()
+    lap("two ops")
+    # the trainer alone: ms a superstep, rows x epochs / s
+    design = extract_design(train, None, "features", np.float32)
+    _, y = encode_labels(train.col("bin"))
+    data = {"idx": design["idx"], "val": design["val"],
+            "y": y.astype(np.float32), "w": np.ones(SPS_ROWS, np.float32)}
+    p = FmTrainParams(num_factors=FM_K, num_epochs=FM_EPOCHS,
+                      learn_rate=0.05, batches_per_epoch=FM_BATCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fm_train(data, design["dim"], p, env=MLEnvironment(device="cuda"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out.update(train_s=secs, ms_a_superstep=secs / FM_EPOCHS * 1e3,
+               rows_epochs_per_s=SPS_ROWS * FM_EPOCHS / secs)
+    # float64, one mini-batch an epoch (the mask all ones): card vs CPU
+    d64 = {k: (v[:FM_F64_ROWS].astype(np.float64)
+               if v.dtype == np.float32 else v[:FM_F64_ROWS])
+           for k, v in data.items()}
+    p64 = FmTrainParams(num_factors=FM_K, num_epochs=FM_F64_EPOCHS,
+                        learn_rate=0.05, batches_per_epoch=1)
+    g = fm_train(d64, design["dim"], p64, env=MLEnvironment(device="cuda"))
+    c = fm_train(d64, design["dim"], p64, env=MLEnvironment(device="cpu"))
+    gaps = [float(np.max(np.abs(np.asarray(a) - np.asarray(b)))
+                  / max(float(np.max(np.abs(np.asarray(b)))), 1e-300))
+            for a, b in zip(g[:4], c[:4])]
+    require(max(gaps) <= FM_RTOL,
+            f"FM float64 on the card within rtol {FM_RTOL} of the CPU on "
+            f"w0, w, V and the loss curve: {gaps}")
+    out["f64_card_vs_cpu"] = dict(zip(("w0", "w", "V", "loss"), gaps))
+    lap("trainer and f64")
+    # P3 at the gradient's shapes
+    dev = torch.device("cuda")
+    keys = torch.from_numpy(design["idx"].reshape(-1)).to(dev)
+    rng = np.random.RandomState(21)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    p3 = {}
+    for dt in (torch.float32, torch.float64):
+        terms = torch.randn((keys.numel(), FM_K + 2), generator=gen,
+                            dtype=dt, device=dev)
+        state = torch.zeros((design["dim"], FM_K + 2), dtype=dt, device=dev)
+        p3[f"fm grad {'f32' if dt == torch.float32 else 'f64'}"] = p3_case(
+            kr, kl, state, keys.to(torch.int32), terms)
+    out["p3"] = p3
+    lap("p3")
+    # P4 at every bucket, sparse (the model's 39 slots padded to 40) and
+    # dense (a seeded model of 1024 features), f32 and f64
+    m = FmModelDataConverter().load_model(tables[0])
+    p4 = {}
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        sparse_model = (torch.tensor([m.w0], dtype=dt, device=dev),
+                        torch.tensor(m.w, dtype=dt, device=dev),
+                        torch.tensor(m.V, dtype=dt, device=dev))
+        dense_model = (torch.tensor([0.1], dtype=dt, device=dev),
+                       torch.tensor(rng.standard_normal(FM_DENSE_DIM) * 0.05,
+                                    dtype=dt, device=dev),
+                       torch.tensor(rng.standard_normal(
+                           (FM_DENSE_DIM, FM_K)) * 0.05, dtype=dt,
+                           device=dev))
+        for b in FM_BUCKETS:
+            idx = np.zeros((b, 40), np.int32)
+            val = np.zeros((b, 40))
+            idx[:, :NNZ] = design["idx"][:b]
+            val[:, :NNZ] = design["val"][:b]
+            p4[f"sparse {tag} {b}"] = p4_case(
+                kfm, sparse_model, torch.from_numpy(idx).to(dev),
+                torch.tensor(val, dtype=dt, device=dev), b == 512)
+            X = rng.standard_normal((b, FM_DENSE_DIM)) * (
+                rng.rand(b, FM_DENSE_DIM) < 0.5)
+            p4[f"dense {tag} {b}"] = p4_case(
+                kfm, dense_model, None, torch.tensor(X, dtype=dt,
+                                                     device=dev), b == 512)
+    out["p4"] = p4
+    lap("p4")
+    # the model served by CompiledPredictor: labels equal to the float64
+    # host map_table's outside the float32 rounding band
+    mapper = FmModelMapper(tables[0].schema, held.schema,
+                           Params({"prediction_col": "pred"}))
+    mapper.load_model(tables[0])
+    _reset(kr, kfm, kl)
+    pred = CompiledPredictor(mapper, device="cuda")
+    t0 = time.perf_counter()
+    served = [str(v) for v in pred.predict_table(held).col("pred")]
+    out["serve_s"] = time.perf_counter() - t0
+    out["serving_launches"] = _counts(kr, kfm, kl)
+    require(out["serving_launches"]["fm_score"] == -(-SPS_HELD // 512),
+            f"P4 once a 512-row chunk: {out['serving_launches']}")
+    host = [str(v) for v in mapper.map_table(held).col("pred")]
+    hd = extract_design(held, None, "features", np.float64,
+                        vector_size=design["dim"])
+    margin = fm_predict_margin(m.w0, m.w, m.V, hd)
+    clear = np.abs(margin) > 64 * U32 * _fm_scale(m, hd["idx"], hd["val"])
+    require(all(a == b for a, b, ok in zip(served, host, clear) if ok),
+            "CompiledPredictor FM labels equal map_table's outside the "
+            "rounding band")
+    out.update(in_band=int((~clear).sum()),
+               held_auc=rank_auc(np.asarray(held.col("bin")), margin))
+    lap("served")
+    out["laps_s"] = lap.laps
+    print(f"fm (a) [{card}]: op {out['op_s']:.3f} s, trainer "
+          f"{out['train_s']:.3f} s ({out['ms_a_superstep']:.3f} ms a "
+          f"superstep, {out['rows_epochs_per_s']:.1f} rows x epochs / s), "
+          f"launches {launches}; f64 card vs CPU {out['f64_card_vs_cpu']}; "
+          f"served {SPS_HELD} rows in {out['serve_s']:.3f} s "
+          f"({out['in_band']} in the band, held-out AUC "
+          f"{out['held_auc']:.4f}); P3 {p3}; P4 f32 512 "
+          f"{p4['sparse f32 512']}; laps {lap.laps}", flush=True)
+    return out
+
+
+def newsgroups_corpus(seed):
+    """A corpus shaped like 20 Newsgroups' training split: 11,314 docs
+    of Poisson(150) tokens (at least 20) over 30,000 words, from 20
+    planted topics, each a Zipf distribution over its own block of 1,500
+    words; a doc draws 90 % of its tokens from its topic and 10 % from a
+    second one. Returns (planted (k, V), ids, cnts (bag of words, padded),
+    token arrays per doc)."""
+    r = np.random.RandomState(seed)
+    block = LDA_VOCAB // LDA_K
+    zipf = 1.0 / np.arange(1, block + 1)
+    zipf /= zipf.sum()
+    perm = np.stack([r.permutation(block) for _ in range(LDA_K)])
+    planted = np.zeros((LDA_K, LDA_VOCAB))
+    for t in range(LDA_K):
+        planted[t, t * block + perm[t]] = zipf
+    lens = np.maximum(r.poisson(LDA_LEN, LDA_DOCS), 20)
+    main = r.randint(0, LDA_K, LDA_DOCS)
+    second = r.randint(0, LDA_K, LDA_DOCS)
+    doc = np.repeat(np.arange(LDA_DOCS), lens)
+    topic = np.where(r.rand(doc.size) < 0.9, main[doc], second[doc])
+    rank = r.choice(block, doc.size, p=zipf)
+    words = topic * block + perm[topic, rank]
+    ends = np.cumsum(lens)
+    docs = np.split(words, ends[:-1])
+    bags = [np.unique(d, return_counts=True) for d in docs]
+    L = max(len(b[0]) for b in bags)
+    ids = np.zeros((LDA_DOCS, L), np.int32)
+    cnts = np.zeros((LDA_DOCS, L))
+    for i, (u, c) in enumerate(bags):
+        ids[i, :len(u)] = u
+        cnts[i, :len(c)] = c
+    return planted, ids, cnts, docs
+
+
+def _best_cosines(planted, word_topic):
+    learned = np.asarray(word_topic, np.float64).T
+    learned = learned / np.maximum(np.linalg.norm(learned, axis=1,
+                                                  keepdims=True), 1e-300)
+    p = planted / np.linalg.norm(planted, axis=1, keepdims=True)
+    return (p @ learned.T).max(1)
+
+
+def lda_leg(kr, kfm, kl, card):
+    """21(b): LDA at 20 Newsgroups' shape, em / gibbs / online."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch.clustering.lda_ops import (
+        LdaPredictBatchOp, LdaTrainBatchOp)
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.clustering import lda as tl
+    t0 = time.perf_counter()
+    lap = Laps()
+    planted, ids, cnts, docs = newsgroups_corpus(5)
+    tokens = float(cnts.sum())
+    # the planted topics' cosine with the corpus' word distribution: what
+    # a topic that learned nothing would score
+    freq = np.zeros(LDA_VOCAB)
+    np.add.at(freq, ids.reshape(-1), cnts.reshape(-1))
+    out = {"corpus_s": time.perf_counter() - t0, "tokens": tokens,
+           "max_distinct": int(ids.shape[1]),
+           "unlearned_cosine": float(_best_cosines(planted,
+                                                   freq[:, None]).mean())}
+    env = MLEnvironment(device="cuda")
+    methods = {
+        "em": lambda: tl.em_lda_train(ids, cnts, LDA_K, LDA_VOCAB,
+                                      num_iter=LDA_ITERS, env=env, seed=3),
+        "gibbs": lambda: tl.gibbs_lda_train(ids, cnts, LDA_K, LDA_VOCAB,
+                                            num_iter=LDA_ITERS, env=env,
+                                            seed=3),
+        "online": lambda: tl.online_lda_train(
+            ids, cnts, LDA_K, LDA_VOCAB, num_iter=LDA_ITERS, env=env,
+            seed=3, **LDA_ONLINE)}
+    recs, launches = {}, {}
+    for name, run in methods.items():
+        _reset(kr, kfm, kl)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches[name] = _counts(kr, kfm, kl)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        b = run()
+        require(all(np.array_equal(np.asarray(x), np.asarray(y))
+                    for x, y in zip(a, b)),
+                f"LDA {name}: two card runs bitwise")
+        wt = (a[0] / a[0].sum(1, keepdims=True)).T if name == "online" \
+            else a[0]
+        cos = _best_cosines(planted, wt)
+        recovered = int((cos >= LDA_COSINE).sum())
+        require(recovered >= LDA_MIN_RECOVERED[name]
+                and cos.mean() >= LDA_MIN_MEAN_COSINE[name],
+                f"LDA {name}: {recovered} planted topics recovered (best "
+                f"cosine >= {LDA_COSINE}), want {LDA_MIN_RECOVERED[name]}; "
+                f"mean best cosine {cos.mean()}, want "
+                f"{LDA_MIN_MEAN_COSINE[name]}")
+        rec = {"s": secs, "ms_a_superstep": secs / LDA_ITERS * 1e3,
+               "tokens_per_s": tokens * LDA_ITERS / secs,
+               "peak_gib": peak, "recovered": recovered,
+               "best_cosines": np.sort(cos).round(4).tolist(),
+               "log_perplexity": float(a[-1]), "launches": launches[name]}
+        if name == "gibbs":
+            require(float(a[0].sum()) == tokens == float(a[1].sum()),
+                    "Gibbs' word-topic counts total the token count exactly")
+        else:
+            require(launches[name]["row_scatter"] == LDA_ITERS
+                    and launches[name]["run_plan"] == 1,
+                    f"LDA {name}: P3 once a superstep on one plan: "
+                    f"{launches[name]}")
+        recs[name] = rec
+    out["methods"] = recs
+    lap("trainers")
+    # the float64 E-step, card against CPU, from one gamma0
+    n = LDA_ESTEP_DOCS
+    r = np.random.RandomState(4)
+    eEb = r.rand(LDA_K, LDA_VOCAB) + 0.05
+    g0 = r.gamma(100.0, 0.01, (n, LDA_K))
+    res = []
+    for where in ("cuda", "cpu"):
+        i_t = torch.from_numpy(ids[:n]).to(where)
+        c_t = torch.from_numpy(cnts[:n]).to(where)
+        res.append(tl._e_step(
+            i_t, c_t, torch.from_numpy(eEb).to(where), 0.05,
+            torch.from_numpy(g0).to(where), 20,
+            tl.corpus_support(i_t, c_t, LDA_VOCAB)))
+    gaps = [float((x.cpu() - y).abs().max() / y.abs().max())
+            for x, y in zip(res[0], res[1])]
+    require(max(gaps) <= 1e-10,
+            f"the float64 E-step on the card within rtol 1e-10 of the CPU's "
+            f"(gamma, sstats): {gaps}")
+    out["estep_f64_gap"] = gaps
+    lap("estep f64")
+    # P3 at the E-step's sum (M = the corpus' bag entries, k columns)
+    keys = torch.from_numpy(ids.reshape(-1)[cnts.reshape(-1) != 0]).cuda()
+    terms = torch.from_numpy(r.rand(keys.numel(), LDA_K).astype(
+        np.float32)).cuda()
+    out["p3"] = {"lda segment_sum f32": p3_case(
+        kr, kl, torch.zeros((LDA_VOCAB, LDA_K), device="cuda"), keys,
+        terms)}
+    lap("p3")
+    # the ops: em trained through LdaTrainBatchOp on the first docs' text,
+    # the topics of LdaPredictBatchOp on the card equal to the CPU mapper's
+    texts = MTable({"doc": [" ".join(f"w{t}" for t in d) for d in docs]},
+                   "doc STRING")
+    lap("text")
+    sub = MTable({"doc": list(texts.col("doc"))[:LDA_PREDICT_DOCS]},
+                 "doc STRING")
+    t1 = time.perf_counter()
+    op = LdaTrainBatchOp(selected_col="doc", topic_num=LDA_K,
+                         num_iter=LDA_ITERS, seed=3).link_from(
+        MemSourceBatchOp(sub))
+    out["op_s"] = time.perf_counter() - t1
+    preds = {}
+    for where in ("cuda", "cpu"):
+        preds[where] = LdaPredictBatchOp(
+            selected_col="doc", prediction_col="t",
+            prediction_detail_col="p", device=where).link_from(
+            op, MemSourceBatchOp(sub)).get_output_table()
+    probs = np.asarray([json.loads(s) for s in preds["cpu"].col("p")])
+    top2 = np.sort(probs, 1)[:, -2:]
+    away = top2[:, 1] - top2[:, 0] > LDA_TIE
+    require(np.array_equal(np.asarray(preds["cuda"].col("t"))[away],
+                           np.asarray(preds["cpu"].col("t"))[away]),
+            "LdaPredictBatchOp's topics on the card equal the CPU mapper's "
+            "away from ties")
+    out["predict_ties"] = int((~away).sum())
+    out["launches"] = launches
+    lap("ops")
+    out["laps_s"] = lap.laps
+    print(f"lda (b) [{card}]: {int(tokens)} tokens, {out['max_distinct']} "
+          f"distinct words a doc at most; {recs}; E-step f64 gap {gaps}; "
+          f"op {out['op_s']:.3f} s; predict ties {out['predict_ties']}; "
+          f"laps {lap.laps}", flush=True)
+    return out, texts
+
+
+def text8_corpus(seed):
+    """A text8-shaped corpus: Zipf(1) draws over 30,000 word ranks,
+    200,000 tokens in rows of 1,000."""
+    from alink_tpu_torch.common.mtable import MTable
+    r = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, W2V_VOCAB + 1)
+    p /= p.sum()
+    words = r.choice(W2V_VOCAB, W2V_TOKENS, p=p)
+    rows = [" ".join(f"t{w}" for w in words[i:i + W2V_DOC_LEN])
+            for i in range(0, W2V_TOKENS, W2V_DOC_LEN)]
+    return MTable({"doc": rows}, "doc STRING")
+
+
+def w2v_layout(table, p):
+    """``word2vec_train``'s own vocabulary (by count, then word, at
+    ``min_count``), skip-gram pairs and Huffman paths of ``table``'s
+    ``doc`` column: (vocab, pairs, points)."""
+    from alink_tpu_torch.operator.common.nlp.text import _tokens
+    from alink_tpu_torch.operator.common.nlp.word2vec import (build_huffman,
+                                                              skipgram_pairs)
+    counts = {}
+    for v in table.col("doc"):
+        for t in _tokens(v):
+            counts[t] = counts.get(t, 0) + 1
+    vocab = [w for w, c in sorted(counts.items(), key=lambda kv: (-kv[1],
+                                                                  kv[0]))
+             if c >= p.min_count]
+    index = {w: i for i, w in enumerate(vocab)}
+    docs = [[index[t] for t in _tokens(v) if t in index]
+            for v in table.col("doc")]
+    pairs = skipgram_pairs([d for d in docs if len(d) > 1], p.window, p.seed)
+    points, _, _ = build_huffman([counts[w] for w in vocab])
+    return vocab, pairs, points
+
+
+def w2v_p3_inputs(vocab, pairs, points, p, dev):
+    """P3's inputs at the `in` and `out` scatters of Word2Vec's first
+    batch: (name, state, keys, terms), seeded float32 states and terms."""
+    import torch
+    r = np.random.RandomState(9)
+    pr = pairs[:p.batch_size]
+    cases = []
+    for name, state_rows, keys in (
+            ("w2v in", len(vocab), pr[:, 0].copy()),
+            ("w2v out", max(len(vocab) - 1, 1),
+             points[pr[:, 1]].reshape(-1))):
+        keys = torch.from_numpy(keys.astype(np.int32)).to(dev)
+        terms = torch.from_numpy(r.standard_normal(
+            (keys.numel(), p.vector_size)).astype(np.float32)).to(dev)
+        state = torch.from_numpy(r.standard_normal(
+            (state_rows, p.vector_size)).astype(np.float32)).to(dev)
+        cases.append((name, state, keys, terms))
+    return cases
+
+
+def w2v_leg(kr, kfm, kl, card):
+    """21(c): Word2Vec on a text8-shaped corpus at the op's widths. P3's
+    cases and the profiled run come first: after the long unprofiled
+    trainings this process's profiler records no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.nlp.word2vec import (
+        Word2VecParams, word2vec_train)
+    table = text8_corpus(8)
+    p = Word2VecParams(num_iter=W2V_EPOCHS)          # the op's defaults
+    out = {}
+    vocab, pairs, points = w2v_layout(table, p)
+    batches = -(-pairs.shape[0] // p.batch_size)
+    L = points.shape[1]
+    # P3 at the `in` and `out` scatters' shapes of the first batch
+    p3 = {}
+    for name, state, keys, terms in w2v_p3_inputs(
+            vocab, pairs, points, p, torch.device("cuda")):
+        p3[f"{name} f32"] = p3_case(kr, kl, state, keys, terms)
+    out["p3"] = p3
+    # device ops a batch: the profiler over one epoch of the corpus cut
+    # to its first rows
+    small = type(table)({"doc": list(table.col("doc"))[
+        :W2V_PROFILED_TOKENS // W2V_DOC_LEN]}, "doc STRING")
+    ps = Word2VecParams(num_iter=1)
+    word2vec_train(small, "doc", ps, env=MLEnvironment(device="cuda"))
+    torch.cuda.synchronize()
+    _reset(kr, kfm, kl)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        word2vec_train(small, "doc", ps, env=MLEnvironment(device="cuda"))
+        torch.cuda.synchronize()
+    small_batches = _counts(kr, kfm, kl)["row_scatter"] // 2
+    ops = sum(int(e.count) for e in prof.key_averages()
+              if float(getattr(e, "self_device_time_total", 0) or 0) > 0)
+    out.update(profiled_batches=small_batches,
+               device_ops_a_batch=ops / max(small_batches, 1))
+    # the main path: two float32 trainings on the card, bitwise
+    runs = []
+    for run in range(2):
+        _reset(kr, kfm, kl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(word2vec_train(table, "doc", p,
+                                   env=MLEnvironment(device="cuda")))
+        torch.cuda.synchronize()
+        if run == 0:
+            out["s"] = time.perf_counter() - t0
+            out["main_path_launches"] = _counts(kr, kfm, kl)
+    require(runs[0][0] == runs[1][0] == vocab
+            and np.array_equal(runs[0][1], runs[1][1]),
+            "two Word2Vec card trainings bitwise")
+    vec = runs[0][1]
+    launches = out["main_path_launches"]
+    require(launches["row_scatter"] == 2 * batches * W2V_EPOCHS,
+            f"Word2Vec launched P3 twice a batch: {launches}, {batches} "
+            f"batches an epoch")
+    def cut(tokens):
+        return type(table)({"doc": list(table.col("doc"))[
+            :tokens // W2V_DOC_LEN]}, "doc STRING")
+
+    def gap_of(tokens, dtype):
+        a = word2vec_train(cut(tokens), "doc", p,
+                           env=MLEnvironment(device="cuda"), dtype=dtype)[1]
+        b = word2vec_train(cut(tokens), "doc", p,
+                           env=MLEnvironment(device="cpu"), dtype=dtype)[1]
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    # float64 on the card against the CPU: the same arithmetic, so a gap
+    # past rounding is a fault
+    t0 = time.perf_counter()
+    gap = gap_of(W2V_F64_TOKENS, torch.float64)
+    out["f64_check_s"] = time.perf_counter() - t0
+    require(gap <= W2V_F64_TOL,
+            f"Word2Vec float64 on the card within {W2V_F64_TOL} of the CPU's "
+            f"largest |vector| ({W2V_F64_TOKENS} tokens): {gap}")
+    # float32, card against CPU: within the CPU test's tolerance on the
+    # shorter cut; the longer one printed
+    f32 = {t: gap_of(t, torch.float32) for t in W2V_F32_TOKENS}
+    require(f32[W2V_F32_TOKENS[0]] <= W2V_TOL,
+            f"Word2Vec float32 on the card within {W2V_TOL} of the CPU's "
+            f"largest |vector| ({W2V_F32_TOKENS[0]} tokens): {f32}")
+    out["f32_card_vs_cpu"] = f32
+    out.update(vocab=len(vocab), pairs=int(pairs.shape[0]), levels=int(L),
+               batches_an_epoch=batches, f64_card_vs_cpu=gap,
+               pairs_per_s=pairs.shape[0] * W2V_EPOCHS / out["s"],
+               ms_an_epoch=out["s"] / W2V_EPOCHS * 1e3)
+    print(f"w2v (c) [{card}]: {out['vocab']} words, {out['pairs']} pairs, "
+          f"L {L}, {batches} batches an epoch; {out['s']:.3f} s "
+          f"({out['pairs_per_s']:.1f} pairs/s, {out['ms_an_epoch']:.3f} ms "
+          f"an epoch), {out['device_ops_a_batch']:.1f} device ops a batch; "
+          f"float64 card vs CPU {gap} ({out['f64_check_s']:.3f} s), "
+          f"float32 {f32}; P3 {p3}", flush=True)
+    return out
+
+
+def graft_legs(kr, kfm, kl, texts, card):
+    """21(d): the vectorizers on (b)'s corpus, and dryrun_multichip's
+    three legs (__graft_entry__.py:187-220) at their own shapes."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        murmur32_cells
+    from alink_tpu_torch.operator.common.clustering.lda import \
+        gibbs_lda_train
+    from alink_tpu_torch.operator.common.fm.fm import FmTrainParams, fm_train
+    from alink_tpu_torch.operator.common.nlp.vectorizer import (
+        DocCountVectorizerModelConverter,
+        DocHashCountVectorizerModelConverter, train_doc_count_vectorizer,
+        train_doc_hash_count_vectorizer)
+    from alink_tpu_torch.operator.common.nlp.word2vec import (
+        Word2VecParams, word2vec_train)
+    out = {}
+    t0 = time.perf_counter()
+    dc = DocCountVectorizerModelConverter().load_model(
+        train_doc_count_vectorizer(texts, "doc"))
+    dh = DocHashCountVectorizerModelConverter().load_model(
+        train_doc_hash_count_vectorizer(texts, "doc", num_features=1 << 18))
+    out["vectorizers_s"] = time.perf_counter() - t0
+    # against counts made another way: numpy's unique over each doc's
+    # words, the native MurmurHash3 for the hashed slots
+    n_docs = texts.num_rows
+    toks = [np.asarray(str(d).split()) for d in texts.col("doc")]
+    words, df = np.unique(np.concatenate([np.unique(t) for t in toks]),
+                          return_counts=True)
+    order = np.lexsort((words, -df))
+    require(dc.vocab == list(words[order])
+            and np.allclose(dc.idf, np.log((1.0 + n_docs)
+                                           / (1.0 + df[order])),
+                            rtol=1e-14, atol=0),
+            "DocCountVectorizer's vocabulary and idf equal numpy's counts")
+    slot_of = dict(zip(words.tolist(), murmur32_cells(
+        np.asarray([w.encode() for w in words]), mod=1 << 18).tolist()))
+    hdf = {}
+    for t in toks:
+        for s in {slot_of[w] for w in np.unique(t).tolist()}:
+            hdf[s] = hdf.get(s, 0) + 1
+    require(sorted(dh.idf_map) == sorted(hdf) and all(
+        abs(dh.idf_map[s] - np.log((1.0 + n_docs) / (1.0 + c)))
+        <= 1e-14 * abs(dh.idf_map[s]) for s, c in hdf.items()),
+        "DocHashCountVectorizer's slots and idf equal the native hash's "
+        "counts")
+    out.update(vocab=len(dc.vocab), hashed_slots=len(dh.idf_map))
+    # dryrun_multichip's legs, one device
+    _reset(kr, kfm, kl)
+    rng = np.random.RandomState(0)
+    X = rng.randn(8, 16).astype(np.float32)
+    y = np.where(X[:, 0] > 0, 1.0, -1.0).astype(np.float32)
+    w = np.ones(8, np.float32)
+    env = MLEnvironment(device="cuda")
+    ids_l = rng.randint(0, 12, (2, 6)).astype(np.int32)
+    wt_l, _, _, _, _, perp_l = gibbs_lda_train(
+        ids_l, np.ones((2, 6), np.float64), k=2, V=12, num_iter=2, env=env)
+    require(np.isfinite(perp_l) and wt_l.shape == (12, 2),
+            "dryrun_multichip's Gibbs LDA leg")
+    wv_words = [f"tok{i}" for i in range(16)]
+    rows = [(" ".join(rng.choice(wv_words, 8)),) for _ in range(4)]
+    vocab_w, vecs_w = word2vec_train(
+        MTable(rows, "doc STRING"), "doc",
+        Word2VecParams(vector_size=4, min_count=1, num_iter=2, window=2,
+                       batch_size=16), env=env)
+    require(np.isfinite(vecs_w).all() and vecs_w.shape[1] == 4,
+            "dryrun_multichip's Word2Vec leg")
+    w0_fm, w_fm, V_fm, curve_fm, _ = fm_train(
+        {"X": X[:, :8], "y": y, "w": w}, 8,
+        FmTrainParams(num_factors=2, num_epochs=2), env=env)
+    require(np.isfinite(w_fm).all() and np.isfinite(V_fm).all()
+            and w_fm.shape == (8,) and V_fm.shape == (8, 2),
+            "dryrun_multichip's FM leg")
+    torch.cuda.synchronize()
+    out["legs"] = {"lda_log_perplexity": float(perp_l),
+                   "w2v_shape": list(vecs_w.shape),
+                   "fm_loss": np.asarray(curve_fm).tolist()}
+    out["legs_launches"] = _counts(kr, kfm, kl)
+    print(f"graft (d) [{card}]: vectorizers {out['vectorizers_s']:.3f} s "
+          f"({out['vocab']} words, {out['hashed_slots']} hashed slots) equal "
+          f"to numpy's and the native hash's counts; legs {out['legs']}",
+          flush=True)
+    return out
+
+
+def phase_text(kernels, card):
+    """21: FM, LDA and Word2Vec on the card. ``kernels`` are the kernel
+    modules ``rows``, ``fm`` and ``linear`` (the plan's)."""
+    import torch
+    kr, kfm, kl = kernels
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the dense products")
+    t0 = time.perf_counter()
+    out = {"card": card}
+    legs = {}
+    t1 = time.perf_counter()
+    out["fm"] = fm_leg(kr, kfm, kl, card)
+    legs["fm"], t1 = time.perf_counter() - t1, time.perf_counter()
+    out["lda"], texts = lda_leg(kr, kfm, kl, card)
+    legs["lda"], t1 = time.perf_counter() - t1, time.perf_counter()
+    out["w2v"] = w2v_leg(kr, kfm, kl, card)
+    legs["w2v"], t1 = time.perf_counter() - t1, time.perf_counter()
+    out["graft"] = graft_legs(kr, kfm, kl, texts, card)
+    legs["graft"] = time.perf_counter() - t1
+    out["leg_seconds"] = legs
+    print(f"phase 21 legs (s): {legs}", flush=True)
+    launches = {"row_scatter": 0, "fm_score": 0, "run_plan": 0}
+    for part in ([out["fm"]["main_path_launches"],
+                  out["fm"]["serving_launches"],
+                  out["w2v"]["main_path_launches"],
+                  out["graft"]["legs_launches"]]
+                 + list(out["lda"]["launches"].values())):
+        for k in launches:
+            launches[k] += part.get(k, 0)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7578,6 +8399,13 @@ def main(argv=None) -> int:
     print_online(online)
     health = phase_health((ks, kl, kf, kh), card)
 
+    # -- 21. FM, LDA and Word2Vec with their text front end: P3 and P4 ----
+    from alink_tpu_torch.kernels import fm as kfm
+    from alink_tpu_torch.kernels import rows as kr
+    text = phase_text((kr, kfm, kl), card)
+    print(f"phase 21: {text['seconds']:.1f} s, launches {text['launches']}",
+          flush=True)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -7763,7 +8591,46 @@ def main(argv=None) -> int:
                                                                0)
         rec["online_e2e_launches"] = online["launches"].get(rec["name"], 0)
         rec["health_launches"] = health["launches"].get(rec["name"], 0)
+        rec["text_launches"] = text["launches"].get(rec["name"], 0)
+    # the port-only ordered row scatter-add (P3): no TPU kernel; it replaces
+    # the JAX package's scatter-adds of wide rows (Word2Vec's embeddings,
+    # FM's gradient, LDA's segment_sum), at Word2Vec's `out` scatter
+    p3 = {**text["fm"]["p3"], **text["lda"]["p3"], **text["w2v"]["p3"]}
+    r = p3["w2v out f32"]
+    kernels.append({
+        "name": "row_scatter", "route": "cuda", "source": ROW_SRC,
+        "replaces": "alink_tpu/operator/common/nlp/word2vec.py:160",
+        "port_only": True, "launches": text["launches"]["row_scatter"],
+        "max_abs_err": 0.0, "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "plain_where": r["plain_where"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "bitwise": True, "kernel_ms": r["kernel_ms"],
+        "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+        "shape": "w2v out f32", "shapes": {k: {f: v[f] for f in (
+            "kernel_ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "path", "touched_rows")}
+            for k, v in p3.items()},
+        "phase21_launches": {"fm": text["fm"]["main_path_launches"][
+            "row_scatter"], "lda": {m: v["row_scatter"] for m, v in
+                                    text["lda"]["launches"].items()},
+            "w2v": text["w2v"]["main_path_launches"]["row_scatter"]}})
+    # the port-only FM score (P4): the JAX package's strict-order scan_sum
+    # FM serving programs, at the top bucket (sparse, f32)
+    p4 = text["fm"]["p4"]
+    r = p4["sparse f32 512"]
+    kernels.append({
+        "name": "fm_score", "route": "cuda", "source": FM_SRC,
+        "replaces": "alink_tpu/operator/batch/classification/fm_ops.py:284",
+        "port_only": True, "launches": text["launches"]["fm_score"],
+        "max_abs_err": 0.0, "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "bitwise": True, "kernel_ms": r["kernel_ms"],
+        "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+        "shape": "sparse f32 512 x 40", "shapes": {k: {f: v[f] for f in (
+            "kernel_ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by")} for k, v in p4.items()}})
     print(json.dumps({"main_path": {
+        "text": text,
         "online_e2e": online, "health": health,
         "serving_tier": serving, "als": als, "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,

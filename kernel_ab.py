@@ -9,7 +9,7 @@ this repository, timed in turns on one NVIDIA GPU.
 
 ``--parts`` names the parts below to measure (default: all of them:
 ``sparse``, ``walk``, ``split``, ``linear_grad``, ``lbfgs``, ``p2``,
-``steps``, ``drain``). Each tree named on the command line is measured in a process
+``steps``, ``drain``, ``p3``). Each tree named on the command line is measured in a process
 of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
@@ -82,7 +82,18 @@ a kernel and the library call it is held against are timed in turns):
   the median of 5 drains after a warm one (host clock, from a
   synchronize to a synchronize), without a monitor and, where the tree
   has ``common/health.py``, with a default ``HealthMonitor``, the two in
-  turns.
+  turns;
+* ``p3``: the ordered row scatter-add (``kernels/rows.py::scatter_rows``)
+  at Word2Vec's ``in`` and ``out`` scatters of one batch
+  (``chip_smoke.py``'s ``w2v_p3_inputs`` on its text8-shaped corpus,
+  float32, 100 columns), each call made as the trainer makes it (no plan
+  passed; ``small_path`` says whether the tree took P3's one-block path):
+  the wrapper and ``index_add_`` by CUDA events in turns, the device
+  time a call (``torch.profiler``, every kernel of the call, a plan's
+  too), the enqueue cost, the launches a call and bitwise to the plain
+  version on the CPU; then one epoch of ``word2vec_train`` on that corpus
+  (host clock from a synchronize to a synchronize, the median of 3 after
+  a warm one).
 """
 
 from __future__ import annotations
@@ -108,7 +119,7 @@ def _helpers(tree: Path):
 
 SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
 PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps",
-         "drain")
+         "drain", "p3")
 
 
 def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
@@ -201,6 +212,60 @@ def measure(tree: Path, parts=PARTS) -> dict:
         out["steps"] = step_times(h, kl, kf)
     if "drain" in parts:
         out["drain"] = drain_times(h)
+    if "p3" in parts:
+        out["p3"] = row_scatter_times(h)
+    return out
+
+
+def row_scatter_times(h, reps=3):
+    """``p3``: see the module's docstring."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.kernels import linear as kl
+    from alink_tpu_torch.kernels import rows as kr
+    from alink_tpu_torch.operator.common.nlp.word2vec import (
+        Word2VecParams, word2vec_train)
+    dev = torch.device("cuda")
+    table = h.text8_corpus(8)
+    p = Word2VecParams(num_iter=1)
+    vocab, pairs, points = h.w2v_layout(table, p)
+    out = {}
+    for name, state, keys, terms in h.w2v_p3_inputs(vocab, pairs, points, p,
+                                                    dev):
+        got = kr.scatter_rows(state.clone(), keys, terms)
+        want = kr.scatter_rows_plain(state.cpu(), keys.cpu(), terms.cpu())
+        st = state.clone()
+
+        def call():
+            kr.scatter_rows(st, keys, terms)
+
+        def lib():
+            st.index_add_(0, keys, terms)
+        k_ms, l_ms = h.cuda_ms_turns(call, lib, trials=9, reps=10)
+        dev_ms, per = h.device_ms_seen(call, "")
+        kr.reset_launch_counts()
+        kl.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        out[name] = {"bitwise": h.same_bits(got.cpu(), want)[0],
+                     "kernel_ms": k_ms, "index_add_ms": l_ms,
+                     "device_ms": dev_ms, "device_kernels": per,
+                     "host_ms": h.host_ms(call, trials=9, reps=10),
+                     "launches": {**kr.launch_counts(),
+                                  **kl.launch_counts()},
+                     "positions": int(keys.numel()),
+                     "small_path": keys.numel() <= getattr(kr, "SMALL_MAX",
+                                                           0)}
+    secs = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        word2vec_train(table, "doc", p, env=MLEnvironment(device="cuda"))
+        torch.cuda.synchronize()
+        if i:
+            secs.append(time.perf_counter() - t0)
+    out["epoch"] = {"s": float(np.median(secs)), "runs_s": secs,
+                    "batches": -(-int(pairs.shape[0]) // p.batch_size)}
     return out
 
 
@@ -564,6 +629,13 @@ def _summary(runs):
                 s[f"step {kind} {f}"] = med(rs, "steps", kind, f)
         for key in rs[0].get("drain", {}):
             s[f"drain {key} s"] = med(rs, "drain", key, "drain_s")
+        for key, rec in rs[0].get("p3", {}).items():
+            if key == "epoch":
+                s["p3 epoch s"] = med(rs, "p3", "epoch", "s")
+                continue
+            for f in ("kernel_ms", "index_add_ms", "device_ms", "host_ms"):
+                s[f"p3 {key} {f}"] = med(rs, "p3", key, f)
+            s[f"p3 {key} bitwise"] = all(r["p3"][key]["bitwise"] for r in rs)
         lb = rs[0].get("lbfgs")
         if lb:
             for f in ("ms_per_superstep", "device_busy_ms",

@@ -1,7 +1,8 @@
 """Slice 15 of the port: the stream predict twins and the tree pipeline
 on the CPU.
 
-Each of the 19 ``*PredictStreamOp`` twins maps a stream of seeded rows
+Each of the 20 ``*PredictStreamOp`` twins of numeric rows (the NLP ones
+map text: ``tests/test_torch_nlp.py`` holds them) maps a stream of seeded rows
 in 64-row micro-batches with a model the port trained
 (``device="cpu"``). Its rows equal the port's batch op's over the whole
 table, cell for cell (the same mapper). The JAX package's twin, given
@@ -74,6 +75,9 @@ CASES = {
                      dict(TREE, label_col="cls"), CLS_OUT),
     "DecisionTreeReg": (tcls.DecisionTreeRegTrainBatchOp,
                         dict(TREE, label_col="y"), REG_OUT),
+    "Fm": (tcls.FmClassifierTrainBatchOp,
+           dict(feature_cols=FEATS, label_col="bin", device="cpu",
+                dtype=torch.float64, num_epochs=3), CLS_OUT),
     "KMeans": (tclu.KMeansTrainBatchOp,
                dict(feature_cols=FEATS, k=3, device="cpu",
                     dtype=torch.float64), dict(prediction_col="p")),
@@ -135,10 +139,15 @@ def _cells(rows):
     return [tuple(repr(v) for v in r) for r in rows]
 
 
+# the twins of text rows, held row for row in tests/test_torch_nlp.py
+NLP_TWINS = ("DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec")
+
+
 def test_every_ported_family_has_its_twin():
     import alink_tpu_torch.operator.stream as tstream
-    assert len(tpo.__all__) == 19 == len(CASES)
-    assert sorted(f"{n}PredictStreamOp" for n in CASES) == tpo.__all__
+    assert len(tpo.__all__) == 23 == len(CASES) + len(NLP_TWINS)
+    assert sorted(f"{n}PredictStreamOp"
+                  for n in (*CASES, *NLP_TWINS)) == tpo.__all__
     # the package's lazily exported names are the module's twins
     assert sorted(k for k, v in tstream._LAZY.items()
                   if v == ".predict_ops") == tpo.__all__
