@@ -7513,7 +7513,7 @@ def device_ms_seen(fn, part: str, reps: int = 10, sessions: int = 3):
     return None, {}
 
 
-def p3_case(kr, kl, state, keys, terms):
+def p3_case(kr, kl, state, keys, terms, lat):
     """P3 (``kernels/rows.py::scatter_rows``) on the card against its
     plain version (``index_add_`` on CPU copies, ordered there), bitwise
     (a NaN equal to any NaN); its times: kernel (events), device (the
@@ -7521,7 +7521,10 @@ def p3_case(kr, kl, state, keys, terms):
     host (enqueue), plain (CPU, host clock), ``index_add_`` on the card
     (atomic, a yardstick only); the bytes bound (terms and keys read
     once, each touched row read and written once) and the adds over the
-    peak rate."""
+    peak rate; the chain bound (the longest run's dependent adds at the
+    probe's latency ``lat``, at the SM's top clock). On the plan's path
+    also the walk alone on a plan built before (``walk_ms``, events), as
+    FM and LDA call it."""
     import torch
     got = state.clone()
     kr.scatter_rows(got, keys, terms)
@@ -7538,11 +7541,19 @@ def p3_case(kr, kl, state, keys, terms):
     k_ms, lib_ms = cuda_ms_turns(fn, lib, trials=9, reps=10)
     dev_ms, per = device_ms_seen(fn, "")
     h_ms = host_ms(fn, trials=9, reps=10)
+    small = M <= kr.SMALL_MAX and state.shape[0] <= kr.SMALL_MAX_ROWS
+    walk_ms = None
+    if not small:
+        plan = kr.row_plan(keys, state.shape[0])
+        walk_ms = cuda_ms(lambda: kr.scatter_rows(st, keys, terms, plan),
+                          trials=9, reps=10)
     sc, kc, tc = state.cpu().clone(), keys.cpu(), terms.cpu()
     t0 = time.perf_counter()
     kr.scatter_rows_plain(sc, kc, tc)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    touched = int(torch.unique(keys).numel())
+    runs = torch.bincount(keys.long())
+    touched = int((runs > 0).sum())
+    longest = int(runs.max())
     es = terms.element_size()
     nbytes = M * C * es + M * 4 + 2 * touched * C * es
     kind = "f64" if terms.dtype == torch.float64 else "f32"
@@ -7551,8 +7562,54 @@ def p3_case(kr, kl, state, keys, terms):
             "device_ms": dev_ms, "device_kernels": per, "host_ms": h_ms,
             "plain_ms": plain_ms, "plain_where": "CPU (index_add_)",
             "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-            "touched_rows": touched, "path": "one block"
-            if M <= kr.SMALL_MAX else "plan + walk"}
+            "chain_bound_ms": chain_bound_ms(longest, kind, lat),
+            "longest_run": longest, "touched_rows": touched,
+            "walk_ms": walk_ms,
+            "path": "one launch" if small else "plan + walk"}
+
+
+def p3_edges(kr, kl, lat):
+    """P3 at its edges, each bitwise to its plain version (seeded,
+    float32 unless named): one run (every key equal) at C = 100 over
+    Word2Vec's 4,540 rows, M = 3,840 and ``SMALL_MAX``, f32 and f64;
+    C = 1, 12 (two runs a warp, f32 and f64) and 33 (a column group's
+    edges); keys at 0 and at S - 1 (the key ownership's edges);
+    ``SMALL_MAX + 1`` keys (the plan's path, f32 and f64), and 3,840
+    keys over ``SMALL_MAX_ROWS + 1`` rows (the plan's path by rows)."""
+    import torch
+    dev = torch.device("cuda")
+    r = np.random.RandomState(19)
+    S = 4540
+
+    def case(keys, C, dtype, rows=S):
+        keys = torch.from_numpy(np.asarray(keys, np.int32)).to(dev)
+        terms = torch.from_numpy(r.standard_normal((keys.numel(), C))).to(
+            dev, dtype)
+        state = torch.from_numpy(r.standard_normal((rows, C))).to(dev,
+                                                                  dtype)
+        return p3_case(kr, kl, state, keys, terms, lat)
+
+    def zipf(M):
+        return r.zipf(1.3, M) % S
+
+    out = {}
+    for M in (3840, kr.SMALL_MAX):
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            out[f"one run {M} x 100 {tag}"] = case(np.full(M, 7), 100, dt)
+    out["C=1 3840 f32"] = case(zipf(3840), 1, torch.float32)
+    out["C=12 3840 f32"] = case(zipf(3840), 12, torch.float32)
+    out["C=12 3840 f64"] = case(zipf(3840), 12, torch.float64)
+    out["C=33 3840 f32"] = case(zipf(3840), 33, torch.float32)
+    edge = zipf(3840)
+    edge[::3], edge[1::3] = 0, S - 1
+    out["keys 0 and S-1 3840 x 100 f32"] = case(edge, 100, torch.float32)
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        out[f"plan {kr.SMALL_MAX + 1} x 100 {tag}"] = case(
+            zipf(kr.SMALL_MAX + 1), 100, dt)
+    rows = kr.SMALL_MAX_ROWS + 1
+    out[f"plan 3840 x 100 over {rows} rows f32"] = case(
+        zipf(3840) * (rows // S) + 1, 100, torch.float32, rows)
+    return out
 
 
 def p4_case(kfm, model, idx, val, profiled=True):
@@ -7599,7 +7656,7 @@ def _fm_scale(m, idx, val):
     return abs(m.w0) + np.abs(val * w[idx]).sum(1) + 0.5 * (sa ** 2 + q).sum(1)
 
 
-def fm_leg(kr, kfm, kl, card):
+def fm_leg(kr, kfm, kl, card, lat):
     """21(a): FM on phase 16's 100,000 Criteo-shape rows."""
     import torch
     from alink_tpu_torch.common.mlenv import MLEnvironment
@@ -7682,7 +7739,7 @@ def fm_leg(kr, kfm, kl, card):
                             dtype=dt, device=dev)
         state = torch.zeros((design["dim"], FM_K + 2), dtype=dt, device=dev)
         p3[f"fm grad {'f32' if dt == torch.float32 else 'f64'}"] = p3_case(
-            kr, kl, state, keys.to(torch.int32), terms)
+            kr, kl, state, keys.to(torch.int32), terms, lat)
     out["p3"] = p3
     lap("p3")
     # P4 at every bucket, sparse (the model's 39 slots padded to 40) and
@@ -7793,7 +7850,7 @@ def _best_cosines(planted, word_topic):
     return (p @ learned.T).max(1)
 
 
-def lda_leg(kr, kfm, kl, card):
+def lda_leg(kr, kfm, kl, card, lat):
     """21(b): LDA at 20 Newsgroups' shape, em / gibbs / online."""
     import torch
     from alink_tpu_torch.common.mlenv import MLEnvironment
@@ -7891,7 +7948,7 @@ def lda_leg(kr, kfm, kl, card):
         np.float32)).cuda()
     out["p3"] = {"lda segment_sum f32": p3_case(
         kr, kl, torch.zeros((LDA_VOCAB, LDA_K), device="cuda"), keys,
-        terms)}
+        terms, lat)}
     lap("p3")
     # the ops: em trained through LdaTrainBatchOp on the first docs' text,
     # the topics of LdaPredictBatchOp on the card equal to the CPU mapper's
@@ -7964,9 +8021,10 @@ def w2v_layout(table, p):
     return vocab, pairs, points
 
 
-def w2v_p3_inputs(vocab, pairs, points, p, dev):
+def w2v_p3_inputs(vocab, pairs, points, p, dev, dtype=None):
     """P3's inputs at the `in` and `out` scatters of Word2Vec's first
-    batch: (name, state, keys, terms), seeded float32 states and terms."""
+    batch: (name, state, keys, terms), seeded states and terms (float32,
+    or ``dtype``)."""
     import torch
     r = np.random.RandomState(9)
     pr = pairs[:p.batch_size]
@@ -7980,11 +8038,13 @@ def w2v_p3_inputs(vocab, pairs, points, p, dev):
             (keys.numel(), p.vector_size)).astype(np.float32)).to(dev)
         state = torch.from_numpy(r.standard_normal(
             (state_rows, p.vector_size)).astype(np.float32)).to(dev)
+        if dtype is not None:
+            state, terms = state.to(dtype), terms.to(dtype)
         cases.append((name, state, keys, terms))
     return cases
 
 
-def w2v_leg(kr, kfm, kl, card):
+def w2v_leg(kr, kfm, kl, card, lat):
     """21(c): Word2Vec on a text8-shaped corpus at the op's widths. P3's
     cases and the profiled run come first: after the long unprofiled
     trainings this process's profiler records no kernel."""
@@ -8003,7 +8063,12 @@ def w2v_leg(kr, kfm, kl, card):
     p3 = {}
     for name, state, keys, terms in w2v_p3_inputs(
             vocab, pairs, points, p, torch.device("cuda")):
-        p3[f"{name} f32"] = p3_case(kr, kl, state, keys, terms)
+        p3[f"{name} f32"] = p3_case(kr, kl, state, keys, terms, lat)
+    for name, state, keys, terms in w2v_p3_inputs(
+            vocab, pairs, points, p, torch.device("cuda"), torch.float64):
+        if name == "w2v out":
+            p3[f"{name} f64"] = p3_case(kr, kl, state, keys, terms, lat)
+    p3.update(p3_edges(kr, kl, lat))
     out["p3"] = p3
     # device ops a batch: the profiler over one epoch of the corpus cut
     # to its first rows
@@ -8166,9 +8231,10 @@ def graft_legs(kr, kfm, kl, texts, card):
     return out
 
 
-def phase_text(kernels, card):
+def phase_text(kernels, card, lat):
     """21: FM, LDA and Word2Vec on the card. ``kernels`` are the kernel
-    modules ``rows``, ``fm`` and ``linear`` (the plan's)."""
+    modules ``rows``, ``fm`` and ``linear`` (the plan's); ``lat`` the
+    add-latency probe's reading (:func:`add_latency`)."""
     import torch
     kr, kfm, kl = kernels
     require(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -8177,11 +8243,11 @@ def phase_text(kernels, card):
     out = {"card": card}
     legs = {}
     t1 = time.perf_counter()
-    out["fm"] = fm_leg(kr, kfm, kl, card)
+    out["fm"] = fm_leg(kr, kfm, kl, card, lat)
     legs["fm"], t1 = time.perf_counter() - t1, time.perf_counter()
-    out["lda"], texts = lda_leg(kr, kfm, kl, card)
+    out["lda"], texts = lda_leg(kr, kfm, kl, card, lat)
     legs["lda"], t1 = time.perf_counter() - t1, time.perf_counter()
-    out["w2v"] = w2v_leg(kr, kfm, kl, card)
+    out["w2v"] = w2v_leg(kr, kfm, kl, card, lat)
     legs["w2v"], t1 = time.perf_counter() - t1, time.perf_counter()
     out["graft"] = graft_legs(kr, kfm, kl, texts, card)
     legs["graft"] = time.perf_counter() - t1
@@ -8402,7 +8468,7 @@ def main(argv=None) -> int:
     # -- 21. FM, LDA and Word2Vec with their text front end: P3 and P4 ----
     from alink_tpu_torch.kernels import fm as kfm
     from alink_tpu_torch.kernels import rows as kr
-    text = phase_text((kr, kfm, kl), card)
+    text = phase_text((kr, kfm, kl), card, lat)
     print(f"phase 21: {text['seconds']:.1f} s, launches {text['launches']}",
           flush=True)
 
@@ -8608,7 +8674,8 @@ def main(argv=None) -> int:
         "device_ms": r["device_ms"], "host_ms": r["host_ms"],
         "shape": "w2v out f32", "shapes": {k: {f: v[f] for f in (
             "kernel_ms", "device_ms", "host_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "path", "touched_rows")}
+            "bound_ms", "bound_by", "chain_bound_ms", "longest_run", "path",
+            "walk_ms", "touched_rows")}
             for k, v in p3.items()},
         "phase21_launches": {"fm": text["fm"]["main_path_launches"][
             "row_scatter"], "lda": {m: v["row_scatter"] for m, v in

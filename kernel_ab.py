@@ -87,13 +87,25 @@ a kernel and the library call it is held against are timed in turns):
   at Word2Vec's ``in`` and ``out`` scatters of one batch
   (``chip_smoke.py``'s ``w2v_p3_inputs`` on its text8-shaped corpus,
   float32, 100 columns), each call made as the trainer makes it (no plan
-  passed; ``small_path`` says whether the tree took P3's one-block path):
+  passed; ``small_path`` says whether the tree took P3's one-launch path),
+  the ``out`` batch again over the rows of a larger vocabulary
+  (``BIG_VOCAB_ROWS``: its keys spread by a constant factor, its runs
+  unchanged; where the tree caps the one-launch path's rows at
+  ``SMALL_MAX_ROWS``, also on each path forced, as ``... one launch``
+  and ``... plan``),
+  and at FM's gradient (``fm grad``: phase 21(a)'s design, 3,900,000 x 12
+  over 65,536) and LDA's statistics (``lda stats``: phase 21(b)'s corpus,
+  1,086,997 x 20 over 30,000), float32, each walking a plan built once
+  outside the timing, as their trainers do:
   the wrapper and ``index_add_`` by CUDA events in turns, the device
   time a call (``torch.profiler``, every kernel of the call, a plan's
   too), the enqueue cost, the launches a call and bitwise to the plain
-  version on the CPU; then one epoch of ``word2vec_train`` on that corpus
-  (host clock from a synchronize to a synchronize, the median of 3 after
-  a warm one).
+  version on the CPU; on a plan also ``gather_ms``, ``F.embedding_bag``
+  summing the same term rows a run in the walk's order (events): the
+  library's time for the walk's random reads; then one epoch of
+  ``word2vec_train`` on that corpus (host clock from a synchronize to a
+  synchronize, the median of 5 after a warm one; the summary also lists
+  every tree's epochs).
 """
 
 from __future__ import annotations
@@ -118,6 +130,8 @@ def _helpers(tree: Path):
 
 
 SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
+# rows of P3's larger-vocabulary `out` cases (``p3``)
+BIG_VOCAB_ROWS = (1 << 18, 1 << 19, 1_500_000)
 PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps",
          "drain", "p3")
 
@@ -217,27 +231,74 @@ def measure(tree: Path, parts=PARTS) -> dict:
     return out
 
 
-def row_scatter_times(h, reps=3):
-    """``p3``: see the module's docstring."""
+def p3_inputs(h, dev):
+    """``p3``'s cases: (name, state, keys, terms, plan given): Word2Vec's
+    ``in`` and ``out`` scatters of one batch (no plan: the trainer passes
+    none), FM's gradient at ``chip_smoke.py`` phase 21(a)'s design
+    (100,000 x 39 over 65,536, 12 columns) and LDA's statistics at 21(b)'s
+    corpus (its non-padding bag entries, 20 columns), both on a plan built
+    once, as their trainers build it."""
     import torch
-    from alink_tpu_torch.common.mlenv import MLEnvironment
-    from alink_tpu_torch.kernels import linear as kl
-    from alink_tpu_torch.kernels import rows as kr
-    from alink_tpu_torch.operator.common.nlp.word2vec import (
-        Word2VecParams, word2vec_train)
-    dev = torch.device("cuda")
+    from alink_tpu_torch.operator.common.dataproc.feature_extract import \
+        extract_design
+    from alink_tpu_torch.operator.common.nlp.word2vec import Word2VecParams
     table = h.text8_corpus(8)
     p = Word2VecParams(num_iter=1)
     vocab, pairs, points = h.w2v_layout(table, p)
+    cases = [(name, state, keys, terms, False) for name, state, keys, terms
+             in h.w2v_p3_inputs(vocab, pairs, points, p, dev)]
+    _, state, keys, terms, _ = cases[1]
+    for S in BIG_VOCAB_ROWS:
+        # the `out` batch's runs over a larger vocabulary's inner nodes
+        cases.append((f"w2v out {S} rows",
+                      torch.zeros((S, state.shape[1]), device=dev),
+                      keys * (S // state.shape[0]), terms, False))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    design = extract_design(h.criteo_softmax_rows(7, h.SPS_ROWS), None,
+                            "features", np.float32)
+    keys = torch.from_numpy(design["idx"].reshape(-1)).to(dev, torch.int32)
+    cases.append(("fm grad", torch.zeros((design["dim"], h.FM_K + 2),
+                                         device=dev), keys,
+                  torch.randn((keys.numel(), h.FM_K + 2), generator=gen,
+                              device=dev), True))
+    _, ids, cnts, _ = h.newsgroups_corpus(5)
+    keys = torch.from_numpy(ids.reshape(-1)[cnts.reshape(-1) != 0]).to(dev)
+    r = np.random.RandomState(6)
+    cases.append(("lda stats", torch.zeros((h.LDA_VOCAB, h.LDA_K),
+                                           device=dev), keys.to(torch.int32),
+                  torch.from_numpy(r.rand(keys.numel(), h.LDA_K).astype(
+                      np.float32)).to(dev), True))
+    return table, p, pairs, cases
+
+
+def row_scatter_times(h, reps=5):
+    """``p3``: see the module's docstring."""
+    import torch
+    import torch.nn.functional as F
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.kernels import linear as kl
+    from alink_tpu_torch.kernels import rows as kr
+    from alink_tpu_torch.operator.common.nlp.word2vec import word2vec_train
+    dev = torch.device("cuda")
+    table, p, pairs, cases = p3_inputs(h, dev)
     out = {}
-    for name, state, keys, terms in h.w2v_p3_inputs(vocab, pairs, points, p,
-                                                    dev):
-        got = kr.scatter_rows(state.clone(), keys, terms)
+    cap = getattr(kr, "SMALL_MAX_ROWS", None)
+    forced = {" one launch": 1 << 31, " plan": 0}
+    if cap is not None:
+        cases += [(c[0] + f, *c[1:]) for c in cases if "rows" in c[0]
+                  for f in forced]
+    for name, state, keys, terms, planned in cases:
+        if cap is not None:
+            kr.SMALL_MAX_ROWS = next((v for f, v in forced.items()
+                                      if name.endswith(f)), cap)
+        plan = kr.row_plan(keys, state.shape[0]) if planned else None
+        got = kr.scatter_rows(state.clone(), keys, terms, plan)
         want = kr.scatter_rows_plain(state.cpu(), keys.cpu(), terms.cpu())
         st = state.clone()
 
         def call():
-            kr.scatter_rows(st, keys, terms)
+            kr.scatter_rows(st, keys, terms, plan)
 
         def lib():
             st.index_add_(0, keys, terms)
@@ -247,15 +308,28 @@ def row_scatter_times(h, reps=3):
         kl.reset_launch_counts()
         call()
         torch.cuda.synchronize()
+        launches = {**kr.launch_counts(), **kl.launch_counts()}
+        gather_ms = None
+        if planned:
+            # the same term rows read in the walk's order and summed a
+            # run, by the library: the random-read yardstick of the walk
+            runs = int(plan.counts[0])
+            gather_ms = h.cuda_ms(functools.partial(
+                F.embedding_bag, plan.perm, terms, plan.starts[:runs],
+                mode="sum"), trials=9, reps=10)
         out[name] = {"bitwise": h.same_bits(got.cpu(), want)[0],
                      "kernel_ms": k_ms, "index_add_ms": l_ms,
                      "device_ms": dev_ms, "device_kernels": per,
                      "host_ms": h.host_ms(call, trials=9, reps=10),
-                     "launches": {**kr.launch_counts(),
-                                  **kl.launch_counts()},
+                     "launches": launches, "gather_ms": gather_ms,
+                     "rows": int(state.shape[0]),
                      "positions": int(keys.numel()),
-                     "small_path": keys.numel() <= getattr(kr, "SMALL_MAX",
-                                                           0)}
+                     "columns": int(terms.shape[1]), "plan_given": planned,
+                     "small_path": not planned
+                     and launches.get("run_plan", 0) == 0}
+        del got, want, st
+    if cap is not None:
+        kr.SMALL_MAX_ROWS = cap
     secs = []
     for i in range(reps + 1):
         torch.cuda.synchronize()
@@ -632,8 +706,11 @@ def _summary(runs):
         for key, rec in rs[0].get("p3", {}).items():
             if key == "epoch":
                 s["p3 epoch s"] = med(rs, "p3", "epoch", "s")
+                s["p3 epoch runs_s"] = sorted(
+                    x for r in rs for x in r["p3"]["epoch"]["runs_s"])
                 continue
-            for f in ("kernel_ms", "index_add_ms", "device_ms", "host_ms"):
+            for f in ("kernel_ms", "index_add_ms", "device_ms", "host_ms",
+                      "gather_ms"):
                 s[f"p3 {key} {f}"] = med(rs, "p3", key, f)
             s[f"p3 {key} bitwise"] = all(r["p3"][key]["bitwise"] for r in rs)
         lb = rs[0].get("lbfgs")
