@@ -33,8 +33,8 @@ key), and ``counts``, a device tensor of the runs, the heavy runs (at
 least :data:`HEAVY_MIN` terms: each walked by a cluster of two blocks,
 one walker thread fed by a block of producer warps), the medium runs
 (more than :data:`SHORT_MAX`: a warp each) and the short rest (a lane
-each). On the card it is one call of ``csrc/run_plan.cu`` (a radix
-sort, then the runs), and the kernels read ``counts``
+each). On the card it is one launch of ``csrc/run_plan.cu`` (a radix
+sort, then the runs, one cooperative grid), and the kernels read ``counts``
 from device memory, so nothing waits for the card: the launch grids come
 from upper bounds of the positions (:func:`launch_grid`). Its plain
 version, :func:`run_plan_plain` (torch ops and one host read), is the
@@ -91,10 +91,13 @@ SHORT_MAX = 32              # a short run's most length: one lane walks it
 _WARPS = 8                  # warps a light block (csrc/linear_grad.cu kWarps)
 _BLOCKS_PER_SM = 8          # light blocks an SM (2048 threads; registers may
 #                             allow fewer)
-_PLAN_THREADS = 1024        # csrc/run_plan.cu kThreads
-_PLAN_MAX_BLOCKS = 1024     # csrc/run_plan.cu kMaxBlocks
-_PLAN_MIN_CHUNK = 4096      # positions a plan block takes at the least
+_PLAN_THREADS = 512         # csrc/run_plan.cu kThreads
+PLAN_MIN_CHUNK = 4096       # positions a plan block takes at the least: up
+#                             to it the plan is one block, its data in
+#                             shared memory (PERF.md §6)
 _SORT_MAX_BITS = 9          # csrc/run_plan.cu kMaxDigitBits
+_PLAN_DIGITS = 1 << _SORT_MAX_BITS
+_PLAN_BLK = 5               # csrc/run_plan.cu kBlk
 
 
 class RunPlan(NamedTuple):
@@ -177,12 +180,13 @@ def run_plan_plain(keys: torch.Tensor, size: int) -> RunPlan:
                                 device=dev))
 
 
-def plan_blocks(M: int) -> Tuple[int, int]:
-    """``(chunk, blocks)`` of the card's plan over ``M > 0`` positions:
-    blocks of ``chunk`` positions (a multiple of the plan kernels' 1024
-    threads, at least 4096), at most 1024 blocks (each reads every
-    block's counts), the last one partial."""
-    per = max(_PLAN_MIN_CHUNK, -(-M // _PLAN_MAX_BLOCKS))
+def plan_grid(M: int, sms: int) -> Tuple[int, int]:
+    """``(chunk, blocks)`` of the card's plan over ``M > 0`` positions on
+    a card of ``sms`` SMs: one cooperative launch of blocks of ``chunk``
+    positions (a multiple of the kernel's 512 threads, at least
+    :data:`PLAN_MIN_CHUNK`), at most one block an SM, the last one
+    partial. Up to :data:`PLAN_MIN_CHUNK` positions that is one block."""
+    per = max(PLAN_MIN_CHUNK, -(-M // max(1, sms)))
     chunk = -(-per // _PLAN_THREADS) * _PLAN_THREADS
     return chunk, -(-M // chunk)
 
@@ -196,16 +200,33 @@ def sort_digits(size: int) -> Tuple[int, int]:
     return passes, max(1, -(-need // passes))
 
 
+@functools.lru_cache(maxsize=256)
+def _plan_layout(M: int, size: int, sms: int) -> Tuple[int, ...]:
+    """``(chunk, blocks, passes, bits, sizes)`` of the card's plan: its
+    grid, its sort's digits, and the lengths of the views of its one
+    int32 buffer (``csrc/run_plan.cu::alink_run_plan``): perm, starts,
+    slots, order, counts, then the kernel's scratch (the sorted keys, the
+    long runs and their lengths, the histogram, the digit totals, the
+    blocks' values)."""
+    chunk, blocks = plan_grid(M, sms)
+    passes, bits = sort_digits(size)
+    cap = M // (SHORT_MAX + 1) + 1
+    scratch = (M + 2 * cap + (_PLAN_DIGITS + _PLAN_BLK) * blocks
+               + _PLAN_DIGITS)
+    return chunk, blocks, passes, bits, (M, M + 1, M, M, 4, scratch)
+
+
 def run_plan(keys: torch.Tensor, size: int) -> RunPlan:
     """The plan of the keyed sums at ``keys`` (any shape, in ``[0,
-    size)``) on the keys' device. On the card (int32 keys): one call of
-    ``csrc/run_plan.cu``, a stable radix sort of the flat keys with their
-    positions (:func:`sort_digits`), then the runs (heads, a scan, the
-    long runs sorted by length in one block, the counts), with no host
-    read: a key outside ``[0, size)`` fails a device-side assert, which
-    the stream reports at its next synchronize. On the CPU:
-    :func:`run_plan_plain`, which raises ``IndexError``. No keys: a plan
-    of no runs."""
+    size)``) on the keys' device. On the card (int32 keys): one launch of
+    ``csrc/run_plan.cu`` into one int32 buffer (the plan's arrays are
+    views of it, beside the kernel's scratch): a stable radix sort of the
+    flat keys with their positions (:func:`sort_digits`), then the runs
+    (heads, a scan, the long runs sorted by length over the blocks, the
+    counts), with no host read: a key outside ``[0, size)`` fails a
+    device-side assert, which the stream reports at its next synchronize.
+    On the CPU: :func:`run_plan_plain`, which raises ``IndexError``. No
+    keys: a plan of no runs."""
     if keys.device.type == "cpu":
         return run_plan_plain(keys, size)
     flat = keys.reshape(-1).contiguous()
@@ -214,31 +235,22 @@ def run_plan(keys: torch.Tensor, size: int) -> RunPlan:
     if flat.dtype != torch.int32:
         raise ValueError(f"run_plan: want int32 keys on the card, got "
                          f"{flat.dtype}")
-    dev = flat.device
     if M == 0:
-        return _empty_plan(dev)
-    chunk, blocks = plan_blocks(M)
-    passes, bits = sort_digits(size)
-    plan = RunPlan(*(torch.empty(k, dtype=torch.int32, device=dev)
-                     for k in (M, M + 1, M, M, 4)))
-    # the kernels' scratch: the sort's keys and positions twice and its
-    # counts, each block's counts, the long runs twice
-    scratch = torch.empty(4 * M + ((1 << bits) + 3) * blocks
-                          + 2 * (M // (SHORT_MAX + 1) + 1),
-                          dtype=torch.int32, device=dev)
-    fns = _fns or _functions()
+        return _empty_plan(flat.device)
     index = flat.get_device()
+    chunk, blocks, passes, bits, sizes = _plan_layout(M, int(size),
+                                                      _sm_count(index))
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=flat.device)
+    perm, starts, slots, order, counts, _ = buf.split_with_sizes(sizes)
+    fns = _fns or _functions()
     rc = _build.call(fns["plan"], index, flat.data_ptr(), M, int(size),
-                     chunk, blocks, passes, bits, plan.perm.data_ptr(),
-                     plan.starts.data_ptr(), plan.slots.data_ptr(),
-                     plan.order.data_ptr(), plan.counts.data_ptr(),
-                     scratch.data_ptr(), scratch.numel())
+                     chunk, blocks, passes, bits, buf.data_ptr(), buf.numel())
     if rc != 0:
         msg = fns["plan_error_string"](rc).decode()
         raise RuntimeError(f"run_plan: kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
     _counts["run_plan"] += 1
-    return plan
+    return RunPlan(perm, starts, order, slots, counts)
 
 
 class GradPlan(NamedTuple):
@@ -309,8 +321,8 @@ def _functions() -> Dict[str, Callable[..., int]]:
             lib.alink_scatter_walk.restype = i
             lib.alink_linear_error_string.argtypes = [i]
             lib.alink_linear_error_string.restype = ctypes.c_char_p
-            plan.alink_run_plan.argtypes = [p, i, i, i, i, i, i, p, p, p, p,
-                                            p, p, ctypes.c_longlong, p]
+            plan.alink_run_plan.argtypes = [p, i, i, i, i, i, i, p,
+                                            ctypes.c_longlong, p]
             plan.alink_run_plan.restype = i
             plan.alink_run_plan_error_string.argtypes = [i]
             plan.alink_run_plan_error_string.restype = ctypes.c_char_p
@@ -350,12 +362,16 @@ def launch_grid(sms: int, M: int) -> Tuple[int, int]:
     return 2 * clusters, light
 
 
-def _grid(index: int, M: int) -> Tuple[int, int]:
+def _sm_count(index: int) -> int:
     sms = _sms.get(index)
     if sms is None:
         sms = _sms[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
-    return launch_grid(sms, M)
+    return sms
+
+
+def _grid(index: int, M: int) -> Tuple[int, int]:
+    return launch_grid(_sm_count(index), M)
 
 
 def linear_grad(plan: GradPlan, c: torch.Tensor) -> torch.Tensor:

@@ -188,8 +188,8 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    and inf terms); the card's plan (``run_plan``: ``csrc/run_plan.cu``'s
    radix sort and runs, no host read) equal to ``run_plan_plain``'s on
    the CPU over its runs at every case; with the kernel's times (events,
-   the profiler's span of its launches, host), the plan's (events, and
-   its device time), the wrapper's, the bytes and chain bounds and two
+   the profiler's span of its launches, host), the wrapper's and the
+   plan's by events in turns, the bytes and chain bounds and two
    ``index_add_`` calls in turns; ``gather_pair``
    against its plain version, bitwise, f32 and f64, at the padded-COO
    batch shape (163,840 positions over 65,536 + 1 and 2^20 + 1 slots)
@@ -218,7 +218,18 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    order and a device snapshot consumer that takes every hand-off of the
    live card weights, leaving no host snapshot. The host-only drain is
    timed bare, then a second one reports the hasher's stages and the
-   hash in turns, as in phase 13.
+   hash in turns, as in phase 13; (e) the plan alone (``run_plan``, one
+   cooperative launch of ``csrc/run_plan.cu``) equal to
+   ``run_plan_plain``'s on the CPU at every shape where the port builds
+   one (``kernel_ab.py::plan_inputs``: bench_ftrl's three micro-batches,
+   phase 12(a)'s padded-COO and field-blocked designs, FM's, LDA's and
+   Word2Vec's ``out`` keys over 2^18 + 1 and 2^19 rows) and at edges
+   (one key, one run of every key, keys only at 0 and ``size - 1``,
+   ``PLAN_MIN_CHUNK`` - 1, + 0 and + 1 keys, ``size`` 2^19 in 3 passes),
+   with its times at the shapes: by events, its device time (events
+   around calls queued behind a sleep), host, the launches a call (the
+   wrapper's count), the plain version's time on the card and the bytes
+   bound.
 
 15. the ingest path (after 13): (a) ``bench.py::bench_logreg_from_disk``
    on the port: 1,000,000 ``make_ctr_fieldblock`` rows (32 fields of
@@ -3568,11 +3579,12 @@ def scatter_case(kl, rng, case, kind, lat):
     """The ordered scatter-add on the card against its plain version on
     the CPU (``scatter_add_rows_plain``), bitwise (a NaN equal to any
     NaN), both states in one launch. At the timed shapes: the kernel alone
-    on a built plan (events, profiler, host), the plan over the touched
-    slots (``run_plan``, the one both ordered kernels walk), the wrapper
-    (plan and kernel), the plain version, two ``index_add_`` calls
-    in turns (not deterministic; a yardstick), the bytes bound and the
-    chain bound of the longest run (z's and n's chains side by side)."""
+    on a built plan (events, profiler, host), the wrapper (plan and
+    kernel) in turns with the plan over the touched slots (``run_plan``,
+    the one both ordered kernels walk; phase 14(e) measures it alone), the
+    plain version, two ``index_add_`` calls in turns (not deterministic; a
+    yardstick), the bytes bound and the chain bound of the longest run
+    (z's and n's chains side by side)."""
     import torch
     dtype = np.float32 if kind == "f32" else np.float64
     if case.endswith("_use"):
@@ -3628,28 +3640,94 @@ def scatter_case(kl, rng, case, kind, lat):
     k_ms, l_ms = cuda_ms_turns(call, lib, trials=9, reps=5)
     k_host, l_host = host_ms_turns(call, lib, trials=9, reps=5)
     dev_ms, dev_seen = device_span_ms(call, "scatter_walk_")
-    plan_fn = lambda: kl.run_plan(kd, states.shape[1])         # noqa: E731
-    wrap_ms, plan_ms, plan_plain_ms = cuda_ms_turns(
-        lambda: kl.scatter_walk(z, n, kd, td), plan_fn,
-        lambda: kl.run_plan_plain(kd, states.shape[1]), trials=7, reps=5)
-    plan_dev_ms, plan_kernels = device_ms(plan_fn)
-    plan_host_ms = host_ms(plan_fn, trials=7, reps=5)
-    # the plan's bound: the keys read once; perm, starts, slots, order and
-    # the counts written once
-    plan_b_ms, plan_b_by = _bound(4 * M + 4 * M + 12 * U + 4 + 16, 0, kind)
+    wrap_ms, plan_ms = cuda_ms_turns(
+        lambda: kl.scatter_walk(z, n, kd, td),
+        lambda: kl.run_plan(kd, states.shape[1]), trials=7, reps=5)
     chain_ms = chain_bound_ms(rec["longest_run"], kind, lat)
     rec.update(kernel_ms=k_ms, device_ms=dev_ms,
                device_launches_recorded=dev_seen, host_ms=k_host,
-               wrapper_ms=wrap_ms, plan_ms=plan_ms,
-               plan_device_ms=plan_dev_ms, plan_host_ms=plan_host_ms,
-               plan_device_kernels=plan_kernels,
-               plan_plain_ms=plan_plain_ms, plan_bound_ms=plan_b_ms,
-               plan_bound_by=plan_b_by, plain_ms=plain_ms,
+               wrapper_ms=wrap_ms, plan_ms=plan_ms, plain_ms=plain_ms,
                plain_where="CPU", library_ms=l_ms,
                library_device_ms=device_ms(lib)[0], library_host_ms=l_host,
                library_deterministic=False, bound_ms=b_ms, bound_by=b_by,
                chain_bound_ms=chain_ms, chain_fraction=chain_ms / k_ms)
     return rec
+
+
+PLAN_EDGE_SEED = 2020
+
+
+def plan_edges(kl):
+    """(name, keys, size) of the plan's edges: one key; one run of every
+    key (bench_ftrl's micro-batch of positions); keys only at 0 and
+    ``size - 1`` over 2^20 + 1 (3 passes); ``PLAN_MIN_CHUNK`` - 1, + 0 and
+    + 1 keys (the one-block threshold) with a long run; ``size`` 2^19 (3
+    passes of 7 bits) with 500 long runs of many lengths (ordered by rank
+    in one block; the shapes of LDA, FM and L-BFGS sort theirs over the
+    blocks)."""
+    rng = np.random.default_rng(PLAN_EDGE_SEED)
+    M = BF_ROWS * 40
+    ends = np.where(rng.random(M // 2) < 0.5, 0, FEATURES).astype(np.int32)
+    cases = [("one key", np.array([5], np.int32), 7),
+             ("one run", np.full(M, 11, np.int32), BF_DIM),
+             ("keys at 0 and size-1", ends, FEATURES + 1)]
+    for d in (-1, 0, 1):
+        keys = rng.integers(0, BF_DIM, kl.PLAN_MIN_CHUNK + d).astype(np.int32)
+        keys[:kl.SHORT_MAX + 40] = 3
+        cases.append((f"PLAN_MIN_CHUNK{d:+d}", rng.permutation(keys), BF_DIM))
+    lens = kl.SHORT_MAX + 1 + rng.integers(0, 3000, 500)
+    keys = np.concatenate([np.repeat(rng.permutation(1 << 19)[:500], lens),
+                           rng.integers(0, 1 << 19, 100_000)])
+    cases.append(("size 2^19", rng.permutation(keys).astype(np.int32),
+                  1 << 19))
+    return cases
+
+
+def phase_plan(kl):
+    """14(e): the plan alone against its plain version at every shape and
+    edge (see the module's docstring), with its times at the shapes."""
+    import torch
+    from kernel_ab import plan_inputs, queued_ms
+    dev = torch.device("cuda")
+    out = {}
+    edges = [(n, torch.from_numpy(k).to(dev), s)
+             for n, k, s in plan_edges(kl)]
+    edge_names = {n for n, _, _ in edges}
+    for name, keys, size in plan_inputs(sys.modules[__name__], dev) + edges:
+        host = kl.run_plan_plain(keys.cpu(), size)
+        card = kl.run_plan(keys, size)
+        torch.cuda.synchronize()
+        require(plan_equal(kl, card, host),
+                f"run_plan {name}: the card's plan is the plain one's")
+        runs, n_heavy, n_medium, _ = kl.plan_counts(host)
+        M = keys.numel()
+        rec = {"plan_equal": True, "positions": M, "size": size,
+               "runs": runs, "heavy_runs": n_heavy, "medium_runs": n_medium,
+               "passes": kl.sort_digits(size)[0],
+               "blocks": kl.plan_grid(M, kl._sm_count(0))[1]}
+        if name in edge_names:
+            out[name] = rec
+            continue
+
+        def call():
+            kl.run_plan(keys, size)
+
+        def plain():
+            kl.run_plan_plain(keys, size)
+        ms, plain_ms = cuda_ms_turns(call, plain, trials=7, reps=10)
+        b_ms, b_by = _bound(8 * M + 12 * runs + 20, 0, "f32")
+        before = kl.launch_counts()["run_plan"]
+        for _ in range(10):
+            call()
+        launches = (kl.launch_counts()["run_plan"] - before) / 10
+        rec.update(ms=ms, device_ms=queued_ms(call),
+                   host_ms=host_ms(call, trials=7, reps=10),
+                   launches_per_call=launches,
+                   plain_ms=plain_ms,
+                   plain_where="card (torch ops and one host read)",
+                   bound_ms=b_ms, bound_by=b_by)
+        out[name] = rec
+    return out
 
 
 def batch_gathers(kf, rng):
@@ -4186,6 +4264,9 @@ def phase_batch(kernels, rng, lat, card):
     out["hooks"] = hooks_check(tf, table)
     print(f"demotion and hooks {tag}: {out['demotion']} {out['hooks']}",
           flush=True)
+    out["plan"] = phase_plan(kl)
+    for key, rec in out["plan"].items():
+        print(f"run_plan {tag} {key}: {rec}", flush=True)
     return parity, out
 
 
@@ -8615,26 +8696,29 @@ def main(argv=None) -> int:
             "chain_fraction", "longest_run", "runs", "heavy_runs",
             "medium_runs", "raw_bits_equal") if f in v}
             for k, v in scatter_parity.items()}})
-    # the plan both ordered kernels walk, built on the card: no TPU kernel
-    # (the JAX package's scatter-adds need no plan); at the same shape. Its
+    # the plan the ordered kernels walk, built on the card: no TPU kernel
+    # (the JAX package's scatter-adds need none), at bench_ftrl's padded-COO
+    # micro-batch and every other shape where the port builds one. Its
     # plain version is run_plan_plain on the card; no one PyTorch call
     # computes a plan
+    plans = batch["plan"]
+    r = plans["ftrl coo"]
     kernels.append({
         "name": "run_plan", "route": "cuda", "source": PLAN_SRC,
         "replaces": "alink_tpu/operator/stream/onlinelearning/ftrl.py:576",
         "port_only": True,
         "launches": batch["main_path"]["main_path_launches"]["run_plan"],
-        "max_abs_err": 0, "ms": r["plan_ms"], "plain_ms": r["plan_plain_ms"],
-        "plain_where": "card (torch ops and one host read)",
-        "bound_ms": r["plan_bound_ms"], "bound_by": r["plan_bound_by"],
+        "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "plain_where": r["plain_where"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "plan_equal": True,
-        "device_ms": r["plan_device_ms"], "host_ms": r["plan_host_ms"],
-        "device_kernels": r["plan_device_kernels"],
+        "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+        "launches_per_call": r["launches_per_call"],
         "shape": f"coo {BF_ROWS} x 40 over {BF_DIM}",
         "shapes": {k: {f: v[f] for f in (
-            "plan_ms", "plan_device_ms", "plan_host_ms", "plan_plain_ms",
-            "plan_bound_ms") if f in v}
-            for k, v in scatter_parity.items() if "plan_ms" in v}})
+            "ms", "device_ms", "host_ms", "launches_per_call", "plain_ms",
+            "bound_ms", "positions", "size", "runs", "blocks", "passes")
+            if f in v} for k, v in plans.items()}})
     for rec in kernels:
         rec["batch_mode_launches"] = {
             "main_path": batch["main_path"]["main_path_launches"].get(

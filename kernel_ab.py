@@ -9,7 +9,7 @@ this repository, timed in turns on one NVIDIA GPU.
 
 ``--parts`` names the parts below to measure (default: all of them:
 ``sparse``, ``walk``, ``split``, ``linear_grad``, ``lbfgs``, ``p2``,
-``steps``, ``drain``, ``p3``). Each tree named on the command line is measured in a process
+``steps``, ``drain``, ``p3``, ``plan``). Each tree named on the command line is measured in a process
 of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
@@ -105,7 +105,14 @@ a kernel and the library call it is held against are timed in turns):
   library's time for the walk's random reads; then one epoch of
   ``word2vec_train`` on that corpus (host clock from a synchronize to a
   synchronize, the median of 5 after a warm one; the summary also lists
-  every tree's epochs).
+  every tree's epochs);
+* ``plan``: the run plan alone (``run_plan(keys, size)``) at every shape
+  where the port builds one (:func:`plan_inputs`): by CUDA events in
+  turns with ``torch.sort(keys, stable=True)`` (a yardstick for the
+  plan's sort half only), its device time (:func:`queued_ms`: events
+  around calls queued behind a sleep, the span of a call's launches),
+  its host time, the kernels a call launches (``torch.profiler``), the
+  bytes bound, and whether it equals ``run_plan_plain``'s.
 """
 
 from __future__ import annotations
@@ -133,7 +140,7 @@ SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
 # rows of P3's larger-vocabulary `out` cases (``p3``)
 BIG_VOCAB_ROWS = (1 << 18, 1 << 19, 1_500_000)
 PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps",
-         "drain", "p3")
+         "drain", "p3", "plan")
 
 
 def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
@@ -228,6 +235,129 @@ def measure(tree: Path, parts=PARTS) -> dict:
         out["drain"] = drain_times(h)
     if "p3" in parts:
         out["p3"] = row_scatter_times(h)
+    if "plan" in parts:
+        out["plan"] = plan_times(h, kl)
+    return out
+
+
+def plan_inputs(h, dev):
+    """``plan``'s shapes, every one at which the port builds a run plan:
+    (name, flat int32 keys on the card, size). bench_ftrl's padded-COO,
+    field-blocked and stream micro-batches (``scatter_inputs``), phase
+    12(a)'s padded-COO design (100,000 x 40 over 2^20 + 1) and the
+    field-blocked L-BFGS design (200,000 x 33 over 67,584;
+    ``grad_inputs``), FM's design (phase 21(a): 100,000 x 39 over
+    65,536), LDA's corpus (phase 21(b): its non-padding bag entries over
+    30,000 words) and Word2Vec's ``out`` keys of one batch over a
+    vocabulary past P3's one-launch rows (2^18 + 1 and 2^19 rows, its
+    keys spread by a constant factor)."""
+    import torch
+    from alink_tpu_torch.operator.common.dataproc.feature_extract import \
+        extract_design
+    from alink_tpu_torch.operator.common.nlp.word2vec import Word2VecParams
+    rng = np.random.default_rng(0)
+    cases = []
+    for name, case in (("ftrl coo", "coo"), ("ftrl fb", "fb"),
+                       ("ftrl stream", "stream")):
+        keys, _, states = h.scatter_inputs(rng, case, np.float32)
+        cases.append((name, keys, states.shape[1]))
+    for name, case in (("coo 2^20", "coo"), ("lbfgs fb", "fieldblock")):
+        keys, _, _, dim = h.grad_inputs(rng, case, np.float32)
+        cases.append((name, keys, dim))
+    design = extract_design(h.criteo_softmax_rows(7, h.SPS_ROWS), None,
+                            "features", np.float32)
+    cases.append(("fm", design["idx"], design["dim"]))
+    _, ids, cnts, _ = h.newsgroups_corpus(5)
+    cases.append(("lda", ids.reshape(-1)[cnts.reshape(-1) != 0],
+                  h.LDA_VOCAB))
+    p = Word2VecParams(num_iter=1)
+    vocab, pairs, points = h.w2v_layout(h.text8_corpus(8), p)
+    keys = points[pairs[:p.batch_size, 1]].reshape(-1)
+    rows = max(len(vocab) - 1, 1)
+    for S in ((1 << 18) + 1, 1 << 19):
+        cases.append((f"w2v out {S}", keys * (S // rows), S))
+    return [(name, torch.from_numpy(np.ascontiguousarray(
+        keys, dtype=np.int32).reshape(-1)).to(dev), int(size))
+        for name, keys, size in cases]
+
+
+def queued_ms(fn, reps: int = 20, trials: int = 7) -> float:
+    """The device time of one call of ``fn``: CUDA events around ``reps``
+    back-to-back calls queued behind a sleeping kernel, so the host's
+    enqueue does not space the calls or their launches apart (the median
+    of ``trials``)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPAN_SLEEP_CYCLES)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    return float(np.median(times))
+
+
+def kernels_per_call(fn, reps: int = 5, sessions: int = 3) -> float:
+    """The most kernels ``torch.profiler`` recorded a call of ``fn`` in
+    ``sessions`` sessions of ``reps`` calls (it drops some records of
+    kernels launched through ctypes, never adds one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "memset" not in e.name.lower()
+                and "memcpy" not in e.name.lower())
+        best = max(best, n / reps)
+    return best
+
+
+def plan_times(h, kl, reps: int = 10):
+    """``plan``: the run plan alone (``run_plan(keys, size)``, every tree
+    has it) at :func:`plan_inputs`' shapes: by CUDA events over
+    back-to-back calls, in turns with ``torch.sort(keys, stable=True)``
+    (a yardstick for the plan's sort half only: it builds no plan);
+    device time (:func:`queued_ms`: the span of a call's launches); host
+    time (the enqueue cost of back-to-back calls); the kernels a call
+    launches (``torch.profiler``); the bytes bound (the keys read once,
+    perm, starts, slots, order and the counts written once: ``8 M + 12 U
+    + 20`` bytes at 3.35 TB/s, U the runs); and whether the plan equals
+    ``run_plan_plain``'s on the CPU."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for name, keys, size in plan_inputs(h, dev):
+        def call():
+            kl.run_plan(keys, size)
+
+        def sort():
+            torch.sort(keys, stable=True)
+        host = kl.run_plan_plain(keys.cpu(), size)
+        same = bool(h.plan_equal(kl, kl.run_plan(keys, size), host))
+        ev_ms, sort_ms = h.cuda_ms_turns(call, sort, trials=9, reps=reps)
+        runs = kl.plan_counts(host)[0]
+        M = keys.numel()
+        out[name] = {
+            "plan_equal": same, "ms": ev_ms, "device_ms": queued_ms(call),
+            "host_ms": h.host_ms(call, trials=9, reps=reps),
+            "kernels_per_call": kernels_per_call(call),
+            "torch_sort_ms": sort_ms, "positions": M, "size": size,
+            "runs": runs, "bound_ms": (8 * M + 12 * runs + 20) / 3.35e12 * 1e3}
     return out
 
 
@@ -713,6 +843,12 @@ def _summary(runs):
                       "gather_ms"):
                 s[f"p3 {key} {f}"] = med(rs, "p3", key, f)
             s[f"p3 {key} bitwise"] = all(r["p3"][key]["bitwise"] for r in rs)
+        for key in rs[0].get("plan", {}):
+            for f in ("ms", "device_ms", "host_ms", "kernels_per_call",
+                      "torch_sort_ms", "bound_ms"):
+                s[f"plan {key} {f}"] = med(rs, "plan", key, f)
+            s[f"plan {key} plan_equal"] = all(r["plan"][key]["plan_equal"]
+                                              for r in rs)
         lb = rs[0].get("lbfgs")
         if lb:
             for f in ("ms_per_superstep", "device_busy_ms",

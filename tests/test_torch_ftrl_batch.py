@@ -309,12 +309,13 @@ def test_cuda_states_reach_the_kernel_not_the_plain_version(monkeypatch):
 
 
 def test_cuda_keys_reach_the_plan_kernel_with_no_host_read(monkeypatch):
-    """On the card the plan is one call of ``alink_run_plan`` (its chunks
-    from ``plan_blocks``, its sort's digits from ``sort_digits``) into the
-    plan's arrays and counts and a scratch of the sort's buffers, the
-    chunks' counts and the long runs; nothing reads the host
-    (FakeTensorMode raises on a read of a fake tensor's data). Keys that
-    are not int32 raise."""
+    """On the card the plan is one call of ``alink_run_plan`` (its grid
+    from ``plan_grid`` at the card's SMs, its sort's digits from
+    ``sort_digits``) into one int32 buffer: the plan's arrays are views of
+    it at the kernel's offsets (perm, starts, slots, order, counts), the
+    kernel's scratch after them; nothing reads the host (FakeTensorMode
+    raises on a read of a fake tensor's data). Keys that are not int32
+    raise."""
     import types
     from torch._subclasses.fake_tensor import FakeTensorMode
     from alink_tpu_torch.kernels import _build
@@ -324,6 +325,7 @@ def test_cuda_keys_reach_the_plan_kernel_with_no_host_read(monkeypatch):
                                  alink_run_plan=_FakeFn(),
                                  alink_run_plan_error_string=_FakeFn())
     monkeypatch.setattr(kl, "_fns", None)
+    monkeypatch.setattr(kl, "_sms", {0: 132})
     monkeypatch.setattr(_build, "load_library", lambda n: fake)
     monkeypatch.setattr(_build, "current_device", lambda: 0)
     monkeypatch.setattr(_build, "stream_handle", lambda i: 55)
@@ -340,16 +342,23 @@ def test_cuda_keys_reach_the_plan_kernel_with_no_host_read(monkeypatch):
         plan = kl.run_plan(keys, 65_537)
         with pytest.raises(ValueError):
             kl.run_plan(keys.long(), 65_537)
+        base = plan.perm._base
+        assert all(t._base is base for t in plan)
+        offsets = [t.storage_offset() for t in (
+            plan.perm, plan.starts, plan.slots, plan.order, plan.counts)]
     M = 4096 * 40
     (args,) = fake.alink_run_plan.calls
-    chunk, blocks = kl.plan_blocks(M)
+    chunk, blocks = kl.plan_grid(M, 132)
+    assert (chunk, blocks) == (4096, 40)
     assert args[1:7] == (M, 65_537, chunk, blocks, *kl.sort_digits(65_537))
     assert [t.shape[0] for t in plan] == [M, M + 1, M, M, 4]
-    assert args[7:12] == tuple(t.data_ptr() for t in (
-        plan.perm, plan.starts, plan.slots, plan.order, plan.counts))
-    assert len(set(args[:1] + args[7:13])) == 7      # seven buffers
-    assert args[13] == 4 * M + (2 ** 9 + 3) * blocks + 2 * (M // 33 + 1)
-    assert args[14] == 55
+    assert offsets == [0, M, 2 * M + 1, 3 * M + 1, 4 * M + 1]
+    assert args[7] == base.data_ptr() != args[0]          # keys, buffer
+    # the scratch: the sorted keys, the long runs and their lengths, the
+    # histogram, the digit totals and five values a block
+    assert args[8] == base.numel() == (4 * M + 5 + M + 2 * (M // 33 + 1)
+                                       + (2 ** 9 + 5) * blocks + 2 ** 9)
+    assert args[9] == 55
     assert kl.launch_counts() == {"linear_grad": 0, "scatter_walk": 0,
                                   "run_plan": 1}
 

@@ -221,52 +221,83 @@ def test_plan_classes_runs_by_length(case):
     assert (np.diff(short) > 0).all()
 
 
-def _radix_sort(flat, size, chunk, blocks):
-    """``csrc/run_plan.cu``'s sort in numpy: passes of ``sort_digits``
-    bits; each pass counts every chunk's digits, takes the exclusive sum
-    digit-major (a chunk's digit starts after the smaller digits of every
-    chunk and the same digit of the earlier chunks) and places each chunk
-    in order, its 16 warps' parts one after the other."""
-    passes, bits = kl.sort_digits(size)
-    D, M = 1 << bits, flat.size
-    kin, pin = flat.astype(np.int64), np.arange(M)
+def _radix_pass(kin, vin, n, chunk, blocks, shift, bits, flip=0):
+    """One pass of ``csrc/run_plan.cu::radix_pass`` in numpy over ``n``
+    (key, value) pairs, the digit that of ``flip - key`` when ``flip``:
+    count (each block's chunk of ``chunk`` pairs, each of its 16 warps
+    counting its part's digits; the block's counts into a digit-major
+    histogram), scan (each digit's column over the blocks, exclusive, and
+    the digit's total) and place (the block's cursor of a digit is the
+    exclusive sum of the totals plus its column entry; each tile of 8192
+    pairs: warp w ranks its 512 pairs by digit in its own column, a pair's
+    place in the tile is the tile's start of its digit, the earlier
+    warps' count of it and its rank; the staged tile is written out in
+    order at each digit's cursor, which then moves past the tile's pairs
+    of that digit). Returns the keys (flipped) and values."""
+    D = 1 << bits
+    key = flip - kin if flip else kin
+    dig = (key >> shift) & (D - 1)
     part = -(-chunk // 512) * 32
-    for p in range(passes):
-        dig = (kin >> (p * bits)) & (D - 1)
-        hist = np.stack([np.bincount(dig[b * chunk:(b + 1) * chunk],
-                                     minlength=D) for b in range(blocks)], 1)
-        offs = (np.cumsum(hist.ravel()) - hist.ravel()).reshape(D, blocks)
-        kout, pout = np.full(M, -1), np.full(M, -1)
-        for b in range(blocks):
-            cur = offs[:, b].copy()
-            lo, hi = b * chunk, min(M, (b + 1) * chunk)
-            for w in range(16):
-                for i in range(min(hi, lo + w * part),
-                               min(hi, lo + w * part + part)):
-                    kout[cur[dig[i]]], pout[cur[dig[i]]] = kin[i], pin[i]
-                    cur[dig[i]] += 1
-        kin, pin = kout, pout
-    return kin, pin
+    hist = np.zeros((D, blocks), np.int64)
+    for b in range(blocks):
+        lo, hi = min(n, b * chunk), min(n, b * chunk + chunk)
+        for w in range(16):
+            a, z = min(hi, lo + w * part), min(hi, lo + w * part + part)
+            hist[:, b] += np.bincount(dig[a:z], minlength=D)
+    col = np.cumsum(hist, 1) - hist
+    tot = hist.sum(1)
+    kout, vout = np.full(n, -1), np.full(n, -1)
+    for b in range(blocks):
+        cursor = np.cumsum(tot) - tot + col[:, b]
+        lo, hi = min(n, b * chunk), min(n, b * chunk + chunk)
+        for base in range(lo, hi, 8192):
+            idx = np.arange(base, min(base + 8192, hi))
+            tab = np.zeros((16, D), np.int64)
+            rank = np.zeros(idx.size, np.int64)
+            for j, i in enumerate(idx):
+                w = (i - base) // 512
+                rank[j] = tab[w, dig[i]]
+                tab[w, dig[i]] += 1
+            earlier = np.cumsum(tab, 0) - tab
+            n_d = tab.sum(0)
+            tstart = np.cumsum(n_d) - n_d
+            stage = np.full(idx.size, -1)
+            for j, i in enumerate(idx):
+                d = dig[i]
+                stage[tstart[d] + earlier[(i - base) // 512, d] + rank[j]] = i
+            for j, i in enumerate(stage):
+                pos = cursor[dig[i]] + j - tstart[dig[i]]
+                kout[pos], vout[pos] = key[i], vin[i]
+            cursor += n_d
+    return kout, vout
 
 
-def _card_plan(keys, size):
-    """``csrc/run_plan.cu`` step by step in numpy: the radix sort, then
-    ``plan_count`` (each chunk's heads, long and heavy heads, a run's class
-    read off the sorted keys at ``SHORT_MAX`` and ``HEAVY_MIN - 1`` past
-    its head), ``plan_runs`` (each chunk's offsets from the chunks before
-    it; per tile of 1024 positions one exclusive scan of the heads and
-    long heads packed in 16-bit halves: starts, slots, the long runs
-    compacted, the short runs placed) and ``plan_order`` (the long runs'
-    LSD radix sort by ``maxlen - length``, 8 bits a pass, each of 32 warps
-    counting its part's digits and placing its lanes 32 at a time). The
-    arrays past ``runs`` stay -1."""
+def _card_plan(keys, size, sms=132):
+    """``csrc/run_plan.cu`` step by step in numpy: the grid of
+    ``plan_grid``; the sort (``sort_digits``' passes of
+    :func:`_radix_pass` over (key, position)); heads (each block's heads,
+    long and heavy heads, a run's class read off the sorted keys at
+    ``SHORT_MAX`` and ``HEAVY_MIN - 1`` past its head, and its first
+    head); runs (each block's offsets the sums of the blocks' counts
+    before it; per tile of 4096 positions, 8 a thread, one exclusive scan
+    of the heads and long heads packed in 16-bit halves: starts, slots,
+    the long runs compacted with their lengths (the block's last run
+    ending at the next block's first head), the short runs placed; one
+    long run goes straight to ``order[0]``) and order (up to 1024 long
+    runs, each placed by one block at the count of the longer runs and of
+    the runs of its length before it; more, the long runs' stable LSD
+    sort by ``maxlen - length`` over the blocks, 8 bits a pass, chunks of
+    ``ceil(n_long / blocks)``). The arrays past ``runs`` stay -1."""
     H, S = kl.HEAVY_MIN, kl.SHORT_MAX
-    flat = keys.reshape(-1)
+    flat = keys.reshape(-1).astype(np.int64)
     M = flat.size
     assert 0 <= flat.min() and flat.max() < size
-    chunk, blocks = kl.plan_blocks(M)
-    assert chunk % 1024 == 0 and (blocks - 1) * chunk < M <= blocks * chunk
-    sk, perm = _radix_sort(flat, size, chunk, blocks)
+    chunk, blocks = kl.plan_grid(M, sms)
+    assert chunk % 512 == 0 and (blocks - 1) * chunk < M <= blocks * chunk
+    passes, bits = kl.sort_digits(size)
+    sk, perm = flat, np.arange(M)
+    for p in range(passes):
+        sk, perm = _radix_pass(sk, perm, M, chunk, blocks, p * bits, bits)
     head = np.ones(M, bool)
     head[1:] = sk[1:] != sk[:-1]
     p_all = np.arange(M)
@@ -278,10 +309,11 @@ def _card_plan(keys, size):
     heavy[ok] = sk[p_all[ok] + H - 1] == sk[ok]
     blk = []
     for b in range(blocks):
-        h = head[b * chunk:(b + 1) * chunk]
-        lg = long_[b * chunk:(b + 1) * chunk] & h
-        blk.append((int(h.sum()), int(lg.sum()),
-                    int((lg & heavy[b * chunk:(b + 1) * chunk]).sum())))
+        sl = slice(b * chunk, min(M, (b + 1) * chunk))
+        h, lg = head[sl], long_[sl] & head[sl]
+        first = b * chunk + int(np.argmax(h)) if h.any() else 2 ** 31 - 1
+        blk.append((int(h.sum()), int(lg.sum()), int((lg & heavy[sl]).sum()),
+                    first))
     runs = sum(x[0] for x in blk)
     n_long = sum(x[1] for x in blk)
     n_heavy = sum(x[2] for x in blk)
@@ -289,92 +321,120 @@ def _card_plan(keys, size):
     slots = np.full(M, -1, np.int64)
     order = np.full(M, -1, np.int64)
     lng = np.full(M // (S + 1) + 1, -1, np.int64)
+    llen = np.full(M // (S + 1) + 1, -1, np.int64)
+    longest = []
     for b in range(blocks):
-        h_before = sum(x[0] for x in blk[:b])
-        l_before = sum(x[1] for x in blk[:b])
-        for base in range(b * chunk, min(M, (b + 1) * chunk), 1024):
-            p = np.arange(base, min(base + 1024, (b + 1) * chunk, M))
-            flags = head[p] * (1 + (long_[p] << 16))
-            excl = np.cumsum(flags) - flags
-            for q in np.flatnonzero(flags):
-                r = h_before + (excl[q] & 0xffff)
-                ll = l_before + (excl[q] >> 16)
-                starts[r], slots[r] = p[q], sk[p[q]]
-                if flags[q] >> 16:
-                    lng[ll] = r
+        r = sum(x[0] for x in blk[:b])
+        q = q0 = sum(x[1] for x in blk[:b])
+        nxt = min([x[3] for x in blk[b + 1:]] + [M])
+        hi = min(M, (b + 1) * chunk)
+        for base in range(b * chunk, hi, 4096):
+            for pos in range(base, min(base + 4096, hi)):
+                if not head[pos]:
+                    continue
+                starts[r], slots[r] = pos, sk[pos]
+                if long_[pos]:
+                    if n_long > 1:
+                        lng[q] = r
+                    else:
+                        order[q] = r
+                    q += 1
                 else:
-                    order[n_long + r - ll] = r
-            tot = int(flags.sum())
-            h_before += tot & 0xffff
-            l_before += tot >> 16
+                    order[n_long + r - q] = r
+                r += 1
+        if n_long > 1:
+            for j in range(q0, q):
+                end = starts[lng[j] + 1] if lng[j] + 1 < r else nxt
+                llen[j] = end - starts[lng[j]]
+            longest.append(int(llen[q0:q].max(initial=0)))
     starts[runs] = M
-    lens = {r: starts[r + 1] - starts[r] for r in lng[:n_long]}
-    maxlen = max(lens.values(), default=0)
-    passes = 0
-    if n_long > 1:
-        v = maxlen - (S + 1)
+    if 1 < n_long <= 1024:
+        # block 0 places each long run at the count of the longer ones and
+        # of the ones of its length before it
+        lens = llen[:n_long]
+        for i in range(n_long):
+            rank = int((lens > lens[i]).sum() + (lens[:i] == lens[i]).sum())
+            order[rank] = lng[i]
+    elif n_long > 1:
+        maxlen = max(longest)
+        opasses, v = 0, maxlen - (S + 1)
         while v > 0:
-            passes += 1
+            opasses += 1
             v >>= 8
-    cur = list(lng[:n_long])
-    part = -(-n_long // 1024) * 32
-    for pas in range(passes):
-        shift = 8 * pas
-        digit = {r: ((maxlen - lens[r]) >> shift) & 255 for r in cur}
-        parts = [cur[min(n_long, w * part):min(n_long, w * part + part)]
-                 for w in range(32)]
-        hist = [[sum(digit[r] == d for r in pt) for d in range(256)]
-                for pt in parts]
-        cursor, c = [[0] * 256 for _ in range(32)], 0
-        for d in range(256):
-            for w in range(32):
-                cursor[w][d] = c
-                c += hist[w][d]
-        out = [None] * n_long
-        for w, pt in enumerate(parts):
-            for r in pt:
-                out[cursor[w][digit[r]]] = r
-                cursor[w][digit[r]] += 1
-        cur = out
-    order[:n_long] = cur
+        k, rv = llen[:n_long], lng[:n_long]
+        ochunk = -(-n_long // blocks)
+        for p in range(opasses):
+            k, rv = _radix_pass(k, rv, n_long, ochunk, blocks, 8 * p, 8,
+                                flip=maxlen if p == 0 else 0)
+        order[:n_long] = rv
     return (perm, starts, slots, order,
             np.array([runs, n_heavy, n_long - n_heavy, runs - n_long]))
 
 
+PLAN_CASES = ("every_class", "coo", "lengths", "straddle", "one_run",
+              "all_short", "threshold", "below_one_block", "one_block",
+              "above_one_block", "order_rank", "order_blocks", "size_one")
+
+
 def _plan_case(case):
+    """(keys, size, chunk): ``chunk`` the least positions a block takes
+    (None: ``PLAN_MIN_CHUNK`` as the kernel has it; 1024, so a small case
+    spans several blocks and the long runs' sort several chunks)."""
     H, S = kl.HEAVY_MIN, kl.SHORT_MAX
     rng = np.random.RandomState(11)
+    if case in ("below_one_block", "one_block", "above_one_block"):
+        M = kl.PLAN_MIN_CHUNK + {"below_one_block": -1, "one_block": 0,
+                                 "above_one_block": 1}[case]
+        keys = rng.randint(0, 300, M)
+        keys[:S + 40] = 7                          # a long run across tiles
+        return rng.permutation(keys).astype(np.int32)[:, None], 300, None
+    if case == "order_rank":        # 400 long runs of 33 .. 1,232 terms
+        lens = S + 1 + rng.randint(0, 1200, 400)
+        keys = np.repeat(rng.permutation(1000)[:400], lens)
+        keys = np.concatenate([keys, rng.randint(0, 1000, 5000)])
+        return rng.permutation(keys).astype(np.int32)[:, None], 1000, 1024
+    if case == "order_blocks":      # 1,100 long runs of 33 .. 432 terms
+        lens = S + 1 + rng.randint(0, 400, 1100)
+        keys = np.repeat(rng.permutation(3000)[:1100], lens)
+        keys = np.concatenate([keys, rng.randint(0, 3000, 5000)])
+        return rng.permutation(keys).astype(np.int32)[:, None], 3000, 1024
+    if case == "size_one":
+        return np.zeros((70, 3), np.int32), 1, None
     if case == "every_class":
-        return _heavy_design(np.float64)[0], 4096
+        return _heavy_design(np.float64)[0], 4096, 1024
     if case == "coo":
-        return _design("coo", np.float64)[0], 64
+        return _design("coo", np.float64)[0], 64, 1024
     if case == "lengths":           # long runs of 33 .. 700 terms: 2 passes
         lens = rng.permutation(np.arange(S + 1, 700, 7))
         keys = np.repeat(np.arange(lens.size) * 3, lens)
         keys = np.concatenate([keys, rng.randint(0, 3 * lens.size, 3000)])
-        return rng.permutation(keys).astype(np.int32)[:, None], 3 * lens.size
+        return (rng.permutation(keys).astype(np.int32)[:, None],
+                3 * lens.size, 1024)
     if case == "straddle":          # runs across the chunks of 1024
         keys = np.repeat(np.arange(40), rng.randint(1, 600, 40))
-        return keys.astype(np.int32)[:, None], 40
+        return keys.astype(np.int32)[:, None], 40, 1024
     if case == "one_run":
-        return np.full((H + 5, 3), 2, np.int32), 3
+        return np.full((H + 5, 3), 2, np.int32), 3, 1024
     if case == "all_short":
-        return rng.randint(0, 5000, (2000, 3)).astype(np.int32), 5000
+        return rng.randint(0, 5000, (2000, 3)).astype(np.int32), 5000, 1024
     keys = np.concatenate([np.full(H, 6), np.full(H - 1, 2),   # threshold
                            np.full(S + 1, 0), np.full(S, 7)])
-    return keys.astype(np.int32)[:, None], 8
+    return keys.astype(np.int32)[:, None], 8, 1024
 
 
-@pytest.mark.parametrize("case", ["every_class", "coo", "lengths",
-                                  "straddle", "one_run", "all_short",
-                                  "threshold"])
+@pytest.mark.parametrize("case", PLAN_CASES)
 def test_card_plan_algorithm_is_the_plain_plan(case, monkeypatch):
     """The card's plan (``csrc/run_plan.cu``, modelled step by step) equals
     the plain one array by array over the first ``runs`` entries (all of
-    ``perm``), and the four counts; with chunks of 1024 positions, so the
-    small cases span several blocks and tiles."""
-    monkeypatch.setattr(kl, "_PLAN_MIN_CHUNK", 1024)
-    keys, size = _plan_case(case)
+    ``perm``), and the four counts: at the kernel's one-block threshold
+    (``PLAN_MIN_CHUNK`` - 1, at it, + 1), at ``size`` 1, and with blocks
+    of at least 1024 positions, so the small cases span several blocks
+    and tiles: ``order_rank``'s 400 long runs ordered by rank in one
+    block, ``order_blocks``' 1,100 sorted by length over 127 blocks in
+    chunks of 9, two 8-bit passes."""
+    keys, size, chunk = _plan_case(case)
+    if chunk is not None:
+        monkeypatch.setattr(kl, "PLAN_MIN_CHUNK", chunk)
     perm, starts, slots, order, counts = _card_plan(keys, size)
     plain = kl.run_plan(torch.from_numpy(keys), size)
     runs = kl.plan_counts(plain)[0]
@@ -384,6 +444,45 @@ def test_card_plan_algorithm_is_the_plain_plan(case, monkeypatch):
                                   plain.starts.numpy()[:runs + 1])
     np.testing.assert_array_equal(slots[:runs], plain.slots.numpy()[:runs])
     np.testing.assert_array_equal(order[:runs], plain.order.numpy()[:runs])
+    blocks = kl.plan_grid(keys.size, 132)[1]
+    if case == "order_rank":
+        assert blocks == 128 and counts[1] + counts[2] == 400
+    if case == "order_blocks":
+        assert blocks == 127 and counts[1] + counts[2] == 1100
+    if case in ("below_one_block", "one_block", "size_one"):
+        assert blocks == 1
+    if case == "above_one_block":
+        assert blocks == 2
+
+
+def test_chip_smoke_plan_edges():
+    """The edges ``chip_smoke.py`` phase 14(e) holds the card's plan to:
+    one key; one run of every key; keys only at 0 and ``size - 1`` (3
+    passes); ``PLAN_MIN_CHUNK`` - 1, + 0 and + 1 keys (one block, one, two)
+    with a long run; ``size`` 2^19 in 3 passes with 500 long runs of many
+    lengths (ordered by rank in one block; the shapes' 6,559 to 65,537
+    long runs take the sort over the blocks). Each plain plan builds."""
+    import chip_smoke
+    edges = {name: (keys, size) for name, keys, size in
+             chip_smoke.plan_edges(kl)}
+    assert list(edges) == ["one key", "one run", "keys at 0 and size-1",
+                           "PLAN_MIN_CHUNK-1", "PLAN_MIN_CHUNK+0",
+                           "PLAN_MIN_CHUNK+1", "size 2^19"]
+    counts = {}
+    for name, (keys, size) in edges.items():
+        plan = kl.run_plan_plain(torch.from_numpy(keys), size)
+        counts[name] = kl.plan_counts(plan)
+        blocks = kl.plan_grid(keys.size, 132)[1]
+        if name.startswith("PLAN_MIN_CHUNK"):
+            assert keys.size == kl.PLAN_MIN_CHUNK + int(name[-2:])
+            assert blocks == (2 if name.endswith("+1") else 1)
+    assert counts["one key"] == (1, 0, 0, 1)
+    assert counts["one run"] == (1, 1, 0, 0)
+    assert counts["keys at 0 and size-1"][0] == 2
+    assert kl.sort_digits(edges["keys at 0 and size-1"][1])[0] == 3
+    keys, size = edges["size 2^19"]
+    assert size == 1 << 19 and kl.sort_digits(size) == (3, 7)
+    assert counts["size 2^19"][1] + counts["size 2^19"][2] == 500
 
 
 @pytest.mark.parametrize("size,want", [
@@ -402,15 +501,42 @@ def test_sort_digits(size, want):
     assert bits <= 9 and passes * bits >= (size - 1).bit_length()
 
 
-@pytest.mark.parametrize("M", [1, 4095, 4096, 4097, 163_840, 4_194_304,
-                               4_194_305, 6_600_000, 2 ** 31 - 1])
-def test_plan_blocks(M):
-    """The card's plan takes chunks of a multiple of 1024 positions, at
-    least 4096, at most 1024 of them, covering ``M`` with the last one
-    partial."""
-    chunk, blocks = kl.plan_blocks(M)
-    assert chunk % 1024 == 0 and chunk >= 4096 and 1 <= blocks <= 1024
-    assert (blocks - 1) * chunk < M <= blocks * chunk
+@pytest.mark.parametrize("M,sms,want", [
+    (1, 132, (4096, 1)),
+    (4095, 132, (4096, 1)),
+    (4096, 132, (4096, 1)),                     # the one-block threshold
+    (4097, 132, (4096, 2)),
+    (65_536, 132, (4096, 16)),                  # bench_ftrl's stream
+    (163_840, 132, (4096, 40)),                 # its batch micro-batches
+    (1_086_997, 132, (8704, 125)),              # LDA's corpus
+    (3_900_000, 132, (29_696, 132)),            # FM's design
+    (6_600_000, 132, (50_176, 132)),            # field-blocked L-BFGS
+    (2 ** 31 - 1, 132, (16_269_312, 132)),
+    (10_000, 1, (10_240, 1)),
+    (163_840, 16, (10_240, 16)),
+])
+def test_plan_grid(M, sms, want):
+    """The card's plan is one cooperative launch of blocks of a multiple
+    of 512 positions (the kernel's threads), at least ``PLAN_MIN_CHUNK``,
+    at most one an SM, covering ``M`` with the last one partial."""
+    chunk, blocks = kl.plan_grid(M, sms)
+    assert (chunk, blocks) == want
+    assert chunk % 512 == 0 and chunk >= kl.PLAN_MIN_CHUNK
+    assert 1 <= blocks <= sms and (blocks - 1) * chunk < M <= blocks * chunk
+
+
+def test_one_block_fits_shared_memory():
+    """A plan of one block keeps its data in shared memory beside what
+    every block takes there (the 16 warps' counts of 512 digits, a row of
+    17 a digit; a tile of 8192 keys and values as placed; the block's
+    digit counts and cursors): three arrays of ``PLAN_MIN_CHUNK`` keys or
+    positions, the long runs and their lengths and five values, within
+    Hopper's 227 KB less the kernel's 384 bytes of static shared
+    memory."""
+    M = kl.PLAN_MIN_CHUNK
+    every = 512 * 17 + 2 * 8192 + 2 * 512
+    local = 3 * M + 2 * (M // 33 + 1) + 5
+    assert 4 * (every + local) <= 232_448 - 384
 
 
 @pytest.mark.parametrize("sms,M,want", [
