@@ -68,6 +68,19 @@ def fm_scores_plain(model: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 _counts: Dict[str, int] = {"fm_score": 0}
 _lib_lock = threading.Lock()
 _fns: Optional[Dict[str, Callable[..., int]]] = None
+# a launch's arguments, packed for one C pointer (ctypes converts every
+# argument on every call): one array a thread
+_ARGS = ctypes.c_int64 * 11
+_tls = threading.local()
+
+
+def _args():
+    """This thread's argument array (its address in ``.at``)."""
+    a = getattr(_tls, "args", None)
+    if a is None:
+        a = _tls.args = _ARGS()
+        a.at = ctypes.addressof(a)
+    return a
 
 
 def launch_counts() -> Dict[str, int]:
@@ -89,7 +102,7 @@ def _functions() -> Dict[str, Callable[..., int]]:
         if _fns is None:
             lib = _build.load_library("fm_score")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.alink_fm_score.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+            lib.alink_fm_score.argtypes = [p, p]
             lib.alink_fm_score.restype = i
             lib.alink_fm_score_error_string.argtypes = [i]
             lib.alink_fm_score_error_string.restype = ctypes.c_char_p
@@ -98,41 +111,62 @@ def _functions() -> Dict[str, Callable[..., int]]:
         return _fns
 
 
+def _shape(w0: torch.Tensor, w: torch.Tensor, V: torch.Tensor,
+           idx: Optional[torch.Tensor], val: torch.Tensor,
+           index: int) -> Optional[Tuple[int, int, int, int]]:
+    """``(n, width, dim, k)`` when the tensors meet the kernel's input
+    contract, else None; one pass over them. ``val`` (n >= 1, width) and,
+    sparse, int32 ``idx`` of its shape, or, dense, width = dim; ``w0`` one
+    value, ``w`` (dim,), ``V`` (dim, k >= 1); each contiguous, on device
+    ``index``, the floats of one dtype (float32 or float64)."""
+    dt = val.dtype
+    if (index < 0 or val.ndim != 2 or w.ndim != 1 or V.ndim != 2
+            or dt not in _DTYPE_CODES):
+        return None
+    n, width = val.shape
+    dim, k = V.shape
+    if (n < 1 or dim < 1 or k < 1 or w.shape[0] != dim or w0.numel() != 1
+            or n * width >= 2 ** 31 or dim * k >= 2 ** 31):
+        return None
+    if idx is None:
+        if width != dim:
+            return None
+    elif (idx.dtype is not torch.int32 or idx.shape != val.shape
+          or idx.get_device() != index or not idx.is_contiguous()):
+        return None
+    for t in (w0, w, V, val):
+        if (t.dtype is not dt or t.get_device() != index
+                or not t.is_contiguous()):
+            return None
+    return n, width, dim, k
+
+
 def fm_scores(model: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
               idx: Optional[torch.Tensor], val: torch.Tensor) -> torch.Tensor:
     """The FM margins of ``val``'s rows (sparse with ``idx``, dense
     without), arguments as :func:`fm_scores_plain`: the kernel on the
-    card (one launch, a warp a row), the plain version on the CPU. Every
-    tensor contiguous, of one dtype (float32 or float64), ``idx`` int32
-    in ``[0, dim)``."""
-    if val.device.type == "cpu":
+    card (one launch, a thread a chain), the plain version on the CPU.
+    Every tensor contiguous, of one dtype (float32 or float64), ``idx``
+    int32 in ``[0, dim)``."""
+    if not val.is_cuda and val.device.type == "cpu":
         return fm_scores_plain(model, idx, val)
     w0, w, V = model
-    code = _DTYPE_CODES.get(val.dtype)
     index = val.get_device()
-    tensors = (w0, w, V, val) + (() if idx is None else (idx,))
-    n, width = val.shape if val.dim() == 2 else (0, -1)
-    dim = w.shape[0] if w.dim() == 1 else 0
-    if (code is None or n < 1 or dim < 1 or w0.numel() != 1
-            or V.dim() != 2 or V.shape[0] != dim or V.shape[1] < 1
-            or any(t.dtype != val.dtype for t in (w0, w, V))
-            or (idx is None and width != dim)
-            or (idx is not None and (idx.dtype != torch.int32
-                                     or idx.shape != val.shape))
-            or any(t.get_device() != index or not t.is_contiguous()
-                   for t in tensors)
-            or val.numel() >= 2 ** 31 or V.numel() >= 2 ** 31):
+    shape = _shape(w0, w, V, idx, val, index)
+    if shape is None:
+        tensors = (w0, w, V, val) + (() if idx is None else (idx,))
         raise ValueError(
             f"fm_scores: want contiguous tensors of one float dtype on one "
             f"CUDA device: w0 (1 value), w (dim,), V (dim, k), val (n, "
             f"width) and int32 idx of val's shape (or None and width = "
             f"dim); got {[(t.dtype, tuple(t.shape), str(t.device)) for t in tensors]}")
-    out = val.new_empty(n)
+    out = val.new_empty(shape[0])
     fns = _fns or _functions()
-    rc = _build.call(fns["score"], index, code,
-                     0 if idx is None else idx.data_ptr(), val.data_ptr(),
-                     w0.data_ptr(), w.data_ptr(), V.data_ptr(),
-                     out.data_ptr(), n, width, dim, V.shape[1])
+    args = _args()
+    args[:] = (_DTYPE_CODES[val.dtype], 0 if idx is None else idx.data_ptr(),
+               val.data_ptr(), w0.data_ptr(), w.data_ptr(), V.data_ptr(),
+               out.data_ptr()) + shape
+    rc = _build.call(fns["score"], index, args.at)
     if rc != 0:
         msg = fns["error_string"](rc).decode()
         raise RuntimeError(f"fm_scores: kernel launch failed: CUDA error "

@@ -428,10 +428,14 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    ``V`` and the loss curve; P3 (``kernels/rows.py``) bitwise to its
    plain version at the gradient's shape (3,900,000 x 12 over 65,536, f32
    and f64); P4 (``kernels/fm.py``) bitwise to its plain version at every
-   bucket 1-512, sparse and dense (1,024 features), f32 and f64; the
-   model served by ``CompiledPredictor`` on 8,192 held-out rows, P4 once
-   a 512-row chunk, labels equal to the float64 host ``map_table``'s
-   outside the rounding band; (b) LDA on a seeded corpus shaped like 20
+   bucket 1-512, sparse and dense (1,024 features), f32 and f64, and in
+   one launch at its edges (``P4_EDGE_*``: k 1-300, dense dims 8-4096,
+   sparse widths 8-256 with repeated indices and an all-padding row, 1-512
+   rows); the model served by ``CompiledPredictor`` on 8,192 held-out
+   rows, P4 once a 512-row chunk, labels equal to the float64 host
+   ``map_table``'s outside the rounding band; then FM serving timed per
+   bucket (sparse, and a 1024-feature dense model): p50, P4's event time
+   a dispatch, rows/s; (b) LDA on a seeded corpus shaped like 20
    Newsgroups' training split (11,314 docs of Poisson(150) tokens over
    30,000 words, 20 planted topics), ``em``, ``gibbs`` and ``online``
    (sub-sampling 0.25, offset 1) at 10 iterations: two card runs bitwise
@@ -7693,13 +7697,17 @@ def p3_edges(kr, kl, lat):
     return out
 
 
-def p4_case(kfm, model, idx, val, profiled=True):
+def p4_case(kfm, model, idx, val, lat, profiled=True):
     """P4 (``kernels/fm.py::fm_scores``) against its plain version on the
     card, bitwise; kernel, device and host times, the plain version's
-    time and the bound (the rows' values and indices read once, each
-    row of w and V that an index names read once: all of them in the
-    dense layout, the distinct indices' in the sparse one; the margins
-    written; 3 k + 1 products and as many adds a position)."""
+    time and the bound: the larger of the bytes bound (the rows' values
+    and indices read once, each row of w and V that an index names read
+    once: all of them in the dense layout, the distinct indices' in the
+    sparse one; the margins written; 3 k + 1 products and as many adds a
+    position) and the chain bound (a row's width adds, then its k-add
+    f-order sum and the epilogue's three: ``width + k + 3`` dependent
+    add-class ops at the probe's latency ``lat``, at the top SM
+    clock)."""
     import torch
     got = kfm.fm_scores(model, idx, val)
     want = kfm.fm_scores_plain(model, idx, val)
@@ -7720,12 +7728,144 @@ def p4_case(kfm, model, idx, val, profiled=True):
     nbytes = (n * width * (es + (4 if idx is not None else 0))
               + (rows * (k + 1) + 1) * es + n * es)
     kind = "f64" if val.dtype == torch.float64 else "f32"
-    bound, by = _bound(nbytes, n * width * (6 * k + 2) + n * (3 * k + 3),
-                       kind)
+    bytes_ms, by = _bound(nbytes, n * width * (6 * k + 2) + n * (3 * k + 3),
+                          kind)
+    chain_ms = chain_bound_ms(width + k + 3, kind, lat)
+    bound, by = (chain_ms, "operations") if chain_ms > bytes_ms \
+        else (bytes_ms, by)
     return {"bitwise": True, "max_abs_err": 0.0, "kernel_ms": k_ms,
             "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bytes_bound_ms": bytes_ms, "chain_bound_ms": chain_ms,
             "model_rows": rows}
+
+
+# P4's edges (21(a)): the factor counts (past 480 chains a block, k = 300,
+# a thread walks several), dense dims (1000 padded to its SERVE_CHUNK
+# multiple, as the serving encoder pads; 4096 at k = 64 in f64 walks several
+# shared-memory tiles), sparse widths and row counts
+P4_EDGE_K = (1, 10, 32, 33, 64, 300)
+P4_EDGE_DENSE = (8, -(-1000 // 8) * 8, 1024, 4096)
+P4_EDGE_SPARSE = (8, 40, 256)
+P4_EDGE_N = (1, 5, 512)
+P4_EDGE_SPARSE_DIM = 4096
+
+
+def p4_edges(kfm):
+    """P4 bitwise to its plain version (both on the card) at its edges,
+    float32 and float64, one launch a call: each factor count of
+    ``P4_EDGE_K`` with each dense dim and sparse width, the row count
+    turning through ``P4_EDGE_N`` so that every shape and every k meets
+    each count; then spans that are not 16-byte aligned, which the kernel
+    copies by cp.async instead of bulk copies (an odd dense width, an odd
+    sparse width, values and indices off the 16-byte boundary), at k 10
+    and 33. Sparse rows repeat indices (a quarter of the row copies its
+    first quarter), pad their last eighth (value 0 at index 0), and the
+    last row of a multi-row case is all padding. Seeded."""
+    import torch
+    dev = torch.device("cuda")
+    r = np.random.RandomState(2104)
+    out = {}
+
+    def case(layout, n, width, k, shifted=False):
+        dim = width if layout == "dense" else P4_EDGE_SPARSE_DIM
+        w0 = r.standard_normal(1) * 0.1
+        w = r.standard_normal(dim) * 0.1
+        V = r.standard_normal((dim, k)) * 0.1
+        val = r.standard_normal((n, width))
+        idx = None
+        if layout == "sparse":
+            idx = r.randint(0, dim, (n, width)).astype(np.int32)
+            q = max(width // 4, 1)
+            idx[:, width // 2:width // 2 + q] = idx[:, :q]
+            pad = max(width // 8, 1)
+            idx[:, -pad:], val[:, -pad:] = 0, 0.0
+            if n > 1:
+                idx[-1], val[-1] = 0, 0.0
+        else:
+            val *= r.rand(n, width) < 0.5
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            model = tuple(torch.tensor(a, dtype=dt, device=dev)
+                          for a in (w0, w, V))
+            ix = None if idx is None else torch.from_numpy(idx).to(dev)
+            x = torch.tensor(val, dtype=dt, device=dev)
+            if shifted:
+                x = misaligned(x)
+                ix = None if ix is None else misaligned(ix)
+            kfm.reset_launch_counts()
+            got = kfm.fm_scores(model, ix, x)
+            launches = kfm.launch_counts()["fm_score"]
+            want = kfm.fm_scores_plain(model, ix, x)
+            torch.cuda.synchronize()
+            name = (f"{layout} {n} x {width} k={k} {tag}"
+                    + (" off 16 bytes" if shifted else ""))
+            require(launches == 1 and same_bits(got, want)[0],
+                    f"P4 bitwise to its plain version in one launch at "
+                    f"{name} ({launches} launches)")
+            out[name] = "bitwise"
+
+    shapes = [("dense", d) for d in P4_EDGE_DENSE] + [
+        ("sparse", w) for w in P4_EDGE_SPARSE]
+    for i, k in enumerate(P4_EDGE_K):
+        for j, (layout, width) in enumerate(shapes):
+            case(layout, P4_EDGE_N[(i + j) % len(P4_EDGE_N)], width, k)
+    for k in (10, 33):
+        case("dense", 5, 1031, k)
+        case("sparse", 5, 37, k)
+        case("sparse", 5, 40, k, shifted=True)
+        case("dense", 5, 1024, k, shifted=True)
+    return out
+
+
+def fm_serving_times(pred, held, rng):
+    """FM serving timed per bucket (21(a)): p50 of ``predict_table`` at
+    each bucket's row count (:func:`bucket_latency`), for the sparse
+    held-out rows under ``pred`` and for a seeded 1024-feature dense model
+    on as many dense rows; beside each, P4's event time a dispatch of that
+    bucket (its encoded tensors on the card, CUDA events over back-to-back
+    calls) and its share of the p50; rows/s of the whole table (the median
+    of 3 ``predict_table`` calls after a warm one)."""
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.common.vector import DenseVector
+    from alink_tpu_torch.model import interop
+    from alink_tpu_torch.operator.batch.classification.fm_ops import \
+        FmModelMapper
+    from alink_tpu_torch.serving import CompiledPredictor
+    n = held.num_rows
+    dvecs = np.empty(n, object)
+    dvecs[:] = [DenseVector(x) for x in rng.standard_normal(
+        (n, FM_DENSE_DIM)) * (rng.rand(n, FM_DENSE_DIM) < 0.5)]
+    dreq = MTable({"features": dvecs}, "features VECTOR")
+    table = interop.fm_model_from_numpy(
+        0.1, rng.standard_normal(FM_DENSE_DIM) * 0.05,
+        rng.standard_normal((FM_DENSE_DIM, FM_K)) * 0.05,
+        is_regression=False, label_values=[1, 0], vector_col="features",
+        label_type="LONG")
+    mapper = FmModelMapper(table.schema, dreq.schema,
+                           Params({"prediction_col": "pred"}))
+    mapper.load_model(table)
+    dpred = CompiledPredictor(mapper, device="cuda")
+    out = {}
+    for kind, p, req in (("sparse", pred, held), ("dense", dpred, dreq)):
+        rows = bucket_latency(p, req)
+        ver = p._active
+        for b, rec in rows.items():
+            enc, tensors = ver.kernel.encode(req.first_n(b), b)
+            placed = tuple(t.to(p.device) for t in tensors)
+            fn = lambda: ver.kernel.device_fns[enc](   # noqa: E731
+                ver.arrays, *placed)
+            rec["p4_event_ms"] = cuda_ms(fn, trials=7, reps=10)
+            rec["p4_share"] = rec["p4_event_ms"] / rec["p50_ms"]
+        p.predict_table(req)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            p.predict_table(req)
+            secs.append(time.perf_counter() - t0)
+        out[kind] = {"buckets": rows, "rows": n,
+                     "rows_per_s": n / float(np.median(secs))}
+    return out
 
 
 def _fm_scale(m, idx, val):
@@ -7845,14 +7985,17 @@ def fm_leg(kr, kfm, kl, card, lat):
             val[:, :NNZ] = design["val"][:b]
             p4[f"sparse {tag} {b}"] = p4_case(
                 kfm, sparse_model, torch.from_numpy(idx).to(dev),
-                torch.tensor(val, dtype=dt, device=dev), b == 512)
+                torch.tensor(val, dtype=dt, device=dev), lat, b == 512)
             X = rng.standard_normal((b, FM_DENSE_DIM)) * (
                 rng.rand(b, FM_DENSE_DIM) < 0.5)
             p4[f"dense {tag} {b}"] = p4_case(
                 kfm, dense_model, None, torch.tensor(X, dtype=dt,
-                                                     device=dev), b == 512)
+                                                     device=dev), lat,
+                b == 512)
     out["p4"] = p4
     lap("p4")
+    out["p4_edges"] = p4_edges(kfm)
+    lap("p4 edges")
     # the model served by CompiledPredictor: labels equal to the float64
     # host map_table's outside the float32 rounding band
     mapper = FmModelMapper(tables[0].schema, held.schema,
@@ -7877,6 +8020,8 @@ def fm_leg(kr, kfm, kl, card, lat):
     out.update(in_band=int((~clear).sum()),
                held_auc=rank_auc(np.asarray(held.col("bin")), margin))
     lap("served")
+    out["serving"] = fm_serving_times(pred, held, rng)
+    lap("serving timed")
     out["laps_s"] = lap.laps
     print(f"fm (a) [{card}]: op {out['op_s']:.3f} s, trainer "
           f"{out['train_s']:.3f} s ({out['ms_a_superstep']:.3f} ms a "
@@ -7885,7 +8030,15 @@ def fm_leg(kr, kfm, kl, card, lat):
           f"served {SPS_HELD} rows in {out['serve_s']:.3f} s "
           f"({out['in_band']} in the band, held-out AUC "
           f"{out['held_auc']:.4f}); P3 {p3}; P4 f32 512 "
-          f"{p4['sparse f32 512']}; laps {lap.laps}", flush=True)
+          f"{p4['sparse f32 512']}; P4 edges bitwise at "
+          f"{len(out['p4_edges'])} cases; laps {lap.laps}", flush=True)
+    for kind, rec in out["serving"].items():
+        print(f"fm serving {kind} [{card}]: {rec['rows_per_s']} rows/s over "
+              f"{rec['rows']} rows", flush=True)
+        for b, r in rec["buckets"].items():
+            print(f"fm serving {kind} bucket {b}: p50 {r['p50_ms']} ms, P4 "
+                  f"{r['p4_event_ms']} ms a dispatch (events, "
+                  f"{r['p4_share']} of the p50)", flush=True)
     return out
 
 
@@ -8777,9 +8930,13 @@ def main(argv=None) -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "bitwise": True, "kernel_ms": r["kernel_ms"],
         "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+        "chain_bound_ms": r["chain_bound_ms"],
+        "bytes_bound_ms": r["bytes_bound_ms"],
         "shape": "sparse f32 512 x 40", "shapes": {k: {f: v[f] for f in (
             "kernel_ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
-            "bound_by")} for k, v in p4.items()}})
+            "bound_by", "bytes_bound_ms", "chain_bound_ms")}
+            for k, v in p4.items()},
+        "edges": text["fm"]["p4_edges"]})
     print(json.dumps({"main_path": {
         "text": text,
         "online_e2e": online, "health": health,

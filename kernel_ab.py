@@ -6,10 +6,11 @@ this repository, timed in turns on one NVIDIA GPU.
     mkdir -p ab/parent && git archive <commit> | tar -x -C ab/parent
     python3 kernel_ab.py ab/parent . . ab/parent     # ab/: listed in .gitignore
     python3 kernel_ab.py --parts=p2,steps,linear_grad ab/parent . . ab/parent
+    python3 kernel_ab.py --parts=p4 ab/parent . . ab/parent
 
 ``--parts`` names the parts below to measure (default: all of them:
 ``sparse``, ``walk``, ``split``, ``linear_grad``, ``lbfgs``, ``p2``,
-``steps``, ``drain``, ``p3``, ``plan``). Each tree named on the command line is measured in a process
+``steps``, ``drain``, ``p3``, ``plan``, ``p4``). Each tree named on the command line is measured in a process
 of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
@@ -112,7 +113,16 @@ a kernel and the library call it is held against are timed in turns):
   plan's sort half only), its device time (:func:`queued_ms`: events
   around calls queued behind a sleep, the span of a call's launches),
   its host time, the kernels a call launches (``torch.profiler``), the
-  bytes bound, and whether it equals ``run_plan_plain``'s.
+  bytes bound, and whether it equals ``run_plan_plain``'s;
+* ``p4``: the FM score (``kernels/fm.py::fm_scores``) at serving buckets
+  1 and 512, sparse (``chip_smoke.py``'s ``criteo_softmax_rows``: 39
+  one-hot slots padded to 40, a seeded model over the design's 65,536
+  features, k = 10) and dense (1,024 features, half of them zero), f32
+  and f64 (:func:`p4_inputs`): by CUDA events over back-to-back calls
+  (``kernel_ms``), its device time (``device_ms``, ``torch.profiler``'s
+  kernel time, and ``queued_ms``, events around calls queued behind a
+  sleep), its host time (the enqueue cost of back-to-back calls), and
+  whether it is bitwise to ``fm_scores_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -140,7 +150,7 @@ SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
 # rows of P3's larger-vocabulary `out` cases (``p3``)
 BIG_VOCAB_ROWS = (1 << 18, 1 << 19, 1_500_000)
 PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps",
-         "drain", "p3", "plan")
+         "drain", "p3", "plan", "p4")
 
 
 def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
@@ -237,6 +247,81 @@ def measure(tree: Path, parts=PARTS) -> dict:
         out["p3"] = row_scatter_times(h)
     if "plan" in parts:
         out["plan"] = plan_times(h, kl)
+    if "p4" in parts:
+        out["p4"] = fm_times(h)
+    return out
+
+
+P4_BUCKETS = (1, 512)
+P4_K, P4_DENSE_DIM = 10, 1024
+
+
+def p4_inputs(h, dev):
+    """``p4``'s cases: (name, model, idx, val) on the card, float32 and
+    float64, sparse and dense at each of ``P4_BUCKETS``. Sparse: the
+    first rows of ``criteo_softmax_rows(8, ...)`` (phase 21(a)'s held-out
+    rows) padded to 40 slots, a seeded model over their 65,536 features;
+    dense: seeded rows of 1,024 features, about half zero, and a seeded
+    model. Both models k = 10, as phase 21(a)'s FM."""
+    import torch
+    from alink_tpu_torch.operator.common.dataproc.feature_extract import \
+        extract_design
+    rng = np.random.RandomState(21)
+    top = max(P4_BUCKETS)
+    design = extract_design(h.criteo_softmax_rows(8, top), None,
+                            "features", np.float64)
+    dim = design["dim"]
+    width = -(-design["idx"].shape[1] // 8) * 8
+    idx = np.zeros((top, width), np.int32)
+    val = np.zeros((top, width))
+    idx[:, :design["idx"].shape[1]] = design["idx"]
+    val[:, :design["val"].shape[1]] = design["val"]
+    X = rng.standard_normal((top, P4_DENSE_DIM)) * (
+        rng.rand(top, P4_DENSE_DIM) < 0.5)
+    models = {"sparse": (rng.standard_normal(1) * 0.1,
+                         rng.standard_normal(dim) * 0.05,
+                         rng.standard_normal((dim, P4_K)) * 0.05),
+              "dense": (rng.standard_normal(1) * 0.1,
+                        rng.standard_normal(P4_DENSE_DIM) * 0.05,
+                        rng.standard_normal((P4_DENSE_DIM, P4_K)) * 0.05)}
+    cases = []
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        for layout in ("sparse", "dense"):
+            model = tuple(torch.tensor(a, dtype=dt, device=dev)
+                          for a in models[layout])
+            for b in P4_BUCKETS:
+                if layout == "sparse":
+                    ix = torch.from_numpy(idx[:b].copy()).to(dev)
+                    x = torch.tensor(val[:b], dtype=dt, device=dev)
+                else:
+                    ix, x = None, torch.tensor(X[:b], dtype=dt, device=dev)
+                cases.append((f"{layout} {tag} {b}", model, ix, x))
+    return cases
+
+
+def fm_times(h, reps: int = 10):
+    """``p4``: the FM score at :func:`p4_inputs`' cases: ``kernel_ms``
+    (CUDA events over ``reps`` back-to-back calls, the median of 9),
+    ``device_ms`` (``torch.profiler``'s time of the kernel a call),
+    ``queued_ms`` (:func:`queued_ms`), ``host_ms`` (the enqueue cost of
+    back-to-back calls) and ``bitwise`` (against ``fm_scores_plain`` on
+    CPU copies)."""
+    import torch
+    from alink_tpu_torch.kernels import fm as kfm
+    dev = torch.device("cuda")
+    out = {}
+    for name, model, ix, x in p4_inputs(h, dev):
+        def call():
+            return kfm.fm_scores(model, ix, x)
+        want = kfm.fm_scores_plain(tuple(a.cpu() for a in model),
+                                   None if ix is None else ix.cpu(), x.cpu())
+        got = call().cpu()
+        out[name] = {
+            "bitwise": bool(h.same_bits(got, want)[0]),
+            "kernel_ms": h.cuda_ms(call, trials=9, reps=reps),
+            "device_ms": h.device_ms_seen(call, "fm_score")[0],
+            "queued_ms": queued_ms(call),
+            "host_ms": h.host_ms(call, trials=9, reps=reps)}
     return out
 
 
@@ -843,6 +928,11 @@ def _summary(runs):
                       "gather_ms"):
                 s[f"p3 {key} {f}"] = med(rs, "p3", key, f)
             s[f"p3 {key} bitwise"] = all(r["p3"][key]["bitwise"] for r in rs)
+        for key in rs[0].get("p4", {}):
+            for f in ("kernel_ms", "device_ms", "queued_ms", "host_ms"):
+                s[f"p4 {key} {f}"] = med(rs, "p4", key, f)
+            s[f"p4 {key} bitwise"] = all(r["p4"][key]["bitwise"]
+                                         for r in rs)
         for key in rs[0].get("plan", {}):
             for f in ("ms", "device_ms", "host_ms", "kernels_per_call",
                       "torch_sort_ms", "bound_ms"):

@@ -20,7 +20,10 @@ on a 1-device session, float64 under the tests' x64) and the port's
   contract); against the jitted program within ``FM_JIT_GAP`` eps of the
   terms' magnitude (``|w0| + sum|x w| + 0.5 sum_f ((sum|x||V|)^2 + q)``),
   XLA's fusion contracting and reordering the products inside the scan
-  (measured at most 0.38, and bitwise at one row);
+  (measured at most 0.38, and bitwise at one row); and bitwise at the
+  kernel's edges (k 1 and 33, a dense model of 997 features served at
+  1000, sparse rows 256 wide with repeated indices and an all-padding
+  row);
 * ``CompiledPredictor`` (float64 ship) labels equal to ``map_table``'s
   outside a 1e-9 band of the margin, the JAX package's served margins
   bitwise;
@@ -211,6 +214,60 @@ def test_p4_plain_bitwise_vs_jax_serving_kernel(kind, bucket):
             * scale).all()
     if bucket == 1:
         assert np.array_equal(jit.view(np.int64), got.view(np.int64))
+
+
+# the kernel's edges (its tiling over the factors and the positions): one
+# factor and 33 (past a warp), a dense model of 997 features served at
+# 1000 (its SERVE_CHUNK multiple), sparse rows 256 wide
+P4_EDGE_DENSE_DIM, P4_EDGE_SPARSE_WIDTH = 997, 256
+
+
+@pytest.mark.parametrize("k", [1, 33])
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_p4_plain_bitwise_vs_jax_at_kernel_edges(kind, k):
+    """``fm_scores_plain`` (the version the card's kernel is held to)
+    bitwise (float64) to the JAX package's ``_dense`` / ``_sparse`` run op
+    by op, at the kernel's edges: dense rows of 997 features padded to
+    1000; sparse rows 256 wide whose second quarter repeats the first's
+    indices, with a padded tail and an all-padding last row."""
+    rng = np.random.RandomState(k)
+    dim = P4_EDGE_DENSE_DIM if kind == "dense" else 300
+    table = interop.fm_model_from_numpy(
+        0.2, rng.randn(dim) * 0.3, rng.randn(dim, k) * 0.3,
+        is_regression=False, label_values=[1, 0], vector_col="vec",
+        label_type="LONG")
+    jk = _jax_mapper(_jt(table), None).serving_kernel()
+    tm = tops.FmModelMapper(table.schema, None,
+                            TParams({"prediction_col": "p"}))
+    tm.load_model(table)
+    tk = tm.serving_kernel(torch.float64)
+    w0, w, V = (t.numpy() for t in tk.model_arrays)
+    for j, t in zip(jk.model_arrays, (w0.reshape(()), w, V)):
+        assert np.array_equal(np.asarray(j), t)
+    n = 5
+    if kind == "dense":
+        dim8 = w.shape[0]
+        assert dim8 == -(-dim // 8) * 8 == 1000
+        X = np.zeros((n, dim8))
+        X[:, :dim] = rng.randn(n, dim) * (rng.rand(n, dim) < 0.5)
+        args = (X,)
+        got = kfm.fm_scores(tk.model_arrays, None, torch.from_numpy(X))
+    else:
+        width = P4_EDGE_SPARSE_WIDTH
+        idx = rng.randint(0, dim, (n, width)).astype(np.int32)
+        val = rng.randn(n, width)
+        idx[:, 64:128] = idx[:, :64]
+        idx[:, -32:], val[:, -32:] = 0, 0.0
+        idx[-1], val[-1] = 0, 0.0
+        args = (idx, val)
+        got = kfm.fm_scores(tk.model_arrays, torch.from_numpy(idx),
+                            torch.from_numpy(val))
+    eager = np.asarray(jk.device_fns[kind](jk.model_arrays, *args))
+    got = got.numpy()
+    assert eager.dtype == got.dtype == np.float64
+    assert np.array_equal(eager.view(np.int64), got.view(np.int64))
+    if kind == "sparse":
+        assert got[-1] == 0.2            # w0 alone: every term a no-op
 
 
 def _fm_scale(mdl, idx, val):
