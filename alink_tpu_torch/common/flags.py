@@ -6,8 +6,9 @@ the serving tier (buckets, precision, batching, breakers, feeders, the
 swap mode and the compiled stream route), the observability planes
 (metrics, tracing, request tracing, post-mortem bundles, the admin
 plane, measured profiling, the health probe channel), durability
-(``ALINK_TPU_FAULT_INJECT``, ``ALINK_TPU_ASYNC_SNAPSHOT``) and the
-online DAG (the ``ALINK_TPU_E2E_*`` family). One parser per kind: a boolean is off
+(``ALINK_TPU_FAULT_INJECT``, ``ALINK_TPU_ASYNC_SNAPSHOT``), the tuning
+sweeps (``ALINK_TPU_SWEEP``, ``_ETA``, ``_RUNG``) and the online DAG
+(the ``ALINK_TPU_E2E_*`` family). One parser per kind: a boolean is off
 for ``0/false/off/no`` (any case) and on otherwise; other kinds read a
 set-but-empty value as unset; a ``tolerant`` flag falls back to its
 default on a value it cannot parse.
@@ -75,7 +76,7 @@ class Flag:
     """One declared environment flag: ``kind`` picks the parser unless
     ``parser`` overrides it, ``clamp`` bounds the value, ``section``
     groups it (``serving`` / ``observability`` / ``durability`` /
-    ``e2e``), and a
+    ``tuning`` / ``e2e``), and a
     ``tolerant`` flag returns its default on an unparsable value."""
     name: str
     kind: str
@@ -264,6 +265,20 @@ _reg("ALINK_TPU_SERVE_SWAP", "mode", "double",
      "the standby weights are on the device)", "serving",
      parser=lambda raw: ("sync" if raw.strip().lower() == "sync"
                          else "double"))
+
+# -- tuning (hyperparameter sweeps, tuning/) --------------------------------
+_reg("ALINK_TPU_SWEEP", "bool", False,
+     "route GridSearchCV/GridSearchTVSplit candidate loops through the "
+     "tuning sweep engine when every grid axis is carry-resident for a "
+     "supported estimator (fallbacks recorded as "
+     "alink_sweep_fallback_total)", "tuning")
+_reg("ALINK_TPU_SWEEP_ETA", "int", 3,
+     "ASHA successive-halving reduction factor: each rung keeps the top "
+     "ceil(alive/eta) points", "tuning", clamp=lambda n: max(2, n))
+_reg("ALINK_TPU_SWEEP_RUNG", "int", 0,
+     "default ASHA rung period in supersteps for sweeps that enable "
+     "pruning without an explicit AshaConfig (0 = max_iter // 4, "
+     "minimum 1)", "tuning", clamp=lambda n: max(0, n))
 
 # -- durability -------------------------------------------------------------
 _reg("ALINK_TPU_ASYNC_SNAPSHOT", "bool", True,

@@ -215,6 +215,38 @@ def assign_clusters(X, C, distance_type: str = "EUCLIDEAN"):
     return ids, D.gather(1, ids[:, None])[:, 0]
 
 
+def lloyd_buffer(block, C, k: int, distance_type: str, inertia: bool):
+    """The assign half of a Lloyd superstep on a ``(n, d + 1)`` block
+    (features, then the row weight): the ``(k, d + 1)`` buffer of the
+    weighted sums and counts of each cluster's rows, and with
+    ``inertia`` one more row holding the weighted inertia (padding rows
+    have weight 0)."""
+    d = block.shape[1] - 1
+    Xb, wb = block[:, :d], block[:, d]
+    ids, dist = assign_clusters(Xb, C, distance_type)
+    onehot = torch.nn.functional.one_hot(ids, k).to(Xb.dtype) \
+        * wb[:, None]                                           # (n, k)
+    sums = onehot.T @ Xb                                        # (k, d)
+    cnts = onehot.sum(0)                                        # (k,)
+    buf = torch.cat([sums, cnts[:, None]], 1)
+    if inertia:
+        row = torch.cat([(dist * wb).sum().reshape(1, 1),
+                         Xb.new_zeros((1, d))], 1)
+        buf = torch.cat([buf, row], 0)
+    return buf
+
+
+def lloyd_update(buf, C, k: int):
+    """The update half: the new centroids (an empty cluster keeps its
+    old one), the largest centroid movement and the cluster weights."""
+    d = C.shape[1]
+    sums, cnts = buf[:k, :d], buf[:k, d]
+    newC = torch.where(cnts[:, None] > 0,
+                       sums / torch.clamp(cnts[:, None], min=1e-12), C)
+    movement = torch.sqrt(((newC - C) ** 2).sum(1)).max()
+    return newC, movement, cnts
+
+
 def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
                  distance_type: str = "EUCLIDEAN",
                  init: str = "K_MEANS_PARALLEL", seed: int = 0,
@@ -265,23 +297,11 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
             ctx.put_obj("centroids", C0)
             ctx.put_obj("movement", torch.full((), torch.inf, dtype=C0.dtype,
                                                device=C0.device))
-        block = ctx.get_obj("data")
-        Xb, wb = block[:, :d], block[:, d]
-        ids, dist = assign_clusters(Xb, ctx.get_obj("centroids"),
-                                    distance_type)
-        onehot = torch.nn.functional.one_hot(ids, k).to(Xb.dtype) \
-            * wb[:, None]                                       # (n, k)
-        sums = onehot.T @ Xb                      # (k, d)
-        cnts = onehot.sum(0)                                    # (k,)
-        buf = torch.cat([sums, cnts[:, None]], 1)
-        if ctx.probes_enabled:
-            # the weighted inertia rides the buffer's AllReduce as one
-            # extra row (padding rows have wb == 0): a probe adds no
-            # collective of its own
-            inertia = torch.cat([(dist * wb).sum().reshape(1, 1),
-                                 Xb.new_zeros((1, d))], 1)
-            buf = torch.cat([buf, inertia], 0)
-        ctx.put_obj("buf", buf)
+        # the weighted inertia rides the buffer's AllReduce as one extra
+        # row when the probes are on: a probe adds no collective of its own
+        ctx.put_obj("buf", lloyd_buffer(ctx.get_obj("data"),
+                                        ctx.get_obj("centroids"), k,
+                                        distance_type, ctx.probes_enabled))
 
     def update(ctx):
         buf = ctx.get_obj("buf")
@@ -290,10 +310,7 @@ def kmeans_train(X, k: int, max_iter: int = 50, tol: float = 1e-4,
             # pre-update inertia: the objective of the assignment the
             # centroids being replaced produced
             ctx.probe("inertia", buf[k, 0])
-        sums, cnts = buf[:k, :d], buf[:k, d]
-        newC = torch.where(cnts[:, None] > 0,
-                           sums / torch.clamp(cnts[:, None], min=1e-12), C)
-        movement = torch.sqrt(((newC - C) ** 2).sum(1)).max()
+        newC, movement, cnts = lloyd_update(buf, C, k)
         ctx.put_obj("movement", movement)
         ctx.probe("movement", movement)
         ctx.probe("empty_clusters", (cnts <= 0).sum())

@@ -23,6 +23,12 @@ a superstep. The health probes (loss, grad_norm, nonfinite.grad,
 update_ratio) are recorded every superstep, as the JAX package records
 them by default.
 
+Each optimizer's superstep bodies (``qn_gradient``, ``qn_direction``,
+``qn_update``; ``sgd_gradient``, ``sgd_update``; ``newton_hessian``,
+``newton_update``) read and write a mapping: the serial stages hand
+them the carry (``_CtxState``), ``tuning/sweep.py`` one point's own
+state, so a swept point runs its serial fit's ops in their order.
+
 A sparse shard's plan (``objfunc.design_plan``: flat keys, values and the
 ordered gradient's run plan) is built once a run, on its entry superstep
 (the init pass, or the first superstep after a resume), and kept out of
@@ -198,6 +204,118 @@ def _ship_dtype(y) -> torch.dtype:
     return _DTYPES.get(np.asarray(y).dtype, torch.float32)
 
 
+class _CtxState:
+    """A superstep's carry as the mapping the step bodies below read and
+    write (``ComContext.get_obj`` / ``put_obj``). The tuning sweep hands
+    the same bodies one point's state as a plain dict instead, so a
+    swept point runs its serial superstep's ops in their order."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+
+    def __getitem__(self, name):
+        return self._ctx.get_obj(name)
+
+    def __setitem__(self, name, value):
+        self._ctx.put_obj(name, value)
+
+    def get(self, name, default=None):
+        return self._ctx.get_obj(name) if self._ctx.contains_obj(name) \
+            else default
+
+
+def qn_ladder(learning_rate: float, np_dtype) -> np.ndarray:
+    """The line search's step sizes before their scale: 0, then
+    ``learning_rate`` times 2, 1, 1/2, ..., 2^-8, in the ship dtype."""
+    ladder = learning_rate * np.power(
+        2.0, 1 - np.arange(_NUM_SEARCH_STEP, dtype=np.float64))
+    return np.concatenate([[0.0], ladder]).astype(np_dtype)
+
+
+def qn_gradient(obj, shard, st, dtype) -> None:
+    """CalcGradient: the shard's gradient, loss and weight sums at
+    ``st["coef"]`` into ``st["glw"]``; the margins, where the objective
+    gives them, into ``st["eta0"]`` for the line search (same coef)."""
+    g, loss, wsum, eta = obj.calc_grad_eta_shard(shard, st["coef"])
+    if eta is not None:
+        st["eta0"] = eta
+    st["glw"] = torch.cat([g.to(dtype), torch.stack([loss, wsum]).to(dtype)])
+
+
+def qn_direction(obj, shard, st, step: int, m: int, owlqn: bool,
+                 eps: float):
+    """CalDirection and CalcLosses: the regularized gradient and loss,
+    the convergence bit, the ring's new pair (none on superstep 1), the
+    two-loop direction and the losses at the ladder of steps. Returns
+    ``(loss, grad_norm, gradient)`` for the loss curve and probes."""
+    dim = obj.dim
+    glw = st["glw"]
+    coef = st["coef"]
+    W = torch.clamp(glw[dim + 1], min=_TINY)
+    g_plain = glw[:dim] / W + obj.l2_grad(coef)
+    loss_total = glw[dim] / W + obj.regular_loss(coef)
+    if owlqn:
+        g_dir = _pseudo_grad(g_plain, coef, obj.l1, obj._reg_mask(coef))
+    else:
+        g_dir = g_plain
+    gnorm = torch.linalg.vector_norm(g_dir) / torch.clamp(
+        torch.linalg.vector_norm(coef), min=1.0)
+    st["conv"] = gnorm < eps
+    if m > 0:
+        # push pair (coef - coef_prev, g - g_prev); none on step 1
+        pos, nvalid = st["pos"], st["nvalid"]
+        sk, yk = st["sk"], st["yk"]
+        if step > 1:
+            torch.sub(coef, st["coef_prev"], out=sk[pos])
+            torch.sub(g_plain, st["grad_prev"], out=yk[pos])
+            pos, nvalid = (pos + 1) % m, min(nvalid + 1, m)
+            st["pos"] = pos
+            st["nvalid"] = nvalid
+        d = _two_loop(g_dir, sk, yk, pos, nvalid, m)
+    else:
+        d = g_dir
+    if owlqn:
+        d = torch.where(d * g_dir > 0, d, 0.0)
+    st["dir"] = d
+    st["grad_prev"] = g_plain
+    st["pg"] = g_dir
+    steps = st["ladder"] * st["step_scale"]
+    st["line_losses"] = obj.line_losses_shard(shard, coef, d, steps,
+                                              eta0=st.get("eta0"))
+    st["steps"] = steps
+    return loss_total, gnorm, g_plain
+
+
+def qn_update(obj, st, owlqn: bool):
+    """UpdateModel: the first argmin step of the ladder, the coefficient
+    update (OWLQN's orthant projection) and the ladder's scale. Returns
+    ``(new coef, old coef)``."""
+    dim = obj.dim
+    coef = st["coef"]
+    d = st["dir"]
+    steps = st["steps"]
+    W = torch.clamp(st["glw"][dim + 1], min=_TINY)
+    reg = obj.regular_loss(coef[None, :] - steps[:, None] * d[None, :])
+    total = st["line_losses"] / W + reg
+    best = _argmin_first(total)
+    s_best = steps.index_select(0, best.reshape(1)).squeeze(0)
+    new_coef = coef - s_best * d
+    if owlqn:
+        pg = st["pg"]
+        orthant = torch.where(coef != 0, torch.sign(coef), -torch.sign(pg))
+        new_coef = torch.where(new_coef * orthant < 0, 0.0, new_coef)
+    st["coef_prev"] = coef
+    st["coef"] = new_coef
+    # adapt the ladder like the reference's step grow/shrink heuristic
+    scale = st["step_scale"]
+    scale = torch.where(best == 0, scale * 0.25,
+                        torch.where(best == 1, scale * 2.0,
+                                    torch.where(best == _NUM_SEARCH_STEP,
+                                                scale * 0.5, scale)))
+    st["step_scale"] = torch.clamp(scale, 1e-10, 1e6)
+    return new_coef, coef
+
+
 def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
                   history: int = _HISTORY):
     dim = obj.dim
@@ -207,9 +325,7 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
     max_iter = params.max_iter
     eps = params.epsilon
     w0 = _start(dim, dtype, warm_start)
-    ladder = params.learning_rate * np.power(
-        2.0, 1 - np.arange(_NUM_SEARCH_STEP, dtype=np.float64))
-    ladder = np.concatenate([[0.0], ladder]).astype(w0.dtype)
+    ladder = qn_ladder(params.learning_rate, w0.dtype)
 
     def calc_grad(ctx):
         if ctx.is_init_step:
@@ -225,80 +341,17 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
             ctx.put_obj("step_scale", torch.ones((), dtype=dtype, device=dev))
             ctx.put_obj("ladder", torch.from_numpy(ladder).to(dev))
         _enter(ctx, obj, data_keys)
-        shard = _shard_views(ctx, data_keys)
-        g, loss, wsum, eta = obj.calc_grad_eta_shard(shard, ctx.get_obj("coef"))
-        if eta is not None:
-            ctx.put_obj("eta0", eta)  # reused by the line search (same coef)
-        ctx.put_obj("glw", torch.cat([g.to(dtype),
-                                      torch.stack([loss, wsum]).to(dtype)]))
+        qn_gradient(obj, _shard_views(ctx, data_keys), _CtxState(ctx), dtype)
 
     def direction_and_losses(ctx):
-        glw = ctx.get_obj("glw")
-        coef = ctx.get_obj("coef")
-        W = torch.clamp(glw[dim + 1], min=_TINY)
-        g_plain = glw[:dim] / W + obj.l2_grad(coef)
-        loss_total = glw[dim] / W + obj.regular_loss(coef)
-        step = ctx.step_no
-        if owlqn:
-            g_dir = _pseudo_grad(g_plain, coef, obj.l1, obj._reg_mask(coef))
-        else:
-            g_dir = g_plain
-        gnorm = torch.linalg.vector_norm(g_dir) / torch.clamp(
-            torch.linalg.vector_norm(coef), min=1.0)
-        ctx.put_obj("conv", gnorm < eps)
+        loss_total, gnorm, g_plain = qn_direction(
+            obj, _shard_views(ctx, data_keys), _CtxState(ctx), ctx.step_no,
+            m, owlqn, eps)
         _record_loss(ctx, loss_total, gnorm, g_plain)
 
-        if m > 0:
-            # push pair (coef - coef_prev, g - g_prev); none on step 1
-            pos, nvalid = ctx.get_obj("pos"), ctx.get_obj("nvalid")
-            sk, yk = ctx.get_obj("sk"), ctx.get_obj("yk")
-            if step > 1:
-                torch.sub(coef, ctx.get_obj("coef_prev"), out=sk[pos])
-                torch.sub(g_plain, ctx.get_obj("grad_prev"), out=yk[pos])
-                pos, nvalid = (pos + 1) % m, min(nvalid + 1, m)
-                ctx.put_obj("pos", pos)
-                ctx.put_obj("nvalid", nvalid)
-            d = _two_loop(g_dir, sk, yk, pos, nvalid, m)
-        else:
-            d = g_dir
-        if owlqn:
-            d = torch.where(d * g_dir > 0, d, 0.0)
-        ctx.put_obj("dir", d)
-        ctx.put_obj("grad_prev", g_plain)
-        ctx.put_obj("pg", g_dir)
-
-        steps = ctx.get_obj("ladder") * ctx.get_obj("step_scale")
-        shard = _shard_views(ctx, data_keys)
-        eta0 = ctx.get_obj("eta0") if ctx.contains_obj("eta0") else None
-        ctx.put_obj("line_losses",
-                    obj.line_losses_shard(shard, coef, d, steps, eta0=eta0))
-        ctx.put_obj("steps", steps)
-
     def update_model(ctx):
-        coef = ctx.get_obj("coef")
-        d = ctx.get_obj("dir")
-        steps = ctx.get_obj("steps")
-        glw = ctx.get_obj("glw")
-        W = torch.clamp(glw[dim + 1], min=_TINY)
-        reg = obj.regular_loss(coef[None, :] - steps[:, None] * d[None, :])
-        total = ctx.get_obj("line_losses") / W + reg
-        best = _argmin_first(total)
-        s_best = steps.index_select(0, best.reshape(1)).squeeze(0)
-        new_coef = coef - s_best * d
-        if owlqn:
-            pg = ctx.get_obj("pg")
-            orthant = torch.where(coef != 0, torch.sign(coef), -torch.sign(pg))
-            new_coef = torch.where(new_coef * orthant < 0, 0.0, new_coef)
-        ctx.put_obj("coef_prev", coef)
-        ctx.put_obj("coef", new_coef)
+        new_coef, coef = qn_update(obj, _CtxState(ctx), owlqn)
         _probe_update(ctx, new_coef - coef, coef)
-        # adapt the ladder like the reference's step grow/shrink heuristic
-        scale = ctx.get_obj("step_scale")
-        scale = torch.where(best == 0, scale * 0.25,
-                            torch.where(best == 1, scale * 2.0,
-                                        torch.where(best == _NUM_SEARCH_STEP,
-                                                    scale * 0.5, scale)))
-        ctx.put_obj("step_scale", torch.clamp(scale, 1e-10, 1e6))
 
     queue = (IterativeComQueue(env=env, max_iter=max_iter, seed=params.seed)
              .init_with_broadcast_data("coef0", w0)
@@ -318,6 +371,47 @@ def _quasi_newton(obj, data, params, env, warm_start, owlqn: bool,
 # mini-batch SGD (reference Sgd.java CalcSubGradient :101-140)
 # ---------------------------------------------------------------------------
 
+def sgd_gradient(obj, shard, st, frac: float, gen, dtype) -> None:
+    """CalcSubGradient: a Bernoulli(``frac``) mask of the rows drawn from
+    ``gen`` (the superstep's ``ComContext.rng()``) on the device, and the
+    masked shard's gradient, loss and weight sums into ``st["glw"]``."""
+    w = shard["w"]
+    mask = torch.bernoulli(torch.full(shard["y"].shape, frac, dtype=w.dtype,
+                                      device=w.device), generator=gen)
+    sub = dict(shard)
+    sub["w"] = w * mask
+    g, loss, wsum = obj.calc_grad_shard(sub, st["coef"])
+    st["glw"] = torch.cat([g.to(dtype), torch.stack([loss, wsum]).to(dtype)])
+
+
+def sgd_update(obj, st, step: int, learning_rate: float, eps: float,
+               dtype):
+    """The step ``learning_rate / sqrt(step)`` along the mean gradient,
+    the L1 soft-threshold, an empty mini-batch's skip and the
+    convergence bit. Returns ``(loss, gradient, new coef, old coef)``."""
+    dim = obj.dim
+    glw = st["glw"]
+    coef = st["coef"]
+    wsum = glw[dim + 1]
+    nonempty = wsum > 0
+    W = torch.clamp(wsum, min=_TINY)
+    g = glw[:dim] / W + obj.l2_grad(coef)
+    lr = learning_rate / torch.sqrt(
+        torch.tensor(float(step), dtype=dtype, device=coef.device))
+    new_coef = coef - lr * g
+    if obj.l1 > 0:  # proximal soft-threshold for L1
+        thr = obj.l1 * lr * obj._reg_mask(coef)
+        new_coef = torch.sign(new_coef) * torch.clamp(
+            torch.abs(new_coef) - thr, min=0.0)
+    new_coef = torch.where(nonempty, new_coef, coef)  # skip empty batches
+    st["coef"] = new_coef
+    loss_total = glw[dim] / W + obj.regular_loss(coef)
+    st["conv"] = nonempty & (
+        torch.linalg.vector_norm(lr * g) < eps * torch.clamp(
+            torch.linalg.vector_norm(coef), min=1.0))
+    return loss_total, g, new_coef, coef
+
+
 def _sgd(obj, data, params, env, warm_start):
     dim = obj.dim
     data_keys = tuple(data)
@@ -330,39 +424,14 @@ def _sgd(obj, data, params, env, warm_start):
         if ctx.is_init_step:
             _init_state(ctx, dtype, max_iter)
         _enter(ctx, obj, data_keys)
-        shard = _shard_views(ctx, data_keys)
         # this superstep's random sub-sample, drawn on the device
-        w = shard["w"]
-        mask = torch.bernoulli(torch.full(shard["y"].shape, frac,
-                                          dtype=w.dtype, device=w.device),
-                               generator=ctx.rng())
-        sub = dict(shard)
-        sub["w"] = w * mask
-        g, loss, wsum = obj.calc_grad_shard(sub, ctx.get_obj("coef"))
-        ctx.put_obj("glw", torch.cat([g.to(dtype),
-                                      torch.stack([loss, wsum]).to(dtype)]))
+        sgd_gradient(obj, _shard_views(ctx, data_keys), _CtxState(ctx), frac,
+                     ctx.rng(), dtype)
 
     def update(ctx):
-        glw = ctx.get_obj("glw")
-        coef = ctx.get_obj("coef")
-        wsum = glw[dim + 1]
-        nonempty = wsum > 0
-        W = torch.clamp(wsum, min=_TINY)
-        g = glw[:dim] / W + obj.l2_grad(coef)
-        step = ctx.step_no
-        lr = params.learning_rate / torch.sqrt(
-            torch.tensor(float(step), dtype=dtype, device=coef.device))
-        new_coef = coef - lr * g
-        if obj.l1 > 0:  # proximal soft-threshold for L1
-            thr = obj.l1 * lr * obj._reg_mask(coef)
-            new_coef = torch.sign(new_coef) * torch.clamp(
-                torch.abs(new_coef) - thr, min=0.0)
-        new_coef = torch.where(nonempty, new_coef, coef)  # skip empty batches
-        ctx.put_obj("coef", new_coef)
-        loss_total = glw[dim] / W + obj.regular_loss(coef)
-        ctx.put_obj("conv", nonempty & (
-            torch.linalg.vector_norm(lr * g) < params.epsilon * torch.clamp(
-                torch.linalg.vector_norm(coef), min=1.0)))
+        loss_total, g, new_coef, coef = sgd_update(
+            obj, _CtxState(ctx), ctx.step_no, params.learning_rate,
+            params.epsilon, dtype)
         _record_loss(ctx, loss_total, torch.linalg.vector_norm(g), g)
         _probe_update(ctx, new_coef - coef, coef)
 
@@ -382,6 +451,34 @@ def _sgd(obj, data, params, env, warm_start):
 # Newton (reference Newton.java: dense Hessian + solve)
 # ---------------------------------------------------------------------------
 
+def newton_hessian(obj, shard, st, dtype) -> None:
+    """The shard's Hessian sum into ``st["H"]``, its gradient, loss and
+    weight sums into ``st["glw"]``."""
+    H, g, loss, wsum = obj.hessian_shard(shard, st["coef"])
+    st["H"] = H
+    st["glw"] = torch.cat([g.to(dtype), torch.stack([loss, wsum]).to(dtype)])
+
+
+def newton_update(obj, st, eps: float):
+    """The Newton step (the ridge and a 1e-8 diagonal on the mean
+    Hessian, ``torch.linalg.solve``) and the convergence bit. Returns
+    ``(loss, gradient, step, old coef)``."""
+    dim = obj.dim
+    glw = st["glw"]
+    coef = st["coef"]
+    W = torch.clamp(glw[dim + 1], min=_TINY)
+    g = glw[:dim] / W + obj.l2_grad(coef)
+    H = st["H"] / W
+    reg_diag = obj.l2 * obj._reg_mask(coef) + 1e-8
+    H = H + torch.diag(reg_diag.to(H.dtype))
+    d = torch.linalg.solve(H, g)
+    st["coef"] = coef - d
+    loss_total = glw[dim] / W + obj.regular_loss(coef)
+    st["conv"] = torch.linalg.vector_norm(d) < eps * torch.clamp(
+        torch.linalg.vector_norm(coef), min=1.0)
+    return loss_total, g, d, coef
+
+
 def _newton(obj, data, params, env, warm_start):
     dim = obj.dim
     data_keys = tuple(data)
@@ -393,25 +490,12 @@ def _newton(obj, data, params, env, warm_start):
         if ctx.is_init_step:
             _init_state(ctx, dtype, max_iter)
         _enter(ctx, obj, data_keys, densified=True)
-        shard = _shard_views(ctx, data_keys)
-        H, g, loss, wsum = obj.hessian_shard(shard, ctx.get_obj("coef"))
-        ctx.put_obj("H", H)
-        ctx.put_obj("glw", torch.cat([g.to(dtype),
-                                      torch.stack([loss, wsum]).to(dtype)]))
+        newton_hessian(obj, _shard_views(ctx, data_keys), _CtxState(ctx),
+                       dtype)
 
     def update(ctx):
-        glw = ctx.get_obj("glw")
-        coef = ctx.get_obj("coef")
-        W = torch.clamp(glw[dim + 1], min=_TINY)
-        g = glw[:dim] / W + obj.l2_grad(coef)
-        H = ctx.get_obj("H") / W
-        reg_diag = obj.l2 * obj._reg_mask(coef) + 1e-8
-        H = H + torch.diag(reg_diag.to(H.dtype))
-        d = torch.linalg.solve(H, g)
-        ctx.put_obj("coef", coef - d)
-        loss_total = glw[dim] / W + obj.regular_loss(coef)
-        ctx.put_obj("conv", torch.linalg.vector_norm(d) < params.epsilon
-                    * torch.clamp(torch.linalg.vector_norm(coef), min=1.0))
+        loss_total, g, d, coef = newton_update(obj, _CtxState(ctx),
+                                               params.epsilon)
         _record_loss(ctx, loss_total, torch.linalg.vector_norm(g), g)
         _probe_update(ctx, d, coef)
 

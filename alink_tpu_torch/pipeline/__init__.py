@@ -2,16 +2,26 @@
 Ported: ``base.py``, the feature and scaler wrappers of ``feature.py``,
 the linear classifiers of ``classification.py``, ``regression.py``,
 KMeans and LDA of ``clustering.py``, the trees of ``tree.py``, ALS of
-``extras.py``, FM and OneVsRest of ``fm_nb.py`` and the NLP stages of
-``nlp.py``. The tuning and other wrapper modules wait for their ops."""
+``extras.py``, FM and OneVsRest of ``fm_nb.py``, the NLP stages of
+``nlp.py`` and the grid searches of ``tuning.py`` (``ParamGrid``,
+``GridSearchCV``, ``GridSearchTVSplit``, the four tuning evaluators,
+``Report``). The other wrapper modules wait for their ops."""
 
 from .base import (Estimator, LocalPredictor, MapModel, Model, Pipeline,
                    PipelineModel, PipelineStage, Trainer, Transformer)
 from . import (classification, clustering, extras, feature, fm_nb, nlp,
-               regression, tree)
+               regression, tree, tuning)
 from .extras import ALS, ALSModel
+from .tuning import (BinaryClassificationTuningEvaluator,
+                     ClusterTuningEvaluator, GridSearchCV, GridSearchTVSplit,
+                     MultiClassClassificationTuningEvaluator, ParamGrid,
+                     RegressionTuningEvaluator, Report)
 
 __all__ = ["ALS", "ALSModel", "Estimator", "LocalPredictor", "MapModel", "Model", "Pipeline",
            "PipelineModel", "PipelineStage", "Trainer", "Transformer",
            "classification", "clustering", "extras", "feature", "fm_nb",
-           "nlp", "regression", "tree"]
+           "nlp", "regression", "tree", "tuning", "ParamGrid",
+           "GridSearchCV", "GridSearchTVSplit",
+           "BinaryClassificationTuningEvaluator",
+           "MultiClassClassificationTuningEvaluator",
+           "RegressionTuningEvaluator", "ClusterTuningEvaluator", "Report"]

@@ -11,8 +11,8 @@ Ported: ``PipelineStage``, ``Transformer``, ``Estimator``, ``Model``,
 ``LocalPredictor`` and the chain predictors.
 
 The port's difference: a stage takes ``device=`` (not a param, not
-saved; ``clone()`` keeps it). ``Trainer.fit`` hands it to a train op
-that takes one (the linear, tree and KMeans train ops), so such an
+saved; ``clone()`` keeps it), a ``Trainer`` also ``dtype=``.
+``Trainer.fit`` hands them to a train op that takes them (the linear, tree and KMeans train ops), so such an
 estimator runs on ``cuda`` unless the caller asks for the CPU, and
 raises without CUDA, and to the fitted model (a KMeans model assigns
 there). A ``Pipeline``'s ``device`` is the device of every estimator stage
@@ -104,18 +104,38 @@ class MapModel(Model):
 
 class Trainer(Estimator):
     """Estimator whose fit() runs a train batch op and wraps the model
-    (reference pipeline/Trainer.java:45-48,89-104 ``createModel``)."""
+    (reference pipeline/Trainer.java:45-48,89-104 ``createModel``).
+
+    ``dtype=`` (a torch float dtype; not a param, not saved, ``clone()``
+    keeps it) is handed to a train op that takes one; ``None`` leaves
+    the op's own default (float32 for the linear family). It is the
+    port's counterpart of the JAX package's x64 switch."""
 
     TRAIN_OP_CLS: Optional[Type[BatchOperator]] = None
     MODEL_CLS: Optional[Type[Model]] = None
 
+    def __init__(self, params: Optional[Params] = None, device=None,
+                 dtype=None, **kwargs):
+        super().__init__(params, device=device, **kwargs)
+        self.dtype = dtype
+
+    def clone(self):
+        out = super().clone()
+        out.dtype = self.dtype
+        return out
+
+    def train_op(self, params: Params) -> BatchOperator:
+        """An unlinked train op of ``params`` on this stage's device and
+        dtype (where the op takes them)."""
+        takes = inspect.signature(self.TRAIN_OP_CLS.__init__).parameters
+        kw = {"device": self.device} if "device" in takes else {}
+        if self.dtype is not None and "dtype" in takes:
+            kw["dtype"] = self.dtype
+        return self.TRAIN_OP_CLS(params, **kw)
+
     def fit(self, in_op) -> Model:
         in_op = _as_op(in_op)
-        takes_device = "device" in inspect.signature(
-            self.TRAIN_OP_CLS.__init__).parameters
-        train_op = self.TRAIN_OP_CLS(
-            self.params.clone(),
-            **({"device": self.device} if takes_device else {}))
+        train_op = self.train_op(self.params.clone())
         train_op.link_from(in_op)
         self._last_train_op = train_op
         model = self.MODEL_CLS(self.params.clone(), device=self.device)

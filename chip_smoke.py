@@ -460,6 +460,36 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    at every case. Phase 18(c) also runs the implicit case in float64, the
    card within ``ALS_IMPLICIT_F64_TOL`` of the CPU.
 
+22. the tuning layer (after 21; TF32 off): (a) ``bench.py``'s
+   ``quick_tuning_sweep`` (dense 4,000 x 32 float64, L-BFGS, 100
+   supersteps at epsilon 0, 24 points on its l2 ladder, ASHA rung 5 and
+   eta 5, 2 reps; its row's fields): every point of the full sweep bitwise
+   its serial ``optimize``, the ASHA winner the serial argmin and bitwise
+   its fit, two card sweeps bitwise, the card's loss curves within rtol
+   1e-10 of the same sweep on the CPU over 100 supersteps and its
+   coefficients over the first 5; (b) 8 points over l2 (one with l1, an
+   OWLQN group) on phase 16's 100,000 padded-COO Criteo rows, 10
+   supersteps, float32 and float64: each point bitwise its serial fit, B5
+   and P1 launched as often as the serial fits launch them, the plan once
+   a group (2) where the serial fits build 8, the float64 card sweep
+   within rtol 1e-10 of the CPU's; (c) 8 points over alpha x l1 through
+   the staleness step at ``bench_ftrl_pallas``'s shape (dim 16,384, 512
+   rows of 16 non-zeros and the intercept, K = 32, 4 micro-batches,
+   float64): each lane bitwise its serial drain and whether 8 or 3
+   points run, B1 and B2 512 times each, the card within rtol 1e-10 of the
+   CPU, the winner the lowest progressive log loss; and ``bench.py``'s
+   step there through B1 and B2 against their plain versions on the card
+   (samples/s in turns, z bitwise, launches a micro-batch, busy share);
+   (d) ``GridSearchCV`` over a ``LogisticRegression``'s l2 on 20,000 of
+   (b)'s rows, ``GridSearchTVSplit`` of a ``LinearRegression`` bare and in
+   a ``Pipeline``, and a ``max_iter`` grid, each with
+   ``ALINK_TPU_SWEEP`` off and on: equal reports and chosen models, no
+   fallback for the supported grids, the Pipeline's and the trace axis's
+   recorded; (e) (b)'s float32 sweep with ASHA killed at its rung
+   boundary of superstep 6 and resumed: population, pruning and rung log
+   bitwise; B5, P1 and the plan at (b)'s design and B1 and B2 at (c)'s
+   chunk bitwise to their plain versions.
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -8500,10 +8530,697 @@ def phase_text(kernels, card, lat):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 22. the tuning layer: sweeps and grid searches on the card
+# ---------------------------------------------------------------------------
+
+# bench.py::quick_tuning_sweep (bench.py:3158-3243): dense 4,000 x 32
+# float64 from RandomState(0), L-BFGS, max_iter 100, epsilon 0, 24 points
+# on its l2 ladder, ASHA rung 5 and eta 5, reps 2
+TS_ROWS, TS_DIM, TS_ITERS, TS_POINTS, TS_RUNG, TS_ETA, TS_REPS = (
+    4000, 32, 100, 24, 5, 5, 2)
+# coefficients card vs CPU: the first 5 supersteps, before any point has
+# converged to its last ulps (the l2 >= 0.28 points do by superstep 8,
+# where the line search breaks ties by an ulp: ROADMAP Queue C)
+TS_F64_STEPS = 5
+# (b) phase 16's padded-COO Criteo rows, 8 points over l2 (one OWLQN)
+SW_STEPS = 10
+SW_L2 = tuple(1e-5 * 4.0 ** i for i in range(7))
+SW_OWLQN = {"l1": 1e-4, "l2": 1e-3, "method": "OWLQN"}
+# (c) bench.py::bench_ftrl_pallas (bench.py:2118-2204): dim 16,384, 512
+# rows of 16 non-zeros and the intercept at width 24, K = 32, a pool of 4
+# micro-batches, float64; bench.py's step (alpha 0.05, beta 1, l1 = l2 =
+# 1e-5) for R19's serial leg, 8 points over alpha x l1 for the sweep
+FS_DIM, FS_B, FS_NNZ, FS_POOL, FS_K, FS_SPANS = 16_384, 512, 16, 4, 32, 3
+FS_WIDTH = -(-(FS_NNZ + 1) // 8) * 8
+FS_HP = dict(alpha=0.05, beta=1.0, l1=1e-5, l2=1e-5)
+FS_ALPHAS, FS_L1S = (0.05, 0.1, 0.2, 0.4), (1e-5, 1e-4)
+FS_SUBSET = (0, 3, 6)
+# (d) the grid searches' rows (the first of (b)'s) and folds
+GS_ROWS, GS_FOLDS = 20_000, 3
+# (e) kill and resume: (b)'s float32 design, ASHA rung 2 and eta 2
+KR_RUNG, KR_ETA, KR_KILL = 2, 2, 6
+
+
+def sweep_equal_serial(res, serial, what):
+    """Each swept point's coefficients, loss curve and step count are its
+    serial fit's, bit for bit."""
+    for i, (coef, curve, steps) in enumerate(serial):
+        require(np_bits_equal(res.values["coef"][i], coef)
+                and np_bits_equal(res.loss_curves[i], curve)
+                and int(res.steps[i]) == int(steps),
+                f"{what}: point {i} bitwise its serial fit")
+
+
+def tuning_sweep_leg(card):
+    """22(a): bench.py's tuning_sweep at its quick shape, its row's
+    fields, and the gates: the full sweep bitwise the serial fits, the
+    ASHA winner the serial argmin and bitwise its fit, two card sweeps
+    bitwise, the card's sweep against the same sweep on the CPU (loss
+    curves over every superstep, coefficients over the first
+    ``TS_F64_STEPS``, rtol 1e-10)."""
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.common.optim.objfunc import (
+        LogLossFunc, UnaryLossObjFunc)
+    from alink_tpu_torch.operator.common.optim.optimizers import (
+        OptimParams, optimize)
+    from alink_tpu_torch.tuning import AshaConfig, sweep_optimize
+    rng = np.random.RandomState(0)
+    X = rng.randn(TS_ROWS, TS_DIM)
+    y = np.sign(X @ rng.randn(TS_DIM) + 0.3 * rng.randn(TS_ROWS))
+    data = {"X": X, "y": y, "w": np.ones(TS_ROWS)}
+    env = MLEnvironment(device="cuda")
+    obj = UnaryLossObjFunc(LogLossFunc(), TS_DIM)
+    base = OptimParams(method="LBFGS", max_iter=TS_ITERS, epsilon=0.0)
+    pts = [{"l2": l2} for l2 in
+           [0.0] + [float(3e-4 * (1.45 ** i)) for i in range(TS_POINTS - 1)]]
+    asha = AshaConfig(rung=TS_RUNG, eta=TS_ETA)
+
+    def serial():
+        outs = []
+        for pt in pts:
+            o = UnaryLossObjFunc(LogLossFunc(), TS_DIM, l2=pt["l2"])
+            outs.append(optimize(o, data, OptimParams(
+                method="LBFGS", max_iter=TS_ITERS, epsilon=0.0), env))
+        return outs
+
+    def sweep():
+        return sweep_optimize(obj, data, base, pts, env=env, asha=asha)
+
+    s_out = serial()           # the first calls warm up both sides
+    res = sweep()
+    res_full = sweep_optimize(obj, data, base, pts, env=env)
+    ts_serial, ts_sweep = [], []
+    for _ in range(TS_REPS):
+        t0 = time.perf_counter()
+        serial()
+        ts_serial.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res = sweep()
+        ts_sweep.append(time.perf_counter() - t0)
+    t_serial = sorted(ts_serial)[len(ts_serial) // 2]
+    t_sweep = sorted(ts_sweep)[len(ts_sweep) // 2]
+    t0 = time.perf_counter()
+    res_full2 = sweep_optimize(obj, data, base, pts, env=env)
+    t_full = time.perf_counter() - t0
+    sweep_equal_serial(res_full, s_out, "22(a) the full sweep")
+    require(np_bits_equal(res_full.values["coef"], res_full2.values["coef"])
+            and all(np_bits_equal(a, b) for a, b in
+                    zip(res_full.loss_curves, res_full2.loss_curves)),
+            "22(a) two card sweeps bitwise")
+    finals = [c[-1] for _, c, _ in s_out]
+    serial_best = int(np.argmin(finals))
+    require(res.best == serial_best,
+            f"22(a) the ASHA winner {res.best} is the serial argmin "
+            f"{serial_best}")
+    require(np_bits_equal(res.values["coef"][res.best], s_out[res.best][0])
+            and int(res.steps[res.best]) == TS_ITERS,
+            "22(a) the ASHA winner ran to full depth, bitwise its serial fit")
+    # the same sweep on the CPU: every loss of every point within rtol
+    # 1e-10; the coefficients over the first TS_F64_STEPS supersteps (at
+    # epsilon 0 the points converge to their last ulps, the first by
+    # superstep 8, where the line search breaks ties by an ulp, so the
+    # coefficients of two summation orders part there, 5.3e-10 of the
+    # largest by superstep 10 and up to ~2e-7 by 100, the same between
+    # the port and the JAX package on the CPU; the losses do not:
+    # ROADMAP Queue C, "Tuning"); the gaps at 10 and 100 are recorded
+    cpu = MLEnvironment(device="cpu")
+    t0 = time.perf_counter()
+    res_cpu = sweep_optimize(obj, data, base, pts, env=cpu)
+    cpu_s = time.perf_counter() - t0
+    lgap = max(float(np.max(np.abs(a - b) / np.abs(b)))
+               for a, b in zip(res_full.loss_curves, res_cpu.loss_curves))
+    cgaps = {}
+    for steps in (TS_F64_STEPS, 10):
+        short = OptimParams(method="LBFGS", max_iter=steps, epsilon=0.0)
+        gc = sweep_optimize(obj, data, short, pts, env=env).values["coef"]
+        cc = sweep_optimize(obj, data, short, pts, env=cpu).values["coef"]
+        cgaps[steps] = float(np.abs(gc - cc).max() / np.abs(cc).max())
+    cgap = cgaps[TS_F64_STEPS]
+    cgap_full = float(np.abs(res_full.values["coef"]
+                             - res_cpu.values["coef"]).max()
+                      / np.abs(res_cpu.values["coef"]).max())
+    require(np.array_equal(res_full.steps, res_cpu.steps) and lgap <= 1e-10
+            and cgap <= 1e-10,
+            f"22(a) the card's sweep within rtol 1e-10 of the CPU's (loss "
+            f"{lgap} over {TS_ITERS} supersteps, coefficients {cgap} of the "
+            f"largest over {TS_F64_STEPS})")
+    row = {"samples_per_sec_per_chip": TS_POINTS / t_sweep,
+           "points": TS_POINTS, "iters": TS_ITERS, "dt_s": t_sweep,
+           "serial_s": t_serial, "speedup_vs_serial": t_serial / t_sweep,
+           "full_sweep_s": t_full,
+           "sweep_full_speedup": t_serial / max(t_full, 1e-9),
+           "rungs": len(res.rungs), "rung_every": TS_RUNG, "eta": TS_ETA,
+           "pruned_fraction": 1.0 - float(res.alive.sum()) / TS_POINTS,
+           "point_supersteps": int(res.steps.sum()),
+           "point_supersteps_full": int(res_full.steps.sum()),
+           "winner_match": True, "parity": "bitwise",
+           "programs": int(res.programs), "cpu_full_sweep_s": cpu_s,
+           "card_vs_cpu_loss_max_rel_gap": lgap,
+           f"card_vs_cpu_coef_gap_{TS_F64_STEPS}_steps": cgap,
+           "card_vs_cpu_coef_gap_10_steps": cgaps[10],
+           f"card_vs_cpu_coef_gap_{TS_ITERS}_steps": cgap_full}
+    print(f"tuning (a) [{card}] bench_tuning_sweep: {row}", flush=True)
+    return row
+
+
+def sparse_sweep_design(dt, dev, train):
+    """(b)'s design: phase 16's Criteo rows through the LR train op's own
+    preparation (``prepare_linear_train``: padded-COO, scaled, the
+    intercept first), on ``dev`` in ``dt``."""
+    from alink_tpu_torch.operator.batch.classification.linear import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.common.linear.base import \
+        prepare_linear_train
+    op = LogisticRegressionTrainBatchOp(vector_col="features",
+                                        label_col="bin", device=dev,
+                                        dtype=dt)
+    return prepare_linear_train(train, op, "LR")
+
+
+def sparse_sweep_leg(kernels, card, train):
+    """22(b): 8 points over l2 (one with l1, its own OWLQN group) on the
+    100,000 padded-COO rows, 10 supersteps, float32 and float64 (TF32
+    off): each point bitwise its serial fit; B5 and P1 launched as the
+    serial fits launch them; the plan once a group where the serial fits
+    build one a candidate; the float64 card sweep within rtol 1e-10 of
+    the CPU's. Returns the record and the float32 design for (e)."""
+    import torch
+    from alink_tpu_torch.operator.common.optim.optimizers import (
+        OptimParams, optimize)
+    from alink_tpu_torch.tuning import sweep_optimize
+    ks, kl = kernels
+    pts = [{"l2": v} for v in SW_L2] + [dict(SW_OWLQN)]
+    base = OptimParams(method="LBFGS", max_iter=SW_STEPS, epsilon=0.0)
+    out = {"rows": train.num_rows, "points": len(pts),
+           "supersteps": SW_STEPS}
+    designs = {}
+    for dt, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
+        prep = sparse_sweep_design(dt, "cuda", train)
+        designs[kind] = prep
+        data = {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+                for k, v in prep.train.items()}
+        obj = prep.objective(0.0, 0.0)
+        _reset(ks, kl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep_optimize(obj, data, base, pts, env=prep.env)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches = _counts(ks, kl)
+        _reset(ks, kl)
+        serial = []
+        t0 = time.perf_counter()
+        for pt in pts:
+            serial.append(optimize(
+                prep.objective(pt.get("l1", 0.0), pt["l2"]), data,
+                OptimParams(method=pt.get("method", "LBFGS"),
+                            max_iter=SW_STEPS, epsilon=0.0), prep.env))
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        serial_launches = _counts(ks, kl)
+        sweep_equal_serial(res, serial, f"22(b) {kind}")
+        live = int(res.steps.sum())
+        require(res.programs == 2, f"22(b) {kind}: two groups")
+        for name in ("serve_sparse", "linear_grad"):
+            require(sweep_launches[name] == serial_launches[name] > 0,
+                    f"22(b) {kind}: the sweep launched {name} as often as "
+                    f"the serial fits ({sweep_launches} against "
+                    f"{serial_launches})")
+        require(sweep_launches["run_plan"] == res.programs
+                and serial_launches["run_plan"] == len(pts),
+                f"22(b) {kind}: the plan once a group, once a serial fit "
+                f"({sweep_launches['run_plan']}, "
+                f"{serial_launches['run_plan']})")
+        out[kind] = {"sweep_s": sweep_s, "serial_s": serial_s,
+                     "point_supersteps": live,
+                     "sweep_launches": sweep_launches,
+                     "serial_launches": serial_launches,
+                     "b5_per_point_superstep":
+                         sweep_launches["serve_sparse"] / live,
+                     "p1_per_point_superstep":
+                         sweep_launches["linear_grad"] / live,
+                     "programs": res.programs, "bitwise_serial": True,
+                     "final_loss": [float(v) for v in res.final_loss]}
+        if kind == "f64":
+            cprep = sparse_sweep_design(dt, "cpu", train)
+            t0 = time.perf_counter()
+            cres = sweep_optimize(cprep.objective(0.0, 0.0), cprep.train,
+                                  base, pts, env=cprep.env)
+            cpu_s = time.perf_counter() - t0
+            lgap = max(float(np.max(np.abs(a - b) / np.abs(b)))
+                       for a, b in zip(res.loss_curves, cres.loss_curves))
+            cgap = float(np.abs(res.values["coef"] - cres.values["coef"])
+                         .max() / np.abs(cres.values["coef"]).max())
+            require(lgap <= 1e-10 and cgap <= 1e-10,
+                    f"22(b) the float64 card sweep within rtol 1e-10 of the "
+                    f"CPU's (loss {lgap}, coefficients {cgap} of the "
+                    f"largest)")
+            out[kind].update(cpu_s=cpu_s, card_vs_cpu_loss_max_rel_gap=lgap,
+                             card_vs_cpu_coef_gap_of_largest=cgap)
+        print(f"tuning (b) [{card}] {kind}: {out[kind]}", flush=True)
+    return out, designs["f32"]
+
+
+def sweep_kernels_at_phase_shapes(kernels, prep, batches):
+    """B5, P1 and the plan at (b)'s design, B1 and B2 at (c)'s chunk,
+    each against its plain version on the same inputs, bitwise; kernel
+    (events) and plain ms."""
+    import torch
+    ks, kl, kf = kernels
+    out = {}
+    keys = torch.from_numpy(prep.train["idx"]).to(torch.int32)
+    for dt, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
+        val = torch.from_numpy(prep.train["val"]).to(dt)
+        plan = kl.grad_plan(keys.cuda(), prep.dim, val.cuda())
+        host = kl.grad_plan(keys, prep.dim, val)
+        require(plan_equal(kl, plan.walk, host.walk),
+                f"22 the card's plan of (b)'s design {kind} is the plain "
+                f"one's")
+        g = np.random.default_rng(22)
+        c = torch.from_numpy(g.standard_normal(keys.shape[0])).to(dt)
+        w = torch.from_numpy(g.standard_normal(prep.dim)).to(dt)
+        got = kl.linear_grad(plan, c.cuda()).cpu()
+        require(same_bits(got, kl.linear_grad_plain(host, c))[0],
+                f"22 linear_grad at (b)'s design {kind} bitwise vs its "
+                f"plain version")
+        b = torch.zeros(1, dtype=dt)
+        model = (w.cuda(), b.cuda())
+        sc = ks.sparse_scores(model, plan.keys, plan.val, "f32")
+        want = ks.sparse_scores_plain(model, plan.keys, plan.val, "f32")
+        require(torch.equal(bits(sc), bits(want)),
+                f"22 serve_sparse at (b)'s design {kind} bitwise vs its "
+                f"plain version")
+        cc = c.cuda()
+        out[f"design {kind}"] = {
+            "bitwise": True, "positions": int(keys.numel()),
+            "slots": prep.dim,
+            "linear_grad_ms": cuda_ms(lambda: kl.linear_grad(plan, cc),
+                                      trials=5, reps=5),
+            "serve_sparse_ms": cuda_ms(lambda: ks.sparse_scores(
+                model, plan.keys, plan.val, "f32"), trials=5, reps=5),
+            "serve_sparse_plain_ms": cuda_ms(lambda: ks.sparse_scores_plain(
+                model, plan.keys, plan.val, "f32"), trials=3, reps=2),
+            "run_plan_ms": cuda_ms(lambda: kl.run_plan(plan.keys,
+                                                        prep.dim),
+                                   trials=5, reps=5)}
+    # B1 and B2 at the staleness step's chunk: K x width positions of the
+    # stacked (S, 2) float64 state
+    idx = torch.from_numpy(batches[0][0][:FS_K]).reshape(-1).cuda()
+    g = np.random.default_rng(23)
+    st = torch.from_numpy(g.standard_normal((FS_DIM, 2))).cuda()
+    upd = torch.from_numpy(g.standard_normal((idx.numel(), 2))).cuda()
+    require(torch.equal(bits(kf.gather_rows(st, idx)),
+                        bits(kf.gather_rows_plain(st, idx))),
+            "22 ftrl_gather at the staleness chunk bitwise vs its plain "
+            "version")
+    a, b2 = st.clone(), st.clone()
+    kf.scatter_add_rows(a, idx, upd)
+    kf.scatter_add_rows_plain(b2, idx, upd)
+    require(torch.equal(bits(a), bits(b2)),
+            "22 ftrl_scatter_add at the staleness chunk bitwise vs its plain "
+            "version")
+    scratch = st.clone()
+    out[f"chunk f64 M={idx.numel()}"] = {
+        "bitwise": True,
+        "gather_ms": cuda_ms(lambda: kf.gather_rows(st, idx)),
+        "gather_plain_ms": cuda_ms(lambda: kf.gather_rows_plain(st, idx)),
+        "scatter_ms": cuda_ms(lambda: kf.scatter_add_rows(scratch, idx,
+                                                          upd)),
+        "scatter_plain_ms": cuda_ms(lambda: kf.scatter_add_rows_plain(
+            scratch, idx, upd), trials=5, reps=2)}
+    return out
+
+
+def ftrl_pallas_batches():
+    """bench.py::_bench_ftrl_pallas's pool: the intercept at slot 0, 16
+    slots of 1..dim-1 a row, values 1, labels at 0.5, float64."""
+    out = []
+    for seed in range(FS_POOL):
+        r = np.random.RandomState(seed)
+        idx = np.zeros((FS_B, FS_WIDTH), np.int32)
+        val = np.zeros((FS_B, FS_WIDTH), np.float64)
+        idx[:, 0], val[:, 0] = 0, 1.0
+        idx[:, 1:FS_NNZ + 1] = r.randint(1, FS_DIM, size=(FS_B, FS_NNZ))
+        val[:, 1:FS_NNZ + 1] = 1.0
+        y = (r.rand(FS_B) < 0.5).astype(np.float64)
+        out.append((idx, val, y))
+    return out
+
+
+def ftrl_serial_leg(kf, batches, card):
+    """R19: bench_ftrl_pallas's staleness step on the card through B1 and
+    B2 beside the same step through their plain versions on the card, in
+    turns: samples/s over ``FS_SPANS`` passes of the pool, the final z of
+    both bitwise, launches a micro-batch, and the card's busy share under
+    one profiled pass."""
+    import torch
+    from alink_tpu_torch.operator.stream.onlinelearning import ftrl as op
+    dev = torch.device("cuda")
+    pool = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
+    z0 = np.random.RandomState(3).randn(FS_DIM) * 1e-8
+    kernels = (op.gather_rows, op.scatter_add_rows)
+    plains = (kf.gather_rows_plain, kf.scatter_add_rows_plain)
+
+    def drain(fns, spans):
+        op.gather_rows, op.scatter_add_rows = fns
+        try:
+            z = torch.from_numpy(z0.copy()).to(dev)
+            n = torch.zeros(FS_DIM, dtype=torch.float64, device=dev)
+            for _ in range(spans):
+                for idx, val, y in pool:
+                    z, n, _ = op.ftrl_staleness_step(idx, val, y, z, n,
+                                                     K=FS_K, **FS_HP)
+            torch.cuda.synchronize()
+            return z
+        finally:
+            op.gather_rows, op.scatter_add_rows = kernels
+
+    kf.reset_launch_counts()
+    z_k = drain(kernels, 1)
+    launches = kf.launch_counts()
+    z_p = drain(plains, 1)
+    require(torch.equal(bits(z_k), bits(z_p)),
+            "22(c) R19: the staleness step's z through B1 and B2 bitwise "
+            "vs through their plain versions")
+    times = {"kernels": [], "plain": []}
+    for _ in range(3):
+        for name, fns in (("kernels", kernels), ("plain", plains)):
+            t0 = time.perf_counter()
+            drain(fns, FS_SPANS)
+            times[name].append(time.perf_counter() - t0)
+    rate = {k: FS_B * FS_POOL * FS_SPANS / float(np.median(v))
+            for k, v in times.items()}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drain(kernels, 1)
+        wall = time.perf_counter() - t0
+    dev_us = sum(float(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)))
+                 for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    rec = {"samples_per_s": rate["kernels"],
+           "plain_samples_per_s": rate["plain"],
+           "kernels_vs_plain": rate["kernels"] / rate["plain"],
+           "z_bitwise": True,
+           "launches_per_micro_batch": {k: v / FS_POOL
+                                        for k, v in launches.items()
+                                        if v},
+           "profiled_pass_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
+           "device_busy_share": dev_us / 1e3 / (wall * 1e3)
+           if dev_us > 0 else None}
+    print(f"tuning (c) [{card}] R19 bench_ftrl_pallas serial leg: {rec}",
+          flush=True)
+    return rec
+
+
+def ftrl_sweep_leg(kf, card):
+    """22(c): 8 points over alpha x l1 through the staleness step at
+    bench_ftrl_pallas's shape: each lane bitwise its serial drain and
+    bitwise whether it runs with 8 points or 3, B1 and B2 once a chunk a
+    point, the card within rtol 1e-10 of the CPU on z, n and the
+    margins, the winner the lowest progressive log loss; then R19's
+    serial leg."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.stream.onlinelearning.ftrl import (
+        ftrl_staleness_step)
+    from alink_tpu_torch.tuning import sweep_ftrl
+    batches = ftrl_pallas_batches()
+    coef0 = np.random.RandomState(3).randn(FS_DIM) * 1e-8
+    pts = [{"alpha": a, "l1": l1} for a in FS_ALPHAS for l1 in FS_L1S]
+    base = {"beta": FS_HP["beta"], "l2": FS_HP["l2"], "staleness": FS_K}
+    card_env = MLEnvironment(device="cuda")
+    kf.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sweep_ftrl(batches, FS_DIM, pts, base=base, env=card_env,
+                     coef0=coef0)
+    sweep_s = time.perf_counter() - t0
+    launches = kf.launch_counts()
+    chunks = FS_B // FS_K * FS_POOL * len(pts)
+    require(launches["ftrl_gather"] == chunks
+            and launches["ftrl_scatter_add"] == chunks,
+            f"22(c) B1 and B2 once a chunk a point ({chunks}): {launches}")
+    dev = torch.device("cuda")
+    for i, pt in enumerate(pts):
+        a, l1 = pt["alpha"], pt["l1"]
+        z = torch.from_numpy(-coef0 * (base["beta"] / a + base["l2"])).to(dev)
+        n = torch.zeros(FS_DIM, dtype=torch.float64, device=dev)
+        ms = []
+        for idx, val, y in batches:
+            z, n, m = ftrl_staleness_step(
+                *(torch.from_numpy(t).to(dev) for t in (idx, val, y)), z, n,
+                a, base["beta"], l1, base["l2"], FS_K)
+            ms.append(m)
+        require(np_bits_equal(res.z[i], z.cpu().numpy())
+                and np_bits_equal(res.n[i], n.cpu().numpy())
+                and np_bits_equal(res.margins[i],
+                                  torch.cat(ms).cpu().numpy()),
+                f"22(c) lane {i} bitwise its serial staleness drain")
+    sub = sweep_ftrl(batches, FS_DIM, [pts[i] for i in FS_SUBSET],
+                     base=base, env=card_env, coef0=coef0)
+    for j, i in enumerate(FS_SUBSET):
+        require(np_bits_equal(sub.z[j], res.z[i])
+                and np_bits_equal(sub.margins[j], res.margins[i]),
+                f"22(c) lane {i} bitwise with 8 points and with 3")
+    t0 = time.perf_counter()
+    cpu = sweep_ftrl(batches, FS_DIM, pts, base=base,
+                     env=MLEnvironment(device="cpu"), coef0=coef0)
+    cpu_s = time.perf_counter() - t0
+    gaps = {}
+    for name in ("z", "n", "margins"):
+        g, c = getattr(res, name), getattr(cpu, name)
+        big = np.abs(c) > 1e-12
+        gaps[name] = float(np.max(np.abs(g - c)[big] / np.abs(c)[big]))
+        require(np.allclose(g, c, rtol=1e-10, atol=1e-12),
+                f"22(c) the card within rtol 1e-10 of the CPU on {name} "
+                f"({gaps[name]})")
+    key = np.where(np.isfinite(res.pv_logloss), res.pv_logloss, np.inf)
+    require(res.best == int(np.argmin(key)),
+            "22(c) the winner is the lowest progressive log loss")
+    rec = {"points": len(pts), "dim": FS_DIM, "rows": FS_B * FS_POOL,
+           "K": FS_K, "sweep_s": sweep_s,
+           "point_samples_per_s": FS_B * FS_POOL * len(pts) / sweep_s,
+           "launches": launches, "cpu_s": cpu_s,
+           "card_vs_cpu_max_rel_gap": gaps,
+           "pv_logloss": [float(v) for v in res.pv_logloss],
+           "best": res.best, "best_point": pts[res.best]}
+    print(f"tuning (c) [{card}] FTRL sweep: {rec}", flush=True)
+    rec["r19"] = ftrl_serial_leg(kf, batches, card)
+    return rec, batches
+
+
+def grid_search_leg(kernels, card, train):
+    """22(d): GridSearchCV over l2 of a LogisticRegression on (b)'s sparse
+    rows (B5 and P1 on the card) and GridSearchTVSplit of a
+    LinearRegression, bare and in a Pipeline, each with ALINK_TPU_SWEEP
+    off and on: equal reports and chosen models' tables; no fallback
+    recorded for the supported grids; the Pipeline's and a
+    trace-shaping axis's fallbacks recorded, their reports the serial
+    ones."""
+    from alink_tpu_torch.common.metrics import MetricsRegistry, set_registry
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.pipeline import (
+        BinaryClassificationTuningEvaluator, GridSearchCV, GridSearchTVSplit,
+        ParamGrid, Pipeline, RegressionTuningEvaluator)
+    from alink_tpu_torch.pipeline.classification import LogisticRegression
+    from alink_tpu_torch.pipeline.regression import LinearRegression
+    ks, kl = kernels
+    src = MemSourceBatchOp(train.first_n(GS_ROWS))
+
+    def lr_cv(axis="l2", values=(1e-4, 1e-2, 1.0)):
+        lr = LogisticRegression(vector_col="features", label_col="bin",
+                                prediction_col="pred",
+                                prediction_detail_col="details",
+                                max_iter=SW_STEPS)
+        return GridSearchCV(
+            estimator=lr, param_grid=ParamGrid().add_grid(lr, axis, values),
+            tuning_evaluator=BinaryClassificationTuningEvaluator(
+                label_col="bin", prediction_detail_col="details"),
+            num_folds=GS_FOLDS, seed=1)
+
+    def reg_tv(pipeline):
+        reg = LinearRegression(vector_col="features", label_col="target",
+                               prediction_col="pred", max_iter=SW_STEPS)
+        return GridSearchTVSplit(
+            estimator=Pipeline(reg) if pipeline else reg,
+            param_grid=ParamGrid().add_grid(reg, "l2", [0.0, 1.0]),
+            tuning_evaluator=RegressionTuningEvaluator(
+                label_col="target", prediction_col="pred",
+                tuning_regression_metric="RMSE"),
+            train_ratio=0.75, seed=5)
+
+    searches = {"cv_lr_l2": (lr_cv, {}),
+                "tv_linreg": (lambda: reg_tv(False), {}),
+                "tv_linreg_pipeline": (
+                    lambda: reg_tv(True),
+                    {("Pipeline", "unsupported-estimator"): 1.0}),
+                "cv_lr_max_iter": (
+                    lambda: lr_cv("max_iter", (5, SW_STEPS)),
+                    {("LogisticRegression", "trace-shaping-axis"): 1.0})}
+    out = {}
+    prev_flag = os.environ.pop("ALINK_TPU_SWEEP", None)
+    try:
+        for name, (make, want_fallbacks) in searches.items():
+            rec = {}
+            models = {}
+            for flag in ("0", "1"):
+                os.environ["ALINK_TPU_SWEEP"] = flag
+                reg = MetricsRegistry()
+                prev = set_registry(reg)
+                try:
+                    _reset(ks, kl)
+                    t0 = time.perf_counter()
+                    models[flag] = make().fit(src)
+                    rec[f"flag{flag}_s"] = time.perf_counter() - t0
+                    rec[f"flag{flag}_launches"] = _counts(ks, kl)
+                    fallbacks = {
+                        (r["labels"]["estimator"], r["labels"]["reason"]):
+                            r["value"] for r in reg.snapshot()
+                        if r["name"] == "alink_sweep_fallback_total"}
+                finally:
+                    set_registry(prev)
+                if flag == "1":
+                    require(fallbacks == want_fallbacks,
+                            f"22(d) {name}: sweep fallbacks {fallbacks}, "
+                            f"want {want_fallbacks}")
+                    rec["fallbacks"] = {f"{e}/{r}": v
+                                        for (e, r), v in fallbacks.items()}
+            off, on = models["0"], models["1"]
+            require(on.report.rows == off.report.rows
+                    and on.best_params_desc == off.best_params_desc,
+                    f"22(d) {name}: the report with the sweep is the serial "
+                    f"loop's")
+            inner = [getattr(m.best_model, "transformers", [m.best_model])[0]
+                     for m in (on, off)]
+            require(inner[0].get_model_data().to_rows()
+                    == inner[1].get_model_data().to_rows(),
+                    f"22(d) {name}: the chosen models' tables are equal")
+            for flag in ("0", "1"):
+                require(rec[f"flag{flag}_launches"]["serve_sparse"] > 0
+                        and rec[f"flag{flag}_launches"]["linear_grad"] > 0,
+                        f"22(d) {name}: B5 and P1 ran (flag {flag})")
+            rec.update(best=on.best_params_desc,
+                       scores=[r[1] for r in on.report.rows])
+            out[name] = rec
+            print(f"tuning (d) [{card}] {name}: {rec}", flush=True)
+    finally:
+        if prev_flag is None:
+            os.environ.pop("ALINK_TPU_SWEEP", None)
+        else:
+            os.environ["ALINK_TPU_SWEEP"] = prev_flag
+    return out
+
+
+def sweep_resume_leg(prep, card):
+    """22(e): (b)'s float32 sweep with ASHA (rung 2, eta 2) killed at the
+    rung boundary of superstep 6 (phase 17's ``comqueue.superstep`` site)
+    and resumed: the whole population, its pruning decisions and its
+    rung log bitwise the uninterrupted checkpointed sweep's, and the
+    coefficients, steps and curves the sweep's without checkpoints."""
+    import tempfile
+    import torch
+    from alink_tpu_torch.operator.common.optim.optimizers import OptimParams
+    from alink_tpu_torch.tuning import AshaConfig, sweep_optimize
+    data = {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+            for k, v in prep.train.items()}
+    pts = [{"l2": v} for v in SW_L2] + [dict(SW_OWLQN)]
+    base = OptimParams(method="LBFGS", max_iter=SW_STEPS, epsilon=0.0)
+    asha = AshaConfig(rung=KR_RUNG, eta=KR_ETA)
+
+    def run(**kw):
+        return sweep_optimize(prep.objective(0.0, 0.0), data, base, pts,
+                              env=prep.env, asha=asha, **kw)
+
+    with tempfile.TemporaryDirectory(prefix=f"alink-sweep-{os.getpid()}-") \
+            as root:
+        plain = run()
+        full = run(checkpoint_dir=os.path.join(root, "full"))
+        kdir = os.path.join(root, "killed")
+        killed(f"comqueue.superstep:{KR_KILL}", "comqueue.superstep",
+               lambda: run(checkpoint_dir=kdir))
+        t0 = time.perf_counter()
+        resumed = run(checkpoint_dir=kdir, resume_from=kdir)
+        resume_s = time.perf_counter() - t0
+    for what, a, b in (("uninterrupted", full, plain),
+                       ("resumed", resumed, full)):
+        require(np_bits_equal(a.values["coef"], b.values["coef"])
+                and np.array_equal(a.alive, b.alive)
+                and np.array_equal(a.steps, b.steps)
+                and all(np_bits_equal(x, y) for x, y in
+                        zip(a.loss_curves, b.loss_curves)),
+                f"22(e) the {what} sweep's population bitwise")
+    # with a checkpoint the boundaries go on after the population reaches
+    # its floor (empty decisions); the decisions that prune are the same
+    require(resumed.rungs == full.rungs
+            and [r for r in full.rungs if r["pruned"]]
+            == [r for r in plain.rungs if r["pruned"]],
+            "22(e) the resumed sweep's rung log is the uninterrupted one's")
+    rec = {"killed_at": KR_KILL, "rungs": full.rungs,
+           "survivors": full.survivors(), "resume_s": resume_s,
+           "bitwise": True}
+    print(f"tuning (e) [{card}] kill and resume: {rec}", flush=True)
+    return rec
+
+
+def phase_tuning(kernels, card):
+    """22: the tuning layer on the card. ``kernels`` are the ``serve``,
+    ``linear`` and ``ftrl`` kernel modules."""
+    import torch
+    ks, kl, kf = kernels
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the dense products")
+    t0 = time.perf_counter()
+    out = {"card": card}
+    out["tuning_sweep"] = tuning_sweep_leg(card)
+    out["a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    train = criteo_softmax_rows(7, SPS_ROWS)
+    out["rows_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["sparse_sweep"], prep32 = sparse_sweep_leg((ks, kl), card, train)
+    out["b_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["ftrl_sweep"], batches = ftrl_sweep_leg(kf, card)
+    out["c_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["grid_search"] = grid_search_leg((ks, kl), card, train)
+    out["d_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["resume"] = sweep_resume_leg(prep32, card)
+    out["e_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["kernels_at_phase_shapes"] = sweep_kernels_at_phase_shapes(
+        (ks, kl, kf), prep32, batches)
+    out["kernel_checks_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    # the main path's launches: the sweeps of (b) and (c) and the grid
+    # searches' with the flag on
+    launches = {"serve_sparse": 0, "linear_grad": 0, "run_plan": 0,
+                "ftrl_gather": 0, "ftrl_scatter_add": 0}
+    parts = [out["sparse_sweep"][k]["sweep_launches"] for k in ("f32", "f64")]
+    parts.append(out["ftrl_sweep"]["launches"])
+    parts += [r["flag1_launches"] for r in out["grid_search"].values()]
+    for p in parts:
+        for k in launches:
+            launches[k] += p.get(k, 0)
+    for k, v in launches.items():
+        require(v > 0, f"22: {k} launched on the tuning paths")
+    out["launches"] = launches
+    print(f"phase 22: {out['seconds']:.1f} s (a {out['a_s']:.1f}, b "
+          f"{out['b_s']:.1f}, c {out['c_s']:.1f}, d {out['d_s']:.1f}, e "
+          f"{out['e_s']:.1f}, kernel checks {out['kernel_checks_s']:.1f}), "
+          f"launches {launches}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8706,6 +9423,9 @@ def main(argv=None) -> int:
     print(f"phase 21: {text['seconds']:.1f} s, launches {text['launches']}",
           flush=True)
 
+    # -- 22. the tuning layer: sweeps and grid searches -------------------
+    tuning = phase_tuning((ks, kl, kf), card)
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -8895,6 +9615,7 @@ def main(argv=None) -> int:
         rec["online_e2e_launches"] = online["launches"].get(rec["name"], 0)
         rec["health_launches"] = health["launches"].get(rec["name"], 0)
         rec["text_launches"] = text["launches"].get(rec["name"], 0)
+        rec["tuning_launches"] = tuning["launches"].get(rec["name"], 0)
     # the port-only ordered row scatter-add (P3): no TPU kernel; it replaces
     # the JAX package's scatter-adds of wide rows (Word2Vec's embeddings,
     # FM's gradient, LDA's segment_sum), at Word2Vec's `out` scatter
@@ -8937,8 +9658,10 @@ def main(argv=None) -> int:
             "bound_by", "bytes_bound_ms", "chain_bound_ms")}
             for k, v in p4.items()},
         "edges": text["fm"]["p4_edges"]})
+    script_s = time.perf_counter() - t_main
+    print(f"chip_smoke: phases 1-22 in {script_s:.1f} s", flush=True)
     print(json.dumps({"main_path": {
-        "text": text,
+        "script_s": script_s, "tuning": tuning, "text": text,
         "online_e2e": online, "health": health,
         "serving_tier": serving, "als": als, "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,
