@@ -1,14 +1,24 @@
 """Batch classification (and tree regression) operators of the port
 (counterpart: ``alink_tpu/operator/batch/classification``). The tree
 family, the linear classifiers (logistic regression, linear SVM,
-Softmax, the perceptron) and FM are ported; MLPC and naive Bayes wait for
-later slices."""
+Softmax, the perceptron), FM, naive Bayes (text and mixed columns) and the
+multilayer perceptron are ported."""
 
 from .fm_ops import (BaseFmTrainBatchOp, FmClassifierPredictBatchOp,
                      FmClassifierTrainBatchOp, FmModelData,
                      FmModelDataConverter, FmModelInfo, FmModelInfoBatchOp,
                      FmModelMapper, FmPredictBatchOp,
                      FmRegressorPredictBatchOp, FmRegressorTrainBatchOp)
+
+from .mlpc_ops import (MlpModelConverter, MlpModelMapper,
+                       MultilayerPerceptronPredictBatchOp,
+                       MultilayerPerceptronTrainBatchOp)
+from .naive_bayes import (NaiveBayesModelConverter, NaiveBayesModelMapper,
+                          NaiveBayesPredictBatchOp,
+                          NaiveBayesTextModelConverter,
+                          NaiveBayesTextModelMapper,
+                          NaiveBayesTextPredictBatchOp,
+                          NaiveBayesTextTrainBatchOp, NaiveBayesTrainBatchOp)
 
 from .linear import (BaseLinearTrainBatchOp, LinearModelPredictBatchOp,
                      LinearSvmPredictBatchOp, LinearSvmTrainBatchOp,
@@ -42,4 +52,11 @@ __all__ = ["GbdtTrainBatchOp", "GbdtRegTrainBatchOp",
            "FmRegressorTrainBatchOp", "FmPredictBatchOp",
            "FmClassifierPredictBatchOp", "FmRegressorPredictBatchOp",
            "FmModelData", "FmModelDataConverter", "FmModelInfo",
-           "FmModelInfoBatchOp", "FmModelMapper"]
+           "FmModelInfoBatchOp", "FmModelMapper",
+           "NaiveBayesTextTrainBatchOp", "NaiveBayesTextPredictBatchOp",
+           "NaiveBayesTextModelConverter", "NaiveBayesTextModelMapper",
+           "NaiveBayesTrainBatchOp", "NaiveBayesPredictBatchOp",
+           "NaiveBayesModelConverter", "NaiveBayesModelMapper",
+           "MultilayerPerceptronTrainBatchOp",
+           "MultilayerPerceptronPredictBatchOp", "MlpModelConverter",
+           "MlpModelMapper"]

@@ -23,7 +23,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ....common.device import resolve_device
 from ....common.mlenv import MLEnvironment
 from ....common.mtable import MTable
 from ....common.params import ParamInfo, Params, RangeValidator
@@ -38,7 +37,7 @@ from ...base import BatchOperator
 from ...common.dataproc.feature_extract import extract_design, resolve_feature_cols
 from ...common.fm.fm import FmTrainParams, fm_predict_margin, fm_train
 from ...common.linear.base import encode_labels
-from ..utils.model_map import ModelMapBatchOp
+from ..utils.model_map import DeviceTrainBatchOp, ModelMapBatchOp
 
 
 class FmModelData:
@@ -95,17 +94,8 @@ class _FmTrainParamsMixin(HasLabelCol, HasFeatureCols, HasVectorCol, HasWeightCo
 _SHIP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-class BaseFmTrainBatchOp(BatchOperator, _FmTrainParamsMixin):
+class BaseFmTrainBatchOp(DeviceTrainBatchOp, _FmTrainParamsMixin):
     IS_REGRESSION = False
-
-    def __init__(self, params: Optional[Params] = None, device=None,
-                 dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(params, **kwargs)
-        if dtype not in _SHIP_DTYPES:
-            raise ValueError(f"dtype {dtype}: want torch.float32 or "
-                             f"torch.float64")
-        self.device = resolve_device(device)
-        self.dtype = dtype
 
     def link_from(self, in_op: BatchOperator):
         t = in_op.get_output_table()

@@ -11,12 +11,8 @@ without it) and ``dtype=`` (``torch.float32`` by default;
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
-from ....common.device import resolve_device
-from ....common.params import Params
 from ....params.shared import (HasEpsilonDefaultAs000001, HasFeatureCols,
                                HasL1, HasL2, HasLabelCol, HasLearningRate,
                                HasMaxIterDefaultAs100, HasMiniBatchFraction,
@@ -27,7 +23,7 @@ from ....params.shared import (HasEpsilonDefaultAs000001, HasFeatureCols,
 from ...base import BatchOperator
 from ...common.linear.base import LinearModelType, train_linear_model
 from ...common.linear.mapper import LinearModelMapper
-from ..utils.model_map import ModelMapBatchOp
+from ..utils.model_map import DeviceTrainBatchOp, ModelMapBatchOp
 
 
 class _LinearTrainParams(HasLabelCol, HasFeatureCols, HasVectorCol, HasWeightCol,
@@ -38,17 +34,8 @@ class _LinearTrainParams(HasLabelCol, HasFeatureCols, HasVectorCol, HasWeightCol
     pass
 
 
-class BaseLinearTrainBatchOp(BatchOperator, _LinearTrainParams):
+class BaseLinearTrainBatchOp(DeviceTrainBatchOp, _LinearTrainParams):
     MODEL_TYPE = LinearModelType.LR
-
-    def __init__(self, params: Optional[Params] = None, device=None,
-                 dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(params, **kwargs)
-        if dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype {dtype}: want torch.float32 or "
-                             f"torch.float64")
-        self.device = resolve_device(device)
-        self.dtype = dtype
 
     def link_from(self, in_op: BatchOperator) -> "BaseLinearTrainBatchOp":
         model, info = train_linear_model(in_op.get_output_table(), self, self.MODEL_TYPE)

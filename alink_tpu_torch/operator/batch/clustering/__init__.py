@@ -1,7 +1,11 @@
 """Batch clustering operators of the port (counterpart:
-``alink_tpu/operator/batch/clustering``): KMeans and LDA. GMM and
-bisecting KMeans wait for their slices (ROADMAP A7(c))."""
+``alink_tpu/operator/batch/clustering``): KMeans, LDA, GMM and bisecting
+KMeans."""
 
+from .gmm_bisecting import (BisectingKMeansPredictBatchOp,
+                            BisectingKMeansTrainBatchOp,
+                            GmmModelDataConverter, GmmModelMapper,
+                            GmmPredictBatchOp, GmmTrainBatchOp)
 from .kmeans_ops import (KMeansModelData, KMeansModelDataConverter,
                          KMeansModelMapper, KMeansPredictBatchOp,
                          KMeansTrainBatchOp)
@@ -11,4 +15,7 @@ from .lda_ops import (LdaModelData, LdaModelDataConverter, LdaModelMapper,
 __all__ = ["KMeansTrainBatchOp", "KMeansPredictBatchOp", "KMeansModelData",
            "KMeansModelDataConverter", "KMeansModelMapper",
            "LdaTrainBatchOp", "LdaPredictBatchOp", "LdaModelData",
-           "LdaModelDataConverter", "LdaModelMapper"]
+           "LdaModelDataConverter", "LdaModelMapper",
+           "GmmTrainBatchOp", "GmmPredictBatchOp", "GmmModelDataConverter",
+           "GmmModelMapper", "BisectingKMeansTrainBatchOp",
+           "BisectingKMeansPredictBatchOp"]

@@ -33,7 +33,7 @@ from ...base import BatchOperator
 from ...common.clustering.kmeans import assign_clusters, kmeans_train
 from ...common.dataproc.feature_extract import (extract_design,
                                                 resolve_feature_cols)
-from ..utils.model_map import ModelMapBatchOp
+from ..utils.model_map import DeviceModelMapBatchOp, DeviceTrainBatchOp
 
 
 class KMeansModelData:
@@ -84,19 +84,10 @@ class _KMeansParams(HasVectorCol, HasFeatureCols, HasMaxIterDefaultAs50, HasSeed
                           validator=InValidator(["RANDOM", "K_MEANS_PARALLEL"]))
 
 
-class KMeansTrainBatchOp(BatchOperator, _KMeansParams):
+class KMeansTrainBatchOp(DeviceTrainBatchOp, _KMeansParams):
     """Trains on a one-worker session on ``device`` (``cuda`` by default)
     in ``dtype`` (``torch.float32`` by default; ``torch.float64`` for
     parity with the JAX package under x64)."""
-
-    def __init__(self, params: Optional[Params] = None, device=None,
-                 dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(params, **kwargs)
-        if dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype {dtype}: want torch.float32 or "
-                             f"torch.float64")
-        self.device = resolve_device(device)
-        self.dtype = dtype
 
     def link_from(self, in_op: BatchOperator) -> "KMeansTrainBatchOp":
         t = in_op.get_output_table()
@@ -167,21 +158,9 @@ class KMeansModelMapper(ModelMapper):
         return OutputColsHelper(data.schema, cols, types, reserved).build_output(data, vals)
 
 
-class KMeansPredictBatchOp(ModelMapBatchOp, HasPredictionCol, HasReservedCols):
+class KMeansPredictBatchOp(DeviceModelMapBatchOp, HasPredictionCol,
+                           HasReservedCols):
     """Assigns on ``device`` (``cuda`` by default; raises without it)."""
     MAPPER_CLS = KMeansModelMapper
     PREDICTION_DISTANCE_COL = ParamInfo("prediction_distance_col", str,
                                         "output distance column")
-
-    def __init__(self, params: Optional[Params] = None, device=None,
-                 **kwargs):
-        super().__init__(params, **kwargs)
-        self.device = resolve_device(device)
-
-    def link_from(self, model_op: BatchOperator,
-                  data_op: BatchOperator) -> "KMeansPredictBatchOp":
-        mapper = KMeansModelMapper(model_op.get_schema(), data_op.get_schema(),
-                                   self.params, device=self.device)
-        mapper.load_model(model_op.get_output_table())
-        self._output = mapper.map_table(data_op.get_output_table())
-        return self

@@ -17,10 +17,9 @@ with the JAX package under x64; Gibbs is float32 in both packages).
 from __future__ import annotations
 
 import json
-from typing import List, Optional
+from typing import List
 
 import numpy as np
-import torch
 
 from ....common.device import resolve_device
 from ....common.mlenv import MLEnvironment
@@ -38,7 +37,7 @@ from ...common.clustering.lda import (em_lda_train, encode_corpus,
                                       online_lda_train)
 from ...common.nlp.vectorizer import (DocCountVectorizerModelConverter,
                                       train_doc_count_vectorizer)
-from ..utils.model_map import ModelMapBatchOp
+from ..utils.model_map import DeviceModelMapBatchOp, DeviceTrainBatchOp
 
 
 class LdaModelData:
@@ -115,17 +114,8 @@ class _LdaTrainParams(HasSelectedCol, HasSeed):
         "learn alpha during online training", default=True)
 
 
-class LdaTrainBatchOp(BatchOperator, _LdaTrainParams):
+class LdaTrainBatchOp(DeviceTrainBatchOp, _LdaTrainParams):
     """reference: operator/batch/clustering/LdaTrainBatchOp.java"""
-
-    def __init__(self, params: Optional[Params] = None, device=None,
-                 dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(params, **kwargs)
-        if dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype {dtype}: want torch.float32 or "
-                             f"torch.float64")
-        self.device = resolve_device(device)
-        self.dtype = dtype
 
     def link_from(self, in_op: BatchOperator) -> "LdaTrainBatchOp":
         t = in_op.get_output_table()
@@ -231,21 +221,8 @@ class LdaModelMapper(ModelMapper):
         return helper.build_output(data, cols)
 
 
-class LdaPredictBatchOp(ModelMapBatchOp, HasSelectedCol, HasPredictionCol,
+class LdaPredictBatchOp(DeviceModelMapBatchOp, HasSelectedCol, HasPredictionCol,
                         HasPredictionDetailCol, HasReservedCols):
     """reference: operator/batch/clustering/LdaPredictBatchOp.java. Infers
     on ``device`` (``cuda`` by default; raises without it)."""
     MAPPER_CLS = LdaModelMapper
-
-    def __init__(self, params: Optional[Params] = None, device=None,
-                 **kwargs):
-        super().__init__(params, **kwargs)
-        self.device = resolve_device(device)
-
-    def link_from(self, model_op: BatchOperator,
-                  data_op: BatchOperator) -> "LdaPredictBatchOp":
-        mapper = LdaModelMapper(model_op.get_schema(), data_op.get_schema(),
-                                self.params, device=self.device)
-        mapper.load_model(model_op.get_output_table())
-        self._output = mapper.map_table(data_op.get_output_table())
-        return self

@@ -3,10 +3,10 @@
 Counterpart: ``alink_tpu/operator/batch/nlp/__init__.py`` (the re-design
 of the reference's operator/batch/nlp/): the tokenizers, ``NGram``,
 ``StopWordsRemover``, ``WordCount``, the two vectorizers' train and
-predict ops and Word2Vec's. ``Word2VecTrainBatchOp`` takes ``device=``
+predict ops, Word2Vec's and ``SegmentBatchOp`` (the dictionary and HMM
+segmenter, host code). ``Word2VecTrainBatchOp`` takes ``device=``
 (``cuda`` unless the caller asks for the CPU; raises without it) and
-trains there in float32. ``SegmentBatchOp`` waits for the segmenter
-(ROADMAP A7(c)).
+trains there in float32.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from ....common.mlenv import MLEnvironment
 from ....common.params import ParamInfo, Params
 from ....params.shared import HasOutputCol, HasSelectedCol, HasSeed
 from ...base import BatchOperator
+from ...common.nlp.segment import SegmentMapper
 from ...common.nlp.text import (NGramMapper, RegexTokenizerMapper,
                                 StopWordsRemoverMapper, TokenizerMapper,
                                 word_count)
@@ -55,6 +56,12 @@ class StopWordsRemoverBatchOp(MapBatchOp, HasSelectedCol, HasOutputCol):
     MAPPER_CLS = StopWordsRemoverMapper
     CASE_SENSITIVE = ParamInfo("case_sensitive", bool, default=False)
     STOP_WORDS = ParamInfo("stop_words", list)
+
+
+class SegmentBatchOp(MapBatchOp, HasSelectedCol, HasOutputCol):
+    """reference: batch/nlp/SegmentBatchOp (jieba-ported segmenter)."""
+    MAPPER_CLS = SegmentMapper
+    USER_DEFINED_DICT = ParamInfo("user_defined_dict", list)
 
 
 class WordCountBatchOp(BatchOperator, HasSelectedCol):

@@ -1,6 +1,13 @@
 """Batch regression operators of the port (counterpart:
-``alink_tpu/operator/batch/regression``): the linear family."""
+``alink_tpu/operator/batch/regression``): the linear family, GLM,
+isotonic regression and AFT survival regression."""
 
+from .glm_ops import (AftModelMapper, AftSurvivalRegPredictBatchOp,
+                      AftSurvivalRegTrainBatchOp, GlmEvaluationBatchOp,
+                      GlmModelConverter, GlmModelMapper, GlmPredictBatchOp,
+                      GlmTrainBatchOp, IsotonicModelConverter,
+                      IsotonicModelMapper, IsotonicRegPredictBatchOp,
+                      IsotonicRegTrainBatchOp)
 from .linear import (LassoRegPredictBatchOp, LassoRegTrainBatchOp,
                      LinearRegPredictBatchOp, LinearRegTrainBatchOp,
                      LinearSvrPredictBatchOp, LinearSvrTrainBatchOp,
@@ -9,4 +16,10 @@ from .linear import (LassoRegPredictBatchOp, LassoRegTrainBatchOp,
 __all__ = ["LinearRegTrainBatchOp", "LinearRegPredictBatchOp",
            "RidgeRegTrainBatchOp", "RidgeRegPredictBatchOp",
            "LassoRegTrainBatchOp", "LassoRegPredictBatchOp",
-           "LinearSvrTrainBatchOp", "LinearSvrPredictBatchOp"]
+           "LinearSvrTrainBatchOp", "LinearSvrPredictBatchOp",
+           "GlmTrainBatchOp", "GlmPredictBatchOp", "GlmEvaluationBatchOp",
+           "GlmModelConverter", "GlmModelMapper",
+           "IsotonicRegTrainBatchOp", "IsotonicRegPredictBatchOp",
+           "IsotonicModelConverter", "IsotonicModelMapper",
+           "AftSurvivalRegTrainBatchOp", "AftSurvivalRegPredictBatchOp",
+           "AftModelMapper"]

@@ -124,10 +124,11 @@ def add_intercept(design: Dict, dtype=np.float64) -> Dict:
 
 
 def extract_dense_matrix(t, selected_cols, vector_col,
-                         dtype=np.float64) -> np.ndarray:
+                         dtype=np.float64,
+                         vector_size: Optional[int] = None) -> np.ndarray:
     """extract_design densified: dense design matrices regardless of the
     input encoding (sparse designs go through SparseBatch.to_dense)."""
-    design = extract_design(t, selected_cols, vector_col, dtype)
+    design = extract_design(t, selected_cols, vector_col, dtype, vector_size)
     if design["kind"] == "dense":
         return design["X"]
     from ....common.vector import SparseBatch

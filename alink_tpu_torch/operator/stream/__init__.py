@@ -23,7 +23,9 @@ _LAZY.update((f"{n}PredictStreamOp", ".predict_ops") for n in (
     "GbdtReg", "RandomForest", "RandomForestReg", "DecisionTree",
     "DecisionTreeReg", "LinearReg", "RidgeReg", "LassoReg", "LinearSvr",
     "KMeans", "StandardScaler", "MinMaxScaler", "MaxAbsScaler", "Imputer",
-    "Fm", "DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec"))
+    "Fm", "DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec",
+    "NaiveBayesText", "NaiveBayes", "MultilayerPerceptron", "Glm",
+    "IsotonicReg", "AftSurvivalReg", "Gmm", "BisectingKMeans"))
 
 __all__ = ["BaseSinkStreamOp", "CheckpointSinkStreamOp",
            "CollectSinkStreamOp", "CsvSinkStreamOp", "LibSvmSinkStreamOp",

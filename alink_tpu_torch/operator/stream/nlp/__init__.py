@@ -2,15 +2,15 @@
 
 Counterpart: ``alink_tpu/operator/stream/nlp/__init__.py`` (the
 reference's operator/stream/nlp/): the map twins of the tokenizers,
-``NGram`` and ``StopWordsRemover``. ``SegmentStreamOp`` waits for the
-segmenter (ROADMAP A7(c)); the vectorizers' and Word2Vec's predict twins
-are in ``operator/stream/predict_ops.py``.
+``NGram``, ``StopWordsRemover`` and ``Segment``. The vectorizers' and
+Word2Vec's predict twins are in ``operator/stream/predict_ops.py``.
 """
 
 from __future__ import annotations
 
 from ....common.params import ParamInfo
 from ....params.shared import HasOutputCol, HasSelectedCol
+from ...common.nlp.segment import SegmentMapper
 from ...common.nlp.text import (NGramMapper, RegexTokenizerMapper,
                                 StopWordsRemoverMapper, TokenizerMapper)
 from ..utils import MapperStreamOp
@@ -37,3 +37,8 @@ class StopWordsRemoverStreamOp(MapperStreamOp, HasSelectedCol, HasOutputCol):
     MAPPER_CLS = StopWordsRemoverMapper
     CASE_SENSITIVE = ParamInfo("case_sensitive", bool, default=False)
     STOP_WORDS = ParamInfo("stop_words", list)
+
+
+class SegmentStreamOp(MapperStreamOp, HasSelectedCol, HasOutputCol):
+    MAPPER_CLS = SegmentMapper
+    USER_DEFINED_DICT = ParamInfo("user_defined_dict", list)

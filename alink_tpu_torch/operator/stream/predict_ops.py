@@ -8,25 +8,27 @@ micro-batch through the batch op's model mapper
 (stream/utils/ModelMapStreamOp). Here each twin is generated from its
 batch class: the same mapper and the same params.
 
-Ported, for the families the port has (23 twins): the linear ones
+Ported, for the families the port has (31 twins): the linear ones
 (``LogisticRegression``, ``LinearSvm``, ``Softmax``, ``Perceptron``,
 ``LinearReg``, ``RidgeReg``, ``LassoReg``, ``LinearSvr``), the trees
 (``Gbdt``, ``GbdtReg``, ``RandomForest``, ``RandomForestReg``,
-``DecisionTree``, ``DecisionTreeReg``), ``Fm``, ``KMeans``, the column
+``DecisionTree``, ``DecisionTreeReg``), ``Fm``, ``NaiveBayesText``,
+``NaiveBayes``, ``MultilayerPerceptron``, ``Glm``, ``IsotonicReg``,
+``AftSurvivalReg``, ``KMeans``, ``Gmm``, ``BisectingKMeans``, the column
 scalers (``StandardScaler``, ``MinMaxScaler``, ``MaxAbsScaler``,
 ``Imputer``) and the NLP ones (``DocCountVectorizer``,
 ``DocHashCountVectorizer``, ``Word2Vec``). A twin takes ``device=`` as
 the port's entry points do (``cuda`` unless the caller asks for the CPU;
-raises without CUDA) and hands it to a mapper that takes one (KMeans
-assigns there); the other mappers map on the host, as their batch ops
-do. With ``ALINK_TPU_SERVE_COMPILED`` on, a twin whose mapper has a
-serving kernel (the linear, tree and FM ones) scores through
-``CompiledPredictor`` on its device (``ModelMapStreamOp``'s compiled
-route; FM's through the FM score kernel, ``kernels/fm.py``).
+raises without CUDA) and hands it to a mapper that takes one (KMeans and
+bisecting KMeans assign there, naive Bayes text and GMM score there, the
+MLP runs its forward there, GLM applies its inverse link there); the
+other mappers map on the host, as their batch ops do. With
+``ALINK_TPU_SERVE_COMPILED`` on, a twin whose mapper has a serving kernel
+(the linear, tree and FM ones) scores through ``CompiledPredictor`` on
+its device (``ModelMapStreamOp``'s compiled route; FM's through the FM
+score kernel, ``kernels/fm.py``).
 
-Waiting with their batch ops (ROADMAP A7(c)): ``NaiveBayesText``,
-``NaiveBayes``, ``MultilayerPerceptron``, ``Glm``, ``IsotonicReg``,
-``AftSurvivalReg``, ``Gmm``, ``BisectingKMeans``, the vector scalers and
+Waiting with their batch ops (ROADMAP A7(c)): the vector scalers and
 imputer (``VectorStandardScaler``, ``VectorMinMaxScaler``,
 ``VectorMaxAbsScaler``, ``VectorImputer``), the indexers
 (``StringIndexer``, ``MultiStringIndexer``, ``IndexToString``),
@@ -57,13 +59,21 @@ _BATCH_PREDICT_OPS = {
     "DecisionTreePredictStreamOp": ("..batch.classification.tree_ops", "DecisionTreePredictBatchOp"),
     "DecisionTreeRegPredictStreamOp": ("..batch.classification.tree_ops", "DecisionTreeRegPredictBatchOp"),
     "FmPredictStreamOp": ("..batch.classification.fm_ops", "FmPredictBatchOp"),
+    "NaiveBayesTextPredictStreamOp": ("..batch.classification.naive_bayes", "NaiveBayesTextPredictBatchOp"),
+    "NaiveBayesPredictStreamOp": ("..batch.classification.naive_bayes", "NaiveBayesPredictBatchOp"),
+    "MultilayerPerceptronPredictStreamOp": ("..batch.classification.mlpc_ops", "MultilayerPerceptronPredictBatchOp"),
     # regression
     "LinearRegPredictStreamOp": ("..batch.regression.linear", "LinearRegPredictBatchOp"),
     "RidgeRegPredictStreamOp": ("..batch.regression.linear", "RidgeRegPredictBatchOp"),
     "LassoRegPredictStreamOp": ("..batch.regression.linear", "LassoRegPredictBatchOp"),
     "LinearSvrPredictStreamOp": ("..batch.regression.linear", "LinearSvrPredictBatchOp"),
+    "GlmPredictStreamOp": ("..batch.regression.glm_ops", "GlmPredictBatchOp"),
+    "IsotonicRegPredictStreamOp": ("..batch.regression.glm_ops", "IsotonicRegPredictBatchOp"),
+    "AftSurvivalRegPredictStreamOp": ("..batch.regression.glm_ops", "AftSurvivalRegPredictBatchOp"),
     # clustering
     "KMeansPredictStreamOp": ("..batch.clustering.kmeans_ops", "KMeansPredictBatchOp"),
+    "GmmPredictStreamOp": ("..batch.clustering.gmm_bisecting", "GmmPredictBatchOp"),
+    "BisectingKMeansPredictStreamOp": ("..batch.clustering.gmm_bisecting", "BisectingKMeansPredictBatchOp"),
     # dataproc
     "StandardScalerPredictStreamOp": ("..batch.dataproc.scalers", "StandardScalerPredictBatchOp"),
     "MinMaxScalerPredictStreamOp": ("..batch.dataproc.scalers", "MinMaxScalerPredictBatchOp"),

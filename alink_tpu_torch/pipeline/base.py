@@ -15,7 +15,7 @@ saved; ``clone()`` keeps it), a ``Trainer`` also ``dtype=``.
 ``Trainer.fit`` hands them to a train op that takes them (the linear, tree and KMeans train ops), so such an
 estimator runs on ``cuda`` unless the caller asks for the CPU, and
 raises without CUDA, and to the fitted model (a KMeans model assigns
-there). A ``Pipeline``'s ``device`` is the device of every estimator stage
+there; a ``MapModel`` hands its device to a mapper that takes one). A ``Pipeline``'s ``device`` is the device of every estimator stage
 that was given none. Not ported: the lazy train-info and model-info
 printing hooks of ``Trainer`` (``enable_lazy_print_*``), which wait for
 the lazy-callback machinery of ``operator/base.py``.
@@ -23,6 +23,7 @@ the lazy-callback machinery of ``operator/base.py``.
 
 from __future__ import annotations
 
+import functools
 import importlib
 import inspect
 import json
@@ -92,14 +93,21 @@ class MapModel(Model):
 
     MAPPER_CLS: Optional[Type[ModelMapper]] = None
 
+    def _mapper(self):
+        """The mapper class, on this model's device where its mapper
+        computes on one."""
+        if "device" in inspect.signature(self.MAPPER_CLS.__init__).parameters:
+            return functools.partial(self.MAPPER_CLS, device=self.device)
+        return self.MAPPER_CLS
+
     def transform(self, in_op) -> BatchOperator:
         in_op = _as_op(in_op)
         from ..operator.batch.utils.model_map import ModelMapBatchOp
-        op = ModelMapBatchOp(self.params.clone(), mapper_cls=self.MAPPER_CLS)
+        op = ModelMapBatchOp(self.params.clone(), mapper_cls=self._mapper())
         return op.link_from(TableSourceBatchOp(self.get_model_data()), in_op)
 
     def get_local_predictor(self) -> "LocalPredictor":
-        return LocalPredictor(self.MAPPER_CLS, self.get_model_data(), self.params)
+        return LocalPredictor(self._mapper(), self.get_model_data(), self.params)
 
 
 class Trainer(Estimator):

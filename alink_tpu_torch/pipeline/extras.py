@@ -1,23 +1,41 @@
-"""Pipeline wrappers completing the reference inventory: ALS.
+"""Pipeline wrappers completing the reference inventory: ALS, GLM,
+isotonic and AFT regression, GMM and bisecting KMeans, MLPC.
 
-Counterpart: ``alink_tpu/pipeline/extras.py`` (:170-199, the reference's
-pipeline/recommendation/ALS and ALSModel). ``ALS`` trains
-``AlsTrainBatchOp`` on its ``device`` (``cuda`` unless given
-``device="cpu"``); ``ALSModel.transform`` rates (user, item) rows with
-``AlsPredictBatchOp`` and ``recommend_top_k`` ranks items with
-``AlsTopKPredictBatchOp``, both on the host. The rest of the JAX
-package's module (GLM, isotonic and AFT regression, GMM and bisecting
-KMeans, MLPC, the indexers, the vector and format transformers and the
-reference's base-class names) waits for its ops (ROADMAP A7).
+Counterpart: ``alink_tpu/pipeline/extras.py`` (:131-148 and :170-199, the
+reference's pipeline/recommendation/ALS and ALSModel,
+pipeline/regression/GeneralizedLinearRegression, IsotonicRegression and
+AftSurvivalRegression, pipeline/clustering/GaussianMixture and
+BisectingKMeans, pipeline/classification/MultilayerPerceptronClassifier).
+``ALS`` trains ``AlsTrainBatchOp`` on its ``device`` (``cuda`` unless
+given ``device="cpu"``); ``ALSModel.transform`` rates (user, item) rows
+with ``AlsPredictBatchOp`` and ``recommend_top_k`` ranks items with
+``AlsTopKPredictBatchOp``, both on the host. The six other estimators
+(``_trainer_with_predict``) train on their ``device`` (and ``dtype``,
+where the train op takes one), and their models map there where the
+mapper computes on a device. The rest of the JAX package's module (the
+indexers, the vector and format transformers and the reference's
+base-class names) waits for its ops (ROADMAP A7(c)).
 """
 
 from __future__ import annotations
 
 from ..operator.base import BatchOperator, TableSourceBatchOp
+from ..operator.batch.classification.mlpc_ops import (
+    MlpModelMapper, MultilayerPerceptronPredictBatchOp,
+    MultilayerPerceptronTrainBatchOp)
+from ..operator.batch.clustering.gmm_bisecting import (
+    BisectingKMeansPredictBatchOp, BisectingKMeansTrainBatchOp,
+    GmmModelMapper, GmmPredictBatchOp, GmmTrainBatchOp)
+from ..operator.batch.clustering.kmeans_ops import KMeansModelMapper
 from ..operator.batch.recommendation.als_ops import (AlsPredictBatchOp,
                                                      AlsTopKPredictBatchOp,
                                                      AlsTrainBatchOp)
+from ..operator.batch.regression.glm_ops import (
+    AftModelMapper, AftSurvivalRegPredictBatchOp, AftSurvivalRegTrainBatchOp,
+    GlmModelMapper, GlmPredictBatchOp, GlmTrainBatchOp, IsotonicModelMapper,
+    IsotonicRegPredictBatchOp, IsotonicRegTrainBatchOp)
 from .base import Estimator, Model, _as_op
+from .feature import _trainer
 
 
 class ALSModel(Model):
@@ -48,3 +66,34 @@ class ALS(Estimator):
         model = ALSModel(self.params.clone(), device=self.device)
         model.set_model_data(train.get_output_table())
         return model
+
+
+# -- remaining trainer/model pairs -----------------------------------------
+
+def _trainer_with_predict(name, train_op, mapper, predict_op):
+    """_trainer + the predict op's params (prediction/output/reserved cols)
+    so kwargs validation accepts them on the estimator and the model."""
+    cls, model_cls = _trainer(name, train_op, mapper)
+    for c in (cls, model_cls):
+        c._PARAM_INFOS = {**c._PARAM_INFOS, **predict_op._PARAM_INFOS}
+    return cls, model_cls
+
+
+GaussianMixture, GaussianMixtureModel = _trainer_with_predict(
+    "GaussianMixture", GmmTrainBatchOp, GmmModelMapper, GmmPredictBatchOp)
+BisectingKMeans, BisectingKMeansModel = _trainer_with_predict(
+    "BisectingKMeans", BisectingKMeansTrainBatchOp, KMeansModelMapper,
+    BisectingKMeansPredictBatchOp)
+GeneralizedLinearRegression, GeneralizedLinearRegressionModel = _trainer_with_predict(
+    "GeneralizedLinearRegression", GlmTrainBatchOp, GlmModelMapper,
+    GlmPredictBatchOp)
+IsotonicRegression, IsotonicRegressionModel = _trainer_with_predict(
+    "IsotonicRegression", IsotonicRegTrainBatchOp, IsotonicModelMapper,
+    IsotonicRegPredictBatchOp)
+AftSurvivalRegression, AftSurvivalRegressionModel = _trainer_with_predict(
+    "AftSurvivalRegression", AftSurvivalRegTrainBatchOp, AftModelMapper,
+    AftSurvivalRegPredictBatchOp)
+MultilayerPerceptronClassifier, MultilayerPerceptronClassificationModel = \
+    _trainer_with_predict(
+        "MultilayerPerceptronClassifier", MultilayerPerceptronTrainBatchOp,
+        MlpModelMapper, MultilayerPerceptronPredictBatchOp)

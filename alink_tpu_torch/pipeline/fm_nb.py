@@ -1,11 +1,13 @@
-"""Pipeline wrappers: FM and OneVsRest.
+"""Pipeline wrappers: FM, naive Bayes and OneVsRest.
 
 Counterpart: ``alink_tpu/pipeline/fm_nb.py`` (the reference's
-pipeline/classification/FmClassifier, FmRegressor and OneVsRest).
-``FmClassifier`` and ``FmRegressor`` train on their ``device`` (``cuda``
-unless given ``device="cpu"``; ``Trainer.fit``); ``OneVsRest`` fits a
-clone of its binary classifier (its device kept) a class. The naive
-Bayes wrappers wait for their ops (ROADMAP A7(c)).
+pipeline/classification/FmClassifier, FmRegressor, NaiveBayesTextClassifier,
+NaiveBayes and OneVsRest). ``FmClassifier``, ``FmRegressor`` and
+``NaiveBayesTextClassifier`` train on their ``device`` (``cuda`` unless
+given ``device="cpu"``; ``Trainer.fit``), and a fitted
+``NaiveBayesTextModel`` scores there; ``NaiveBayes`` (mixed columns) is
+host numpy. ``OneVsRest`` fits a clone of its binary classifier (its
+device kept) a class.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from ..operator.base import BatchOperator, TableSourceBatchOp
 from ..operator.batch.classification.fm_ops import (FmClassifierTrainBatchOp,
                                                     FmModelMapper,
                                                     FmRegressorTrainBatchOp)
+from ..operator.batch.classification.naive_bayes import (
+    NaiveBayesModelMapper, NaiveBayesTextModelMapper,
+    NaiveBayesTextTrainBatchOp, NaiveBayesTrainBatchOp)
 from ..operator.batch.evaluation.eval_ops import parse_detail_probs
 from .base import Estimator, MapModel, Model, Trainer, _as_op
 
@@ -46,6 +51,10 @@ FmClassifier, FmClassifierModel = _wrap("FmClassifier", FmClassifierTrainBatchOp
                                         FmModelMapper)
 FmRegressor, FmRegressorModel = _wrap("FmRegressor", FmRegressorTrainBatchOp,
                                       FmModelMapper)
+NaiveBayesTextClassifier, NaiveBayesTextModel = _wrap(
+    "NaiveBayesTextClassifier", NaiveBayesTextTrainBatchOp, NaiveBayesTextModelMapper)
+NaiveBayes, NaiveBayesModel = _wrap("NaiveBayes", NaiveBayesTrainBatchOp,
+                                    NaiveBayesModelMapper)
 
 
 from ..params.shared import (HasLabelCol, HasPredictionCol,

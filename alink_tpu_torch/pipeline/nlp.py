@@ -1,11 +1,10 @@
 """Pipeline wrappers: NLP.
 
 Counterpart: ``alink_tpu/pipeline/nlp.py`` (the reference's pipeline/nlp/):
-``Tokenizer``, ``RegexTokenizer``, ``NGram``, ``StopWordsRemover``,
-``DocCountVectorizer``, ``DocHashCountVectorizer`` and ``Word2Vec`` with
-their models. ``Word2Vec`` trains on its ``device`` (``cuda`` unless
-given ``device="cpu"``). ``Segment`` waits for the segmenter (ROADMAP
-A7(c)).
+``Segment``, ``Tokenizer``, ``RegexTokenizer``, ``NGram``,
+``StopWordsRemover``, ``DocCountVectorizer``, ``DocHashCountVectorizer``
+and ``Word2Vec`` with their models. ``Word2Vec`` trains on its
+``device`` (``cuda`` unless given ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from __future__ import annotations
 from ..operator.batch.nlp import (DocCountVectorizerTrainBatchOp,
                                   DocHashCountVectorizerTrainBatchOp,
                                   NGramBatchOp, RegexTokenizerBatchOp,
-                                  StopWordsRemoverBatchOp,
+                                  SegmentBatchOp, StopWordsRemoverBatchOp,
                                   TokenizerBatchOp, Word2VecTrainBatchOp)
 from ..operator.common.nlp.vectorizer import (DocCountVectorizerModelMapper,
                                               DocHashCountVectorizerModelMapper)
@@ -28,6 +27,7 @@ def _op_transformer(name, op_cls):
     return cls
 
 
+Segment = _op_transformer("Segment", SegmentBatchOp)
 Tokenizer = _op_transformer("Tokenizer", TokenizerBatchOp)
 RegexTokenizer = _op_transformer("RegexTokenizer", RegexTokenizerBatchOp)
 NGram = _op_transformer("NGram", NGramBatchOp)

@@ -490,6 +490,42 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    bitwise; B5, P1 and the plan at (b)'s design and B1 and B2 at (c)'s
    chunk bitwise to their plain versions.
 
+23. the remaining model families and the segmenter (after 22; TF32 off;
+   no hand kernel: every kernel's count stays 0, the ``phase23_launches``
+   of its record): (a) ``Segment`` and ``SegmentStreamOp`` on 10,000
+   seeded sentences of 10-60 characters glued from the dictionary's
+   words (each sentence's tokens, joined, the sentence; the twin row for
+   row the batch op; sentences/s), then ``Tokenizer`` ->
+   ``DocCountVectorizer`` -> ``NaiveBayesTextClassifier`` on phase 21's
+   newsgroups corpus (80 % train, 20 % held out; labels each doc's
+   majority topic), Multinomial and Bernoulli: the float64 card model
+   within rtol 1e-12 of the same op on the CPU, labels equal to the CPU's
+   where the top two scores differ by more than 1e-9 relative, held-out
+   accuracy over 0.9; train s, the design's build s on the card and
+   predict rows/s; (b) the mixed ``NaiveBayes`` (host numpy) on adult's
+   48,842 rows with the 8 coded columns as strings, equal to a second
+   run; (c) MLPC at bench_softmax's 60,000 x 784 x 10 with layers [128,
+   10], 30 timed L-BFGS supersteps (ms, samples/s, gradient / direction /
+   line search split, device ops and busy share), training accuracy, two
+   float32 runs bitwise, float64 card vs CPU on 6,000 rows within rtol
+   1e-10 (loss curve over 10 supersteps, coefficients over 5), the
+   predict op's labels equal to a numpy float64 forward outside the
+   rounding band; (d) GMM at bench_kmeans's 1.5 M x 4 (k 3) and at
+   200,000 x 32 (k 8): ms an EM superstep, busy share, peak memory, two
+   float32 runs bitwise, float64 card vs CPU on 100,000 rows within rtol
+   1e-10 over 10 iterations with equal step counts at tol 1e-4, ids equal
+   away from ties; bisecting KMeans at k 8 on the 1.5 M rows (RANDOM
+   init), float64 card vs CPU centroids within rtol 1e-12, assignments
+   equal; (e) GLM on 500,000 x 32 in five families (ms an IRLS step, two
+   float32 runs bitwise, float64 card vs CPU on 50,000 rows: equal step
+   counts, beta within rtol 1e-10, the evaluation's deviance equal to
+   numpy's), isotonic regression on 1,000,000 points (train s,
+   predictions equal to ``np.interp`` over its boundaries), AFT on
+   200,000 x 16 with 30 % censored (float64 card loss curve within rtol
+   1e-10 of the CPU's over 10 supersteps on 20,000 rows); (f) the eight
+   new stream twins over two micro-batches of each leg's held-out rows,
+   row for row their batch ops.
+
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -9216,6 +9252,840 @@ def phase_tuning(kernels, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 23. the remaining model families and the segmenter: naive Bayes, MLPC,
+# GMM and bisecting KMeans, GLM with isotonic and AFT, their twins
+# ---------------------------------------------------------------------------
+
+# the leg sizes (a rehearsal on the CPU passes smaller ones to
+# phase_families)
+FAM_SIZES = dict(
+    seg_sentences=10_000, nb_docs=LDA_DOCS, adult_rows=48_842,
+    mlp_rows=SM_ROWS, mlp_f64_rows=SM_F64_ROWS, mlp_held=4096,
+    gmm_reps=KM_REPS, gmm_wide=(200_000, 32, 8), gmm_f64_rows=100_000,
+    bkm_reps=KM_REPS, glm=(500_000, 32), glm_f64_rows=50_000,
+    iso_points=1_000_000, aft=(200_000, 16), aft_f64_rows=20_000,
+    held=20_000)
+FAM_TRAIN_FRAC = 0.8
+MLP_LAYERS = [128, SM_K]
+MLP_TIMED, MLP_CHECK, MLP_COEF_STEPS = 30, 10, 5
+MLP_PROFILED = (5, 9)
+GMM_TIMED, GMM_CHECK, GMM_PROFILED = 30, 10, (10, 14)
+GLM_FAMILIES = (("gaussian", "identity"), ("binomial", "logit"),
+                ("poisson", "log"), ("gamma", "log"), ("tweedie", "log"))
+GLM_TIMED_MAX = 25
+AFT_STEPS, AFT_CENSORED = 10, 0.3
+BKM_K = 8
+FAM_RTOL = 1e-10                  # float64 card vs CPU, iterative legs
+NB_RTOL = 1e-12                   # naive Bayes and bisecting KMeans
+
+
+def _fam_twin(op, table):
+    """A twin over ``table`` in two micro-batches: (its rows as one
+    table, micro-batches, seconds)."""
+    from alink_tpu_torch.operator.stream.source import MemSourceStreamOp
+    t0 = time.perf_counter()
+    parts = list(op.link_from(MemSourceStreamOp(
+        table, batch_size=-(-table.num_rows // 2))).micro_batches())
+    secs = time.perf_counter() - t0
+    out = parts[0]
+    for mt in parts[1:]:
+        out = out.concat_rows(mt)
+    return out, len(parts), secs
+
+
+def _rel_gap(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
+
+
+def _scaled_gap(a, b):
+    """max |a - b| over max |b|: a relative gap for arrays with zeros."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def _columns_table(X, names, extra=None):
+    """A table of ``X``'s columns as DOUBLE columns ``names``, then the
+    ``extra`` columns ({name: (values, type)})."""
+    from alink_tpu_torch.common.mtable import MTable
+    cols = {n: np.asarray(X[:, j], np.float64) for j, n in enumerate(names)}
+    schema = [f"{n} DOUBLE" for n in names]
+    for name, (vals, typ) in (extra or {}).items():
+        cols[name] = vals
+        schema.append(f"{name} {typ}")
+    return MTable(cols, ", ".join(schema))
+
+
+def _top_two_gap(scores):
+    s = np.sort(np.asarray(scores, np.float64), 1)
+    return (s[:, -1] - s[:, -2]) / np.maximum(np.abs(s[:, -1]), 1e-300)
+
+
+def segment_corpus(n, seed=0):
+    """``n`` sentences of 10-60 characters glued from the port's
+    dictionary words (a review set's shape: no spaces)."""
+    from alink_tpu_torch.operator.common.nlp.segment import _load_builtin
+    words = sorted(_load_builtin())
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        target = rng.randint(10, 61)
+        s = ""
+        while len(s) < target:
+            s += words[rng.randint(len(words))]
+        out.append(s[:target])
+    return out
+
+
+def text_leg(dev, card, sizes):
+    """23(a): ``Segment`` and its twin on a seeded corpus; then
+    Tokenizer -> DocCountVectorizer -> NaiveBayesTextClassifier on
+    ``newsgroups_corpus``, Multinomial and Bernoulli."""
+    import torch
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.operator.batch.classification import naive_bayes as nb
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.dataproc.feature_extract import \
+        extract_design
+    from alink_tpu_torch.operator.stream.nlp import SegmentStreamOp
+    from alink_tpu_torch.pipeline import (NaiveBayesTextClassifier, Pipeline,
+                                          Segment)
+    from alink_tpu_torch.pipeline.nlp import DocCountVectorizer, Tokenizer
+    out = {"card": card}
+    sents = segment_corpus(sizes["seg_sentences"])
+    table = MTable({"s": sents}, "s STRING")
+    seg = dict(selected_col="s", output_col="tok")
+    t0 = time.perf_counter()
+    batch = Segment(**seg).transform(MemSourceBatchOp(table)) \
+        .get_output_table()
+    seg_s = time.perf_counter() - t0
+    toks = list(batch.col("tok"))
+    require(all("".join(t.split()) == s for t, s in zip(toks, sents)),
+            "23(a): every sentence's tokens, joined, are the sentence")
+    stream, parts, stream_s = _fam_twin(SegmentStreamOp(**seg), table)
+    require(_rows_equal(stream, batch),
+            "23(a): SegmentStreamOp equals SegmentBatchOp row for row")
+    n_tok = sum(len(t.split()) for t in toks)
+    out["segment"] = {"sentences": len(sents), "tokens": n_tok,
+                      "chars": sum(map(len, sents)), "batch_s": seg_s,
+                      "sentences_per_s": len(sents) / seg_s,
+                      "stream_s": stream_s, "micro_batches": parts}
+    # the naive Bayes text pipeline
+    t0 = time.perf_counter()
+    _, _, _, docs = newsgroups_corpus(5)
+    docs = docs[:sizes["nb_docs"]]
+    block = LDA_VOCAB // LDA_K
+    labels = np.asarray([int(np.bincount(d // block).argmax()) for d in docs])
+    texts = MTable({"doc": [" ".join(f"w{t}" for t in d) for d in docs],
+                    "label": labels}, "doc STRING, label LONG")
+    cut = int(len(docs) * FAM_TRAIN_FRAC)
+    rows = texts.to_rows()
+    train = MTable(rows[:cut], "doc STRING, label LONG")
+    held = MTable(rows[cut:], "doc STRING, label LONG")
+    out["corpus_s"] = time.perf_counter() - t0
+    # the user's pipeline once (Multinomial); its fitted front end
+    # vectorizes the rows both model types train and predict on
+    pipe = Pipeline(
+        Tokenizer(selected_col="doc"),
+        DocCountVectorizer(selected_col="doc", output_col="vec"),
+        NaiveBayesTextClassifier(vector_col="vec", label_col="label",
+                                 prediction_col="pred", device=dev))
+    t0 = time.perf_counter()
+    model = pipe.fit(MemSourceBatchOp(train))
+    out["pipeline_fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    piped = model.transform(MemSourceBatchOp(held)).get_output_table()
+    out["pipeline_predict_s"] = time.perf_counter() - t0
+    vec_train, vec_held = train, held
+    t0 = time.perf_counter()
+    for st in model.transformers[:2]:
+        vec_train = st.transform(MemSourceBatchOp(vec_train)) \
+            .get_output_table()
+        vec_held = st.transform(MemSourceBatchOp(vec_held)) \
+            .get_output_table()
+    out["front_end_s"] = time.perf_counter() - t0
+    for model_type in ("Multinomial", "Bernoulli"):
+        rec = {"train_docs": cut, "held_docs": len(rows) - cut}
+        design = extract_design(vec_train, None, "vec", np.float64)
+        d = int(design["dim"])
+        _sync(dev)
+        t0 = time.perf_counter()
+        nblocks = sum(1 for _ in nb.design_blocks(design, dev))
+        _sync(dev)
+        rec.update(design_build_s=time.perf_counter() - t0, dim=d,
+                   design_blocks=nblocks,
+                   design_bytes=8 * cut * d)
+        kw = dict(vector_col="vec", label_col="label", model_type=model_type)
+        got = {}
+        for where in (dev, "cpu"):
+            _sync(dev)
+            t0 = time.perf_counter()
+            op = nb.NaiveBayesTextTrainBatchOp(device=where, **kw).link_from(
+                MemSourceBatchOp(vec_train))
+            _sync(dev)
+            got[where] = (op, time.perf_counter() - t0)
+        tm = nb.NaiveBayesTextModelConverter().load_model(
+            got[dev][0].get_output_table())
+        cm = nb.NaiveBayesTextModelConverter().load_model(
+            got["cpu"][0].get_output_table())
+        gaps = {k: _rel_gap(tm[k], cm[k]) for k in ("log_prior", "log_prob")}
+        require(max(gaps.values()) <= NB_RTOL,
+                f"23(a) {model_type}: the float64 card model within rtol "
+                f"1e-12 of the CPU's ({gaps})")
+        pp = dict(prediction_col="pred")
+        t0 = time.perf_counter()
+        card_out = nb.NaiveBayesTextPredictBatchOp(device=dev, **pp) \
+            .link_from(got[dev][0], MemSourceBatchOp(vec_held)) \
+            .get_output_table()
+        predict_s = time.perf_counter() - t0
+        cpu_map = nb.NaiveBayesTextModelMapper(
+            got["cpu"][0].get_schema(), vec_held.schema, Params(pp),
+            device="cpu")
+        cpu_map.load_model(got["cpu"][0].get_output_table())
+        scores = cpu_map.scores(vec_held)
+        cpu_out = cpu_map.map_table(vec_held)
+        clear = _top_two_gap(scores) > 1e-9
+        a, b = np.asarray(card_out.col("pred")), np.asarray(cpu_out.col("pred"))
+        require(bool((a[clear] == b[clear]).all()),
+                f"23(a) {model_type}: card labels equal the CPU's where the "
+                f"top two scores differ by more than 1e-9 relative")
+        acc = float((a == np.asarray(held.col("label"))).mean())
+        require(acc > 0.9, f"23(a) {model_type}: held-out accuracy {acc}")
+        if model_type == "Multinomial":
+            require(list(piped.col("pred")) == list(a),
+                    "23(a): the fitted pipeline predicts as the ops")
+        rec.update(card_train_s=got[dev][1], cpu_train_s=got["cpu"][1],
+                   model_gaps=gaps, predict_s=predict_s,
+                   predict_rows_per_s=held.num_rows / predict_s,
+                   held_accuracy=acc, labels_in_tie_band=int((~clear).sum()))
+        out[model_type] = rec
+        if model_type == "Multinomial":
+            out["twin_case"] = (got[dev][0], vec_held)
+    print(f"segment (a) [{card}]: {len(sents)} sentences, {n_tok} tokens in "
+          f"{seg_s:.3f} s ({out['segment']['sentences_per_s']:.1f} "
+          f"sentences/s), twin {stream_s:.3f} s, joined tokens equal the "
+          f"sentences, twin equals batch", flush=True)
+    for m in ("Multinomial", "Bernoulli"):
+        r = out[m]
+        print(f"naive Bayes text (a) {m} [{card}]: {r['train_docs']} docs x "
+              f"{r['dim']} words, train {r['card_train_s']:.3f} s (CPU "
+              f"{r['cpu_train_s']:.3f} s), design build {r['design_build_s']:.4f}"
+              f" s ({r['design_bytes']} B in {r['design_blocks']} blocks), "
+              f"predict {r['predict_rows_per_s']:.1f} rows/s, held-out "
+              f"accuracy {r['held_accuracy']}, model gaps {r['model_gaps']}",
+              flush=True)
+    return out
+
+
+def adult_mixed(n):
+    """adult_data's rows with its 8 coded columns as strings, and a label
+    column; (train, held) tables."""
+    X, y, _ = adult_data(n)
+    names = ADULT_COLS
+    cat = {c: (np.asarray([str(int(v)) for v in X[:, j]], object), "STRING")
+           for j, c in enumerate(names) if j >= 6}
+    t = _columns_table(X[:, :6], names[:6],
+                       {**cat, "label": (y, "LONG")})
+    rows = t.to_rows()
+    cut = int(n * FAM_TRAIN_FRAC)
+    return (type(t)(rows[:cut], t.schema), type(t)(rows[cut:], t.schema))
+
+
+def nb_mixed_leg(card, sizes):
+    """23(b): the mixed NaiveBayes (host numpy) on adult's shape."""
+    from alink_tpu_torch.operator.batch.classification import naive_bayes as nb
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    train, held = adult_mixed(sizes["adult_rows"])
+    kw = dict(feature_cols=ADULT_COLS, label_col="label")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        op = nb.NaiveBayesTrainBatchOp(**kw).link_from(MemSourceBatchOp(train))
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = nb.NaiveBayesPredictBatchOp(prediction_col="pred").link_from(
+            op, MemSourceBatchOp(held)).get_output_table()
+        runs.append((op, pred, train_s, time.perf_counter() - t0))
+    require(runs[0][0].get_output_table().to_rows()
+            == runs[1][0].get_output_table().to_rows()
+            and _rows_equal(runs[0][1], runs[1][1]),
+            "23(b): the mixed NaiveBayes equals its second run (tables, "
+            "labels)")
+    acc = float((np.asarray(runs[0][1].col("pred"))
+                 == np.asarray(held.col("label"))).mean())
+    out = {"train_rows": train.num_rows, "held_rows": held.num_rows,
+           "train_s": runs[0][2], "predict_s": runs[0][3],
+           "predict_rows_per_s": held.num_rows / runs[0][3],
+           "held_accuracy": acc, "twin_case": (runs[0][0], held)}
+    print(f"naive Bayes mixed (b) [{card}]: {train.num_rows} rows, train "
+          f"{runs[0][2]:.3f} s, predict {out['predict_rows_per_s']:.1f} "
+          f"rows/s, accuracy {acc}; equal to its CPU rerun", flush=True)
+    return out
+
+
+def softmax_rows(n, seed):
+    """More rows of ``softmax_data``'s distribution (its centers from
+    RandomState(0)), without the intercept column."""
+    centers = np.random.RandomState(0).randn(SM_K, SM_DIM).astype(
+        np.float32) * 0.5
+    rng = np.random.RandomState(seed)
+    yc = rng.randint(0, SM_K, n)
+    return (centers[yc] + rng.randn(n, SM_DIM).astype(np.float32)).astype(
+        np.float32), yc
+
+
+def mlp_leg(dev, card, sizes):
+    """23(c): MLPC at bench_softmax's shape, layers [128, 10]."""
+    import torch
+    from alink_tpu_torch.operator.batch.classification import mlpc_ops as mo
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.ann import mlp as am
+    cuda = torch.device(dev).type == "cuda"
+    X, yc = softmax_data()
+    X, yc = X[:sizes["mlp_rows"], 1:], yc[:sizes["mlp_rows"]]
+    n, d = X.shape
+    names = [f"x{j}" for j in range(d)]
+    t0 = time.perf_counter()
+    table = _columns_table(X, names, {"label": (yc.astype(np.int64), "LONG")})
+    out = {"rows": n, "cols": d, "layers": MLP_LAYERS,
+           "table_s": time.perf_counter() - t0}
+    kw = dict(feature_cols=names, label_col="label", layers=MLP_LAYERS,
+              epsilon=0.0, seed=0)
+
+    def train(steps, where, tab, dtype=torch.float32):
+        op = mo.MultilayerPerceptronTrainBatchOp(
+            device=where, dtype=dtype, max_iter=steps, **kw)
+        return op.link_from(MemSourceBatchOp(tab))
+
+    def curve(op):
+        return np.asarray(op.get_side_output(0).get_output_table().col("loss"))
+
+    train(2, dev, table)                                      # warm-up
+    with SuperstepClock(profile=MLP_PROFILED if cuda else None) as clock:
+        t0 = time.perf_counter()
+        op = train(MLP_TIMED, dev, table)
+        run_s = time.perf_counter() - t0
+    require(op._steps == MLP_TIMED and np.isfinite(curve(op)).all(),
+            "23(c): MLPC ran its fixed-length supersteps with finite losses")
+    per = clock.superstep_ms()
+    traced = np.arange(MLP_PROFILED[0] - 2, MLP_PROFILED[1] - 1)
+    ms = float(np.median(np.delete(per, traced)))
+    out.update(ms_per_superstep=ms, superstep_ms_min=float(per.min()),
+               superstep_ms_max=float(per.max()), run_s=run_s,
+               samples_per_s=n / ms * 1e3, loss_first=float(curve(op)[0]),
+               loss_last=float(curve(op)[-1]))
+    if clock.prof is not None:
+        kk = MLP_PROFILED[1] - MLP_PROFILED[0] + 1
+        _, total, busy = clock.profiled()
+        out.update(device_ops_per_superstep=total / kk,
+                   device_busy_ms=busy / kk, device_busy_share=busy / kk / ms)
+    # the split run (each stage ending in a synchronize) is also the
+    # first of the two runs held bitwise below
+    pieces = [(am.MlpObjFunc, "calc_grad_shard"),
+              (am.MlpObjFunc, "line_losses_shard")]
+    if cuda:
+        with StageSplit(pieces) as split:
+            a = train(MLP_CHECK, dev, table)
+        med = split.raw_medians()
+        out["stage_ms"] = {
+            "gradient": med["calc_grad"],
+            "direction": med["direction_and_losses"]
+            - med["line_losses_shard"],
+            "line_search": med["line_losses_shard"],
+            "update": med["update_model"],
+            "superstep_sum": med["calc_grad"] + med["direction_and_losses"]
+            + med["update_model"]}
+    else:
+        a = train(MLP_CHECK, dev, table)
+    m = mo.MlpModelConverter().load_model(op.get_output_table())
+    mapper = mo.MlpModelMapper(op.get_schema(), table.schema, device=dev)
+    mapper.load_model(op.get_output_table())
+    acc = float((np.asarray(m["labels"])[mapper.logits(table).argmax(1)]
+                 == yc).mean())
+    out["train_accuracy"] = acc
+    require(acc > 0.9, f"23(c): MLPC trains: accuracy {acc}")
+    b = train(MLP_CHECK, dev, table)
+    require(a.get_output_table().to_rows() == b.get_output_table().to_rows()
+            and np_bits_equal(curve(a), curve(b)),
+            "23(c): two float32 card trainings bitwise (coefficients, loss "
+            "curve)")
+    # float64 card vs CPU on the first rows
+    f64 = sizes["mlp_f64_rows"]
+    small = _columns_table(X[:f64], names,
+                           {"label": (yc[:f64].astype(np.int64), "LONG")})
+    gc = curve(train(MLP_CHECK, dev, small, torch.float64))
+    t0 = time.perf_counter()
+    cc = curve(train(MLP_CHECK, "cpu", small, torch.float64))
+    cpu_s = time.perf_counter() - t0
+    ga = mo.MlpModelConverter().load_model(train(
+        MLP_COEF_STEPS, dev, small, torch.float64).get_output_table())["coef"]
+    ca = mo.MlpModelConverter().load_model(train(
+        MLP_COEF_STEPS, "cpu", small, torch.float64).get_output_table())["coef"]
+    lgap, cgap = _rel_gap(gc, cc), _scaled_gap(ga, ca)
+    require(lgap <= FAM_RTOL and cgap <= FAM_RTOL,
+            f"23(c): the float64 card run within rtol 1e-10 of the CPU's on "
+            f"{f64} rows: loss curve over {MLP_CHECK} supersteps ({lgap}), "
+            f"coefficients over {MLP_COEF_STEPS} ({cgap})")
+    # the predict op on the card against a numpy float64 forward of the table
+    Xh, yh = softmax_rows(sizes["mlp_held"], 1)
+    held = _columns_table(Xh, names, {"label": (yh.astype(np.int64), "LONG")})
+    t0 = time.perf_counter()
+    pred = mo.MultilayerPerceptronPredictBatchOp(
+        device=dev, prediction_col="pred").link_from(
+        op, MemSourceBatchOp(held)).get_output_table()
+    predict_s = time.perf_counter() - t0
+    h = (Xh.astype(np.float64) - m["mean"]) / m["std"]
+    sizes_l = m["layer_sizes"]
+    pos = 0
+    for i, (fan_in, fan_out) in enumerate(zip(sizes_l[:-1], sizes_l[1:])):
+        W = m["coef"][pos:pos + fan_in * fan_out].reshape(fan_in, fan_out)
+        pos += fan_in * fan_out
+        z = h @ W + m["coef"][pos:pos + fan_out]
+        pos += fan_out
+        h = z if i == len(sizes_l) - 2 else 1.0 / (1.0 + np.exp(-z))
+    want = np.asarray(m["labels"])[h.argmax(1)]
+    s = np.sort(h, 1)
+    band = (s[:, -1] - s[:, -2]) <= 2.0 ** -20 * np.maximum(
+        np.abs(s[:, -1]), 1.0)
+    got = np.asarray(pred.col("pred"))
+    require(bool((got[~band] == want[~band]).all()),
+            "23(c): MultilayerPerceptronPredictBatchOp's labels equal a numpy "
+            "float64 forward of the model table outside the rounding band")
+    out.update(two_runs_bitwise=True, card_vs_cpu_f64={
+        "rows": f64, "supersteps": MLP_CHECK, "loss_max_rel_gap": lgap,
+        "coef_steps": MLP_COEF_STEPS, "coef_scaled_gap": cgap,
+        "cpu_s": cpu_s}, predict={"rows": held.num_rows, "s": predict_s,
+                                  "rows_per_s": held.num_rows / predict_s,
+                                  "in_band": int(band.sum())},
+        twin_case=(op, held))
+    print(f"mlpc (c) [{card}]: {n} x {d}, layers {MLP_LAYERS}: {ms:.4f} ms a "
+          f"superstep (median of {len(per) - len(traced)}), "
+          f"{out['samples_per_s']:.1f} samples/s, busy "
+          f"{out.get('device_busy_share')}, ops "
+          f"{out.get('device_ops_per_superstep')}, stages "
+          f"{out.get('stage_ms')}; accuracy {acc}; two runs bitwise; f64 "
+          f"card vs CPU loss {lgap}, coef {cgap}; predict "
+          f"{out['predict']['rows_per_s']:.1f} rows/s", flush=True)
+    return out
+
+
+def gmm_rows(shape, seed):
+    """The wide GMM shape: ``k`` seeded centers ``randn * 3`` and rows of
+    a center plus ``randn`` scaled per column, float32."""
+    n, d, k = shape
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(k, d) * 3.0
+    scale = 0.5 + rng.rand(k, d)
+    c = rng.randint(0, k, n)
+    return (centers[c] + rng.randn(n, d) * scale[c]).astype(np.float32)
+
+
+def iris_fresh(X, n):
+    """``n`` more rows of the iris shape: the first base rows with fresh
+    ``randn * 0.05`` noise (``RandomState(1)``)."""
+    return (X[:n] + np.random.RandomState(1).randn(n, X.shape[1]).astype(
+        np.float32) * KM_NOISE).astype(np.float32)
+
+
+def gmm_case(X, k, dev, card, label, sizes):
+    """One GMM shape: timed EM, two float32 runs bitwise, float64 card vs
+    CPU on a cut, predicted ids away from ties, peak memory."""
+    import torch
+    from alink_tpu_torch.common.mlenv import MLEnvironment
+    from alink_tpu_torch.operator.batch.clustering import gmm_bisecting as gb
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    cuda = torch.device(dev).type == "cuda"
+    n, d = X.shape
+    names = [f"x{j}" for j in range(d)]
+    table = _columns_table(X, names)
+    out = {"rows": n, "cols": d, "k": k}
+    kw = dict(feature_cols=names, k=k, seed=0)
+
+    def train(steps, where=dev, tab=table, dtype=torch.float32, eps=0.0):
+        return gb.GmmTrainBatchOp(device=where, dtype=dtype, max_iter=steps,
+                                  epsilon=eps, **kw).link_from(
+            MemSourceBatchOp(tab))
+
+    train(2)                                                   # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with SuperstepClock(profile=GMM_PROFILED if cuda else None) as clock:
+        op = train(GMM_TIMED)
+    per = clock.superstep_ms()
+    traced = np.arange(GMM_PROFILED[0] - 2, GMM_PROFILED[1] - 1)
+    ms = float(np.median(np.delete(per, traced)))
+    out.update(ms_per_superstep=ms, samples_per_s=n / ms * 1e3,
+               supersteps=op._steps)
+    if cuda:
+        out["peak_bytes"] = int(torch.cuda.max_memory_allocated() - base)
+        out["data_bytes"] = int(n * (d + 1) * 4)
+    if clock.prof is not None:
+        kk = GMM_PROFILED[1] - GMM_PROFILED[0] + 1
+        _, total, busy = clock.profiled()
+        out.update(device_ops_per_superstep=total / kk,
+                   device_busy_share=busy / kk / ms)
+    a, b = train(GMM_CHECK), train(GMM_CHECK)
+    require(a.get_output_table().to_rows() == b.get_output_table().to_rows(),
+            f"23(d) {label}: two float32 card trainings bitwise")
+    cut = min(n, sizes["gmm_f64_rows"])
+    X64 = X[:cut].astype(np.float64)
+    res = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        res[where] = gb.gmm_train(X64, k, GMM_CHECK, 0.0, seed=0,
+                                  env=MLEnvironment(device=where))
+        res[where + "_s"] = time.perf_counter() - t0
+        res[where + "_stop"] = gb.gmm_train(
+            X64, k, 200, 1e-4, seed=0, env=MLEnvironment(device=where))[4]
+    require(res[dev + "_stop"] == res["cpu_stop"],
+            f"23(d) {label}: equal EM step counts at tol 1e-4 (card "
+            f"{res[dev + '_stop']}, CPU {res['cpu_stop']})")
+    gaps = {name: _scaled_gap(res[dev][i], res["cpu"][i])
+            for i, name in enumerate(("weights", "means", "covs"))}
+    gaps["loglik"] = _rel_gap(res[dev][3], res["cpu"][3])
+    require(max(gaps.values()) <= FAM_RTOL and res[dev][4] == res["cpu"][4],
+            f"23(d) {label}: the float64 card run within rtol 1e-10 of the "
+            f"CPU's over {GMM_CHECK} iterations on {cut} rows ({gaps})")
+    # ids on the card against the CPU's, away from ties
+    model = gb.GmmModelDataConverter().save_model({
+        "weights": res["cpu"][0], "means": res["cpu"][1],
+        "covs": res["cpu"][2], "vector_col": None, "feature_cols": names})
+    small = _columns_table(X64, names)
+    pp = dict(prediction_col="cid", prediction_detail_col="p")
+    ids = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        o = gb.GmmPredictBatchOp(device=where, **pp).link_from(
+            MemSourceBatchOp(model), MemSourceBatchOp(small)).get_output_table()
+        ids[where] = (np.asarray(o.col("cid")), time.perf_counter() - t0, o)
+    probs = np.asarray([[v for v in json.loads(s).values()]
+                        for s in ids["cpu"][2].col("p")])
+    clear = _top_two_gap(probs) > 1e-9
+    require(bool((ids[dev][0][clear] == ids["cpu"][0][clear]).all()),
+            f"23(d) {label}: predicted ids equal the CPU's away from ties")
+    out.update(two_runs_bitwise=True, card_vs_cpu_f64={
+        "rows": cut, "iterations": GMM_CHECK, "gaps": gaps,
+        "steps_at_tol": res["cpu_stop"], "cpu_s": res["cpu_s"]},
+        predict={"rows": cut, "card_s": ids[dev][1],
+                 "rows_per_s": cut / ids[dev][1],
+                 "in_tie_band": int((~clear).sum())},
+        twin_case=(op, _columns_table(iris_fresh(X, min(n, sizes["held"])),
+                                      names)))
+    print(f"gmm (d) {label} [{card}]: {n} x {d}, k {k}: {ms:.4f} ms an EM "
+          f"superstep, busy {out.get('device_busy_share')}, ops "
+          f"{out.get('device_ops_per_superstep')}, peak "
+          f"{out.get('peak_bytes')} B over the data; two runs bitwise; f64 "
+          f"card vs CPU {gaps}, {res['cpu_stop']} steps at tol 1e-4 on both",
+          flush=True)
+    return out
+
+
+def bisecting_case(X, dev, card, sizes):
+    """23(d): BisectingKMeans at k = 8 on the iris rows, float64 card vs
+    CPU (host draws: init_mode RANDOM)."""
+    import torch
+    from alink_tpu_torch.operator.batch.clustering import gmm_bisecting as gb
+    from alink_tpu_torch.operator.batch.clustering import \
+        KMeansModelDataConverter
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    names = [f"x{j}" for j in range(X.shape[1])]
+    table = _columns_table(X, names)
+    kw = dict(feature_cols=names, k=BKM_K, init_mode="RANDOM", seed=0)
+    got = {}
+    for where in (dev, "cpu"):
+        _sync(dev)
+        t0 = time.perf_counter()
+        op = gb.BisectingKMeansTrainBatchOp(
+            device=where, dtype=torch.float64, **kw).link_from(
+            MemSourceBatchOp(table))
+        got[where] = (op, time.perf_counter() - t0)
+    cm = {w: KMeansModelDataConverter().load_model(
+        got[w][0].get_output_table()) for w in (dev, "cpu")}
+    gap = _rel_gap(cm[dev].centroids, cm["cpu"].centroids)
+    X64 = X.astype(np.float64)
+    ids = {w: gb._assign_np(X64, cm[w].centroids)[0] for w in (dev, "cpu")}
+    require(gap <= NB_RTOL and np.array_equal(ids[dev], ids["cpu"])
+            and np.array_equal(cm[dev].weights, cm["cpu"].weights),
+            f"23(d) bisecting: float64 card centroids within rtol 1e-12 of "
+            f"the CPU's ({gap}), assignments and weights equal")
+    out = {"rows": X.shape[0], "k": BKM_K, "card_s": got[dev][1],
+           "cpu_s": got["cpu"][1], "centroid_max_rel_gap": gap,
+           "weights": cm["cpu"].weights.tolist(),
+           "twin_case": (got[dev][0], _columns_table(
+               iris_fresh(X, min(len(X), sizes["held"])), names))}
+    print(f"bisecting (d) [{card}]: {X.shape[0]} x {X.shape[1]}, k {BKM_K}: "
+          f"card {got[dev][1]:.3f} s, CPU {got['cpu'][1]:.3f} s, centroids "
+          f"rel {gap}, assignments equal", flush=True)
+    return out
+
+
+def glm_rows(family, link, n, d, seed):
+    """``n`` rows of ``d`` columns ``randn * 0.3``, the labels drawn from
+    the family's own model at a seeded beta; float32."""
+    rng = np.random.RandomState(seed)
+    X = (rng.randn(n, d) * 0.3).astype(np.float32)
+    beta = np.random.RandomState(100).randn(d) * 0.2
+    eta = X.astype(np.float64) @ beta + {"identity": 1.0, "logit": 0.2,
+                                         "log": 0.5}[link]
+    mu = {"identity": eta, "logit": 1 / (1 + np.exp(-eta)),
+          "log": np.exp(eta)}[link]
+    if family == "gaussian":
+        y = mu + 0.3 * rng.randn(n)
+    elif family == "binomial":
+        y = (rng.rand(n) < mu).astype(float)
+    elif family == "poisson":
+        y = rng.poisson(mu).astype(float)
+    elif family == "gamma":
+        y = rng.gamma(4.0, mu / 4.0)
+    else:                                   # tweedie: compound Poisson-gamma
+        k = rng.poisson(mu)
+        y = np.zeros(n)
+        pos = k > 0
+        y[pos] = rng.gamma(2.0 * k[pos], 0.5)
+    return X, y
+
+
+def aft_table(n, d, names, seed):
+    """Weibull survival times of ``n`` rows ``randn * 0.3`` (float32) at a
+    seeded beta, ``AFT_CENSORED`` of them censored (cut short): (the table
+    with ``t`` and ``ev``, the censored mask)."""
+    rng = np.random.RandomState(seed)
+    X = (rng.randn(n, d) * 0.3).astype(np.float32)
+    beta = np.random.RandomState(108).randn(d) * 0.3
+    t = np.exp(1.0 + X @ beta + 0.5 * np.log(rng.exponential(size=n)))
+    cens = rng.rand(n) < AFT_CENSORED
+    t = np.where(cens, t * rng.rand(n), t)
+    return _columns_table(X, names, {"t": (t, "DOUBLE"), "ev": (
+        (~cens).astype(np.float64), "DOUBLE")}), cens
+
+
+def glm_deviance_np(y, mu, family):
+    """The deviance GlmEvaluationBatchOp reports, recomputed here."""
+    e = 1e-10
+    if family == "poisson":
+        return float(2 * np.sum(np.where(y > 0, y * np.log(
+            np.maximum(y, e) / np.maximum(mu, e)), 0) - (y - mu)))
+    if family == "binomial":
+        return float(-2 * np.sum(y * np.log(np.maximum(mu, e)) + (1 - y)
+                                 * np.log(np.maximum(1 - mu, e))))
+    if family == "gamma":
+        return float(2 * np.sum(-np.log(np.maximum(y, e) / np.maximum(mu, e))
+                                + (y - mu) / np.maximum(mu, e)))
+    return float(((y - mu) ** 2).sum())
+
+
+def glm_leg(dev, card, sizes):
+    """23(e): GLM (five families), isotonic regression and AFT."""
+    import torch
+    from alink_tpu_torch.operator.batch.regression import glm_ops as go
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    cuda = torch.device(dev).type == "cuda"
+    n, d = sizes["glm"]
+    names = [f"x{j}" for j in range(d)]
+    out = {"rows": n, "cols": d, "families": {}}
+    for fam, link in GLM_FAMILIES:
+        X, y = glm_rows(fam, link, n, d, seed=len(out["families"]))
+        table = _columns_table(X, names, {"y": (y, "DOUBLE")})
+        kw = dict(feature_cols=names, label_col="y", family=fam, link=link,
+                  max_iter=GLM_TIMED_MAX)
+
+        def train(where=dev, tab=table, dtype=torch.float32):
+            return go.GlmTrainBatchOp(device=where, dtype=dtype, **kw) \
+                .link_from(MemSourceBatchOp(tab))
+
+        with SuperstepClock() as clock:
+            a = train()
+        per = clock.superstep_ms()
+        b = train()
+        require(a.get_output_table().to_rows() == b.get_output_table()
+                .to_rows() and a._steps == b._steps,
+                f"23(e) {fam}/{link}: two float32 card runs bitwise")
+        cut = min(n, sizes["glm_f64_rows"])
+        small = _columns_table(X[:cut], names, {"y": (y[:cut], "DOUBLE")})
+        f64 = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            op = train(where, small, torch.float64)
+            f64[where] = (op, time.perf_counter() - t0)
+        sg, sc = f64[dev][0]._steps, f64["cpu"][0]._steps
+        require(sg == sc, f"23(e) {fam}/{link}: equal IRLS step counts on "
+                          f"{cut} rows (card stopped at {sg}, CPU at {sc})")
+        bg, bc = (go.GlmModelConverter().load_model(
+            f64[w][0].get_output_table())["beta"] for w in (dev, "cpu"))
+        gap = _scaled_gap(bg, bc)
+        require(gap <= FAM_RTOL, f"23(e) {fam}/{link}: float64 card beta "
+                                 f"within rtol 1e-10 of the CPU's ({gap})")
+        pred = go.GlmPredictBatchOp(device=dev, prediction_col="mu").link_from(
+            f64[dev][0], MemSourceBatchOp(small)).get_output_table()
+        ev = go.GlmEvaluationBatchOp(label_col="y", prediction_col="mu",
+                                     family=fam).link_from(
+            MemSourceBatchOp(pred)).get_output_table()
+        dev_op = json.loads(ev.col("summary")[0])["deviance"]
+        dev_np = glm_deviance_np(y[:cut].astype(np.float64),
+                                 np.asarray(pred.col("mu")), fam)
+        require(dev_op == dev_np, f"23(e) {fam}/{link}: the evaluation's "
+                                  f"deviance equals numpy's ({dev_op}, "
+                                  f"{dev_np})")
+        out["families"][f"{fam}/{link}"] = {
+            "irls_steps": a._steps, "ms_per_step": float(np.median(per)),
+            "steps_ms": per.tolist(), "f64_rows": cut, "f64_steps": sc,
+            "beta_scaled_gap": gap, "cpu_s": f64["cpu"][1],
+            "deviance": dev_op}
+        if fam == "poisson":
+            Xh, yh = glm_rows(fam, link, sizes["held"], d, seed=99)
+            out["twin_case"] = (a, _columns_table(Xh, names,
+                                                  {"y": (yh, "DOUBLE")}))
+    # isotonic regression: host PAV
+    rng = np.random.RandomState(7)
+    m = sizes["iso_points"]
+    x = rng.rand(m)
+    yv = np.sqrt(x) + 0.2 * rng.randn(m)
+    tab = _columns_table(np.stack([x, yv], 1), ["x", "y"])
+    t0 = time.perf_counter()
+    iso = go.IsotonicRegTrainBatchOp(feature_col="x", label_col="y") \
+        .link_from(MemSourceBatchOp(tab))
+    iso_s = time.perf_counter() - t0
+    im = go.IsotonicModelConverter().load_model(iso.get_output_table())
+    xq = np.linspace(-0.1, 1.1, 10_001)
+    q = _columns_table(np.stack([xq, xq], 1), ["x", "y"])
+    got = np.asarray(go.IsotonicRegPredictBatchOp(prediction_col="p")
+                     .link_from(iso, MemSourceBatchOp(q)).get_output_table()
+                     .col("p"))
+    require(np.array_equal(got, np.interp(xq, im["boundaries"], im["values"]))
+            and (np.diff(im["values"]) >= 0).all(),
+            "23(e): isotonic predictions equal np.interp over the model's "
+            "boundaries, its values non-decreasing")
+    out["isotonic"] = {"points": m, "train_s": iso_s,
+                       "boundaries": int(len(im["boundaries"])),
+                       "twin_case": (iso, q)}
+    # AFT: Weibull survival times, 30 % censored
+    na, da = sizes["aft"]
+    anames = [f"a{j}" for j in range(da)]
+    atab, cens = aft_table(na, da, anames, 8)
+    akw = dict(feature_cols=anames, label_col="t", censor_col="ev",
+               max_iter=AFT_STEPS, epsilon=0.0)
+
+    def aft(where, tab, dtype):
+        return go.AftSurvivalRegTrainBatchOp(device=where, dtype=dtype,
+                                             **akw).link_from(
+            MemSourceBatchOp(tab))
+
+    with SuperstepClock() as clock:
+        a32 = aft(dev, atab, torch.float32)
+    aper = clock.superstep_ms()
+    cut = min(na, sizes["aft_f64_rows"])
+    asmall = type(atab)(atab.to_rows()[:cut], atab.schema)
+    curves = {w: np.asarray(aft(w, asmall, torch.float64).get_side_output(0)
+                            .get_output_table().col("loss"))
+              for w in (dev, "cpu")}
+    agap = _rel_gap(curves[dev], curves["cpu"])
+    require(agap <= FAM_RTOL and len(curves[dev]) == AFT_STEPS,
+            f"23(e) AFT: the float64 card loss curve within rtol 1e-10 of "
+            f"the CPU's over {AFT_STEPS} supersteps on {cut} rows ({agap})")
+    out["aft"] = {"rows": na, "cols": da, "censored": float(cens.mean()),
+                  "ms_per_superstep": float(np.median(aper[1:])),
+                  "f64_rows": cut, "loss_max_rel_gap": agap,
+                  "twin_case": (a32, aft_table(sizes["held"], da, anames,
+                                               9)[0])}
+    for key, r in out["families"].items():
+        print(f"glm (e) {key} [{card}]: {n} x {d}: {r['irls_steps']} IRLS "
+              f"steps, {r['ms_per_step']:.4f} ms a step; f64 card vs CPU on "
+              f"{r['f64_rows']} rows: {r['f64_steps']} steps both, beta "
+              f"{r['beta_scaled_gap']}; deviance equal numpy's", flush=True)
+    print(f"isotonic (e) [{card}]: {m} points, train {iso_s:.3f} s, "
+          f"{out['isotonic']['boundaries']} boundaries; AFT (e): {na} x {da}, "
+          f"{out['aft']['ms_per_superstep']:.4f} ms a superstep, f64 card vs "
+          f"CPU loss {agap}", flush=True)
+    return out
+
+
+def twins_leg(cases, dev, card):
+    """23(f): the eight twins over two micro-batches of each leg's rows,
+    each row for row its batch op's."""
+    import inspect
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream import predict_ops as po
+    out = {}
+    for name, (model_op, table, pkw) in cases.items():
+        twin = getattr(po, f"{name}PredictStreamOp")
+        takes = "device" in inspect.signature(
+            twin.BATCH_CLS.__init__).parameters
+        t0 = time.perf_counter()
+        batch = twin.BATCH_CLS(**pkw, **({"device": dev} if takes else {})) \
+            .link_from(model_op, MemSourceBatchOp(table)).get_output_table()
+        batch_s = time.perf_counter() - t0
+        got, parts, twin_s = _fam_twin(twin(model_op, device=dev, **pkw), table)
+        require(parts == 2 and _rows_equal(got, batch),
+                f"23(f): {name}PredictStreamOp equals its batch op row for "
+                f"row over 2 micro-batches")
+        out[name] = {"rows": table.num_rows, "twin_s": twin_s,
+                     "batch_s": batch_s}
+    print(f"twins (f) [{card}]: {out}", flush=True)
+    return out
+
+
+def phase_families(card, dev=None, sizes=None):
+    """23: the remaining model families and the segmenter on the card.
+    ``sizes`` (a rehearsal's) replaces ``FAM_SIZES`` entries."""
+    import torch
+    dev = dev or "cuda"
+    sizes = {**FAM_SIZES, **(sizes or {})}
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the dense products")
+    t0 = time.perf_counter()
+    out, secs = {"card": card, "sizes": {k: list(v) if isinstance(v, tuple)
+                                         else v for k, v in sizes.items()}}, {}
+
+    def leg(name, fn, *a):
+        t1 = time.perf_counter()
+        out[name] = fn(*a)
+        secs[name] = time.perf_counter() - t1
+
+    leg("text", text_leg, dev, card, sizes)
+    leg("nb_mixed", nb_mixed_leg, card, sizes)
+    leg("mlpc", mlp_leg, dev, card, sizes)
+    iris = iris_rows()[:150 * sizes["gmm_reps"]]
+    leg("gmm_iris", gmm_case, iris, KM_K, dev, card, "iris", sizes)
+    wide = sizes["gmm_wide"]
+    leg("gmm_wide", gmm_case, gmm_rows(wide, 3), wide[2], dev, card, "wide",
+        sizes)
+    leg("bisecting", bisecting_case, iris_rows()[:150 * sizes["bkm_reps"]],
+        dev, card, sizes)
+    leg("glm", glm_leg, dev, card, sizes)
+    cases = {
+        "NaiveBayesText": (*out["text"].pop("twin_case"),
+                           dict(prediction_col="p")),
+        "NaiveBayes": (*out["nb_mixed"].pop("twin_case"),
+                       dict(prediction_col="p", prediction_detail_col="d")),
+        "MultilayerPerceptron": (*out["mlpc"].pop("twin_case"),
+                                 dict(prediction_col="p",
+                                      reserved_cols=["label"])),
+        "Glm": (*out["glm"].pop("twin_case"),
+                dict(prediction_col="p", link_pred_result_col="eta",
+                     reserved_cols=["y"])),
+        "IsotonicReg": (*out["glm"]["isotonic"].pop("twin_case"),
+                        dict(prediction_col="p")),
+        "AftSurvivalReg": (*out["glm"]["aft"].pop("twin_case"),
+                           dict(prediction_col="p")),
+        "Gmm": (*out["gmm_iris"].pop("twin_case"),
+                dict(prediction_col="p", prediction_detail_col="d")),
+        "BisectingKMeans": (*out["bisecting"].pop("twin_case"),
+                            dict(prediction_col="p"))}
+    out["gmm_wide"].pop("twin_case")
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    cases = {k: (MemSourceBatchOp(m.get_output_table()), t, p)
+             for k, (m, t, p) in cases.items()}
+    leg("twins", twins_leg, cases, dev, card)
+    out["leg_seconds"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 23 [{card}]: {out['seconds']:.1f} s, legs (s) {secs}",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9426,6 +10296,15 @@ def main(argv=None) -> int:
     # -- 22. the tuning layer: sweeps and grid searches -------------------
     tuning = phase_tuning((ks, kl, kf), card)
 
+    # -- 23. the remaining model families and the segmenter ---------------
+    all_kernels = (ks, kl, kf, kh, kr, kfm)
+    _reset(*all_kernels)
+    families = phase_families(card)
+    families["launches"] = _counts(*all_kernels)
+    require(not any(families["launches"].values()),
+            f"23: the families' paths launch no hand kernel "
+            f"({families['launches']})")
+
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
     replaces = {"serve_dense": "alink_tpu/kernels/serve.py:221",
@@ -9616,6 +10495,7 @@ def main(argv=None) -> int:
         rec["health_launches"] = health["launches"].get(rec["name"], 0)
         rec["text_launches"] = text["launches"].get(rec["name"], 0)
         rec["tuning_launches"] = tuning["launches"].get(rec["name"], 0)
+        rec["phase23_launches"] = families["launches"].get(rec["name"], 0)
     # the port-only ordered row scatter-add (P3): no TPU kernel; it replaces
     # the JAX package's scatter-adds of wide rows (Word2Vec's embeddings,
     # FM's gradient, LDA's segment_sum), at Word2Vec's `out` scatter
@@ -9658,10 +10538,17 @@ def main(argv=None) -> int:
             "bound_by", "bytes_bound_ms", "chain_bound_ms")}
             for k, v in p4.items()},
         "edges": text["fm"]["p4_edges"]})
+    for rec in kernels[-2:]:
+        rec["phase23_launches"] = families["launches"].get(rec["name"], 0)
+    require(len(kernels) == 12 and all("phase23_launches" in r
+                                       for r in kernels),
+            "every kernel record carries its phase-23 launches")
     script_s = time.perf_counter() - t_main
-    print(f"chip_smoke: phases 1-22 in {script_s:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-23 in {script_s:.1f} s (phases 1-22 "
+          f"alone: 775.8 s on an H100 80GB HBM3 at 700 W)", flush=True)
     print(json.dumps({"main_path": {
-        "script_s": script_s, "tuning": tuning, "text": text,
+        "script_s": script_s, "families": families, "tuning": tuning,
+        "text": text,
         "online_e2e": online, "health": health,
         "serving_tier": serving, "als": als, "durability": durability, "linear_family": family,
         "ingest": ingest, "ftrl_batch": batch,

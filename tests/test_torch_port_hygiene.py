@@ -151,7 +151,14 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.common.health",
               "alink_tpu_torch.online",
               "alink_tpu_torch.online.slo",
-              "alink_tpu_torch.online.dag"):
+              "alink_tpu_torch.online.dag",
+              "alink_tpu_torch.operator.batch.classification.naive_bayes",
+              "alink_tpu_torch.operator.batch.classification.mlpc_ops",
+              "alink_tpu_torch.operator.common.ann",
+              "alink_tpu_torch.operator.common.ann.mlp",
+              "alink_tpu_torch.operator.batch.clustering.gmm_bisecting",
+              "alink_tpu_torch.operator.batch.regression.glm_ops",
+              "alink_tpu_torch.operator.common.nlp.segment"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):
@@ -299,3 +306,57 @@ def test_slice_13_ops_default_to_the_card(monkeypatch, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         op()
     assert op(device="cpu").device == torch.device("cpu")
+
+
+SLICE_23_DEVICE_OPS = [
+    "classification.NaiveBayesTextTrainBatchOp",
+    "classification.NaiveBayesTextPredictBatchOp",
+    "classification.MultilayerPerceptronTrainBatchOp",
+    "classification.MultilayerPerceptronPredictBatchOp",
+    "clustering.GmmTrainBatchOp", "clustering.GmmPredictBatchOp",
+    "clustering.BisectingKMeansTrainBatchOp",
+    "clustering.BisectingKMeansPredictBatchOp",
+    "regression.GlmTrainBatchOp", "regression.GlmPredictBatchOp",
+    "regression.AftSurvivalRegTrainBatchOp"]
+SLICE_23_DEVICE_MAPPERS = [
+    "classification.NaiveBayesTextModelMapper",
+    "classification.MlpModelMapper", "clustering.GmmModelMapper",
+    "regression.GlmModelMapper"]
+
+
+@pytest.mark.parametrize("name", SLICE_23_DEVICE_OPS + SLICE_23_DEVICE_MAPPERS)
+def test_slice_23_ops_default_to_the_card(monkeypatch, name):
+    """The trainers of slice 23 (naive Bayes text, MLPC, GMM, bisecting
+    KMeans, GLM, AFT), their predict ops and the mappers that compute on
+    a device (naive Bayes text, MLPC, GMM, GLM), given no device, raise
+    without CUDA; given ``device="cpu"`` they take it. The host ones
+    (mixed naive Bayes, isotonic, the AFT mapper) take none."""
+    import importlib
+
+    import torch
+    pkg, cls = name.split(".")
+    op = getattr(importlib.import_module(
+        f"alink_tpu_torch.operator.batch.{pkg}"), cls)
+    args = (None, None) if cls.endswith("Mapper") else ()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        op(*args)
+    assert op(*args, device="cpu").device == torch.device("cpu")
+
+
+def test_slice_23_host_ops_take_no_device(monkeypatch):
+    import inspect
+
+    import torch
+
+    from alink_tpu_torch.operator.batch import classification, regression
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for op in (classification.NaiveBayesTrainBatchOp,
+               classification.NaiveBayesPredictBatchOp,
+               regression.IsotonicRegTrainBatchOp,
+               regression.IsotonicRegPredictBatchOp,
+               regression.AftSurvivalRegPredictBatchOp):
+        op()
+    for mapper in (classification.NaiveBayesModelMapper,
+                   regression.IsotonicModelMapper, regression.AftModelMapper):
+        assert "device" not in inspect.signature(mapper.__init__).parameters

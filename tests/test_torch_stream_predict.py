@@ -2,7 +2,8 @@
 on the CPU.
 
 Each of the 20 ``*PredictStreamOp`` twins of numeric rows (the NLP ones
-map text: ``tests/test_torch_nlp.py`` holds them) maps a stream of seeded rows
+map text: ``tests/test_torch_nlp.py`` holds them; the eight of slice 23
+come after them) maps a stream of seeded rows
 in 64-row micro-batches with a model the port trained
 (``device="cpu"``). Its rows equal the port's batch op's over the whole
 table, cell for cell (the same mapper). The JAX package's twin, given
@@ -12,6 +13,19 @@ package's mappers are the same numpy), and for KMeans the same ids with
 the distances within 8 eps (|x| + |c|)^2 of the one-product distance,
 as ``tests/test_torch_kmeans.py`` holds the batch op. Then
 ``pipeline/tree.py``: fit, transform, save and load.
+
+The twins of slice 23 (naive Bayes text and mixed, the multilayer
+perceptron, GLM, isotonic and AFT regression, GMM, bisecting KMeans) map
+rows of their own fixture (a vector column, a string column, survival
+times) in 64-row micro-batches: cell for cell their batch op's. The JAX
+package's twins of these families cannot open (their mappers declare no
+output schema: ROADMAP Queue C), so the JAX side is its batch op on the
+same model table: cell for cell for the host mappers (mixed naive Bayes,
+isotonic, AFT); for the mappers that compute on the device (naive Bayes
+text, MLP, GLM, GMM: torch against numpy or XLA) the labels and ids
+equal, the numbers within rtol 1e-10; bisecting KMeans (the KMeans
+mapper, whose twin opens in both packages) cell for cell, twin and batch
+op.
 """
 
 import numpy as np
@@ -145,9 +159,10 @@ NLP_TWINS = ("DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec")
 
 def test_every_ported_family_has_its_twin():
     import alink_tpu_torch.operator.stream as tstream
-    assert len(tpo.__all__) == 23 == len(CASES) + len(NLP_TWINS)
+    assert len(tpo.__all__) == 31 == len(CASES) + len(NLP_TWINS) + len(
+        SLICE23)
     assert sorted(f"{n}PredictStreamOp"
-                  for n in (*CASES, *NLP_TWINS)) == tpo.__all__
+                  for n in (*CASES, *NLP_TWINS, *SLICE23)) == tpo.__all__
     # the package's lazily exported names are the module's twins
     assert sorted(k for k, v in tstream._LAZY.items()
                   if v == ".predict_ops") == tpo.__all__
@@ -220,6 +235,136 @@ def test_kmeans_twin_maps_on_its_device(models, data):
     mt = next(iter(op.micro_batches()))
     assert mt.num_rows == MICRO
     assert op._mapper.device == torch.device("cpu")
+
+
+# -- the twins of slice 23 ----------------------------------------------------
+
+S23_SCHEMA = ("f0 DOUBLE, f1 DOUBLE, f2 DOUBLE, f3 DOUBLE, c STRING, "
+              "vec STRING, cls LONG, y DOUBLE, t DOUBLE, ev DOUBLE")
+S23_F64 = dict(device="cpu", dtype=torch.float64)
+# twin name -> (train op, its params, the twin's params, host mapper)
+SLICE23 = {
+    "NaiveBayesText": (tcls.NaiveBayesTextTrainBatchOp,
+                       dict(vector_col="vec", label_col="cls", device="cpu"),
+                       CLS_OUT, False),
+    "NaiveBayes": (tcls.NaiveBayesTrainBatchOp,
+                   dict(feature_cols=["f0", "f1", "c"], label_col="cls"),
+                   CLS_OUT, True),
+    "MultilayerPerceptron": (tcls.MultilayerPerceptronTrainBatchOp,
+                             dict(S23_F64, feature_cols=FEATS,
+                                  label_col="cls", layers=[5], max_iter=20),
+                             CLS_OUT, False),
+    "Glm": (treg.GlmTrainBatchOp,
+            dict(S23_F64, feature_cols=FEATS, label_col="y", family="poisson"),
+            dict(prediction_col="p", link_pred_result_col="eta"), False),
+    "IsotonicReg": (treg.IsotonicRegTrainBatchOp,
+                    dict(feature_col="f0", label_col="y"), REG_OUT, True),
+    "AftSurvivalReg": (treg.AftSurvivalRegTrainBatchOp,
+                       dict(S23_F64, feature_cols=FEATS, label_col="t",
+                            censor_col="ev", max_iter=20), REG_OUT, True),
+    "Gmm": (tclu.GmmTrainBatchOp,
+            dict(S23_F64, feature_cols=FEATS, k=3, max_iter=20),
+            dict(prediction_col="p", prediction_detail_col="d"), False),
+    "BisectingKMeans": (tclu.BisectingKMeansTrainBatchOp,
+                        dict(S23_F64, feature_cols=FEATS, k=3,
+                             init_mode="RANDOM"),
+                        dict(prediction_col="p"), True),
+}
+
+
+def _jax_batch_modules():
+    from alink_tpu.operator.batch.classification import mlpc_ops, naive_bayes
+    from alink_tpu.operator.batch.clustering import gmm_bisecting
+    from alink_tpu.operator.batch.regression import glm_ops
+    return {"NaiveBayesText": naive_bayes, "NaiveBayes": naive_bayes,
+            "MultilayerPerceptron": mlpc_ops, "Glm": glm_ops,
+            "IsotonicReg": glm_ops, "AftSurvivalReg": glm_ops,
+            "Gmm": gmm_bisecting, "BisectingKMeans": gmm_bisecting}
+
+
+jbo = _jax_batch_modules()
+
+
+def _s23_rows(n=300, seed=0):
+    rng = np.random.RandomState(seed)
+    cls = rng.randint(0, 3, n)
+    X = rng.randn(n, 4) + np.asarray([[0, 0, 0, 0], [3, 0, 1, 0],
+                                      [0, 3, 0, -1]])[cls]
+    c = np.asarray(["a", "b", "c"])[(cls + (rng.rand(n) < 0.2)) % 3]
+    y = rng.poisson(np.exp(0.3 * X[:, 0] - 0.2 * X[:, 1] + 0.5)).astype(float)
+    t = np.exp(0.5 + 0.3 * X[:, 0] + 0.4 * np.log(rng.exponential(size=n)))
+    ev = (rng.rand(n) > 0.3).astype(float)
+    vecs = []
+    for k in cls:
+        counts = rng.poisson(np.where(np.arange(12) // 4 == k, 2.0, 0.3))
+        ix = np.nonzero(counts)[0]
+        vecs.append("$12$" + " ".join(f"{i}:{float(counts[i])}" for i in ix))
+    return [(*map(float, x), str(cc), v, int(k), float(a), float(b), float(e))
+            for x, cc, v, k, a, b, e in zip(X, c, vecs, cls, y, t, ev)]
+
+
+def _close_cells(a, b):
+    """Rows equal but for floats within rtol 1e-10 (JSON details
+    compared value by value)."""
+    assert len(a) == len(b)
+    for ra, rb in zip(a, b):
+        for u, v in zip(ra, rb):
+            if isinstance(u, float):
+                np.testing.assert_allclose(u, v, rtol=1e-10, atol=1e-300)
+            elif isinstance(u, str) and u.startswith("{"):
+                import json
+                du, dv = json.loads(u), json.loads(v)
+                assert du.keys() == dv.keys()
+                np.testing.assert_allclose([du[k] for k in du],
+                                           [dv[k] for k in du], rtol=1e-10,
+                                           atol=1e-300)
+            else:
+                assert u == v
+
+
+@pytest.fixture(scope="module")
+def s23_models():
+    train = _s23_rows()
+    return {name: op_cls(**kw).link_from(TMem(train, S23_SCHEMA))
+            .get_output_table()
+            for name, (op_cls, kw, _, _) in SLICE23.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE23))
+def test_slice23_twin_equals_batch_op_and_jax_twin(name, s23_models):
+    held = _s23_rows(200, seed=1)
+    _, _, pkw, host = SLICE23[name]
+    model = s23_models[name]
+    twin = getattr(tpo, f"{name}PredictStreamOp")
+    batch_cls = twin.BATCH_CLS
+    import inspect
+    takes = "device" in inspect.signature(batch_cls.__init__).parameters
+    batch = batch_cls(**pkw, **({"device": "cpu"} if takes else {})) \
+        .link_from(TMem(model), TMem(held, S23_SCHEMA)).get_output_table()
+    out, names = [], None
+    for mt in twin(TMem(model), device="cpu", **pkw).link_from(TMemStream(
+            held, S23_SCHEMA, batch_size=MICRO)).micro_batches():
+        assert mt.num_rows <= MICRO
+        names = names or mt.col_names
+        out += mt.to_rows()
+    assert names == batch.col_names
+    assert _cells(out) == _cells(batch.to_rows())
+    jbatch = getattr(jbo[name], f"{name}PredictBatchOp")(**pkw).link_from(
+        JMem(_jax_table(model)), JMem(held, S23_SCHEMA)).get_output_table()
+    assert jbatch.col_names == names
+    if host:
+        assert _cells(jbatch.to_rows()) == _cells(out)
+    else:
+        _close_cells(out, jbatch.to_rows())
+    jtwin = getattr(jpo, f"{name}PredictStreamOp")(
+        JMem(_jax_table(model)), prediction_col="p").link_from(JMemStream(
+            held, S23_SCHEMA, batch_size=MICRO))
+    if name == "BisectingKMeans":       # the KMeans mapper: it opens
+        assert _cells([r for mt in jtwin.micro_batches()
+                       for r in mt.to_rows()]) == _cells(out)
+        return
+    with pytest.raises(NotImplementedError):   # the JAX package's twin
+        list(jtwin.micro_batches())
 
 
 # -- pipeline/tree.py --------------------------------------------------------
