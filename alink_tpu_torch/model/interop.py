@@ -12,10 +12,12 @@ either package), the way the tree train ops build theirs. A fitted
 pipeline saved by the JAX package (``PipelineModel.save``, the
 ``"alink_tpu.pipeline.v1"`` JSON) loads as the port's ``PipelineModel``:
 every stage class maps to the port's class of the same module path and
-name, and its model table comes through ``MTable.from_json_rows``. The
-FM and LDA model tables are both packages' ``(model_id, model_info)``
-rows of the simple converter, carried by
-:func:`simple_model_table_from_reference`, or built from a trainer's
+name, and its model table comes through ``MTable.from_json_rows`` (a
+QuantileDiscretizer -> OneHotEncoder -> LogisticRegression pipeline, the
+indexers, PCA, the vector scalers and DCT too). The FM, LDA, OneHot,
+QuantileDiscretizer, StringIndexer, PCA, vector scaler and VectorImputer
+model tables are both packages' ``(model_id, model_info)`` rows of the
+simple converter, carried by :func:`simple_model_table_from_reference`, or built from a trainer's
 arrays (:func:`fm_model_from_numpy`, :func:`lda_model_from_numpy`); the
 Word2Vec table's ``(word, vec)`` rows by
 :func:`word2vec_table_from_reference` or :func:`word2vec_model_from_numpy`.

@@ -2,9 +2,10 @@
 
 The operators live in the subpackages; the model families of slice 23
 (naive Bayes, the multilayer perceptron, GMM and bisecting KMeans, GLM,
-isotonic and AFT regression) and ``SegmentBatchOp`` are exported here as
-well, on first access (a module ``__getattr__``: importing this package
-imports no operator)."""
+isotonic and AFT regression), ``SegmentBatchOp`` and the ops of slice 24
+(the feature ops, statistics, the indexers and vector ops, sampling,
+similarity and SOS) are exported here as well, on first access (a module
+``__getattr__``: importing this package imports no operator)."""
 
 import importlib
 
@@ -20,6 +21,38 @@ _LAZY.update((n, ".clustering") for n in (
     "GmmTrainBatchOp", "GmmPredictBatchOp", "BisectingKMeansTrainBatchOp",
     "BisectingKMeansPredictBatchOp"))
 _LAZY["SegmentBatchOp"] = ".nlp"
+_LAZY.update((n, ".feature.feature_ops") for n in (
+    "OneHotTrainBatchOp", "OneHotPredictBatchOp",
+    "QuantileDiscretizerTrainBatchOp", "QuantileDiscretizerPredictBatchOp",
+    "BucketizerBatchOp", "BinarizerBatchOp", "FeatureHasherBatchOp",
+    "ChiSqSelectorBatchOp", "VectorChiSqSelectorBatchOp", "PcaTrainBatchOp",
+    "PcaPredictBatchOp", "DCTBatchOp"))
+_LAZY.update((n, ".statistics.stat_ops") for n in (
+    "SummarizerBatchOp", "VectorSummarizerBatchOp", "CorrelationBatchOp",
+    "VectorCorrelationBatchOp", "ChiSquareTestBatchOp",
+    "VectorChiSquareTestBatchOp"))
+_LAZY.update((n, ".dataproc.indexers") for n in (
+    "StringIndexerTrainBatchOp", "StringIndexerPredictBatchOp",
+    "MultiStringIndexerTrainBatchOp", "MultiStringIndexerPredictBatchOp",
+    "IndexToStringPredictBatchOp"))
+_LAZY.update((n, ".dataproc.vector_ops") for n in (
+    "VectorAssemblerBatchOp", "VectorSliceBatchOp", "VectorNormalizeBatchOp",
+    "VectorElementwiseProductBatchOp", "VectorInteractionBatchOp",
+    "VectorPolynomialExpandBatchOp", "VectorSizeHintBatchOp",
+    "VectorToColumnsBatchOp", "VectorStandardScalerTrainBatchOp",
+    "VectorStandardScalerPredictBatchOp", "VectorMinMaxScalerTrainBatchOp",
+    "VectorMinMaxScalerPredictBatchOp", "VectorMaxAbsScalerTrainBatchOp",
+    "VectorMaxAbsScalerPredictBatchOp", "VectorImputerTrainBatchOp",
+    "VectorImputerPredictBatchOp", "VectorSerializeBatchOp"))
+_LAZY.update((n, ".dataproc") for n in (
+    "SampleBatchOp", "SampleWithSizeBatchOp", "WeightSampleBatchOp",
+    "SplitBatchOp", "FirstNBatchOp", "AppendIdBatchOp", "ShuffleBatchOp",
+    "NumericalTypeCastBatchOp", "JsonValueBatchOp"))
+_LAZY.update((n, ".similarity") for n in (
+    "StringSimilarityPairwiseBatchOp", "TextSimilarityPairwiseBatchOp",
+    "ApproxVectorSimilarityJoinLSHBatchOp",
+    "ApproxVectorSimilarityTopNLSHBatchOp"))
+_LAZY["SosBatchOp"] = ".outlier"
 
 __all__ = sorted(_LAZY)
 

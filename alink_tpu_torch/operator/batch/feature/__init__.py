@@ -1,3 +1,3 @@
 """Feature operators of the port (counterpart:
-``alink_tpu/operator/batch/feature``). Only ``FeatureHasherBatchOp`` is
-ported; the other ops of ``feature_ops.py`` wait for their slices."""
+``alink_tpu/operator/batch/feature``); the ops are in
+``feature_ops.py``."""

@@ -1,9 +1,26 @@
-"""Feature hashing (murmur into a fixed dim).
+"""Feature engineering operators.
 
-Counterpart: ``alink_tpu/operator/batch/feature/feature_ops.py``.
-Ported: ``murmur32``, ``_format_tokens``, ``murmur32_cells`` and
-``FeatureHasherBatchOp`` (the flat layout and ``field_aware=True``),
-the Criteo / avazu front end of the reference's FTRLExample.java:46-57.
+Counterpart: ``alink_tpu/operator/batch/feature/feature_ops.py``, the
+re-design of common/feature/ (SURVEY §2.5): OneHot, QuantileDiscretizer,
+Bucketizer, Binarizer, FeatureHasher (murmur into a fixed dim, the
+Criteo / avazu front end of the reference's FTRLExample.java:46-57),
+ChiSqSelector, PCA and DCT, all of them ported.
+
+Devices: ``QuantileDiscretizerTrainBatchOp`` and ``DCTBatchOp`` take
+``device=`` (``cuda`` unless the caller asks for the CPU; raises without
+it). The discretizer's cut points come from
+``common/dataproc/quantile.py::distributed_quantiles`` on that device at
+``DEVICE_BINNING_MIN_CELLS`` cells or more (its histogram
+interpolation), and from exact host ``np.quantile`` below, as in the
+JAX package: the two differ, so the cutover is the shared constant. DCT's
+forward transform is ``torch.fft`` there, its inverse one product with
+the orthonormal basis. PCA keeps the JAX package's host SVD (numpy's:
+a card's SVD may flip a component's sign) and its population ``std``
+(ddof 0) beside the n - 1 variance. The other ops run on the host and
+take no device. ``OneHotModelMapper`` maps a column at a time: each
+distinct value (by bit pattern for floats, so -0.0 and 0.0 stay apart)
+is formatted with ``str`` once, giving the indices the JAX package's
+per-cell ``str(v)`` gives.
 
 :func:`murmur32_cells` hashes a batch in one call of the port's native
 library (``alink_tpu_torch/native``, ``murmur_batch``), as the JAX
@@ -13,23 +30,33 @@ byte matrix of the tokens (the 4-byte blocks a column of words at a
 time, then the 0-3-byte tail and the final mix, in uint32 arithmetic),
 bitwise to :func:`murmur32`, which the tests hold the library against.
 
-Not ported yet: OneHot, QuantileDiscretizer, Bucketizer, Binarizer,
-ChiSqSelector, PCA and DCT (ROADMAP Queue A).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ....common.params import ParamInfo, RangeValidator
+from ....common.device import resolve_device
+from ....common.mtable import MTable
+from ....common.params import InValidator, ParamInfo, Params, RangeValidator
 from ....common.types import AlinkTypes
-from ....common.vector import SparseVector, SparseVectorColumn
-from ....mapper.base import OutputColsHelper
+from ....common.vector import (DenseVector, SparseVector, SparseVectorColumn,
+                               VectorUtil)
+from ....mapper.base import ModelMapper, OutputColsHelper
+from ....model.converters import (SimpleModelDataConverter, decode_array,
+                                  encode_array)
 from ....native import murmur32_batch
-from ....params.shared import HasOutputCol, HasReservedCols, HasSelectedCols
+from ....params.shared import (HasLabelCol, HasOutputCol, HasOutputCols,
+                               HasReservedCols, HasSelectedCol,
+                               HasSelectedCols, HasVectorCol)
 from ...base import BatchOperator
+from ...common.dataproc.feature_extract import extract_dense_matrix
+from ..utils.model_map import ModelMapBatchOp
 
 _C1, _C2 = 0xcc9e2d51, 0x1b873593
 
@@ -274,3 +301,400 @@ class FeatureHasherBatchOp(BatchOperator, HasSelectedCols, HasOutputCol,
                                   self.params._m.get("reserved_cols"))
         self._output = helper.build_output(t, [vecs])
         return self
+
+
+# ---------------------------------------------------------------------------
+# OneHot
+# ---------------------------------------------------------------------------
+
+def _distinct_strs(a) -> Tuple[np.ndarray, List[Optional[str]]]:
+    """``(inverse, strs)`` of a column: ``strs`` the ``str`` of each
+    distinct cell (``None`` for a ``None`` cell), ``inverse`` each
+    cell's position in it, so that ``strs[inverse[i]]`` is what
+    ``None if a[i] is None else str(a[i])`` gives. Numeric, string and
+    bytes columns format each distinct value once (floats by bit
+    pattern: -0.0 and 0.0 format apart); an object column cell by cell."""
+    a = np.asarray(a)
+    kind, size = a.dtype.kind, a.dtype.itemsize
+    if a.ndim == 1 and (kind in "biuUS" or (kind == "f" and size in (2, 4, 8))):
+        a = np.ascontiguousarray(a)
+        if kind == "f":
+            bits, inv = np.unique(a.view(f"u{size}"), return_inverse=True)
+            uniq = bits.view(a.dtype)
+        else:
+            uniq, inv = np.unique(a, return_inverse=True)
+        return inv.reshape(-1), [str(u) for u in uniq]
+    index: Dict[Optional[str], int] = {}
+    inv = np.fromiter((index.setdefault(None if v is None else str(v),
+                                        len(index)) for v in a),
+                      np.int64, len(a))
+    return inv, list(index)
+
+
+class OneHotModelConverter(SimpleModelDataConverter):
+    def serialize_model(self, model: Dict[str, List[str]]):
+        return Params({"cols": list(model)}), [json.dumps(model)]
+
+    def deserialize_model(self, meta, data):
+        return json.loads(data[0])
+
+
+class OneHotTrainBatchOp(BatchOperator, HasSelectedCols):
+    """reference: feature/OneHotTrainBatchOp — vocab per selected column
+    (each distinct ``str(v)``, sorted as strings)."""
+
+    def link_from(self, in_op: BatchOperator) -> "OneHotTrainBatchOp":
+        t = in_op.get_output_table()
+        model = {}
+        for c in self.get_selected_cols():
+            _, strs = _distinct_strs(t.col(c))
+            model[c] = sorted({s for s in strs if s is not None})
+        self._output = OneHotModelConverter().save_model(model)
+        return self
+
+
+class OneHotModelMapper(ModelMapper):
+    """Encodes selected columns into ONE sparse vector (reference
+    OneHotModelMapper: output is a SparseVector over the concatenated vocab
+    space, with a final slot per column for unseen values and ``None``).
+    The output column is columnar (``SparseVectorColumn``: a row's
+    vector is its columns' slots, ascending, each of value 1.0)."""
+
+    def __init__(self, model_schema, data_schema, params=None, **kwargs):
+        super().__init__(model_schema, data_schema, params, **kwargs)
+        self.model = None
+
+    def load_model(self, model_table: MTable):
+        self.model = OneHotModelConverter().load_model(model_table)
+
+    def map_table(self, data: MTable) -> MTable:
+        cols = list(self.model.keys())
+        idx = np.empty((data.num_rows, len(cols)), np.int32)
+        off = 0
+        for k, c in enumerate(cols):
+            vocab = self.model[c]
+            lookup = {t: i for i, t in enumerate(vocab)}
+            inv, strs = _distinct_strs(data.col(c))
+            code = np.fromiter((lookup.get(s, len(vocab)) for s in strs),
+                               np.int64, len(strs))
+            idx[:, k] = off + code[inv]
+            off += len(vocab) + 1  # +1 unseen slot
+        vecs = SparseVectorColumn(idx, np.ones(idx.shape), off)
+        return self._helper(data.schema).build_output(data, [vecs])
+
+    def _helper(self, schema) -> OutputColsHelper:
+        out_col = self.params._m.get("output_col") or "one_hot"
+        return OutputColsHelper(schema, [out_col], [AlinkTypes.SPARSE_VECTOR],
+                                self.params._m.get("reserved_cols"))
+
+    def get_output_schema(self):
+        return self._helper(self.data_schema).get_output_schema()
+
+
+class OneHotPredictBatchOp(ModelMapBatchOp, HasOutputCol, HasReservedCols):
+    MAPPER_CLS = OneHotModelMapper
+
+
+# ---------------------------------------------------------------------------
+# Quantile discretizer / bucketizer / binarizer
+# ---------------------------------------------------------------------------
+
+class QuantileModelConverter(SimpleModelDataConverter):
+    def serialize_model(self, model: Dict[str, List[float]]):
+        return Params({"cols": list(model)}), [json.dumps(model)]
+
+    def deserialize_model(self, meta, data):
+        return {k: [float(x) for x in v] for k, v in json.loads(data[0]).items()}
+
+
+class QuantileDiscretizerTrainBatchOp(BatchOperator, HasSelectedCols):
+    """reference: feature/QuantileDiscretizerTrainBatchOp — split points at
+    uniform quantiles. At ``DEVICE_BINNING_MIN_CELLS`` cells or more one
+    pass of ``distributed_quantiles`` on ``device`` (``cuda`` unless the
+    caller asks for the CPU; raises without it) takes every column;
+    below, exact host ``np.quantile`` a column."""
+    NUM_BUCKETS = ParamInfo("num_buckets", int, default=2,
+                            validator=RangeValidator(2, None))
+
+    def __init__(self, params: Optional[Params] = None, device=None,
+                 **kwargs):
+        super().__init__(params, **kwargs)
+        self.device = resolve_device(device)
+
+    def link_from(self, in_op: BatchOperator) -> "QuantileDiscretizerTrainBatchOp":
+        from ....common.mlenv import MLEnvironment
+        from ...common.dataproc.quantile import (DEVICE_BINNING_MIN_CELLS,
+                                                 distributed_quantiles)
+        t = in_op.get_output_table()
+        nb = self.get_num_buckets()
+        cols = self.get_selected_cols()
+        probs = np.linspace(0, 1, nb + 1)[1:-1]
+        model = {}
+        if t.num_rows * len(cols) >= DEVICE_BINNING_MIN_CELLS:
+            X = np.stack([np.asarray(t.col(c), np.float64) for c in cols], 1)
+            qs_all = distributed_quantiles(
+                X, probs, env=MLEnvironment(device=self.device))
+            for j, c in enumerate(cols):
+                model[c] = sorted(set(float(q) for q in qs_all[j]
+                                      if np.isfinite(q)))
+        else:
+            for c in cols:
+                v = np.asarray(t.col(c), np.float64)
+                v = v[~np.isnan(v)]
+                qs = np.quantile(v, probs) if v.size else []
+                model[c] = sorted(set(float(q) for q in np.atleast_1d(qs)))
+        self._output = QuantileModelConverter().save_model(model)
+        return self
+
+
+class _BucketMapperBase(ModelMapper):
+    def __init__(self, model_schema, data_schema, params=None, **kwargs):
+        super().__init__(model_schema, data_schema, params, **kwargs)
+        self.model = None
+
+    def load_model(self, model_table: MTable):
+        self.model = QuantileModelConverter().load_model(model_table)
+
+    def map_table(self, data: MTable) -> MTable:
+        outs = []
+        for c in self.model:
+            cuts = np.asarray(self.model[c], np.float64)
+            v = np.asarray(data.col(c), np.float64)
+            outs.append(np.searchsorted(cuts, v, side="right").astype(np.int64))
+        return self._helper(data.schema).build_output(data, outs)
+
+    def _helper(self, schema) -> OutputColsHelper:
+        out_cols = self.params._m.get("output_cols") or list(self.model)
+        return OutputColsHelper(schema, out_cols,
+                                [AlinkTypes.LONG] * len(out_cols))
+
+    def get_output_schema(self):
+        return self._helper(self.data_schema).get_output_schema()
+
+
+class QuantileDiscretizerPredictBatchOp(ModelMapBatchOp, HasOutputCols):
+    MAPPER_CLS = _BucketMapperBase
+
+
+class BucketizerBatchOp(BatchOperator, HasSelectedCols, HasOutputCols):
+    """reference: feature/BucketizerBatchOp — explicit cut points, no model."""
+    CUTS_ARRAY = ParamInfo("cuts_array", list, "per-column cut points", optional=False)
+
+    def link_from(self, in_op: BatchOperator) -> "BucketizerBatchOp":
+        t = in_op.get_output_table()
+        cols = self.get_selected_cols()
+        out_cols = self.params._m.get("output_cols") or cols
+        outs = []
+        for c, cuts in zip(cols, self.get_cuts_array()):
+            v = np.asarray(t.col(c), np.float64)
+            outs.append(np.searchsorted(np.asarray(cuts, np.float64), v,
+                                        side="right").astype(np.int64))
+        helper = OutputColsHelper(t.schema, out_cols, [AlinkTypes.LONG] * len(out_cols))
+        self._output = helper.build_output(t, outs)
+        return self
+
+
+class BinarizerBatchOp(BatchOperator, HasSelectedCol, HasOutputCol):
+    """reference: feature/BinarizerBatchOp."""
+    THRESHOLD = ParamInfo("threshold", float, default=0.0)
+
+    def link_from(self, in_op: BatchOperator) -> "BinarizerBatchOp":
+        t = in_op.get_output_table()
+        c = self.get_selected_col()
+        out = self.params._m.get("output_col") or c
+        v = np.asarray(t.col(c), np.float64)
+        helper = OutputColsHelper(t.schema, [out], [AlinkTypes.DOUBLE])
+        self._output = helper.build_output(t, [(v > self.get_threshold()).astype(np.float64)])
+        return self
+
+
+# ---------------------------------------------------------------------------
+# ChiSqSelector
+# ---------------------------------------------------------------------------
+
+class ChiSqSelectorBatchOp(BatchOperator, HasSelectedCols, HasLabelCol):
+    """reference: feature/ChiSqSelectorBatchOp — rank columns by chi-square
+    statistic against the label; output the selected column subset."""
+    NUM_TOP_FEATURES = ParamInfo("num_top_features", int, default=10)
+
+    def link_from(self, in_op: BatchOperator) -> "ChiSqSelectorBatchOp":
+        from ...common.statistics.hypothesis import chi_square_test
+        t = in_op.get_output_table()
+        cols = self.get_selected_cols()
+        label = t.col(self.get_label_col())
+        scored = []
+        for c in cols:
+            stat, p, _ = chi_square_test(t.col(c), label)
+            scored.append((p, c, stat))
+        scored.sort(key=lambda x: x[0])
+        chosen = [c for _, c, _ in scored[: self.get_num_top_features()]]
+        keep = [c for c in t.col_names if c in set(chosen) or c not in set(cols)]
+        self._output = t.select(keep)
+        self._side_outputs = [MTable({"col": [c for _, c, _ in scored],
+                                      "p_value": [p for p, _, _ in scored],
+                                      "chi2": [s for _, _, s in scored]})]
+        return self
+
+
+class VectorChiSqSelectorBatchOp(BatchOperator, HasVectorCol, HasSelectedCol,
+                                 HasLabelCol):
+    """reference: feature/VectorChiSqSelectorBatchOp — rank vector components
+    by chi-square against the label, keep the top ones (sliced vector out)."""
+    NUM_TOP_FEATURES = ParamInfo("num_top_features", int, default=10)
+
+    def link_from(self, in_op: BatchOperator) -> "VectorChiSqSelectorBatchOp":
+        from ...common.statistics.hypothesis import chi_square_test
+        t = in_op.get_output_table()
+        col = self.params._m.get("vector_col") or self.params._m.get("selected_col")
+        X = extract_dense_matrix(t, None, col)
+        label = t.col(self.get_label_col())
+        scored = []
+        for j in range(X.shape[1]):
+            stat, p, _ = chi_square_test(X[:, j], label)
+            scored.append((p, j, stat))
+        scored.sort(key=lambda x: (x[0], x[1]))
+        chosen = sorted(j for _, j, _ in scored[: self.get_num_top_features()])
+        self._chosen = chosen
+        vecs = np.empty(t.num_rows, object)
+        vecs[:] = [DenseVector(x) for x in X[:, chosen]]
+        helper = OutputColsHelper(t.schema, [col], [AlinkTypes.DENSE_VECTOR])
+        self._output = helper.build_output(t, [vecs])
+        self._side_outputs = [MTable({"index": [j for _, j, _ in scored],
+                                      "p_value": [p for p, _, _ in scored],
+                                      "chi2": [s for _, _, s in scored]})]
+        return self
+
+
+# ---------------------------------------------------------------------------
+# PCA
+# ---------------------------------------------------------------------------
+
+class PcaModelConverter(SimpleModelDataConverter):
+    def serialize_model(self, model):
+        mean, std, components, explained = model
+        meta = Params({"k": components.shape[0]})
+        return meta, [encode_array(mean), encode_array(std),
+                      encode_array(components), encode_array(explained)]
+
+    def deserialize_model(self, meta, data):
+        return (decode_array(data[0]), decode_array(data[1]),
+                decode_array(data[2]), decode_array(data[3]))
+
+
+class PcaTrainBatchOp(BatchOperator, HasSelectedCols, HasVectorCol):
+    """reference: feature/pca/PcaTrainBatchOp — SVD of the centred (CORR:
+    and scaled by the population std) data on the host, numpy's, as in
+    the JAX package (a device SVD may flip a component's sign)."""
+    K = ParamInfo("k", int, "principal components", optional=False,
+                  validator=RangeValidator(1, None))
+    CALCULATION_TYPE = ParamInfo("calculation_type", str, default="CORR",
+                                 validator=InValidator(["CORR", "COV"]))
+
+    def link_from(self, in_op: BatchOperator) -> "PcaTrainBatchOp":
+        t = in_op.get_output_table()
+        X = extract_dense_matrix(t, self.params._m.get("selected_cols"),
+                                 self.params._m.get("vector_col"))
+        k = self.get_k()
+        mean = X.mean(0)
+        Xc = X - mean
+        if self.get_calculation_type().upper() == "CORR":
+            std = X.std(0)
+            std = np.where(std < 1e-12, 1.0, std)
+            Xc = Xc / std
+        else:
+            std = np.ones_like(mean)
+        _, s, vt = np.linalg.svd(np.asarray(Xc, np.float64),
+                                 full_matrices=False)
+        var = (s ** 2) / max(X.shape[0] - 1, 1)
+        explained = var / max(var.sum(), 1e-300)
+        self._output = PcaModelConverter().save_model(
+            (mean, std, vt[:k], explained[:k]))
+        return self
+
+
+class PcaModelMapper(ModelMapper):
+    def __init__(self, model_schema, data_schema, params=None, **kwargs):
+        super().__init__(model_schema, data_schema, params, **kwargs)
+        self.model = None
+
+    def load_model(self, model_table: MTable):
+        self.model = PcaModelConverter().load_model(model_table)
+
+    def map_table(self, data: MTable) -> MTable:
+        mean, std, comps, _ = self.model
+        X = extract_dense_matrix(data, self.params._m.get("selected_cols"),
+                                 self.params._m.get("vector_col"))
+        Z = ((X - mean) / std) @ comps.T
+        vecs = np.empty(len(Z), object)
+        vecs[:] = [DenseVector(z) for z in Z]
+        return self._helper(data.schema).build_output(data, [vecs])
+
+    def _helper(self, schema) -> OutputColsHelper:
+        out_col = self.params._m.get("prediction_col") \
+            or self.params._m.get("output_col") or "pca"
+        return OutputColsHelper(schema, [out_col], [AlinkTypes.DENSE_VECTOR],
+                                self.params._m.get("reserved_cols"))
+
+    def get_output_schema(self):
+        return self._helper(self.data_schema).get_output_schema()
+
+
+class PcaPredictBatchOp(ModelMapBatchOp, HasSelectedCols, HasVectorCol,
+                        HasOutputCol, HasReservedCols):
+    MAPPER_CLS = PcaModelMapper
+    PREDICTION_COL = ParamInfo("prediction_col", str, "output vector column")
+
+
+# ---------------------------------------------------------------------------
+# DCT
+# ---------------------------------------------------------------------------
+
+class DCTBatchOp(BatchOperator, HasSelectedCol, HasOutputCol):
+    """reference: dataproc/DCTBatchOp over FFT.java — the orthonormal
+    DCT-II of every row (``inverse``: its inverse), in float64 on
+    ``device`` (``cuda`` unless the caller asks for the CPU; raises
+    without it)."""
+    INVERSE = ParamInfo("inverse", bool, default=False)
+
+    def __init__(self, params: Optional[Params] = None, device=None,
+                 **kwargs):
+        super().__init__(params, **kwargs)
+        self.device = resolve_device(device)
+
+    def link_from(self, in_op: BatchOperator) -> "DCTBatchOp":
+        t = in_op.get_output_table()
+        c = self.get_selected_col()
+        col = np.empty(t.num_rows, object)
+        if t.num_rows:
+            X = np.stack([VectorUtil.parse(v).to_dense().data
+                          for v in t.col(c)])
+            Y = dct2_ortho(torch.from_numpy(X).to(self.device),
+                           inverse=self.get_inverse()).cpu().numpy()
+            col[:] = [DenseVector(y) for y in Y]
+        out = self.params._m.get("output_col") or c
+        helper = OutputColsHelper(t.schema, [out], [AlinkTypes.DENSE_VECTOR])
+        self._output = helper.build_output(t, [col])
+        return self
+
+
+def dct2_ortho(X: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """The orthonormal DCT-II of every row of the float64 ``X`` (n, m)
+    (``inverse``: DCT-III, its inverse), on ``X``'s device: the forward
+    transform through the FFT of the row and its mirror, the inverse as
+    one product with the orthonormal basis (the JAX package's
+    ``_dct2_ortho``, its constants formed the same way)."""
+    n = X.shape[1]
+    f64 = dict(dtype=torch.float64, device=X.device)
+    if not inverse:
+        ext = torch.cat([X, X.flip(1)], dim=1)
+        spec = torch.fft.fft(ext, dim=1)[:, :n]
+        phase = torch.exp(-1j * math.pi * torch.arange(n, **f64) / (2 * n))
+        y = (spec * phase).real / 2.0
+        scale = torch.cat([torch.tensor([1.0 / np.sqrt(n)], **f64),
+                           torch.full((n - 1,), np.sqrt(2.0 / n), **f64)])
+        return y * scale
+    k = torch.arange(n, **f64)
+    basis = torch.cos(math.pi * (2 * k[None, :] + 1) * k[:, None] / (2 * n))
+    scale = torch.cat([torch.tensor([math.sqrt(1.0 / n)], **f64),
+                       torch.full((n - 1,), math.sqrt(2.0 / n), **f64)])
+    return X @ (basis * scale[:, None])

@@ -1,3 +1,3 @@
 """Statistics of the port (counterpart:
-``alink_tpu/operator/common/statistics``). Only the summarizer is
-ported; the hypothesis tests and correlation wait for their ops."""
+``alink_tpu/operator/common/statistics``): the summarizer, and the
+hypothesis tests and correlation of ``hypothesis.py``."""

@@ -2,9 +2,10 @@
 
 Counterpart: ``alink_tpu/operator/common/statistics/summarizer.py`` (a
 copy: the file is numpy only, and the port keeps its own so that it
-never imports the JAX package). Ported: ``TableSummary`` and
-``summarize_table``, the per-column moments the scalers fit from.
-``VectorSummary`` and ``summarize_vector_col`` wait for a caller.
+never imports the JAX package): ``TableSummary`` and
+``summarize_table``, the per-column moments the scalers fit from, and
+``VectorSummary`` and ``summarize_vector_col``, the vector scalers' and
+``VectorSummarizerBatchOp``'s.
 
 The summary is a moment vector (count, sum, sum2, sum3, sum4, min, max,
 sum of absolute values) per column, in one pass.
@@ -18,6 +19,7 @@ import numpy as np
 
 from ....common.mtable import MTable
 from ....common.types import AlinkTypes, TableSchema
+from ....common.vector import DenseVector, VectorUtil
 
 
 class TableSummary:
@@ -115,3 +117,82 @@ def summarize_table(table: MTable, selected_cols: Optional[Sequence[str]] = None
             vv.min() if vv.size else np.nan, vv.max() if vv.size else np.nan,
             np.abs(vv).sum()])
     return TableSummary(list(selected_cols), stats, table.num_rows)
+
+
+class VectorSummary:
+    """Dense/sparse vector column summary (reference BaseVectorSummary)."""
+
+    def __init__(self, cnt: int, sum_, sum2, minv, maxv, nnz):
+        self._cnt = cnt
+        self._sum = sum_
+        self._sum2 = sum2
+        self._min = minv
+        self._max = maxv
+        self._nnz = nnz
+
+    def vector_size(self) -> int:
+        return int(self._sum.shape[0])
+
+    def count(self) -> int:
+        return self._cnt
+
+    def sum(self):
+        return self._sum
+
+    def mean(self):
+        return self._sum / max(self._cnt, 1)
+
+    def variance(self):
+        if self._cnt <= 1:
+            return np.zeros_like(self._sum)
+        m = self.mean()
+        return np.maximum((self._sum2 - self._cnt * m * m) / (self._cnt - 1), 0.0)
+
+    def standard_deviation(self):
+        return np.sqrt(self.variance())
+
+    def min(self):
+        return self._min
+
+    def max(self):
+        return self._max
+
+    def num_non_zero(self):
+        return self._nnz
+
+
+def summarize_vector_col(table: MTable, vector_col: str) -> VectorSummary:
+    vecs = [VectorUtil.parse(v) for v in table.col(vector_col)]
+    dim = 0
+    for v in vecs:
+        dim = max(dim, v.size() if isinstance(v, DenseVector)
+                  else (v.n if v.n >= 0 else int(v.indices[-1]) + 1 if v.indices.size else 0))
+    s = np.zeros(dim)
+    s2 = np.zeros(dim)
+    mn = np.full(dim, np.inf)
+    mx = np.full(dim, -np.inf)
+    nnz = np.zeros(dim)
+    for v in vecs:
+        if isinstance(v, DenseVector):
+            d = np.zeros(dim)
+            d[:v.size()] = v.data
+            s += d
+            s2 += d * d
+            mn = np.minimum(mn, d)
+            mx = np.maximum(mx, d)
+            nnz += d != 0
+        else:
+            idx, val = v.indices, v.values
+            np.add.at(s, idx, val)
+            np.add.at(s2, idx, val * val)
+            np.minimum.at(mn, idx, val)
+            np.maximum.at(mx, idx, val)
+            np.add.at(nnz, idx, (val != 0).astype(np.float64))
+    n = len(vecs)
+    # sparse implicit zeros participate in min/max
+    if any(not isinstance(v, DenseVector) for v in vecs):
+        mn = np.minimum(mn, 0.0)
+        mx = np.maximum(mx, 0.0)
+    mn = np.where(np.isfinite(mn), mn, 0.0)
+    mx = np.where(np.isfinite(mx), mx, 0.0)
+    return VectorSummary(n, s, s2, mn, mx, nnz.astype(np.int64))

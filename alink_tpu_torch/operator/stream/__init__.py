@@ -25,7 +25,10 @@ _LAZY.update((f"{n}PredictStreamOp", ".predict_ops") for n in (
     "KMeans", "StandardScaler", "MinMaxScaler", "MaxAbsScaler", "Imputer",
     "Fm", "DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec",
     "NaiveBayesText", "NaiveBayes", "MultilayerPerceptron", "Glm",
-    "IsotonicReg", "AftSurvivalReg", "Gmm", "BisectingKMeans"))
+    "IsotonicReg", "AftSurvivalReg", "Gmm", "BisectingKMeans",
+    "VectorStandardScaler", "VectorMinMaxScaler", "VectorMaxAbsScaler",
+    "VectorImputer", "StringIndexer", "MultiStringIndexer", "IndexToString",
+    "OneHot", "QuantileDiscretizer", "Pca"))
 
 __all__ = ["BaseSinkStreamOp", "CheckpointSinkStreamOp",
            "CollectSinkStreamOp", "CsvSinkStreamOp", "LibSvmSinkStreamOp",

@@ -8,16 +8,20 @@ RichFlatMap / CoFlatMap functions, replaced by lazy generators of
 operator and its data-dependent schema, and the per-batch telemetry:
 a ``stream:<Op>`` span and ``alink_stream_batch_seconds``,
 ``alink_stream_batches_total`` and ``alink_stream_rows_total`` by
-``op``), :class:`BatchApplyStreamOp` and :class:`FnStreamOp`.
+``op``), :class:`BatchApplyStreamOp` (which hands its ``device=`` to a
+batch op that takes one, resolved at construction) and
+:class:`FnStreamOp`.
 """
 
 from __future__ import annotations
 
 import copy
 import heapq
+import inspect
 import time
 from typing import Callable, Iterable, Iterator, Optional, Tuple
 
+from ...common.device import resolve_device
 from ...common.metrics import get_registry, metrics_enabled
 from ...common.mtable import MTable
 from ...common.tracing import trace_complete
@@ -121,10 +125,16 @@ class BatchApplyStreamOp(BaseStreamTransformOp):
     pattern as ModelMapStreamOp's ``mapper_cls=``).
     """
 
-    def __init__(self, params=None, batch_cls=None, **kwargs):
+    def __init__(self, params=None, batch_cls=None, device=None, **kwargs):
         super().__init__(params, **kwargs)
         if batch_cls is not None:
             self._injected_batch_cls = batch_cls
+        # a batch op that takes a device gets this one, resolved here
+        self._op_kw = {}
+        if "device" in inspect.signature(
+                self._batch_cls().__init__).parameters:
+            self.device = resolve_device(device)
+            self._op_kw = {"device": self.device}
 
     def _batch_cls(self):
         cls = getattr(self, "_injected_batch_cls", None)
@@ -134,12 +144,12 @@ class BatchApplyStreamOp(BaseStreamTransformOp):
         return cls
 
     def _open(self, in_schema):
-        probe = self._batch_cls()(self.params.clone())
+        probe = self._batch_cls()(self.params.clone(), **self._op_kw)
         probe.link_from(TableSourceBatchOp(MTable([], in_schema)))
         return probe.get_schema()
 
     def _transform(self, mt):
-        op = self._batch_cls()(self.params.clone())
+        op = self._batch_cls()(self.params.clone(), **self._op_kw)
         op.link_from(TableSourceBatchOp(mt))
         return op.get_output_table()
 

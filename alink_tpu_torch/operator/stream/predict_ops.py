@@ -8,7 +8,7 @@ micro-batch through the batch op's model mapper
 (stream/utils/ModelMapStreamOp). Here each twin is generated from its
 batch class: the same mapper and the same params.
 
-Ported, for the families the port has (31 twins): the linear ones
+Ported, every twin of the JAX package's table (41): the linear ones
 (``LogisticRegression``, ``LinearSvm``, ``Softmax``, ``Perceptron``,
 ``LinearReg``, ``RidgeReg``, ``LassoReg``, ``LinearSvr``), the trees
 (``Gbdt``, ``GbdtReg``, ``RandomForest``, ``RandomForestReg``,
@@ -16,10 +16,14 @@ Ported, for the families the port has (31 twins): the linear ones
 ``NaiveBayes``, ``MultilayerPerceptron``, ``Glm``, ``IsotonicReg``,
 ``AftSurvivalReg``, ``KMeans``, ``Gmm``, ``BisectingKMeans``, the column
 scalers (``StandardScaler``, ``MinMaxScaler``, ``MaxAbsScaler``,
-``Imputer``) and the NLP ones (``DocCountVectorizer``,
-``DocHashCountVectorizer``, ``Word2Vec``). A twin takes ``device=`` as
-the port's entry points do (``cuda`` unless the caller asks for the CPU;
-raises without CUDA) and hands it to a mapper that takes one (KMeans and
+``Imputer``), the vector scalers and imputer (``VectorStandardScaler``,
+``VectorMinMaxScaler``, ``VectorMaxAbsScaler``, ``VectorImputer``), the
+indexers (``StringIndexer``, ``MultiStringIndexer``, ``IndexToString``),
+``OneHot``, ``QuantileDiscretizer``, ``Pca`` and the NLP ones
+(``DocCountVectorizer``, ``DocHashCountVectorizer``, ``Word2Vec``). A
+twin takes ``device=`` as the port's entry points do (``cuda`` unless
+the caller asks for the CPU; raises without CUDA) and hands it to a
+mapper that takes one (KMeans and
 bisecting KMeans assign there, naive Bayes text and GMM score there, the
 MLP runs its forward there, GLM applies its inverse link there); the
 other mappers map on the host, as their batch ops do. With
@@ -27,12 +31,6 @@ other mappers map on the host, as their batch ops do. With
 (the linear, tree and FM ones) scores through ``CompiledPredictor`` on
 its device (``ModelMapStreamOp``'s compiled route; FM's through the FM
 score kernel, ``kernels/fm.py``).
-
-Waiting with their batch ops (ROADMAP A7(c)): the vector scalers and
-imputer (``VectorStandardScaler``, ``VectorMinMaxScaler``,
-``VectorMaxAbsScaler``, ``VectorImputer``), the indexers
-(``StringIndexer``, ``MultiStringIndexer``, ``IndexToString``),
-``OneHot``, ``QuantileDiscretizer`` and ``Pca``.
 """
 
 from __future__ import annotations
@@ -79,6 +77,17 @@ _BATCH_PREDICT_OPS = {
     "MinMaxScalerPredictStreamOp": ("..batch.dataproc.scalers", "MinMaxScalerPredictBatchOp"),
     "MaxAbsScalerPredictStreamOp": ("..batch.dataproc.scalers", "MaxAbsScalerPredictBatchOp"),
     "ImputerPredictStreamOp": ("..batch.dataproc.scalers", "ImputerPredictBatchOp"),
+    "VectorStandardScalerPredictStreamOp": ("..batch.dataproc.vector_ops", "VectorStandardScalerPredictBatchOp"),
+    "VectorImputerPredictStreamOp": ("..batch.dataproc.vector_ops", "VectorImputerPredictBatchOp"),
+    "VectorMinMaxScalerPredictStreamOp": ("..batch.dataproc.vector_ops", "VectorMinMaxScalerPredictBatchOp"),
+    "VectorMaxAbsScalerPredictStreamOp": ("..batch.dataproc.vector_ops", "VectorMaxAbsScalerPredictBatchOp"),
+    "StringIndexerPredictStreamOp": ("..batch.dataproc.indexers", "StringIndexerPredictBatchOp"),
+    "MultiStringIndexerPredictStreamOp": ("..batch.dataproc.indexers", "MultiStringIndexerPredictBatchOp"),
+    "IndexToStringPredictStreamOp": ("..batch.dataproc.indexers", "IndexToStringPredictBatchOp"),
+    # feature
+    "OneHotPredictStreamOp": ("..batch.feature.feature_ops", "OneHotPredictBatchOp"),
+    "QuantileDiscretizerPredictStreamOp": ("..batch.feature.feature_ops", "QuantileDiscretizerPredictBatchOp"),
+    "PcaPredictStreamOp": ("..batch.feature.feature_ops", "PcaPredictBatchOp"),
     # nlp
     "DocCountVectorizerPredictStreamOp": ("..batch.nlp", "DocCountVectorizerPredictBatchOp"),
     "DocHashCountVectorizerPredictStreamOp": ("..batch.nlp", "DocHashCountVectorizerPredictBatchOp"),

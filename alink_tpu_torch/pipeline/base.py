@@ -15,7 +15,9 @@ saved; ``clone()`` keeps it), a ``Trainer`` also ``dtype=``.
 ``Trainer.fit`` hands them to a train op that takes them (the linear, tree and KMeans train ops), so such an
 estimator runs on ``cuda`` unless the caller asks for the CPU, and
 raises without CUDA, and to the fitted model (a KMeans model assigns
-there; a ``MapModel`` hands its device to a mapper that takes one). A ``Pipeline``'s ``device`` is the device of every estimator stage
+there; a ``MapModel`` hands its device to a mapper that takes one, a
+batch-op transformer to an op that takes one, DCT's). A ``Pipeline``'s
+``device`` is the device of every estimator and batch-op transformer
 that was given none. Not ported: the lazy train-info and model-info
 printing hooks of ``Trainer`` (``enable_lazy_print_*``), which wait for
 the lazy-callback machinery of ``operator/base.py``.
@@ -194,6 +196,8 @@ class Pipeline(Estimator):
                 fitted.append(model)
                 cur = model.transform(cur)
             elif isinstance(stage, Transformer):
+                if getattr(stage, "OP_CLS", None) is not None:
+                    stage = self._placed(stage)    # a batch-op transformer
                 fitted.append(stage)
                 cur = stage.transform(cur)
             else:
@@ -239,7 +243,8 @@ class PipelineModel(Model):
                 cur = op.link_from(cur)
             elif getattr(t, "OP_CLS", None) is not None:
                 cur = BatchApplyStreamOp(params=t.params.clone(),
-                                         batch_cls=t.OP_CLS).link_from(cur)
+                                         batch_cls=t.OP_CLS,
+                                         device=t.device).link_from(cur)
             else:
                 raise TypeError(f"{type(t).__name__} has no stream transform")
         return cur

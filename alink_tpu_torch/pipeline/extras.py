@@ -1,7 +1,8 @@
 """Pipeline wrappers completing the reference inventory: ALS, GLM,
-isotonic and AFT regression, GMM and bisecting KMeans, MLPC.
+isotonic and AFT regression, GMM and bisecting KMeans, MLPC, the
+indexers, the vector imputer and transformers.
 
-Counterpart: ``alink_tpu/pipeline/extras.py`` (:131-148 and :170-199, the
+Counterpart: ``alink_tpu/pipeline/extras.py`` (:131-148 and :170-249, the
 reference's pipeline/recommendation/ALS and ALSModel,
 pipeline/regression/GeneralizedLinearRegression, IsotonicRegression and
 AftSurvivalRegression, pipeline/clustering/GaussianMixture and
@@ -12,9 +13,14 @@ with ``AlsPredictBatchOp`` and ``recommend_top_k`` ranks items with
 ``AlsTopKPredictBatchOp``, both on the host. The six other estimators
 (``_trainer_with_predict``) train on their ``device`` (and ``dtype``,
 where the train op takes one), and their models map there where the
-mapper computes on a device. The rest of the JAX package's module (the
-indexers, the vector and format transformers and the reference's
-base-class names) waits for its ops (ROADMAP A7(c)).
+mapper computes on a device. ``MultiStringIndexer``, ``VectorImputer``,
+``PCA`` / ``PCAModel`` (the reference's spelling of ``Pca``),
+``IndexToString`` (a ``MapModel`` over a fitted StringIndexer's table)
+and the stateless ``VectorSlicer``, ``VectorInteraction``,
+``VectorElementwiseProduct``, ``VectorPolynomialExpand`` and
+``VectorSizeHint`` run on the host. The rest of the JAX package's module
+(the format transformers, ``Select`` and the reference's base-class
+names) waits for its ops (ROADMAP A7(c)).
 """
 
 from __future__ import annotations
@@ -27,6 +33,14 @@ from ..operator.batch.clustering.gmm_bisecting import (
     BisectingKMeansPredictBatchOp, BisectingKMeansTrainBatchOp,
     GmmModelMapper, GmmPredictBatchOp, GmmTrainBatchOp)
 from ..operator.batch.clustering.kmeans_ops import KMeansModelMapper
+from ..operator.batch.dataproc.indexers import (
+    IndexToStringModelMapper, MultiStringIndexerPredictBatchOp,
+    MultiStringIndexerTrainBatchOp, StringIndexerModelMapper)
+from ..operator.batch.dataproc.vector_ops import (
+    VectorElementwiseProductBatchOp, VectorImputerModelMapper,
+    VectorImputerPredictBatchOp, VectorImputerTrainBatchOp,
+    VectorInteractionBatchOp, VectorPolynomialExpandBatchOp,
+    VectorSizeHintBatchOp, VectorSliceBatchOp)
 from ..operator.batch.recommendation.als_ops import (AlsPredictBatchOp,
                                                      AlsTopKPredictBatchOp,
                                                      AlsTrainBatchOp)
@@ -34,8 +48,8 @@ from ..operator.batch.regression.glm_ops import (
     AftModelMapper, AftSurvivalRegPredictBatchOp, AftSurvivalRegTrainBatchOp,
     GlmModelMapper, GlmPredictBatchOp, GlmTrainBatchOp, IsotonicModelMapper,
     IsotonicRegPredictBatchOp, IsotonicRegTrainBatchOp)
-from .base import Estimator, Model, _as_op
-from .feature import _trainer
+from .base import Estimator, MapModel, Model, _as_op
+from .feature import BatchOpTransformer, Pca, PcaModel, _trainer
 
 
 class ALSModel(Model):
@@ -97,3 +111,41 @@ MultilayerPerceptronClassifier, MultilayerPerceptronClassificationModel = \
     _trainer_with_predict(
         "MultilayerPerceptronClassifier", MultilayerPerceptronTrainBatchOp,
         MlpModelMapper, MultilayerPerceptronPredictBatchOp)
+MultiStringIndexer, MultiStringIndexerModel = _trainer_with_predict(
+    "MultiStringIndexer", MultiStringIndexerTrainBatchOp,
+    StringIndexerModelMapper, MultiStringIndexerPredictBatchOp)
+VectorImputer, VectorImputerModel = _trainer_with_predict(
+    "VectorImputer", VectorImputerTrainBatchOp, VectorImputerModelMapper,
+    VectorImputerPredictBatchOp)
+
+# reference spells PCA in caps
+PCA = Pca
+PCAModel = PcaModel
+
+
+class IndexToString(MapModel):
+    """Map indices back to labels with a fitted StringIndexer model
+    (reference pipeline/dataproc/IndexToString.java — takes the
+    StringIndexerModel's data)."""
+
+    MAPPER_CLS = IndexToStringModelMapper
+
+
+# -- stateless transformers -------------------------------------------------
+
+def _op_transformer(name: str, op_cls) -> type:
+    return type(BatchOpTransformer)(
+        name, (BatchOpTransformer,),
+        {"OP_CLS": op_cls, "_PARAM_INFOS": dict(op_cls._PARAM_INFOS),
+         "__doc__": f"pipeline transformer over {op_cls.__name__} "
+                    f"(reference pipeline class of the same name)",
+         "__module__": __name__})
+
+
+VectorSlicer = _op_transformer("VectorSlicer", VectorSliceBatchOp)
+VectorInteraction = _op_transformer("VectorInteraction", VectorInteractionBatchOp)
+VectorElementwiseProduct = _op_transformer("VectorElementwiseProduct",
+                                           VectorElementwiseProductBatchOp)
+VectorPolynomialExpand = _op_transformer("VectorPolynomialExpand",
+                                         VectorPolynomialExpandBatchOp)
+VectorSizeHint = _op_transformer("VectorSizeHint", VectorSizeHintBatchOp)

@@ -156,7 +156,8 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    float32 card runs are bitwise equal (snapshots, eval JSON); the
    float64 card run is within rtol 1e-10 of the CPU's on the warm start
    and every snapshot, with equal confusion matrices and AUC within
-   1e-6, on the stream's first 131,072 rows; the float32 run launches one ``linear_grad`` and two
+   1e-6, on the stream's first 49,152 rows (6 micro-batches; the pair
+   snapshots every 5 s); the float32 run launches one ``linear_grad`` and two
    ``serve_sparse`` a superstep and, per micro-batch padded to the
    trainer's batch, one ``gather_pair`` and ``ftrl_walk`` and two
    ``ftrl_scatter_add`` a 4-row chunk; the last window's AUC is above
@@ -463,10 +464,10 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
 22. the tuning layer (after 21; TF32 off): (a) ``bench.py``'s
    ``quick_tuning_sweep`` (dense 4,000 x 32 float64, L-BFGS, 100
    supersteps at epsilon 0, 24 points on its l2 ladder, ASHA rung 5 and
-   eta 5, 2 reps; its row's fields): every point of the full sweep bitwise
-   its serial ``optimize``, the ASHA winner the serial argmin and bitwise
-   its fit, two card sweeps bitwise, the card's loss curves within rtol
-   1e-10 of the same sweep on the CPU over 100 supersteps and its
+   eta 5; one timed rep; its row's fields): every point of the full
+   sweep bitwise its serial ``optimize``, the ASHA winner the serial
+   argmin and bitwise its fit, two ASHA card sweeps bitwise, the card's
+   loss curves within rtol 1e-10 of the same sweep on the CPU over 100 supersteps and its
    coefficients over the first 5; (b) 8 points over l2 (one with l1, an
    OWLQN group) on phase 16's 100,000 padded-COO Criteo rows, 10
    supersteps, float32 and float64: each point bitwise its serial fit, B5
@@ -525,6 +526,48 @@ Phases, none wrapped in ``try``; any failure or mismatch exits non-zero:
    1e-10 of the CPU's over 10 supersteps on 20,000 rows); (f) the eight
    new stream twins over two micro-batches of each leg's held-out rows,
    row for row their batch ops.
+
+24. feature engineering, statistics, similarity and outliers (after 23;
+   TF32 off; float32 unless said): (a) ``adult_data(488,420)`` with its 8
+   codes cast to LONG (``NumericalTypeCastBatchOp``), ``SplitBatchOp(0.8)``,
+   then ``QuantileDiscretizer`` (6 continuous columns, 20 buckets; its
+   2.34 M training cells through the device histogram) ->
+   ``OneHotEncoder`` (14 columns into 230 slots) -> ``LogisticRegression``
+   on the one-hot vectors (B5, P1 and the plan), the held-out rows through
+   the fitted ``PipelineModel`` and 20,000 of them served by
+   ``CompiledPredictor`` (B5): cut points and one-hot vectors equal to the
+   CPU run's, B5, P1 and the plan at the trainer's float32 design (its
+   full 390,736 rows) each bitwise its plain version, the float64 card
+   L-BFGS within rtol 1e-10 of the CPU's over
+   10 supersteps on the first 50,000 training rows, served labels equal
+   to ``map_table``'s outside the rounding band; stage times, held-out
+   AUC, the three kernels' launches (each record's ``phase24_launches``);
+   (b) ``StringIndexer`` -> ``IndexToString``, ``VectorAssembler`` over
+   the 6 continuous columns, the three vector scalers and
+   ``VectorImputer`` (1 % NaNs) on 10,000 held-out rows, each equal to a
+   second run, rows/s; (c) ``Summarizer``, ``Correlation`` (Pearson,
+   Spearman), ``ChiSquareTest`` and ``ChiSqSelector`` on the held-out
+   rows, equal to numpy's ``corrcoef`` and scipy's ``chi2_contingency``;
+   (d) PCA with k = 50 on bench_softmax's 60,000 x 784 (train s, predict
+   rows/s, the projections equal to numpy's product on the host), DCT of 100,000 x 256 float64 rows forward and inverse on the
+   card within 1e-12 of each row's largest |y| from the CPU's, the round
+   trip within the same bound; (e) SOS (perplexity 4) at ODDS shuttle's
+   49,097 x 9 and mnist's 7,603 x 100 with planted uniform outliers: two
+   float32 card runs bitwise, NaN in exactly the columns that the rows
+   whose affinities all underflow predict (``sos_nan_columns``: all of
+   shuttle's), finite at mnist's with the planted outliers' ROC AUC at or
+   above ``SOS_F32_AUC_FLOOR``, a float64 card SOS of
+   the first 4,000 rows finite and within rtol 1e-9 of the CPU's, its ROC
+   AUC at or above the JAX package's CPU reading
+   on that cut (``SOS_AUC_FLOOR``); s, row block, peak memory, busy
+   share; (f) the LSH top-10 and join of 1,000 queries
+   against 100,000 unit rows of width 128 (bucket ids equal to the CPU's
+   away from an edge, pairs and distances equal to the CPU's, recall@10
+   against exact top-10, hash / bucket / re-score split), the Jaccard
+   join of 2,000 against 10,000 seeded sets and ``StringSimilarityPairwise``
+   on 10,000 pairs in each metric (each equal to a second run); (g) the
+   21 new stream twins over two micro-batches of 2,000 held-out rows, row
+   for row their batch ops.
 
 The line before the last is the kernels' JSON record, the one before it
 the main paths' numbers; the last line is ``{"ok": true, "device":
@@ -3139,10 +3182,13 @@ EX_FEATURES, EX_LR_ITER, EX_INTERVAL = 30_000, 10, 10.0
 EX_FTRL = dict(alpha=0.1, beta=0.1, l1=0.01, l2=0.01,
                time_interval=EX_INTERVAL, vector_size=EX_FEATURES)
 EX_BATCH_ROWS, EX_STREAM_ROWS, EX_MICRO = 100_000, 262_144, 8192
-# the float64 card-against-CPU pair runs the first 16 micro-batches (one
-# interval snapshot and the final one, two windows): the CPU's plain
-# FTRL step takes about a minute a 65,536 training rows
-EX_CHECK_ROWS = 16 * EX_MICRO
+# the float64 card-against-CPU pair runs the first 6 micro-batches at a
+# 5 s interval (event times 0-5: the interval snapshot at 5 and the final
+# one, two windows): the CPU's plain FTRL step takes about a minute a
+# 65,536 training rows. The interval only sets which micro-batch closes a
+# snapshot and a window; every step, snapshot and window runs the code
+# the float32 loop at EX_INTERVAL runs
+EX_CHECK_ROWS, EX_CHECK_INTERVAL = 6 * EX_MICRO, 5.0
 # vocabulary sizes of avazu's order (its train file: 7 C1 values, 26 site
 # categories, 4,737 site ids, 2.7 M device ids, 6.7 M device ips, ...),
 # the device id and ip cut to hundreds of thousands
@@ -3247,7 +3293,8 @@ def example_pipeline(batch_data, path):
     return loaded, {"fit_s": t1 - t0, "save_load_s": t2 - t1}
 
 
-def example_loop(data, loaded, device, dtype, profile=False):
+def example_loop(data, loaded, device, dtype, profile=False,
+                 interval=EX_INTERVAL):
     """The FTRLExample loop through the port's entry points: the loaded
     pipeline's features -> ``LogisticRegressionTrainBatchOp`` (the warm
     start) -> ``SplitStreamOp`` -> ``transform_stream`` of both halves ->
@@ -3255,7 +3302,8 @@ def example_loop(data, loaded, device, dtype, profile=False):
     ``EvalBinaryClassStreamOp`` -> ``JsonValueStreamOp`` ->
     ``CollectSinkStreamOp`` -> ``StreamOperator.execute()``. Returns the
     warm start's table, the snapshots (taps on the model stream), the
-    sink's rows and the stage seconds."""
+    sink's rows and the stage seconds. ``interval``: the seconds between
+    snapshots and evaluation windows (a micro-batch a second)."""
     import torch
     from alink_tpu_torch.operator.base import StreamOperator
     from alink_tpu_torch.operator.batch.classification import \
@@ -3294,7 +3342,8 @@ def example_loop(data, loaded, device, dtype, profile=False):
         MemSourceStreamOp(stream, batch_size=EX_MICRO))
     ftrl = FtrlTrainStreamOp(
         lr, vector_col="vec", label_col="click", with_intercept=True,
-        device=device, ship_dtype=dtype, **EX_FTRL).link_from(
+        device=device, ship_dtype=dtype,
+        **dict(EX_FTRL, time_interval=interval)).link_from(
         loaded.transform_stream(split))
     snaps = []
     tap = FnStreamOp(lambda mt: snaps.append(mt) or mt).link_from(ftrl)
@@ -3304,7 +3353,7 @@ def example_loop(data, loaded, device, dtype, profile=False):
         tap, loaded.transform_stream(split.get_side_stream()))
     ev = EvalBinaryClassStreamOp(label_col="click",
                                  prediction_detail_col="details",
-                                 time_interval=EX_INTERVAL).link_from(pred)
+                                 time_interval=interval).link_from(pred)
     vals = JsonValueStreamOp(
         selected_col="Data", output_cols=["Accuracy", "AUC",
                                           "ConfusionMatrix"],
@@ -3408,7 +3457,8 @@ def _eval_rows(sink):
 def phase_example(kernels, seed, card):
     """13: the FTRLExample loop on the card at 30,000 hashed features;
     ``kernels`` are the kernel modules, whose launch counts the float32
-    run reads."""
+    run reads; the float64 card-vs-CPU pair runs the stream's first
+    ``EX_CHECK_ROWS`` rows at ``EX_CHECK_INTERVAL``."""
     import torch
     from alink_tpu_torch.operator.batch.classification import \
         LogisticRegressionPredictBatchOp
@@ -3504,12 +3554,14 @@ def phase_example(kernels, seed, card):
           f"warm-start scoring, eval, JSON) {out['eval_leg_s']:.3f} s",
           flush=True)
     # float64: the card against the CPU, on the stream's first
-    # EX_CHECK_ROWS rows
+    # check_rows rows
+    check_rows, interval = EX_CHECK_ROWS, EX_CHECK_INTERVAL
     runs = {}
-    check = (batch, stream.first_n(EX_CHECK_ROWS))
+    check = (batch, stream.first_n(check_rows))
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        runs[dev] = example_loop(check, loaded, dev, torch.float64)
+        runs[dev] = example_loop(check, loaded, dev, torch.float64,
+                                 interval=interval)
         runs[dev][3]["wall_s"] = time.perf_counter() - t0
     (glr, gsn, grow, _), (clr, csn, crow, crun) = runs["cuda"], runs["cpu"]
     gaps = [np.abs(_coefs(glr) - _coefs(clr)) / np.abs(_coefs(clr)).clip(
@@ -3539,7 +3591,8 @@ def phase_example(kernels, seed, card):
     out["card_vs_cpu_f64"] = {
         "coef_max_rel_gap": float(max(g.max() for g in gaps)),
         "auc_max_gap": auc_gap, "snapshots": len(gsn),
-        "stream_rows": EX_CHECK_ROWS, "eval_rows": len(ge),
+        "stream_rows": check_rows, "interval_s": interval,
+        "eval_rows": len(ge),
         "cpu_drain_s": crun["drain_s"], "cpu_lr_s": crun["lr_s"],
         "cpu_wall_s": crun["wall_s"]}
     # learns: the last window's AUC against the warm start's on its rows
@@ -3560,7 +3613,7 @@ def phase_example(kernels, seed, card):
     print(f"ftrl example {tag}: float64 card vs CPU: coefficients max rel "
           f"gap {out['card_vs_cpu_f64']['coef_max_rel_gap']} over the warm "
           f"start and {len(gsn)} snapshots, AUC max gap {auc_gap} over "
-          f"{len(ge)} eval rows ({EX_CHECK_ROWS} stream rows); CPU drain "
+          f"{len(ge)} eval rows ({check_rows} stream rows); CPU drain "
           f"{crun['drain_s']:.3f} s", flush=True)
     print(f"ftrl example {tag}: window AUC {windows}, cumulative "
           f"{cumulative}; the last window ({last.num_rows} rows): FTRL "
@@ -6445,11 +6498,38 @@ def als_operators(data, dev, card):
     return out
 
 
+def _cell_equal(u, v) -> bool:
+    """Two cells of one type with the same bits: vectors by their arrays,
+    floats by their bit patterns (a NaN equal to the same NaN), others
+    by ``==``."""
+    if type(u) is not type(v):
+        return False
+    if hasattr(u, "indices"):                        # SparseVector
+        return (u.n == v.n and np.array_equal(u.indices, v.indices)
+                and np_bits_equal(u.values, v.values))
+    if hasattr(u, "data"):                           # DenseVector
+        return np_bits_equal(u.data, v.data)
+    if isinstance(u, (float, np.floating)):
+        return np_bits_equal(np.float64(u), np.float64(v))
+    return u == v
+
+
 def _rows_equal(a, b) -> bool:
-    """Two tables with the same columns and the same cells, row for row."""
-    return a.col_names == b.col_names and [
-        tuple(repr(v) for v in r) for r in a.to_rows()] == [
-        tuple(repr(v) for v in r) for r in b.to_rows()]
+    """Two tables with the same columns and the same cells, row for row,
+    bit for bit (a column at a time: numeric columns by their bits,
+    others cell by cell)."""
+    if a.col_names != b.col_names or a.num_rows != b.num_rows:
+        return False
+    for c in a.col_names:
+        x, y = a.col(c), b.col(c)
+        if isinstance(x, np.ndarray) and isinstance(y, np.ndarray) \
+                and x.dtype == y.dtype and x.dtype.kind in "biuf":
+            if not (np_bits_equal(x, y) if x.dtype.kind == "f"
+                    else np.array_equal(x, y)):
+                return False
+        elif not all(_cell_equal(u, v) for u, v in zip(x, y)):
+            return False
+    return True
 
 
 def _twin_rows(op, table):
@@ -8572,9 +8652,11 @@ def phase_text(kernels, card, lat):
 
 # bench.py::quick_tuning_sweep (bench.py:3158-3243): dense 4,000 x 32
 # float64 from RandomState(0), L-BFGS, max_iter 100, epsilon 0, 24 points
-# on its l2 ladder, ASHA rung 5 and eta 5, reps 2
-TS_ROWS, TS_DIM, TS_ITERS, TS_POINTS, TS_RUNG, TS_ETA, TS_REPS = (
-    4000, 32, 100, 24, 5, 5, 2)
+# on its l2 ladder, ASHA rung 5 and eta 5, reps 2. The leg times one rep
+# of each side after a one-point warm-up, and the serial fits it times
+# are the ones its gates hold the sweeps to
+TS_ROWS, TS_DIM, TS_ITERS, TS_POINTS, TS_RUNG, TS_ETA = (
+    4000, 32, 100, 24, 5, 5)
 # coefficients card vs CPU: the first 5 supersteps, before any point has
 # converged to its last ulps (the l2 >= 0.28 points do by superstep 8,
 # where the line search breaks ties by an ulp: ROADMAP Queue C)
@@ -8632,9 +8714,9 @@ def tuning_sweep_leg(card):
            [0.0] + [float(3e-4 * (1.45 ** i)) for i in range(TS_POINTS - 1)]]
     asha = AshaConfig(rung=TS_RUNG, eta=TS_ETA)
 
-    def serial():
+    def serial(points=pts):
         outs = []
-        for pt in pts:
+        for pt in points:
             o = UnaryLossObjFunc(LogLossFunc(), TS_DIM, l2=pt["l2"])
             outs.append(optimize(o, data, OptimParams(
                 method="LBFGS", max_iter=TS_ITERS, epsilon=0.0), env))
@@ -8643,26 +8725,27 @@ def tuning_sweep_leg(card):
     def sweep():
         return sweep_optimize(obj, data, base, pts, env=env, asha=asha)
 
-    s_out = serial()           # the first calls warm up both sides
-    res = sweep()
-    res_full = sweep_optimize(obj, data, base, pts, env=env)
-    ts_serial, ts_sweep = [], []
-    for _ in range(TS_REPS):
-        t0 = time.perf_counter()
-        serial()
-        ts_serial.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        res = sweep()
-        ts_sweep.append(time.perf_counter() - t0)
-    t_serial = sorted(ts_serial)[len(ts_serial) // 2]
-    t_sweep = sorted(ts_sweep)[len(ts_sweep) // 2]
+    # the first calls warm up both sides: one point's serial fit and one
+    # ASHA sweep; the timed ones follow
+    serial(pts[:1])
+    res0 = sweep()
     t0 = time.perf_counter()
-    res_full2 = sweep_optimize(obj, data, base, pts, env=env)
+    s_out = serial()
+    t_serial = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sweep()
+    t_sweep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_full = sweep_optimize(obj, data, base, pts, env=env)
     t_full = time.perf_counter() - t0
     sweep_equal_serial(res_full, s_out, "22(a) the full sweep")
-    require(np_bits_equal(res_full.values["coef"], res_full2.values["coef"])
-            and all(np_bits_equal(a, b) for a, b in
-                    zip(res_full.loss_curves, res_full2.loss_curves)),
+    # two card sweeps bitwise: the two ASHA ones (their pruning and rung
+    # steps too)
+    require(np_bits_equal(res0.values["coef"], res.values["coef"])
+            and all(np_bits_equal(u, v) for u, v in
+                    zip(res0.loss_curves, res.loss_curves))
+            and np.array_equal(res0.steps, res.steps)
+            and np.array_equal(res0.alive, res.alive),
             "22(a) two card sweeps bitwise")
     finals = [c[-1] for _, c, _ in s_out]
     serial_best = int(np.argmin(finals))
@@ -8679,20 +8762,17 @@ def tuning_sweep_leg(card):
     # coefficients of two summation orders part there, 5.3e-10 of the
     # largest by superstep 10 and up to ~2e-7 by 100, the same between
     # the port and the JAX package on the CPU; the losses do not:
-    # ROADMAP Queue C, "Tuning"); the gaps at 10 and 100 are recorded
+    # ROADMAP Queue C, "Tuning"); the gap at 100 is recorded
     cpu = MLEnvironment(device="cpu")
     t0 = time.perf_counter()
     res_cpu = sweep_optimize(obj, data, base, pts, env=cpu)
     cpu_s = time.perf_counter() - t0
     lgap = max(float(np.max(np.abs(a - b) / np.abs(b)))
                for a, b in zip(res_full.loss_curves, res_cpu.loss_curves))
-    cgaps = {}
-    for steps in (TS_F64_STEPS, 10):
-        short = OptimParams(method="LBFGS", max_iter=steps, epsilon=0.0)
-        gc = sweep_optimize(obj, data, short, pts, env=env).values["coef"]
-        cc = sweep_optimize(obj, data, short, pts, env=cpu).values["coef"]
-        cgaps[steps] = float(np.abs(gc - cc).max() / np.abs(cc).max())
-    cgap = cgaps[TS_F64_STEPS]
+    short = OptimParams(method="LBFGS", max_iter=TS_F64_STEPS, epsilon=0.0)
+    gc = sweep_optimize(obj, data, short, pts, env=env).values["coef"]
+    cc = sweep_optimize(obj, data, short, pts, env=cpu).values["coef"]
+    cgap = float(np.abs(gc - cc).max() / np.abs(cc).max())
     cgap_full = float(np.abs(res_full.values["coef"]
                              - res_cpu.values["coef"]).max()
                       / np.abs(res_cpu.values["coef"]).max())
@@ -8710,11 +8790,11 @@ def tuning_sweep_leg(card):
            "pruned_fraction": 1.0 - float(res.alive.sum()) / TS_POINTS,
            "point_supersteps": int(res.steps.sum()),
            "point_supersteps_full": int(res_full.steps.sum()),
+           "timed_reps": 1,
            "winner_match": True, "parity": "bitwise",
            "programs": int(res.programs), "cpu_full_sweep_s": cpu_s,
            "card_vs_cpu_loss_max_rel_gap": lgap,
            f"card_vs_cpu_coef_gap_{TS_F64_STEPS}_steps": cgap,
-           "card_vs_cpu_coef_gap_10_steps": cgaps[10],
            f"card_vs_cpu_coef_gap_{TS_ITERS}_steps": cgap_full}
     print(f"tuning (a) [{card}] bench_tuning_sweep: {row}", flush=True)
     return row
@@ -8818,6 +8898,46 @@ def sparse_sweep_leg(kernels, card, train):
     return out, designs["f32"]
 
 
+def linear_kernels_at_design(ks, kl, prep, dt, what, timed=True):
+    """B5, P1 and the plan at a linear trainer's prepared design (its
+    padded-COO keys and values in ``dt``), each against its plain version
+    on the same inputs, bitwise; with ``timed`` their kernel (events) ms
+    and B5's plain ms."""
+    import torch
+    keys = torch.from_numpy(prep.train["idx"]).to(torch.int32)
+    val = torch.from_numpy(prep.train["val"]).to(dt)
+    plan = kl.grad_plan(keys.cuda(), prep.dim, val.cuda())
+    host = kl.grad_plan(keys, prep.dim, val)
+    require(plan_equal(kl, plan.walk, host.walk),
+            f"{what}: the card's plan is the plain one's")
+    g = np.random.default_rng(22)
+    c = torch.from_numpy(g.standard_normal(keys.shape[0])).to(dt)
+    w = torch.from_numpy(g.standard_normal(prep.dim)).to(dt)
+    got = kl.linear_grad(plan, c.cuda()).cpu()
+    require(same_bits(got, kl.linear_grad_plain(host, c))[0],
+            f"{what}: linear_grad bitwise vs its plain version")
+    b = torch.zeros(1, dtype=dt)
+    model = (w.cuda(), b.cuda())
+    sc = ks.sparse_scores(model, plan.keys, plan.val, "f32")
+    want = ks.sparse_scores_plain(model, plan.keys, plan.val, "f32")
+    require(torch.equal(bits(sc), bits(want)),
+            f"{what}: serve_sparse bitwise vs its plain version")
+    out = {"bitwise": True, "positions": int(keys.numel()),
+           "slots": prep.dim}
+    if timed:
+        cc = c.cuda()
+        out.update(
+            linear_grad_ms=cuda_ms(lambda: kl.linear_grad(plan, cc),
+                                   trials=5, reps=5),
+            serve_sparse_ms=cuda_ms(lambda: ks.sparse_scores(
+                model, plan.keys, plan.val, "f32"), trials=5, reps=5),
+            serve_sparse_plain_ms=cuda_ms(lambda: ks.sparse_scores_plain(
+                model, plan.keys, plan.val, "f32"), trials=3, reps=2),
+            run_plan_ms=cuda_ms(lambda: kl.run_plan(plan.keys, prep.dim),
+                                trials=5, reps=5))
+    return out
+
+
 def sweep_kernels_at_phase_shapes(kernels, prep, batches):
     """B5, P1 and the plan at (b)'s design, B1 and B2 at (c)'s chunk,
     each against its plain version on the same inputs, bitwise; kernel
@@ -8825,41 +8945,9 @@ def sweep_kernels_at_phase_shapes(kernels, prep, batches):
     import torch
     ks, kl, kf = kernels
     out = {}
-    keys = torch.from_numpy(prep.train["idx"]).to(torch.int32)
     for dt, kind in ((torch.float32, "f32"), (torch.float64, "f64")):
-        val = torch.from_numpy(prep.train["val"]).to(dt)
-        plan = kl.grad_plan(keys.cuda(), prep.dim, val.cuda())
-        host = kl.grad_plan(keys, prep.dim, val)
-        require(plan_equal(kl, plan.walk, host.walk),
-                f"22 the card's plan of (b)'s design {kind} is the plain "
-                f"one's")
-        g = np.random.default_rng(22)
-        c = torch.from_numpy(g.standard_normal(keys.shape[0])).to(dt)
-        w = torch.from_numpy(g.standard_normal(prep.dim)).to(dt)
-        got = kl.linear_grad(plan, c.cuda()).cpu()
-        require(same_bits(got, kl.linear_grad_plain(host, c))[0],
-                f"22 linear_grad at (b)'s design {kind} bitwise vs its "
-                f"plain version")
-        b = torch.zeros(1, dtype=dt)
-        model = (w.cuda(), b.cuda())
-        sc = ks.sparse_scores(model, plan.keys, plan.val, "f32")
-        want = ks.sparse_scores_plain(model, plan.keys, plan.val, "f32")
-        require(torch.equal(bits(sc), bits(want)),
-                f"22 serve_sparse at (b)'s design {kind} bitwise vs its "
-                f"plain version")
-        cc = c.cuda()
-        out[f"design {kind}"] = {
-            "bitwise": True, "positions": int(keys.numel()),
-            "slots": prep.dim,
-            "linear_grad_ms": cuda_ms(lambda: kl.linear_grad(plan, cc),
-                                      trials=5, reps=5),
-            "serve_sparse_ms": cuda_ms(lambda: ks.sparse_scores(
-                model, plan.keys, plan.val, "f32"), trials=5, reps=5),
-            "serve_sparse_plain_ms": cuda_ms(lambda: ks.sparse_scores_plain(
-                model, plan.keys, plan.val, "f32"), trials=3, reps=2),
-            "run_plan_ms": cuda_ms(lambda: kl.run_plan(plan.keys,
-                                                        prep.dim),
-                                   trials=5, reps=5)}
+        out[f"design {kind}"] = linear_kernels_at_design(
+            ks, kl, prep, dt, f"22 (b)'s design {kind}")
     # B1 and B2 at the staleness step's chunk: K x width positions of the
     # stacked (S, 2) float64 state
     idx = torch.from_numpy(batches[0][0][:FS_K]).reshape(-1).cuda()
@@ -10086,11 +10174,820 @@ def phase_families(card, dev=None, sizes=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 24. feature engineering, statistics, similarity and outliers
+# ---------------------------------------------------------------------------
+
+# the leg sizes (a rehearsal on the CPU passes smaller ones to
+# ``phase_features(card, dev="cpu", sizes=...)``)
+P24_SIZES = dict(
+    adult_rows=ADULT_LARGE_N, lr_iter=20, f64_rows=50_000, f64_steps=10,
+    serve_rows=20_000, vec_rows=10_000, pca=(SM_ROWS, SM_DIM, 50),
+    dct=(100_000, 256), sos={"shuttle": (49_097, 9, 0.07),
+                             "mnist": (7_603, 100, 700 / 7_603)},
+    sos_cut=4_000, lsh=(1_000, 100_000, 128), jaccard=(2_000, 10_000),
+    strings=10_000, twin_rows=2_000)
+QD_BUCKETS, SOS_PERPLEXITY, LSH_TOP = 20, 4.0, 10
+LSH_WIDTH = 2.0                   # median query: 10-1,000 candidates
+DCT_BOUND = 1e-12                 # of each row's largest |y|
+SOS_RTOL = 1e-9
+# the JAX package's own float64 CPU reading of the planted outliers' ROC
+# AUC on each shape's first 4,000 rows (alink_tpu's ``_sos_kernel`` on
+# ``sos_rows``, perplexity 4: 0.55394 and 0.99804), rounded down at the
+# third decimal; the float64 card SOS of the same cut is held to it. At
+# 7 % uniform outliers in 9 columns SOS barely ranks them (perplexity 4
+# binds each outlier to its outlying neighbours), which is its known
+# reading on ODDS shuttle
+SOS_AUC_FLOOR = {"shuttle": 0.553, "mnist": 0.998}
+# the float32 scores of the whole shape: the JAX package's float32 CPU
+# reading at mnist's (0.98547), rounded down at the second decimal (the
+# float32 bisection parts the card's ranking from the CPU's by ulps: the
+# card read 0.98527); shuttle's are NaN, held to the rows whose
+# affinities all underflow instead (``sos_nan_columns``).
+# ``tests/test_torch_sos.py`` recomputes both tables' readings
+SOS_F32_AUC_FLOOR = {"mnist": 0.98}
+
+
+def adult_pipeline_leg(kernels, dev, card, sizes):
+    """24(a): the adult feature pipeline; returns the record, the fitted
+    stage models and the held-out rows for the later legs."""
+    import torch
+    from alink_tpu_torch.common.params import Params
+    from alink_tpu_torch.operator.batch.classification import \
+        LogisticRegressionTrainBatchOp
+    from alink_tpu_torch.operator.batch.dataproc import (
+        NumericalTypeCastBatchOp, SplitBatchOp)
+    from alink_tpu_torch.operator.batch.evaluation.eval_ops import \
+        parse_detail_probs
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        QuantileDiscretizerTrainBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.dataproc.quantile import \
+        DEVICE_BINNING_MIN_CELLS
+    from alink_tpu_torch.operator.common.linear.base import \
+        prepare_linear_train
+    from alink_tpu_torch.pipeline import PipelineModel
+    from alink_tpu_torch.pipeline.classification import LogisticRegression
+    from alink_tpu_torch.pipeline.feature import (OneHotEncoder,
+                                                  QuantileDiscretizer)
+    ks, kl = kernels[0], kernels[1]
+    cuda = torch.device(dev).type == "cuda"
+    cont, codes = ADULT_COLS[:6], ADULT_COLS[6:]
+    _, _, table = adult_data(sizes["adult_rows"])
+    out, times = {"rows": table.num_rows}, {}
+
+    def lap(name, t0):
+        _sync(dev)
+        times[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    _reset(*kernels)
+    t0 = time.perf_counter()
+    cast = NumericalTypeCastBatchOp(selected_cols=codes, target_type="LONG") \
+        .link_from(MemSourceBatchOp(table))
+    split = SplitBatchOp(fraction=0.8).link_from(cast)
+    train, held = (split.get_output_table(),
+                   split.get_side_output(0).get_output_table())
+    t0 = lap("cast_split_s", t0)
+    cells = train.num_rows * len(cont)
+    if sizes["adult_rows"] == ADULT_LARGE_N:
+        require(cells >= DEVICE_BINNING_MIN_CELLS,
+                f"24(a): {cells} training cells reach the device binning")
+    qd = QuantileDiscretizer(selected_cols=cont, num_buckets=QD_BUCKETS,
+                             device=dev).fit(MemSourceBatchOp(train))
+    t0 = lap("fit_quantile_s", t0)
+    binned = qd.transform(MemSourceBatchOp(train))
+    t0 = lap("transform_quantile_s", t0)
+    oh = OneHotEncoder(selected_cols=ADULT_COLS, output_col="oh",
+                       reserved_cols=["label"]).fit(binned)
+    t0 = lap("fit_onehot_s", t0)
+    coded = oh.transform(binned)
+    t0 = lap("transform_onehot_s", t0)
+    lr = LogisticRegression(vector_col="oh", label_col="label",
+                            prediction_col="pred",
+                            prediction_detail_col="detail",
+                            max_iter=sizes["lr_iter"], device=dev).fit(coded)
+    t0 = lap("train_lr_s", t0)
+    model = PipelineModel(qd, oh, lr)
+    scored = model.transform(MemSourceBatchOp(held)).get_output_table()
+    t0 = lap("transform_held_s", t0)
+    # serving: the held-out one-hot rows through CompiledPredictor (B5)
+    req = oh.transform(qd.transform(MemSourceBatchOp(held))) \
+        .get_output_table().select(["oh"]).first_n(sizes["serve_rows"])
+    gpu = served_predictor(lr.get_model_data(), req, dev)
+    _, band = served_labels_match(gpu, req, lr.get_model_data(), "24(a)")
+    t0 = lap("serve_s", t0)
+    launches = _counts(*kernels)
+    if cuda:
+        require(all(launches[k] > 0 for k in ("serve_sparse", "linear_grad",
+                                              "run_plan")),
+                f"24(a): the pipeline ran B5, P1 and the plan: {launches}")
+    width = coded.get_output_table().col("oh").dim
+    require(width == 6 * (QD_BUCKETS + 1) + 8 * 13 or
+            sizes["adult_rows"] != ADULT_LARGE_N,
+            f"24(a): the one-hot space is 230 wide ({width})")
+    pos, p_pos = parse_detail_probs(scored.col("detail"))
+    y = (np.asarray(scored.col("label")).astype(str) == str(pos)) \
+        .astype(np.int64)
+    auc = rank_auc(y, np.asarray(p_pos, np.float64))
+    out.update(times=times, launches=launches, one_hot_width=int(width),
+               held_rows=held.num_rows, train_rows=train.num_rows,
+               training_cells=cells, held_auc=auc, serve_rows=req.num_rows,
+               serve_rows_in_band=band,
+               serve_rows_per_s=req.num_rows / times["serve_s"])
+    # the gates against the CPU: cut points, one-hot vectors, float64 L-BFGS
+    t0 = time.perf_counter()
+    cpu_qd = QuantileDiscretizerTrainBatchOp(
+        selected_cols=cont, num_buckets=QD_BUCKETS, device="cpu").link_from(
+        MemSourceBatchOp(train)).get_output_table()
+    require(cpu_qd.to_rows() == qd.get_model_data().to_rows(),
+            "24(a): the card's cut points equal the CPU run's")
+    cpu_qd_model = qd.clone()
+    cpu_qd_model.set_model_data(cpu_qd)
+    cpu_binned = cpu_qd_model.transform(MemSourceBatchOp(train))
+    cpu_oh = OneHotEncoder(selected_cols=ADULT_COLS, output_col="oh",
+                           reserved_cols=["label"]).fit(cpu_binned)
+    a = coded.get_output_table().col("oh")
+    b = cpu_oh.transform(cpu_binned).get_output_table().col("oh")
+    require(cpu_oh.get_model_data().to_rows() == oh.get_model_data().to_rows()
+            and np.array_equal(a.idx, b.idx) and np.array_equal(a.val, b.val),
+            "24(a): the one-hot vectors equal the CPU run's")
+    out["cpu_cut_and_onehot_s"] = time.perf_counter() - t0
+    if cuda:
+        # B5, P1 and the plan at the float32 design the trainer ran, at
+        # its full size, each bitwise its plain version
+        t0 = time.perf_counter()
+        prep = prepare_linear_train(coded.get_output_table(),
+                                    LogisticRegressionTrainBatchOp(
+                                        vector_col="oh", label_col="label",
+                                        device=dev, dtype=torch.float32),
+                                    "LR")
+        out["kernels_at_design"] = dict(linear_kernels_at_design(
+            ks, kl, prep, torch.float32, "24(a) the f32 design",
+            timed=False), seconds=time.perf_counter() - t0)
+    first = MemSourceBatchOp(coded.get_output_table().first_n(
+        sizes["f64_rows"]))
+
+    def train64(where):
+        op = LogisticRegressionTrainBatchOp(
+            Params({"vector_col": "oh", "label_col": "label",
+                    "max_iter": sizes["f64_steps"], "epsilon": 0.0}),
+            device=where, dtype=torch.float64).link_from(first)
+        return op_coef_curve(op)
+
+    out["card_vs_cpu_f64"] = card_vs_cpu_f64(ks, kl, dev, "24(a) LR", train64)
+    print(f"features (a) [{card}]: adult {table.num_rows} rows "
+          f"({train.num_rows} train, {held.num_rows} held out), one-hot "
+          f"{width} wide; stage s {times}; held-out AUC {auc:.6f}; served "
+          f"{req.num_rows} rows ({band} in the rounding band); launches "
+          f"{launches}; cut points and one-hot vectors equal the CPU's; B5, "
+          f"P1 and the plan at the f32 design bitwise their plain versions "
+          f"{out.get('kernels_at_design')}; f64 card vs CPU "
+          f"{out['card_vs_cpu_f64']}", flush=True)
+    return out, {"qd": qd, "oh": oh, "lr": lr, "held": held}
+
+
+def _two_runs(make, what):
+    """``make()`` -> a table, twice: equal row for row; (table, s of the
+    first)."""
+    t0 = time.perf_counter()
+    a = make()
+    secs = time.perf_counter() - t0
+    require(_rows_equal(a, make()), f"{what}: equal to a second run")
+    return a, secs
+
+
+def indexer_vector_leg(held, card, sizes):
+    """24(b): the indexers and the vector ops on held-out rows, each equal
+    to a second run; rows/s. Returns the record and the models for
+    (g)."""
+    from alink_tpu_torch.operator.batch.dataproc import indexers as ix
+    from alink_tpu_torch.operator.batch.dataproc import vector_ops as vo
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    rows = held.first_n(sizes["vec_rows"])
+    n = rows.num_rows
+    out, models = {"rows": n}, {}
+
+    def run(name, make):
+        t, secs = _two_runs(make, f"24(b) {name}")
+        out[name] = {"s": secs, "rows_per_s": n / secs}
+        return t
+
+    si = ix.StringIndexerTrainBatchOp(
+        selected_col="f6", string_order_type="frequency_desc").link_from(
+        MemSourceBatchOp(rows))
+    models["StringIndexer"] = si
+    idx = run("StringIndexer", lambda: ix.StringIndexerPredictBatchOp(
+        selected_col="f6", output_col="f6_id").link_from(
+        si, MemSourceBatchOp(rows)).get_output_table())
+    back = run("IndexToString", lambda: ix.IndexToStringPredictBatchOp(
+        selected_col="f6_id", output_col="f6_back").link_from(
+        si, MemSourceBatchOp(idx)).get_output_table())
+    require(list(back.col("f6_back")) == [str(v) for v in back.col("f6")],
+            "24(b): StringIndexer -> IndexToString gives each code back")
+    vec = run("VectorAssembler", lambda: vo.VectorAssemblerBatchOp(
+        selected_cols=ADULT_COLS[:6], output_col="vec").link_from(
+        MemSourceBatchOp(rows)).get_output_table())
+    for kind in ("Standard", "MinMax", "MaxAbs"):
+        m = getattr(vo, f"Vector{kind}ScalerTrainBatchOp")(
+            selected_col="vec").link_from(MemSourceBatchOp(vec))
+        models[f"Vector{kind}Scaler"] = m
+        run(f"Vector{kind}Scaler", lambda m=m, kind=kind: getattr(
+            vo, f"Vector{kind}ScalerPredictBatchOp")(
+            selected_col="vec", output_col="scaled").link_from(
+            m, MemSourceBatchOp(vec)).get_output_table())
+    rng = np.random.RandomState(24)
+    X = np.stack([np.asarray(rows.col(c), np.float64)
+                  for c in ADULT_COLS[:6]], 1)
+    X[rng.rand(*X.shape) < 0.01] = np.nan
+    holes = _columns_table(X, ADULT_COLS[:6])
+    nan_vec = vo.VectorAssemblerBatchOp(
+        selected_cols=ADULT_COLS[:6], output_col="vec").link_from(
+        MemSourceBatchOp(holes)).get_output_table()
+    imp = vo.VectorImputerTrainBatchOp(selected_col="vec").link_from(
+        MemSourceBatchOp(nan_vec))
+    models["VectorImputer"] = imp
+    filled = run("VectorImputer", lambda: vo.VectorImputerPredictBatchOp(
+        selected_col="vec").link_from(
+        imp, MemSourceBatchOp(nan_vec)).get_output_table())
+    F = np.stack([v.data for v in filled.col("vec")])
+    mean = np.nanmean(X, 0)
+    require(np.array_equal(F, np.where(np.isnan(X), mean, X)),
+            "24(b): VectorImputer fills each NaN with its column's mean")
+    out["nan_cells"] = int(np.isnan(X).sum())
+    print(f"features (b) [{card}]: {n} rows; each equal to a "
+          f"second run; rows/s " + ", ".join(
+              f"{k} {v['rows_per_s']:.0f}" for k, v in out.items()
+              if isinstance(v, dict)), flush=True)
+    return out, models, vec
+
+
+def statistics_leg(held, card):
+    """24(c): the statistics ops on the held-out rows against numpy and
+    scipy."""
+    import scipy.stats
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        ChiSqSelectorBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.batch.statistics import stat_ops as so
+    cont, codes = ADULT_COLS[:6], ADULT_COLS[6:]
+    src = MemSourceBatchOp(held)
+    X = np.stack([np.asarray(held.col(c), np.float64) for c in cont], 1)
+    out, t0 = {"rows": held.num_rows}, time.perf_counter()
+    summ = so.SummarizerBatchOp(selected_cols=cont).link_from(src) \
+        .collect_summary()
+    got = np.asarray([[summ.mean(c), summ.standard_deviation(c), summ.min(c),
+                       summ.max(c)] for c in cont])
+    want = np.stack([X.mean(0), X.std(0, ddof=1), X.min(0), X.max(0)], 1)
+    sgap = float(np.abs(got - want).max() / np.abs(want).max())
+    require(sgap <= 1e-12, f"24(c): Summarizer equals numpy's ({sgap})")
+    out["summarizer_s"] = time.perf_counter() - t0
+    gaps = {}
+    for method in ("PEARSON", "SPEARMAN"):
+        t0 = time.perf_counter()
+        C = so.CorrelationBatchOp(selected_cols=cont, method=method) \
+            .link_from(src).collect_correlation()
+        out[f"{method.lower()}_s"] = time.perf_counter() - t0
+        R = X if method == "PEARSON" else np.stack(
+            [scipy.stats.rankdata(X[:, j]) for j in range(X.shape[1])], 1)
+        gaps[method] = float(np.abs(C - np.corrcoef(R, rowvar=False)).max())
+        require(gaps[method] <= 1e-12,
+                f"24(c): {method} equals np.corrcoef ({gaps[method]})")
+    t0 = time.perf_counter()
+    chi = so.ChiSquareTestBatchOp(selected_cols=codes, label_col="label") \
+        .link_from(src).get_output_table()
+    out["chi_square_s"] = time.perf_counter() - t0
+    label = np.asarray(held.col("label"))
+    cgap = 0.0
+    for c, p, stat, df in chi.to_rows():
+        x = np.asarray(held.col(c))
+        xv, xi = np.unique(x, return_inverse=True)
+        obs = np.zeros((len(xv), 2))
+        np.add.at(obs, (xi, label), 1)
+        ref = scipy.stats.chi2_contingency(obs, correction=False)
+        cgap = max(cgap, abs(stat - ref[0]) / ref[0])
+        require(abs(stat - ref[0]) <= 1e-9 * ref[0] and int(df) == ref[2]
+                and abs(p - ref[1]) <= 1e-9,
+                f"24(c): ChiSquareTest of {c} equals scipy's "
+                f"chi2_contingency ({stat}, {p} against {ref[:2]})")
+    t0 = time.perf_counter()
+    sel = ChiSqSelectorBatchOp(selected_cols=codes, label_col="label",
+                               num_top_features=4).link_from(src)
+    out["chisq_selector_s"] = time.perf_counter() - t0
+    ranked = sorted(chi.to_rows(), key=lambda r: r[1])
+    keep = {r[0] for r in ranked[:4]}
+    require([c for c in sel.get_output_table().col_names if c in codes]
+            == [c for c in codes if c in keep],
+            "24(c): ChiSqSelector keeps the four smallest p-values")
+    out.update(summarizer_gap=sgap, correlation_gaps=gaps, chi2_gap=cgap)
+    print(f"features (c) [{card}]: {held.num_rows} rows; "
+          f"Summarizer gap {sgap}, correlation gaps {gaps}, chi2 relative "
+          f"gap {cgap} against scipy; s {dict((k, v) for k, v in out.items() if k.endswith('_s'))}",
+          flush=True)
+    return out
+
+
+def pca_dct_leg(dev, card, sizes):
+    """24(d): PCA k = 50 on bench_softmax's rows; DCT forward and inverse
+    of float64 rows on the card against the CPU."""
+    import torch
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import DenseVector
+    from alink_tpu_torch.operator.batch.feature import feature_ops as fo
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    n, d, k = sizes["pca"]
+    X = softmax_data()[0][:n, 1:d + 1].astype(np.float64)
+    names = [f"p{j}" for j in range(d)]
+    table = MemSourceBatchOp(_columns_table(X, names))
+    out = {"rows": n, "cols": d, "k": k}
+    t0 = time.perf_counter()
+    pca = fo.PcaTrainBatchOp(selected_cols=names, k=k).link_from(table)
+    out["train_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    z = fo.PcaPredictBatchOp(selected_cols=names, prediction_col="z",
+                             reserved_cols=[]).link_from(
+        pca, table).get_output_table()
+    secs = time.perf_counter() - t0
+    mean, std, comps, explained = fo.PcaModelConverter().load_model(
+        pca.get_output_table())
+    Z = np.stack([v.data for v in z.col("z")])
+    require(Z.shape == (n, k) and np.array_equal(
+        Z, ((X - mean) / std) @ comps.T),
+        "24(d): PCA's projections equal the host's numpy product")
+    out.update(predict_s=secs, predict_rows_per_s=n / secs,
+               explained_sum=float(explained.sum()))
+    # DCT: forward and inverse on the card and on the CPU
+    m, w = sizes["dct"]
+    V = np.random.RandomState(5).randn(m, w) * np.random.RandomState(6) \
+        .choice([1e-3, 1.0, 1e3], size=(m, 1))
+    col = np.empty(m, object)
+    col[:] = [DenseVector(v) for v in V]
+    src = MemSourceBatchOp(MTable({"v": col}, "v DENSE_VECTOR"))
+    t0 = time.perf_counter()
+    f = fo.DCTBatchOp(selected_col="v", output_col="f", device=dev) \
+        .link_from(src)
+    t1 = time.perf_counter()
+    b = fo.DCTBatchOp(selected_col="f", output_col="b", inverse=True,
+                      device=dev).link_from(f)
+    fs, is_ = t1 - t0, time.perf_counter() - t1
+    tab = b.get_output_table()
+    Yg = np.stack([v.data for v in tab.col("f")])
+    Bg = np.stack([v.data for v in tab.col("b")])
+    # the CPU's transforms of the same rows (the op's host part, parsing
+    # and formatting vectors, is the same code on both)
+    t0 = time.perf_counter()
+    Yc = fo.dct2_ortho(torch.from_numpy(V)).numpy()
+    Bc = fo.dct2_ortho(torch.from_numpy(Yg), inverse=True).numpy()
+    cpu_s = time.perf_counter() - t0
+
+    def rel(a, ref):
+        scale = np.abs(ref).max(1, keepdims=True)
+        return float((np.abs(a - ref) / np.where(scale > 0, scale, 1)).max())
+
+    gaps = {"forward": rel(Yg, Yc), "inverse": rel(Bg, Bc),
+            "round_trip": rel(Bg, V)}
+    require(max(gaps.values()) <= DCT_BOUND,
+            f"24(d): DCT on the card within 1e-12 of each row's largest "
+            f"|y| from the CPU's, the round trip within the same ({gaps})")
+    out["dct"] = {"rows": m, "width": w, "forward_s": fs, "inverse_s": is_,
+                  "forward_rows_per_s": m / fs, "gaps": gaps,
+                  "cpu_transforms_s": cpu_s}
+    print(f"features (d) [{card}]: PCA k {k} on {n} x {d}: train "
+          f"{out['train_s']:.3f} s, predict {n / secs:.0f} rows/s, the "
+          f"projections equal numpy's product; DCT {m} x {w} "
+          f"float64: forward {fs:.3f} s, inverse {is_:.3f} s on the card, "
+          f"gaps {gaps}", flush=True)
+    return out, pca
+
+
+def sos_rows(n, d, frac, seed=0):
+    """Seeded clusters (8 centres ``randn * 4``, unit noise) and a share
+    ``frac`` of rows replaced by uniform draws over the data's box widened
+    by 2 a side, shuffled: (X float64, planted-outlier flags)."""
+    rng = np.random.RandomState(seed)
+    C = rng.randn(8, d) * 4
+    X = C[rng.randint(0, 8, n)] + rng.randn(n, d)
+    k = int(round(frac * n))
+    X[:k] = rng.uniform(X.min(0) - 2, X.max(0) + 2, size=(k, d))
+    flags = np.zeros(n, bool)
+    flags[:k] = True
+    order = rng.permutation(n)
+    return X[order], flags[order]
+
+
+def sos_nan_columns(X, perplexity):
+    """The columns ``sos_scores(X, perplexity)`` must return as NaN: every
+    column but its own of a row whose affinities all underflow at its
+    solved beta (its 0/0 binding row, which only a 0 floor, float32's,
+    leaves), from the op's own blocks, distances and bisection."""
+    import torch
+    from alink_tpu_torch.operator.batch.outlier import (_solve_beta,
+                                                        _sq_dists,
+                                                        sos_block_rows)
+    n, dev, dt = X.shape[0], X.device, X.dtype
+    sq = (X * X).sum(1)
+    floor = torch.tensor(1e-300, dtype=dt, device=dev)
+    log_perp = torch.log(torch.tensor(min(perplexity, n - 1.0), dtype=dt,
+                                      device=dev))
+    B = sos_block_rows(n, X.element_size())
+    under = []
+    for r0 in range(0, n, B):
+        r1 = min(n, r0 + B)
+        local = torch.arange(r1 - r0, device=dev)
+        diag = (local, local + r0)
+        d2 = _sq_dists(X, sq, r0, r1, diag)
+        beta = _solve_beta(d2, diag, log_perp, floor, 64)
+        s = torch.mul(d2, -beta[:, None]).exp_().sum(1) + floor
+        under.append((s == 0).nonzero().flatten().cpu().numpy() + r0)
+        del d2
+    under = np.concatenate(under)
+    nan = np.zeros(n, bool)
+    if len(under) > 1:
+        nan[:] = True
+    elif len(under) == 1:
+        nan[:] = True
+        nan[under[0]] = False
+    return nan, len(under)
+
+
+def sos_case(name, shape, dev, card, sizes):
+    """24(e) at one shape: two float32 card runs bitwise (the second
+    under the profiler), NaN only in the columns ``sos_nan_columns``
+    predicts, the float32 AUC's floor where the scores are finite, the
+    float64 cut against the CPU and its AUC's floor."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from alink_tpu_torch.operator.batch.outlier import (sos_block_rows,
+                                                        sos_scores)
+    cuda = torch.device(dev).type == "cuda"
+    n, d, frac = shape
+    X, flags = sos_rows(n, d, frac)
+    X32 = torch.from_numpy(X).to(dev, torch.float32)
+    out = {"rows": n, "cols": d, "outliers": int(flags.sum()),
+           "block_rows": sos_block_rows(n, 4)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    _sync(dev)
+    t0 = time.perf_counter()
+    a = sos_scores(X32, SOS_PERPLEXITY)
+    _sync(dev)
+    out["s"] = time.perf_counter() - t0
+    if cuda:
+        out["peak_bytes"] = int(torch.cuda.max_memory_allocated() - base)
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        b = sos_scores(X32, SOS_PERPLEXITY)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    if cuda:
+        # the device events' durations, read off the raw trace: building
+        # key_averages() over its ~6,000 launches took 3.3 s
+        busy = sum(e.duration_ns() for e in
+                   prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CUDA")) / 1e9
+        out.update(profiled_s=wall, device_busy_share=busy / wall)
+    p = a.cpu().numpy()
+    require(np_bits_equal(p, b.cpu().numpy()),
+            f"24(e) {name}: two float32 card runs bitwise")
+    # one row whose affinities all underflow float32 at its final beta
+    # (its 0/0 binding row) makes every other column's log-sum NaN, as in
+    # the JAX package, whose float32 floors are 0 too (a fault to repair:
+    # ROADMAP Queue C)
+    want_nan, out["underflow_rows"] = sos_nan_columns(X32, SOS_PERPLEXITY)
+    out["nan_scores"] = int(np.isnan(p).sum())
+    require(np.array_equal(np.isnan(p), want_nan),
+            f"24(e) {name}: the float32 scores NaN in exactly the "
+            f"{int(want_nan.sum())} columns its {out['underflow_rows']} "
+            f"underflowing rows predict ({out['nan_scores']} NaN)")
+    out["auc"] = (rank_auc(flags.astype(np.int64), p.astype(np.float64))
+                  if not out["nan_scores"] else None)
+    if name in SOS_F32_AUC_FLOOR:
+        require(out["nan_scores"] == 0
+                and out["auc"] >= SOS_F32_AUC_FLOOR[name],
+                f"24(e) {name}: the float32 scores finite and their AUC "
+                f"{out['auc']} at or above {SOS_F32_AUC_FLOOR[name]}")
+    cut = min(n, sizes["sos_cut"])
+    res = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        res[where] = sos_scores(torch.from_numpy(X[:cut]).to(where),
+                                SOS_PERPLEXITY).cpu().numpy()
+        res[where + "_s"] = time.perf_counter() - t0
+    gap = _rel_gap(res[dev], res["cpu"])
+    require(bool(np.isfinite(res[dev]).all()) and gap <= SOS_RTOL,
+            f"24(e) {name}: the float64 card SOS of the "
+            f"first {cut} rows finite and within rtol 1e-9 of the CPU's "
+            f"({gap})")
+    cut_auc = rank_auc(flags[:cut].astype(np.int64), res[dev])
+    floor = SOS_AUC_FLOOR[name]
+    require(cut_auc >= floor,
+            f"24(e) {name}: the planted outliers' AUC on the cut {cut_auc} "
+            f"at or above the JAX package's reading {floor} (the whole "
+            f"shape's, float32: {out['auc']})")
+    out.update(f64_cut={"rows": cut, "max_rel_gap": gap, "auc": cut_auc,
+                        "card_s": res[dev + "_s"], "cpu_s": res["cpu_s"]},
+               auc_floor=floor)
+    print(f"features (e) [{card}] SOS {name} {n} x {d}: {out['s']:.3f}"
+          f" s, block {out['block_rows']} rows, peak {out.get('peak_bytes')} "
+          f"B, busy {out.get('device_busy_share')}; two float32 runs "
+          f"bitwise, {out['nan_scores']} NaN scores (predicted by "
+          f"{out['underflow_rows']} underflowing rows), AUC {out['auc']} "
+          f"(floor {SOS_F32_AUC_FLOOR.get(name)}); the "
+          f"float64 cut's AUC {cut_auc:.6f} (floor {floor}), card vs CPU on "
+          f"{cut} rows {gap}", flush=True)
+    return out
+
+
+def lsh_rows(queries, n, d, seed=0):
+    """SIFT-width unit rows: 2,000 cluster centres, each row a centre plus
+    0.25 noise, normalised; the queries fresh rows of the same clusters.
+    (left rows, right rows, Q, Y)."""
+    rng = np.random.RandomState(seed)
+    C = rng.randn(2_000, d)
+    Y = C[rng.randint(0, 2_000, n)] + 0.25 * rng.randn(n, d)
+    Q = C[rng.randint(0, 2_000, queries)] + 0.25 * rng.randn(queries, d)
+    Y /= np.linalg.norm(Y, axis=1, keepdims=True)
+    Q /= np.linalg.norm(Q, axis=1, keepdims=True)
+    return Q, Y
+
+
+def _vec_table(X, id_col, offset=0):
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import DenseVector
+    col = np.empty(len(X), object)
+    col[:] = [DenseVector(x) for x in X]
+    return MTable({id_col: np.arange(offset, offset + len(X)), "vec": col},
+                  f"{id_col} LONG, vec DENSE_VECTOR")
+
+
+def similarity_leg(dev, card, sizes):
+    """24(f): the LSH top-N and join on the card against the CPU, the
+    Jaccard join and the string metrics."""
+    import torch
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.operator.batch import similarity as sim
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.common.similarity.lsh import (
+        BucketRandomProjectionLSH, bucket_candidates)
+    q, n, d = sizes["lsh"]
+    Q, Y = lsh_rows(q, n, d)
+    left = MemSourceBatchOp(_vec_table(Q, "lid"))
+    right = MemSourceBatchOp(_vec_table(Y, "rid", offset=10 ** 6))
+    out = {"queries": q, "rows": n, "width": d, "bucket_width": LSH_WIDTH}
+    # the hash: bucket ids on the card against the CPU, away from an edge
+    lsh = {w: BucketRandomProjectionLSH(d, bucket_width=LSH_WIDTH, seed=0,
+                                        device=w) for w in (dev, "cpu")}
+    proj = {w: lsh[w].projections(np.vstack([Q, Y])).cpu().numpy()
+            for w in lsh}
+    ids = {w: np.floor(p).astype(np.int64) for w, p in proj.items()}
+    edge = np.abs(proj["cpu"] - np.rint(proj["cpu"])) <= 1e-9 * np.maximum(
+        1.0, np.abs(proj["cpu"]))
+    require(np.array_equal(ids[dev][~edge], ids["cpu"][~edge]),
+            "24(f): the card's bucket ids equal the CPU's away from an edge")
+    out["edge_ids"] = int(edge.sum())
+    out["ids_differing"] = int((ids[dev] != ids["cpu"]).sum())
+    # candidates a query (the union over the tables of its buckets)
+    H = ids["cpu"].reshape(q + n, lsh["cpu"].num_tables, -1)
+    cands = np.asarray([c.size for c in bucket_candidates(H[q:], H[:q])])
+    out["candidates"] = {"median": float(np.median(cands)),
+                         "p10": float(np.percentile(cands, 10)),
+                         "p90": float(np.percentile(cands, 90))}
+    if n == P24_SIZES["lsh"][1]:
+        require(10 <= np.median(cands) <= 1_000,
+                f"24(f): the median query has 10-1,000 candidates "
+                f"({np.median(cands)})")
+    # exact top-10 on the card (float64)
+    Qt = torch.from_numpy(Q).to(dev)
+    Yt = torch.from_numpy(Y).to(dev)
+    exact = torch.cdist(Qt, Yt).topk(LSH_TOP, largest=False)
+    exact_ids = exact.indices.cpu().numpy() + 10 ** 6
+    threshold = float(np.median(exact.values[:, 4].cpu().numpy()))
+    kw = dict(left_col="vec", right_col="vec", left_id_col="lid",
+              right_id_col="rid", bucket_width=LSH_WIDTH, seed=0)
+    for name, cls, extra in (
+            ("top_n", sim.ApproxVectorSimilarityTopNLSHBatchOp,
+             {"top_n": LSH_TOP}),
+            ("join", sim.ApproxVectorSimilarityJoinLSHBatchOp,
+             {"distance_threshold": threshold})):
+        res = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            op = cls(device=where, **kw, **extra).link_from(left, right)
+            res[where] = (op.get_output_table(), time.perf_counter() - t0,
+                          dict(op.stage_seconds))
+        (a, secs, stages), (b, _, cstages) = res[dev], res["cpu"]
+        require(list(a.col("lid")) == list(b.col("lid"))
+                and list(a.col("rid")) == list(b.col("rid"))
+                and np.allclose(np.asarray(a.col("distance"), float),
+                                np.asarray(b.col("distance"), float),
+                                rtol=1e-12, atol=0),
+                f"24(f) {name}: the card's pairs and distances equal the "
+                f"CPU's")
+        rec = {"pairs": a.num_rows, "s": secs, "stages_s": stages,
+               "cpu_stages_s": cstages}
+        if name == "top_n":
+            found = {}
+            for lid, rid in zip(a.col("lid"), a.col("rid")):
+                found.setdefault(int(lid), set()).add(int(rid))
+            rec["recall_at_10"] = float(np.mean(
+                [len(found.get(i, set()) & set(exact_ids[i])) / LSH_TOP
+                 for i in range(q)]))
+        else:
+            rec["threshold"] = threshold
+        out[name] = rec
+    # Jaccard (MinHash) on seeded sparse sets, and the string metrics
+    nl, nr = sizes["jaccard"]
+    rng = np.random.RandomState(8)
+    sets = []
+    for _ in range(nr):
+        base = rng.randint(0, 500) * 20
+        idx = sorted(set(base + rng.randint(0, 30, 12)))
+        sets.append("$12000$" + " ".join(f"{k}:1.0" for k in idx))
+    jl = MemSourceBatchOp(MTable({"lid": np.arange(nl), "v": np.asarray(
+        sets[:nl], object)}, "lid LONG, v STRING"))
+    jr = MemSourceBatchOp(MTable({"rid": np.arange(nr), "v": np.asarray(
+        sets, object)}, "rid LONG, v STRING"))
+    jac, secs = _two_runs(lambda: sim.ApproxVectorSimilarityJoinLSHBatchOp(
+        left_col="v", right_col="v", left_id_col="lid", right_id_col="rid",
+        metric="JACCARD", distance_threshold=0.6, device=dev).link_from(
+        jl, jr).get_output_table(), "24(f) the Jaccard join")
+    out["jaccard"] = {"left": nl, "right": nr, "pairs": jac.num_rows,
+                      "s": secs}
+    m = sizes["strings"]
+    alpha = np.asarray(list("abcdefghij"))
+    words = ["".join(rng.choice(alpha, rng.randint(4, 14)))
+             for _ in range(2 * m)]
+    pairs = MemSourceBatchOp(MTable({"a": np.asarray(words[:m], object),
+                                     "b": np.asarray(words[m:], object)},
+                                    "a STRING, b STRING"))
+    out["strings"] = {"pairs": m}
+    from alink_tpu_torch.operator.common.similarity.metrics import \
+        SIMILARITY_FUNCS
+    for metric in sorted(SIMILARITY_FUNCS):
+        _, secs = _two_runs(lambda metric=metric:
+                            sim.StringSimilarityPairwiseBatchOp(
+                                selected_cols=["a", "b"], metric=metric,
+                                output_col="s").link_from(pairs)
+                            .get_output_table(),
+                            f"24(f) StringSimilarityPairwise {metric}")
+        out["strings"][metric] = {"s": secs, "pairs_per_s": m / secs}
+    print(f"features (f) [{card}]: LSH {q} queries x {n} rows x {d},"
+          f" width {LSH_WIDTH}: candidates {out['candidates']}, {out['edge_ids']}"
+          f" ids at an edge ({out['ids_differing']} differ); top-{LSH_TOP} "
+          f"{out['top_n']}; join {out['join']}; Jaccard {out['jaccard']}; "
+          f"strings {out['strings']}", flush=True)
+    return out
+
+
+def feature_twins_leg(models, held, vec, pca_small, dev, card, sizes):
+    """24(g): the 21 new twins over two micro-batches of held-out rows,
+    row for row their batch ops."""
+    import inspect
+    from alink_tpu_torch.common.mtable import MTable
+    from alink_tpu_torch.common.vector import DenseVector
+    from alink_tpu_torch.operator.batch.dataproc import indexers as ix
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    from alink_tpu_torch.operator.stream import batch_twins as bt
+    from alink_tpu_torch.operator.stream import predict_ops as po
+    m = sizes["twin_rows"]
+    rows = held.first_n(m)
+    V = np.stack([v.data for v in vec.first_n(m).col("vec")])
+    small = np.empty(rows.num_rows, object)
+    small[:] = [DenseVector(v[:3]) for v in V]
+    table = rows.add_column("vec", vec.first_n(m).col("vec"),
+                            "DENSE_VECTOR").add_column(
+        "v3", small, "DENSE_VECTOR").add_column(
+        "idx", np.asarray(rows.col("f7")) - 1, "LONG")
+    multi = ix.MultiStringIndexerTrainBatchOp(
+        selected_cols=["f6", "f8"]).link_from(MemSourceBatchOp(rows))
+    vkw = dict(selected_col="vec", output_col="out")
+    predict = {
+        "VectorStandardScaler": (models["VectorStandardScaler"], vkw),
+        "VectorMinMaxScaler": (models["VectorMinMaxScaler"], vkw),
+        "VectorMaxAbsScaler": (models["VectorMaxAbsScaler"], vkw),
+        "VectorImputer": (models["VectorImputer"], vkw),
+        "StringIndexer": (models["StringIndexer"],
+                          dict(selected_col="f6", output_col="out")),
+        "MultiStringIndexer": (multi, dict(selected_cols=["f6", "f8"],
+                                           output_cols=["o6", "o8"])),
+        "IndexToString": (models["StringIndexer"],
+                          dict(selected_col="idx", output_col="out")),
+        "OneHot": (models["oh"], dict(output_col="out")),
+        "QuantileDiscretizer": (models["qd"], {}),
+        "Pca": (pca_small, dict(selected_cols=ADULT_COLS[:6],
+                                prediction_col="out"))}
+    stateless = {
+        "BinarizerStreamOp": dict(selected_col="f0", threshold=0.5),
+        "BucketizerStreamOp": dict(selected_cols=["f0"],
+                                   cuts_array=[[-1.0, 0.0, 1.0]]),
+        "DCTStreamOp": dict(selected_col="vec", output_col="out"),
+        "VectorAssemblerStreamOp": dict(selected_cols=["f1", "vec"],
+                                        output_col="out"),
+        "VectorElementwiseProductStreamOp": dict(
+            selected_col="vec", scaling_vector="1 -2 3 0.5 0.25 4",
+            output_col="out"),
+        "VectorInteractionStreamOp": dict(selected_cols=["v3", "vec"],
+                                          output_col="out"),
+        "VectorNormalizeStreamOp": dict(selected_col="vec", output_col="out"),
+        "VectorPolynomialExpandStreamOp": dict(selected_col="v3", degree=2,
+                                               output_col="out"),
+        "VectorSizeHintStreamOp": dict(selected_col="vec", size=6),
+        "VectorSliceStreamOp": dict(selected_col="vec", indices=[5, 0],
+                                    output_col="out"),
+        "VectorSerializeStreamOp": {}}
+    out = {}
+    for name, (model, kw) in predict.items():
+        twin = getattr(po, f"{name}PredictStreamOp")
+        model_op = MemSourceBatchOp(model if isinstance(model, MTable)
+                                    else model.get_output_table())
+        batch = twin.BATCH_CLS(**kw).link_from(
+            model_op, MemSourceBatchOp(table)).get_output_table()
+        got, parts, secs = _fam_twin(twin(model_op, device=dev, **kw), table)
+        require(parts == 2 and _rows_equal(got, batch),
+                f"24(g): {name}PredictStreamOp equals its batch op row for "
+                f"row over 2 micro-batches")
+        out[f"{name}PredictStreamOp"] = secs
+    for name, kw in stateless.items():
+        twin = bt.TWIN_STREAM_OPS[name]
+        bcls = twin._batch_cls(twin)
+        dkw = {"device": dev} if "device" in inspect.signature(
+            bcls.__init__).parameters else {}
+        batch = bcls(**kw, **dkw).link_from(MemSourceBatchOp(table)) \
+            .get_output_table()
+        got, parts, secs = _fam_twin(twin(**kw, **dkw), table)
+        require(parts == 2 and _rows_equal(got, batch),
+                f"24(g): {name} equals its batch op row for row over 2 "
+                f"micro-batches")
+        out[name] = secs
+    require(len(out) == 21, f"24(g): 21 twins ({len(out)})")
+    print(f"features (g) [{card}]: the 21 twins over 2 micro-batches "
+          f"of {table.num_rows} rows equal their batch ops; s {out}",
+          flush=True)
+    return out
+
+
+def phase_features(kernels, card, dev=None, sizes=None):
+    """24: feature engineering, statistics, similarity and outliers.
+    ``kernels`` are the hand kernels' modules (their counts are reset and
+    read around (a)'s main path); ``sizes`` (a rehearsal's) replaces
+    ``P24_SIZES`` entries."""
+    import torch
+    from alink_tpu_torch.operator.batch.feature.feature_ops import \
+        PcaTrainBatchOp
+    from alink_tpu_torch.operator.batch.source import MemSourceBatchOp
+    dev = dev or "cuda"
+    sizes = {**P24_SIZES, **(sizes or {})}
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is off for the dense products")
+    t0 = time.perf_counter()
+    out, secs = {"card": card}, {}
+
+    def leg(name, fn, *a):
+        t1 = time.perf_counter()
+        res = fn(*a)
+        secs[name] = time.perf_counter() - t1
+        return res
+
+    out["adult"], fitted = leg("a", adult_pipeline_leg, kernels, dev, card,
+                               sizes)
+    held = fitted["held"]
+    out["indexers_vector"], models, vec = leg("b", indexer_vector_leg, held,
+                                              card, sizes)
+    out["statistics"] = leg("c", statistics_leg, held, card)
+    out["pca_dct"], _ = leg("d", pca_dct_leg, dev, card, sizes)
+    out["sos"] = {name: leg(f"e_{name}", sos_case, name, shape, dev, card,
+                            sizes)
+                  for name, shape in sizes["sos"].items()}
+    out["similarity"] = leg("f", similarity_leg, dev, card, sizes)
+    pca_small = PcaTrainBatchOp(selected_cols=ADULT_COLS[:6], k=3) \
+        .link_from(MemSourceBatchOp(held.first_n(sizes["twin_rows"])))
+    models.update(oh=fitted["oh"].get_model_data(),
+                  qd=fitted["qd"].get_model_data())
+    out["twins"] = leg("g", feature_twins_leg, models, held, vec, pca_small,
+                       dev, card, sizes)
+    out["launches"] = out["adult"]["launches"]
+    out["leg_seconds"] = secs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 24 [{card}]: {out['seconds']:.1f} s, legs (s) "
+          f"{secs}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_main = time.perf_counter()
+    marks = [("1", t_main)]
+
+    def mark(name):
+        """Phase ``name`` starts now (the seconds of each phase print at
+        the end)."""
+        marks.append((name, time.perf_counter()))
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -10112,6 +11009,7 @@ def main(argv=None) -> int:
     from alink_tpu_torch.kernels import tree_hist as kh
     from alink_tpu_torch.serving import PredictServer
 
+    mark("2")
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     probe = start_chain_probe(_build)
@@ -10122,6 +11020,7 @@ def main(argv=None) -> int:
     lat = add_latency(*probe)
     print(f"dependent add latency (cycles) and SM clock (MHz): {lat}")
 
+    mark("3")
     # -- 3. kernels against their plain versions -------------------------
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -10133,6 +11032,7 @@ def main(argv=None) -> int:
             print(f"{name} {mode}: " + " ".join(
                 f"{k}={v}" for k, v in rec.items()), flush=True)
 
+    mark("4-5")
     # -- 4. the main path: Criteo-shape sparse LR -------------------------
     coef = rng.standard_normal(FEATURES + 1) * 0.05
     t0 = time.perf_counter()
@@ -10204,6 +11104,7 @@ def main(argv=None) -> int:
     for kind, split in (("sparse", sparse_split), ("dense", dense_split)):
         print(f"{kind} 512-row dispatch, median ms per stage: {split}")
 
+    mark("6")
     # -- 6. the FTRL state kernels against their plain versions ----------
     ftrl_parity = phase_ftrl_kernels(kf, rng, dev, lat)
     host_parts = ftrl_parity.pop("gather_host_parts_ms")
@@ -10216,23 +11117,29 @@ def main(argv=None) -> int:
                 f"{k}={v}" for k, v in rec.items()), flush=True)
     print(f"gather host parts (ms per call): {host_parts}", flush=True)
 
+    mark("7")
     # -- 7. the FTRL main path: online training on Criteo-shape rows -----
     ftrl = phase_ftrl_main(kf, ks, rng)
 
+    mark("8")
     # -- 8. the level-histogram kernel against its plain version ---------
     tree_parity, tree_regs = phase_tree_hist(kh, _build.build_log("tree_hist"),
                                              dev)
 
+    mark("9")
     # -- 9. the GBDT main path: adult-shape training on the card ---------
     gbdt, gbdt_train_op, _ = phase_gbdt_main(kh)
 
+    mark("10")
     # -- 10. tree serving --------------------------------------------------
     tree_serving = phase_tree_serving(gbdt_train_op)
 
+    mark("11")
     # -- 11. an out-of-range slot or bin fails loudly on the card ---------
     bad_slots = phase_bad_slots()
     print(f"out-of-range indices: {bad_slots}")
 
+    mark("12")
     # -- 12. linear training: gradient kernel, L-BFGS, the chained path ---
     from alink_tpu_torch.kernels import linear as kl
     t0 = time.perf_counter()
@@ -10244,6 +11151,7 @@ def main(argv=None) -> int:
     lr_main = phase_lr_main(kl, ks, kf)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("14")
     # -- 14. FTRL's batch mode: P2, the batch steps, bench_ftrl's stream --
     # (before phase 13: after that phase's profiled drain, of over 130,000
     # kernel launches, torch.profiler in the same process recorded 0 to 2
@@ -10252,40 +11160,48 @@ def main(argv=None) -> int:
     scatter_parity, batch = phase_batch((kl, kf), rng, lat, card)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("13")
     # -- 13. the FTRLExample loop end to end ------------------------------
     t0 = time.perf_counter()
     example = phase_example((ks, kl, kf, kh), args.seed, card)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("15")
     # -- 15. the ingest path: files, the native parser, L-BFGS on the card
     t0 = time.perf_counter()
     ingest = phase_ingest((ks, kl), card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("16")
     # -- 16. the rest of the linear family and KMeans ---------------------
     t0 = time.perf_counter()
     family = phase_family_main((ks, kl), card)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("17")
     # -- 17. durability: kill-and-resume on the card ----------------------
     t0 = time.perf_counter()
     durability = phase_durability((ks, kl, kf), card)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("18")
     # -- 18. ALS, the operators and the stream twins ----------------------
     t0 = time.perf_counter()
     als = phase_als((ks, kl, kf, kh), card)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("19")
     # -- 19. the serving tier: serve_logreg, serve_hot_swap, serve_chaos --
     serving = phase_serving((ks, kl, kf, kh), card)
     print_serving(serving)
 
+    mark("20")
     # -- 20. the online DAG (bench_serve_online_e2e) and health on the card
     online = phase_online((ks, kl, kf, kh), card)
     print_online(online)
     health = phase_health((ks, kl, kf, kh), card)
 
+    mark("21")
     # -- 21. FM, LDA and Word2Vec with their text front end: P3 and P4 ----
     from alink_tpu_torch.kernels import fm as kfm
     from alink_tpu_torch.kernels import rows as kr
@@ -10293,9 +11209,11 @@ def main(argv=None) -> int:
     print(f"phase 21: {text['seconds']:.1f} s, launches {text['launches']}",
           flush=True)
 
+    mark("22")
     # -- 22. the tuning layer: sweeps and grid searches -------------------
     tuning = phase_tuning((ks, kl, kf), card)
 
+    mark("23")
     # -- 23. the remaining model families and the segmenter ---------------
     all_kernels = (ks, kl, kf, kh, kr, kfm)
     _reset(*all_kernels)
@@ -10304,6 +11222,11 @@ def main(argv=None) -> int:
     require(not any(families["launches"].values()),
             f"23: the families' paths launch no hand kernel "
             f"({families['launches']})")
+
+    # -- 24. feature engineering, statistics, similarity and outliers -----
+    mark("24")
+    features = phase_features(all_kernels, card)
+    mark("record")
 
     # -- the record -------------------------------------------------------
     launches = {"serve_dense": de_launch, "serve_sparse": sp_launch}
@@ -10540,14 +11463,20 @@ def main(argv=None) -> int:
         "edges": text["fm"]["p4_edges"]})
     for rec in kernels[-2:]:
         rec["phase23_launches"] = families["launches"].get(rec["name"], 0)
+    for rec in kernels:
+        rec["phase24_launches"] = features["launches"].get(rec["name"], 0)
     require(len(kernels) == 12 and all("phase23_launches" in r
+                                       and "phase24_launches" in r
                                        for r in kernels),
-            "every kernel record carries its phase-23 launches")
+            "every kernel record carries its phase-23 and phase-24 launches")
     script_s = time.perf_counter() - t_main
-    print(f"chip_smoke: phases 1-23 in {script_s:.1f} s (phases 1-22 "
-          f"alone: 775.8 s on an H100 80GB HBM3 at 700 W)", flush=True)
+    phase_s = {name: round(marks[i + 1][1] - t, 1)
+               for i, (name, t) in enumerate(marks[:-1])}
+    print(f"chip_smoke: phases 1-24 in {script_s:.1f} s; seconds by phase "
+          f"{phase_s}", flush=True)
     print(json.dumps({"main_path": {
-        "script_s": script_s, "families": families, "tuning": tuning,
+        "script_s": script_s, "phase_s": phase_s, "features": features,
+        "families": families, "tuning": tuning,
         "text": text,
         "online_e2e": online, "health": health,
         "serving_tier": serving, "als": als, "durability": durability, "linear_family": family,

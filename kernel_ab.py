@@ -7,10 +7,11 @@ this repository, timed in turns on one NVIDIA GPU.
     python3 kernel_ab.py ab/parent . . ab/parent     # ab/: listed in .gitignore
     python3 kernel_ab.py --parts=p2,steps,linear_grad ab/parent . . ab/parent
     python3 kernel_ab.py --parts=p4 ab/parent . . ab/parent
+    python3 kernel_ab.py --parts=depth ab/parent . . ab/parent
 
 ``--parts`` names the parts below to measure (default: all of them:
 ``sparse``, ``walk``, ``split``, ``linear_grad``, ``lbfgs``, ``p2``,
-``steps``, ``drain``, ``p3``, ``plan``, ``p4``). Each tree named on the command line is measured in a process
+``steps``, ``drain``, ``p3``, ``plan``, ``p4``, ``depth``). Each tree named on the command line is measured in a process
 of its own,
 in the order given (parent, change, change, parent is the fair order),
 from its own checkout: its kernels are built from its own sources into
@@ -122,7 +123,12 @@ a kernel and the library call it is held against are timed in turns):
   (``kernel_ms``), its device time (``device_ms``, ``torch.profiler``'s
   kernel time, and ``queued_ms``, events around calls queued behind a
   sleep), its host time (the enqueue cost of back-to-back calls), and
-  whether it is bitwise to ``fm_scores_plain`` on the CPU.
+  whether it is bitwise to ``fm_scores_plain`` on the CPU;
+* ``depth``: the seconds of the tree's own ``chip_smoke.py`` phase 13
+  (``phase_example``), phase 22(a) (``tuning_sweep_leg``) and, where the
+  tree has it, phase 24 (``phase_features``), each with its gates, TF32
+  off (host clock): what a cut in an earlier phase's depth saves against
+  what a new phase costs.
 """
 
 from __future__ import annotations
@@ -150,7 +156,7 @@ SPAN_SLEEP_CYCLES = 10_000_000        # about 5 ms at 1980 MHz
 # rows of P3's larger-vocabulary `out` cases (``p3``)
 BIG_VOCAB_ROWS = (1 << 18, 1 << 19, 1_500_000)
 PARTS = ("sparse", "walk", "split", "linear_grad", "lbfgs", "p2", "steps",
-         "drain", "p3", "plan", "p4")
+         "drain", "p3", "plan", "p4", "depth")
 
 
 def device_span_ms(fn, part: str, reps: int = 20, sessions: int = 6):
@@ -249,6 +255,35 @@ def measure(tree: Path, parts=PARTS) -> dict:
         out["plan"] = plan_times(h, kl)
     if "p4" in parts:
         out["p4"] = fm_times(h)
+    if "depth" in parts:
+        out["depth"] = depth_times(h, out["card"])
+    return out
+
+
+def depth_times(h, card):
+    """``depth``: phases 13, 22(a) and (where the tree has it) 24 of the
+    tree's ``chip_smoke.py``, each timed whole (seconds)."""
+    import torch
+    from alink_tpu_torch.kernels import fm as kfm
+    from alink_tpu_torch.kernels import ftrl as kf
+    from alink_tpu_torch.kernels import linear as kl
+    from alink_tpu_torch.kernels import rows as kr
+    from alink_tpu_torch.kernels import serve as ks
+    from alink_tpu_torch.kernels import tree_hist as kh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    legs = [("phase13_s", lambda: h.phase_example((ks, kl, kf, kh), 0,
+                                                   card)),
+            ("phase22a_s", lambda: h.tuning_sweep_leg(card))]
+    if hasattr(h, "phase_features"):
+        legs.append(("phase24_s", lambda: h.phase_features(
+            (ks, kl, kf, kh, kr, kfm), card)))
+    out = {}
+    for name, leg in legs:
+        t0 = time.perf_counter()
+        leg()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
     return out
 
 
@@ -939,6 +974,9 @@ def _summary(runs):
                 s[f"plan {key} {f}"] = med(rs, "plan", key, f)
             s[f"plan {key} plan_equal"] = all(r["plan"][key]["plan_equal"]
                                               for r in rs)
+        for key in rs[0].get("depth", {}):
+            s[f"depth {key}"] = med(rs, "depth", key)
+            s[f"depth {key} runs"] = [r["depth"][key] for r in rs]
         lb = rs[0].get("lbfgs")
         if lb:
             for f in ("ms_per_superstep", "device_busy_ms",

@@ -271,7 +271,7 @@ def test_jax_saved_pipeline_loads_in_the_port(loops, tmp_path):
     with pytest.raises(ValueError, match="not a class of"):
         TPipelineModel.load(str(path))
     bad = dict(obj, stages=[dict(obj["stages"][0],
-                                 className="alink_tpu.pipeline.feature.Pca")])
+                                 className="alink_tpu.pipeline.extras.Select")])
     with pytest.raises(ValueError, match="not ported"):
         pipeline_model_from_reference(bad)
 

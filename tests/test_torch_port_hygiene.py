@@ -158,7 +158,18 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.common.ann.mlp",
               "alink_tpu_torch.operator.batch.clustering.gmm_bisecting",
               "alink_tpu_torch.operator.batch.regression.glm_ops",
-              "alink_tpu_torch.operator.common.nlp.segment"):
+              "alink_tpu_torch.operator.common.nlp.segment",
+              "alink_tpu_torch.operator.common.statistics.hypothesis",
+              "alink_tpu_torch.operator.batch.statistics",
+              "alink_tpu_torch.operator.batch.statistics.stat_ops",
+              "alink_tpu_torch.operator.batch.dataproc.indexers",
+              "alink_tpu_torch.operator.batch.dataproc.vector_ops",
+              "alink_tpu_torch.operator.common.similarity",
+              "alink_tpu_torch.operator.common.similarity.lsh",
+              "alink_tpu_torch.operator.common.similarity.metrics",
+              "alink_tpu_torch.operator.batch.similarity",
+              "alink_tpu_torch.operator.batch.outlier",
+              "alink_tpu_torch.pipeline.feature"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):
@@ -360,3 +371,84 @@ def test_slice_23_host_ops_take_no_device(monkeypatch):
     for mapper in (classification.NaiveBayesModelMapper,
                    regression.IsotonicModelMapper, regression.AftModelMapper):
         assert "device" not in inspect.signature(mapper.__init__).parameters
+
+
+SLICE_24_DEVICE_OPS = [
+    "outlier.SosBatchOp", "feature.feature_ops.DCTBatchOp",
+    "feature.feature_ops.QuantileDiscretizerTrainBatchOp",
+    "similarity.ApproxVectorSimilarityJoinLSHBatchOp",
+    "similarity.ApproxVectorSimilarityTopNLSHBatchOp"]
+
+
+def _slice_24_class(name):
+    import importlib
+    mod, cls = name.rsplit(".", 1)
+    return getattr(importlib.import_module(
+        f"alink_tpu_torch.operator.batch.{mod}"), cls)
+
+
+@pytest.mark.parametrize("name", SLICE_24_DEVICE_OPS)
+def test_slice_24_device_ops_default_to_the_card(monkeypatch, name):
+    """SOS, DCT, QuantileDiscretizer's train op and the LSH joins given
+    no device raise without CUDA; given ``device="cpu"`` they take it.
+    So do the LSH hash and the DCT twin."""
+    import torch
+
+    from alink_tpu_torch.operator.common.similarity.lsh import \
+        BucketRandomProjectionLSH
+    from alink_tpu_torch.operator.stream.batch_twins import DCTStreamOp
+    op = _slice_24_class(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        op()
+    assert op(device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BucketRandomProjectionLSH(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DCTStreamOp(selected_col="v")
+    assert DCTStreamOp(selected_col="v", device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("twin", [
+    "VectorStandardScaler", "VectorMinMaxScaler", "VectorMaxAbsScaler",
+    "VectorImputer", "StringIndexer", "MultiStringIndexer", "IndexToString",
+    "OneHot", "QuantileDiscretizer", "Pca"])
+def test_slice_24_predict_twins_default_to_the_card(monkeypatch, twin):
+    import torch
+
+    from alink_tpu_torch.operator.stream import predict_ops
+    cls = getattr(predict_ops, f"{twin}PredictStreamOp")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls()
+    assert cls(device="cpu").device == torch.device("cpu")
+
+
+def test_slice_24_host_ops_take_no_device(monkeypatch):
+    """The statistics, the host feature ops, the indexers, the vector
+    ops, sampling and the string similarity ops run on the host and take
+    no device; they construct without CUDA."""
+    import importlib
+    import inspect
+
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mods = ("statistics.stat_ops", "dataproc.indexers", "dataproc.vector_ops",
+            "dataproc")
+    names = [f"{m}.{c}" for m in mods for c, v in vars(importlib.import_module(
+        f"alink_tpu_torch.operator.batch.{m}")).items()
+        if c.endswith("BatchOp") and inspect.isclass(v)
+        and v.__module__.endswith(m)]
+    names += [f"feature.feature_ops.{c}" for c in (
+        "OneHotTrainBatchOp", "OneHotPredictBatchOp",
+        "QuantileDiscretizerPredictBatchOp", "BucketizerBatchOp",
+        "BinarizerBatchOp", "ChiSqSelectorBatchOp",
+        "VectorChiSqSelectorBatchOp", "PcaTrainBatchOp", "PcaPredictBatchOp")]
+    names += ["similarity.StringSimilarityPairwiseBatchOp",
+              "similarity.TextSimilarityPairwiseBatchOp"]
+    assert len(names) > 40
+    for name in names:
+        cls = _slice_24_class(name)
+        assert "device" not in inspect.signature(cls.__init__).parameters, name
+        cls()
+

@@ -14,6 +14,13 @@ the distances within 8 eps (|x| + |c|)^2 of the one-product distance,
 as ``tests/test_torch_kmeans.py`` holds the batch op. Then
 ``pipeline/tree.py``: fit, transform, save and load.
 
+The ten twins of slice 24 (the vector scalers and imputer, the
+indexers, OneHot, QuantileDiscretizer, PCA) map rows with a vector, two
+string and an index column in 64-row micro-batches: cell for cell their
+batch op's, and the JAX package's batch op's on the same model table
+(host numpy in both). Their mappers declare an output schema in the
+port; the JAX package's twins of them cannot open.
+
 The twins of slice 23 (naive Bayes text and mixed, the multilayer
 perceptron, GLM, isotonic and AFT regression, GMM, bisecting KMeans) map
 rows of their own fixture (a vector column, a string column, survival
@@ -159,10 +166,12 @@ NLP_TWINS = ("DocCountVectorizer", "DocHashCountVectorizer", "Word2Vec")
 
 def test_every_ported_family_has_its_twin():
     import alink_tpu_torch.operator.stream as tstream
-    assert len(tpo.__all__) == 31 == len(CASES) + len(NLP_TWINS) + len(
-        SLICE23)
+    assert len(tpo.__all__) == 41 == len(CASES) + len(NLP_TWINS) + len(
+        SLICE23) + len(SLICE24)
     assert sorted(f"{n}PredictStreamOp"
-                  for n in (*CASES, *NLP_TWINS, *SLICE23)) == tpo.__all__
+                  for n in (*CASES, *NLP_TWINS, *SLICE23, *SLICE24)) \
+        == tpo.__all__
+    assert sorted(tpo.__all__) == sorted(jpo.__all__)
     # the package's lazily exported names are the module's twins
     assert sorted(k for k, v in tstream._LAZY.items()
                   if v == ".predict_ops") == tpo.__all__
@@ -365,6 +374,118 @@ def test_slice23_twin_equals_batch_op_and_jax_twin(name, s23_models):
         return
     with pytest.raises(NotImplementedError):   # the JAX package's twin
         list(jtwin.micro_batches())
+
+
+# -- the twins of slice 24 ----------------------------------------------------
+
+S24_SCHEMA = "f0 DOUBLE, f1 DOUBLE, c STRING, d STRING, vec STRING, idx LONG"
+S24_VEC = dict(selected_col="vec", output_col="vo")
+# twin name -> (train op's module and name, its params, the twin's params)
+SLICE24 = {
+    "VectorStandardScaler": ("dataproc.vector_ops",
+                             "VectorStandardScalerTrainBatchOp",
+                             dict(selected_col="vec"), S24_VEC),
+    "VectorMinMaxScaler": ("dataproc.vector_ops",
+                           "VectorMinMaxScalerTrainBatchOp",
+                           dict(selected_col="vec"), S24_VEC),
+    "VectorMaxAbsScaler": ("dataproc.vector_ops",
+                           "VectorMaxAbsScalerTrainBatchOp",
+                           dict(selected_col="vec"), S24_VEC),
+    "VectorImputer": ("dataproc.vector_ops", "VectorImputerTrainBatchOp",
+                      dict(selected_col="vec"), S24_VEC),
+    "StringIndexer": ("dataproc.indexers", "StringIndexerTrainBatchOp",
+                      dict(selected_col="c",
+                           string_order_type="frequency_desc"),
+                      dict(selected_col="c", output_col="ci")),
+    "MultiStringIndexer": ("dataproc.indexers",
+                           "MultiStringIndexerTrainBatchOp",
+                           dict(selected_cols=["c", "d"]),
+                           dict(selected_cols=["c", "d"],
+                                output_cols=["ci", "di"])),
+    "IndexToString": ("dataproc.indexers", "StringIndexerTrainBatchOp",
+                      dict(selected_col="c", string_order_type="alphabet_asc"),
+                      dict(selected_col="idx", output_col="cs")),
+    "OneHot": ("feature.feature_ops", "OneHotTrainBatchOp",
+               dict(selected_cols=["c", "d", "idx"]), dict(output_col="oh")),
+    "QuantileDiscretizer": ("feature.feature_ops",
+                            "QuantileDiscretizerTrainBatchOp",
+                            dict(selected_cols=["f0", "f1"], num_buckets=5),
+                            {}),
+    "Pca": ("feature.feature_ops", "PcaTrainBatchOp",
+            dict(selected_cols=["f0", "f1"], k=1),
+            dict(selected_cols=["f0", "f1"], output_col="p")),
+}
+
+
+def _s24_rows(n=300, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 2) @ [[1.0, 0.6], [0.0, 0.8]]
+    c = np.asarray(["x", "y", "z", "w"])[rng.randint(0, 4, n)]
+    d = np.asarray(["p", "q"])[rng.randint(0, 2, n)]
+    V = rng.randn(n, 3) * [1.0, 5.0, 0.1] + [0.0, 2.0, -1.0]
+    V[rng.rand(n, 3) < 0.05] = np.nan
+    vec = [" ".join(repr(float(v)) for v in r) for r in V]
+    idx = rng.randint(-1, 6, n)
+    return [(float(a), float(b), str(u), str(w), v, int(i))
+            for a, b, u, w, v, i in zip(X[:, 0], X[:, 1], c, d, vec, idx)]
+
+
+def _s24_train_op(name, module):
+    import importlib
+    mod, cls = SLICE24[name][:2]
+    return getattr(importlib.import_module(f"{module}.{mod}"), cls)
+
+
+@pytest.fixture(scope="module")
+def s24_models():
+    train = _s24_rows()
+    out = {}
+    for name, (_, _, kw, _) in SLICE24.items():
+        op = _s24_train_op(name, "alink_tpu_torch.operator.batch")
+        if name == "QuantileDiscretizer":
+            kw = dict(kw, device="cpu")
+        out[name] = op(**kw).link_from(TMem(train, S24_SCHEMA)) \
+            .get_output_table()
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SLICE24))
+def test_slice24_twin_equals_batch_op_and_jax_batch_op(name, s24_models):
+    """Cell for cell: the twin over 64-row micro-batches, the port's
+    batch op and the JAX package's batch op on the same model table
+    (and that model table equals the JAX package's own training)."""
+    train, held = _s24_rows(), _s24_rows(200, seed=1)
+    _, _, tkw, pkw = SLICE24[name]
+    model = s24_models[name]
+    jop = _s24_train_op(name, "alink_tpu.operator.batch")(**tkw).link_from(
+        JMem(train, S24_SCHEMA))
+    assert jop.get_output_table().to_rows() == model.to_rows()
+    twin = getattr(tpo, f"{name}PredictStreamOp")
+    batch = twin.BATCH_CLS(**pkw).link_from(
+        TMem(model), TMem(held, S24_SCHEMA)).get_output_table()
+    out, names = [], None
+    for mt in twin(TMem(model), device="cpu", **pkw).link_from(TMemStream(
+            held, S24_SCHEMA, batch_size=MICRO)).micro_batches():
+        assert mt.num_rows <= MICRO
+        names = names or mt.col_names
+        out += mt.to_rows()
+    assert names == batch.col_names
+    assert _cells(out) == _cells(batch.to_rows())
+    jres = _jax_batch_op(name, pkw).link_from(
+        JMem(_jax_table(model)), JMem(held, S24_SCHEMA)).get_output_table()
+    assert jres.col_names == names
+    assert _cells(jres.to_rows()) == _cells(out)
+    jtwin = getattr(jpo, f"{name}PredictStreamOp")(
+        JMem(_jax_table(model)), **pkw).link_from(JMemStream(
+            held, S24_SCHEMA, batch_size=MICRO))
+    with pytest.raises(NotImplementedError):   # the JAX package's twin
+        list(jtwin.micro_batches())
+
+
+def _jax_batch_op(name, pkw):
+    import importlib
+    mod = importlib.import_module(f"alink_tpu.operator.batch.{SLICE24[name][0]}")
+    return getattr(mod, f"{name}PredictBatchOp")(**pkw)
 
 
 # -- pipeline/tree.py --------------------------------------------------------
