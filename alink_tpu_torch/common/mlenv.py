@@ -6,8 +6,11 @@ session holds one ``torch.device``, resolved once by
 :func:`~alink_tpu_torch.common.device.resolve_device` (``cuda`` unless
 the caller asks for the CPU), and runs one worker: ``num_workers`` is 1.
 Asking for ``parallelism > 1`` raises ``NotImplementedError``: several
-cards wait for the multi-GPU slice (ROADMAP A9). Not ported: the model
-axis, ``use_remote_env``, the lazy-objects manager and the mesh-size
+cards wait for the multi-GPU slice (ROADMAP A9), and so does a
+``use_remote_env`` of more than one process (of one, it is
+``use_local_env``). The lazy-objects manager is not on the session: it
+lives in ``common/lazy.py`` (``lazy_objects_manager``), so that reaching
+it resolves no device. Not ported: the model axis and the mesh-size
 flags.
 """
 
@@ -103,3 +106,20 @@ def use_local_env(parallelism: Optional[int] = None,
     env = MLEnvironment(parallelism=parallelism, device=device)
     MLEnvironmentFactory.set_default(env)
     return env
+
+
+def use_remote_env(coordinator_address: Optional[str] = None,
+                   num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None,
+                   parallelism: Optional[int] = None,
+                   device=None) -> MLEnvironment:
+    """Multi-host entry (reference ``useRemoteEnv``). The port runs one
+    process: ``num_processes`` above 1 raises ``NotImplementedError``
+    (several processes wait for the multi-GPU slice); otherwise this is
+    :func:`use_local_env` (the coordinator address and process id of a
+    one-process job name nothing to join)."""
+    if num_processes is not None and num_processes > 1:
+        raise NotImplementedError(
+            f"use_remote_env(num_processes={num_processes}): the port runs "
+            f"one process; several wait for the multi-GPU slice")
+    return use_local_env(parallelism=parallelism, device=device)

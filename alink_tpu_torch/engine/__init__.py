@@ -4,9 +4,10 @@
 
 from .context import ComContext
 from .comqueue import IterativeComQueue, ComputeFunction, ComQueueResult
-from .communication import AllReduce, CommunicateFunction
+from .communication import (AllGather, AllReduce, BroadcastFromWorker0,
+                            CommunicateFunction)
 
 __all__ = [
     "ComContext", "IterativeComQueue", "ComputeFunction", "ComQueueResult",
-    "CommunicateFunction", "AllReduce",
+    "CommunicateFunction", "AllReduce", "AllGather", "BroadcastFromWorker0",
 ]

@@ -18,8 +18,9 @@ wrappers once a superstep, so the counts agree. Not ported: the
 fusion of adjacent reductions and its series
 (``alink_collective_fused_total``, ``_payload_fused_bytes``; ROADMAP
 A9): there is nothing to fuse at one worker. The stage-level
-``AllReduce`` is ported for the optimizers; ``AllGather`` and
-``BroadcastFromWorker0`` wait for a caller.
+``AllReduce``, ``AllGather`` (stores the gathered buffer under
+``<name><suffix>``) and ``BroadcastFromWorker0`` (the identity at one
+worker, recorded) are ported.
 """
 
 from __future__ import annotations
@@ -148,6 +149,44 @@ class AllReduce(CommunicateFunction):
             if self.mean:
                 out = _divide(out, context.num_task)
             context.put_obj(name, out)
+
+
+class AllGather(CommunicateFunction):
+    """Gather per-worker arrays into a replicated stacked array (the ALS
+    factor all-gather, SURVEY §2.3), stored under ``<name><suffix>``:
+    shape (num_workers, *shard_shape), or the shard itself when
+    ``tiled``."""
+
+    def __init__(self, *buffer_names: str, suffix: str = "_gathered",
+                 axis: int = 0, tiled: bool = False):
+        self.buffer_names = buffer_names
+        self.suffix = suffix
+        self.axis = axis
+        self.tiled = tiled
+
+    def calc(self, context: ComContext):
+        for name in self.buffer_names:
+            out = manifest_all_gather(context.get_obj(name), ComContext.AXIS,
+                                      axis=self.axis, tiled=self.tiled,
+                                      name=name, num_workers=context.num_task)
+            context.put_obj(name + self.suffix, out)
+
+
+class BroadcastFromWorker0(CommunicateFunction):
+    """Replicate worker 0's value of a buffer to all workers (the node-0
+    criterion rebroadcast, BaseComQueue.java:242-304): the identity at
+    one worker."""
+
+    def __init__(self, *buffer_names: str):
+        self.buffer_names = buffer_names
+
+    def calc(self, context: ComContext):
+        for name in self.buffer_names:
+            v = context.get_obj(name)
+            _one_worker(name, context.num_task)
+            record_collective("BroadcastFromWorker0", payload_nbytes(v),
+                              context.num_task)
+            context.put_obj(name, v)
 
 
 def _divide(value, n: int):

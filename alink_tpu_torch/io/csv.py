@@ -5,8 +5,9 @@ CsvUtil, CsvParser, CsvFormatter): schema-aware CSV <-> ``MTable`` with
 the reference's ``"col TYPE, col TYPE"`` schema strings, and LibSVM
 files. Numeric CSV without quotes or empty cells, and every LibSVM file,
 parse through the port's native library (``alink_tpu_torch/native``);
-other CSV goes through Python's ``csv`` module. Paths are local files or
-glob patterns (http sources are not ported).
+other CSV goes through Python's ``csv`` module. Paths are local files,
+glob patterns or ``http://`` / ``https://`` URLs (read whole by
+``urllib``; a sharded read of a URL is refused).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import csv
 import io
 import os
 from typing import Optional
+from urllib.request import urlopen
 
 import numpy as np
 
@@ -114,6 +116,11 @@ def _load_line_bytes(path: str, ignore_first_line: bool,
             "header record spans >64 physical lines (unbalanced quote?); "
             "refusing to guess where the header ends")
 
+    if path.startswith(("http://", "https://")):
+        if shard is not None and shard[1] > 1:
+            raise ValueError("sharded reads of http sources are unsupported")
+        data = urlopen(path).read()
+        return drop_header(data) if ignore_first_line else data
     if shard is None:
         with open(path, "rb") as f:
             data = f.read()

@@ -1,20 +1,27 @@
 """Operator layer base classes.
 
 Counterpart: ``alink_tpu/operator/base.py``. Ported: ``AlgoOperator``,
-``BatchOperator`` (``link_from``, ``get_output_table``, ``get_schema``,
-``get_side_output``),
-``TableSourceBatchOp`` and ``StreamOperator`` (``link_from``,
-``timed_batches``, ``micro_batches``, ``get_schema``, the sink registry
-and ``execute``), and the link metering: every ``BatchOperator``
-subclass's ``link_from`` (the eager execute path) reports
-``alink_batch_op_seconds``, ``alink_batch_rows_in_total`` and
-``alink_batch_rows_out_total`` by ``op`` and opens a ``link:<Op>``
-span, and ``execute`` counts each sink's micro-batches and rows
-(``alink_stream_sink_batches_total``, ``_rows_total``). Left out:
-``link``, ``collect`` and the other conveniences, lazy printing and
-collecting, statistics, train info, the SQL helpers and
-``get_ml_env``: the port has no session mesh, and each entry point
-takes its device explicitly.
+``BatchOperator`` with its conveniences (``link``, ``collect``,
+``collect_mtable``, ``first_n``, ``print``, ``collect_statistics``,
+the SQL helpers ``select`` / ``alias`` / ``where`` / ``filter`` /
+``distinct`` / ``order_by`` / ``group_by`` / ``union_all``, ``sample``,
+``split`` and ``from_table``) and its lazy hooks (``lazy_print``,
+``lazy_collect``, ``lazy_collect_mtable``, ``lazy_print_statistics``,
+``lazy_print_train_info``, ``lazy_collect_train_info``,
+``lazy_print_model_info``), which ``execute()`` fires once;
+``TableSourceBatchOp``; and ``StreamOperator`` (``link``,
+``timed_batches``, ``micro_batches``, ``print``, ``sample``, ``select``,
+``where``, ``union_all``, the sink registry and ``execute``). Every
+``BatchOperator`` subclass's ``link_from`` (the eager execute path) is
+metered: ``alink_batch_op_seconds``, ``alink_batch_rows_in_total`` and
+``alink_batch_rows_out_total`` by ``op`` and a ``link:<Op>`` span; and
+``execute`` counts each sink's micro-batches and rows
+(``alink_stream_sink_batches_total``, ``_rows_total``).
+
+The port's difference: the lazy hooks register on
+``common/lazy.py::lazy_objects_manager()``, not on the session, so they
+resolve no device (a host op's ``lazy_print`` works without a card).
+Left out: ``get_ml_env`` (each entry point takes its device explicitly).
 
 Execution model (the JAX package's): batch operators compute eagerly
 when linked; a stream is a host-side iterator of timed micro-batches
@@ -27,6 +34,7 @@ import functools
 import time
 from typing import Any, Callable, List, Optional
 
+from ..common.lazy import lazy_objects_manager
 from ..common.metrics import get_registry, metrics_enabled
 from ..common.mtable import MTable
 from ..common.params import Params, WithParams
@@ -91,6 +99,17 @@ class AlgoOperator(WithParams):
                 f"{type(self).__name__} has no output; link it to inputs first")
         return self._output
 
+    def set_output_table(self, table: MTable):
+        self._output = table
+        return self
+
+    def get_col_names(self) -> List[str]:
+        return list(self.get_schema().names)
+
+    def __repr__(self):
+        tail = f" -> {self._output!r}" if self._output is not None else " (unlinked)"
+        return f"{type(self).__name__}{tail}"
+
 
 class BatchOperator(AlgoOperator):
     """Batch operator with link semantics (reference batch/BatchOperator.java)."""
@@ -116,8 +135,155 @@ class BatchOperator(AlgoOperator):
             raise IndexError(f"side output {index} of {len(self._side_outputs)}")
         return TableSourceBatchOp(self._side_outputs[index])
 
+    def get_side_output_count(self) -> int:
+        return len(self._side_outputs)
+
+    def link(self, next_op: "BatchOperator") -> "BatchOperator":
+        return next_op.link_from(self)
+
     def link_from(self, *inputs: "BatchOperator") -> "BatchOperator":
         raise NotImplementedError(f"{type(self).__name__}.link_from")
+
+    # -- materialization -------------------------------------------------
+    def collect(self) -> List[tuple]:
+        return self.get_output_table().to_rows()
+
+    def collect_mtable(self) -> MTable:
+        return self.get_output_table()
+
+    def first_n(self, n: int) -> "BatchOperator":
+        return TableSourceBatchOp(self.get_output_table().first_n(n))
+
+    def print(self, n: int = -1, title: Optional[str] = None):
+        t = self.get_output_table()
+        if title:
+            print(title)
+        print(t.to_display_string(max_rows=n if n > 0 else 20))
+        return self
+
+    def execute(self):
+        """Fire all pending lazy callbacks (reference triggerLazyEvaluation)."""
+        lazy_objects_manager().fire_all()
+
+    # -- lazy hooks ------------------------------------------------------
+    def _lazy(self, tag: str, value, cb: Callable[[Any], None]):
+        lazy = lazy_objects_manager().gen_lazy((id(self), tag, cb))
+        lazy.add_value(value)
+        lazy.add_callback(cb)
+        return self
+
+    def lazy_print(self, n: int = -1, title: Optional[str] = None) -> "BatchOperator":
+        def show(t: MTable):
+            if title:
+                print(title)
+            print(t.to_display_string(max_rows=n if n > 0 else 20))
+        return self._lazy("print", self.get_output_table(), show)
+
+    def lazy_collect(self, callback: Callable[[List[tuple]], None]) -> "BatchOperator":
+        return self._lazy("collect", self.get_output_table().to_rows(), callback)
+
+    def lazy_collect_mtable(self, callback) -> "BatchOperator":
+        return self._lazy("collect_mtable", self.get_output_table(), callback)
+
+    def lazy_print_statistics(self, title: Optional[str] = None) -> "BatchOperator":
+        def show(t: MTable):
+            from .common.statistics.summarizer import summarize_table
+            if title:
+                print(title)
+            print(summarize_table(t).to_display_string())
+        return self._lazy("stats", self.get_output_table(), show)
+
+    def collect_statistics(self):
+        """reference BatchOperator.collectStatistics (batch/BatchOperator.java:576-603)."""
+        from .common.statistics.summarizer import summarize_table
+        return summarize_table(self.get_output_table())
+
+    # -- train/model-info hooks (reference WithTrainInfo / lazyPrintTrainInfo
+    # and WithModelInfoBatchOp / lazyPrintModelInfo, fired from Trainer.fit
+    # per pipeline/Trainer.java:50-66) ------------------------------------
+    def get_train_info(self) -> MTable:
+        """Per-iteration training telemetry (loss curve etc.): side output
+        0 by convention across trainers."""
+        if not self._side_outputs:
+            raise RuntimeError(f"{type(self).__name__} emits no train info")
+        return self._side_outputs[0]
+
+    def lazy_print_train_info(self, title: Optional[str] = None) -> "BatchOperator":
+        def show(t: MTable):
+            if title:
+                print(title)
+            print(t.to_display_string())
+        return self._lazy("train_info", self.get_train_info(), show)
+
+    def lazy_collect_train_info(self, callback) -> "BatchOperator":
+        return self._lazy("train_info_collect", self.get_train_info(), callback)
+
+    def get_model_info(self) -> MTable:
+        """Summary of the trained model table (reference
+        ExtractModelInfoBatchOp role): its schema and row count."""
+        t = self.get_output_table()
+        return MTable({"field": list(t.col_names),
+                       "type": [t.schema.type_of(c) for c in t.col_names],
+                       "num_rows": [t.num_rows] * len(t.col_names)})
+
+    def lazy_print_model_info(self, title: Optional[str] = None) -> "BatchOperator":
+        def show(t: MTable):
+            if title:
+                print(title)
+            print(t.to_display_string())
+        return self._lazy("model_info", self.get_model_info(), show)
+
+    # -- SQL-ish conveniences (the ops of batch/sql) ---------------------
+    def select(self, fields) -> "BatchOperator":
+        from .batch.sql import SelectBatchOp
+        return SelectBatchOp(clause=fields if isinstance(fields, str)
+                             else ",".join(fields)).link_from(self)
+
+    def alias(self, fields) -> "BatchOperator":
+        from .batch.sql import AsBatchOp
+        return AsBatchOp(clause=fields if isinstance(fields, str)
+                         else ",".join(fields)).link_from(self)
+
+    def where(self, predicate: str) -> "BatchOperator":
+        from .batch.sql import WhereBatchOp
+        return WhereBatchOp(clause=predicate).link_from(self)
+
+    filter = where
+
+    def distinct(self) -> "BatchOperator":
+        from .batch.sql import DistinctBatchOp
+        return DistinctBatchOp().link_from(self)
+
+    def order_by(self, field: str, limit: Optional[int] = None,
+                 ascending: bool = True) -> "BatchOperator":
+        from .batch.sql import OrderByBatchOp
+        op = OrderByBatchOp(clause=field, ascending=ascending)
+        if limit is not None:
+            op.set_limit(limit)
+        return op.link_from(self)
+
+    def group_by(self, by: str, select_clause: str) -> "BatchOperator":
+        from .batch.sql import GroupByBatchOp
+        return GroupByBatchOp(group_by_predicate=by,
+                              select_clause=select_clause).link_from(self)
+
+    def union_all(self, other: "BatchOperator") -> "BatchOperator":
+        from .batch.sql import UnionAllBatchOp
+        return UnionAllBatchOp().link_from(self, other)
+
+    def sample(self, ratio: float, with_replacement: bool = False) -> "BatchOperator":
+        from .batch.dataproc import SampleBatchOp
+        return SampleBatchOp(ratio=ratio,
+                             with_replacement=with_replacement).link_from(self)
+
+    def split(self, fraction: float, seed: int = 0):
+        from .batch.dataproc import SplitBatchOp
+        op = SplitBatchOp(fraction=fraction, seed=seed).link_from(self)
+        return op, op.get_side_output(0)
+
+    @staticmethod
+    def from_table(table: MTable) -> "TableSourceBatchOp":
+        return TableSourceBatchOp(table)
 
 
 class TableSourceBatchOp(BatchOperator):
@@ -149,6 +315,9 @@ class StreamOperator(AlgoOperator):
         self._schema: Optional[TableSchema] = None
         self._sinks: List[Callable[[MTable], None]] = []
 
+    def link(self, next_op: "StreamOperator") -> "StreamOperator":
+        return next_op.link_from(self)
+
     def link_from(self, *inputs: "StreamOperator") -> "StreamOperator":
         raise NotImplementedError(f"{type(self).__name__}.link_from")
 
@@ -166,6 +335,29 @@ class StreamOperator(AlgoOperator):
     def micro_batches(self):
         for _, mt in self.timed_batches():
             yield mt
+
+    def print(self) -> "StreamOperator":
+        self._sinks.append(lambda mt: print(mt.to_display_string()))
+        return self._register()
+
+    def sample(self, ratio: float) -> "StreamOperator":
+        from .stream.dataproc import SampleStreamOp
+        return SampleStreamOp(ratio=ratio).link_from(self)
+
+    def select(self, fields) -> "StreamOperator":
+        from .stream.sql import SelectStreamOp
+        return SelectStreamOp(clause=fields if isinstance(fields, str)
+                              else ",".join(fields)).link_from(self)
+
+    def where(self, predicate: str) -> "StreamOperator":
+        from .stream.sql import WhereStreamOp
+        return WhereStreamOp(clause=predicate).link_from(self)
+
+    filter = where
+
+    def union_all(self, other: "StreamOperator") -> "StreamOperator":
+        from .stream.sql import UnionAllStreamOp
+        return UnionAllStreamOp().link_from(self, other)
 
     # registry of every stream termination in the session
     _session_streams: List["StreamOperator"] = []

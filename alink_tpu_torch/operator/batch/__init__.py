@@ -4,7 +4,8 @@ The operators live in the subpackages; the model families of slice 23
 (naive Bayes, the multilayer perceptron, GMM and bisecting KMeans, GLM,
 isotonic and AFT regression), ``SegmentBatchOp`` and the ops of slice 24
 (the feature ops, statistics, the indexers and vector ops, sampling,
-similarity and SOS) are exported here as well, on first access (a module
+similarity and SOS) and of slice 25 (the SQL ops, association rules and
+the function ops) are exported here as well, on first access (a module
 ``__getattr__``: importing this package imports no operator)."""
 
 import importlib
@@ -53,6 +54,17 @@ _LAZY.update((n, ".similarity") for n in (
     "ApproxVectorSimilarityJoinLSHBatchOp",
     "ApproxVectorSimilarityTopNLSHBatchOp"))
 _LAZY["SosBatchOp"] = ".outlier"
+_LAZY.update((n, ".sql") for n in (
+    "SelectBatchOp", "AsBatchOp", "WhereBatchOp", "FilterBatchOp",
+    "DistinctBatchOp", "OrderByBatchOp", "GroupByBatchOp", "UnionAllBatchOp",
+    "UnionBatchOp", "IntersectBatchOp", "IntersectAllBatchOp", "MinusBatchOp",
+    "MinusAllBatchOp", "JoinBatchOp", "LeftOuterJoinBatchOp",
+    "RightOuterJoinBatchOp", "FullOuterJoinBatchOp", "CrossBatchOp"))
+_LAZY.update((n, ".associationrule") for n in ("FpGrowthBatchOp",
+                                               "PrefixSpanBatchOp"))
+_LAZY.update((n, ".utils") for n in (
+    "UDFBatchOp", "UDTFBatchOp", "FlatMapBatchOp", "PrintBatchOp",
+    "DataSetWrapperBatchOp"))
 
 __all__ = sorted(_LAZY)
 

@@ -14,9 +14,23 @@ complementary binding probabilities. It runs in blocks of rows
 (:func:`sos_scores`): the distances, the bisection and the binding
 probabilities are row-wise, and the column sums add up across blocks,
 so no (n, n) array is ever whole (at ODDS shuttle's 49,097 rows one is
-19.3 GB in float64). The floors are the JAX package's weak-typed
-``1e-300``, which is 0 in float32. A float32 product on the card
-raises while TF32 is on (``objfunc.check_full_float32``).
+19.3 GB in float64). A float32 product on the card raises while TF32 is
+on (``objfunc.check_full_float32``).
+
+The port's difference: each row's distances are shifted by the row's
+smallest off-diagonal distance ``d_min`` before ``exp``
+(:func:`_shift_rows`), in the bisection and in the binding
+probabilities. The binding probabilities ``a / sum(a)`` do not change,
+and the entropy ``log sum(a) + beta * sum(d2 a) / sum(a)`` becomes
+``log sum(a') - beta d_min + beta * sum(d2 a') / sum(a')``, which is
+the same formula on the shifted distances, so the code computes that
+(no cancellation of two large terms). The nearest neighbour's affinity
+is then exp(0) = 1, so ``sum(a')`` is at least 1 and never underflows:
+in the JAX package (and this op before) a row whose affinities all
+underflow float32 at its beta (``exp`` of -104 and below) made a 0/0
+binding row and every other column's score NaN (ODDS shuttle in
+float32). The floors stay the JAX package's weak-typed ``1e-300``
+(0 in float32), now inert in both dtypes.
 """
 
 from __future__ import annotations
@@ -57,9 +71,16 @@ def _sq_dists(X, sq, r0: int, r1: int, diag) -> torch.Tensor:
     return d2
 
 
+def _shift_rows(d2) -> torch.Tensor:
+    """``d2`` less each row's smallest entry (its nearest neighbour's
+    distance; the diagonal's ``inf`` stays), in place."""
+    return d2.sub_(d2.amin(1, keepdim=True))
+
+
 def _solve_beta(d2, diag, log_perp, floor, n_iter: int) -> torch.Tensor:
     """Each row's beta after ``n_iter`` bisection steps on the entropy
-    of its binding distribution (SOSImpl.solveForBeta, batched)."""
+    of its binding distribution (SOSImpl.solveForBeta, batched), from
+    the rows' shifted distances (:func:`_shift_rows`)."""
     rows, dt, dev = d2.shape[0], d2.dtype, d2.device
     lo = torch.zeros(rows, dtype=dt, device=dev)
     hi = torch.full((rows,), float("inf"), dtype=dt, device=dev)
@@ -96,7 +117,7 @@ def sos_scores(X: torch.Tensor, perplexity: float, n_iter: int = 64,
         r1 = min(n, r0 + B)
         local = torch.arange(r1 - r0, device=dev)
         diag = (local, local + r0)
-        d2 = _sq_dists(X, sq, r0, r1, diag)
+        d2 = _shift_rows(_sq_dists(X, sq, r0, r1, diag))
         beta = _solve_beta(d2, diag, log_perp, floor, n_iter)
         # binding probabilities, then log(1 - b) for p_j = prod_i (1 - b_ij)
         b = torch.mul(d2, -beta[:, None]).exp_()

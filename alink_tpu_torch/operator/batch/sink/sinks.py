@@ -2,14 +2,18 @@
 
 Counterpart: ``alink_tpu/operator/batch/sink/sinks.py``. Ported: the
 file sinks ``CsvSinkBatchOp``, ``LibSvmSinkBatchOp`` and
-``TextSinkBatchOp`` on ``BaseSinkBatchOp``. The database sinks are not
-ported yet (ROADMAP A8).
+``TextSinkBatchOp`` on ``BaseSinkBatchOp``; ``MemSinkBatchOp`` (the
+rows in host memory); and the database sinks ``DBSinkBatchOp`` (into a
+``BaseDB`` table, ``io/db.py``) and ``MySqlSinkBatchOp``. All pass the
+table through.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 from ....common.mtable import MTable
-from ....common.params import ParamInfo
+from ....common.params import ParamInfo, Params
 from ....io.csv import write_csv, write_libsvm
 from ...base import BatchOperator
 
@@ -62,3 +66,39 @@ class TextSinkBatchOp(BaseSinkBatchOp):
         with open(self.get_file_path(), "w") as f:
             for v in t.col(t.col_names[0]):
                 f.write(("" if v is None else str(v)) + "\n")
+
+
+class MemSinkBatchOp(BatchOperator):
+    """Collect rows into host memory (reference MemSinkBatchOp / CollectHelper)."""
+
+    def __init__(self, params: Optional[Params] = None, **kwargs):
+        super().__init__(params, **kwargs)
+        self.rows: List[tuple] = []
+
+    def link_from(self, in_op: BatchOperator) -> "MemSinkBatchOp":
+        self._output = in_op.get_output_table()
+        self.rows = self._output.to_rows()
+        return self
+
+
+from ....io.db import HasDB as _HasDB
+from ....io.db import HasMySqlDB as _HasMySqlDB
+
+
+class DBSinkBatchOp(_HasDB, BatchOperator):
+    """Write the input table into a registered BaseDB
+    (reference: batch/sink/DBSinkBatchOp.java)."""
+    OUTPUT_TABLE_NAME = ParamInfo("output_table_name", str, optional=False)
+    OVERWRITE_SINK = ParamInfo("overwrite_sink", bool, default=False)
+
+    def link_from(self, in_op: BatchOperator) -> "DBSinkBatchOp":
+        t = in_op.get_output_table()
+        self._db().write_table(self.params._m["output_table_name"], t,
+                               append=not self.params._m.get("overwrite_sink",
+                                                             False))
+        self.set_output_table(t)
+        return self
+
+
+class MySqlSinkBatchOp(_HasMySqlDB, DBSinkBatchOp):
+    """reference: batch/sink/MySqlSinkBatchOp.java"""

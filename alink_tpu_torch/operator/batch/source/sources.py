@@ -4,13 +4,19 @@ Counterpart: ``alink_tpu/operator/batch/source/sources.py``. Ported:
 ``BaseSourceBatchOp``, ``MemSourceBatchOp`` (the in-memory source that
 carries a warm-start model table or a table of rows) and the file
 sources ``CsvSourceBatchOp``, ``LibSvmSourceBatchOp`` and
-``TextSourceBatchOp``. The database and generator sources are not
-ported yet (ROADMAP A8).
+``TextSourceBatchOp``; the generators ``NumSeqSourceBatchOp`` and
+``RandomTableSourceBatchOp`` (the JAX package's ``RandomState`` draws,
+so the tables are equal); and the database sources ``DBSourceBatchOp``
+(a table or a free query of a ``BaseDB``, ``io/db.py``) and
+``MySqlSourceBatchOp``. CSV files may also be http URLs
+(``io/csv.py``). All run on the host.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import numpy as np
 
 from ....common.mtable import MTable
 from ....common.params import ParamInfo, Params
@@ -113,3 +119,53 @@ class TextSourceBatchOp(_FileSourceBase):
         self._output = MTable({self.get_text_col(): lines},
                               TableSchema([self.get_text_col()],
                                           [AlinkTypes.STRING]))
+
+
+class NumSeqSourceBatchOp(BaseSourceBatchOp):
+    """Integer sequence [from, to] (reference NumSeqSourceBatchOp)."""
+
+    def __init__(self, from_: int = 0, to: int = 0, col_name: str = "num",
+                 params: Optional[Params] = None, **kwargs):
+        super().__init__(params, **kwargs)
+        seq = np.arange(from_, to + 1, dtype=np.int64)
+        self._output = MTable({col_name: seq}, TableSchema([col_name], [AlinkTypes.LONG]))
+
+
+class RandomTableSourceBatchOp(BaseSourceBatchOp):
+    """Random numeric table (reference RandomTableSourceBatchOp)."""
+
+    def __init__(self, num_rows: int, num_cols: int, seed: int = 0,
+                 output_col_prefix: str = "col", params=None, **kwargs):
+        super().__init__(params, **kwargs)
+        rng = np.random.RandomState(seed)
+        cols = {f"{output_col_prefix}{i}": rng.rand(num_rows)
+                for i in range(num_cols)}
+        self._output = MTable(cols)
+
+
+from ....io.db import HasDB as _HasDB
+from ....io.db import HasMySqlDB as _HasMySqlDB
+
+
+class DBSourceBatchOp(_HasDB, BaseSourceBatchOp):
+    """Read a table (or free query) from a registered BaseDB
+    (reference: batch/source/DBSourceBatchOp.java over common/io/BaseDB)."""
+    INPUT_TABLE_NAME = ParamInfo("input_table_name", str, "table to read")
+    QUERY = ParamInfo("query", str, "free-form SELECT overriding table name")
+
+    def link_from(self, *inputs) -> "DBSourceBatchOp":
+        q = self.params._m.get("query")
+        db = self._db()
+        self.set_output_table(db.query(q) if q else
+                              db.read_table(self.params._m["input_table_name"]))
+        return self
+
+    # sources are roots: allow use without link_from
+    def get_output_table(self):
+        if self._output is None:
+            self.link_from()
+        return self._output
+
+
+class MySqlSourceBatchOp(_HasMySqlDB, DBSourceBatchOp):
+    """reference: batch/source/MySqlSourceBatchOp.java"""

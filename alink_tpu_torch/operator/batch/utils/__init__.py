@@ -1,7 +1,9 @@
-"""Batch utility operators (counterpart: ``alink_tpu/operator/batch/utils``).
-Only the model-apply operators are ported; the function operators
-(``fn_ops.py``) wait for a later slice."""
+"""Batch utility operators (counterpart: ``alink_tpu/operator/batch/utils``):
+the model-apply operators and the function operators of ``fn_ops.py``."""
 
+from .fn_ops import (DataSetWrapperBatchOp, FlatMapBatchOp, PrintBatchOp,
+                     UDFBatchOp, UDTFBatchOp)
 from .model_map import MapBatchOp, ModelMapBatchOp
 
-__all__ = ["MapBatchOp", "ModelMapBatchOp"]
+__all__ = ["DataSetWrapperBatchOp", "FlatMapBatchOp", "MapBatchOp",
+           "ModelMapBatchOp", "PrintBatchOp", "UDFBatchOp", "UDTFBatchOp"]

@@ -1,5 +1,6 @@
 """Stream layer of the port (counterpart: ``alink_tpu/operator/stream``).
-The sinks, the evaluation ops, the ``*PredictStreamOp`` twins and
+The sinks, the sources, the data-proc ops, the evaluation ops, the SQL
+ops, the function ops, the ``*PredictStreamOp`` twins and
 ``AlsPredictStreamOp`` are exported here, as there; the other stream ops
 are imported from their modules. The sinks are imported with the
 package; the others on first access (a module ``__getattr__``), since
@@ -9,13 +10,28 @@ while the batch ops the twins wrap import them."""
 import importlib
 
 from .sink import (BaseSinkStreamOp, CheckpointSinkStreamOp,
-                   CollectSinkStreamOp, CsvSinkStreamOp, LibSvmSinkStreamOp,
-                   TextSinkStreamOp)
+                   CollectSinkStreamOp, CsvSinkStreamOp, DBSinkStreamOp,
+                   JdbcRetractSinkStreamOp, LibSvmSinkStreamOp,
+                   MySqlSinkStreamOp, TextSinkStreamOp)
 
-_LAZY = {"EvalBinaryClassStreamOp": ".evaluation",
+_LAZY = {n: ".dataproc" for n in (
+    "AppendIdStreamOp", "FirstNStreamOp", "NumericalTypeCastStreamOp",
+    "SampleStreamOp", "ShuffleStreamOp", "SplitStreamOp")}
+_LAZY.update((n, ".sql") for n in (
+    "AsStreamOp", "BaseSqlApiStreamOp", "FilterStreamOp", "SelectStreamOp",
+    "UnionAllStreamOp", "WhereStreamOp", "WindowGroupByStreamOp"))
+_LAZY.update((n, ".utils") for n in (
+    "FlatMapStreamOp", "MapperStreamOp", "MapStreamOp", "ModelMapStreamOp",
+    "PrintStreamOp", "UDFStreamOp", "UDTFStreamOp"))
+_LAZY.update((n, ".source") for n in (
+    "BaseSourceStreamOp", "CsvSourceStreamOp", "DBSourceStreamOp",
+    "LibSvmSourceStreamOp", "MemSourceStreamOp", "MySqlSourceStreamOp",
+    "NumSeqSourceStreamOp", "RandomTableSourceStreamOp",
+    "TableSourceStreamOp", "TextSourceStreamOp"))
+_LAZY.update({"EvalBinaryClassStreamOp": ".evaluation",
          "EvalMultiClassStreamOp": ".evaluation",
          "EvalRegressionStreamOp": ".evaluation",
-         "AlsPredictStreamOp": ".recommendation"}
+         "AlsPredictStreamOp": ".recommendation"})
 # the twins' names (predict_ops' __all__, spelled out so that importing
 # this package imports no batch op)
 _LAZY.update((f"{n}PredictStreamOp", ".predict_ops") for n in (
@@ -31,8 +47,9 @@ _LAZY.update((f"{n}PredictStreamOp", ".predict_ops") for n in (
     "OneHot", "QuantileDiscretizer", "Pca"))
 
 __all__ = ["BaseSinkStreamOp", "CheckpointSinkStreamOp",
-           "CollectSinkStreamOp", "CsvSinkStreamOp", "LibSvmSinkStreamOp",
-           "TextSinkStreamOp"] + sorted(_LAZY)
+           "CollectSinkStreamOp", "CsvSinkStreamOp", "DBSinkStreamOp",
+           "JdbcRetractSinkStreamOp", "LibSvmSinkStreamOp",
+           "MySqlSinkStreamOp", "TextSinkStreamOp"] + sorted(_LAZY)
 
 
 def __getattr__(name):

@@ -1,9 +1,11 @@
 """Stream sinks (counterpart: ``alink_tpu/operator/stream/sink``)."""
 
 from .sinks import (BaseSinkStreamOp, CheckpointSinkStreamOp,
-                    CollectSinkStreamOp, CsvSinkStreamOp, LibSvmSinkStreamOp,
-                    TextSinkStreamOp)
+                    CollectSinkStreamOp, CsvSinkStreamOp, DBSinkStreamOp,
+                    JdbcRetractSinkStreamOp, LibSvmSinkStreamOp,
+                    MySqlSinkStreamOp, TextSinkStreamOp)
 
 __all__ = ["BaseSinkStreamOp", "CheckpointSinkStreamOp",
-           "CollectSinkStreamOp", "CsvSinkStreamOp", "LibSvmSinkStreamOp",
-           "TextSinkStreamOp"]
+           "CollectSinkStreamOp", "CsvSinkStreamOp", "DBSinkStreamOp",
+           "JdbcRetractSinkStreamOp", "LibSvmSinkStreamOp",
+           "MySqlSinkStreamOp", "TextSinkStreamOp"]

@@ -6,7 +6,11 @@ Counterpart: ``alink_tpu/operator/stream/sink/sinks.py``. Ported:
 ``CsvSinkStreamOp``, ``LibSvmSinkStreamOp`` and ``TextSinkStreamOp``,
 which write the first micro-batch of a run and append the others, and
 ``CheckpointSinkStreamOp``, the durable sink of ``common/checkpoint.py``
-snapshots. The database sinks wait for ROADMAP A8.
+snapshots. The database sinks: ``DBSinkStreamOp`` appends every
+micro-batch to a ``BaseDB`` table (``io/db.py``),
+``JdbcRetractSinkStreamOp`` upserts by key (delete then insert a
+micro-batch), ``MySqlSinkStreamOp`` is the first over MySQL. The Kafka
+sink is in ``io/kafka.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import List, Optional
 from ....common.checkpoint import (checkpoint_tag, latest_checkpoint,
                                    load_checkpoint, save_checkpoint)
 from ....common.mtable import MTable
-from ....common.params import Params
+from ....common.params import ParamInfo, Params
 from ....common.types import TableSchema
 from ....io.csv import format_csv_rows, format_libsvm_rows
 from ...base import StreamOperator
@@ -174,3 +178,60 @@ class TextSinkStreamOp(_FileSinkStreamOp):
 
     def _format(self, mt: MTable) -> str:
         return "".join(f"{v}\n" for v in mt.col(mt.col_names[0]))
+
+
+from ....io.db import HasDB as _HasDB
+
+
+class DBSinkStreamOp(_HasDB, BaseSinkStreamOp):
+    """Append every micro-batch into a DB table
+    (reference: stream/sink/DBSinkStreamOp.java)."""
+    OUTPUT_TABLE_NAME = ParamInfo("output_table_name", str, optional=False)
+
+    def _consume(self, mt: MTable):
+        self._db().write_table(self.params._m["output_table_name"], mt,
+                               append=True)
+
+
+class JdbcRetractSinkStreamOp(DBSinkStreamOp):
+    """Upsert sink: rows replace earlier rows with the same key
+    (reference: stream/sink/JdbcRetractSinkStreamOp.java — there Flink
+    retract-stream semantics; here delete-then-insert per micro-batch)."""
+    KEY_COLS = ParamInfo("key_cols", list, "primary-key columns",
+                         optional=False)
+
+    def _consume(self, mt: MTable):
+        db = self._db()
+        table = self.params._m["output_table_name"]
+        keys = self.params._m["key_cols"]
+        if not db.has_table(table):
+            db.create_table(table, mt.schema)
+        kidx = [mt.col_names.index(k) for k in keys]
+        # last write wins within a micro-batch too (upsert contract)
+        last = {}
+        for r in mt.to_rows():
+            last[tuple(_pyv(r[i]) for i in kidx)] = r
+        where = " AND ".join(f"{k} = ?" for k in keys)
+        non_null = [kv for kv in last if all(v is not None for v in kv)]
+        if non_null:
+            db.executemany(f"DELETE FROM {table} WHERE {where}", non_null)
+        for kv in last:
+            if any(v is None for v in kv):  # NULL never matches '= ?'
+                clause = " AND ".join(
+                    f"{k} IS NULL" if v is None else f"{k} = ?"
+                    for k, v in zip(keys, kv))
+                db.execute(f"DELETE FROM {table} WHERE {clause}",
+                           [v for v in kv if v is not None])
+        db.write_table(table, MTable(list(last.values()), mt.schema),
+                       append=True)
+
+
+def _pyv(v):
+    return v.item() if hasattr(v, "item") else v
+
+
+from ....io.db import HasMySqlDB as _HasMySqlDB
+
+
+class MySqlSinkStreamOp(_HasMySqlDB, DBSinkStreamOp):
+    """reference: stream/sink/MySqlSinkStreamOp.java"""

@@ -1,9 +1,13 @@
 """Stream sources (counterpart: ``alink_tpu/operator/stream/source``)."""
 
-from .sources import (BoundedTableStreamSource, CsvSourceStreamOp,
-                      LibSvmSourceStreamOp, MemSourceStreamOp,
+from .sources import (BaseSourceStreamOp, BoundedTableStreamSource,
+                      CsvSourceStreamOp, DBSourceStreamOp, LibSvmSourceStreamOp,
+                      MemSourceStreamOp, MySqlSourceStreamOp,
+                      NumSeqSourceStreamOp, RandomTableSourceStreamOp,
                       TableSourceStreamOp, TextSourceStreamOp)
 
-__all__ = ["BoundedTableStreamSource", "CsvSourceStreamOp",
-           "LibSvmSourceStreamOp", "MemSourceStreamOp", "TableSourceStreamOp",
+__all__ = ["BaseSourceStreamOp", "BoundedTableStreamSource",
+           "CsvSourceStreamOp", "DBSourceStreamOp", "LibSvmSourceStreamOp",
+           "MemSourceStreamOp", "MySqlSourceStreamOp", "NumSeqSourceStreamOp",
+           "RandomTableSourceStreamOp", "TableSourceStreamOp",
            "TextSourceStreamOp"]

@@ -5,8 +5,12 @@ Counterpart: ``alink_tpu/operator/stream/source/sources.py``. Ported:
 ``TableSourceStreamOp`` and the file sources ``CsvSourceStreamOp``,
 ``LibSvmSourceStreamOp`` and ``TextSourceStreamOp``. A bounded table is
 chopped into timed micro-batches: ``batch_size`` rows each, at event time
-``k * time_per_batch`` for the k-th. The database, Kafka and generator
-sources are not ported yet (ROADMAP A8).
+``k * time_per_batch`` for the k-th. The generators
+``NumSeqSourceStreamOp`` and ``RandomTableSourceStreamOp`` draw as the
+JAX package's do, so the tables are equal; ``DBSourceStreamOp`` and
+``MySqlSourceStreamOp`` read a ``BaseDB`` table or query at their first
+drain. The Kafka and Hive stream sources are in ``io/kafka.py`` and
+``io/hive.py``.
 """
 
 from __future__ import annotations
@@ -107,3 +111,62 @@ class TextSourceStreamOp(BoundedTableStreamSource):
         with open(file_path) as f:
             lines = [ln.rstrip("\n") for ln in f]
         self._set_table(MTable({text_col: lines}))
+
+
+class NumSeqSourceStreamOp(BoundedTableStreamSource):
+    """reference: stream/source/NumSeqSourceStreamOp."""
+
+    def __init__(self, from_: int, to: int, col_name: str = "num",
+                 batch_size: int = 256, time_per_batch: float = 1.0,
+                 params=None, **kwargs):
+        super().__init__(params, batch_size, time_per_batch, **kwargs)
+        self._set_table(MTable({col_name: np.arange(from_, to + 1, dtype=np.int64)}))
+
+
+class RandomTableSourceStreamOp(BoundedTableStreamSource):
+    """reference: stream/source/RandomTableSourceStreamOp (numeric columns)."""
+
+    def __init__(self, num_rows: int, num_cols: int, seed: int = 0,
+                 batch_size: int = 256, time_per_batch: float = 1.0,
+                 params=None, **kwargs):
+        super().__init__(params, batch_size, time_per_batch, **kwargs)
+        rng = np.random.default_rng(seed)
+        cols = {f"col{i}": rng.random(num_rows) for i in range(num_cols)}
+        self._set_table(MTable(cols))
+
+
+# the reference's abstract base name for all stream sources
+BaseSourceStreamOp = BoundedTableStreamSource
+
+
+from ....io.db import HasDB as _HasDB
+from ....io.db import HasMySqlDB as _HasMySqlDB
+from ....common.params import ParamInfo as _ParamInfo
+
+
+class DBSourceStreamOp(_HasDB, BoundedTableStreamSource):
+    """Stream a DB table as micro-batches
+    (reference: stream/source/DBSourceStreamOp.java)."""
+    INPUT_TABLE_NAME = _ParamInfo("input_table_name", str, "table to read")
+    QUERY = _ParamInfo("query", str, "free-form SELECT overriding table name")
+
+    def _resolve(self) -> MTable:
+        if self._table is None:
+            q = self.params._m.get("query")
+            db = self._db()
+            table = (db.query(q) if q else
+                     db.read_table(self.params._m["input_table_name"]))
+            self._set_table(table)
+        return self._table
+
+    def timed_batches(self):
+        self._resolve()
+        return super().timed_batches()
+
+    def get_schema(self):
+        self._resolve()
+        return super().get_schema()
+
+
+class MySqlSourceStreamOp(_HasMySqlDB, DBSourceStreamOp):
+    """reference: stream/source/MySqlSourceStreamOp.java"""

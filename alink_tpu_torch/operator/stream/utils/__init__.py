@@ -15,9 +15,10 @@ the CPU) — and a batch whose geometry the kernel's encode refuses
 (``GeometryRefused``) falls back to the host mapper for that batch,
 recorded through ``record_serve_fallback``. Every other error of the
 compiled route (a wrapper's refusal, a kernel that fails to launch)
-propagates. ``PrintStreamOp`` and the UDF / UDTF /
-FlatMap twins wait for later slices (the twins for their batch ops,
-``operator/batch/utils/fn_ops.py``).
+propagates. ``PrintStreamOp`` prints each micro-batch and passes it
+on; ``UDFStreamOp``, ``UDTFStreamOp`` and ``FlatMapStreamOp`` apply
+their batch op of ``operator/batch/utils/fn_ops.py`` (its function, on
+the host) to every micro-batch.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Optional, Type
 from ....common.mtable import MTable
 from ....common.params import Params
 from ....mapper.base import Mapper, ModelMapper
-from ...base import BatchOperator
+from ...base import BatchOperator, TableSourceBatchOp
+from ...batch.utils.fn_ops import FlatMapBatchOp, UDFBatchOp, UDTFBatchOp
 from ..core import BaseStreamTransformOp
 
 
@@ -108,6 +110,54 @@ class ModelMapStreamOp(BaseStreamTransformOp):
             inputs = inputs[1:]
         return super().link_from(*inputs)
 
+
+class PrintStreamOp(BaseStreamTransformOp):
+    """Print each micro-batch, pass the stream through (reference
+    stream/utils/PrintStreamOp.java)."""
+
+    def _transform(self, mt: MTable):
+        print(mt.to_display_string())
+        return mt
+
+
+class _FnBatchApplyStreamOp(BaseStreamTransformOp):
+    """Apply a user-function batch op (UDF/UDTF/FlatMap) per micro-batch."""
+
+    _BATCH = None  # set by subclass
+
+    def __init__(self, params: Optional[Params] = None, func=None, **kwargs):
+        super().__init__(params, **kwargs)
+        self.func = func
+
+    def set_func(self, func) -> "_FnBatchApplyStreamOp":
+        self.func = func
+        return self
+
+    def _apply(self, mt: MTable) -> MTable:
+        op = self._BATCH(self.params.clone(), func=self.func)
+        op.link_from(TableSourceBatchOp(mt))
+        return op.get_output_table()
+
+    def _open(self, in_schema):
+        return self._apply(MTable([], in_schema)).schema
+
+    def _transform(self, mt: MTable):
+        return self._apply(mt)
+
+
+def _fn_stream_twin(name: str, batch_cls) -> type:
+    ns = {"_BATCH": batch_cls,
+          "__doc__": f"stream twin of {batch_cls.__name__} "
+                     f"(reference stream/utils/{name}.java)",
+          "__module__": __name__}
+    for info in batch_cls.param_infos().values():
+        ns[info.name.upper()] = info
+    return type(_FnBatchApplyStreamOp)(name, (_FnBatchApplyStreamOp,), ns)
+
+
+UDFStreamOp = _fn_stream_twin("UDFStreamOp", UDFBatchOp)
+UDTFStreamOp = _fn_stream_twin("UDTFStreamOp", UDTFBatchOp)
+FlatMapStreamOp = _fn_stream_twin("FlatMapStreamOp", FlatMapBatchOp)
 
 # reference stream/utils/MapStreamOp applies a Mapper per record — that is
 # exactly MapperStreamOp's contract

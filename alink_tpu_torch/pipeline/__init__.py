@@ -4,10 +4,12 @@ scaler wrappers),
 the linear classifiers of ``classification.py``, ``regression.py``,
 KMeans and LDA of ``clustering.py``, the trees of ``tree.py``, ALS, GLM,
 isotonic and AFT regression, GMM, bisecting KMeans, MLPC, the indexers,
-the vector imputer and transformers of ``extras.py``, FM, naive Bayes and OneVsRest of ``fm_nb.py``, the NLP stages of
-``nlp.py`` and the grid searches of ``tuning.py`` (``ParamGrid``,
-``GridSearchCV``, ``GridSearchTVSplit``, the four tuning evaluators,
-``Report``). The other wrapper modules wait for their ops."""
+the vector imputer and transformers, ``Select``, the format
+transformers and the reference's base-class names of ``extras.py``, FM,
+naive Bayes and OneVsRest of ``fm_nb.py``, the NLP stages of ``nlp.py``
+and the grid searches of ``tuning.py`` (``ParamGrid``, ``GridSearchCV``,
+``GridSearchTVSplit``, the four tuning evaluators, ``Report``): every
+module of the JAX package's pipeline."""
 
 from .base import (Estimator, LocalPredictor, MapModel, Model, Pipeline,
                    PipelineModel, PipelineStage, Trainer, Transformer)
@@ -24,7 +26,8 @@ from .extras import (ALS, AftSurvivalRegression, AftSurvivalRegressionModel,
                      MultiStringIndexerModel, PCA, PCAModel,
                      VectorElementwiseProduct, VectorImputer,
                      VectorImputerModel, VectorInteraction,
-                     VectorPolynomialExpand, VectorSizeHint, VectorSlicer)
+                     VectorPolynomialExpand, VectorSizeHint, VectorSlicer,
+                     Select)
 from .feature import (DCT, Binarizer, Bucketizer, FeatureHasher, Imputer,
                       ImputerModel, MaxAbsScaler, MaxAbsScalerModel,
                       MinMaxScaler, MinMaxScalerModel, OneHotEncoder,
@@ -62,7 +65,8 @@ __all__ = ["ALS", "ALSModel", "Estimator", "LocalPredictor", "MapModel", "Model"
            "MultiStringIndexer", "MultiStringIndexerModel", "PCA",
            "PCAModel", "VectorElementwiseProduct", "VectorImputer",
            "VectorImputerModel", "VectorInteraction",
-           "VectorPolynomialExpand", "VectorSizeHint", "VectorSlicer", "DCT",
+           "VectorPolynomialExpand", "VectorSizeHint", "VectorSlicer", "Select",
+           "DCT",
            "Binarizer", "Bucketizer", "FeatureHasher", "Imputer",
            "ImputerModel", "MaxAbsScaler", "MaxAbsScalerModel",
            "MinMaxScaler", "MinMaxScalerModel", "OneHotEncoder",

@@ -18,9 +18,9 @@ raises without CUDA, and to the fitted model (a KMeans model assigns
 there; a ``MapModel`` hands its device to a mapper that takes one, a
 batch-op transformer to an op that takes one, DCT's). A ``Pipeline``'s
 ``device`` is the device of every estimator and batch-op transformer
-that was given none. Not ported: the lazy train-info and model-info
-printing hooks of ``Trainer`` (``enable_lazy_print_*``), which wait for
-the lazy-callback machinery of ``operator/base.py``.
+that was given none. ``Trainer.enable_lazy_print_train_info`` /
+``enable_lazy_print_model_info`` register the train op's lazy hooks in
+``fit`` (``operator/base.py``), which ``execute()`` fires once.
 """
 
 from __future__ import annotations
@@ -148,9 +148,31 @@ class Trainer(Estimator):
         train_op = self.train_op(self.params.clone())
         train_op.link_from(in_op)
         self._last_train_op = train_op
+        m = self.params._m
+        if "__lazy_train_info" in m:
+            if train_op.get_side_output_count() > 0:
+                train_op.lazy_print_train_info(m["__lazy_train_info"])
+            else:
+                print(f"[alink_tpu_torch] {type(train_op).__name__} emits no "
+                      "train info; lazy_print_train_info skipped")
+        if "__lazy_model_info" in m:
+            train_op.lazy_print_model_info(m["__lazy_model_info"])
         model = self.MODEL_CLS(self.params.clone(), device=self.device)
         model.set_model_data(train_op.get_output_table())
         return model
+
+    # train-info hooks (reference WithTrainInfo.enableLazyPrintTrainInfo /
+    # WithModelInfoBatchOp.enableLazyPrintModelInfo, fired from Trainer.fit,
+    # pipeline/Trainer.java:50-66)
+    def enable_lazy_print_train_info(self, title=None) -> "Trainer":
+        # stored in params so the enablement survives PipelineStage.clone()
+        # (meta-estimators like OneVsRest clone their sub-stages)
+        self.params._m["__lazy_train_info"] = title
+        return self
+
+    def enable_lazy_print_model_info(self, title=None) -> "Trainer":
+        self.params._m["__lazy_model_info"] = title
+        return self
 
     def get_train_info(self) -> MTable:
         if not getattr(self, "_last_train_op", None):

@@ -1,26 +1,28 @@
 """Pipeline wrappers completing the reference inventory: ALS, GLM,
 isotonic and AFT regression, GMM and bisecting KMeans, MLPC, the
-indexers, the vector imputer and transformers.
+indexers, the vector imputer and transformers, ``Select``, the
+format-conversion transformers and the reference's base-class names.
 
-Counterpart: ``alink_tpu/pipeline/extras.py`` (:131-148 and :170-249, the
-reference's pipeline/recommendation/ALS and ALSModel,
+Counterpart: ``alink_tpu/pipeline/extras.py`` (the reference's
+pipeline/recommendation/ALS and ALSModel,
 pipeline/regression/GeneralizedLinearRegression, IsotonicRegression and
 AftSurvivalRegression, pipeline/clustering/GaussianMixture and
-BisectingKMeans, pipeline/classification/MultilayerPerceptronClassifier).
-``ALS`` trains ``AlsTrainBatchOp`` on its ``device`` (``cuda`` unless
-given ``device="cpu"``); ``ALSModel.transform`` rates (user, item) rows
-with ``AlsPredictBatchOp`` and ``recommend_top_k`` ranks items with
+BisectingKMeans, pipeline/classification/MultilayerPerceptronClassifier,
+pipeline/dataproc/format/*, pipeline/sql/Select,
+pipeline/LocalPredictable.java, ModelExporterUtils.java and
+pipeline/tuning/PipelineCandidates*). ``ALS`` trains
+``AlsTrainBatchOp`` on its ``device`` (``cuda`` unless given
+``device="cpu"``); ``ALSModel.transform`` rates (user, item) rows with
+``AlsPredictBatchOp`` and ``recommend_top_k`` ranks items with
 ``AlsTopKPredictBatchOp``, both on the host. The six other estimators
 (``_trainer_with_predict``) train on their ``device`` (and ``dtype``,
 where the train op takes one), and their models map there where the
 mapper computes on a device. ``MultiStringIndexer``, ``VectorImputer``,
 ``PCA`` / ``PCAModel`` (the reference's spelling of ``Pca``),
-``IndexToString`` (a ``MapModel`` over a fitted StringIndexer's table)
-and the stateless ``VectorSlicer``, ``VectorInteraction``,
-``VectorElementwiseProduct``, ``VectorPolynomialExpand`` and
-``VectorSizeHint`` run on the host. The rest of the JAX package's module
-(the format transformers, ``Select`` and the reference's base-class
-names) waits for its ops (ROADMAP A7(c)).
+``IndexToString`` (a ``MapModel`` over a fitted StringIndexer's table),
+the stateless vector transformers, ``Select`` and the
+``FORMAT_TRANSFORMERS`` (one a pair op of ``FORMAT_OPS``, the triple
+ops left out as there) run on the host.
 """
 
 from __future__ import annotations
@@ -48,8 +50,70 @@ from ..operator.batch.regression.glm_ops import (
     AftModelMapper, AftSurvivalRegPredictBatchOp, AftSurvivalRegTrainBatchOp,
     GlmModelMapper, GlmPredictBatchOp, GlmTrainBatchOp, IsotonicModelMapper,
     IsotonicRegPredictBatchOp, IsotonicRegTrainBatchOp)
-from .base import Estimator, MapModel, Model, _as_op
+from ..operator.batch.dataproc.format import FORMAT_OPS
+from ..operator.batch.sql import SelectBatchOp
+from .base import (Estimator, MapModel, Model, Pipeline, PipelineModel,
+                   PipelineStage, Transformer, _as_op)
 from .feature import BatchOpTransformer, Pca, PcaModel, _trainer
+from .tuning import (BaseGridSearch, BaseTuningEvaluator, BaseTuningModel,
+                     MultiClassClassificationTuningEvaluator, ParamGrid)
+
+# -- reference base-class names --------------------------------------------
+
+PipelineStageBase = PipelineStage
+EstimatorBase = Estimator
+TransformerBase = Transformer
+ModelBase = Model
+MapTransformer = BatchOpTransformer
+BaseFormatTrans = BatchOpTransformer
+BaseTuning = BaseGridSearch
+TuningEvaluator = BaseTuningEvaluator
+MulticlassClassificationTuningEvaluator = MultiClassClassificationTuningEvaluator
+
+
+class LocalPredictable:
+    """Marker mixin: stages that can serve embedded (reference
+    pipeline/LocalPredictable.java). ``MapModel`` and ``PipelineModel``
+    implement ``get_local_predictor``."""
+
+
+class ModelExporterUtils:
+    """Pipeline persistence helpers (reference pipeline/ModelExporterUtils.java
+    :40-120; here the JSON stage list of PipelineModel.save / load)."""
+
+    @staticmethod
+    def save_pipeline_model(model: PipelineModel, path: str) -> None:
+        model.save(path)
+
+    @staticmethod
+    def load_pipeline_model(path: str) -> PipelineModel:
+        return PipelineModel.load(path)
+
+
+GridSearchCVModel = BaseTuningModel
+GridSearchTVSplitModel = BaseTuningModel
+
+
+class PipelineCandidatesBase:
+    """Enumerate (value-combo, grid-items, description) candidates
+    (reference pipeline/tuning/PipelineCandidatesBase.java)."""
+
+    def __init__(self, pipeline: Pipeline, grid: ParamGrid):
+        self.pipeline = pipeline
+        self.grid = grid
+
+    def __iter__(self):
+        import itertools
+        items = self.grid.items if self.grid else []
+        values = [vals for _, _, vals in items]
+        for combo in (itertools.product(*values) if items else [()]):
+            desc = ", ".join(f"{type(st).__name__}.{pi.name}={v}"
+                             for (st, pi, _), v in zip(items, combo))
+            yield combo, items, desc or "(defaults)"
+
+
+class PipelineCandidatesGrid(PipelineCandidatesBase):
+    """reference pipeline/tuning/PipelineCandidatesGrid.java"""
 
 
 class ALSModel(Model):
@@ -149,3 +213,24 @@ VectorElementwiseProduct = _op_transformer("VectorElementwiseProduct",
 VectorPolynomialExpand = _op_transformer("VectorPolynomialExpand",
                                          VectorPolynomialExpandBatchOp)
 VectorSizeHint = _op_transformer("VectorSizeHint", VectorSizeHintBatchOp)
+Select = _op_transformer("Select", SelectBatchOp)
+
+# the format-conversion transformer matrix (reference pipeline/dataproc/format/
+# ColumnsToCsv.java etc.); the Triple ops have no pipeline shells upstream
+FORMAT_TRANSFORMERS = {}
+for _bname, _bcls in FORMAT_OPS.items():
+    if "Triple" in _bname or _bname.startswith(("Base", "Any")):
+        continue
+    _tname = _bname[: -len("BatchOp")]
+    FORMAT_TRANSFORMERS[_tname] = _op_transformer(_tname, _bcls)
+globals().update(FORMAT_TRANSFORMERS)
+
+# reference names the tree models *ClassificationModel/*RegressionModel
+from .fm_nb import FmClassifierModel as FmModel  # noqa: E402
+from .tree import (  # noqa: E402
+    DecisionTreeClassifierModel as DecisionTreeClassificationModel,
+    DecisionTreeRegressorModel as DecisionTreeRegressionModel,
+    GbdtClassifierModel as GbdtClassificationModel,
+    GbdtRegressorModel as GbdtRegressionModel,
+    RandomForestClassifierModel as RandomForestClassificationModel,
+    RandomForestRegressorModel as RandomForestRegressionModel)

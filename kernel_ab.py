@@ -126,7 +126,8 @@ a kernel and the library call it is held against are timed in turns):
   whether it is bitwise to ``fm_scores_plain`` on the CPU;
 * ``depth``: the seconds of the tree's own ``chip_smoke.py`` phase 13
   (``phase_example``), phase 22(a) (``tuning_sweep_leg``) and, where the
-  tree has it, phase 24 (``phase_features``), each with its gates, TF32
+  tree has them, phases 24 (``phase_features``) and 25
+  (``phase_connectors``), each with its gates, TF32
   off (host clock): what a cut in an earlier phase's depth saves against
   what a new phase costs.
 """
@@ -261,8 +262,8 @@ def measure(tree: Path, parts=PARTS) -> dict:
 
 
 def depth_times(h, card):
-    """``depth``: phases 13, 22(a) and (where the tree has it) 24 of the
-    tree's ``chip_smoke.py``, each timed whole (seconds)."""
+    """``depth``: phases 13, 22(a) and (where the tree has them) 24 and
+    25 of the tree's ``chip_smoke.py``, each timed whole (seconds)."""
     import torch
     from alink_tpu_torch.kernels import fm as kfm
     from alink_tpu_torch.kernels import ftrl as kf
@@ -277,6 +278,9 @@ def depth_times(h, card):
             ("phase22a_s", lambda: h.tuning_sweep_leg(card))]
     if hasattr(h, "phase_features"):
         legs.append(("phase24_s", lambda: h.phase_features(
+            (ks, kl, kf, kh, kr, kfm), card)))
+    if hasattr(h, "phase_connectors"):
+        legs.append(("phase25_s", lambda: h.phase_connectors(
             (ks, kl, kf, kh, kr, kfm), card)))
     out = {}
     for name, leg in legs:

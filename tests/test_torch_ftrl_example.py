@@ -271,9 +271,29 @@ def test_jax_saved_pipeline_loads_in_the_port(loops, tmp_path):
     with pytest.raises(ValueError, match="not a class of"):
         TPipelineModel.load(str(path))
     bad = dict(obj, stages=[dict(obj["stages"][0],
-                                 className="alink_tpu.pipeline.extras.Select")])
-    with pytest.raises(ValueError, match="not ported"):
+                                 className="sklearn.pipeline.Pipeline")])
+    with pytest.raises(ValueError, match="not a class of alink_tpu"):
         pipeline_model_from_reference(bad)
+    # Select and a format transformer (slice 25) load and transform alike
+    from alink_tpu.pipeline import Pipeline as JPipeline
+    from alink_tpu.pipeline.extras import ColumnsToKv as JColumnsToKv
+    from alink_tpu.pipeline.extras import Select as JSelect
+    jsel = JPipeline(
+        JSelect(clause="site, c1 * 2 + c2 as c3, c2, click"),
+        JColumnsToKv(selected_cols=["c3", "c2"], kv_col="kv")).fit(
+        _pipeline_input(ex, "jax", env))
+    sel_path = tmp_path / "jax_select.json"
+    jsel.save(str(sel_path))
+    model = pipeline_model_from_reference(str(sel_path))
+    assert [type(t).__name__ for t in model.transformers] == \
+        ["Select", "ColumnsToKv"]
+    assert {type(t).__module__ for t in model.transformers} == \
+        {"alink_tpu_torch.pipeline.extras"}
+    got = model.transform(_pipeline_input(ex, "torch", env)) \
+        .get_output_table()
+    assert got.col_names == ["site", "click", "kv"] and got.num_rows == 300
+    _same_tables(got, jsel.transform(_pipeline_input(ex, "jax", env))
+                 .get_output_table())
 
 
 def test_port_saved_pipeline_round_trip(loops, tmp_path):

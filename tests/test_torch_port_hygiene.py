@@ -169,7 +169,20 @@ def test_hygiene_covers_every_slice_module():
               "alink_tpu_torch.operator.common.similarity.metrics",
               "alink_tpu_torch.operator.batch.similarity",
               "alink_tpu_torch.operator.batch.outlier",
-              "alink_tpu_torch.pipeline.feature"):
+              "alink_tpu_torch.pipeline.feature",
+              "alink_tpu_torch.operator.batch.sql",
+              "alink_tpu_torch.operator.stream.sql",
+              "alink_tpu_torch.common.lazy",
+              "alink_tpu_torch.operator.batch.utils.fn_ops",
+              "alink_tpu_torch.operator.batch.dataproc.format",
+              "alink_tpu_torch.operator.common.associationrule",
+              "alink_tpu_torch.operator.batch.associationrule",
+              "alink_tpu_torch.io.db",
+              "alink_tpu_torch.io.hive",
+              "alink_tpu_torch.io.hive_warehouse",
+              "alink_tpu_torch.io.kafka",
+              "alink_tpu_torch.io.directreader",
+              "alink_tpu_torch.io.bucketing"):
         assert m in mods, m
     for src in ("serve_score.cu", "ftrl_state.cu", "tree_hist.cu",
                 "linear_grad.cu", "run_plan.cu"):
@@ -452,3 +465,63 @@ def test_slice_24_host_ops_take_no_device(monkeypatch):
         assert "device" not in inspect.signature(cls.__init__).parameters, name
         cls()
 
+
+
+def test_slice_25_host_ops_take_no_device(monkeypatch):
+    """The SQL ops, the format matrix and its stream twins, the function
+    ops, association rules, the generator, DB, Hive and Kafka sources
+    and sinks run on the host and take no device; they construct
+    without CUDA."""
+    import importlib
+    import inspect
+
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mods = ("operator.batch.sql", "operator.stream.sql",
+            "operator.batch.dataproc.format", "operator.stream.dataproc.format",
+            "operator.batch.utils.fn_ops", "operator.batch.associationrule",
+            "operator.stream.dataproc", "io.hive", "io.kafka")
+    classes = []
+    for m in mods:
+        mod = importlib.import_module(f"alink_tpu_torch.{m}")
+        classes += [v for c, v in vars(mod).items()
+                    if c.endswith(("BatchOp", "StreamOp")) and
+                    inspect.isclass(v) and v.__module__ == mod.__name__]
+    from alink_tpu_torch.operator.batch.sink import sinks as bsink
+    from alink_tpu_torch.operator.batch.source import sources as bsrc
+    from alink_tpu_torch.operator.stream.sink import sinks as ssink
+    from alink_tpu_torch.operator.stream.source import sources as ssrc
+    classes += [bsrc.DBSourceBatchOp, bsrc.MySqlSourceBatchOp,
+                bsrc.NumSeqSourceBatchOp, bsrc.RandomTableSourceBatchOp,
+                bsink.DBSinkBatchOp, bsink.MySqlSinkBatchOp,
+                bsink.MemSinkBatchOp, ssrc.DBSourceStreamOp,
+                ssrc.NumSeqSourceStreamOp, ssrc.RandomTableSourceStreamOp,
+                ssink.DBSinkStreamOp, ssink.JdbcRetractSinkStreamOp]
+    assert len(classes) > 90
+    from alink_tpu_torch.io.kafka import FakeKafka
+    special = {"NumSeqSourceBatchOp": (0, 3), "RandomTableSourceBatchOp":
+               (4, 2), "NumSeqSourceStreamOp": (0, 3),
+               "RandomTableSourceStreamOp": (4, 2)}
+    from alink_tpu_torch.operator.stream.core import BatchApplyStreamOp
+    for cls in classes:
+        if issubclass(cls, BatchApplyStreamOp):
+            # the generic twin takes ``device=`` only to hand it to a
+            # batch op that takes one: these resolve none
+            assert "device" not in inspect.signature(
+                cls()._batch_cls().__init__).parameters, cls.__name__
+            assert not hasattr(cls(), "device"), cls.__name__
+            continue
+        assert "device" not in inspect.signature(cls.__init__).parameters, \
+            cls.__name__
+        if cls.__name__.startswith("Kafka"):
+            kw = {k: v for k, v in dict(topic="t", schema_str="a LONG")
+                  .items() if k in cls.param_infos()}
+            side = "consumer" if "Source" in cls.__name__ else "producer"
+            cls(**{side: FakeKafka()}, **kw)
+        elif cls.__name__ in special:
+            cls(*special[cls.__name__])
+        elif cls.__name__ == "DataSetWrapperBatchOp":
+            from alink_tpu_torch.common.mtable import MTable
+            cls(MTable({"a": [1]}))
+        else:
+            cls()

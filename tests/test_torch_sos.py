@@ -14,10 +14,13 @@ the JAX package.
   weak-typed ``1e-300`` is), which must still score as the outlier.
 * The planted outlier scores highest (the JAX package's own
   ``test_sos_outlier``), through a sparse vector column too.
-* ``chip_smoke.py`` phase 24(e): its float32 NaN prediction
-  (``sos_nan_columns``) equals the port's NaN columns exactly, and its
-  AUC floors are the JAX package's own CPU readings on its data, rounded
-  down (float64 cuts at the third decimal, float32 at the second).
+* Rows whose affinities underflowed float32 before the port shifted
+  each row by its nearest distance (the JAX package's scores are NaN
+  there) score finite, within rtol 1e-3 of the JAX package's float64
+  SOS and of the float64 port.
+* ``chip_smoke.py`` phase 24(e): its AUC floors are the JAX package's
+  own CPU readings on its data, rounded down (float64 cuts at the third
+  decimal, float32 at the second).
 """
 
 import jax
@@ -123,22 +126,29 @@ _ARMS = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1]],
 
 
 @pytest.mark.parametrize("stars", [0, 1, 2])
-def test_chip_smoke_predicts_the_float32_nan_columns(stars):
+def test_float32_rows_that_underflowed_score_finite(stars):
     """Each star is a row with five neighbours at exactly distance 3 (the
-    entropy stays above log 4, so its beta climbs until its affinities
-    underflow float32): one such row makes every other column NaN, two
-    make every column NaN. Exact: the same ops on the same inputs."""
-    import chip_smoke
+    entropy stays above log 4, so its beta climbs past 2^60): unshifted,
+    its affinities underflow float32 and one such row made every other
+    column NaN, two every column. Shifted by each row's nearest distance
+    the float32 scores are finite and within rtol 1e-3 of the JAX
+    package's float64 SOS of the same rows and of the float64 port's
+    (measured: 4.9e-4 from both at all three fixtures, on the smallest
+    scores; the float64 port itself parts from the JAX package's float64
+    by 8.2e-5 with a star, whose bisection the shift lets run past the
+    beta where its unshifted affinities would underflow)."""
     rng = np.random.RandomState(0)
     X = np.vstack([rng.randn(60, 3) + [0.0, 0.0, -30.0]]
                   + [np.vstack([c, c + 3.0 * _ARMS]) for c in
                      (np.array([40.0 * s, 0.0, 0.0]) for s in range(stars))])
-    Xt = torch.from_numpy(X.astype(np.float32))
-    got = sos_scores(Xt, 4.0).numpy()
-    want, under = chip_smoke.sos_nan_columns(Xt, 4.0)
-    assert under == stars
-    np.testing.assert_array_equal(np.isnan(got), want)
-    assert int(want.sum()) == (0, len(X) - 1, len(X))[stars]
+    got = sos_scores(torch.from_numpy(X.astype(np.float32)), 4.0).numpy()
+    want = sos_scores(torch.from_numpy(X), 4.0).numpy()
+    with jax.enable_x64(True):
+        jax64 = np.asarray(_sos_kernel(jnp.asarray(X), 4.0))
+    assert got.dtype == np.float32 and jax64.dtype == np.float64
+    assert np.isfinite(got).all() and np.isfinite(jax64).all()
+    np.testing.assert_allclose(got, jax64, rtol=1e-3, atol=0)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=0)
 
 
 @pytest.mark.parametrize("name,x64,rows,decimals", [
